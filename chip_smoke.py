@@ -3,19 +3,23 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's main path at full width, through the entry points a
+Drives the port's main paths at full width, through the entry points a
 user calls: compile the synthetic pattern-pruned VGG16 (CIFAR-10, 13
 convs, Table-II statistics) in fp32 and int8, save and reload the fp32
 program, and serve seeded requests through ``InferenceService`` on
-``cuda``.  Before that it builds the CUDA kernels from the sources in
-``src/`` and holds each against its plain PyTorch version on the card,
-at every shape the main path gives it.
+``cuda``; compile it again with the per-layer crossbar mapping search
+(``optimize="auto"``), serve it with skip statistics and price the served
+traffic with ``hardware_report``; run ``ops.ou_mvm`` on every conv's
+dense weight at real inputs.  Before that it builds the CUDA kernels
+from the sources in ``src/`` and holds each against its plain PyTorch
+version on the card, at every shape the main paths give it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
-``kernels`` (kernel vs plain), ``serve``, ``times``.  Any failed check
-exits non-zero.  The last three lines are the card's name and power
-limit as ``nvidia-smi`` prints them, the per-kernel ``{"kernels": [...]}``
-summary, and ``{"ok": true, "device": {...}}``.
+``kernels`` (kernel vs plain), ``serve``, ``search``, ``ou_mvm``,
+``times``.  Any failed check exits non-zero.  The last three lines are
+the card's name and power limit as ``nvidia-smi`` prints them, the
+per-kernel ``{"kernels": [...]}`` summary, and
+``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and ``nvcc``; without a card it exits 1 and prints no
 result.  It imports neither ``jax`` nor the JAX package.
@@ -57,10 +61,22 @@ LAYER_TOL = 1e-4
 E2E_TOL = 3e-4
 REPS = 20
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's ~1.98 GHz boost clock
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_FP32_FLOPS = 67e12  # CUDA cores (IEEE fp32 has no tensor-core path)
 PEAK_INT8_OPS = 1979e12  # tensor cores
 HBM_BYTES_PER_S = 3.35e12
+# ou_mvm: the paper's 9x8 OU; per column, the kernel within
+# OU_TOL * (1 + sum_r |x_r w_rc|) of its plain version (the reference's
+# 1e-5 bound, tests/test_kernels.py, scaled by the column's magnitude)
+OU_ROWS, OU_COLS = 9, 8
+OU_TOL = 1e-5
+OU_SWEEP = ((100, 52, 9, 8), (64, 64, 16, 8), (27, 8, 9, 8))
+# hardware_report fields that depend on no activation: equal exactly
+# between the program on the card and the same program on the CPU
+PRICE_FIELDS = ("crossbars", "naive_crossbars", "area_cells",
+                "naive_area_cells", "energy_pj", "cycles", "index_kb",
+                "mapping", "precision")
 
 KERNELS = {
     "pattern_spmm_cuda": {
@@ -72,6 +88,11 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pattern_spmm.cu",
         "replaces": "src/repro/kernels/pattern_spmm.py:126",
+    },
+    "ou_mvm_cuda": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ou_mvm.cu",
+        "replaces": "src/repro/kernels/ou_mvm.py:47",
     },
 }
 
@@ -284,7 +305,11 @@ def cost(kind, bp, m: int) -> tuple[float, float]:
 def device_ms(fn, dev) -> float:
     """Median device time of ``fn`` by CUDA events over ``REPS`` calls,
     each after a write of more than the L2 cache, as a forward finds the
-    layer's weights (the model's 59 MB of fp32 weights exceed the L2)."""
+    layer's weights (the model's 59 MB of fp32 weights exceed the L2).
+    Before each call the device sleeps ``SLEEP_CYCLES`` (about 1 ms) so
+    the host has enqueued the start event, the call and the end event
+    before the device reaches them: the events time the device's work,
+    not the host's wrapper, even for calls shorter than their enqueue."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -293,6 +318,7 @@ def device_ms(fn, dev) -> float:
     pairs = []
     for _ in range(REPS):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -348,6 +374,289 @@ def layer_parity(prog, cpu_prog, images, dev) -> list[dict]:
     return rows
 
 
+def mapping_mismatches(a, b) -> list[str]:
+    """Layers whose searched mapping (or the FC reorder) differs."""
+    bad = [c.name for c, d in zip(a.convs, b.convs)
+           if (c.mapping is None) != (d.mapping is None)
+           or (c.mapping is not None
+               and c.mapping.to_manifest() != d.mapping.to_manifest())]
+    if a.fc.reorder != b.fc.reorder:
+        bad.append("fc.reorder")
+    return bad
+
+
+def spmm_checks(prog, rng, dev) -> tuple[list[dict], float]:
+    """The fp32 spmm kernel against its plain version at every layer of
+    ``prog``; returns the rows and the largest difference."""
+    rows, worst = [], 0.0
+    for name, bp, x in layer_cases(prog, rng, dev):
+        kernel, plain = calls("pattern_spmm_cuda", bp, x, dev)
+        res = compare("pattern_spmm_cuda", kernel(), plain(), bp)
+        rows.append({"case": name, "m": x.shape[0], "k": bp.k_in,
+                     "n": bp.n_out, "k_max": bp.k_max,
+                     "bricks": int(bp.nnz.sum()), **res})
+        worst = max(worst, res["max_abs_diff"])
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, f"pattern_spmm_cuda disagrees with its plain version on "
+                   f"{bad}")
+    return rows, worst
+
+
+def ratios(rep) -> dict:
+    """The paper's efficiency ratios of one ``hardware_report``."""
+    return {
+        "crossbars": rep["crossbars"],
+        "naive_crossbars": rep["naive_crossbars"],
+        "area_efficiency": rep["area_efficiency"],
+        "area_cells": rep["area_cells"],
+        "naive_area_cells": rep["naive_area_cells"],
+        "area_cells_ratio": rep["naive_area_cells"] / rep["area_cells"],
+        "energy_pj": rep["energy_pj"],
+        "naive_energy_pj": rep["naive_energy_pj"],
+        "energy_ratio": rep["naive_energy_pj"] / rep["energy_pj"],
+    }
+
+
+def search_phase(seed, cfg, params, tparams, bits, images, dense_labels,
+                 fixed_prog, dev) -> dict:
+    """Compile with the mapping search on the card, hold it against the
+    same compile on the CPU, serve it with skip statistics and price the
+    served traffic.  Returns the spmm launches and largest kernel error."""
+    import torch
+
+    from repro_torch.core.mapping import MappingCandidate
+    from repro_torch.engine import (
+        CompileOptions,
+        InferenceService,
+        compile_network,
+        load_program,
+        make_forward,
+        save_program,
+    )
+    from repro_torch.kernels import pattern_spmm as tk
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.api import Request
+
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    prog = compile_network(
+        cfg, tparams, bits,
+        options=CompileOptions(optimize="auto", tracer=tracer), device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin = compile_network(cfg, params, bits,
+                           options=CompileOptions(optimize="auto"),
+                           device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(all(isinstance(c.mapping, MappingCandidate) for c in prog.convs),
+          "a conv of the searched program carries no MappingCandidate")
+    mism = program_mismatches(prog, twin) + mapping_mismatches(prog, twin)
+    check(not mism, f"searched compile on the card differs from the CPU's "
+                    f"in {mism}")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = save_program(os.path.join(tmp, "vgg16_searched"), prog)
+        loaded = load_program(path, device=dev)
+        cpu_prog = load_program(path, device="cpu")
+    for other, where in ((loaded, "card"), (cpu_prog, "CPU")):
+        mism = program_mismatches(prog, other) + mapping_mismatches(prog,
+                                                                    other)
+        check(not mism, f"searched save/load ({where}) changed {mism}")
+    fixed_rep = fixed_prog.hardware_report()
+    searched_rep = loaded.hardware_report()
+    check(searched_rep["area_cells"] <= fixed_rep["area_cells"]
+          and searched_rep["energy_pj"] <= fixed_rep["energy_pj"],
+          "the searched mapping is worse than the fixed scheme")
+
+    # the searched reorders give the spmm kernel a new brick layout
+    kernel_rows, worst = spmm_checks(loaded, np.random.default_rng(seed + 4),
+                                     dev)
+
+    svc = InferenceService(loaded, batch_slots=BATCH_SLOTS, device=dev,
+                           collect_stats=True)
+    svc.warmup()
+    # the searched path: counts from 0, the trace through the service, read
+    tk.pattern_spmm_cuda.launches = 0
+    reqs = [Request(image=img) for img in images]
+    serve_s = serve_bursts(svc, reqs)
+    launches = tk.pattern_spmm_cuda.launches
+    spmms = len(loaded.convs) + 1
+    check(all(r.done for r in reqs), "a request was not served")
+    check(launches == spmms * svc.batches_run,
+          f"pattern_spmm_cuda launches {launches} != {spmms} x "
+          f"{svc.batches_run} batches of the searched program")
+    labels = np.array([r.label for r in reqs])
+    check(bool((labels == dense_labels).all()),
+          "the searched program's labels differ from the dense reference's")
+    parity = layer_parity(loaded, cpu_prog, images[:BATCH_SLOTS], dev)
+    bad = [r["layer"] for r in parity if r["rel"] > LAYER_TOL]
+    check(not bad, f"searched layers {bad} differ from the CPU plain path")
+
+    fwd = make_forward(loaded, tracer=Tracer(), device=dev)
+    for _ in range(5):
+        fwd(images[:BATCH_SLOTS])
+    observed = fwd.observed_times()
+    t0 = time.perf_counter()
+    rep = svc.hardware_report(assumed_skip=0.5, observed=observed)
+    report_s = time.perf_counter() - t0
+    _, cpu_stats = make_forward(cpu_prog, collect_stats=True,
+                                device="cpu")(images)
+    cpu_rep = cpu_prog.hardware_report(skip_stats=cpu_stats, assumed_skip=0.5,
+                                       observed=observed)
+    differ = [f for f in PRICE_FIELDS if rep[f] != cpu_rep[f]]
+    check(not differ, f"hardware_report fields {differ} differ between the "
+                      f"card's program and the CPU's")
+    names = sorted(c.name for c in loaded.convs)
+    check(rep["skip"]["measured_layers"] == names,
+          f"measured layers {rep['skip']['measured_layers']} != {names}")
+    check(rep["energy_pj_measured"] <= rep["energy_pj"],
+          "measured-skip energy above the no-skip bound")
+
+    spans = {sp.name: sp for sp in tracer.spans()
+             if sp.name.startswith("search:")}
+    e_card, e_cpu = rep["energy_pj_measured"], cpu_rep["energy_pj_measured"]
+    emit("search", model="vgg16 cifar10 (synthesize_network)",
+         compile_seconds={"card": card_s, "cpu_twin": cpu_s},
+         search_seconds={n: sp.dur for n, sp in spans.items()},
+         evaluations={n: sp.args.get("evaluations") for n, sp in spans.items()
+                      if n != "search:fc"},
+         chosen={c.name: c.mapping.to_manifest() for c in loaded.convs},
+         fc=spans["search:fc"].args if "search:fc" in spans else None,
+         bricks={c.name: [int(c.bp.nnz.sum()), int(f.bp.nnz.sum())]
+                 for c, f in zip(loaded.convs, fixed_prog.convs)},
+         bricks_note="[searched, fixed]",
+         bit_equal_vs_cpu_compile=True, round_trip_bit_equal=True,
+         fixed=ratios(fixed_rep), searched=ratios(searched_rep),
+         never_worse=True, kernel_cases=kernel_rows,
+         requests=len(reqs), batches=svc.batches_run, launches=launches,
+         requests_per_s=len(reqs) / serve_s,
+         labels_match_dense=True, layer_limit=f"max|d| <= {LAYER_TOL} * "
+                                              "max(1, max|cpu layer|)",
+         layer_parity_vs_cpu=parity,
+         report_seconds=report_s,
+         price_fields_equal_cpu=list(PRICE_FIELDS),
+         skip={k: rep["skip"][k] for k in (
+             "assumed_probability", "measured_windows", "measured_layers",
+             "energy_pj_noskip", "energy_pj_assumed", "energy_pj_measured",
+             "measured_discount", "measured_vs_assumed_delta_frac")},
+         measured_energy_card_vs_cpu={
+             "card": e_card, "cpu": e_cpu,
+             "rel_diff": (e_card - e_cpu) / e_cpu if e_cpu else None},
+         measured_layer_energy=[
+             {"layer": a["name"], "card": a["energy_pj_measured"],
+              "cpu": b["energy_pj_measured"]}
+             for a, b in zip(rep["layers"], cpu_rep["layers"])],
+         drift=rep["drift"])
+    return {"launches": launches, "max_abs_err": worst, "program": loaded}
+
+
+def ou_cases(prog, params, images, dev) -> list[tuple]:
+    """(case, x, w, ou_rows, ou_cols) on the card: each conv's dense
+    im2col weight [C_in*9, C_out] at two patches of the layer's real
+    input on the card (the centre, and the top-left corner, where the
+    zero padding and ReLU's zeros empty whole bands), then the
+    reference's sweep shapes, an all-zero x, and a NaN in the weights of
+    a skipped band."""
+    import torch
+
+    from repro_torch.engine.executor import _Dispatch, _run_conv, extract_patches
+    from repro_torch.engine.lowering import conv_matrix
+
+    disp = _Dispatch(dev)
+    x = torch.as_tensor(images[:1], device=dev)
+    cases = []
+    with torch.no_grad():
+        for op in prog.convs:
+            patches = extract_patches(x, op.kernel)[0]  # [H, W, C_in*9]
+            mid = patches.shape[0] // 2
+            w = torch.as_tensor(
+                np.ascontiguousarray(conv_matrix(params[op.name]["w"])),
+                dtype=torch.float32, device=dev)
+            for where, patch in (("centre", patches[mid, mid]),
+                                 ("corner", patches[0, 0])):
+                cases.append((f"{op.name}/{where}", patch.contiguous(), w,
+                              OU_ROWS, OU_COLS))
+            x, _ = _run_conv(op, x, disp, disp.prepare(op.bp, op.bias))
+    rng = np.random.default_rng(7)
+    for r, c, ou_r, ou_c in OU_SWEEP:
+        xs = rng.normal(size=r).astype(np.float32)
+        xs[:ou_r] = 0.0
+        cases.append((f"sweep_{r}x{c}_ou{ou_r}x{ou_c}",
+                      torch.as_tensor(xs, device=dev),
+                      torch.as_tensor(rng.normal(size=(r, c)).astype(
+                          np.float32), device=dev), ou_r, ou_c))
+    w13 = cases[2 * len(prog.convs) - 1][2]
+    cases.append(("all_zero_x", torch.zeros(w13.shape[0], device=dev), w13,
+                  OU_ROWS, OU_COLS))
+    xs = rng.normal(size=27).astype(np.float32)
+    xs[9:18] = 0.0
+    ws = rng.normal(size=(27, 8)).astype(np.float32)
+    ws[12, 3] = np.nan
+    cases.append(("nan_in_skipped_band", torch.as_tensor(xs, device=dev),
+                  torch.as_tensor(ws, device=dev), OU_ROWS, OU_COLS))
+    return cases
+
+
+def ou_live_rows(x, ou_rows: int):
+    """bool [R]: the rows of the bands the kernel does not skip."""
+    from repro_torch.kernels.ou_mvm import band_flags
+
+    return band_flags(x, ou_rows).repeat_interleave(ou_rows)[: x.shape[0]]
+
+
+def ou_mvm_phase(prog, params, images, dev) -> dict:
+    """``ops.ou_mvm`` on the card at every case of :func:`ou_cases`,
+    each against its plain version.  Returns the launches, the largest
+    difference and the cases (for timing)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ou_mvm as tou
+
+    cases = ou_cases(prog, params, images, dev)
+    # the ou_mvm path: counts from 0, every case through ops.ou_mvm, read
+    tou.ou_mvm_cuda.launches = 0
+    outs = [ops.ou_mvm(x, w, ou_rows=r, ou_cols=c)
+            for _, x, w, r, c in cases]
+    torch.cuda.synchronize()
+    launches = tou.ou_mvm_cuda.launches
+    check(launches == len(cases),
+          f"ou_mvm_cuda launches {launches} != {len(cases)} calls")
+    rows, worst = [], 0.0
+    for (name, x, w, r, c), y in zip(cases, outs):
+        want = tou.ou_mvm_plain(x, w, r, c)
+        live = ou_live_rows(x, r)
+        mag = ((x * live)[:, None] * torch.where(live[:, None], w, 0.0)).abs()
+        lim = OU_TOL * (1.0 + mag.sum(dim=0))
+        d = (y - want).abs()
+        row = {"case": name, "r": w.shape[0], "c": w.shape[1],
+               "ou": [r, c], "skipped_band_share": float(
+                   1.0 - tou.band_flags(x, r).float().mean()),
+               "max_abs_diff": float(d.max()),
+               "worst_over_limit": float((d / lim).max()),
+               "finite": bool(torch.isfinite(y).all())}
+        row["ok"] = row["worst_over_limit"] <= 1.0 and row["finite"]
+        if name == "all_zero_x":
+            row["ok"] = row["ok"] and not y.any()
+        rows.append(row)
+        worst = max(worst, row["max_abs_diff"])
+    emit("ou_mvm", limit=f"|d_c| <= {OU_TOL} * (1 + sum_r |x_r w_rc|) over "
+                         "the live bands", calls=len(cases), launches=launches,
+         cases=rows)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, f"ou_mvm_cuda disagrees with its plain version on {bad}")
+    return {"launches": launches, "max_abs_err": worst,
+            "cases": cases[:2 * len(prog.convs)]}
+
+
+def ou_cost(x, w, ou_rows: int) -> tuple[float, float]:
+    """(bytes, operations) of one ``ou_mvm`` call: x read and y written
+    once, and the weight rows of the live bands read once; two
+    operations per weight read."""
+    live = int(ou_live_rows(x, ou_rows).sum())
+    c = w.shape[1]
+    return 4.0 * (x.shape[0] + c + live * c), 2.0 * live * c
+
+
 def serve_bursts(svc, reqs) -> float:
     """Submit ``reqs`` in ``BURSTS``, one service step after each burst,
     then drain; returns the host seconds it took."""
@@ -377,6 +686,7 @@ def run(seed: int, dev) -> dict:
         save_program,
     )
     from repro_torch.kernels import _build
+    from repro_torch.kernels import ou_mvm as tou
     from repro_torch.kernels import pattern_spmm as tk
     from repro_torch.models.cnn import cnn_apply, params_from_numpy
     from repro_torch.serve.api import Request
@@ -443,7 +753,7 @@ def run(seed: int, dev) -> dict:
                                      extra[2])],
     }
     max_err = {}
-    for kname in KERNELS:
+    for kname in cases:
         rows, worst = [], 0.0
         for name, bp, x in cases[kname] + extras[kname]:
             kernel, plain = calls(kname, bp, x, dev)
@@ -557,10 +867,22 @@ def run(seed: int, dev) -> dict:
     check(res["alone_vs_cobatched_bit_identical"],
           "logits served alone differ from co-batched")
 
-    # -- 6. times at the main path's shapes ------------------------------
+    # -- 6. the mapping search, served and priced -----------------------
+    searched = search_phase(seed, cfg, params, tparams, bits, images,
+                            labels32, loaded, dev)
+    max_err["pattern_spmm_cuda"] = max(max_err["pattern_spmm_cuda"],
+                                       searched["max_abs_err"])
+
+    # -- 7. ou_mvm on every conv's weight at real inputs ----------------
+    ou = ou_mvm_phase(loaded, params, images, dev)
+    launches["ou_mvm_cuda"] = ou["launches"]
+    max_err["ou_mvm_cuda"] = ou["max_abs_err"]
+
+    # -- 8. times at the main paths' shapes ------------------------------
     summary = []
     per_layer = {}
-    for kname, meta in KERNELS.items():
+    for kname in ("pattern_spmm_cuda", "pattern_spmm_quant_cuda"):
+        meta = KERNELS[kname]
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bytes": 0.0, "ops": 0.0}
         rows = []
@@ -599,6 +921,42 @@ def run(seed: int, dev) -> dict:
             "library_ms": (tot["library_ms"] if kname == "pattern_spmm_cuda"
                            else None),
         })
+    ou_rows_t, ou_tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                             "bytes": 0.0, "ops": 0.0}
+    for name, x, w, r, c in ou["cases"]:
+        ms = device_ms(lambda: tou.ou_mvm_cuda(x, w, r, c), dev)
+        plain = device_ms(lambda: tou.ou_mvm_plain(x, w, r, c), dev)
+        lib_ms = device_ms(lambda: x @ w, dev)
+        nbytes, ops = ou_cost(x, w, r)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
+                       ("bytes", nbytes), ("ops", ops)):
+            ou_tot[key] += v
+        ou_rows_t.append({"case": name, "r": w.shape[0], "c": w.shape[1],
+                          "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                          "bytes": nbytes, "ops": ops,
+                          "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                          ops / PEAK_FP32_FLOPS) * 1e3})
+    per_layer["ou_mvm_cuda"] = ou_rows_t
+    bytes_ms = ou_tot["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = ou_tot["ops"] / PEAK_FP32_FLOPS * 1e3
+    summary.append({
+        "name": "ou_mvm_cuda", **KERNELS["ou_mvm_cuda"],
+        "launches": launches["ou_mvm_cuda"],
+        "max_abs_err": max_err["ou_mvm_cuda"],
+        "ms": ou_tot["ms"], "plain_ms": ou_tot["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ou_tot["library_ms"],
+    })
+    # the searched program's bricks through the fp32 kernel, per forward
+    searched_spmm = {"ms": 0.0, "bound_ms": 0.0}
+    for name, bp, x in layer_cases(searched["program"],
+                                   np.random.default_rng(seed + 5), dev):
+        kernel, _ = calls("pattern_spmm_cuda", bp, x, dev)
+        searched_spmm["ms"] += device_ms(kernel, dev)
+        nbytes, ops = cost("pattern_spmm_cuda", bp, x.shape[0])
+        searched_spmm["bound_ms"] += max(nbytes / HBM_BYTES_PER_S,
+                                         ops / PEAK_FP32_FLOPS) * 1e3
     x8 = images[:BATCH_SLOTS]
     fwd32 = make_forward(loaded, device=dev)
     fwd8 = make_forward(prog8, device=dev)
@@ -613,8 +971,10 @@ def run(seed: int, dev) -> dict:
         "requests_per_s": n32 / bare_s,
         "latency_p50_s": bare.metrics["latency_p50_s"],
         "latency_p99_s": bare.metrics["latency_p99_s"]}
-    emit("times", card=smi, unit=f"ms per forward of {BATCH_SLOTS} images "
-         f"({spmms} launches), summed over layers", per_layer=per_layer,
+    emit("times", card=smi, unit=f"spmm: ms per forward of {BATCH_SLOTS} "
+         f"images ({spmms} launches), summed over layers; ou_mvm: ms per "
+         f"call, summed over the {len(ou['cases'])} conv cases",
+         per_layer=per_layer, searched_fp32_spmm_per_forward=searched_spmm,
          forward_ms=forward_ms,
          service_without_stats=service_without_stats,
          spmm_share_of_forward={

@@ -33,6 +33,9 @@ __all__ = [
     "quantize_bp",
     "dequantize_bp",
     "quantize_rows",
+    "cells_for_magnitude",
+    "cell_slices",
+    "compose_cell_slices",
 ]
 
 WEIGHT_BITS = 8  # stored weight precision (symmetric int8)
@@ -44,6 +47,37 @@ def n_cell_slices(cell_bits: int = 4, weight_bits: int = WEIGHT_BITS) -> int:
     if cell_bits < 1:
         raise ValueError(f"cell_bits must be >= 1, got {cell_bits}")
     return -(-weight_bits // cell_bits)
+
+
+def cells_for_magnitude(
+    mag, cell_bits: int = 4, weight_bits: int = WEIGHT_BITS
+) -> np.ndarray:
+    """Minimum cell slices needed to store magnitudes exactly.
+
+    ``mag``: non-negative integer magnitudes (scalar or array), the
+    largest |q| a row-group holds in some integer grid.  A magnitude of
+    ``m`` needs ``bit_length(m)`` magnitude bits plus the sign bit of
+    the sign-magnitude cell layout (:func:`cell_slices`), so
+    ``ceil((bit_length(m) + 1) / cell_bits)`` cells; all-zero groups
+    need none.  The result never exceeds :func:`n_cell_slices` for
+    magnitudes within the ``weight_bits`` budget — this is the
+    range→cell-count map the certification pass
+    (``analysis/ranges.py`` in the reference) tabulates per OU row-group.
+    """
+    if cell_bits < 1:
+        raise ValueError(f"cell_bits must be >= 1, got {cell_bits}")
+    m = np.asarray(mag, np.int64)
+    if m.size and m.min() < 0:
+        raise ValueError("magnitudes must be non-negative")
+    if m.size and m.max() >= (1 << (weight_bits - 1)):
+        raise ValueError(
+            f"magnitude {int(m.max())} exceeds the {weight_bits}-bit "
+            "signed weight budget"
+        )
+    # bit_length(m) for integer m > 0 is exactly frexp's binary exponent
+    bits = np.frexp(m.astype(np.float64))[1].astype(np.int64)
+    cells = -(-(bits + 1) // cell_bits)
+    return np.where(m > 0, cells, 0)
 
 
 def group_scales(w: np.ndarray, group_ndim: int = 2) -> np.ndarray:
@@ -122,3 +156,44 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     inv = torch.where(amax > 0, QMAX / safe, torch.zeros_like(amax))
     q = torch.clamp(torch.round(x * inv[:, None]), -QMAX, QMAX)
     return q.to(torch.int8), scale
+
+
+def cell_slices(q: np.ndarray, cell_bits: int = 4) -> np.ndarray:
+    """Decompose int8 weights into unsigned cell slices, sign-magnitude.
+
+    q: int8 array; returns uint8 ``[..., n_cell_slices]``: little-endian
+    ``cell_bits``-bit magnitude digits, with the sign bit stored in the
+    top slice's most significant spare bit.  Lossless for |q| <= QMAX
+    (which :func:`quantize_groups` guarantees).
+    """
+    q = np.asarray(q)
+    if q.dtype != np.int8:
+        raise ValueError(f"expected int8 weights, got {q.dtype}")
+    n = n_cell_slices(cell_bits)
+    mag = np.abs(q.astype(np.int16)).astype(np.uint16)
+    out = np.empty(q.shape + (n,), np.uint8)
+    for i in range(n):
+        out[..., i] = (mag >> (i * cell_bits)) & ((1 << cell_bits) - 1)
+    # sign in the top slice's spare bit (magnitude uses weight_bits-1 bits)
+    sign_bit = (WEIGHT_BITS - 1) - (n - 1) * cell_bits
+    out[..., n - 1] |= ((q < 0).astype(np.uint8)) << sign_bit
+    return out
+
+
+def compose_cell_slices(slices: np.ndarray, cell_bits: int = 4) -> np.ndarray:
+    """Inverse of :func:`cell_slices`: slices -> int8 weights."""
+    slices = np.asarray(slices, np.uint16)
+    n = n_cell_slices(cell_bits)
+    if slices.shape[-1] != n:
+        raise ValueError(
+            f"expected {n} slices of {cell_bits} bits, got {slices.shape[-1]}"
+        )
+    sign_bit = (WEIGHT_BITS - 1) - (n - 1) * cell_bits
+    top = slices[..., n - 1]
+    neg = (top >> sign_bit) & 1
+    top = top & ((1 << sign_bit) - 1)
+    mag = np.zeros(slices.shape[:-1], np.int16)
+    for i in range(n - 1):
+        mag |= slices[..., i].astype(np.int16) << (i * cell_bits)
+    mag |= top.astype(np.int16) << ((n - 1) * cell_bits)
+    return np.where(neg == 1, -mag, mag).astype(np.int8)

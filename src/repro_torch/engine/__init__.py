@@ -3,8 +3,18 @@
 ``compile_network`` lowers params to a ``CompiledNetwork``;
 ``save_program``/``load_program`` persist it in the reference's format;
 ``make_forward``/``execute`` run it; ``InferenceService`` serves it with
-continuous batching.
+continuous batching; ``CompiledNetwork.hardware_report`` (and
+``InferenceService.hardware_report`` for the traffic served) prices it
+on the paper's crossbar model.  ``compile_network(options=
+CompileOptions(optimize="auto"))`` runs the per-layer mapping search.
 """
+
+from repro_torch.core.mapping import MappingCandidate
+from repro_torch.core.mapsearch import (
+    MappingSearchConfig,
+    MappingSearchResult,
+    search_layer_mapping,
+)
 
 from repro_torch.engine.executor import (
     execute,
@@ -17,8 +27,10 @@ from repro_torch.engine.lowering import (
     CompileOptions,
     EngineConfig,
     compile_network,
+    conv_mapping_search,
     lower_matrix,
 )
+from repro_torch.engine.partition import NetworkPartition, tile_assignment
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.engine.scheduler import SchedulerFull, SlotScheduler
 from repro_torch.engine.serialize import (
@@ -41,10 +53,15 @@ __all__ = [
     "EngineConfig",
     "InferenceService",
     "LayerSkipStats",
+    "MappingCandidate",
+    "MappingSearchConfig",
+    "MappingSearchResult",
+    "NetworkPartition",
     "ProgramFormatError",
     "SchedulerFull",
     "SlotScheduler",
     "compile_network",
+    "conv_mapping_search",
     "execute",
     "extract_patches",
     "load_program",
@@ -52,6 +69,8 @@ __all__ = [
     "make_forward",
     "read_manifest",
     "save_program",
+    "search_layer_mapping",
+    "tile_assignment",
     "validate_manifest",
     "warmup_forward",
 ]

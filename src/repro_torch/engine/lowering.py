@@ -1,16 +1,20 @@
 """Lowering: pattern-pruned CNN params -> executable ``CompiledNetwork``.
 
-Port of ``repro/engine/lowering.py`` for the fixed mapping scheme.  Per
-conv layer the dense weights ``[C_out, C_in, K, K]`` are viewed as the
-im2col matmul ``[C_in*K*K, C_out]``, zero-padded up to (block, tile)
+Port of ``repro/engine/lowering.py``.  Per conv layer the dense weights
+``[C_out, C_in, K, K]`` are viewed as the im2col matmul
+``[C_in*K*K, C_out]``, zero-padded up to (block, tile)
 multiples, and compressed losslessly from their nonzero structure
 (``core/sparse.build_block_pattern`` with ``nonzero_block_masks``).  The
 FC head is lowered onto the same path.  All of it is host numpy, so the
 arrays are bit-equal to the reference compile; the kernel operands then
 move to the program's device.
 
-The mapping search (``optimize=``) and the verifier pass (``verify=``)
-are not ported yet (ROADMAP Queue 1 items 7 and 8).
+``CompileOptions(optimize=...)`` runs the per-layer crossbar mapping
+search (``core/mapsearch.py``, host numpy, seeded) before each conv is
+lowered: the chosen candidate's column reorder shapes the operands and
+the candidate rides on ``CompiledConv.mapping`` into ``hardware_report``
+and the saved manifest.  The verifier pass (``verify=``) is not ported
+yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -20,8 +24,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.mapping import CrossbarConfig, MappingCandidate
+from repro_torch.core.mapsearch import (
+    MappingSearchConfig,
+    MappingSearchResult,
+    choose_fc_reorder,
+    search_layer_mapping,
+)
 from repro_torch.core.patterns import kernel_masks, masks_to_bits
-from repro_torch.core.quantize import quantize_bp
+from repro_torch.core.quantize import n_cell_slices, quantize_bp
 from repro_torch.core.sparse import (
     BlockPatternWeight,
     build_block_pattern,
@@ -33,7 +44,8 @@ from repro_torch.models.cnn import CNNConfig
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 
 __all__ = ["EngineConfig", "CompileOptions", "PRECISIONS", "conv_matrix",
-           "lower_matrix", "lower_conv", "lower_fc", "compile_network"]
+           "lower_matrix", "lower_conv", "lower_fc", "conv_mapping_search",
+           "compile_network"]
 
 PRECISIONS = ("fp32", "int8")
 
@@ -71,9 +83,11 @@ class CompileOptions:
     """Everything :func:`compile_network` accepts beyond the network itself.
 
     The geometry fields mirror :class:`EngineConfig`.  ``tracer`` records
-    compile spans.  ``verify`` and ``optimize`` exist for parity with the
+    compile spans.  ``optimize`` is ``None`` (the paper's fixed scheme),
+    ``'auto'`` (the default :class:`MappingSearchConfig`) or a
+    :class:`MappingSearchConfig`.  ``verify`` exists for parity with the
     reference's options but only ``None`` is accepted until the static
-    analysis and mapping-search slices land.
+    analysis slice lands.
     """
 
     block: int = 128
@@ -81,15 +95,17 @@ class CompileOptions:
     precision: str = "fp32"
     cell_bits: int = 4
     verify: str | None = None
-    optimize: object | None = None
+    optimize: "str | MappingSearchConfig | None" = None
     tracer: Tracer | None = None
 
     def __post_init__(self):
         _check_geometry(self.precision, self.cell_bits)
-        if self.optimize is not None:
-            raise NotImplementedError(
-                "CompileOptions(optimize=...): the mapping search is not "
-                "ported yet (ROADMAP Queue 1 item 7)"
+        if self.optimize is not None and self.optimize != "auto" and not (
+            isinstance(self.optimize, MappingSearchConfig)
+        ):
+            raise ValueError(
+                f"optimize must be None, 'auto' or a MappingSearchConfig, "
+                f"got {self.optimize!r}"
             )
         if self.verify is not None:
             raise NotImplementedError(
@@ -163,6 +179,7 @@ def lower_conv(
     ecfg: EngineConfig,
     tracer: Tracer | None = None,
     device: str | torch.device = "cpu",
+    mapping: MappingCandidate | None = None,
 ) -> CompiledConv:
     w = _host(w).astype(np.float32)
     c_out, c_in, kh, kw = w.shape
@@ -170,6 +187,7 @@ def lower_conv(
         raise ValueError(f"{name}: non-square kernel {kh}x{kw}")
     if pattern_bits is None:
         pattern_bits = masks_to_bits(kernel_masks(w))
+    reorder = mapping.reorder if mapping is not None else "pattern"
     return CompiledConv(
         name=name,
         c_in=c_in,
@@ -178,9 +196,11 @@ def lower_conv(
         out_hw=out_hw,
         pool_after=pool_after,
         bp=lower_matrix(conv_matrix(w), ecfg.block, ecfg.tile,
-                        ecfg.precision, tracer=tracer, device=device),
+                        ecfg.precision, tracer=tracer, reorder=reorder,
+                        device=device),
         bias=_host(b).astype(np.float32).copy(),
         pattern_bits=np.asarray(_host(pattern_bits), np.int64).copy(),
+        mapping=mapping,
     )
 
 
@@ -200,6 +220,58 @@ def lower_fc(
     )
 
 
+def _fixed_candidate(ecfg: EngineConfig) -> MappingCandidate:
+    """The fixed scheme a search must match-or-beat: the paper's default
+    geometry, with cells/weight derived from the program's precision the
+    same way ``hardware_report`` derives it."""
+    base = CrossbarConfig()
+    cells = (
+        n_cell_slices(ecfg.cell_bits)
+        if ecfg.precision == "int8"
+        else base.cells_per_weight
+    )
+    return MappingCandidate(
+        rows=base.rows,
+        cols=base.cols,
+        cells_per_weight=cells,
+        ou_rows=base.ou_rows,
+        ou_cols=base.ou_cols,
+    )
+
+
+def conv_mapping_search(
+    w,
+    pattern_bits: np.ndarray | None,
+    out_hw: int,
+    ecfg: EngineConfig = EngineConfig(),
+    search: MappingSearchConfig | None = None,
+) -> MappingSearchResult:
+    """Run the mapping design-space search for one conv layer.
+
+    Builds exactly the search inputs ``compile_network(optimize=...)``
+    uses — the layer's pattern bits, the padded matmul view's block
+    masks, the precision-derived fixed scheme — and returns the full
+    :class:`~repro_torch.core.mapsearch.MappingSearchResult`.
+    """
+    w = _host(w).astype(np.float32)
+    if pattern_bits is None:
+        pattern_bits = masks_to_bits(kernel_masks(w))
+    kernel_size = w.shape[2] * w.shape[3]
+    wp = _pad_axis(
+        _pad_axis(conv_matrix(w), 0, ecfg.block), 1, ecfg.tile
+    )
+    masks = nonzero_block_masks(wp, ecfg.block)
+    return search_layer_mapping(
+        np.asarray(_host(pattern_bits), np.int64),
+        kernel_size=kernel_size,
+        windows=out_hw * out_hw,
+        fixed=_fixed_candidate(ecfg),
+        search=search,
+        masks=masks,
+        tile=ecfg.tile,
+    )
+
+
 def compile_network(
     cfg: CNNConfig,
     params: dict,
@@ -215,26 +287,52 @@ def compile_network(
       params: ``{conv1: {w, b}, ..., fc: {w, b}}`` of tensors or arrays.
       pattern_bits: per-conv packed 3x3 pattern bitmasks; recovered from
         the weights' nonzero structure for layers not listed.
-      options: a :class:`CompileOptions` (geometry, precision, tracer).
-        With a tracer the compile is a ``compile_network`` span holding
-        one ``lower:<name>`` span per layer.
+      options: a :class:`CompileOptions` (geometry, precision, tracer,
+        mapping search).  With a tracer the compile is a
+        ``compile_network`` span holding one ``lower:<name>`` span per
+        layer, and with ``optimize`` one ``search:<name>`` span before
+        each (``args``: evaluations, improved, the chosen candidate, its
+        area and the fixed scheme's) and a ``search:fc`` span (the chosen
+        reorder and the bricks of every strategy).
       device: where the kernel operands live; ``None`` means ``cuda``
         and raises when there is none.
     """
     device = resolve_device(device)
     options = options or CompileOptions()
     ecfg = options.engine_config()
+    if isinstance(options.optimize, MappingSearchConfig):
+        search_cfg = options.optimize
+    elif options.optimize == "auto":
+        search_cfg = MappingSearchConfig()
+    else:
+        search_cfg = None
     tracer = options.tracer or NULL_TRACER
     pattern_bits = pattern_bits or {}
     convs = []
     hw = cfg.input_hw
     with tracer.span(
         "compile_network", cat="compile",
-        layers=cfg.num_convs + 1, precision=ecfg.precision, optimize=False,
+        layers=cfg.num_convs + 1, precision=ecfg.precision,
+        optimize=search_cfg is not None,
     ):
         for i in range(1, cfg.num_convs + 1):
             name = f"conv{i}"
             pool = i in cfg.pool_after
+            mapping = None
+            if search_cfg is not None:
+                with tracer.span(f"search:{name}", cat="compile") as sp:
+                    res = conv_mapping_search(
+                        params[name]["w"], pattern_bits.get(name), hw,
+                        ecfg, search_cfg,
+                    )
+                    mapping = res.chosen
+                    sp.args.update(
+                        evaluations=res.evaluations,
+                        improved=res.improved,
+                        chosen=mapping.to_manifest(),
+                        area_cells=res.cost.area_cells,
+                        fixed_area_cells=res.fixed_cost.area_cells,
+                    )
             with tracer.span(f"lower:{name}", cat="compile"):
                 convs.append(
                     lower_conv(
@@ -247,13 +345,27 @@ def compile_network(
                         ecfg=ecfg,
                         tracer=tracer,
                         device=device,
+                        mapping=mapping,
                     )
                 )
             if pool:
                 hw //= 2
+        fc_reorder = "pattern"
+        if search_cfg is not None:
+            with tracer.span("search:fc", cat="compile") as sp:
+                wfc = _pad_axis(
+                    _pad_axis(_host(params["fc"]["w"]).astype(np.float32),
+                              0, ecfg.block),
+                    1, ecfg.tile,
+                )
+                fc_reorder, counts = choose_fc_reorder(
+                    nonzero_block_masks(wfc, ecfg.block),
+                    ecfg.tile, search_cfg.reorders,
+                )
+                sp.args.update(chosen=fc_reorder, bricks=counts)
         with tracer.span("lower:fc", cat="compile"):
             fc = lower_fc(params["fc"]["w"], params["fc"]["b"], ecfg,
-                          tracer=tracer, device=device)
+                          tracer=tracer, reorder=fc_reorder, device=device)
     return CompiledNetwork(
         config=cfg, convs=convs, fc=fc, block=ecfg.block, tile=ecfg.tile,
         precision=ecfg.precision, cell_bits=ecfg.cell_bits,

@@ -6,9 +6,13 @@ array plus a fsynced ``program.json`` manifest, written into a ``.tmp``
 directory and ``os.replace``d only when complete.  The round trip is
 bit-exact (float payloads as float32, quantized payloads as int8 with
 float32 scales, index streams as int32/int64).  Formats v1–v4 load; v4
-is written.  The optional ``partition``, per-conv ``mapping`` and range
-``certificate`` entries are carried as raw dicts and written back
-verbatim; only their structure is checked here (M003).
+is written.  The optional per-conv ``mapping`` (v3,
+:class:`~repro_torch.core.mapping.MappingCandidate`), ``partition``
+(:class:`~repro_torch.engine.partition.NetworkPartition`) and range
+``certificate`` (v4,
+:class:`~repro_torch.analysis.ranges.RangeCertificate`) load as those
+objects and save back to the same manifest entries; only their structure
+is checked here (M003).
 """
 
 from __future__ import annotations
@@ -20,8 +24,11 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.analysis.ranges import RangeCertificate
+from repro_torch.core.mapping import MappingCandidate
 from repro_torch.core.sparse import BlockPatternWeight
 from repro_torch.device import resolve_device
+from repro_torch.engine.partition import NetworkPartition
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.models.cnn import CNNConfig
 
@@ -132,9 +139,9 @@ def save_program(directory: str, program: CompiledNetwork) -> str:
         "convs": [],
     }
     if program.partition is not None:
-        manifest["partition"] = program.partition
+        manifest["partition"] = program.partition.to_manifest()
     if program.certificate is not None:
-        manifest["certificate"] = program.certificate
+        manifest["certificate"] = program.certificate.to_manifest()
     for c in program.convs:
         manifest["convs"].append(
             {
@@ -149,7 +156,9 @@ def save_program(directory: str, program: CompiledNetwork) -> str:
                     tmp, f"{c.name}.pattern_bits", c.pattern_bits
                 ),
                 "bp": _bp_manifest(c.name, c.bp, tmp),
-                "mapping": c.mapping,
+                "mapping": (
+                    None if c.mapping is None else c.mapping.to_manifest()
+                ),
             }
         )
     manifest["fc"] = {
@@ -396,7 +405,11 @@ def load_program(
                 pattern_bits=np.load(
                     os.path.join(directory, e["pattern_bits"])
                 ),
-                mapping=e.get("mapping"),
+                mapping=(
+                    MappingCandidate.from_manifest(e["mapping"])
+                    if e.get("mapping") is not None
+                    else None
+                ),
             )
             for e in manifest["convs"]
         ]
@@ -413,14 +426,25 @@ def load_program(
             f"program payload under {directory} failed to load: {e}",
             rule="M005",
         ) from e
+    part = manifest.get("partition")
+    cert_entry = manifest.get("certificate")
+    certificate = None
+    if cert_entry is not None:
+        try:
+            certificate = RangeCertificate.from_manifest(cert_entry)
+        except (KeyError, TypeError, ValueError) as e:
+            raise ProgramFormatError(
+                f"program manifest certificate failed to decode: {e}",
+                rule="M003",
+            ) from e
     return CompiledNetwork(
         config=cfg,
         convs=convs,
         fc=fc,
         block=manifest["block"],
         tile=manifest["tile"],
-        partition=manifest.get("partition"),
+        partition=NetworkPartition.from_manifest(part) if part else None,
         precision=manifest.get("precision", "fp32"),
         cell_bits=int(manifest.get("cell_bits", 4)),
-        certificate=manifest.get("certificate"),
+        certificate=certificate,
     )

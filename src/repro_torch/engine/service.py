@@ -195,6 +195,18 @@ class InferenceService:
         self.serve(reqs)
         return np.array([r.label for r in reqs], np.int64)
 
+    def hardware_report(self, assumed_skip: float | None = None, **kw) -> dict:
+        """Crossbar pricing from the skip statistics of the served traffic
+        (``CompiledNetwork.hardware_report`` with ``skip_stats`` set to
+        :attr:`activation_stats`).
+
+        Falls back to the program's assumed/no-skip pricing when no
+        requests have been served with ``collect_stats`` yet.
+        """
+        return self.program.hardware_report(
+            skip_stats=self.activation_stats, assumed_skip=assumed_skip, **kw
+        )
+
     def metrics_text(self) -> str:
         """Prometheus text exposition of the scheduler metrics."""
         return self.scheduler.metrics.to_prometheus(prefix="engine_service")

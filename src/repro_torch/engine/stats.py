@@ -8,8 +8,9 @@ classes here carry those counters across batches and requests.  Because
 batches (dead slots masked out of counts and windows alike) equal one
 stats forward over the concatenated live images.
 
-The conversion to the crossbar simulator's ``SkipDistribution``
-(``to_distribution``/``to_distributions``) waits for the pricing slice.
+``to_distribution``/``to_distributions`` convert the counters into the
+crossbar simulator's :class:`~repro_torch.core.simulator.SkipDistribution`,
+which ``CompiledNetwork.hardware_report`` prices energy and cycles from.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.patterns import bits_to_mask
+from repro_torch.core.simulator import SkipDistribution
 
 __all__ = [
     "LayerSkipStats",
@@ -95,6 +97,15 @@ class LayerSkipStats:
             occurrences=self.occurrences,
         )
 
+    def to_distribution(self) -> SkipDistribution:
+        frac = self.skip_fractions()
+        probs = {
+            (c, pat): float(frac[c, i])
+            for c in range(frac.shape[0])
+            for i, pat in enumerate(self.patterns)
+        }
+        return SkipDistribution(probs=probs, windows=self.windows)
+
 
 @dataclasses.dataclass
 class ActivationStats:
@@ -112,6 +123,9 @@ class ActivationStats:
         if not self.layers:
             return 0.0
         return float(np.mean([st.mean_skip() for st in self.layers.values()]))
+
+    def to_distributions(self) -> dict[str, SkipDistribution]:
+        return {n: st.to_distribution() for n, st in self.layers.items()}
 
 
 def stats_from_counts(

@@ -1,11 +1,12 @@
-"""Build the port's CUDA source with ``nvcc`` and load it with ctypes.
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
-``csrc/pattern_spmm.cu`` compiles on first use into a shared library
-with a plain C interface, under ``build/repro_torch_kernels/`` at the
-repository root.  The file name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
-There is no fallback: without ``nvcc`` the build raises, and so does
-every kernel launch that needs it.
+Every ``csrc/*.cu`` compiles on first use into one shared library with a
+plain C interface, under ``build/repro_torch_kernels/`` at the repository
+root: one ``nvcc -c`` per source, all started together, then one link.
+The file name carries a hash of the sources and the flags, so an edited
+source rebuilds and an unchanged set is reused.  There is no fallback:
+without ``nvcc`` the build raises, and so does every kernel launch that
+needs it.
 """
 
 from __future__ import annotations
@@ -20,12 +21,18 @@ from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build", "build_dir", "find_nvcc", "load_library"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "pattern_spmm.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+
+def sources() -> list[Path]:
+    """The CUDA sources the library is built from, in name order."""
+    return sorted(CSRC.glob("*.cu"))
 
 
 def build_dir() -> Path:
@@ -49,35 +56,55 @@ def find_nvcc() -> str:
     )
 
 
+def _run(procs) -> str:
+    """Wait for every ``(name, Popen)``; raise on the first failure."""
+    logs, failed = [], None
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (name, proc.returncode, out)
+    if failed is not None:
+        name, code, out = failed
+        raise RuntimeError(f"nvcc failed on {name} (exit {code}):\n{out}")
+    return "".join(logs)
+
+
 def build() -> Path:
-    """Compile ``SOURCE`` unless an up-to-date library exists.
+    """Compile :func:`sources` unless an up-to-date library exists.
 
     Returns the library's path.  The compiler's report (``-Xptxas -v``:
     registers, shared memory, spills per kernel) is kept beside it with
     the suffix ``.log``.
     """
-    src = SOURCE
-    digest = hashlib.sha256(
-        " ".join(NVCC_FLAGS).encode() + b"\0" + src.read_bytes()
-    ).hexdigest()[:16]
+    srcs = sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(b"\0" + src.name.encode() + b"\0" + src.read_bytes())
     out_dir = build_dir()
-    lib = out_dir / f"lib{src.stem}-{digest}.so"
+    lib = out_dir / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
+    nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [out_dir / f".{tag}.{src.stem}.o" for src in srcs]
+    tmp = out_dir / f".{tag}.so.tmp"
+    try:
+        log = _run([
+            (src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in zip(srcs, objs)
+        ])
+        log += _run([("link", subprocess.Popen(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return lib
 
 
@@ -91,4 +118,6 @@ def load_library() -> ctypes.CDLL:
     lib.pattern_spmm_f32.restype = i32
     lib.pattern_spmm_i8.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.pattern_spmm_i8.restype = i32
+    lib.ou_mvm_f32.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.ou_mvm_f32.restype = i32
     return lib

@@ -1,6 +1,7 @@
-"""Dispatch for the block-pattern spmm through the Hopper kernels' wrappers.
+"""Dispatch for the port's ops through the Hopper kernels' wrappers.
 
-Every op calls the wrappers in ``kernels/pattern_spmm.py``, which pick
+Every op calls the wrappers in ``kernels/pattern_spmm.py`` and
+``kernels/ou_mvm.py``, which pick
 by the tensor's device: on a CUDA tensor they launch their kernel or
 raise, on a CPU tensor they run their plain PyTorch version.  There is
 no second route: :func:`default_backend` only names the one a tensor
@@ -16,12 +17,13 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantize import quantize_rows
 from repro_torch.core.sparse import BlockPatternWeight
+from repro_torch.kernels.ou_mvm import ou_mvm_cuda
 from repro_torch.kernels.pattern_spmm import (
     pattern_spmm_cuda,
     pattern_spmm_quant_cuda,
 )
 
-__all__ = ["default_backend", "pattern_spmm", "pattern_spmm_raw"]
+__all__ = ["default_backend", "ou_mvm", "pattern_spmm", "pattern_spmm_raw"]
 
 
 def default_backend(x: torch.Tensor) -> str:
@@ -93,3 +95,14 @@ def pattern_spmm(
     )
     y = y.index_select(1, inv_order)  # the Output Indexing Unit
     return y.reshape(*lead, bp.n_out).to(x.dtype)
+
+
+def ou_mvm(
+    x: torch.Tensor, w: torch.Tensor, ou_rows: int = 9, ou_cols: int = 8
+) -> torch.Tensor:
+    """Paper-faithful OU-granular MVM with all-zero input skip.
+
+    x [R], w [R, C], any float type -> float32 [C].  On a CUDA tensor it
+    runs the CUDA kernel (or raises); on a CPU tensor its plain version.
+    """
+    return ou_mvm_cuda(x, w, ou_rows=ou_rows, ou_cols=ou_cols)

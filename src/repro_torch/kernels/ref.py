@@ -1,10 +1,10 @@
-"""Naive-loop oracle for the block-pattern spmm (tests assert allclose)."""
+"""Plain oracles for the port's kernels (tests assert allclose)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["pattern_spmm_ref"]
+__all__ = ["pattern_spmm_ref", "ou_mvm_ref"]
 
 
 def pattern_spmm_ref(
@@ -22,3 +22,8 @@ def pattern_spmm_ref(
             acc = acc + xs.float() @ w_comp[ti, k].float()
         cols.append(acc)
     return torch.cat(cols, dim=1).to(x.dtype)
+
+
+def ou_mvm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain dense MVM — the OU walk and the all-zero skip are exact."""
+    return x.float() @ w.float()

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import ou_mvm as tou
 from repro_torch.kernels import pattern_spmm as tk
 from repro_torch.models.cnn import mini_cnn_config
 
@@ -46,9 +47,9 @@ class _HostEvent:
 
 
 def _counting(plain, name):
-    def launch(*args):
+    def launch(*args, **kwargs):
         launch.launches += 1
-        return plain(*args)
+        return plain(*args, **kwargs)
 
     launch.launches = 0
     launch.__name__ = name
@@ -75,14 +76,17 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
 
-    for name, plain in (("pattern_spmm_cuda", tk.pattern_spmm_plain),
-                        ("pattern_spmm_quant_cuda",
-                         tk.pattern_spmm_quant_plain)):
+    for mod, name, plain in (
+        (tk, "pattern_spmm_cuda", tk.pattern_spmm_plain),
+        (tk, "pattern_spmm_quant_cuda", tk.pattern_spmm_quant_plain),
+        (tou, "ou_mvm_cuda", tou.ou_mvm_plain),
+    ):
         fake = _counting(plain, name)
-        monkeypatch.setattr(tk, name, fake)
+        monkeypatch.setattr(mod, name, fake)
         monkeypatch.setattr(ops, name, fake)
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     lib = tmp_path / "libpattern_spmm-fake.so"
@@ -102,7 +106,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
 
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["phase"] for ln in lines] == [
-        "device", "build", "compile", "kernels", "kernels", "serve", "times"]
+        "device", "build", "compile", "kernels", "kernels", "serve", "search",
+        "ou_mvm", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -111,6 +116,23 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     # 3 convs + FC per batch: 9 fp32 batches for 64 requests, 2 int8
     assert serve["launches"] == {"pattern_spmm_cuda": 36,
                                  "pattern_spmm_quant_cuda": 8}
+    search = lines[6]
+    assert search["bit_equal_vs_cpu_compile"] and search["never_worse"]
+    assert set(search["chosen"]) == {"conv1", "conv2", "conv3"}
+    assert search["launches"] == 4 * search["batches"]
+    assert search["skip"]["measured_layers"] == ["conv1", "conv2", "conv3"]
+    assert 0.0 <= search["skip"]["measured_discount"] <= 1.0
+    assert {r["name"] for r in search["drift"]["layers"]} == {
+        "conv1", "conv2", "conv3"}
+    assert search["searched"]["area_cells"] <= search["fixed"]["area_cells"]
+    assert search["searched"]["energy_pj"] <= search["fixed"]["energy_pj"]
+    ou = lines[7]
+    # 3 convs x 2 patches, the 3 sweep shapes, all-zero x, NaN case
+    assert ou["calls"] == ou["launches"] == 11
+    assert all(c["ok"] and c["finite"] for c in ou["cases"])
+    assert ou["cases"][-2]["skipped_band_share"] == 1.0
+    times = lines[8]
+    assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in res["kernels"]] == list(cs.KERNELS)
@@ -120,5 +142,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert os.path.exists(os.path.join(ROOT, k["source"]))
         path, line = k["replaces"].rsplit(":", 1)
         with open(os.path.join(ROOT, path)) as f:
-            assert "def pattern_spmm_pallas" in f.readlines()[int(line) - 1]
+            text = f.readlines()[int(line) - 1]
+        assert text.startswith("def ") and "_pallas" in text
     assert res["kernels"][1]["library_ms"] is None
+    assert res["kernels"][2]["library_ms"] > 0

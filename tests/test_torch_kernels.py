@@ -1,4 +1,5 @@
-"""Port's block-pattern spmm against the JAX reference, and on the card.
+"""Port's kernels (block-pattern spmm, OU MVM) against the JAX reference,
+and on the card.
 
 The same numpy inputs go through ``repro`` (Pallas in interpret mode and
 the XLA path) and ``repro_torch`` (the plain PyTorch path, and the CUDA
@@ -20,9 +21,10 @@ except ImportError:
 from repro_torch.core import quantize as tq
 from repro_torch.core import sparse as ts
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ou_mvm as tou
 from repro_torch.kernels import pattern_spmm as tk
 from repro_torch.kernels._build import find_nvcc
-from repro_torch.kernels.ref import pattern_spmm_ref
+from repro_torch.kernels.ref import ou_mvm_ref, pattern_spmm_ref
 
 # test_kernels.py's sweep plus the smallest geometry in use (block 9, tile 8)
 SWEEP = [
@@ -34,6 +36,9 @@ SWEEP = [
 ]
 TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py's fp32 bound
 QUANT_REL = 2e-6  # int8: exact partials, float32 fold; normwise relative
+# tests/test_kernels.py's ou_mvm sweep (r, c, ou_rows, ou_cols) and bound
+OU_SWEEP = [(100, 52, 9, 8), (64, 64, 16, 8), (27, 8, 9, 8)]
+OU_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -180,6 +185,80 @@ def test_int8_spmm_matches_reference(reference, rng, m, k, n, block, tile):
     assert _rel(y_op, y_jop) <= QUANT_REL
 
 
+def _ou_case(rng, r, c, ou_r):
+    w = rng.normal(size=(r, c)).astype(np.float32)
+    x = rng.normal(size=(r,)).astype(np.float32)
+    x[:ou_r] = 0.0  # an all-zero band exercises the skip
+    return x, w
+
+
+@pytest.mark.parametrize("r,c,ou_r,ou_c", OU_SWEEP)
+def test_ou_mvm_matches_reference(reference, rng, r, c, ou_r, ou_c):
+    """``ops.ou_mvm`` against the reference's (Pallas, interpret mode)."""
+    x, w = _ou_case(rng, r, c, ou_r)
+    y = tops.ou_mvm(torch.from_numpy(x), torch.from_numpy(w), ou_rows=ou_r,
+                    ou_cols=ou_c)
+    assert y.dtype == torch.float32 and y.shape == (c,)
+    want = jops.ou_mvm(jnp.asarray(x), jnp.asarray(w), ou_rows=ou_r,
+                       ou_cols=ou_c)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **OU_TOL)
+    np.testing.assert_allclose(
+        ou_mvm_ref(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        y.numpy(), **OU_TOL)
+
+
+def test_ou_skip_lossless(reference, rng):
+    """The all-zero-input skip (paper §IV-A) is numerically lossless."""
+    w = rng.normal(size=(45, 16)).astype(np.float32)
+    x = rng.normal(size=(45,)).astype(np.float32)
+    x[9:27] = 0.0
+    y = tops.ou_mvm(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(y.numpy(), x @ w, **OU_TOL)
+    want = jops.ou_mvm(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), **OU_TOL)
+
+
+def test_ou_mvm_nan_in_skipped_band(reference, rng):
+    """A skipped band's weights are never read: a NaN there stays out of
+    the output, as in the reference, though ``x @ w`` would spread it."""
+    x, w = _ou_case(rng, 27, 8, 9)
+    w[4, 3] = np.nan  # band 0, whose inputs are all zero
+    w[12, 5] = np.inf
+    x[9:18] = -0.0  # -0.0 counts as zero: band 1 is skipped too
+    y = tops.ou_mvm(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(jops.ou_mvm(jnp.asarray(x), jnp.asarray(w)))
+    assert np.isfinite(y).all() and np.isfinite(want).all()
+    np.testing.assert_allclose(y, want, **OU_TOL)
+    np.testing.assert_allclose(y, x[18:] @ w[18:], **OU_TOL)
+
+
+def test_ou_mvm_band_flags_and_zero_input(rng):
+    x = torch.tensor([0.0, -0.0, 0.0, 1.0, 0.0, 0.0, float("nan"), 0.0])
+    assert tou.band_flags(x, 3).tolist() == [False, True, True]
+    w = torch.from_numpy(rng.normal(size=(8, 5)).astype(np.float32))
+    w[:3] = float("nan")
+    # an all-zero x skips every band: exact zeros, NaN weights unread
+    assert torch.equal(tops.ou_mvm(torch.zeros(8), w, ou_rows=4),
+                       torch.zeros(5))
+    assert torch.isnan(tops.ou_mvm(x, w.abs(), ou_rows=3)).all()
+    for bad in (lambda: tops.ou_mvm(x, w[:7]),
+                lambda: tops.ou_mvm(x.int(), w),
+                lambda: tops.ou_mvm(x, w, ou_rows=0)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_ou_mvm_wrapper_takes_plain_version_on_cpu(rng):
+    x, w = _ou_case(rng, 100, 52, 9)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    before = tou.ou_mvm_cuda.launches
+    y = tou.ou_mvm_cuda(xt.to(torch.bfloat16), wt, 9, 8)
+    assert torch.equal(y, tou.ou_mvm_plain(xt.to(torch.bfloat16), wt, 9, 8))
+    assert y.dtype == torch.float32
+    assert torch.equal(tops.ou_mvm(xt, wt), tou.ou_mvm_plain(xt, wt))
+    assert tou.ou_mvm_cuda.launches == before
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No compiler, no library and no fallback: the build raises."""
     from repro_torch.kernels import _build
@@ -234,3 +313,34 @@ def test_cuda_kernels_match_plain_on_card():
         wantq = tk.pattern_spmm_quant_plain(xq, qbp.w_comp, qbp.block_ids,
                                             qbp.w_scales, nnz, block)
         assert _rel(yq.cpu(), wantq.cpu()) <= QUANT_REL
+
+
+@pytest.mark.gpu
+def test_ou_mvm_cuda_matches_plain_on_card():
+    """The OU MVM kernel against its plain version on the card: the
+    sweep, ragged shapes, an all-zero x and a NaN in a skipped band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        find_nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    for r, c, ou_r, ou_c in OU_SWEEP + [(4608, 512, 9, 8), (1, 1, 9, 8),
+                                        (300, 33, 7, 5)]:
+        x, w = _ou_case(rng, r, c, ou_r)
+        xt, wt = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+        n0 = tou.ou_mvm_cuda.launches
+        y = tou.ou_mvm_cuda(xt, wt, ou_r, ou_c)
+        torch.cuda.synchronize()
+        assert tou.ou_mvm_cuda.launches == n0 + 1
+        want = tou.ou_mvm_plain(xt, wt, ou_r, ou_c)
+        lim = 1e-5 * (1 + (xt[:, None] * wt).abs().sum(0))
+        assert ((y - want).abs() <= lim).all()
+        assert torch.equal(y, tou.ou_mvm_cuda(xt, wt, ou_r, ou_c))
+        assert not tou.ou_mvm_cuda(torch.zeros_like(xt), wt, ou_r, ou_c).any()
+    x, w = _ou_case(rng, 27, 8, 9)
+    w[2, 2] = np.nan
+    y = tou.ou_mvm_cuda(torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev))
+    assert torch.isfinite(y).all()

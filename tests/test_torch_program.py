@@ -16,19 +16,24 @@ import torch
 
 from repro.core import sparse as js
 from repro.core.pruning import build_dictionaries, magnitude_prune, project_params
+from repro.core.mapsearch import MappingSearchConfig as JMappingSearchConfig
 from repro.engine import CompileOptions as JCompileOptions
 from repro.engine import compile_network as j_compile
 from repro.engine import lowering as jlow
 from repro.engine import partition_network
 from repro.engine import serialize as jser
 from repro.models.cnn import conv_weight_names, init_cnn, mini_cnn_config
+from repro.obs.trace import Tracer as JTracer
 
 from repro_torch.core import sparse as ts
+from repro_torch.core.mapping import MappingCandidate
+from repro_torch.core.mapsearch import MappingSearchConfig
 from repro_torch.engine import CompileOptions, ProgramFormatError
 from repro_torch.engine import compile_network as t_compile
 from repro_torch.engine import lowering as tlow
 from repro_torch.engine import serialize as tser
 from repro_torch.models.cnn import CNNConfig, params_from_numpy
+from repro_torch.obs.trace import Tracer
 
 BP_FIELDS = ("w_comp", "block_ids", "nnz", "new_order", "inv_order",
              "dict_masks", "w_scales")
@@ -69,6 +74,11 @@ def _arr(v):
     return np.asarray(v)
 
 
+def _manifest_of(obj):
+    """A mapping, partition or certificate as its manifest entry."""
+    return None if obj is None else obj.to_manifest()
+
+
 def assert_bp_equal(a, b):
     assert (a.k_in, a.n_out, a.block, a.tile) == (b.k_in, b.n_out, b.block,
                                                   b.tile)
@@ -96,6 +106,7 @@ def assert_programs_equal(a, b):
         assert np.asarray(x.pattern_bits).dtype == np.asarray(
             y.pattern_bits).dtype
         assert_bp_equal(x.bp, y.bp)
+        assert _manifest_of(x.mapping) == _manifest_of(y.mapping)
     assert (a.fc.d_in, a.fc.d_out, a.fc.reorder) == (b.fc.d_in, b.fc.d_out,
                                                      b.fc.reorder)
     np.testing.assert_array_equal(a.fc.bias, b.fc.bias)
@@ -197,15 +208,18 @@ def test_jax_saved_loads_bit_equal(jax_saved, kind, tmp_path):
     jprog, path = jax_saved[kind]
     tprog = tser.load_program(path, device="cpu")
     assert_programs_equal(tprog, jprog)
-    # mapping, partition and certificate round-trip verbatim through a
-    # port save, and the re-saved program is the reference's program
+    # mapping, partition and certificate load as the port's objects and
+    # round-trip verbatim through a port save, and the re-saved program
+    # is the reference's program
     manifest = _manifest(path)
     again = tser.save_program(str(tmp_path / "again"), tprog)
     assert _manifest(again) == manifest
     for c, e in zip(tprog.convs, manifest["convs"]):
-        assert c.mapping == e["mapping"]
-    assert tprog.partition == manifest.get("partition")
-    assert tprog.certificate == manifest.get("certificate")
+        assert _manifest_of(c.mapping) == e["mapping"]
+    assert _manifest_of(tprog.partition) == manifest.get("partition")
+    assert _manifest_of(tprog.certificate) == manifest.get("certificate")
+    assert _manifest_of(tprog.partition) == _manifest_of(jprog.partition)
+    assert _manifest_of(tprog.certificate) == _manifest_of(jprog.certificate)
     reloaded = jser.load_program(again, verify=True)
     assert_programs_equal(reloaded, jprog)
     assert reloaded.partition == jprog.partition
@@ -311,9 +325,91 @@ def test_save_is_atomic_and_old_is_found(saved):
 def test_not_yet_ported_options_raise(saved):
     with pytest.raises(NotImplementedError, match="item 8"):
         tser.load_program(saved, verify=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        CompileOptions(optimize="auto")
     with pytest.raises(NotImplementedError, match="item 8"):
         CompileOptions(verify="strict")
     with pytest.raises(ValueError):
         CompileOptions(precision="fp16")
+    # the mapping search is ported: the reference's validation
+    assert CompileOptions(optimize="auto").optimize == "auto"
+    assert CompileOptions(optimize=MappingSearchConfig(seed=2)).optimize.seed == 2
+    for bad in ("greedy", 1, JMappingSearchConfig()):
+        with pytest.raises(ValueError, match="optimize must be"):
+            CompileOptions(optimize=bad)
+        if not isinstance(bad, JMappingSearchConfig):
+            with pytest.raises(ValueError, match="optimize must be"):
+                JCompileOptions(optimize=bad)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+@pytest.mark.parametrize("block,tile", [(9, 8), (16, 16)])
+def test_searched_compile_bit_equal(pruned, precision, block, tile):
+    """``optimize='auto'``: the same candidates per conv, the same FC
+    reorder, bit-equal arrays, and the same ``search:*`` span args."""
+    cfg, params, bits = pruned
+    jtr, ttr = JTracer(), Tracer()
+    jprog = j_compile(cfg, params, bits, options=JCompileOptions(
+        block=block, tile=tile, precision=precision, optimize="auto",
+        tracer=jtr))
+    tprog = t_compile(_tcfg(cfg), params_from_numpy(params), bits,
+                      options=CompileOptions(block=block, tile=tile,
+                                             precision=precision,
+                                             optimize="auto", tracer=ttr),
+                      device="cpu")
+    assert_programs_equal(tprog, jprog)
+    assert all(isinstance(c.mapping, MappingCandidate) for c in tprog.convs)
+
+    def search_spans(tr):
+        return [(s.name, s.args) for s in tr.spans()
+                if s.name.startswith("search:")]
+
+    assert search_spans(ttr) == search_spans(jtr)
+    assert len(search_spans(ttr)) == len(tprog.convs) + 1
+
+
+def test_conv_mapping_search_equal(pruned):
+    cfg, params, bits = pruned
+    ecfg = tlow.EngineConfig(block=9, tile=8, precision="int8")
+    t = tlow.conv_mapping_search(params["conv2"]["w"], bits["conv2"], 6, ecfg)
+    j = jlow.conv_mapping_search(params["conv2"]["w"], bits["conv2"], 6,
+                                 jlow.EngineConfig(block=9, tile=8,
+                                                   precision="int8"))
+    assert t.chosen.to_manifest() == j.chosen.to_manifest()
+    assert t.fixed.to_manifest() == j.fixed.to_manifest()
+    assert (t.evaluations, t.bricks, t.fixed_bricks, t.improved) == (
+        j.evaluations, j.bricks, j.fixed_bricks, j.improved)
+    assert t.fixed.cells_per_weight == 2
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_port_saved_searched_loads_in_jax_verified(pruned, precision,
+                                                   tmp_path):
+    cfg, params, bits = pruned
+    tprog = t_compile(_tcfg(cfg), params_from_numpy(params), bits,
+                      options=CompileOptions(precision=precision, block=16,
+                                             tile=16, optimize="auto"),
+                      device="cpu")
+    path = tser.save_program(str(tmp_path / "prog"), tprog)
+    jprog = jser.load_program(path, verify=True)  # raises on any error
+    assert_programs_equal(tprog, jprog)
+    assert tprog.hardware_report(assumed_skip=0.3) == jprog.hardware_report(
+        assumed_skip=0.3)
+    again = tser.load_program(path, device="cpu")
+    assert_programs_equal(again, tprog)
+
+
+@pytest.mark.parametrize("kind", ["int8", "auto"])
+def test_jax_saved_report_equal(jax_saved, kind):
+    """A JAX-saved partitioned program (and one compiled with
+    ``verify='strict'``, so it carries a range certificate) prices the
+    same in the port: ``chips`` and ``certified_potential`` included."""
+    jprog, path = jax_saved[kind]
+    tprog = tser.load_program(path, device="cpu")
+    jloaded = jser.load_program(path, verify=False)
+    for kw in ({}, {"assumed_skip": 0.2, "n_chips": 3}):
+        rt = tprog.hardware_report(**kw)
+        assert rt == jprog.hardware_report(**kw)
+        assert rt == jloaded.hardware_report(**kw)
+        assert "chips" in rt
+    if kind == "auto":
+        cp = tprog.hardware_report()["certified_potential"]
+        assert cp["available"] and cp["layers"]
