@@ -10,13 +10,17 @@ program, and serve seeded requests through ``InferenceService`` on
 ``cuda``; compile it again with the per-layer crossbar mapping search
 (``optimize="auto"``), serve it with skip statistics and price the served
 traffic with ``hardware_report``; run ``ops.ou_mvm`` on every conv's
-dense weight at real inputs.  Before that it builds the CUDA kernels
-from the sources in ``src/`` and holds each against its plain PyTorch
-version on the card, at every shape the main paths give it.
+dense weight at real inputs; generate tokens with full-width, full-depth
+h2o-danube-1.8B (pattern-sparse MLPs, bf16, weights from the seed)
+through ``DecodeService``, every prefill through the flash-attention
+kernel.  Before each path it builds the CUDA kernels from the sources in
+``src/`` and holds each against its plain PyTorch version on the card,
+at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``search``, ``ou_mvm``,
-``times``.  Any failed check exits non-zero.  The last three lines are
+``flash`` (kernel vs plain), ``generate``, ``times``.  Any failed check
+exits non-zero.  The last three lines are
 the card's name and power limit as ``nvidia-smi`` prints them, the
 per-kernel ``{"kernels": [...]}`` summary, and
 ``{"ok": true, "device": {...}}``.
@@ -94,7 +98,65 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/ou_mvm.cu",
         "replaces": "src/repro/kernels/ou_mvm.py:47",
     },
+    "flash_attention_cuda": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:91",
+    },
 }
+# flash attention: tests/test_kernels.py's sweep (b, hq, hkv, sq, sk, d),
+# causal only where sq == sk, with and without a window of 33, in the three
+# input types; then the generation path's own calls (h2o-danube-1.8B: 32
+# query heads over 8 key heads, D 80, bf16, window 4096), each at a prompt
+# length of FLASH_PATH_S both as a bare [S, S] attention and as the
+# prefill reads it: keys from the [1, max_seq, 8, 80] cache through a
+# transposed view, kv_len = S < max_seq; and once with kv_len < Sq = Sk
+FLASH_SWEEP = ((1, 2, 1, 64, 64, 32), (2, 4, 2, 100, 100, 64),
+               (1, 3, 3, 128, 256, 32), (1, 8, 2, 77, 77, 80))
+FLASH_TYPES = ("float32", "bfloat16", "float16")
+FLASH_HEADS = (32, 8, 80)  # query heads, key heads, head dim
+FLASH_PATH_S = (17, 128, 1000, 4500)
+FLASH_WINDOW = 4096
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
+
+
+def flash_tolerance(dtype: str) -> dict:
+    """tests/test_kernels.py's ``_tolerance``: bf16 (and fp16) inputs with
+    fp32 accumulators differ by a few ULPs of bf16 between two routes."""
+    return (dict(rtol=2e-5, atol=2e-5) if dtype == "float32"
+            else dict(rtol=8e-2, atol=4e-2))
+
+
+# The rounding limit, for 16-bit inputs besides ``flash_tolerance``: the
+# kernel rounds its fp32 result once into the input type, so it lies
+# within half an ulp (2^-8 relative in bf16, 2^-11 in fp16) of the plain
+# version computed in fp32 from the same inputs, plus the two fp32 sums'
+# own difference, FLASH_SUM_SLACK of the query row's largest |value|.
+# ``_tolerance`` alone is wider than an output of the path (softmax means
+# of ~500-4096 keys, |o| ~ 0.01-0.02) and lets a key too many or too few
+# through; scripts/flash_fault_check.py plants such faults and shows that
+# this limit fails each of them (PERF.md).
+FLASH_HALF_ULP = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+FLASH_SUM_SLACK = 2.0 ** -16
+
+
+# generation: full-width, full-depth h2o-danube-1.8B with the paper's
+# pattern-sparse MLPs, weights from the seed
+GEN_SCFG = dict(batch_slots=8, max_seq=6144, eos_id=-1)
+GEN_REQUESTS = 24
+GEN_LENGTHS = (16, 1024)  # seeded prompt lengths, none a multiple of 128
+GEN_LONG = 4500  # one prompt longer than the window: it masks in the kernel
+GEN_LONG_AT = 9  # its place in the arrival order
+GEN_NEW = 32  # new tokens per request
+GEN_BURSTS = (1, 7, 5, 2, 6, 4)  # arrivals between service steps
+# prefill logits of the kernel route against the plain route on the card.
+# bf16: no farther apart than twice the plain bf16 route's own distance
+# from the same model in float32 (the bf16 rounding noise of this model
+# and prompt); float32: both routes in float32 within GEN_FP32_REL of each
+# other (a wrong mask or a wrong softmax moves logits by O(1) relative).
+# Relative to the largest logit of the plain route.
+GEN_BF16_NOISE_FACTOR = 2.0
+GEN_FP32_REL = 1e-3
 
 
 def _jsonable(v):
@@ -657,20 +719,361 @@ def ou_cost(x, w, ou_rows: int) -> tuple[float, float]:
     return 4.0 * (x.shape[0] + c + live * c), 2.0 * live * c
 
 
-def serve_bursts(svc, reqs) -> float:
-    """Submit ``reqs`` in ``BURSTS``, one service step after each burst,
+def serve_bursts(svc, reqs, bursts=BURSTS) -> float:
+    """Submit ``reqs`` in ``bursts``, one service step after each burst,
     then drain; returns the host seconds it took."""
     import torch
 
     it = iter(reqs)
     t0 = time.perf_counter()
-    for burst in BURSTS:
+    for burst in bursts:
         for _ in range(burst):
             svc.submit(next(it))
         svc.step()
     svc.run()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def flash_pairs(sq: int, kv_len: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask leaves visible: what the attention
+    must compute, whatever tiles a kernel walks."""
+    q = np.arange(sq)
+    hi = np.minimum(q, kv_len - 1) if causal else np.full(sq, kv_len - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_cost(b, hq, hkv, sq, kv_len, d, esize, causal, window):
+    """(bytes, operations) of one call: q, the kv_len rows of k and v
+    and the output, each moved once; 4 * D operations per visible pair
+    (the q.k dot and the p.v update) per query head."""
+    nbytes = esize * b * d * (2 * sq * hq + 2 * kv_len * hkv)
+    ops = 4.0 * d * b * hq * flash_pairs(sq, kv_len, causal, window)
+    return float(nbytes), ops
+
+
+def flash_cases(dev, max_seq: int) -> list[dict]:
+    """Every flash case on the card (see ``FLASH_SWEEP``): q, k, v, the
+    mask arguments and, for the path's prefill calls, ``path=True``."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    cases = []
+
+    def normal(*shape):
+        return torch.as_tensor((0.5 * rng.normal(size=shape)).astype(
+            np.float32), device=dev)
+
+    for b, hq, hkv, sq, sk, d in FLASH_SWEEP:
+        for causal in (True, False):
+            for window in (None, 33):
+                if causal and sq != sk:
+                    continue
+                q, k, v = normal(b, hq, sq, d), normal(b, hkv, sk, d), \
+                    normal(b, hkv, sk, d)
+                for dt in FLASH_TYPES:
+                    tdt = getattr(torch, dt)
+                    cases.append(dict(
+                        case=f"sweep_{b}x{hq}/{hkv}x{sq}x{sk}x{d}_"
+                             f"{'causal' if causal else 'full'}_w{window}_"
+                             f"{dt}",
+                        q=q.to(tdt), k=k.to(tdt), v=v.to(tdt), causal=causal,
+                        window=window, kv_len=None, dtype=dt, path=False))
+    hq, hkv, d = FLASH_HEADS
+    for s in FLASH_PATH_S:
+        q = normal(1, hq, s, d).bfloat16()
+        kv = normal(2, max_seq, hkv, d).bfloat16()  # [k|v, T, Hkv, D]
+        k, v = kv[0:1].transpose(1, 2), kv[1:2].transpose(1, 2)
+        cases.append(dict(case=f"path_S{s}_bare", q=q,
+                          k=k[:, :, :s].contiguous(),
+                          v=v[:, :, :s].contiguous(), causal=True,
+                          window=FLASH_WINDOW, kv_len=None, dtype="bfloat16",
+                          path=False))
+        cases.append(dict(case=f"path_S{s}_cache", q=q, k=k, v=v, causal=True,
+                          window=FLASH_WINDOW, kv_len=s, dtype="bfloat16",
+                          path=True))
+    # padded keys inside the queries' span: kv_len < Sq = Sk
+    s = FLASH_PATH_S[-2]
+    kv = normal(2, 1, hkv, s, d).bfloat16()
+    cases.append(dict(case=f"path_S{s}_kvlen{7 * s // 10}",
+                      q=normal(1, hq, s, d).bfloat16(), k=kv[0], v=kv[1],
+                      causal=True, window=FLASH_WINDOW, kv_len=7 * s // 10,
+                      dtype="bfloat16", path=False))
+    return cases
+
+
+def flash_row(c: dict, y) -> dict:
+    """One flash case's check of the kernel's output ``y``: against the
+    plain version at ``flash_tolerance`` and, for 16-bit inputs, against
+    the plain version in fp32 at the rounding limit (``FLASH_HALF_ULP``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    kw = dict(causal=c["causal"], window=c["window"], kv_len=c["kv_len"])
+    want = tfa.flash_attention_plain(c["q"], c["k"], c["v"], **kw).float()
+    tol = flash_tolerance(c["dtype"])
+    d = (y.float() - want).abs()
+    lim = tol["atol"] + tol["rtol"] * want.abs()
+    row = {"case": c["case"], "q": list(c["q"].shape),
+           "k": list(c["k"].shape), "kv_len": c["kv_len"],
+           "max_abs_diff": float(d.max()),
+           "worst_over_limit": float((d / lim).max()),
+           "finite": bool(torch.isfinite(y).all())}
+    ok = row["worst_over_limit"] <= 1.0 and row["finite"]
+    if c["dtype"] in FLASH_HALF_ULP:
+        want32 = tfa.flash_attention_plain(
+            c["q"].float(), c["k"].float(), c["v"].float(), **kw)
+        d32 = (y.float() - want32).abs()
+        mag = want32.abs()
+        half = FLASH_HALF_ULP[c["dtype"]] * mag
+        row_max = mag.amax(-1, keepdim=True)
+        lim32 = half + FLASH_SUM_SLACK * row_max
+        over = torch.where(d32 == 0, torch.zeros_like(d32), d32 / lim32)
+        row["max_abs_diff_fp32"] = float(d32.max())
+        row["max_abs_plain"] = float(mag.max())
+        # the rounding alone may reach the first term (half an ulp); what
+        # lies beyond it is the fp32 sums' difference, allowed
+        # FLASH_SUM_SLACK of the row's largest |value|
+        row["fp32_excess_over_row_max"] = float(
+            ((d32 - half).clamp(min=0) / row_max.clamp(min=1e-30)).max())
+        row["worst_over_rounding_limit"] = float(over.max())
+        ok = ok and row["worst_over_rounding_limit"] <= 1.0
+    row["ok"] = ok
+    return row
+
+
+def flash_rows(dev, max_seq: int) -> tuple[list[dict], list[dict]]:
+    """(rows, cases): the flash kernel against its plain version at every
+    case of :func:`flash_cases`, one :func:`flash_row` each."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    cases = flash_cases(dev, max_seq)
+    rows = []
+    for c in cases:
+        y = tfa.flash_attention_cuda(c["q"], c["k"], c["v"],
+                                     causal=c["causal"], window=c["window"],
+                                     kv_len=c["kv_len"])
+        torch.cuda.synchronize()
+        rows.append(flash_row(c, y))
+    return rows, cases
+
+
+def flash_phase(dev, max_seq: int) -> dict:
+    """The flash kernel against its plain version (the oracle on folded
+    heads) at every case of :func:`flash_cases`: at ``flash_tolerance``,
+    and the 16-bit cases at the rounding limit too."""
+    rows, cases = flash_rows(dev, max_seq)
+    worst = max(r["max_abs_diff"] for r, c in zip(rows, cases) if c["path"])
+    emit("flash", limit="|d| <= atol + rtol*|plain|, tests/test_kernels.py's "
+                        "_tolerance (fp32 2e-5; bf16 and fp16 8e-2, 4e-2)",
+         rounding_limit=f"16-bit inputs: |y - plain in fp32| <= half an ulp "
+                        f"(bf16 2^-8, fp16 2^-11) x |plain in fp32| + "
+                        f"{FLASH_SUM_SLACK} x the row's max |plain in fp32|",
+         cases=rows)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, f"flash_attention_cuda disagrees with its plain version "
+                   f"on {bad}")
+    return {"max_abs_err": worst, "cases": [c for c in cases if c["path"]]}
+
+
+def build_lm(seed: int, dev):
+    """(cfg, params, statics): full-width, full-depth h2o-danube-1.8B with
+    the pattern-sparse MLPs, bf16 weights drawn on the card from the
+    seed."""
+    import torch
+
+    from repro_torch.configs import h2o_danube_1_8b
+    from repro_torch.models.transformer import init_params
+
+    cfg = h2o_danube_1_8b.config(sparse=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, statics = init_params(cfg, gen, device=dev)
+    return cfg, params, statics
+
+
+def gen_prompts(vocab: int, seed: int) -> list[np.ndarray]:
+    """``GEN_REQUESTS`` seeded prompts of ``GEN_LENGTHS`` tokens (none a
+    multiple of 128) and the ``GEN_LONG`` one at ``GEN_LONG_AT``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = GEN_LENGTHS
+    lengths = [int(n) + (n % 128 == 0) for n in
+               rng.integers(lo, hi + 1, GEN_REQUESTS)]
+    lengths.insert(GEN_LONG_AT, GEN_LONG)
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
+
+
+def prefill_logits(params, statics, prompt, max_seq, cache_dtype, kernel,
+                   dev):
+    """float32 [L, vocab] logits of one prompt's prefill on a fresh cache,
+    as the service prefills it, by the kernel route or the plain one
+    (``apply_model``'s ``prefill`` flag: false keeps every layer on the
+    attention's full or chunked route, and nothing else changes)."""
+    import torch
+
+    from repro_torch.models.transformer import apply_model, init_cache
+
+    n = len(prompt)
+    row = init_cache(statics, 1, max_seq, dtype=cache_dtype, device=dev)
+    toks = torch.as_tensor(prompt[None].astype(np.int64), device=dev)
+    with torch.no_grad():
+        logits, _, _ = apply_model(
+            params, statics, toks, positions=torch.arange(n, device=dev),
+            cache=row, cache_pos=0, cache_len=n, prefill=kernel)
+    return logits[0, :, : statics["cfg"].vocab].float()
+
+
+def rel_diff(a, b) -> float:
+    """max|a - b| relative to max(1, max|b|)."""
+    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def generate_phase(seed: int, dev) -> dict:
+    """Token generation at full width and depth through ``DecodeService``:
+    seeded prompts in bursts (slots refill mid-decode), every prefill
+    through the flash kernel, then the checks and the report."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime.serve import DecodeService, ServeConfig
+    from repro_torch.serve.api import Request
+
+    t0 = time.perf_counter()
+    cfg, params, statics = build_lm(seed, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scfg = ServeConfig(**GEN_SCFG)
+    prompts = gen_prompts(cfg.vocab, seed + 6)
+    tracer = Tracer()
+    svc = DecodeService(cfg, statics, params, scfg, tracer=tracer, device=dev)
+    svc.submit(Request(prompt=np.ones(4, np.int32), max_new_tokens=2))
+    svc.run()  # warm-up through the real admit/decode path
+    svc.reset_metrics()
+    tracer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the generate path: counts from 0, the bursts through the service, read
+    tfa.flash_attention_cuda.launches = 0
+    reqs = [Request(prompt=p, max_new_tokens=GEN_NEW) for p in prompts]
+    run_s = serve_bursts(svc, reqs, GEN_BURSTS)
+    launches = tfa.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    m = svc.metrics
+    spans = tracer.spans()
+    prefill_ms = {}
+    for sp in spans:
+        if sp.name == "serve.prefill":
+            prefill_ms.setdefault(int(sp.args["len"]), []).append(
+                sp.dur * 1e3)
+    decode = [sp for sp in spans if sp.name == "serve.decode"]
+    mid = sum(1 for e in tracer.events()
+              if e.get("args", {}).get("event") == "admit_mid_decode")
+    out_tokens = sum(len(r.output) for r in reqs)
+
+    # co-batched against alone: two requests again, each alone
+    alone = {}
+    for i in (0, GEN_LONG_AT):
+        r = Request(prompt=prompts[i], max_new_tokens=GEN_NEW)
+        svc.submit(r)
+        svc.run()
+        alone[i] = r.output == reqs[i].output
+
+    # prefill logits, kernel route against plain route, on the card
+    bf16 = getattr(torch, scfg.cache_dtype)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    statics32 = {**statics, "cfg": cfg32}
+    params32 = _map_tensors(params, lambda t: t.float())
+    order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    compare = [order[0], order[len(order) // 2], GEN_LONG_AT]
+    parity, first_agree = [], 0
+    for i, p in enumerate(prompts):
+        plain = prefill_logits(params, statics, p, scfg.max_seq, bf16, False,
+                               dev)
+        first_agree += int(int(plain[-1].argmax()) == reqs[i].output[0])
+        if i not in compare:
+            continue
+        kern = prefill_logits(params, statics, p, scfg.max_seq, bf16, True,
+                              dev)
+        ref32 = prefill_logits(params32, statics32, p, scfg.max_seq,
+                               torch.float32, False, dev)
+        kern32 = prefill_logits(params32, statics32, p, scfg.max_seq,
+                                torch.float32, True, dev)
+        noise = rel_diff(plain, ref32)
+        row = {"prompt_len": len(p),
+               "bf16_kernel_vs_plain": rel_diff(kern, plain),
+               "bf16_plain_vs_fp32": noise,
+               "bf16_kernel_vs_fp32": rel_diff(kern, ref32),
+               "bf16_limit": GEN_BF16_NOISE_FACTOR * noise,
+               "fp32_kernel_vs_plain": rel_diff(kern32, ref32),
+               "last_token_argmax_equal": bool(
+                   int(kern[-1].argmax()) == int(plain[-1].argmax())),
+               "max_abs_logit": float(plain.abs().max())}
+        row["ok"] = (row["bf16_kernel_vs_plain"] <= row["bf16_limit"]
+                     and row["fp32_kernel_vs_plain"] <= GEN_FP32_REL)
+        parity.append(row)
+    del params32
+    torch.cuda.empty_cache()
+
+    prefills = len(reqs)
+    dec_s = sum(sp.dur for sp in decode)
+    dec_tokens = sum(int(sp.args["live"]) for sp in decode)
+    res = dict(
+        model=cfg.name, sparse=dataclasses.asdict(cfg.sparse),
+        layers=cfg.n_layers, d_model=cfg.d_model, heads=[cfg.n_heads,
+                                                          cfg.n_kv_heads],
+        d_head=cfg.d_head, window=cfg.window, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        param_dtype=cfg.param_dtype, init_seconds=init_s,
+        serve_config=GEN_SCFG, requests=len(reqs), new_tokens=GEN_NEW,
+        bursts=list(GEN_BURSTS),
+        prompt_lengths=[len(p) for p in prompts],
+        all_done=all(r.done and len(r.output) == GEN_NEW for r in reqs),
+        trace_count=svc.trace_count(),
+        prefill_trace_count=svc.prefill_trace_count(),
+        admitted_mid_decode=mid, prefills=prefills, launches=launches,
+        launches_expected=cfg.n_layers * prefills,
+        alone_vs_cobatched_equal=alone,
+        logits_limit=(f"relative to max|plain logit|: bf16 kernel vs plain "
+                      f"<= {GEN_BF16_NOISE_FACTOR} x (bf16 plain vs fp32 "
+                      f"plain); fp32 kernel vs plain <= {GEN_FP32_REL}"),
+        prefill_logits=parity,
+        first_token_agreement_vs_plain=first_agree / len(prompts),
+        prefill_ms_by_len={str(k): v for k, v in sorted(prefill_ms.items())},
+        run_seconds=run_s, output_tokens=out_tokens,
+        tokens_per_s=out_tokens / run_s,
+        decode_steps=len(decode), decode_tokens=dec_tokens,
+        decode_tokens_per_s=dec_tokens / dec_s if dec_s else None,
+        ttft_p50_s=m["first_result_p50_s"], ttft_p99_s=m["first_result_p99_s"],
+        latency_p50_s=m["latency_p50_s"], latency_p99_s=m["latency_p99_s"],
+        occupancy_mean=m["occupancy_mean"], peak_memory_bytes=peak,
+    )
+    emit("generate", **res)
+    check(res["all_done"], "a generation request did not complete")
+    check(res["trace_count"] == 1,
+          f"decode trace_count {res['trace_count']} != 1")
+    check(mid > 0, "no slot was refilled mid-decode")
+    check(launches == res["launches_expected"],
+          f"flash_attention_cuda launches {launches} != {cfg.n_layers} "
+          f"layers x {prefills} prefills")
+    check(all(alone.values()), f"co-batched tokens differ from alone: {alone}")
+    bad = [r["prompt_len"] for r in parity if not r["ok"]]
+    check(not bad, f"prefill logits of the kernel route off the plain route "
+                   f"for prompts of {bad} tokens")
+    return {"launches": launches}
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tensors(v, fn) for v in tree]
+    return fn(tree)
 
 
 def run(seed: int, dev) -> dict:
@@ -686,6 +1089,7 @@ def run(seed: int, dev) -> dict:
         save_program,
     )
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ou_mvm as tou
     from repro_torch.kernels import pattern_spmm as tk
     from repro_torch.models.cnn import cnn_apply, params_from_numpy
@@ -878,7 +1282,14 @@ def run(seed: int, dev) -> dict:
     launches["ou_mvm_cuda"] = ou["launches"]
     max_err["ou_mvm_cuda"] = ou["max_abs_err"]
 
-    # -- 8. times at the main paths' shapes ------------------------------
+    # -- 8. flash attention against its plain version, on the card ------
+    fl = flash_phase(dev, GEN_SCFG["max_seq"])
+    max_err["flash_attention_cuda"] = fl["max_abs_err"]
+
+    # -- 9. token generation, every prefill through the flash kernel ----
+    launches["flash_attention_cuda"] = generate_phase(seed, dev)["launches"]
+
+    # -- 10. times at the main paths' shapes -----------------------------
     summary = []
     per_layer = {}
     for kname in ("pattern_spmm_cuda", "pattern_spmm_quant_cuda"):
@@ -948,6 +1359,53 @@ def run(seed: int, dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": ou_tot["library_ms"],
     })
+    fl_rows, fl_tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                           "bytes": 0.0, "ops": 0.0}
+    hq, hkv, d = FLASH_HEADS
+    for c in fl["cases"]:
+        q, k, v, n = c["q"], c["k"], c["v"], c["kv_len"]
+        kw = dict(causal=True, window=FLASH_WINDOW, kv_len=n)
+        qpos = torch.arange(n, device=dev)[:, None]
+        kpos = torch.arange(k.shape[2], device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - FLASH_WINDOW) & (kpos < n)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+
+        ms = device_ms(lambda: tfa.flash_attention_cuda(q, k, v, **kw), dev)
+        plain = device_ms(lambda: tfa.flash_attention_plain(q, k, v, **kw),
+                          dev)
+        lib_ms = device_ms(sdpa, dev)
+        lib_diff = float((sdpa().float() - tfa.flash_attention_plain(
+            q, k, v, **kw).float()).abs().max())
+        nbytes, ops = flash_cost(1, hq, hkv, n, n, d, 2, True, FLASH_WINDOW)
+        for key, val in (("ms", ms), ("plain_ms", plain),
+                         ("library_ms", lib_ms), ("bytes", nbytes),
+                         ("ops", ops)):
+            fl_tot[key] += val
+        fl_rows.append({
+            "case": c["case"], "q": list(q.shape), "k": list(k.shape),
+            "kv_len": n, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+            "library_max_abs_diff_vs_plain": lib_diff,
+            "bytes": nbytes, "ops": ops, "visible_pairs_per_head": int(
+                ops / (4 * d * hq)),
+            "bound_ms_bf16": max(nbytes / HBM_BYTES_PER_S,
+                                 ops / PEAK_BF16_FLOPS) * 1e3,
+            "bound_ms_fp32_cuda_cores": max(nbytes / HBM_BYTES_PER_S,
+                                            ops / PEAK_FP32_FLOPS) * 1e3})
+    per_layer["flash_attention_cuda"] = fl_rows
+    bytes_ms = fl_tot["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = fl_tot["ops"] / PEAK_BF16_FLOPS * 1e3
+    summary.append({
+        "name": "flash_attention_cuda", **KERNELS["flash_attention_cuda"],
+        "launches": launches["flash_attention_cuda"],
+        "max_abs_err": max_err["flash_attention_cuda"],
+        "ms": fl_tot["ms"], "plain_ms": fl_tot["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": fl_tot["library_ms"],
+    })
     # the searched program's bricks through the fp32 kernel, per forward
     searched_spmm = {"ms": 0.0, "bound_ms": 0.0}
     for name, bp, x in layer_cases(searched["program"],
@@ -973,7 +1431,9 @@ def run(seed: int, dev) -> dict:
         "latency_p99_s": bare.metrics["latency_p99_s"]}
     emit("times", card=smi, unit=f"spmm: ms per forward of {BATCH_SLOTS} "
          f"images ({spmms} launches), summed over layers; ou_mvm: ms per "
-         f"call, summed over the {len(ou['cases'])} conv cases",
+         f"call, summed over the {len(ou['cases'])} conv cases; flash: ms "
+         f"per launch of the prefill's call at S in {list(FLASH_PATH_S)}, "
+         f"summed; its bound at the bf16 tensor cores' rate",
          per_layer=per_layer, searched_fp32_spmm_per_forward=searched_spmm,
          forward_ms=forward_ms,
          service_without_stats=service_without_stats,

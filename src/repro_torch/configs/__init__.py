@@ -1,0 +1,12 @@
+"""Architecture and shape registry (port of ``repro.configs``)."""
+
+from repro_torch.configs.base import (  # noqa: F401
+    ARCH_NAMES,
+    PORTED,
+    SHAPES,
+    ShapeSpec,
+    get_config,
+    get_smoke_config,
+    runnable,
+    skip_reason,
+)

@@ -1,0 +1,97 @@
+"""Architecture + shape registry (port of ``src/repro/configs/base.py``).
+
+Every ported architecture has a module exporting:
+  config(shape: ShapeSpec|None, sparse=False) -> ModelConfig  (published)
+  smoke_config() -> ModelConfig                 (reduced, CPU-runnable)
+
+Ported: ``granite_3_2b`` and ``h2o_danube_1_8b``.  The other eight
+architectures of ``ARCH_NAMES`` come with their mixers (``ROADMAP.md``
+Queue 1 item 11.6) and raise ``NotImplementedError`` here.  The
+reference's ``input_specs`` builds ``jax.ShapeDtypeStruct`` stand-ins for
+its dry-run lowering and has no counterpart in the port.
+
+Shapes (seq_len x global_batch):
+  train_4k     4,096 x 256   training
+  prefill_32k  32,768 x 32   inference
+  decode_32k   32,768 x 128  inference (1 new token, KV cache of seq_len)
+  long_500k    524,288 x 1   long-context; requires sub-quadratic
+                             attention -> runs only for ssm / hybrid /
+                             SWA archs
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+__all__ = ["ShapeSpec", "SHAPES", "ARCH_NAMES", "PORTED", "get_config",
+           "get_smoke_config", "runnable", "skip_reason"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+ARCH_NAMES = [
+    "qwen2_5_32b",
+    "granite_3_2b",
+    "phi3_medium_14b",
+    "h2o_danube_1_8b",
+    "whisper_small",
+    "jamba_1_5_large_398b",
+    "mamba2_780m",
+    "deepseek_v2_236b",
+    "deepseek_v3_671b",
+    "paligemma_3b",
+]
+
+PORTED = ("granite_3_2b", "h2o_danube_1_8b")
+
+# archs with sub-quadratic sequence mixing -> long_500k runs
+_LONG_OK = {"jamba_1_5_large_398b", "mamba2_780m", "h2o_danube_1_8b"}
+
+
+def _module(arch: str):
+    if arch not in ARCH_NAMES:
+        raise KeyError(f"unknown architecture {arch!r}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported: the other configs come with their mixers "
+            "(ROADMAP.md Queue 1 item 11.6)"
+        )
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str, shape: str | ShapeSpec | None = None):
+    spec = SHAPES[shape] if isinstance(shape, str) else shape
+    return _module(arch).config(spec)
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).smoke_config()
+
+
+def runnable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in _LONG_OK
+    return True
+
+
+def skip_reason(arch: str, shape: str) -> str | None:
+    if runnable(arch, shape):
+        return None
+    return (
+        "long_500k requires sub-quadratic attention; "
+        f"{arch} is a pure full-attention architecture (DESIGN §4)"
+    )

@@ -19,7 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "build_dir", "find_nvcc", "load_library"]
+__all__ = ["NVCC_FLAGS", "build", "build_dir", "declare", "find_nvcc",
+           "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -112,12 +113,23 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the library, with every entry point's
     argument and return types declared."""
-    lib = ctypes.CDLL(str(build()))
+    return declare(ctypes.CDLL(str(build())))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and return types of every entry point ``lib``
+    has (a library built from some of the sources has only theirs)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pattern_spmm_f32.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
-    lib.pattern_spmm_f32.restype = i32
-    lib.pattern_spmm_i8.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
-    lib.pattern_spmm_i8.restype = i32
-    lib.ou_mvm_f32.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-    lib.ou_mvm_f32.restype = i32
+    sigs = {
+        "pattern_spmm_f32": [ptr] * 5 + [i32] * 7 + [ptr],
+        "pattern_spmm_i8": [ptr] * 6 + [i32] * 7 + [ptr],
+        "ou_mvm_f32": [ptr] * 3 + [i32] * 4 + [ptr],
+        "flash_attention_fwd": (
+            [ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 12
+            + [ctypes.c_float] + [i32] * 4 + [ptr]),
+    }
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, i32
     return lib

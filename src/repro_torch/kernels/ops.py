@@ -1,7 +1,7 @@
 """Dispatch for the port's ops through the Hopper kernels' wrappers.
 
-Every op calls the wrappers in ``kernels/pattern_spmm.py`` and
-``kernels/ou_mvm.py``, which pick
+Every op calls the wrappers in ``kernels/pattern_spmm.py``,
+``kernels/ou_mvm.py`` and ``kernels/flash_attention.py``, which pick
 by the tensor's device: on a CUDA tensor they launch their kernel or
 raise, on a CPU tensor they run their plain PyTorch version.  There is
 no second route: :func:`default_backend` only names the one a tensor
@@ -17,13 +17,15 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantize import quantize_rows
 from repro_torch.core.sparse import BlockPatternWeight
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ou_mvm import ou_mvm_cuda
 from repro_torch.kernels.pattern_spmm import (
     pattern_spmm_cuda,
     pattern_spmm_quant_cuda,
 )
 
-__all__ = ["default_backend", "ou_mvm", "pattern_spmm", "pattern_spmm_raw"]
+__all__ = ["default_backend", "flash_attention", "ou_mvm", "pattern_spmm",
+           "pattern_spmm_raw"]
 
 
 def default_backend(x: torch.Tensor) -> str:
@@ -106,3 +108,23 @@ def ou_mvm(
     runs the CUDA kernel (or raises); on a CPU tensor its plain version.
     """
     return ou_mvm_cuda(x, w, ou_rows=ou_rows, ou_cols=ou_cols)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Hq, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,  # [B, Hkv, Sk, D]
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    kv_len: int | None = None,
+) -> torch.Tensor:
+    """GQA flash attention.  Returns [B, Hq, Sq, D] in q's dtype.
+
+    The kernel folds GQA itself (query head ``h`` reads key head
+    ``h // (Hq / Hkv)``), so the key heads are never repeated, and it
+    masks its own ragged tiles, so nothing is padded.  Query positions
+    start at 0; ``kv_len`` (default Sk) masks the keys at and after it.
+    """
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                scale=scale, kv_len=kv_len)

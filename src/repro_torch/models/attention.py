@@ -1,0 +1,320 @@
+"""GQA / MQA / full / sliding-window attention with KV caches.
+
+Port of ``src/repro/models/attention.py``.  Four execution routes:
+
+  * kernel  — a prefill goes through the hand-written Hopper
+              flash-attention kernel, ``kernels.ops.flash_attention`` (on
+              the CPU, its plain version).  A prefill is self-attention
+              (no ``memory``) over ``s > 1`` queries at the shared
+              positions ``arange(s)`` — no cache, or a scalar
+              ``cache_pos == 0`` — with ``cfg.grouped``.  The keys are
+              read back from the cache (through a transposed view, no
+              copy) as the reference reads them; the kernel's query
+              positions start at 0, ``kv_len = cache_len`` and causal
+              order hides every later slot, and no row is fully masked,
+              so the kernel computes what ``_full_attention`` and
+              ``_chunked_attention`` compute there.  This is the drop-in
+              the reference names for its pure-XLA path.  The positions
+              test (:func:`is_prefill`) is the caller's: ``apply_model``
+              makes it once per forward and passes ``prefill`` to every
+              layer, and ``prefill=False`` keeps a call on the plain
+              routes;
+  * full    — einsum attention (every other call up to
+              ``full_attn_max_seq``);
+  * chunked — a loop over KV chunks with online softmax beyond it:
+              O(S * chunk) score memory;
+  * decode  — a single-token query against the cache, with the
+              sliding-window slice when every row shares one position, so
+              SWA decode reads O(window) keys, not O(S).  Decode steps at
+              per-row positions (continuous batching) take the full or
+              chunked route, on the card too, as the reference's XLA
+              decode does.
+
+``decode_strategy="flash"`` (flash-decode over a sequence-sharded cache)
+needs a device mesh and raises ``NotImplementedError`` (``ROADMAP.md``
+Queue 1 item 10).
+
+Head padding: q heads are padded to a multiple of the TP degree
+(``parallel.sharding.padded_heads``); padded heads have zero in/out
+projection weights, so they are numerically inert.  GQA grouping uses the
+kernel's head fold when padded_q % kv == 0, otherwise a kv-repeat
+fallback on the plain routes (phi3's 10 kv heads).
+
+Caches are updated in place (the reference returns a new cache): the
+returned cache is the one passed in, written at the new positions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (
+    apply_rope,
+    linear,
+    linear_init,
+    rope_frequencies,
+)
+from repro_torch.parallel.sharding import padded_heads
+
+__all__ = ["AttnConfig", "attention_init", "attention_apply", "init_kv_cache",
+           "is_prefill"]
+
+_NEG = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    qkv_bias: bool = False
+    causal: bool = True
+    window: int | None = None  # sliding window (h2o-danube)
+    rope_theta: float | None = 10000.0  # None -> no RoPE (whisper)
+    model_shards: int = 16
+    chunk: int = 1024  # kv chunk for the online-softmax path
+    full_attn_max_seq: int = 8192  # einsum path below this
+    # decode against a sequence-sharded KV cache: 'gather' (one device:
+    # the plain route) or 'flash' (needs a mesh; not ported)
+    decode_strategy: str = "gather"
+
+    @property
+    def hq_pad(self) -> int:
+        return padded_heads(self.n_heads, self.model_shards)
+
+    @property
+    def grouped(self) -> bool:
+        return self.hq_pad % self.n_kv_heads == 0
+
+
+def attention_init(generator, cfg: AttnConfig, param_dtype=torch.float32,
+                   device=None):
+    d, dh = cfg.d_model, cfg.d_head
+    hq, hkv = cfg.hq_pad, cfg.n_kv_heads
+    kw = dict(bias=cfg.qkv_bias, param_dtype=param_dtype, device=device)
+    params = {
+        "wq": linear_init(generator, d, hq * dh, **kw),
+        "wk": linear_init(generator, d, hkv * dh, **kw),
+        "wv": linear_init(generator, d, hkv * dh, **kw),
+        "wo": linear_init(generator, hq * dh, d, param_dtype=param_dtype,
+                          scale=(hq * dh) ** -0.5, device=device),
+    }
+    if cfg.hq_pad != cfg.n_heads:  # zero the padded heads' columns and rows
+        real = cfg.n_heads * dh
+        params["wq"]["w"][:, real:] = 0.0
+        params["wo"]["w"][real:] = 0.0
+    return params
+
+
+def init_kv_cache(
+    cfg: AttnConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+    device=None,
+):
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _expand_kv(cfg: AttnConfig, q, k, v):
+    """Align kv head count with q heads.  q: [B,S,Hq,D]; k/v: [B,T,Hkv,D].
+    Returns q,k,v as [B,H,S,D] with H = hq_pad."""
+    hq = q.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2)
+    vt = v.transpose(1, 2)
+    if cfg.grouped:
+        rep = hq // cfg.n_kv_heads
+    else:  # phi3-style: repeat kv to match q heads
+        rep = -(-hq // cfg.n_kv_heads)
+    kt = kt.repeat_interleave(rep, dim=1)[:, :hq]
+    vt = vt.repeat_interleave(rep, dim=1)[:, :hq]
+    return qt, kt, vt
+
+
+def _is_tensor_vector(a) -> bool:
+    return isinstance(a, torch.Tensor) and a.dim() > 0
+
+
+def _mask(qpos, kpos, causal: bool, window: int | None, kv_len):
+    qq = qpos[..., :, None]
+    kk = kpos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(qq.shape, kk.shape),
+                   dtype=torch.bool, device=kk.device)
+    if causal:
+        m &= qq >= kk
+    if window is not None:
+        m &= kk > qq - window
+    if kv_len is not None:
+        kv = kv_len[..., None, None] if _is_tensor_vector(kv_len) else kv_len
+        m &= kk < kv
+    return m
+
+
+def _expand_mask(m: torch.Tensor) -> torch.Tensor:
+    """Broadcast a mask to score rank 4: [S,T] -> [1,1,S,T] (shared across
+    batch) or [B,S,T] -> [B,1,S,T] (per-row positions / cache lengths)."""
+    return m[None, None] if m.dim() == 2 else m[:, None]
+
+
+def _full_attention(q, k, v, qpos, kpos, causal, window, kv_len):
+    """q,k,v: [B,H,S,D] / [B,H,T,D]."""
+    dh = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (dh ** -0.5)
+    m = _mask(qpos, kpos, causal, window, kv_len)  # [Sq, Tk] / [B, Sq, Tk]
+    s = torch.where(_expand_mask(m), s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def _chunked_attention(q, k, v, qpos, kpos, causal, window, kv_len,
+                       chunk: int):
+    """Online-softmax loop over KV chunks.  q/k: [B,H,S,D], v: [B,H,T,Dv]."""
+    b, h, sq, dh = q.shape
+    t = k.shape[2]
+    dv = v.shape[-1]
+    n_chunks = -(-t // chunk)
+    pad = n_chunks * chunk - t
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        kpos = torch.nn.functional.pad(kpos, (0, pad), value=2**30)
+    qf = q.float()
+    m_prev = torch.full((b, h, sq, 1), _NEG, dtype=torch.float32,
+                        device=q.device)
+    l_prev = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, k[:, :, sl].float()) * (
+            dh ** -0.5
+        )
+        msk = _mask(qpos, kpos[sl], causal, window, kv_len)
+        s = torch.where(_expand_mask(msk), s, _NEG)
+        m_cur = s.amax(dim=-1, keepdim=True)
+        m_new = torch.maximum(m_prev, m_cur)
+        alpha = torch.exp(m_prev - m_new)
+        p = torch.exp(s - m_new)
+        l_prev = alpha * l_prev + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p,
+                                         v[:, :, sl].float())
+        m_prev = m_new
+    return (acc / torch.clamp(l_prev, min=1e-30)).to(q.dtype)
+
+
+def is_prefill(s: int, positions, memory=None, cache=None,
+               cache_pos=None) -> bool:
+    """Whether a call is a prefill in the kernel route's sense (module
+    docstring), apart from ``cfg.grouped``, which is the layer's own.  The
+    cheap tests come first; the last reads the device once, so a model
+    decides this once per forward, not once per layer."""
+    if not (memory is None and s > 1 and positions.dim() == 1
+            and positions.shape[0] == s):
+        return False
+    if cache is not None and cache_pos is not None:
+        if _is_tensor_vector(cache_pos) or int(cache_pos) != 0:
+            return False
+    return torch.equal(positions, torch.arange(s, dtype=positions.dtype,
+                                               device=positions.device))
+
+
+def attention_apply(
+    params,
+    cfg: AttnConfig,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [S] (shared) or [B, S] (per-row) positions
+    memory: torch.Tensor | None = None,  # cross-attention source [B, T, D]
+    cache: dict | None = None,  # kv cache to read/update (in place)
+    cache_pos=None,  # scalar or [B] write offset
+    cache_len=None,  # scalar or [B] valid length
+    prefill: bool | None = None,  # the caller's is_prefill(); None: test here
+) -> tuple[torch.Tensor, dict | None]:
+    """Returns (output [B,S,D], cache).
+
+    ``positions`` / ``cache_pos`` / ``cache_len`` accept either the shared
+    (scalar / [S]) form — every batch row at the same decode position — or
+    the per-row ([B,S] / [B]) form used by continuous batching, where each
+    slot advances independently.  Per-row mode keeps the mask-based paths
+    (the SWA slice needs a shared scalar position and is skipped)."""
+    b, s, _ = x.shape
+    dh, hq = cfg.d_head, cfg.hq_pad
+    per_row = _is_tensor_vector(cache_pos) or _is_tensor_vector(cache_len)
+
+    q = linear(params["wq"], x).reshape(b, s, hq, dh)
+    src = memory if memory is not None else x
+    t_src = src.shape[1]
+    k = linear(params["wk"], src).reshape(b, t_src, cfg.n_kv_heads, dh)
+    v = linear(params["wv"], src).reshape(b, t_src, cfg.n_kv_heads, dh)
+
+    if cfg.rope_theta is not None and memory is None:
+        freqs = rope_frequencies(dh, cfg.rope_theta, device=x.device)
+        pos_b = positions if positions.dim() == 2 else positions[None, :]
+        q = apply_rope(q, pos_b, freqs)
+        k = apply_rope(k, pos_b, freqs)
+
+    if prefill is None:
+        prefill = is_prefill(s, positions, memory, cache, cache_pos)
+    kernel = prefill and memory is None and s > 1 and cfg.grouped
+    if cache is not None and memory is None:
+        pos0 = cache_pos if cache_pos is not None else 0
+        t = cache["k"].shape[1]
+        if _is_tensor_vector(pos0):
+            rows = torch.arange(b, device=x.device)[:, None]
+            cols = pos0[:, None] + torch.arange(s, device=x.device)[None, :]
+            cache["k"][rows, cols] = k.to(cache["k"].dtype)
+            cache["v"][rows, cols] = v.to(cache["v"].dtype)
+        else:
+            # dynamic_update_slice clamps the start so the update fits
+            p0 = min(max(int(pos0), 0), t - s)
+            cache["k"][:, p0:p0 + s] = k.to(cache["k"].dtype)
+            cache["v"][:, p0:p0 + s] = v.to(cache["v"].dtype)
+        k_all, v_all = cache["k"], cache["v"]
+        kpos = torch.arange(t, device=x.device)
+        kv_len = cache_len
+        # SWA decode: only the last `window` positions can score — slice
+        # them out so decode work is O(window), not O(max_seq)
+        if cfg.window is not None and s == 1 and t > cfg.window and not per_row:
+            w = cfg.window
+            end = int(cache_len) if cache_len is not None else t
+            start = min(max(end - w, 0), t - w)
+            k_all = k_all[:, start:start + w]
+            v_all = v_all[:, start:start + w]
+            kpos = start + torch.arange(w, device=x.device)
+        k, v = k_all, v_all
+    else:
+        kpos = (torch.arange(t_src, device=x.device) if memory is not None
+                else positions)
+        kv_len = None
+
+    if (cfg.decode_strategy == "flash" and s == 1 and cache is not None
+            and memory is None and cfg.window is None and not per_row):
+        # the reference's shard_map flash-decode over a sequence-sharded
+        # cache (attention.py:210)
+        raise NotImplementedError(
+            "decode_strategy='flash' needs a device mesh: sharded "
+            "flash-decode is ROADMAP.md Queue 1 item 10 of the port")
+
+    if kernel:
+        kv = int(kv_len) if kv_len is not None else k.shape[1]
+        dt = torch.promote_types(q.dtype, k.dtype)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        if kh.dtype != dt:  # a cache in another type: the keys it reads
+            kh, vh = kh[:, :, :kv].to(dt), vh[:, :, :kv].to(dt)
+        out = ops.flash_attention(q.transpose(1, 2).to(dt), kh, vh,
+                                  causal=cfg.causal, window=cfg.window,
+                                  kv_len=kv)
+    else:
+        qh, kh, vh = _expand_kv(cfg, q, k, v)
+        causal = cfg.causal and memory is None
+        t = kh.shape[2]
+        if max(s, t) <= cfg.full_attn_max_seq:
+            out = _full_attention(qh, kh, vh, positions, kpos, causal,
+                                  cfg.window, kv_len)
+        else:
+            out = _chunked_attention(qh, kh, vh, positions, kpos, causal,
+                                     cfg.window, kv_len, cfg.chunk)
+    out = out.transpose(1, 2).reshape(b, s, hq * dh)
+    return linear(params["wo"], out.to(x.dtype)), cache

@@ -1,0 +1,434 @@
+"""Shared model building blocks: norms, embeddings, RoPE, MLPs, PatternLinear.
+
+Port of ``src/repro/models/layers.py``.  Every ``*_init`` draws from an
+explicit ``torch.Generator`` (on the device it creates its tensors on)
+and returns a dict of parameter tensors — the MLP and the pattern-sparse
+linear also return their static layout.  The reference's logical-axis
+specs are left out: the port runs on one device.  All ``*_apply`` are
+functions of their arguments.  Compute dtype is the caller's; params are
+created in ``param_dtype``.
+
+The pattern-sparse layouts (``_fake_block_ids``, ``_fake_pattern_groups``)
+are the reference's numpy, copied, so a layout here is bit-equal to the
+reference's for the same arguments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import pattern_spmm_raw
+
+__all__ = [
+    "PatternSparseConfig",
+    "rmsnorm_init", "rmsnorm",
+    "layernorm_init", "layernorm",
+    "embed_init",
+    "linear_init", "linear",
+    "sparse_linear_static", "sparse_linear_init", "sparse_linear",
+    "sparse_tables",
+    "mlp_static", "mlp_init", "mlp_apply",
+    "rope_frequencies", "apply_rope",
+]
+
+
+# ---------------------------------------------------------------------------
+# pattern-sparse linear (the paper's technique, block-granular)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PatternSparseConfig:
+    """Config for block-pattern sparse linears (the paper's technique).
+
+    density:      fraction of 128-row blocks kept per output column.
+    num_patterns: dictionary size (pattern pruning).
+    kmax_slack:   static head-room over ceil(density * n_blocks) for tile
+                  unions after reordering (mixed tiles).
+    """
+
+    density: float = 0.25
+    num_patterns: int = 8
+    block: int = 128
+    tile: int = 128
+    kmax_slack: float = 1.5
+
+    def k_max(self, k_in: int) -> int:
+        nb = k_in // self.block
+        return max(1, min(nb, int(np.ceil(self.density * nb * self.kmax_slack))))
+
+    def applicable(self, k_in: int, n_out: int, model_shards: int) -> bool:
+        # the tile table pads itself to a multiple of model_shards, so only
+        # block/tile alignment of the true dims is required
+        return k_in % self.block == 0 and n_out % self.tile == 0
+
+
+def _fake_block_ids(
+    n_tiles: int, k_max: int, n_blocks: int, seed: int
+) -> np.ndarray:
+    """Statistically-plausible block index table for init/dry-run.
+
+    Sorted unique ids per tile (what a real layout produces); padding slots
+    repeat the last id (their weight bricks are zero).
+    """
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((n_tiles, k_max), np.int32)
+    for t in range(n_tiles):
+        pick = np.sort(rng.choice(n_blocks, size=min(k_max, n_blocks), replace=False))
+        ids[t, : pick.size] = pick
+        ids[t, pick.size :] = pick[-1] if pick.size else 0
+    return ids
+
+
+def _fake_pattern_groups(
+    n_tiles: int, k_max: int, n_blocks: int, num_patterns: int, seed: int,
+    model_shards: int = 1,
+) -> list[dict]:
+    """Dictionary-level layout: tiles grouped by shared pattern.
+
+    This is the paper's kernel-reordering invariant at tile granularity —
+    after reordering, tiles with the same pattern are contiguous, so the
+    plain path can run ONE gather + ONE dense matmul per dictionary pattern
+    (pattern blocks), instead of per-brick gathers.  Group boundaries are
+    rounded to shard-chunk multiples so slices of the tiles-sharded weight
+    stay local.  Returns [{'tiles': (start, stop), 'blocks': ids}].
+    """
+    rng = np.random.default_rng(seed)
+    chunk = max(1, n_tiles // max(model_shards, 1))
+    n_groups = min(num_patterns, max(1, n_tiles // chunk))
+    bounds = np.linspace(0, n_tiles, n_groups + 1)
+    bounds = np.round(bounds / chunk).astype(int) * chunk
+    bounds[0], bounds[-1] = 0, n_tiles
+    groups = []
+    for g in range(n_groups):
+        if bounds[g + 1] <= bounds[g]:
+            continue
+        pick = np.sort(rng.choice(n_blocks, size=min(k_max, n_blocks),
+                                  replace=False))
+        groups.append({
+            "tiles": (int(bounds[g]), int(bounds[g + 1])),
+            "blocks": pick.astype(np.int32),
+        })
+    return groups
+
+
+def sparse_tables(static: dict, device) -> dict:
+    """Device copies of a sparse layout's index tables, made once: the
+    groups' block ids, the brick table with its ``nnz`` (every slot of
+    the init layouts is real), and the inverse permutation (None when it
+    is the identity)."""
+    inv = static["inv_order"]
+    n_out = static["n_out"]
+    ids = static["block_ids"]
+    return {
+        "groups": [torch.as_tensor(g["blocks"], dtype=torch.long,
+                                   device=device)
+                   for g in static["groups"]],
+        "block_ids": torch.as_tensor(ids, dtype=torch.int32, device=device),
+        "nnz": torch.full((ids.shape[0],), ids.shape[1], dtype=torch.int32,
+                          device=device),
+        "inv_order": (None if np.array_equal(inv, np.arange(n_out))
+                      else torch.as_tensor(inv, dtype=torch.long,
+                                           device=device)),
+    }
+
+
+def sparse_linear_static(
+    k_in: int,
+    n_out: int,
+    cfg: PatternSparseConfig,
+    seed: int = 0,
+    model_shards: int = 16,
+    device=None,
+) -> dict:
+    """The static layout of a block-pattern compressed linear: the
+    reference's keys (``block_ids``, ``groups``, ``inv_order``, ``block``,
+    ``tile``, ``n_out``) as numpy, plus ``"tables"``, their device copies
+    (:func:`sparse_tables`).
+
+    The tile table is padded to a multiple of ``model_shards`` so the tiles
+    dim shards evenly on any d_ff; padded tiles hold zero bricks and their
+    output columns are sliced off.
+    """
+    nb = k_in // cfg.block
+    n_tiles = n_out // cfg.tile
+    n_tiles_pad = ((n_tiles + model_shards - 1) // model_shards) * model_shards
+    k_max = cfg.k_max(k_in)
+    static = {
+        "block_ids": _fake_block_ids(n_tiles_pad, k_max, nb, seed),
+        "groups": _fake_pattern_groups(
+            n_tiles_pad, k_max, nb, cfg.num_patterns, seed,
+            model_shards=model_shards,
+        ),
+        "inv_order": np.arange(n_out, dtype=np.int32),
+        "block": cfg.block,
+        "tile": cfg.tile,
+        "n_out": n_out,
+    }
+    static["tables"] = sparse_tables(static, device)
+    return static
+
+
+def sparse_linear_init(
+    generator: torch.Generator,
+    k_in: int,
+    n_out: int,
+    cfg: PatternSparseConfig,
+    param_dtype=torch.float32,
+    seed: int = 0,
+    model_shards: int = 16,
+    device=None,
+):
+    """Block-pattern compressed linear: ``(params, static)``.  The layout
+    (block_ids, inv_order) is a static constant (the paper's weight-index
+    buffer); ``w_comp`` is the compressed weight."""
+    static = sparse_linear_static(k_in, n_out, cfg, seed, model_shards, device)
+    return _sparse_params(generator, static, k_in, cfg, param_dtype,
+                          device), static
+
+
+def _sparse_params(generator, static, k_in: int, cfg: PatternSparseConfig,
+                   param_dtype, device) -> dict:
+    """``w_comp`` for a sparse layout: normal bricks scaled by
+    1 / sqrt(k_in * density), zero in the tile-padding tiles."""
+    n_tiles_pad, k_max = static["block_ids"].shape
+    scale = 1.0 / np.sqrt(k_in * cfg.density)
+    w = _normal(generator, (n_tiles_pad, k_max, cfg.block, cfg.tile),
+                scale, param_dtype, device)
+    w[static["n_out"] // cfg.tile:] = 0.0
+    return {"w_comp": w}
+
+
+def sparse_linear(params, static, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W_compressed.
+
+    When the layout carries dictionary groups (tiles sharing a pattern are
+    contiguous — the paper's kernel reordering), compute runs as one gather
+    + one dense matmul per *pattern* (pattern blocks), the paper's compute
+    structure; the reference leaves those matmuls to XLA outside any Pallas
+    kernel, and here they are ``torch.matmul``.  An arbitrary ``block_ids``
+    table with no groups goes through ``kernels.ops.pattern_spmm_raw``:
+    the Hopper spmm kernel on a CUDA tensor.
+    """
+    groups = static.get("groups")
+    tables = static["tables"]
+    w_comp = params["w_comp"].to(x.dtype)
+    block, tile = static["block"], static.get("tile", w_comp.shape[-1])
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, x.shape[-1])
+    m = xm.shape[0]
+    if groups:
+        xb = xm.reshape(m, -1, block)
+        outs = []
+        for g, blocks in zip(groups, tables["groups"]):
+            t0, t1 = g["tiles"]
+            s_p = len(g["blocks"])
+            # pattern block: gather once, one dense matmul (paper Fig 4)
+            xg = xb.index_select(1, blocks).reshape(m, s_p * block)
+            # bricks of this group in tile order -> [s_p*block, cols]
+            wg = w_comp[t0:t1, :s_p].permute(1, 2, 0, 3).reshape(
+                s_p * block, (t1 - t0) * tile
+            )
+            outs.append(xg @ wg)
+        y = torch.cat(outs, dim=-1)
+    else:
+        y = pattern_spmm_raw(
+            xm, w_comp.float(), tables["block_ids"], block,
+            nnz=tables["nnz"],
+        ).to(x.dtype)
+    y = y.reshape(*lead, y.shape[-1])
+    n_out = static["n_out"]
+    if y.shape[-1] != n_out:  # drop tile-padding columns
+        y = y[..., :n_out]
+    if tables["inv_order"] is not None:
+        y = y.index_select(-1, tables["inv_order"])
+    return y
+
+
+# ---------------------------------------------------------------------------
+# dense primitives
+# ---------------------------------------------------------------------------
+
+
+def _normal(generator, shape, scale, dtype, device) -> torch.Tensor:
+    """Standard normal draws from ``generator`` in float32, scaled, then
+    cast to ``dtype``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w * scale).to(dtype)
+
+
+def rmsnorm_init(d: int, param_dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=param_dtype, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, param_dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=param_dtype, device=device),
+            "bias": torch.zeros((d,), dtype=param_dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def embed_init(generator, vocab: int, d: int, param_dtype=torch.float32,
+               device=None):
+    return {"w": _normal(generator, (vocab, d), d ** -0.5, param_dtype,
+                         device)}
+
+
+def linear_init(
+    generator,
+    d_in: int,
+    d_out: int,
+    bias: bool = False,
+    param_dtype=torch.float32,
+    scale: float | None = None,
+    device=None,
+):
+    scale = scale if scale is not None else d_in ** -0.5
+    p = {"w": _normal(generator, (d_in, d_out), scale, param_dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=param_dtype, device=device)
+    return p
+
+
+def linear(params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeLU), optionally pattern-sparse
+# ---------------------------------------------------------------------------
+
+
+def mlp_static(
+    d_model: int,
+    d_ff: int,
+    act: str = "swiglu",
+    sparse: PatternSparseConfig | None = None,
+    model_shards: int = 16,
+    device=None,
+) -> dict:
+    """The MLP's static part: its activation and, when the sparse config
+    applies to both projections' shapes, the three sparse layouts."""
+    static = {"act": act, "sparse": None}
+    use_sparse = sparse is not None and sparse.applicable(
+        d_model, d_ff, model_shards
+    ) and sparse.applicable(d_ff, d_model, model_shards)
+    if use_sparse:
+        static["sparse"] = sparse
+        shapes = {"up": (d_model, d_ff, 2), "down": (d_ff, d_model, 3)}
+        if act == "swiglu":
+            shapes["gate"] = (d_model, d_ff, 1)
+        for name, (k_in, n_out, seed) in shapes.items():
+            static[name] = sparse_linear_static(
+                k_in, n_out, sparse, seed=seed, model_shards=model_shards,
+                device=device,
+            )
+    return static
+
+
+def mlp_init(
+    generator,
+    d_model: int,
+    d_ff: int,
+    act: str = "swiglu",
+    sparse: PatternSparseConfig | None = None,
+    model_shards: int = 16,
+    param_dtype=torch.float32,
+    device=None,
+):
+    """Returns (params, static).  static carries sparse layouts."""
+    static = mlp_static(d_model, d_ff, act, sparse, model_shards, device)
+    params = {}
+    if static["sparse"] is not None:
+        for name in ("gate", "up", "down"):
+            if name in static:
+                k_in = d_ff if name == "down" else d_model
+                params[name] = _sparse_params(generator, static[name], k_in,
+                                              sparse, param_dtype, device)
+    else:
+        if act == "swiglu":
+            params["gate"] = linear_init(generator, d_model, d_ff,
+                                         param_dtype=param_dtype,
+                                         device=device)
+        params["up"] = linear_init(generator, d_model, d_ff,
+                                   param_dtype=param_dtype, device=device)
+        params["down"] = linear_init(generator, d_ff, d_model,
+                                     param_dtype=param_dtype, device=device)
+    return params, static
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    if name == "relu":
+        return F.relu(x)
+    if name == "silu":
+        return F.silu(x)
+    raise ValueError(name)
+
+
+def mlp_apply(params, static, x: torch.Tensor) -> torch.Tensor:
+    sparse = static.get("sparse")
+    if sparse is not None:
+        up = sparse_linear(params["up"], static["up"], x)
+        if static["act"] == "swiglu":
+            gate = sparse_linear(params["gate"], static["gate"], x)
+            h = F.silu(gate) * up
+        else:
+            h = _act(static["act"], up)
+        return sparse_linear(params["down"], static["down"], h)
+    up = linear(params["up"], x)
+    if static["act"] == "swiglu":
+        h = F.silu(linear(params["gate"], x)) * up
+    else:
+        h = _act(static["act"], up)
+    return linear(params["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(d_head: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    return 1.0 / (
+        theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                               device=device) / d_head)
+    )
+
+
+def apply_rope(
+    x: torch.Tensor,  # [..., S, H, D] or [..., S, D]
+    positions: torch.Tensor,  # [..., S]
+    freqs: torch.Tensor,  # [D/2]
+) -> torch.Tensor:
+    angles = positions[..., None].float() * freqs  # [..., S, D/2]
+    if x.dim() == angles.dim() + 1:  # head axis present
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,408 @@
+"""Config-driven transformer assembly: the dense decoder.
+
+Port of ``src/repro/models/transformer.py`` for the mixers ``attn`` and
+``swa`` and the ffn ``mlp`` (dense or the paper's pattern-sparse MLP).
+A model is a sequence of layers; each layer is a (mixer, ffn) pair, and
+``layer_types`` lists every layer.  The stack is factored into an
+optional non-periodic *prefix* plus a repeating *period*; period params
+are stacked ``[n_periods, ...]`` as in the reference, and where the
+reference runs them with ``lax.scan`` the port loops over the stacked
+tensors in Python.  The reference's remat (``jax.checkpoint``) is a
+training concern and is left out: serving has no backward.
+
+Not ported yet, each raising ``NotImplementedError`` naming its
+``ROADMAP.md`` item: the ``moe`` ffn (Queue 1 item 11.1), the ``mla``
+mixer and the ``mtp`` head (11.2), the ``ssm`` mixer (11.3), the
+``xattn`` mixer and the encoder (11.4), and ``prefix_embeds`` (11.5).
+
+Params are a plain dict of tensors; the statics (layer kinds, attention
+configs, sparse layouts with their device index tables) come from
+:func:`init_statics`, so params converted from the reference
+(``models.convert``) and params drawn here share them.  Caches are
+updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import (
+    AttnConfig,
+    attention_apply,
+    attention_init,
+    init_kv_cache,
+    is_prefill,
+)
+from repro_torch.models.layers import (
+    PatternSparseConfig,
+    embed_init,
+    layernorm,
+    layernorm_init,
+    linear,
+    linear_init,
+    mlp_apply,
+    mlp_init,
+    mlp_static,
+    rmsnorm,
+    rmsnorm_init,
+)
+from repro_torch.parallel.sharding import pad_to_multiple
+
+__all__ = ["ModelConfig", "find_structure", "init_statics", "init_params",
+           "init_cache", "apply_model", "count_params"]
+
+_NOT_PORTED = {
+    "moe": "the MoE ffn is ROADMAP.md Queue 1 item 11.1",
+    "mla": "the MLA mixer is ROADMAP.md Queue 1 item 11.2",
+    "mtp": "the MTP head is ROADMAP.md Queue 1 item 11.2",
+    "ssm": "the SSM mixer is ROADMAP.md Queue 1 item 11.3",
+    "xattn": "the cross-attention mixer is ROADMAP.md Queue 1 item 11.4",
+    "encoder": "the encoder is ROADMAP.md Queue 1 item 11.4",
+    "prefix": "the VLM prefix is ROADMAP.md Queue 1 item 11.5",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"not ported: {_NOT_PORTED[what]}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    vocab: int
+    layer_types: tuple[tuple[str, str], ...]  # (mixer, ffn) per layer
+    # attention
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_head: int = 128
+    qkv_bias: bool = False
+    window: int | None = None
+    rope_theta: float | None = 10000.0
+    # ffn
+    d_ff: int = 0
+    act: str = "swiglu"
+    moe: object | None = None  # not ported (11.1)
+    mla: object | None = None  # not ported (11.2)
+    ssm: object | None = None  # not ported (11.3)
+    norm: str = "rmsnorm"
+    tie_embeddings: bool = False
+    mtp: bool = False
+    # enc-dec (whisper): not ported (11.4)
+    encoder_layers: int = 0
+    enc_seq: int = 0
+    # vlm (paligemma): prefix patch embeddings, not ported (11.5)
+    prefix_len: int = 0
+    # sparsity (the paper's technique, block-granular)
+    sparse: PatternSparseConfig | None = None
+    # numerics / distribution
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    model_shards: int = 16
+    remat: bool = True  # the reference's training flag; unused here
+    vocab_pad: int = 256
+    max_seq: int = 4096  # cache capacity for serving
+    decode_strategy: str = "gather"  # 'gather' | 'flash' (see AttnConfig)
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_to_multiple(self.vocab, self.vocab_pad)
+
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    def attn_cfg(self, window: bool) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model,
+            n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads,
+            d_head=self.d_head,
+            qkv_bias=self.qkv_bias,
+            window=self.window if window else None,
+            rope_theta=self.rope_theta,
+            model_shards=self.model_shards,
+            decode_strategy=self.decode_strategy,
+        )
+
+
+def find_structure(
+    layer_types: Sequence[tuple[str, str]]
+) -> tuple[int, int]:
+    """Returns (prefix_len, period) minimizing the period over small
+    prefixes — a 1-layer prefix + period-1 body (DeepSeek) wins over
+    prefix-0 + period-n."""
+    n = len(layer_types)
+    best = (0, n if n else 1)
+    for prefix in range(0, min(n, 5)):
+        body = layer_types[prefix:]
+        m = len(body)
+        if m == 0:
+            if 1 < best[1]:
+                best = (prefix, 1)
+            continue
+        for period in range(1, m + 1):
+            if m % period:
+                continue
+            if all(body[i] == body[i % period] for i in range(m)):
+                if period < best[1]:
+                    best = (prefix, period)
+                break
+    return best
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _layer_static(cfg: ModelConfig, ltype: tuple[str, str], device) -> dict:
+    mixer, ffn = ltype
+    static: dict = {"mixer": mixer, "ffn": ffn}
+    if mixer in ("attn", "swa"):
+        static["attn_cfg"] = cfg.attn_cfg(window=mixer == "swa")
+    elif mixer in ("xattn", "mla", "ssm"):
+        raise _not_ported(mixer)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if ffn == "mlp":
+        static["mlp"] = mlp_static(cfg.d_model, cfg.d_ff, act=cfg.act,
+                                   sparse=cfg.sparse,
+                                   model_shards=cfg.model_shards,
+                                   device=device)
+    elif ffn == "moe":
+        raise _not_ported("moe")
+    elif ffn != "none":
+        raise ValueError(f"unknown ffn {ffn!r}")
+    return static
+
+
+def _layer_params(generator, cfg: ModelConfig, static: dict, device) -> dict:
+    pdt = cfg.pdtype()
+    norm_init = rmsnorm_init if cfg.norm == "rmsnorm" else layernorm_init
+    params = {"norm1": norm_init(cfg.d_model, pdt, device),
+              "attn": attention_init(generator, static["attn_cfg"], pdt,
+                                     device)}
+    if static["ffn"] != "none":
+        params["norm2"] = norm_init(cfg.d_model, pdt, device)
+    if static["ffn"] == "mlp":
+        params["mlp"], _ = mlp_init(
+            generator, cfg.d_model, cfg.d_ff, act=cfg.act, sparse=cfg.sparse,
+            model_shards=cfg.model_shards, param_dtype=pdt, device=device,
+        )
+    return params
+
+
+def init_statics(cfg: ModelConfig, device=None) -> dict:
+    """The model's static part: the layer structure (prefix, period,
+    number of periods), each layer's kind and attention config, and the
+    sparse MLP layouts with their index tables on ``device`` (``None``:
+    ``cuda``, raising without one)."""
+    if cfg.encoder_layers:
+        raise _not_ported("encoder")
+    if cfg.mtp:
+        raise _not_ported("mtp")
+    device = resolve_device(device)
+    prefix, period = find_structure(cfg.layer_types)
+    n_periods = (cfg.n_layers - prefix) // period
+    return {
+        "cfg": cfg,
+        "device": device,
+        "prefix": prefix,
+        "period": period,
+        "n_periods": n_periods,
+        "prefix_layers": [_layer_static(cfg, cfg.layer_types[i], device)
+                          for i in range(prefix)],
+        "body": [_layer_static(cfg, cfg.layer_types[prefix + j], device)
+                 for j in range(period)],
+    }
+
+
+def _stack(trees: list):
+    """Stack parallel param trees leaf by leaf along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _index(tree, i: int):
+    """Row ``i`` of every leaf of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Returns (params, statics) for the full model on ``device``
+    (``None``: ``cuda``, raising without one), with weights drawn from
+    ``generator`` (which must live on ``device``)."""
+    device = resolve_device(device)
+    statics = init_statics(cfg, device)
+    pdt = cfg.pdtype()
+    norm_init = rmsnorm_init if cfg.norm == "rmsnorm" else layernorm_init
+    params: dict = {"embed": embed_init(generator, cfg.padded_vocab,
+                                        cfg.d_model, pdt, device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = linear_init(generator, cfg.d_model,
+                                        cfg.padded_vocab, param_dtype=pdt,
+                                        device=device)
+    params["final_norm"] = norm_init(cfg.d_model, pdt, device)
+    if cfg.rope_theta is None:  # whisper-style learned decoder positions
+        params["dec_pos"] = (torch.randn(
+            (cfg.max_seq, cfg.d_model), generator=generator,
+            dtype=torch.float32, device=device) * 0.02).to(pdt)
+    params["prefix_layers"] = [
+        _layer_params(generator, cfg, st, device)
+        for st in statics["prefix_layers"]
+    ]
+    params["body"] = [
+        _stack([_layer_params(generator, cfg, st, device)
+                for _ in range(statics["n_periods"])])
+        for st in statics["body"]
+    ]
+    return params, statics
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache(static, batch: int, max_seq: int, dtype, device):
+    if static["mixer"] in ("attn", "swa"):
+        return init_kv_cache(static["attn_cfg"], batch, max_seq, dtype,
+                             device)
+    raise ValueError(static["mixer"])
+
+
+def init_cache(statics, batch: int, max_seq: int | None = None,
+               dtype=torch.bfloat16, device=None):
+    """Zeroed KV caches: ``[B, T, Hkv, D]`` per prefix layer and
+    ``[n_periods, B, T, Hkv, D]`` per period position, on ``device``
+    (default: the statics')."""
+    cfg: ModelConfig = statics["cfg"]
+    max_seq = max_seq or cfg.max_seq
+    device = device if device is not None else statics["device"]
+    cache: dict = {
+        "prefix_layers": [_layer_cache(st, batch, max_seq, dtype, device)
+                          for st in statics["prefix_layers"]],
+        "body": [],
+    }
+    for st in statics["body"]:
+        one = _layer_cache(st, batch, max_seq, dtype, device)
+        cache["body"].append({
+            k: torch.zeros((statics["n_periods"], *x.shape), dtype=x.dtype,
+                           device=x.device)
+            for k, x in one.items()
+        })
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
+                 cache_pos, cache_len, prefill: bool):
+    norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
+    h = norm(params["norm1"], x)
+    out, new_cache = attention_apply(
+        params["attn"], static["attn_cfg"], h, positions,
+        cache=cache, cache_pos=cache_pos, cache_len=cache_len,
+        prefill=prefill,
+    )
+    x = x + out
+    if static["ffn"] == "mlp":
+        h = norm(params["norm2"], x)
+        x = x + mlp_apply(params["mlp"], static["mlp"], h)
+    return x, new_cache
+
+
+def apply_model(
+    params,
+    statics,
+    tokens: torch.Tensor,  # [B, S] integer
+    positions: torch.Tensor | None = None,  # [S] (shared) or [B, S] (per-row)
+    cache=None,
+    cache_pos=None,  # scalar or [B] (per-slot decode)
+    cache_len=None,  # scalar or [B]
+    prefix_embeds: torch.Tensor | None = None,
+    frames: torch.Tensor | None = None,
+    prefill: bool | None = None,
+):
+    """Forward pass.  Returns (logits [B, S, vocab_padded], cache, aux);
+    the cache, when given, is written in place and returned.
+
+    ``prefill`` picks the attention route for every layer at once: the
+    flash kernel where it is true (a prefill at positions ``arange(S)``
+    from cache position 0, see ``models.attention``), the plain routes
+    where it is false; ``None`` decides it here from ``positions`` and
+    ``cache_pos``, with one read of the device."""
+    if prefix_embeds is not None:
+        raise _not_ported("prefix")
+    if frames is not None:
+        raise _not_ported("encoder")
+    cfg: ModelConfig = statics["cfg"]
+    cdt = cfg.cdtype()
+    _, s = tokens.shape
+
+    x = params["embed"]["w"][tokens].to(cdt)
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cdt)  # gemma convention
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)
+    if prefill is None:
+        prefill = is_prefill(s, positions, cache=cache, cache_pos=cache_pos)
+    if "dec_pos" in params:
+        dp = params["dec_pos"][positions].to(cdt)
+        x = x + (dp if positions.dim() == 2 else dp[None])
+
+    for i, (p, st) in enumerate(zip(params["prefix_layers"],
+                                    statics["prefix_layers"])):
+        c = cache["prefix_layers"][i] if cache is not None else None
+        x, _ = _apply_layer(p, st, cfg, x, positions, c, cache_pos, cache_len,
+                            prefill)
+
+    for rep in range(statics["n_periods"]):
+        for j, st in enumerate(statics["body"]):
+            c = _index(cache["body"][j], rep) if cache is not None else None
+            x, _ = _apply_layer(_index(params["body"][j], rep), st, cfg, x,
+                                positions, c, cache_pos, cache_len, prefill)
+
+    norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
+    hidden = norm(params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = hidden @ params["embed"]["w"].to(cdt).T
+    else:
+        logits = linear(params["lm_head"], hidden)
+    return logits, cache, {}
+
+
+# ---------------------------------------------------------------------------
+# accounting
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def count_params(params) -> int:
+    return sum(int(x.numel()) for x in _leaves(params))

@@ -1,0 +1,356 @@
+"""Serving runtime: prefill + decode steps and continuous-batching decode.
+
+Port of ``src/repro/runtime/serve.py`` on one device.
+``make_prefill_step`` / ``make_decode_step`` build the step functions:
+one prompt's prefill, and one new token per row against a KV cache of
+``max_seq``.  The caches are updated in place.
+
+:class:`DecodeService` is the continuous-batching generation backend:
+per-slot decode positions (``pos [batch_slots]``) let the shared
+:class:`~repro_torch.engine.scheduler.SlotScheduler` admit a queued prompt
+into a freed slot *while the other slots are mid-decode*, with all
+per-request state (prompt lengths, emitted counts, completion) host-side
+in the scheduler and only fixed-shape tensors (``tokens [B]``,
+``pos [B]``, the batched cache) reaching the model:
+
+  * the decode step always runs at the fixed ``[batch_slots]`` shape:
+    the port runs eagerly and :meth:`DecodeService.trace_count` counts
+    the distinct input signatures decode has run, which stays 1; dead
+    slots decode at position 0 into cache rows that the next admission
+    overwrites;
+  * admission prefills the prompt at its exact length on a fresh
+    single-row cache and copies that row into the batched cache
+    (``make_slot_prefill``); prefill takes the flash-attention kernel on
+    the card (``models/attention.py``), and
+    :meth:`DecodeService.prefill_trace_count` counts the distinct prompt
+    lengths;
+  * a request's tokens are bit-identical co-batched or solo: every
+    per-row op (masked attention, the MLP, sampling) is independent
+    across batch rows.
+
+:class:`ServeLoop` keeps the drain-a-list-of-requests API on top of it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.engine.scheduler import SlotScheduler
+from repro_torch.models.transformer import ModelConfig, apply_model, init_cache
+from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.serve.api import Request as ServeRequest
+
+__all__ = [
+    "ServeConfig",
+    "make_prefill_step",
+    "make_decode_step",
+    "make_slot_prefill",
+    "DecodeService",
+    "ServeLoop",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    batch_slots: int = 8
+    max_seq: int = 1024
+    temperature: float = 0.0  # 0 -> greedy
+    eos_id: int = 0
+    cache_dtype: str = "bfloat16"
+
+
+def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
+    def prefill(params, cache, tokens, extras=None):
+        """tokens: [B, S] -> (next_token [B], cache).  A VLM patch prefix
+        (``extras['prefix_embeds']``) is not ported (``apply_model``
+        raises)."""
+        total = tokens.shape[1]
+        logits, cache, _ = apply_model(
+            params, statics, tokens,
+            positions=torch.arange(total, device=tokens.device),
+            cache=cache, cache_pos=0, cache_len=total, prefill=True,
+            **(extras or {}),
+        )
+        next_tok = logits[:, -1, : cfg.vocab].argmax(dim=-1)
+        return next_tok, cache
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, statics, scfg: ServeConfig):
+    def decode(params, cache, tokens, pos, rng: torch.Generator | None = None):
+        """tokens: [B] last emitted; pos: the position to write — a
+        0-d tensor shared by every slot or a [B] vector of per-slot
+        positions (continuous batching).  With ``temperature > 0`` and a
+        generator, samples; else greedy."""
+        per_row = pos.dim() > 0
+        logits, cache, _ = apply_model(
+            params, statics, tokens[:, None],
+            positions=pos[:, None] if per_row else pos[None],
+            cache=cache, cache_pos=pos, cache_len=pos + 1,
+        )
+        logits = logits[:, -1, : cfg.vocab].float()
+        if scfg.temperature > 0 and rng is not None:
+            probs = torch.softmax(logits / scfg.temperature, dim=-1)
+            next_tok = torch.multinomial(probs, 1, generator=rng)[:, 0]
+        else:
+            next_tok = logits.argmax(dim=-1)
+        return next_tok, cache
+
+    return decode
+
+
+def _scatter_cache_row(batch_cache, row_cache, slot: int):
+    """Write the single-row ``row_cache`` into row ``slot`` of the batched
+    cache, in place.  Prefix layers carry batch on axis 0; the stacked
+    body carries periods in front, so batch sits on axis 1."""
+    for dst, src in zip(batch_cache["prefix_layers"],
+                        row_cache["prefix_layers"]):
+        for k in dst:
+            dst[k][slot:slot + 1].copy_(src[k])
+    for dst, src in zip(batch_cache["body"], row_cache["body"]):
+        for k in dst:
+            dst[k][:, slot:slot + 1].copy_(src[k])
+    return batch_cache
+
+
+def make_slot_prefill(cfg: ModelConfig, statics, scfg: ServeConfig):
+    cache_dtype = getattr(torch, scfg.cache_dtype)
+
+    def prefill(params, caches, tokens, slot: int):
+        """tokens: [1, L] exact-length prompt; slot: slot index.
+
+        Prefills a fresh single-row cache at the prompt's exact length —
+        no padding — then copies the row into the batched cache at
+        ``slot``.  Returns (first sampled token [], updated caches)."""
+        length = tokens.shape[1]
+        row = init_cache(statics, 1, scfg.max_seq, dtype=cache_dtype,
+                         device=tokens.device)
+        logits, row, _ = apply_model(
+            params, statics, tokens,
+            positions=torch.arange(length, device=tokens.device),
+            cache=row, cache_pos=0, cache_len=length, prefill=True,
+        )
+        caches = _scatter_cache_row(caches, row, slot)
+        return logits[0, -1, : cfg.vocab].argmax(), caches
+
+    return prefill
+
+
+class DecodeService:
+    """Continuous-batching token generation over per-slot decode positions.
+
+    Speaks the same step-based verb set as
+    ``engine.service.InferenceService`` — ``submit``/``try_submit`` to
+    enqueue a :class:`repro_torch.serve.api.Request` (``prompt`` set),
+    ``step()`` to admit + advance one decode step, ``run()`` to drain — so
+    the ``serve.session`` facade and the HTTP server drive either backend
+    identically.  ``params`` live on ``device`` (``None``: ``cuda``,
+    raising without one).
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        statics,
+        params,
+        scfg: ServeConfig,
+        max_queue: int = 0,
+        clock: Callable[[], float] = time.monotonic,
+        tracer: Tracer | None = None,
+        capture_logits: bool = False,
+        device=None,
+    ):
+        self.cfg, self.statics, self.scfg = cfg, statics, scfg
+        self.params = params
+        self.device = resolve_device(device)
+        self._tracer = tracer or NULL_TRACER
+        self.scheduler = SlotScheduler(
+            scfg.batch_slots, max_queue=max_queue, clock=clock, tracer=tracer
+        )
+        self.caches = init_cache(
+            statics, scfg.batch_slots, scfg.max_seq,
+            dtype=getattr(torch, scfg.cache_dtype), device=self.device,
+        )
+        self._decode_signatures: set = set()
+        self._prefill_lengths: set = set()
+        self._decode_fn = make_decode_step(cfg, statics, scfg)
+        self._prefill_fn = make_slot_prefill(cfg, statics, scfg)
+        self.capture_logits = capture_logits
+        self._tokens = np.zeros(scfg.batch_slots, np.int64)
+        self._pos = np.zeros(scfg.batch_slots, np.int64)
+        self.last_logits: np.ndarray | None = None  # capture_logits only
+        self.steps_run = 0
+
+    # ------------------------------------------------------------ admission
+
+    def trace_count(self) -> int:
+        """Distinct input signatures the fixed-shape decode step has run
+        (the single-trace invariant: 1 for any traffic pattern)."""
+        return len(self._decode_signatures)
+
+    def prefill_trace_count(self) -> int:
+        """Distinct prompt lengths prefilled."""
+        return len(self._prefill_lengths)
+
+    @property
+    def metrics(self) -> dict:
+        return self.scheduler.snapshot()
+
+    def metrics_text(self) -> str:
+        return self.scheduler.metrics.to_prometheus(prefix="decode_service")
+
+    def reset_metrics(self) -> None:
+        self.scheduler.reset_metrics()
+
+    def _validate(self, request: ServeRequest) -> ServeRequest:
+        if request.prompt is None:
+            raise ValueError("generation request needs a prompt")
+        prompt = np.asarray(request.prompt, np.int32).reshape(-1)
+        if prompt.size < 1 or prompt.size > self.scfg.max_seq:
+            raise ValueError(
+                f"prompt length {prompt.size} outside [1, "
+                f"{self.scfg.max_seq}]"
+            )
+        request.prompt = prompt
+        return request
+
+    def submit(self, request: ServeRequest) -> ServeRequest:
+        """Validate + enqueue (raises ``SchedulerFull`` when bounded
+        queue is full — front ends should use ``try_submit``)."""
+        self.scheduler.submit(self._validate(request))
+        return request
+
+    def try_submit(self, request: ServeRequest) -> bool:
+        return self.scheduler.try_submit(self._validate(request))
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
+
+    # ------------------------------------------------------------- stepping
+
+    def _finish(self, slot: int, req: ServeRequest, finished: list) -> None:
+        req.done = True
+        self.scheduler.complete(slot)
+        self._tokens[slot] = 0
+        self._pos[slot] = 0
+        finished.append(req)
+
+    def _decode(self, tokens: torch.Tensor, pos: torch.Tensor):
+        self._decode_signatures.add(
+            (tuple(tokens.shape), tokens.dtype, tuple(pos.shape), pos.dtype))
+        if not self.capture_logits:
+            tok, self.caches = self._decode_fn(self.params, self.caches,
+                                               tokens, pos)
+            return tok, None
+        # debug/test variant: also return the [B, vocab] decode logits
+        logits, self.caches, _ = apply_model(
+            self.params, self.statics, tokens[:, None],
+            positions=pos[:, None], cache=self.caches, cache_pos=pos,
+            cache_len=pos + 1,
+        )
+        logits = logits[:, -1, : self.cfg.vocab].float()
+        return logits.argmax(dim=-1), logits
+
+    @torch.no_grad()
+    def step(self) -> list[ServeRequest]:
+        """Admit queued prompts into free slots (prefill), then advance
+        every live slot one decode step at its own position.  Returns the
+        requests completed by this step."""
+        sched = self.scheduler
+        scfg = self.scfg
+        finished: list[ServeRequest] = []
+        was_decoding = bool(sched.live())
+        for slot, req in sched.refill():
+            prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
+                                     device=self.device)
+            length = prompt.shape[1]
+            with self._tracer.span(
+                "serve.prefill", cat="serve", slot=slot, len=length
+            ):
+                self._prefill_lengths.add(length)
+                tok, self.caches = self._prefill_fn(
+                    self.params, self.caches, prompt, slot)
+                t = int(tok)
+            req.output.append(t)
+            self._tokens[slot] = t
+            self._pos[slot] = length
+            sched.record_first_result(slot)
+            if was_decoding:
+                # the mid-decode admission instant: this slot was refilled
+                # while other slots were already between decode steps
+                self._tracer.async_instant(
+                    "request", sched.slot_rid(slot), cat="request",
+                    event="admit_mid_decode", slot=slot, pos=int(length),
+                )
+            if (
+                t == scfg.eos_id
+                or len(req.output) >= req.max_new_tokens
+                or self._pos[slot] >= scfg.max_seq
+            ):
+                self._finish(slot, req, finished)
+        live = sched.live()
+        if not live:
+            return finished
+        with self._tracer.span("serve.decode", cat="serve", live=len(live)):
+            tok, logits = self._decode(
+                torch.as_tensor(self._tokens, device=self.device),
+                torch.as_tensor(self._pos, device=self.device),
+            )
+            tok_np = tok.cpu().numpy()
+            if logits is not None:
+                self.last_logits = logits.cpu().numpy()
+        self.steps_run += 1
+        sched.record_step()
+        for slot, req in live:
+            t = int(tok_np[slot])
+            self._tokens[slot] = t
+            self._pos[slot] += 1
+            req.output.append(t)
+            if (
+                t == scfg.eos_id
+                or len(req.output) >= req.max_new_tokens
+                or self._pos[slot] >= scfg.max_seq
+            ):
+                self._finish(slot, req, finished)
+        return finished
+
+    def run(self) -> list[ServeRequest]:
+        """Serve until the queue and every slot are drained."""
+        finished: list[ServeRequest] = []
+        while self.has_work():
+            finished.extend(self.step())
+        return finished
+
+
+class ServeLoop:
+    """Drain-a-list-of-requests wrapper over :class:`DecodeService`.
+
+    Admission is continuous: a freed slot refills from the queue on the
+    very next step while the remaining slots keep decoding at their own
+    per-slot positions.  ``loop.metrics`` carries the scheduler snapshot
+    after :meth:`generate`.
+    """
+
+    def __init__(self, cfg: ModelConfig, statics, params, scfg: ServeConfig,
+                 tracer: Tracer | None = None, device=None):
+        self.cfg, self.statics, self.scfg = cfg, statics, scfg
+        self.params = params
+        self.tracer = tracer or NULL_TRACER
+        self.service = DecodeService(
+            cfg, statics, params, scfg, tracer=tracer, device=device
+        )
+        self.metrics: dict | None = None
+
+    def generate(self, requests: list[ServeRequest]) -> list[ServeRequest]:
+        for r in requests:
+            self.service.submit(r)
+        self.service.run()
+        self.metrics = self.service.scheduler.snapshot()
+        return requests

@@ -1,1 +1,3 @@
-"""Serving request/response contract (copied from the reference)."""
+"""Serving: the request/response contract (``api``), the
+``submit``/``stream``/``run`` facade over either backend (``session``)
+and the asyncio HTTP front end (``server``), copied from the reference."""
