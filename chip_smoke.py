@@ -19,8 +19,12 @@ at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``search``, ``ou_mvm``,
-``flash`` (kernel vs plain), ``generate``, ``times``.  Any failed check
-exits non-zero.  The last three lines are
+``flash`` (kernel vs plain), ``generate``, ``times``.  The fp32 spmm
+rows carry each layer's split plan (``splits``, ``blocks``) and, in
+``times``, its TFLOP/s; the flash rows carry the route (``tensor_core``
+for bf16 and fp16, ``simt`` for fp32), and every prefill launch of
+``generate`` must take the tensor-core route.  Any failed check exits
+non-zero.  The last three lines are
 the card's name and power limit as ``nvidia-smi`` prints them, the
 per-kernel ``{"kernels": [...]}`` summary, and
 ``{"ok": true, "device": {...}}``.
@@ -311,6 +315,26 @@ def calls(kind, bp, x, dev):
     return lambda: kernel(*args), lambda: plain(*args)
 
 
+def spmm_plan(bp, m: int) -> dict:
+    """The fp32 kernel's plan for one layer (``_split_plan`` of its
+    shapes): block tile, splits and the first launch's blocks."""
+    from repro_torch.kernels import pattern_spmm as tk
+
+    plan = tk._split_plan(m, bp.n_tiles, bp.tile, bp.k_max)
+    return {"tile_rows": plan.bm, "tile_cols": plan.bn,
+            "step_depth": plan.bk, "splits": plan.splits,
+            "blocks": plan.blocks}
+
+
+def reduce_launches_expected(prog, batches: int) -> int:
+    """Split reductions a run of ``batches`` forwards of ``prog`` at
+    ``BATCH_SLOTS`` images launches: one per layer whose plan splits."""
+    ms = [BATCH_SLOTS * op.out_hw ** 2 for op in prog.convs] + [BATCH_SLOTS]
+    bps = [op.bp for op in prog.convs] + [prog.fc.bp]
+    return batches * sum(spmm_plan(bp, m)["splits"] > 1
+                         for bp, m in zip(bps, ms))
+
+
 def compare(kind, y, want, bp) -> dict:
     """Kernel output against its plain version, with the stated limit."""
     import torch
@@ -538,14 +562,19 @@ def search_phase(seed, cfg, params, tparams, bits, images, dense_labels,
     svc.warmup()
     # the searched path: counts from 0, the trace through the service, read
     tk.pattern_spmm_cuda.launches = 0
+    tk.pattern_spmm_cuda.reduce_launches = 0
     reqs = [Request(image=img) for img in images]
     serve_s = serve_bursts(svc, reqs)
     launches = tk.pattern_spmm_cuda.launches
+    reduce_launches = tk.pattern_spmm_cuda.reduce_launches
     spmms = len(loaded.convs) + 1
     check(all(r.done for r in reqs), "a request was not served")
     check(launches == spmms * svc.batches_run,
           f"pattern_spmm_cuda launches {launches} != {spmms} x "
           f"{svc.batches_run} batches of the searched program")
+    want = reduce_launches_expected(loaded, svc.batches_run)
+    check(reduce_launches == want, f"searched program's split reductions "
+                                   f"{reduce_launches} != {want}")
     labels = np.array([r.label for r in reqs])
     check(bool((labels == dense_labels).all()),
           "the searched program's labels differ from the dense reference's")
@@ -590,6 +619,7 @@ def search_phase(seed, cfg, params, tparams, bits, images, dense_labels,
          fixed=ratios(fixed_rep), searched=ratios(searched_rep),
          never_worse=True, kernel_cases=kernel_rows,
          requests=len(reqs), batches=svc.batches_run, launches=launches,
+         reduce_launches=reduce_launches,
          requests_per_s=len(reqs) / serve_s,
          labels_match_dense=True, layer_limit=f"max|d| <= {LAYER_TOL} * "
                                               "max(1, max|cpu layer|)",
@@ -803,6 +833,12 @@ def flash_cases(dev, max_seq: int) -> list[dict]:
     return cases
 
 
+def flash_route(dtype: str) -> str:
+    """The route the wrapper takes for an input type: 16-bit inputs the
+    tensor cores, fp32 the SIMT kernel."""
+    return "simt" if dtype == "float32" else "tensor_core"
+
+
 def flash_row(c: dict, y) -> dict:
     """One flash case's check of the kernel's output ``y``: against the
     plain version at ``flash_tolerance`` and, for 16-bit inputs, against
@@ -854,11 +890,14 @@ def flash_rows(dev, max_seq: int) -> tuple[list[dict], list[dict]]:
     cases = flash_cases(dev, max_seq)
     rows = []
     for c in cases:
+        tc0 = tfa.flash_attention_cuda.launches_tensor_core
         y = tfa.flash_attention_cuda(c["q"], c["k"], c["v"],
                                      causal=c["causal"], window=c["window"],
                                      kv_len=c["kv_len"])
         torch.cuda.synchronize()
-        rows.append(flash_row(c, y))
+        route = ("tensor_core" if tfa.flash_attention_cuda.launches_tensor_core
+                 > tc0 else "simt")
+        rows.append({**flash_row(c, y), "route": route})
     return rows, cases
 
 
@@ -877,6 +916,9 @@ def flash_phase(dev, max_seq: int) -> dict:
     bad = [r["case"] for r in rows if not r["ok"]]
     check(not bad, f"flash_attention_cuda disagrees with its plain version "
                    f"on {bad}")
+    wrong = [r["case"] for r, c in zip(rows, cases)
+             if r["route"] != flash_route(c["dtype"])]
+    check(not wrong, f"flash cases {wrong} took the wrong route")
     return {"max_abs_err": worst, "cases": [c for c in cases if c["path"]]}
 
 
@@ -960,9 +1002,13 @@ def generate_phase(seed: int, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     # the generate path: counts from 0, the bursts through the service, read
     tfa.flash_attention_cuda.launches = 0
+    tfa.flash_attention_cuda.launches_tensor_core = 0
+    tfa.flash_attention_cuda.launches_simt = 0
     reqs = [Request(prompt=p, max_new_tokens=GEN_NEW) for p in prompts]
     run_s = serve_bursts(svc, reqs, GEN_BURSTS)
     launches = tfa.flash_attention_cuda.launches
+    routes = {"tensor_core": tfa.flash_attention_cuda.launches_tensor_core,
+              "simt": tfa.flash_attention_cuda.launches_simt}
     peak = torch.cuda.max_memory_allocated()
     m = svc.metrics
     spans = tracer.spans()
@@ -1037,6 +1083,7 @@ def generate_phase(seed: int, dev) -> dict:
         trace_count=svc.trace_count(),
         prefill_trace_count=svc.prefill_trace_count(),
         admitted_mid_decode=mid, prefills=prefills, launches=launches,
+        launches_by_route=routes,
         launches_expected=cfg.n_layers * prefills,
         alone_vs_cobatched_equal=alone,
         logits_limit=(f"relative to max|plain logit|: bf16 kernel vs plain "
@@ -1061,6 +1108,9 @@ def generate_phase(seed: int, dev) -> dict:
     check(launches == res["launches_expected"],
           f"flash_attention_cuda launches {launches} != {cfg.n_layers} "
           f"layers x {prefills} prefills")
+    check(routes["tensor_core"] == launches and routes["simt"] == 0,
+          f"flash launches by route {routes}: every prefill launch must go "
+          f"through the tensor-core route")
     check(all(alone.values()), f"co-batched tokens differ from alone: {alone}")
     bad = [r["prompt_len"] for r in parity if not r["ok"]]
     check(not bad, f"prefill logits of the kernel route off the plain route "
@@ -1161,7 +1211,13 @@ def run(seed: int, dev) -> dict:
         rows, worst = [], 0.0
         for name, bp, x in cases[kname] + extras[kname]:
             kernel, plain = calls(kname, bp, x, dev)
-            res = compare(kname, kernel(), plain(), bp)
+            y = kernel()
+            res = compare(kname, y, plain(), bp)
+            if kname == "pattern_spmm_cuda":
+                # no atomics: a second run is bit for bit the first
+                res["rerun_bit_identical"] = bool(torch.equal(kernel(), y))
+                res["ok"] = res["ok"] and res["rerun_bit_identical"]
+                res.update(spmm_plan(bp, x.shape[0]))
             rows.append({"case": name, "m": x.shape[0], "k": bp.k_in,
                          "n": bp.n_out, "k_max": bp.k_max, **res})
             if name != extra[0]:
@@ -1183,6 +1239,7 @@ def run(seed: int, dev) -> dict:
     svc8.warmup()
     # the main path: counts from 0, traffic through both services, read
     tk.pattern_spmm_cuda.launches = 0
+    tk.pattern_spmm_cuda.reduce_launches = 0
     tk.pattern_spmm_quant_cuda.launches = 0
     reqs32 = [Request(image=img) for img in images]
     serve_s = serve_bursts(svc32, reqs32)
@@ -1191,6 +1248,7 @@ def run(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     launches = {"pattern_spmm_cuda": tk.pattern_spmm_cuda.launches,
                 "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.launches}
+    reduce_launches = tk.pattern_spmm_cuda.reduce_launches
     spmms = len(loaded.convs) + 1
     batches = {"fp32": svc32.batches_run, "int8": svc8.batches_run}
     m32 = svc32.metrics
@@ -1223,6 +1281,9 @@ def run(seed: int, dev) -> dict:
         all_done=all(r.done for r in reqs32 + reqs8),
         trace_count=[svc32.trace_count(), svc8.trace_count()],
         launches=launches, spmms_per_forward=spmms,
+        reduce_launches=reduce_launches,
+        reduce_launches_expected=reduce_launches_expected(
+            loaded, batches["fp32"]),
         requests_per_s=n32 / serve_s,
         latency_p50_s=m32["latency_p50_s"],
         latency_p99_s=m32["latency_p99_s"],
@@ -1260,6 +1321,9 @@ def run(seed: int, dev) -> dict:
         check(launches[kname] == spmms * batches[prec],
               f"{kname} launches {launches[kname]} != {spmms} x "
               f"{batches[prec]} {prec} batches")
+    check(reduce_launches == res["reduce_launches_expected"],
+          f"pattern_spmm_cuda split reductions {reduce_launches} != "
+          f"{res['reduce_launches_expected']}")
     check(res["labels_match_dense"], "served labels differ from the dense "
                                      "reference's")
     bad = [r["layer"] for r in parity if r["rel"] > LAYER_TOL]
@@ -1312,10 +1376,14 @@ def run(seed: int, dev) -> dict:
             tot["plain_ms"] += plain
             tot["bytes"] += nbytes
             tot["ops"] += ops
-            rows.append({"layer": name, "m": x.shape[0], "k": bp.k_in,
-                         "n": bp.n_out, "bricks": int(bp.nnz.sum()),
-                         "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                         "bytes": nbytes, "ops": ops})
+            row = {"layer": name, "m": x.shape[0], "k": bp.k_in,
+                   "n": bp.n_out, "bricks": int(bp.nnz.sum()),
+                   "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                   "bytes": nbytes, "ops": ops}
+            if kname == "pattern_spmm_cuda":
+                row.update(spmm_plan(bp, x.shape[0]),
+                           tflops=ops / (ms * 1e-3) / 1e12)
+            rows.append(row)
         peak = (PEAK_FP32_FLOPS if kname == "pattern_spmm_cuda"
                 else PEAK_INT8_OPS)
         bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1385,11 +1453,12 @@ def run(seed: int, dev) -> dict:
                          ("ops", ops)):
             fl_tot[key] += val
         fl_rows.append({
-            "case": c["case"], "q": list(q.shape), "k": list(k.shape),
+            "case": c["case"], "route": flash_route(c["dtype"]),
+            "q": list(q.shape), "k": list(k.shape),
             "kv_len": n, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
             "library_max_abs_diff_vs_plain": lib_diff,
             "bytes": nbytes, "ops": ops, "visible_pairs_per_head": int(
-                ops / (4 * d * hq)),
+                ops / (4 * d * hq)), "tflops": ops / (ms * 1e-3) / 1e12,
             "bound_ms_bf16": max(nbytes / HBM_BYTES_PER_S,
                                  ops / PEAK_BF16_FLOPS) * 1e3,
             "bound_ms_fp32_cuda_cores": max(nbytes / HBM_BYTES_PER_S,

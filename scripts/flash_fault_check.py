@@ -32,26 +32,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
                       "flash_attention.cu")
 
-# name -> (line as it stands, line with the fault); None: the source as is
+# name -> (line as it stands, line with the fault); None: the source as is.
+# Each fault edits the tensor-core kernel (flash_mma_kernel), the route of
+# every 16-bit case and of the generation path's prefills.
 FAULTS = {
     "unedited": None,
     # one key too many at the far edge of the sliding window (rows >= 4096)
     "window_off_by_one": (
-        "if (p.window > 0) keep = keep && kpos > qpos - p.window;",
-        "if (p.window > 0) keep = keep && kpos >= qpos - p.window;"),
+        "if (p.window > 0) vis = vis && kpos > qpos - p.window;",
+        "if (p.window > 0) vis = vis && kpos >= qpos - p.window;"),
     # the first key tile of the window dropped when the window starts
     # inside it: rows past the window lose up to 63 of their oldest keys
     "window_first_tile_dropped": (
-        "const int t_begin = k_begin / BK;",
-        "const int t_begin = (k_begin + BK - 1) / BK;"),
+        "const int tile_lo = key_begin / BKV;",
+        "const int tile_lo = (key_begin + BKV - 1) / BKV;"),
     # a ragged last key tile dropped: the last rows lose their newest keys
     "ragged_last_tile_dropped": (
-        "const int t_end = (k_end + BK - 1) / BK;",
-        "const int t_end = k_end / BK;"),
+        "const int tile_hi = (key_end + BKV - 1) / BKV;",
+        "const int tile_hi = key_end / BKV;"),
     # the key at kv_len read and scored (a padded key let in)
     "kv_len_off_by_one": (
-        "const int k_lim = min(p.kv_len, p.Sk);",
-        "const int k_lim = min(p.kv_len + 1, p.Sk);"),
+        "const int key_lim = min(p.kv_len, p.Sk);",
+        "const int key_lim = min(p.kv_len + 1, p.Sk);"),
 }
 
 

@@ -120,13 +120,14 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and return types of every entry point ``lib``
     has (a library built from some of the sources has only theirs)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    flash = ([ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 12
+             + [ctypes.c_float] + [i32] * 4 + [ptr])
     sigs = {
-        "pattern_spmm_f32": [ptr] * 5 + [i32] * 7 + [ptr],
+        "pattern_spmm_f32": [ptr] * 6 + [i32] * 10 + [ptr],
         "pattern_spmm_i8": [ptr] * 6 + [i32] * 7 + [ptr],
         "ou_mvm_f32": [ptr] * 3 + [i32] * 4 + [ptr],
-        "flash_attention_fwd": (
-            [ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 12
-            + [ctypes.c_float] + [i32] * 4 + [ptr]),
+        "flash_attention_fwd": flash,
+        "flash_attention_fwd_mma": flash,
     }
     for name, argtypes in sigs.items():
         if hasattr(lib, name):

@@ -10,11 +10,21 @@
 ``src/repro/kernels/flash_attention.py``.  The CUDA C++ is in
 ``csrc/flash_attention.cu``, built with ``nvcc`` for ``sm_90a`` at first
 use (``_build.py``) and called through ctypes on PyTorch's current stream.
-It is bound by operations at the generation path's prefill shapes: each
-key tile staged in shared memory feeds a 64-row query tile; tiles above
-the causal diagonal, below the window or past ``kv_len`` are never read.
-It is a simple kernel on the fp32 CUDA cores; the bound counts the bf16
-tensor cores' rate (``PERF.md`` has both).
+It is bound by operations at the generation path's prefill shapes; key
+tiles above the causal diagonal, below the window or past ``kv_len`` are
+never read.  It has two routes, picked by the input type and never on a
+failure:
+
+- bf16 and fp16 inputs: the tensor-core kernel.  Q K^T and P V run as
+  ``mma.sync`` products with fp32 accumulators; K and V stay 16-bit in
+  shared memory, double-buffered with ``cp.async``; P is split into two
+  16-bit terms so P V keeps the reference's fp32 P to 2^-16 of each p
+  (bf16's unit roundoff squared).  It
+  takes D a multiple of 8, sequence, head and batch strides that are
+  multiples of 8 elements and 16-byte aligned tensors, and raises on
+  anything else.
+- fp32 inputs: the SIMT kernel on the CUDA cores (fp32's 2e-5 tolerance
+  cannot be met through 16-bit tensor-core inputs).
 
 The kernel folds GQA itself (query head ``h`` reads key head
 ``h // group``) and addresses every tensor through its strides with a
@@ -24,11 +34,12 @@ returned ``[B, Hq, Sq, D]`` tensor is that memory's transposed view, and
 ``transpose(1, 2).reshape(B, Sq, Hq * D)`` of it copies nothing.
 
 Beside the kernel is its plain PyTorch version (the oracle's meaning,
-:func:`repro_torch.kernels.ref.flash_attention_ref`) and a plain-integer
-launch counter, ``flash_attention_cuda.launches``, that grows by one per
-kernel launch and nowhere else.  The wrapper takes its plain version only
-for a tensor on the CPU; for a CUDA tensor it launches the kernel or
-raises.
+:func:`repro_torch.kernels.ref.flash_attention_ref`) and plain-integer
+launch counters that grow by one per kernel launch and nowhere else:
+``flash_attention_cuda.launches`` counts both routes,
+``.launches_tensor_core`` and ``.launches_simt`` each one.  The wrapper
+takes its plain version only for a tensor on the CPU; for a CUDA tensor
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -79,6 +90,25 @@ def _validate(q, k, v, window, kv_len) -> None:
         raise ValueError(f"flash_attention: kv_len {kv_len} must be >= 0")
 
 
+def _check_tensor_core(q, k, v) -> None:
+    """The tensor-core route copies 16-byte chunks (8 elements): D, the
+    batch, head and sequence strides and every base address must be
+    multiples of them."""
+    d = q.shape[-1]
+    if d % 8:
+        raise ValueError(
+            f"flash_attention_cuda: the 16-bit route takes a head dimension "
+            f"that is a multiple of 8, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if any(s % 8 for s in strides) or t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention_cuda: the 16-bit route needs {name}'s "
+                f"batch, head and sequence strides in multiples of 8 "
+                f"elements and a 16-byte aligned base; got strides "
+                f"{t.stride()} at address {t.data_ptr():#x}")
+
+
 def flash_attention_plain(q, k, v, causal: bool = True,
                           window: int | None = None,
                           scale: float | None = None,
@@ -124,6 +154,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
             f"flash_attention_cuda: {b * hq} head rows exceed the grid "
             f"limit {_MAX_HEAD_ROWS}")
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    tensor_core = q.dtype != torch.float32
+    if tensor_core:
+        _check_tensor_core(q, k, v)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
@@ -132,15 +165,23 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     kv = sk if kv_len is None else min(int(kv_len), sk)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = load_library().flash_attention_fwd(
+    lib = load_library()
+    fn = lib.flash_attention_fwd_mma if tensor_core else lib.flash_attention_fwd
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPE_CODE[q.dtype], b, hq, hkv, sq, sk, d, *strides, scale,
         int(causal), int(window or 0), kv, q.device.index or 0, stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     flash_attention_cuda.launches += 1
+    if tensor_core:
+        flash_attention_cuda.launches_tensor_core += 1
+    else:
+        flash_attention_cuda.launches_simt += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tensor_core = 0
+flash_attention_cuda.launches_simt = 0

@@ -8,27 +8,37 @@ in ``src/repro/kernels/pattern_spmm.py``.  The CUDA C++ is in
 ``csrc/pattern_spmm.cu``, built with ``nvcc`` for ``sm_90a`` at first use
 (``_build.py``) and called through ctypes on PyTorch's current stream.
 
-What bounds them on the H100: the fp32 kernel by its operations — IEEE
-fp32 has no tensor-core path (TF32 is not IEEE), so its ceiling is the
-CUDA cores' fp32 rate, and a VGG16 forward's bricks hold more
-operations per byte than that rate needs; the int8 kernel by its bytes,
-since the int8 tensor-core rate outruns device memory.  At the serving
-shapes (8 batch slots, 128x128 bricks) the deep layers are further held
-by their grid: the 4x4 and 2x2 maps give 128 and 32 rows, so 8 to 16
-thread blocks for 132 SMs (``PERF.md`` has the per-layer times).
-What the design does about it: one thread block per (64-row tile, output
-tile, 64-column slab) walks only that tile's ``nnz[t]`` real bricks —
-the padded slots are never read — and stages the gathered x slice and
-the brick in shared memory 32 rows of depth at a time, so each staged
-value is reused by 16 threads from shared memory instead of device
-memory.  It is a simple SIMT kernel: ``wgmma``, TMA, int8 MMA and a
-split of the deep layers' depth over more blocks are later work.
+What bounds the fp32 kernel on the H100: its operations, at the CUDA
+cores' 67 TFLOP/s.  IEEE fp32 has no tensor-core path (TF32 misses the
+2e-5 bar), and a VGG16 forward's bricks hold more operations per byte
+than that rate needs.  At the serving shapes (8 batch slots, 128 x 128
+bricks) the deep layers have only 32 to 512 rows and 1 to 4 output
+tiles, too few thread blocks for 132 SMs if each walked its tile's bricks
+alone.  What the design does about it: :func:`_split_plan` picks, from
+the shapes alone, a tile shape and a number of splits S that give about two
+waves of blocks; each block walks one run of its tile's bricks and, with
+S > 1, writes a partial that a second launch sums in the fixed order
+0..S-1 (no atomics: bit-identical from run to run; S does not follow the
+row count, so a row's result does not depend on the batch it is in).
+Each thread holds an 8 x 8 (or 4 x 8) register tile read from shared
+memory as float4, and ``cp.async`` stages the gathered x slices and
+bricks of the next two steps while this one computes: 16-byte copies
+where block, tile and K allow it, 4-byte copies otherwise
+(:func:`_copy_width`).
+
+The int8 kernel is bound by its bytes, since the int8 tensor-core rate
+outruns device memory.  It is a simple SIMT kernel: one thread block per
+(64-row tile, output tile, 64-column slab) walks the tile's ``nnz[t]``
+bricks, staging the gathered x slice and the brick in shared memory 32
+rows of depth at a time; int8 MMA and TMA are later work.
 
 Beside each kernel is its plain PyTorch version (the tests and the chip
 smoke run compare against it) and a plain-integer launch counter,
-``<wrapper>.launches``, that grows by one per kernel launch and nowhere
-else.  A wrapper takes its plain version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises.
+``<wrapper>.launches``, that grows by one per call that launches the
+kernel and nowhere else; ``pattern_spmm_cuda.reduce_launches`` counts the
+fp32 split reduction's launches.  A wrapper takes its plain version only
+for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from repro_torch.core.sparse import pattern_spmm_torch, pattern_spmm_torch_quant
 from repro_torch.kernels._build import load_library
 
 __all__ = [
+    "SplitPlan",
     "pattern_spmm_cuda",
     "pattern_spmm_quant_cuda",
     "pattern_spmm_plain",
@@ -48,6 +59,74 @@ __all__ = [
 ]
 
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which counts tiles
+_SMS = 132  # streaming multiprocessors of the H100 SXM
+# The fp32 kernel's block tiles (rows, columns, depth staged a step), by
+# the config index csrc/pattern_spmm.cu's launch_config instantiates:
+# 8 x 8 outputs a thread for 64 rows, 4 x 8 for 32, 4 x 4 for tiles of
+# <= 32 columns.
+_TILE_SHAPES = ((64, 128, 16), (32, 128, 16), (64, 32, 16), (32, 128, 32))
+
+
+class SplitPlan(NamedTuple):
+    """How the fp32 kernel cuts one call: block tile ``config`` (an index
+    into ``_TILE_SHAPES``: ``bm`` x ``bn``, ``bk`` deep a step),
+    ``splits`` runs of at most ``chunk`` bricks per tile of ``k_max``
+    bricks (a tile of n bricks runs ``ceil(n / splits)`` each), and the
+    first launch's ``blocks``."""
+
+    config: int
+    bm: int
+    bn: int
+    bk: int
+    splits: int
+    chunk: int
+    blocks: int
+
+
+def _split_plan(m: int, t: int, tile: int, k_max: int,
+                sms: int = _SMS) -> SplitPlan:
+    """The fp32 kernel's plan for ``m`` rows, ``t`` output tiles of
+    ``tile`` columns and ``k_max`` brick slots a tile, from these shapes
+    alone (never from values or from how many rows are live).
+
+    The split count follows the output tiles and ``k_max`` only, never
+    the rows: the bits of an output depend on where its tile's bricks
+    are split, so a request's logits are the same whether its batch has
+    8 rows or 64, and a service's accumulated skip statistics equal a
+    one-shot forward's.  The bricks are split (down to runs of one) until
+    the column slabs alone give two waves of ``sms`` blocks; the row
+    tiles add to that.  The block tile changes no bit of the result: 32
+    columns for tiles of <= 32; else, by the blocks the grid holds at 32
+    rows a block, 32 rows and 32-deep steps up to three waves (few
+    blocks an SM: longer steps amortize each step's wait), 32 rows and
+    16-deep steps up to eight (more blocks resident), 64 rows above
+    (``scripts/spmm_plan_sweep.py`` measured each at VGG16's layers)."""
+    bn = 32 if tile <= 32 else 128
+    slabs = t * -(-tile // bn)
+    chunk = -(-k_max // max(1, min(k_max, -(-2 * sms // slabs))))
+    splits = -(-k_max // chunk) if k_max else 1  # no run of k_max is empty
+    blocks32 = -(-m // 32) * slabs * splits
+    if tile <= 32:
+        config = 2
+    elif blocks32 <= 3 * sms:
+        config = 3
+    elif blocks32 <= 8 * sms:
+        config = 1
+    else:
+        config = 0
+    bm, bn, bk = _TILE_SHAPES[config]
+    return SplitPlan(config, bm, bn, bk, splits, chunk,
+                     -(-m // bm) * slabs * splits)
+
+
+def _copy_width(x, w_comp, block: int, tile: int) -> int:
+    """Floats per ``cp.async`` of the fp32 kernel: 4 (16 bytes) when every
+    row it copies starts 16-byte aligned (block, tile and K multiples of
+    4 floats, x and the bricks 16-byte aligned), else 1 (block 9 and tile
+    8 take this)."""
+    aligned = (block % 4 == 0 and tile % 4 == 0 and x.shape[1] % 4 == 0
+               and x.data_ptr() % 16 == 0 and w_comp.data_ptr() % 16 == 0)
+    return 4 if aligned else 1
 
 
 def pattern_spmm_plain(x, w_comp, block_ids, nnz, block: int) -> torch.Tensor:
@@ -113,10 +192,12 @@ def _launch(fn, tensors, out, g: _Geometry, device):
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
-def pattern_spmm_cuda(x, w_comp, block_ids, nnz, block: int) -> torch.Tensor:
+def pattern_spmm_cuda(x, w_comp, block_ids, nnz, block: int, *,
+                      plan: SplitPlan | None = None) -> torch.Tensor:
     """fp32 block-pattern spmm: x [M, K] -> float32 [M, T*tile], reordered
     columns.  ``block_ids`` and ``nnz`` are int32 on x's device; a bf16 or
-    fp16 ``x`` is upcast to float32 (what ``jnp.dot(bf16, fp32)`` does)."""
+    fp16 ``x`` is upcast to float32 (what ``jnp.dot(bf16, fp32)`` does).
+    ``plan`` defaults to :func:`_split_plan` of the shapes."""
     if x.device.type == "cpu":
         return pattern_spmm_plain(x, w_comp, block_ids, nnz, block)
     if x.device.type != "cuda":
@@ -124,17 +205,32 @@ def pattern_spmm_cuda(x, w_comp, block_ids, nnz, block: int) -> torch.Tensor:
     if x.dtype in (torch.bfloat16, torch.float16):
         x = x.float()
     _check("x", x, torch.float32, x.shape, x.device)
-    *ops, geom = _operands(x, w_comp, block_ids, nnz, block, torch.float32)
-    y = torch.empty((geom.m, geom.t * geom.tile), dtype=torch.float32,
+    x, w, ids, n, g = _operands(x, w_comp, block_ids, nnz, block,
+                                torch.float32)
+    y = torch.empty((g.m, g.t * g.tile), dtype=torch.float32,
                     device=x.device)
     if y.numel() == 0:
         return y
-    _launch(load_library().pattern_spmm_f32, ops, y, geom, x.device)
+    if plan is None:
+        plan = _split_plan(g.m, g.t, g.tile, g.k_max)
+    ws = (torch.empty((plan.splits, g.m, g.t * g.tile), dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else y)
+    fn = load_library().pattern_spmm_f32
+    err = fn(x.data_ptr(), w.data_ptr(), ids.data_ptr(), n.data_ptr(),
+             y.data_ptr(), ws.data_ptr(), g.m, g.k_in, g.t, g.k_max, g.block,
+             g.tile, plan.config, plan.splits,
+             _copy_width(x, w, g.block, g.tile), x.device.index or 0,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     pattern_spmm_cuda.launches += 1
+    if plan.splits > 1:
+        pattern_spmm_cuda.reduce_launches += 1
     return y
 
 
 pattern_spmm_cuda.launches = 0
+pattern_spmm_cuda.reduce_launches = 0
 
 
 def pattern_spmm_quant_cuda(

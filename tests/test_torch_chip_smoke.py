@@ -51,14 +51,26 @@ class _HostEvent:
         return (other.t - self.t) * 1e3
 
 
-def _counting(plain, name):
+def _counting(plain, name, **counters):
+    """A plain version counting launches as the wrapper ``name`` does; each
+    of ``counters`` (name -> predicate of the call's arguments) grows by
+    one per call for which its predicate holds."""
     def launch(*args, **kwargs):
         launch.launches += 1
+        for key, pred in counters.items():
+            setattr(launch, key, getattr(launch, key) + bool(pred(*args)))
         return plain(*args, **kwargs)
 
     launch.launches = 0
+    for key in counters:
+        setattr(launch, key, 0)
     launch.__name__ = name
     return launch
+
+
+def _splits(x, w_comp, *rest):
+    t, k_max, _, tile = w_comp.shape
+    return tk._split_plan(x.shape[0], t, tile, k_max).splits > 1
 
 
 def _mini_model(seed):
@@ -94,13 +106,16 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
 
-    for mod, name, plain in (
-        (tk, "pattern_spmm_cuda", tk.pattern_spmm_plain),
-        (tk, "pattern_spmm_quant_cuda", tk.pattern_spmm_quant_plain),
-        (tou, "ou_mvm_cuda", tou.ou_mvm_plain),
-        (tfa, "flash_attention_cuda", tfa.flash_attention_plain),
+    for mod, name, plain, counters in (
+        (tk, "pattern_spmm_cuda", tk.pattern_spmm_plain,
+         dict(reduce_launches=_splits)),
+        (tk, "pattern_spmm_quant_cuda", tk.pattern_spmm_quant_plain, {}),
+        (tou, "ou_mvm_cuda", tou.ou_mvm_plain, {}),
+        (tfa, "flash_attention_cuda", tfa.flash_attention_plain,
+         dict(launches_tensor_core=lambda q, *r: q.dtype != torch.float32,
+              launches_simt=lambda q, *r: q.dtype == torch.float32)),
     ):
-        fake = _counting(plain, name)
+        fake = _counting(plain, name, **counters)
         monkeypatch.setattr(mod, name, fake)
         monkeypatch.setattr(ops, name, fake)
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
@@ -153,6 +168,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     # 3 convs + FC per batch: 9 fp32 batches for 64 requests, 2 int8
     assert serve["launches"] == {"pattern_spmm_cuda": 36,
                                  "pattern_spmm_quant_cuda": 8}
+    assert serve["reduce_launches"] == serve["reduce_launches_expected"]
+    kern = lines[3]
+    assert kern["kernel"] == "pattern_spmm_cuda"
+    assert all(c["rerun_bit_identical"] and c["splits"] >= 1
+               and c["blocks"] >= 1 for c in kern["cases"])
     search = lines[6]
     assert search["bit_equal_vs_cpu_compile"] and search["never_worse"]
     assert set(search["chosen"]) == {"conv1", "conv2", "conv3"}
@@ -174,12 +194,15 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert len(flash["cases"]) == 14 * 3 + 2 * 2 + 1
     assert flash["cases"][-1]["kv_len"] == 11
     assert all(c["ok"] and c["finite"] for c in flash["cases"])
+    assert all(c["route"] == ("simt" if "float32" in c["case"]
+                              else "tensor_core") for c in flash["cases"])
     half = [c for c in flash["cases"] if "float32" not in c["case"]]
     assert half and all(c["worst_over_rounding_limit"] <= 1.0 for c in half)
     gen = lines[9]
     assert gen["all_done"] and gen["trace_count"] == 1
     assert gen["requests"] == gen["prefills"] == 7
     assert gen["launches"] == gen["launches_expected"] == 2 * 7
+    assert gen["launches_by_route"] == {"tensor_core": 14, "simt": 0}
     assert gen["admitted_mid_decode"] > 0
     assert all(gen["alone_vs_cobatched_equal"].values())
     lens = [r["prompt_len"] for r in gen["prefill_logits"]]
@@ -191,6 +214,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40]
+    assert all(r["route"] == "tensor_core"
+               for r in times["per_layer"]["flash_attention_cuda"])
+    assert all(r["splits"] >= 1 and r["tflops"] > 0
+               for r in times["per_layer"]["pattern_spmm_cuda"])
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in res["kernels"]] == list(cs.KERNELS)

@@ -9,6 +9,9 @@ reference's wrapper repeats the key heads; the port folds them, so a
 difference in the fold would show here.
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -153,6 +156,129 @@ def test_strided_views_and_validation():
     with pytest.raises(ValueError, match="window"):
         tops.flash_attention(tq_, tk_, tv_, window=0)
     assert tfa.flash_attention_cuda.launches == 0  # CPU: the plain version
+
+
+@pytest.mark.parametrize("n", [64, 300, 1000, 4096])
+def test_two_term_bf16_split_of_p(n):
+    """The tensor-core route's P V: P_hi = bf16(p), P_lo = bf16(p - P_hi),
+    both multiplied by the same bf16 V.  With bf16's unit roundoff
+    u = 2^-8, each p keeps at most u^2 = 2^-16 of itself
+    (csrc/flash_attention.cu), so an output moves by at most
+    2^-16 * sum_j p_j |v_j| / l from the fp32 P V.  One term alone errs
+    by up to 2^-8 of p and misses that bound."""
+    rng = np.random.default_rng(n)
+    s = torch.from_numpy((rng.normal(size=(16, n)) * 2.0).astype(np.float32))
+    p = torch.exp(s - s.amax(-1, keepdim=True))  # fp32 p, as the kernel's
+    l = p.sum(-1, keepdim=True)
+    v = torch.from_numpy((0.5 * rng.normal(size=(n, 80))).astype(
+        np.float32)).bfloat16().float()
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    assert ((p_hi + p_lo - p).abs() <= 2.0 ** -16 * p).all()
+    # the products summed exactly (float64), so only the split shows
+    want = (p.double() @ v.double()) / l.double()
+    got = (p_hi.double() @ v.double() + p_lo.double() @ v.double()) / l.double()
+    bound = 2.0 ** -16 * (p.double() @ v.double().abs()) / l.double()
+    err = (got - want).abs()
+    assert (err <= bound).all()
+    one_term = ((p_hi.double() @ v.double()) / l.double() - want).abs()
+    assert (one_term > bound).any()
+    assert err.max() <= one_term.max() / 64
+    # fp32 sums of the two terms against fp32 P V: within the split's
+    # bound plus both fp32 sums' own rounding (n ulps of sum |p v|)
+    got32 = (p_hi @ v + p_lo @ v) / l
+    want32 = (p @ v) / l
+    slack = 2 * n * 2.0 ** -24 * (p @ v.abs()) / l
+    assert ((got32 - want32).abs() <= bound.float() + slack).all()
+
+
+def _fault_check():
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                        "flash_fault_check.py")
+    spec = importlib.util.spec_from_file_location("flash_fault_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", ["window_off_by_one",
+                                   "window_first_tile_dropped",
+                                   "ragged_last_tile_dropped",
+                                   "kv_len_off_by_one"])
+def test_planted_fault_edits_one_line_of_the_tensor_core_kernel(fault):
+    """``scripts/flash_fault_check.py`` plants each fault as a one-line
+    edit: the line must stand once in the source, inside the
+    tensor-core kernel, and the edit must change it."""
+    mod = _fault_check()
+    before, after = mod.FAULTS[fault]
+    with open(mod.SOURCE) as f:
+        text = f.read()
+    assert text.count(before) == 1 and before != after
+    start = text.index("flash_mma_kernel(const Params p)")
+    end = text.index("cudaError_t launch(", start)
+    assert start < text.index(before) < end
+
+
+@pytest.mark.gpu
+def test_flash_tensor_core_route_on_card():
+    """bf16 and fp16 inputs go through the tensor-core kernel and fp32
+    through the SIMT one (the route counters say which), each against
+    the plain version at ``_tolerance`` and, for 16-bit inputs, within
+    the rounding limit of the plain version in fp32 (half an ulp of each
+    value + 2^-16 of its row's largest); D 64, 80 and 128, ragged S,
+    windows, ``kv_len`` and fully masked rows (exact zeros).  Shapes the
+    16-bit route does not take raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        find_nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    half_ulp = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+    cases = []
+    for d in (64, 80, 128):
+        cases += [((1, 8, 2, 77, 77, d), True, None, None),
+                  ((2, 4, 1, 200, 200, d), True, 33, None),
+                  ((1, 4, 2, 300, 700, d), True, 64, 300),
+                  ((1, 4, 4, 130, 260, d), False, None, 111),
+                  ((1, 4, 2, 40, 16, d), False, 8, None)]  # rows >= 23 empty
+    cases += [((1, 32, 8, 1000, 1000, 80), True, 4096, None)]
+    for (b, hq, hkv, sq, sk, d), causal, window, kv_len in cases:
+        q, k, v = _qkv(b, hq, hkv, sq, sk, d)
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
+        for dt in ("bfloat16", "float16", "float32"):
+            tdt = getattr(torch, dt)
+            args = [torch.from_numpy(a).to(dev, tdt) for a in (q, k, v)]
+            tc0 = tfa.flash_attention_cuda.launches_tensor_core
+            simt0 = tfa.flash_attention_cuda.launches_simt
+            got = tfa.flash_attention_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            mma = dt != "float32"
+            assert tfa.flash_attention_cuda.launches_tensor_core == tc0 + mma
+            assert tfa.flash_attention_cuda.launches_simt == simt0 + (not mma)
+            want = tfa.flash_attention_plain(*args, **kw)
+            tol = _tolerance("bfloat16" if mma else dt)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            if mma:
+                want32 = tfa.flash_attention_plain(
+                    *(a.float() for a in args), **kw)
+                mag = want32.abs()
+                lim = half_ulp[dt] * mag + 2.0 ** -16 * mag.amax(
+                    -1, keepdim=True)
+                assert ((got.float() - want32).abs() <= lim).all(), (
+                    (b, hq, hkv, sq, sk, d), dt)
+            if (sq, sk, window, causal) == (40, 16, 8, False):
+                assert not got[:, :, 23:].any()
+    q = torch.randn(1, 4, 50, 20, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.flash_attention_cuda(q, q[:, :2], q[:, :2])
+    q = torch.randn(1, 4, 50, 64, device=dev, dtype=torch.bfloat16)
+    skew = torch.randn(4 * 50 * 64 + 1, device=dev,
+                       dtype=torch.bfloat16)[1:].view(1, 4, 50, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention_cuda(q, skew, skew)
 
 
 @pytest.mark.gpu

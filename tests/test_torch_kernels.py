@@ -185,6 +185,137 @@ def test_int8_spmm_matches_reference(reference, rng, m, k, n, block, tile):
     assert _rel(y_op, y_jop) <= QUANT_REL
 
 
+# The fp32 kernel's plan inputs (m, t, tile, k_max): VGG16 for CIFAR-10 at
+# 8 batch slots (m = 8 x H x W, 128 x 128 bricks, K padded to whole
+# blocks) and the shapes of tests/test_kernels.py's spmm sweep and row
+# autotune (k = n = 256), plus block 9 / tile 8.
+VGG16_PLAN_SHAPES = [
+    ("conv1", 8192, 1, 128, 1), ("conv2", 8192, 1, 128, 5),
+    ("conv3", 2048, 1, 128, 5), ("conv4", 2048, 1, 128, 9),
+    ("conv5", 512, 2, 128, 9), ("conv6", 512, 2, 128, 18),
+    ("conv7", 512, 2, 128, 18), ("conv8", 128, 4, 128, 18),
+    ("conv9", 128, 4, 128, 36), ("conv10", 128, 4, 128, 36),
+    ("conv11", 32, 4, 128, 36), ("conv12", 32, 4, 128, 36),
+    ("conv13", 32, 4, 128, 36), ("fc", 8, 1, 128, 4),
+]
+SWEEP_PLAN_SHAPES = [
+    ("sweep_32", 32, 2, 128, 2), ("sweep_130", 130, 3, 128, 2),
+    ("sweep_16", 16, 4, 64, 8), ("sweep_8", 8, 1, 128, 1),
+    ("autotune_1", 1, 2, 128, 2), ("autotune_3", 3, 2, 128, 2),
+    ("autotune_17", 17, 2, 128, 2), ("autotune_130", 130, 2, 128, 2),
+    ("block9_tile8", 20, 2, 8, 3),
+]
+
+
+def _split_runs(n, splits):
+    """The bricks split s of a tile with n bricks walks, as the kernel
+    computes them: [s * ceil(n / S), ...) cut at n."""
+    chunk = -(-n // splits)
+    return [range(min(s * chunk, n), min(s * chunk + chunk, n))
+            for s in range(splits)]
+
+
+@pytest.mark.parametrize("name,m,t,tile,k_max",
+                         VGG16_PLAN_SHAPES + SWEEP_PLAN_SHAPES)
+def test_split_plan(name, m, t, tile, k_max):
+    plan = tk._split_plan(m, t, tile, k_max)
+    bm, bn, bk = tk._TILE_SHAPES[plan.config]
+    assert (plan.bm, plan.bn, plan.bk) == (bm, bn, bk)
+    slabs = t * -(-tile // bn)
+    assert plan.blocks == -(-m // bm) * slabs * plan.splits
+    assert 1 <= plan.splits <= max(k_max, 1)
+    # every brick of every tile walked once, by exactly one split
+    for n in range(k_max + 1):
+        runs = _split_runs(n, plan.splits)
+        assert [k for r in runs for k in r] == list(range(n))
+    # no split of a full tile is empty
+    runs = _split_runs(k_max, plan.splits)
+    assert all(len(r) > 0 for r in runs) or k_max == 0
+    assert plan.chunk == max(len(r) for r in runs)
+    # output tiles that fill two waves alone are not split; otherwise the
+    # split reaches two waves or one-brick runs
+    if slabs >= 2 * tk._SMS:
+        assert plan.splits == 1
+    else:
+        assert slabs * plan.splits >= 2 * tk._SMS or plan.chunk == 1
+    # rows choose the block tile, never the split: an output's bits are
+    # the same in a batch of any size
+    for rows in (1, 8, 8 * m, 64 * m):
+        assert tk._split_plan(rows, t, tile, k_max).splits == plan.splits
+    assert bn == (32 if tile <= 32 else 128)
+    if tile > 32:  # 32 rows up to eight waves, 32-deep steps up to three
+        blocks32 = -(-m // 32) * slabs * plan.splits
+        assert bm == (32 if blocks32 <= 8 * tk._SMS else 64)
+        assert bk == (32 if blocks32 <= 3 * tk._SMS else 16)
+    # shapes alone decide: the same shapes, the same plan
+    assert tk._split_plan(m, t, tile, k_max) == plan
+
+
+def _split_emulation(x, w_comp, block_ids, nnz, block, splits):
+    """The fp32 kernel's arithmetic order in plain torch: split s of tile
+    t sums its run of bricks in k order; the partials are summed in the
+    order 0..S-1."""
+    m = x.shape[0]
+    t_n, _, _, tile = w_comp.shape
+    parts = torch.zeros((splits, m, t_n * tile), dtype=torch.float32)
+    for t in range(t_n):
+        for s, run in enumerate(_split_runs(int(nnz[t]), splits)):
+            acc = torch.zeros((m, tile), dtype=torch.float32)
+            for k in run:
+                b = int(block_ids[t, k])
+                acc = acc + x[:, b * block:(b + 1) * block] @ w_comp[t, k]
+            parts[s, :, t * tile:(t + 1) * tile] = acc
+    y = parts[0].clone()
+    for s in range(1, splits):
+        y = y + parts[s]
+    return y
+
+
+@pytest.mark.parametrize("m,k,n,block,tile", SWEEP)
+def test_split_sum_emulation_matches_plain(rng, m, k, n, block, tile):
+    """The split walk and its fixed-order sum, emulated, agree with the
+    plain version at the fp32 bound for every split count the bricks
+    allow, and a row's result does not depend on the other rows."""
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    keep = rng.random((k // block, 1, n)) < 0.5
+    w = (w.reshape(k // block, block, n) * keep).reshape(k, n)
+    w[:, :tile] = 0.0  # tile 0 holds no brick
+    bp = ts.build_block_pattern(w, block=block, tile=tile,
+                                masks=ts.nonzero_block_masks(w, block))
+    x = torch.from_numpy((rng.normal(size=(m, k)) * 0.3).astype(np.float32))
+    nnz = _nnz(bp)
+    want = tk.pattern_spmm_plain(x, bp.w_comp, bp.block_ids, nnz, block)
+    plan = tk._split_plan(m, bp.n_tiles, tile, bp.k_max)
+    for splits in sorted({1, 2, 3, plan.splits, max(bp.k_max, 1)}):
+        y = _split_emulation(x, bp.w_comp, bp.block_ids, nnz, block, splits)
+        torch.testing.assert_close(y, want, **TOL)
+        assert not y[:, :tile].any()
+        # other rows changed: row 0's result is bit for bit the same
+        x2 = x.clone()
+        x2[1:] = torch.from_numpy(rng.normal(size=(m - 1, k)).astype(
+            np.float32)) if m > 1 else x2[1:]
+        y2 = _split_emulation(x2, bp.w_comp, bp.block_ids, nnz, block,
+                              splits)
+        assert torch.equal(y2[0], y[0])
+
+
+def test_copy_width_follows_shapes():
+    """16-byte copies only where every copied row starts 16-byte aligned;
+    block 9 / tile 8 and misaligned views take the 4-byte path."""
+    w = torch.zeros((2, 3, 128, 128))
+    x = torch.zeros((8, 384))
+    assert tk._copy_width(x, w, 128, 128) == 4
+    assert tk._copy_width(x[1:], w, 128, 128) == 4  # rows of 1536 bytes
+    assert tk._copy_width(torch.zeros((8, 27)), torch.zeros((2, 3, 9, 8)),
+                          9, 8) == 1
+    assert tk._copy_width(torch.zeros((8, 90)), torch.zeros((2, 3, 9, 8)),
+                          9, 8) == 1
+    assert tk._copy_width(torch.zeros((8, 96)), torch.zeros((2, 3, 16, 6)),
+                          16, 6) == 1
+    skew = torch.zeros(8 * 384 + 1)[1:].view(8, 384)  # 4 bytes off
+    assert tk._copy_width(skew, w, 128, 128) == 1
+
+
 def _ou_case(rng, r, c, ou_r):
     w = rng.normal(size=(r, c)).astype(np.float32)
     x = rng.normal(size=(r,)).astype(np.float32)
@@ -313,6 +444,70 @@ def test_cuda_kernels_match_plain_on_card():
         wantq = tk.pattern_spmm_quant_plain(xq, qbp.w_comp, qbp.block_ids,
                                             qbp.w_scales, nnz, block)
         assert _rel(yq.cpu(), wantq.cpu()) <= QUANT_REL
+
+
+@pytest.mark.gpu
+def test_fp32_split_walk_on_card():
+    """The fp32 kernel under every block tile and a range of split counts
+    (the default plan among them) against its plain version: the sweep,
+    block 9 / tile 8 (4-byte copies), tiles with no brick; two runs bit
+    for bit equal; a row's result independent of the other rows; one
+    launch counted per call, and one reduction per split call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        find_nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    for m, k, n, block, tile in SWEEP + [(8192, 640, 128, 128, 128),
+                                         (33, 1152, 256, 128, 128)]:
+        w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+        keep = rng.random((k // block, 1, n)) < 0.6
+        w = (w.reshape(k // block, block, n) * keep).reshape(k, n)
+        w[:, :tile] = 0.0  # tile 0 has nnz == 0
+        bp = ts.build_block_pattern(
+            w, block=block, tile=tile,
+            masks=ts.nonzero_block_masks(w, block), device=dev,
+        )
+        nnz = torch.as_tensor(bp.nnz, dtype=torch.int32, device=dev)
+        x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32),
+                            device=dev)
+        x2 = x.clone()
+        x2[1:] = -x2[1:]
+        want = tk.pattern_spmm_plain(x, bp.w_comp, bp.block_ids, nnz, block)
+        default = tk._split_plan(m, bp.n_tiles, tile, bp.k_max)
+        plans = [default]
+        for config, (bm, bn, bk) in enumerate(tk._TILE_SHAPES):
+            for splits in sorted({1, 2, max(bp.k_max, 1)}):
+                base = -(-m // bm) * bp.n_tiles * -(-tile // bn)
+                plans.append(tk.SplitPlan(config, bm, bn, bk, splits,
+                                          -(-bp.k_max // splits),
+                                          base * splits))
+        for plan in plans:
+            n0 = tk.pattern_spmm_cuda.launches
+            r0 = tk.pattern_spmm_cuda.reduce_launches
+            y = tk.pattern_spmm_cuda(x, bp.w_comp, bp.block_ids, nnz, block,
+                                     plan=plan)
+            again = tk.pattern_spmm_cuda(x, bp.w_comp, bp.block_ids, nnz,
+                                         block, plan=plan)
+            other = tk.pattern_spmm_cuda(x2, bp.w_comp, bp.block_ids, nnz,
+                                         block, plan=plan)
+            torch.cuda.synchronize()
+            assert tk.pattern_spmm_cuda.launches == n0 + 3
+            assert tk.pattern_spmm_cuda.reduce_launches == r0 + 3 * (
+                plan.splits > 1)
+            torch.testing.assert_close(y, want, **TOL)
+            assert not y[:, :tile].any()
+            assert torch.equal(y, again)
+            assert torch.equal(y[0], other[0])
+        # the default plan's split follows no row count: the first rows
+        # alone give the same bits as in the whole batch
+        few = tk.pattern_spmm_cuda(x[:5].contiguous(), bp.w_comp,
+                                   bp.block_ids, nnz, block)
+        whole = tk.pattern_spmm_cuda(x, bp.w_comp, bp.block_ids, nnz, block)
+        assert torch.equal(few, whole[:5])
 
 
 @pytest.mark.gpu
