@@ -19,11 +19,14 @@ at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``search``, ``ou_mvm``,
-``flash`` (kernel vs plain), ``generate``, ``times``.  The fp32 spmm
-rows carry each layer's split plan (``splits``, ``blocks``) and, in
-``times``, its TFLOP/s; the flash rows carry the route (``tensor_core``
-for bf16 and fp16, ``simt`` for fp32), and every prefill launch of
-``generate`` must take the tensor-core route.  Any failed check exits
+``flash`` (kernel vs plain), ``generate``, ``times``.  The spmm rows
+carry each layer's split plan (``splits``, ``blocks``) and, in
+``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
+rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
+``times``, GB/s; every kernel must give the same bits on a second run.
+The flash rows carry the route (``tensor_core`` for bf16 and fp16,
+``simt`` for fp32), and every prefill launch of ``generate`` must take
+the tensor-core route.  Any failed check exits
 non-zero.  The last three lines are
 the card's name and power limit as ``nvidia-smi`` prints them, the
 per-kernel ``{"kernels": [...]}`` summary, and
@@ -297,7 +300,8 @@ def calls(kind, bp, x, dev):
     """(kernel, plain) zero-argument calls of a kernel's wrapper and of its
     plain version on the same operands, made once here as the executor
     makes them (``nnz`` on the device; int8 activations quantized per
-    row), so a timed call is the launch alone."""
+    row and the bricks' K-major copy), so a timed call is the launch
+    alone."""
     import torch
 
     from repro_torch.core.quantize import quantize_rows
@@ -306,32 +310,36 @@ def calls(kind, bp, x, dev):
     nnz = torch.as_tensor(bp.nnz, dtype=torch.int32, device=dev)
     if kind == "pattern_spmm_cuda":
         args = (x, bp.w_comp, bp.block_ids, nnz, bp.block)
-        kernel, plain = tk.pattern_spmm_cuda, tk.pattern_spmm_plain
-    else:
-        xq, _ = quantize_rows(x)
-        args = (xq, bp.w_comp, bp.block_ids, bp.w_scales, nnz, bp.block)
-        kernel = tk.pattern_spmm_quant_cuda
-        plain = tk.pattern_spmm_quant_plain
-    return lambda: kernel(*args), lambda: plain(*args)
+        return (lambda: tk.pattern_spmm_cuda(*args),
+                lambda: tk.pattern_spmm_plain(*args))
+    xq, _ = quantize_rows(x)
+    args = (xq, bp.w_comp, bp.block_ids, bp.w_scales, nnz, bp.block)
+    wk = tk.kmajor_bricks(bp.w_comp)  # as the executor prepares it
+    return (lambda: tk.pattern_spmm_quant_cuda(*args, w_kmajor=wk),
+            lambda: tk.pattern_spmm_quant_plain(*args))
 
 
-def spmm_plan(bp, m: int) -> dict:
-    """The fp32 kernel's plan for one layer (``_split_plan`` of its
-    shapes): block tile, splits and the first launch's blocks."""
+def spmm_plan(kind, bp, m: int) -> dict:
+    """A spmm kernel's plan for one layer (``_split_plan`` of its shapes
+    for fp32, ``_quant_plan`` for int8): block tile, splits and the
+    first launch's blocks."""
     from repro_torch.kernels import pattern_spmm as tk
 
-    plan = tk._split_plan(m, bp.n_tiles, bp.tile, bp.k_max)
+    planner = (tk._split_plan if kind == "pattern_spmm_cuda"
+               else tk._quant_plan)
+    plan = planner(m, bp.n_tiles, bp.tile, bp.k_max)
     return {"tile_rows": plan.bm, "tile_cols": plan.bn,
             "step_depth": plan.bk, "splits": plan.splits,
             "blocks": plan.blocks}
 
 
-def reduce_launches_expected(prog, batches: int) -> int:
+def reduce_launches_expected(prog, batches: int,
+                             kind: str = "pattern_spmm_cuda") -> int:
     """Split reductions a run of ``batches`` forwards of ``prog`` at
     ``BATCH_SLOTS`` images launches: one per layer whose plan splits."""
     ms = [BATCH_SLOTS * op.out_hw ** 2 for op in prog.convs] + [BATCH_SLOTS]
     bps = [op.bp for op in prog.convs] + [prog.fc.bp]
-    return batches * sum(spmm_plan(bp, m)["splits"] > 1
+    return batches * sum(spmm_plan(kind, bp, m)["splits"] > 1
                          for bp, m in zip(bps, ms))
 
 
@@ -711,10 +719,11 @@ def ou_mvm_phase(prog, params, images, dev) -> dict:
             for _, x, w, r, c in cases]
     torch.cuda.synchronize()
     launches = tou.ou_mvm_cuda.launches
+    plans = [ou_plan(x, w, r) for _, x, w, r, _ in cases]
     check(launches == len(cases),
           f"ou_mvm_cuda launches {launches} != {len(cases)} calls")
     rows, worst = [], 0.0
-    for (name, x, w, r, c), y in zip(cases, outs):
+    for (name, x, w, r, c), y, plan in zip(cases, outs, plans):
         want = tou.ou_mvm_plain(x, w, r, c)
         live = ou_live_rows(x, r)
         mag = ((x * live)[:, None] * torch.where(live[:, None], w, 0.0)).abs()
@@ -725,8 +734,12 @@ def ou_mvm_phase(prog, params, images, dev) -> dict:
                    1.0 - tou.band_flags(x, r).float().mean()),
                "max_abs_diff": float(d.max()),
                "worst_over_limit": float((d / lim).max()),
-               "finite": bool(torch.isfinite(y).all())}
-        row["ok"] = row["worst_over_limit"] <= 1.0 and row["finite"]
+               "finite": bool(torch.isfinite(y).all()),
+               # no atomics: a second run is bit for bit the first
+               "rerun_bit_identical": bool(torch.equal(
+                   tou.ou_mvm_cuda(x, w, r, c), y)), **plan}
+        row["ok"] = (row["worst_over_limit"] <= 1.0 and row["finite"]
+                     and row["rerun_bit_identical"])
         if name == "all_zero_x":
             row["ok"] = row["ok"] and not y.any()
         rows.append(row)
@@ -738,6 +751,18 @@ def ou_mvm_phase(prog, params, images, dev) -> dict:
     check(not bad, f"ou_mvm_cuda disagrees with its plain version on {bad}")
     return {"launches": launches, "max_abs_err": worst,
             "cases": cases[:2 * len(prog.convs)]}
+
+
+def ou_plan(x, w, ou_rows: int) -> dict:
+    """The ``ou_mvm`` kernel's plan for one call (``_ou_plan`` of its
+    shapes): columns a block, blocks, rows a row-lane walks, passes of x
+    through shared memory."""
+    from repro_torch.kernels import ou_mvm as tou
+
+    plan = tou._ou_plan(w.shape[0], w.shape[1],
+                        tou._ou_vec(w.float().contiguous()))
+    return {"slab_cols": plan.cols, "blocks": plan.blocks,
+            "rows_per_lane": plan.rows_per_lane, "chunks": plan.chunks}
 
 
 def ou_cost(x, w, ou_rows: int) -> tuple[float, float]:
@@ -1213,11 +1238,10 @@ def run(seed: int, dev) -> dict:
             kernel, plain = calls(kname, bp, x, dev)
             y = kernel()
             res = compare(kname, y, plain(), bp)
-            if kname == "pattern_spmm_cuda":
-                # no atomics: a second run is bit for bit the first
-                res["rerun_bit_identical"] = bool(torch.equal(kernel(), y))
-                res["ok"] = res["ok"] and res["rerun_bit_identical"]
-                res.update(spmm_plan(bp, x.shape[0]))
+            # no atomics: a second run is bit for bit the first
+            res["rerun_bit_identical"] = bool(torch.equal(kernel(), y))
+            res["ok"] = res["ok"] and res["rerun_bit_identical"]
+            res.update(spmm_plan(kname, bp, x.shape[0]))
             rows.append({"case": name, "m": x.shape[0], "k": bp.k_in,
                          "n": bp.n_out, "k_max": bp.k_max, **res})
             if name != extra[0]:
@@ -1241,6 +1265,7 @@ def run(seed: int, dev) -> dict:
     tk.pattern_spmm_cuda.launches = 0
     tk.pattern_spmm_cuda.reduce_launches = 0
     tk.pattern_spmm_quant_cuda.launches = 0
+    tk.pattern_spmm_quant_cuda.reduce_launches = 0
     reqs32 = [Request(image=img) for img in images]
     serve_s = serve_bursts(svc32, reqs32)
     reqs8 = [Request(image=img) for img in images[:N_INT8]]
@@ -1248,7 +1273,9 @@ def run(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     launches = {"pattern_spmm_cuda": tk.pattern_spmm_cuda.launches,
                 "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.launches}
-    reduce_launches = tk.pattern_spmm_cuda.reduce_launches
+    reduce_launches = {
+        "pattern_spmm_cuda": tk.pattern_spmm_cuda.reduce_launches,
+        "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.reduce_launches}
     spmms = len(loaded.convs) + 1
     batches = {"fp32": svc32.batches_run, "int8": svc8.batches_run}
     m32 = svc32.metrics
@@ -1275,6 +1302,8 @@ def run(seed: int, dev) -> dict:
     )
     alone = Request(image=images[10])
     svc32.serve([alone])
+    alone8 = Request(image=images[10])
+    svc8.serve([alone8])
     res = dict(
         requests_fp32=n32, requests_int8=N_INT8, batch_slots=BATCH_SLOTS,
         bursts=list(BURSTS), batches=batches,
@@ -1282,8 +1311,11 @@ def run(seed: int, dev) -> dict:
         trace_count=[svc32.trace_count(), svc8.trace_count()],
         launches=launches, spmms_per_forward=spmms,
         reduce_launches=reduce_launches,
-        reduce_launches_expected=reduce_launches_expected(
-            loaded, batches["fp32"]),
+        reduce_launches_expected={
+            "pattern_spmm_cuda": reduce_launches_expected(
+                loaded, batches["fp32"]),
+            "pattern_spmm_quant_cuda": reduce_launches_expected(
+                prog8, batches["int8"], "pattern_spmm_quant_cuda")},
         requests_per_s=n32 / serve_s,
         latency_p50_s=m32["latency_p50_s"],
         latency_p99_s=m32["latency_p99_s"],
@@ -1307,6 +1339,8 @@ def run(seed: int, dev) -> dict:
         layer_parity_vs_cpu=parity,
         alone_vs_cobatched_bit_identical=bool(
             np.array_equal(alone.logits, reqs32[10].logits)),
+        int8_alone_vs_cobatched_bit_identical=bool(
+            np.array_equal(alone8.logits, reqs8[10].logits)),
         stats_exact=stats_exact,
         int8_top1_agreement_vs_fp32=float(
             (logits8.argmax(1) == labels32[:N_INT8]).mean()),
@@ -1322,7 +1356,7 @@ def run(seed: int, dev) -> dict:
               f"{kname} launches {launches[kname]} != {spmms} x "
               f"{batches[prec]} {prec} batches")
     check(reduce_launches == res["reduce_launches_expected"],
-          f"pattern_spmm_cuda split reductions {reduce_launches} != "
+          f"split reductions {reduce_launches} != "
           f"{res['reduce_launches_expected']}")
     check(res["labels_match_dense"], "served labels differ from the dense "
                                      "reference's")
@@ -1334,6 +1368,8 @@ def run(seed: int, dev) -> dict:
     check(stats_exact, "accumulated skip statistics != one-shot forward")
     check(res["alone_vs_cobatched_bit_identical"],
           "logits served alone differ from co-batched")
+    check(res["int8_alone_vs_cobatched_bit_identical"],
+          "int8 logits served alone differ from co-batched")
 
     # -- 6. the mapping search, served and priced -----------------------
     searched = search_phase(seed, cfg, params, tparams, bits, images,
@@ -1358,6 +1394,8 @@ def run(seed: int, dev) -> dict:
     per_layer = {}
     for kname in ("pattern_spmm_cuda", "pattern_spmm_quant_cuda"):
         meta = KERNELS[kname]
+        peak = (PEAK_FP32_FLOPS if kname == "pattern_spmm_cuda"
+                else PEAK_INT8_OPS)
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bytes": 0.0, "ops": 0.0}
         rows = []
@@ -1380,12 +1418,15 @@ def run(seed: int, dev) -> dict:
                    "n": bp.n_out, "bricks": int(bp.nnz.sum()),
                    "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
                    "bytes": nbytes, "ops": ops}
+            row.update(spmm_plan(kname, bp, x.shape[0]),
+                       bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                    ops / peak) * 1e3)
             if kname == "pattern_spmm_cuda":
-                row.update(spmm_plan(bp, x.shape[0]),
-                           tflops=ops / (ms * 1e-3) / 1e12)
+                row["tflops"] = ops / (ms * 1e-3) / 1e12
+            else:
+                row["tops"] = ops / (ms * 1e-3) / 1e12
+                row["gb_per_s"] = nbytes / (ms * 1e-3) / 1e9
             rows.append(row)
-        peak = (PEAK_FP32_FLOPS if kname == "pattern_spmm_cuda"
-                else PEAK_INT8_OPS)
         bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = tot["ops"] / peak * 1e3
         per_layer[kname] = rows
@@ -1411,8 +1452,10 @@ def run(seed: int, dev) -> dict:
                        ("bytes", nbytes), ("ops", ops)):
             ou_tot[key] += v
         ou_rows_t.append({"case": name, "r": w.shape[0], "c": w.shape[1],
+                          **ou_plan(x, w, r),
                           "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
                           "bytes": nbytes, "ops": ops,
+                          "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
                           "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                           ops / PEAK_FP32_FLOPS) * 1e3})
     per_layer["ou_mvm_cuda"] = ou_rows_t
@@ -1500,7 +1543,8 @@ def run(seed: int, dev) -> dict:
         "latency_p99_s": bare.metrics["latency_p99_s"]}
     emit("times", card=smi, unit=f"spmm: ms per forward of {BATCH_SLOTS} "
          f"images ({spmms} launches), summed over layers; ou_mvm: ms per "
-         f"call, summed over the {len(ou['cases'])} conv cases; flash: ms "
+         f"call, summed over the {len(ou['cases'])} conv cases, GB/s of its "
+         f"bytes (HBM {HBM_BYTES_PER_S / 1e12} TB/s); flash: ms "
          f"per launch of the prefill's call at S in {list(FLASH_PATH_S)}, "
          f"summed; its bound at the bf16 tensor cores' rate",
          per_layer=per_layer, searched_fp32_spmm_per_forward=searched_spmm,

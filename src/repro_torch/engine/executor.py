@@ -44,6 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.engine.stats import skip_patterns_and_masks, stats_from_counts
 from repro_torch.kernels.ops import _pad_to, pattern_spmm
+from repro_torch.kernels.pattern_spmm import kmajor_bricks
 from repro_torch.models.cnn import channel_norm, max_pool_2x2
 from repro_torch.obs.trace import Tracer
 
@@ -101,6 +102,7 @@ class _Prepared(NamedTuple):
     nnz: torch.Tensor  # int32 [T]
     inv_order: torch.Tensor  # int64 [N]
     bias: torch.Tensor  # float32 [c_out]
+    w_kmajor: torch.Tensor | None  # int8 [T, k_max, tile, block]; int8 only
 
 
 class _Dispatch:
@@ -111,20 +113,25 @@ class _Dispatch:
 
     def prepare(self, bp: BlockPatternWeight, bias: np.ndarray) -> _Prepared:
         """Move the layer's operands to the device, once per program: the
-        bricks and index table, and device copies of ``nnz`` (which the
-        kernels read) and ``inv_order``."""
+        bricks and index table, device copies of ``nnz`` (which the
+        kernels read) and ``inv_order``, and for int8 bricks their K-major
+        copy (the layout the int8 kernel's MMAs read; never saved)."""
         dev = self.device
+        bp = bp.to(dev)
         return _Prepared(
-            bp=bp.to(dev),
+            bp=bp,
             nnz=torch.as_tensor(bp.nnz, dtype=torch.int32, device=dev),
             inv_order=torch.as_tensor(bp.inv_order, dtype=torch.int64,
                                       device=dev),
             bias=torch.as_tensor(np.asarray(bias, np.float32), device=dev),
+            w_kmajor=(None if bp.w_scales is None
+                      else kmajor_bricks(bp.w_comp)),
         )
 
     def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
         return pattern_spmm(
             x2d, prepared.bp, nnz=prepared.nnz, inv_order=prepared.inv_order,
+            w_kmajor=prepared.w_kmajor,
         )
 
     def counts(self, patches, c_in, kk, masks, row_valid=None):

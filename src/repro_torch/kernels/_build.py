@@ -124,8 +124,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
              + [ctypes.c_float] + [i32] * 4 + [ptr])
     sigs = {
         "pattern_spmm_f32": [ptr] * 6 + [i32] * 10 + [ptr],
-        "pattern_spmm_i8": [ptr] * 6 + [i32] * 7 + [ptr],
-        "ou_mvm_f32": [ptr] * 3 + [i32] * 4 + [ptr],
+        "pattern_spmm_i8": [ptr] * 7 + [i32] * 10 + [ptr],
+        "ou_mvm_f32": [ptr] * 3 + [i32] * 5 + [ptr],
         "flash_attention_fwd": flash,
         "flash_attention_fwd_mma": flash,
     }

@@ -52,6 +52,7 @@ def pattern_spmm_raw(
     block: int,
     w_scales: torch.Tensor | None = None,
     nnz: torch.Tensor | None = None,
+    w_kmajor: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Compressed spmm in *reordered* column order (no inverse permutation).
 
@@ -60,14 +61,17 @@ def pattern_spmm_raw(
     (:func:`~repro_torch.core.quantize.quantize_rows`), the int8 variant
     runs, and the row scale multiplies in the epilogue here.  The CUDA
     kernels need ``nnz`` as an int32 tensor on the device; the plain
-    versions walk every slot and do not read it.
+    versions walk every slot and do not read it.  ``w_kmajor`` is the
+    int8 bricks' K-major copy (``kernels.pattern_spmm.kmajor_bricks``),
+    made per call by the int8 kernel's wrapper when not given.
     """
     if nnz is None and default_backend(xm) == "cuda":
         raise ValueError("the CUDA kernels need nnz as a device tensor")
     if w_scales is None:
         return pattern_spmm_cuda(xm, w_comp, block_ids, nnz, block)
     xq, x_scale = quantize_rows(xm)
-    y = pattern_spmm_quant_cuda(xq, w_comp, block_ids, w_scales, nnz, block)
+    y = pattern_spmm_quant_cuda(xq, w_comp, block_ids, w_scales, nnz, block,
+                                w_kmajor=w_kmajor)
     return y * x_scale[:, None]
 
 
@@ -76,14 +80,16 @@ def pattern_spmm(
     bp: BlockPatternWeight,
     nnz: torch.Tensor | None = None,
     inv_order: torch.Tensor | None = None,
+    w_kmajor: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """y = x @ W for a block-pattern compressed weight.  x: [..., K].
 
     Quantized weights (``bp.w_scales is not None``) dispatch the int8
     variant; the output dtype follows ``x`` either way.  ``nnz`` (int32)
     and ``inv_order`` (int64) are the device copies of the weight's
-    numpy tables; the executor makes them once per program, and they
-    are copied here per call when not given.
+    numpy tables, and ``w_kmajor`` the int8 bricks' K-major copy; the
+    executor makes them once per program, and they are made here (or by
+    the kernel's wrapper) per call when not given.
     """
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1])
@@ -94,6 +100,7 @@ def pattern_spmm(
                                     device=x.device)
     y = pattern_spmm_raw(
         xm, bp.w_comp, bp.block_ids, bp.block, w_scales=bp.w_scales, nnz=nnz,
+        w_kmajor=w_kmajor,
     )
     y = y.index_select(1, inv_order)  # the Output Indexing Unit
     return y.reshape(*lead, bp.n_out).to(x.dtype)

@@ -10,10 +10,17 @@ version (paper §IV-A).
 built with ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and
 called through ctypes on PyTorch's current stream.  It is bound by bytes
 (two operations per weight of a live band): a skipped band reads no
-weights, and each warp reads 32 consecutive columns of a weight row per
-load.  The skip is lossless — a zero band adds nothing — except that a
-skipped band's weights never reach the output at all, so a non-finite
-weight there does not turn the output into NaN as ``x @ w`` would.
+weights.  Each thread block owns a slab of 4 columns (one float4 a
+weight row) and walks every row of it, so a call is one launch with no
+reduction across blocks (at these sizes one costs as much as the walk);
+the block sums its 512 row-lanes by a fixed tree, so a rerun gives the
+same bits.  Each thread reads its 4 columns of a weight row as one
+16-byte load where C and the alignment allow it (:func:`_ou_vec`, else
+one column a block), 16 rows in flight.  x and its band flags pass
+through shared memory 8192 rows at a time, so any R works.  The skip
+is lossless — a zero band adds nothing — except that a skipped band's
+weights never reach the output at all, so a non-finite weight there
+does not turn the output into NaN as ``x @ w`` would.
 
 Beside the kernel is its plain PyTorch version (the tests and the chip
 smoke run compare against it) and a plain-integer launch counter,
@@ -24,14 +31,43 @@ the CPU; for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._build import load_library
 
-__all__ = ["band_flags", "ou_mvm_cuda", "ou_mvm_plain"]
+__all__ = ["OuPlan", "band_flags", "ou_mvm_cuda", "ou_mvm_plain"]
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+_OU_THREADS = 512  # row-lanes a block (csrc/ou_mvm.cu's THREADS)
+_OU_CHUNK = 512 * 16  # rows of x a block holds (csrc/ou_mvm.cu's CHUNK)
+
+
+class OuPlan(NamedTuple):
+    """How the kernel cuts one call: ``blocks`` slabs of ``cols``
+    columns, one a block; each of a block's ``_OU_THREADS`` row-lanes
+    walks ``rows_per_lane`` rows at most, in ``chunks`` passes of x
+    through shared memory."""
+
+    cols: int
+    blocks: int
+    rows_per_lane: int
+    chunks: int
+
+
+def _ou_plan(r: int, c: int, vec: int) -> OuPlan:
+    """The kernel's plan for w [r, c], a thread reading ``vec`` columns,
+    from these shapes alone (never from which bands are live)."""
+    return OuPlan(vec, -(-c // vec), -(-r // _OU_THREADS),
+                  -(-r // _OU_CHUNK))
+
+
+def _ou_vec(w: torch.Tensor) -> int:
+    """Columns a thread reads per load: 4 (one float4) when C % 4 == 0
+    and w is 16-byte aligned, else 1."""
+    return 4 if w.shape[1] % 4 == 0 and w.data_ptr() % 16 == 0 else 1
 
 
 def band_flags(x: torch.Tensor, ou_rows: int) -> torch.Tensor:
@@ -99,10 +135,10 @@ def ou_mvm_cuda(x: torch.Tensor, w: torch.Tensor, ou_rows: int = 9,
     y = torch.empty(c, dtype=torch.float32, device=x.device)
     if c == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = load_library().ou_mvm_f32(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), r, c, ou_rows,
-        x.device.index or 0, stream,
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), r, c, ou_rows, _ou_vec(w),
+        x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ou_mvm_f32 launch failed: CUDA error {err}")

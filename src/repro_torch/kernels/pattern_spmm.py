@@ -26,17 +26,21 @@ bricks of the next two steps while this one computes: 16-byte copies
 where block, tile and K allow it, 4-byte copies otherwise
 (:func:`_copy_width`).
 
-The int8 kernel is bound by its bytes, since the int8 tensor-core rate
-outruns device memory.  It is a simple SIMT kernel: one thread block per
-(64-row tile, output tile, 64-column slab) walks the tile's ``nnz[t]``
-bricks, staging the gathered x slice and the brick in shared memory 32
-rows of depth at a time; int8 MMA and TMA are later work.
+The int8 kernel is bound by its bytes: the int8 tensor-core rate
+outruns device memory.  It runs the same split walk under its own plan
+(:func:`_quant_plan`: runs of at least 3 bricks, row tiles of 16, 32 or
+64), each warp's products on the tensor cores (``mma.sync`` m16n8k32,
+int8 in, exact int32 per brick), each brick's partial folded into an
+fp32 accumulator in k order with the plain version's rounding.  8-bit MMAs
+take B K-major, so it reads a K-major copy of the bricks
+(:func:`kmajor_bricks`) that the executor makes once per program;
+``cp.async`` stages 16, 4 or 1 bytes a copy (:func:`_quant_copy_width`).
 
 Beside each kernel is its plain PyTorch version (the tests and the chip
 smoke run compare against it) and a plain-integer launch counter,
 ``<wrapper>.launches``, that grows by one per call that launches the
-kernel and nowhere else; ``pattern_spmm_cuda.reduce_launches`` counts the
-fp32 split reduction's launches.  A wrapper takes its plain version only
+kernel and nowhere else; ``<wrapper>.reduce_launches`` counts the split
+reduction's launches.  A wrapper takes its plain version only
 for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises.
 """
@@ -52,6 +56,7 @@ from repro_torch.kernels._build import load_library
 
 __all__ = [
     "SplitPlan",
+    "kmajor_bricks",
     "pattern_spmm_cuda",
     "pattern_spmm_quant_cuda",
     "pattern_spmm_plain",
@@ -65,11 +70,23 @@ _SMS = 132  # streaming multiprocessors of the H100 SXM
 # 8 x 8 outputs a thread for 64 rows, 4 x 8 for 32, 4 x 4 for tiles of
 # <= 32 columns.
 _TILE_SHAPES = ((64, 128, 16), (32, 128, 16), (64, 32, 16), (32, 128, 32))
+# The int8 plan splits a tile's bricks only from this many slots on, into
+# runs of at least _QUANT_MIN_RUN (scripts/spmm_plan_sweep.py --kernel
+# int8 measured every split count at VGG16's layers).
+_QUANT_SPLIT_FROM = 8
+_QUANT_MIN_RUN = 3
+# The int8 kernel's block tiles (rows, columns, depth staged a step), by
+# the config index its launch_config instantiates: 8 warps of 32 x 32
+# outputs for 64 rows, 8 of 16 x 32 for 32 rows, 4 of 16 x 32 for 16
+# rows, 2 of 16 x 32 for tiles of <= 32 columns.
+_QUANT_TILE_SHAPES = ((64, 128, 64), (32, 128, 64), (16, 128, 64),
+                      (32, 32, 64))
 
 
 class SplitPlan(NamedTuple):
-    """How the fp32 kernel cuts one call: block tile ``config`` (an index
-    into ``_TILE_SHAPES``: ``bm`` x ``bn``, ``bk`` deep a step),
+    """How a kernel cuts one call: block tile ``config`` (an index into
+    ``_TILE_SHAPES``, or ``_QUANT_TILE_SHAPES`` for int8: ``bm`` x
+    ``bn``, ``bk`` deep a step),
     ``splits`` runs of at most ``chunk`` bricks per tile of ``k_max``
     bricks (a tile of n bricks runs ``ceil(n / splits)`` each), and the
     first launch's ``blocks``."""
@@ -81,6 +98,15 @@ class SplitPlan(NamedTuple):
     splits: int
     chunk: int
     blocks: int
+
+
+def _splits(slabs: int, k_max: int, sms: int) -> tuple[int, int]:
+    """(splits, chunk): the bricks of a tile cut into runs of ``chunk``
+    (down to one) until ``slabs`` column slabs give two waves of ``sms``
+    blocks.  From the output tiles and ``k_max`` alone, never the rows."""
+    chunk = -(-k_max // max(1, min(k_max, -(-2 * sms // slabs))))
+    splits = -(-k_max // chunk) if k_max else 1  # no run of k_max is empty
+    return splits, chunk
 
 
 def _split_plan(m: int, t: int, tile: int, k_max: int,
@@ -103,8 +129,7 @@ def _split_plan(m: int, t: int, tile: int, k_max: int,
     (``scripts/spmm_plan_sweep.py`` measured each at VGG16's layers)."""
     bn = 32 if tile <= 32 else 128
     slabs = t * -(-tile // bn)
-    chunk = -(-k_max // max(1, min(k_max, -(-2 * sms // slabs))))
-    splits = -(-k_max // chunk) if k_max else 1  # no run of k_max is empty
+    splits, chunk = _splits(slabs, k_max, sms)
     blocks32 = -(-m // 32) * slabs * splits
     if tile <= 32:
         config = 2
@@ -119,6 +144,45 @@ def _split_plan(m: int, t: int, tile: int, k_max: int,
                      -(-m // bm) * slabs * splits)
 
 
+def _quant_plan(m: int, t: int, tile: int, k_max: int,
+                sms: int = _SMS) -> SplitPlan:
+    """The int8 kernel's plan for ``m`` rows, ``t`` output tiles of
+    ``tile`` columns and ``k_max`` brick slots a tile, from these shapes
+    alone.
+
+    The split count follows the output tiles and ``k_max`` only, never
+    the rows, so a row's bits are the same in a batch of any size.  A
+    tile of fewer than ``_QUANT_SPLIT_FROM`` slots is walked whole: its
+    at most 14 steps are short, and the layers that have such tiles
+    (conv1-3, the FC) hold up to 8192 rows, whose fp32 partials would
+    cost more traffic than the split saves.  Larger tiles are split as
+    the fp32 plan splits them (:func:`_splits`), in runs of at least
+    ``_QUANT_MIN_RUN`` bricks: each brick is 4x fewer bytes than fp32's,
+    so a one-brick run's partial outweighs its walk.  The rows choose
+    only the block tile, which changes no bit: 32 columns for tiles of
+    <= 32; else 16 rows up to 128 (an m16 MMA; more blocks at the deep
+    layers, nothing wasted at the FC's 8), 32 rows up to eight waves of
+    blocks, 64 above."""
+    bn = 32 if tile <= 32 else 128
+    slabs = t * -(-tile // bn)
+    splits, chunk = 1, max(k_max, 1)
+    if k_max >= _QUANT_SPLIT_FROM:
+        _, chunk = _splits(slabs, k_max, sms)
+        chunk = max(chunk, _QUANT_MIN_RUN)
+        splits = -(-k_max // chunk)
+    if tile <= 32:
+        config = 3
+    elif m <= 128:
+        config = 2
+    elif -(-m // 32) * slabs * splits <= 8 * sms:
+        config = 1
+    else:
+        config = 0
+    bm, bn, bk = _QUANT_TILE_SHAPES[config]
+    return SplitPlan(config, bm, bn, bk, splits, chunk,
+                     -(-m // bm) * slabs * splits)
+
+
 def _copy_width(x, w_comp, block: int, tile: int) -> int:
     """Floats per ``cp.async`` of the fp32 kernel: 4 (16 bytes) when every
     row it copies starts 16-byte aligned (block, tile and K multiples of
@@ -127,6 +191,28 @@ def _copy_width(x, w_comp, block: int, tile: int) -> int:
     aligned = (block % 4 == 0 and tile % 4 == 0 and x.shape[1] % 4 == 0
                and x.data_ptr() % 16 == 0 and w_comp.data_ptr() % 16 == 0)
     return 4 if aligned else 1
+
+
+def _quant_copy_width(xq, w_kmajor, block: int) -> int:
+    """Bytes per copy of the int8 kernel's staging: 16 when every row it
+    copies (a gathered x slice, a K-major brick row) starts 16-byte
+    aligned (block and K multiples of 16, both bases 16-byte aligned), 4
+    when they are multiples of 4 and 4-byte aligned, else 1 (block 9)."""
+    k_in = xq.shape[1]
+    for width in (16, 4):
+        if (block % width == 0 and k_in % width == 0
+                and xq.data_ptr() % width == 0
+                and w_kmajor.data_ptr() % width == 0):
+            return width
+    return 1
+
+
+def kmajor_bricks(w_comp: torch.Tensor) -> torch.Tensor:
+    """The bricks [T, k_max, block, tile] as a K-major copy [T, k_max,
+    tile, block]: the layout the int8 kernel's MMAs read B in.  One more
+    copy of the int8 weights on the device, made once per program by the
+    executor; the saved program keeps only ``w_comp``."""
+    return w_comp.transpose(2, 3).contiguous()
 
 
 def pattern_spmm_plain(x, w_comp, block_ids, nnz, block: int) -> torch.Tensor:
@@ -183,15 +269,6 @@ def _operands(x, w_comp, block_ids, nnz, block, w_dtype):
             nnz.contiguous(), _Geometry(m, k_in, t, k_max, block, tile))
 
 
-def _launch(fn, tensors, out, g: _Geometry, device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*(a.data_ptr() for a in tensors), out.data_ptr(),
-             g.m, g.k_in, g.t, g.k_max, g.block, g.tile, device.index or 0,
-             stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
-
-
 def pattern_spmm_cuda(x, w_comp, block_ids, nnz, block: int, *,
                       plan: SplitPlan | None = None) -> torch.Tensor:
     """fp32 block-pattern spmm: x [M, K] -> float32 [M, T*tile], reordered
@@ -234,12 +311,15 @@ pattern_spmm_cuda.reduce_launches = 0
 
 
 def pattern_spmm_quant_cuda(
-    xq, w_comp, block_ids, w_scales, nnz, block: int
+    xq, w_comp, block_ids, w_scales, nnz, block: int, *,
+    w_kmajor: torch.Tensor | None = None, plan: SplitPlan | None = None,
 ) -> torch.Tensor:
     """int8 block-pattern spmm: xq int8 [M, K], int8 bricks with per-brick
     float32 ``w_scales`` [T, k_max] -> float32 [M, T*tile] in reordered
     columns, dequantized on the weight side only (the caller multiplies
-    the per-row activation scale)."""
+    the per-row activation scale).  ``w_kmajor`` is
+    :func:`kmajor_bricks` of ``w_comp``, made here per call when not
+    given; ``plan`` defaults to :func:`_quant_plan` of the shapes."""
     if xq.device.type == "cpu":
         return pattern_spmm_quant_plain(
             xq, w_comp, block_ids, w_scales, nnz, block
@@ -247,16 +327,35 @@ def pattern_spmm_quant_cuda(
     if xq.device.type != "cuda":
         raise ValueError(f"pattern_spmm_quant_cuda: unsupported device {xq.device}")
     _check("xq", xq, torch.int8, xq.shape, xq.device)
-    x, w, ids, n, geom = _operands(xq, w_comp, block_ids, nnz, block, torch.int8)
+    x, w, ids, n, g = _operands(xq, w_comp, block_ids, nnz, block, torch.int8)
     _check("w_scales", w_scales, torch.float32, ids.shape, xq.device)
-    y = torch.empty((geom.m, geom.t * geom.tile), dtype=torch.float32,
+    if w_kmajor is None:
+        w_kmajor = kmajor_bricks(w)
+    _check("w_kmajor", w_kmajor, torch.int8, (g.t, g.k_max, g.tile, g.block),
+           xq.device)
+    wk = w_kmajor.contiguous()
+    y = torch.empty((g.m, g.t * g.tile), dtype=torch.float32,
                     device=xq.device)
     if y.numel() == 0:
         return y
-    _launch(load_library().pattern_spmm_i8, (x, w, ids, w_scales.contiguous(), n),
-            y, geom, xq.device)
+    if plan is None:
+        plan = _quant_plan(g.m, g.t, g.tile, g.k_max)
+    ws = (torch.empty((plan.splits, g.m, g.t * g.tile), dtype=torch.float32,
+                      device=xq.device) if plan.splits > 1 else y)
+    fn = load_library().pattern_spmm_i8
+    err = fn(x.data_ptr(), wk.data_ptr(), ids.data_ptr(),
+             w_scales.contiguous().data_ptr(), n.data_ptr(), y.data_ptr(),
+             ws.data_ptr(), g.m, g.k_in, g.t, g.k_max, g.block, g.tile,
+             plan.config, plan.splits, _quant_copy_width(x, wk, g.block),
+             xq.device.index or 0,
+             torch.cuda.current_stream(xq.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     pattern_spmm_quant_cuda.launches += 1
+    if plan.splits > 1:
+        pattern_spmm_quant_cuda.reduce_launches += 1
     return y
 
 
 pattern_spmm_quant_cuda.launches = 0
+pattern_spmm_quant_cuda.reduce_launches = 0

@@ -58,7 +58,8 @@ def _counting(plain, name, **counters):
     def launch(*args, **kwargs):
         launch.launches += 1
         for key, pred in counters.items():
-            setattr(launch, key, getattr(launch, key) + bool(pred(*args)))
+            setattr(launch, key, getattr(launch, key)
+                    + bool(pred(*args, **kwargs)))
         return plain(*args, **kwargs)
 
     launch.launches = 0
@@ -68,9 +69,21 @@ def _counting(plain, name, **counters):
     return launch
 
 
-def _splits(x, w_comp, *rest):
+def _splits(x, w_comp, *rest, **kwargs):
     t, k_max, _, tile = w_comp.shape
     return tk._split_plan(x.shape[0], t, tile, k_max).splits > 1
+
+
+def _quant_splits(xq, w_comp, *rest, **kwargs):
+    t, k_max, _, tile = w_comp.shape
+    return tk._quant_plan(xq.shape[0], t, tile, k_max).splits > 1
+
+
+def _quant_plain(*args, w_kmajor=None, plan=None):
+    """The int8 plain version, taking the kernel wrapper's keywords."""
+    if w_kmajor is not None:
+        assert torch.equal(w_kmajor, tk.kmajor_bricks(args[1]))
+    return tk.pattern_spmm_quant_plain(*args)
 
 
 def _mini_model(seed):
@@ -109,11 +122,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     for mod, name, plain, counters in (
         (tk, "pattern_spmm_cuda", tk.pattern_spmm_plain,
          dict(reduce_launches=_splits)),
-        (tk, "pattern_spmm_quant_cuda", tk.pattern_spmm_quant_plain, {}),
+        (tk, "pattern_spmm_quant_cuda", _quant_plain,
+         dict(reduce_launches=_quant_splits)),
         (tou, "ou_mvm_cuda", tou.ou_mvm_plain, {}),
         (tfa, "flash_attention_cuda", tfa.flash_attention_plain,
-         dict(launches_tensor_core=lambda q, *r: q.dtype != torch.float32,
-              launches_simt=lambda q, *r: q.dtype == torch.float32)),
+         dict(launches_tensor_core=lambda q, *r, **k: q.dtype != torch.float32,
+              launches_simt=lambda q, *r, **k: q.dtype == torch.float32)),
     ):
         fake = _counting(plain, name, **counters)
         monkeypatch.setattr(mod, name, fake)
@@ -164,15 +178,21 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
     assert serve["alone_vs_cobatched_bit_identical"]
+    assert serve["int8_alone_vs_cobatched_bit_identical"]
     assert serve["e2e_rel_vs_cpu"] <= cs.E2E_TOL
     # 3 convs + FC per batch: 9 fp32 batches for 64 requests, 2 int8
     assert serve["launches"] == {"pattern_spmm_cuda": 36,
                                  "pattern_spmm_quant_cuda": 8}
     assert serve["reduce_launches"] == serve["reduce_launches_expected"]
-    kern = lines[3]
-    assert kern["kernel"] == "pattern_spmm_cuda"
-    assert all(c["rerun_bit_identical"] and c["splits"] >= 1
-               and c["blocks"] >= 1 for c in kern["cases"])
+    assert set(serve["reduce_launches"]) == {"pattern_spmm_cuda",
+                                             "pattern_spmm_quant_cuda"}
+    for kern, name in zip(lines[3:5], ("pattern_spmm_cuda",
+                                       "pattern_spmm_quant_cuda")):
+        assert kern["kernel"] == name
+        assert all(c["ok"] and c["rerun_bit_identical"] and c["splits"] >= 1
+                   and c["blocks"] >= 1 for c in kern["cases"])
+    assert all(c["single_brick_exact"] and c["rel"] <= cs.QUANT_REL
+               for c in lines[4]["cases"])
     search = lines[6]
     assert search["bit_equal_vs_cpu_compile"] and search["never_worse"]
     assert set(search["chosen"]) == {"conv1", "conv2", "conv3"}
@@ -186,7 +206,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     ou = lines[7]
     # 3 convs x 2 patches, the 3 sweep shapes, all-zero x, NaN case
     assert ou["calls"] == ou["launches"] == 11
-    assert all(c["ok"] and c["finite"] for c in ou["cases"])
+    assert all(c["ok"] and c["finite"] and c["rerun_bit_identical"]
+               and c["slab_cols"] >= 1 and c["blocks"] >= 1
+               for c in ou["cases"])
     assert ou["cases"][-2]["skipped_band_share"] == 1.0
     flash = lines[8]
     # 14 sweep cases x 3 types, each path length bare and from a cache,
@@ -216,8 +238,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
             ] == [17, 40]
     assert all(r["route"] == "tensor_core"
                for r in times["per_layer"]["flash_attention_cuda"])
-    assert all(r["splits"] >= 1 and r["tflops"] > 0
+    assert all(r["splits"] >= 1 and r["tflops"] > 0 and r["bound_ms"] > 0
                for r in times["per_layer"]["pattern_spmm_cuda"])
+    assert all(r["splits"] >= 1 and r["tops"] > 0 and r["bound_ms"] > 0
+               for r in times["per_layer"]["pattern_spmm_quant_cuda"])
+    assert all(r["gb_per_s"] > 0 and r["blocks"] >= 1
+               for r in times["per_layer"]["ou_mvm_cuda"])
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in res["kernels"]] == list(cs.KERNELS)

@@ -6,6 +6,8 @@ the XLA path) and ``repro_torch`` (the plain PyTorch path, and the CUDA
 kernels' wrappers, which take their plain version for CPU tensors).
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -316,6 +318,173 @@ def test_copy_width_follows_shapes():
     assert tk._copy_width(skew, w, 128, 128) == 1
 
 
+@pytest.mark.parametrize("name,m,t,tile,k_max",
+                         VGG16_PLAN_SHAPES + SWEEP_PLAN_SHAPES)
+def test_quant_plan(name, m, t, tile, k_max):
+    """The int8 plan: tiles of fewer than ``_QUANT_SPLIT_FROM`` slots
+    walked whole, larger ones split as the fp32 plan splits them in runs
+    of at least ``_QUANT_MIN_RUN``, never by the rows; its own block tile
+    chosen by the rows."""
+    plan = tk._quant_plan(m, t, tile, k_max)
+    bm, bn, bk = tk._QUANT_TILE_SHAPES[plan.config]
+    assert (plan.bm, plan.bn, plan.bk) == (bm, bn, bk)
+    slabs = t * -(-tile // bn)
+    assert plan.blocks == -(-m // bm) * slabs * plan.splits
+    if k_max < tk._QUANT_SPLIT_FROM:
+        assert plan.splits == 1
+    else:
+        fp32_chunk = tk._splits(slabs, k_max, tk._SMS)[1]
+        assert plan.chunk == max(fp32_chunk, tk._QUANT_MIN_RUN)
+        assert plan.splits == -(-k_max // plan.chunk)
+    runs = _split_runs(k_max, plan.splits)
+    assert all(len(r) == plan.chunk for r in runs[:-1])  # the last may be short
+    assert plan.chunk == max(len(r) for r in runs)
+    assert all(len(r) > 0 for r in runs) or k_max == 0
+    for n in range(k_max + 1):
+        runs = _split_runs(n, plan.splits)
+        assert [k for r in runs for k in r] == list(range(n))
+    # rows choose the block tile, never the split
+    for rows in (1, 8, 16, 17, 8 * m, 64 * m):
+        assert tk._quant_plan(rows, t, tile, k_max).splits == plan.splits
+    if tile <= 32:
+        assert (bm, bn) == (32, 32)
+    elif m <= 128:
+        assert bm == 16  # an m16 MMA: nothing wasted at the FC's 8 rows
+    else:
+        blocks32 = -(-m // 32) * slabs * plan.splits
+        assert bm == (32 if blocks32 <= 8 * tk._SMS else 64)
+    # shapes alone decide: the same shapes, the same plan
+    assert tk._quant_plan(m, t, tile, k_max) == plan
+
+
+def _quant_split_emulation(xq, w_comp, block_ids, w_scales, nnz, block,
+                           splits):
+    """The int8 kernel's arithmetic in plain torch: each brick's partial
+    exact (float64 holds it), rounded once to float32, folded as
+    ``acc + scale * partial`` in k order within split s's run; the
+    partials summed in the order 0..S-1."""
+    m = xq.shape[0]
+    t_n, _, _, tile = w_comp.shape
+    xd = xq.double()
+    parts = torch.zeros((splits, m, t_n * tile), dtype=torch.float32)
+    for t in range(t_n):
+        for s, run in enumerate(_split_runs(int(nnz[t]), splits)):
+            acc = torch.zeros((m, tile), dtype=torch.float32)
+            for k in run:
+                b = int(block_ids[t, k])
+                part = xd[:, b * block:(b + 1) * block] @ w_comp[t, k].double()
+                acc = acc + w_scales[t, k] * part.float()
+            parts[s, :, t * tile:(t + 1) * tile] = acc
+    y = parts[0].clone()
+    for s in range(1, splits):
+        y = y + parts[s]
+    return y
+
+
+@pytest.mark.parametrize("m,k,n,block,tile", SWEEP)
+def test_quant_split_emulation_matches_reference(reference, rng, m, k, n,
+                                                 block, tile):
+    """The int8 split walk and its fixed-order sum, emulated, against
+    JAX's ``pattern_spmm_xla_quant`` within ``QUANT_REL`` for every split
+    count the bricks allow: single-brick tiles exact, one split bit-equal
+    to the plain version, a row's bits independent of the other rows."""
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    keep = rng.random((k // block, 1, n)) < 0.5
+    w = (w.reshape(k // block, block, n) * keep).reshape(k, n)
+    w[:, :tile] = 0.0  # tile 0 holds no brick
+    masks = ts.nonzero_block_masks(w, block)
+    tqb = tq.quantize_bp(ts.build_block_pattern(w, block=block, tile=tile,
+                                                masks=masks))
+    jqb = jq.quantize_bp(js.build_block_pattern(w, block=block, tile=tile,
+                                                masks=masks))
+    np.testing.assert_array_equal(tqb.w_comp.numpy(), np.asarray(jqb.w_comp))
+    x = (rng.normal(size=(m, k)) * 0.3).astype(np.float32)
+    jxq, jxs = jq.quantize_rows(jnp.asarray(x))
+    xq, x_scale = torch.from_numpy(np.array(jxq)), torch.from_numpy(
+        np.array(jxs))
+    want = np.asarray(js.pattern_spmm_xla_quant(
+        jxq, jxs, jqb.w_comp, jqb.block_ids, jqb.w_scales, block))
+    nnz = _nnz(tqb)
+    args = (tqb.w_comp, tqb.block_ids, tqb.w_scales, nnz, block)
+    plain = tk.pattern_spmm_quant_plain(xq, *args)
+    xq2 = xq.clone()
+    xq2[1:] = -xq2[1:]
+    single = np.flatnonzero(tqb.nnz <= 1)
+    counts = {-(-tqb.k_max // c) for c in range(1, tqb.k_max + 1)} | {1}
+    for splits in sorted(counts):
+        y = _quant_split_emulation(xq, *args, splits)
+        if splits == 1:
+            assert torch.equal(y, plain)
+        got = (y * x_scale[:, None]).numpy()
+        assert _rel(got, want) <= QUANT_REL
+        for t in single:
+            cols = slice(t * tile, (t + 1) * tile)
+            np.testing.assert_array_equal(got[:, cols], want[:, cols])
+        assert not y[:, :tile].any()
+        y2 = _quant_split_emulation(xq2, *args, splits)
+        assert torch.equal(y2[0], y[0])
+
+
+def test_quant_copy_width_follows_shapes():
+    """16-byte copies where block and K are multiples of 16 and both
+    bases 16-byte aligned, 4-byte where multiples of 4, else bytes."""
+    w = torch.zeros((2, 3, 128, 128), dtype=torch.int8)
+    x = torch.zeros((8, 384), dtype=torch.int8)
+    assert tk._quant_copy_width(x, w, 128) == 16
+    assert tk._quant_copy_width(torch.zeros((8, 96), dtype=torch.int8),
+                                torch.zeros((1, 1, 8, 12), dtype=torch.int8),
+                                12) == 4
+    assert tk._quant_copy_width(torch.zeros((8, 81), dtype=torch.int8),
+                                torch.zeros((2, 3, 8, 9), dtype=torch.int8),
+                                9) == 1
+    skew = torch.zeros(8 * 384 + 4, dtype=torch.int8)[4:].view(8, 384)
+    assert tk._quant_copy_width(skew, w, 128) == 4
+    odd = torch.zeros(8 * 384 + 1, dtype=torch.int8)[1:].view(8, 384)
+    assert tk._quant_copy_width(odd, w, 128) == 1
+
+
+def test_kmajor_copy_prepared_and_program_unchanged(tmp_path, rng):
+    """The executor prepares each int8 layer's K-major bricks (the
+    transposed bricks, contiguous) once, fp32 layers none, and a saved
+    program is byte for byte the same before and after a forward."""
+    from repro_torch.engine import (CompileOptions, compile_network,
+                                    make_forward, save_program)
+    from repro_torch.engine.executor import _Dispatch
+    from repro_torch.models.cnn import mini_cnn_config
+
+    cfg = mini_cnn_config(4, 12, (8, 16))
+    params = {}
+    for i, (ci, co) in enumerate(cfg.conv_channels, start=1):
+        params[f"conv{i}"] = {
+            "w": rng.normal(size=(co, ci, 3, 3)).astype(np.float32),
+            "b": np.zeros(co, np.float32)}
+    params["fc"] = {"w": rng.normal(size=(16, 4)).astype(np.float32),
+                    "b": np.zeros(4, np.float32)}
+    progs = {prec: compile_network(cfg, params, {}, options=CompileOptions(
+        precision=prec), device="cpu") for prec in ("fp32", "int8")}
+    disp = _Dispatch(torch.device("cpu"))
+    for op in [*progs["int8"].convs, progs["int8"].fc]:
+        prep = disp.prepare(op.bp, op.bias)
+        want = op.bp.w_comp.transpose(2, 3)
+        assert prep.w_kmajor.is_contiguous()
+        assert prep.w_kmajor.dtype == torch.int8
+        assert torch.equal(prep.w_kmajor, want)
+        assert torch.equal(tk.kmajor_bricks(op.bp.w_comp), want)
+    assert disp.prepare(progs["fp32"].fc.bp,
+                        progs["fp32"].fc.bias).w_kmajor is None
+
+    def files(path):
+        path = pathlib.Path(path)
+        return {p.relative_to(path): p.read_bytes()
+                for p in sorted(path.rglob("*")) if p.is_file()}
+
+    before = files(save_program(str(tmp_path / "a"), progs["int8"]))
+    images = rng.normal(size=(3, 1, 12, 12)).astype(np.float32)
+    make_forward(progs["int8"], device="cpu")(images)
+    after = files(save_program(str(tmp_path / "b"), progs["int8"]))
+    assert before == after
+
+
 def _ou_case(rng, r, c, ou_r):
     w = rng.normal(size=(r, c)).astype(np.float32)
     x = rng.normal(size=(r,)).astype(np.float32)
@@ -377,6 +546,104 @@ def test_ou_mvm_band_flags_and_zero_input(rng):
                 lambda: tops.ou_mvm(x, w, ou_rows=0)):
         with pytest.raises(ValueError):
             bad()
+
+
+# ou_mvm calls of chip_smoke.py (r, c): each VGG16 conv's dense weight
+# [C_in * 9, C_out], then the reference's sweep shapes, then R past one
+# shared-memory chunk of x
+OU_PLAN_SHAPES = [(27, 64), (576, 64), (576, 128), (1152, 128), (1152, 256),
+                  (2304, 256), (2304, 512), (4608, 512), (100, 52), (64, 64),
+                  (27, 8), (300, 33), (1, 1), (50_000, 64)]
+
+
+def _ou_chunks(r: int, ou_rows: int):
+    """The kernel's passes of x through shared memory: (first row, rows,
+    first band, last band) of each chunk, the bands those that meet it."""
+    for lo in range(0, r, tou._OU_CHUNK):
+        n = min(tou._OU_CHUNK, r - lo)
+        yield lo, n, lo // ou_rows, (lo + n - 1) // ou_rows
+
+
+@pytest.mark.parametrize("r,c", OU_PLAN_SHAPES)
+@pytest.mark.parametrize("ou_rows", [9, 16])
+def test_ou_plan(r, c, ou_rows):
+    """One block a column slab of one load's width, from the shapes
+    alone; every column in exactly one slab, every row in one row-lane's
+    walk and one chunk; a chunk's bands fit the band flags the kernel's
+    shared memory holds ((rows - 1) / ou_rows + 2)."""
+    for vec in (1, 4):
+        plan = tou._ou_plan(r, c, vec)
+        assert plan.cols == vec
+        assert (plan.blocks - 1) * plan.cols < c <= plan.blocks * plan.cols
+        rows = tou._OU_THREADS
+        assert (plan.rows_per_lane - 1) * rows < r <= plan.rows_per_lane * rows
+        assert tou._ou_plan(r, c, vec) == plan
+    chunks = list(_ou_chunks(r, ou_rows))
+    assert len(chunks) == plan.chunks
+    assert sum(n for _, n, _, _ in chunks) == r
+    assert tou._OU_CHUNK % tou._OU_THREADS == 0  # a lane's rows keep order
+    for lo, n, b0, b1 in chunks:
+        assert b1 - b0 + 1 <= (min(r, tou._OU_CHUNK) - 1) // ou_rows + 2
+        assert b0 * ou_rows <= lo and lo + n <= (b1 + 1) * ou_rows
+    assert tou._ou_plan(4608, 512, 4) == (4, 128, 9, 1)
+
+
+def test_ou_vec_follows_shapes():
+    assert tou._ou_vec(torch.zeros((9, 512))) == 4
+    assert tou._ou_vec(torch.zeros((9, 52))) == 4
+    assert tou._ou_vec(torch.zeros((9, 33))) == 1
+    assert tou._ou_vec(torch.zeros(9 * 64 + 1)[1:].view(9, 64)) == 1
+
+
+def _ou_slab_emulation(x, w, ou_rows):
+    """The ``ou_mvm`` kernel's order in plain torch: row-lane l of a
+    block sums rows l, l + L, l + 2L, ... in order (L = 512 row-lanes,
+    whatever the chunks of x), then the block sums its row-lanes by the
+    kernel's fixed tree: within each warp of 32 lane i takes lane i + s
+    for s = 16, 8, ..., 1, then warp i takes warp i + s for s = 8, ...,
+    1.  A row of a skipped band adds nothing and its weights are never
+    multiplied."""
+    r, c = w.shape
+    live = tou.band_flags(x, ou_rows).repeat_interleave(ou_rows)[:r]
+    prod = torch.where(live[:, None], x[:, None] * w, torch.zeros(()))
+    rows = tou._OU_THREADS
+    red = torch.zeros((rows, c))
+    for lane in range(min(rows, r)):
+        acc = torch.zeros(c)
+        for rr in range(lane, r, rows):
+            acc = acc + prod[rr]
+        red[lane] = acc
+    red = red.view(rows // 32, 32, c)
+    for s in (16, 8, 4, 2, 1):
+        red[:, :s] = red[:, :s] + red[:, s:2 * s]
+    red = red[:, 0]
+    for s in (8, 4, 2, 1):
+        red[:s] = red[:s] + red[s:2 * s]
+    return red[0]
+
+
+OU_EMULATION_CASES = [*OU_SWEEP, (300, 33, 7, 5), (4608 // 8, 64, 9, 8)]
+
+
+@pytest.mark.parametrize("r,c,ou_r,ou_c", OU_EMULATION_CASES)
+def test_ou_slab_emulation_matches_reference(reference, rng, r, c, ou_r,
+                                             ou_c):
+    """The column-slab walk and its fixed-tree sum, emulated, against
+    the reference's ``ou_mvm`` (Pallas, interpret mode) at 1e-5: with an
+    all-zero band, a NaN weight in a skipped band, and an all-zero x
+    (exact zeros)."""
+    x, w = _ou_case(rng, r, c, ou_r)
+    x[2 * ou_r:3 * ou_r] = -0.0  # -0.0 counts as zero: skipped too
+    w[ou_r // 2, c // 2] = np.nan  # band 0 is skipped: never read
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    want = np.asarray(jops.ou_mvm(jnp.asarray(x), jnp.asarray(w),
+                                  ou_rows=ou_r, ou_cols=ou_c))
+    assert np.isfinite(want).all()
+    y = _ou_slab_emulation(xt, wt, ou_r)
+    assert torch.isfinite(y).all()
+    np.testing.assert_allclose(y.numpy(), want, **OU_TOL)
+    zero = _ou_slab_emulation(torch.zeros(r), wt, ou_r)
+    assert torch.equal(zero, torch.zeros(c))
 
 
 def test_ou_mvm_wrapper_takes_plain_version_on_cpu(rng):
@@ -539,3 +806,131 @@ def test_ou_mvm_cuda_matches_plain_on_card():
     w[2, 2] = np.nan
     y = tou.ou_mvm_cuda(torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev))
     assert torch.isfinite(y).all()
+
+
+@pytest.mark.gpu
+def test_int8_split_walk_on_card():
+    """The int8 kernel under every block tile and a range of split counts
+    (the default plan among them) against its plain version: the sweep,
+    block 9 / tile 8 (byte copies), tiles with no brick; single-brick
+    tiles and one-split plans bit-equal to the plain version; two runs
+    bit for bit equal; a row's result independent of the other rows;
+    one launch counted per call, and one reduction per split call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        find_nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
+    rng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    for m, k, n, block, tile in SWEEP + [(8192, 640, 128, 128, 128),
+                                         (32, 4608, 512, 128, 128),
+                                         (8, 512, 128, 128, 128)]:
+        w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+        keep = rng.random((k // block, 1, n)) < 0.6
+        w = (w.reshape(k // block, block, n) * keep).reshape(k, n)
+        w[:, :tile] = 0.0  # tile 0 has nnz == 0
+        qbp = tq.quantize_bp(ts.build_block_pattern(
+            w, block=block, tile=tile,
+            masks=ts.nonzero_block_masks(w, block), device=dev))
+        nnz = torch.as_tensor(qbp.nnz, dtype=torch.int32, device=dev)
+        x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32),
+                            device=dev)
+        xq, _ = tq.quantize_rows(x)
+        xq2 = xq.clone()
+        xq2[1:] = -xq2[1:]
+        args = (qbp.w_comp, qbp.block_ids, qbp.w_scales, nnz, block)
+        wk = tk.kmajor_bricks(qbp.w_comp)
+        want = tk.pattern_spmm_quant_plain(xq, *args)
+        single = [t for t in range(qbp.n_tiles) if int(qbp.nnz[t]) <= 1]
+        default = tk._quant_plan(m, qbp.n_tiles, tile, qbp.k_max)
+        plans = [default]
+        for config, (bm, bn, bk) in enumerate(tk._QUANT_TILE_SHAPES):
+            if (bn == 32) != (tile <= 32):
+                continue
+            for splits in sorted({1, 2, max(qbp.k_max, 1)}):
+                base = -(-m // bm) * qbp.n_tiles * -(-tile // bn)
+                plans.append(tk.SplitPlan(config, bm, bn, bk, splits,
+                                          -(-qbp.k_max // splits),
+                                          base * splits))
+        for plan in plans:
+            n0 = tk.pattern_spmm_quant_cuda.launches
+            r0 = tk.pattern_spmm_quant_cuda.reduce_launches
+            y = tk.pattern_spmm_quant_cuda(xq, *args, w_kmajor=wk, plan=plan)
+            again = tk.pattern_spmm_quant_cuda(xq, *args, w_kmajor=wk,
+                                               plan=plan)
+            other = tk.pattern_spmm_quant_cuda(xq2, *args, plan=plan)
+            torch.cuda.synchronize()
+            assert tk.pattern_spmm_quant_cuda.launches == n0 + 3
+            assert tk.pattern_spmm_quant_cuda.reduce_launches == r0 + 3 * (
+                plan.splits > 1)
+            assert _rel(y.cpu(), want.cpu()) <= QUANT_REL, plan
+            if plan.splits == 1:
+                assert torch.equal(y, want), plan
+            for t in single:
+                cols = slice(t * tile, (t + 1) * tile)
+                assert torch.equal(y[:, cols], want[:, cols]), (plan, t)
+            assert not y[:, :tile].any()
+            assert torch.equal(y, again)
+            assert torch.equal(y[0], other[0])
+        # the default plan's split follows no row count
+        few = tk.pattern_spmm_quant_cuda(xq[:5].contiguous(), *args)
+        whole = tk.pattern_spmm_quant_cuda(xq, *args)
+        assert torch.equal(few, whole[:5])
+
+
+@pytest.mark.gpu
+def test_ou_mvm_column_slabs_on_card():
+    """The OU MVM kernel under its plan against its plain version:
+    ragged shapes, float4 and scalar loads, an all-zero x (zeros), a
+    NaN weight in a skipped band (kept out); two runs bit for bit equal
+    (a fixed tree sums the row-lanes); a column's result independent of
+    the other columns; one launch per call.  R past one shared-memory
+    chunk of x (8192 rows) works: a skipped band across a chunk's edge,
+    and ou_rows 1 (the most band flags a chunk holds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        find_nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
+    rng = np.random.default_rng(3)
+    dev = torch.device("cuda")
+    for r, c, ou_r, ou_c in OU_EMULATION_CASES + [
+            (4608, 512, 9, 8), (2304, 256, 9, 8), (1, 1, 9, 8),
+            (50_000, 64, 9, 8), (3 * tou._OU_CHUNK + 5, 33, 1, 8)]:
+        x, w = _ou_case(rng, r, c, ou_r)
+        w[: min(ou_r, r) // 2, c // 2] = np.nan  # band 0 is skipped
+        if r > tou._OU_CHUNK:
+            edge = tou._OU_CHUNK // ou_r * ou_r  # the band across the edge
+            x[edge:edge + ou_r] = 0.0
+            w[edge:edge + ou_r, 1] = np.nan
+        xt, wt = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+        w2 = wt.clone()
+        w2[:, 1:] = -w2[:, 1:]
+        want = tou.ou_mvm_plain(xt, wt, ou_r, ou_c)
+        live = tou.band_flags(xt, ou_r).repeat_interleave(ou_r)[:r]
+        mag = torch.where(live[:, None], xt[:, None] * wt, 0.0).abs()
+        lim = 1e-5 * (1 + mag.sum(0))
+        n0 = tou.ou_mvm_cuda.launches
+        y = tou.ou_mvm_cuda(xt, wt, ou_r, ou_c)
+        again = tou.ou_mvm_cuda(xt, wt, ou_r, ou_c)
+        other = tou.ou_mvm_cuda(xt, w2, ou_r, ou_c)
+        zero = tou.ou_mvm_cuda(torch.zeros_like(xt), wt, ou_r, ou_c)
+        torch.cuda.synchronize()
+        assert tou.ou_mvm_cuda.launches == n0 + 4
+        assert torch.isfinite(y).all(), (r, c)
+        assert ((y - want).abs() <= lim).all(), (r, c)
+        assert torch.equal(y, again)
+        assert torch.equal(y[0], other[0])
+        assert not zero.any()
+        # w 4 bytes off 16-byte alignment takes the 4-byte loads
+        skew = torch.empty(r * c + 1, device=dev)[1:].view(r, c)
+        skew.copy_(wt)
+        assert tou._ou_vec(skew) == 1
+        y1 = tou.ou_mvm_cuda(xt, skew, ou_r, ou_c)
+        assert torch.isfinite(y1).all()
+        assert ((y1 - want).abs() <= lim).all()
+        if tou._ou_vec(wt) == 1:
+            assert torch.equal(y1, y)
