@@ -9,8 +9,11 @@ convs, Table-II statistics) in fp32 and int8, save and reload the fp32
 program, and serve seeded requests through ``InferenceService`` on
 ``cuda``; compile it again with the per-layer crossbar mapping search
 (``optimize="auto"``), serve it with skip statistics and price the served
-traffic with ``hardware_report``; run ``ops.ou_mvm`` on every conv's
-dense weight at real inputs; generate tokens with full-width, full-depth
+traffic with ``hardware_report``; train full-width VGG16 on seeded
+class-prototype batches, pattern-prune it with ``admm_pattern_prune``,
+compile it verified and range-certified, reload it with verification and
+serve it; run ``ops.ou_mvm`` on every conv's dense weight at real
+inputs; generate tokens with full-width, full-depth
 h2o-danube-1.8B (pattern-sparse MLPs, bf16, weights from the seed)
 through ``DecodeService``, every prefill through the flash-attention
 kernel.  Before each path it builds the CUDA kernels from the sources in
@@ -18,17 +21,26 @@ kernel.  Before each path it builds the CUDA kernels from the sources in
 at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
-``kernels`` (kernel vs plain), ``serve``, ``search``, ``ou_mvm``,
-``flash`` (kernel vs plain), ``generate``, ``times``.  The spmm rows
-carry each layer's split plan (``splits``, ``blocks``) and, in
+``kernels`` (kernel vs plain), ``serve``, ``search``, ``prune``,
+``ou_mvm``, ``flash`` (kernel vs plain), ``generate``, ``times``.  The
+spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
 ``times``, GB/s; every kernel must give the same bits on a second run.
 The flash rows carry the route (``tensor_core`` for bf16 and fp16,
 ``simt`` for fp32), and every prefill launch of ``generate`` must take
-the tensor-core route.  Any failed check exits
-non-zero.  The last three lines are
-the card's name and power limit as ``nvidia-smi`` prints them, the
+the tensor-core route.  The ``prune`` phase gates every kernel's pattern
+in its layer's dictionary (at most ``num_patterns`` nonzero ones) and its
+weights inside that pattern; strict compiles in fp32 and int8 whose
+certificates and verifier reports equal the same compiles on the CPU;
+``python -m repro_torch.analysis all`` exiting 0 on each saved program;
+served fp32 labels equal to the dense ``cnn_apply`` (layers within
+``LAYER_TOL``, logits within ``E2E_TOL`` of the CPU plain path); conv1's
+kernel output at the input that attains its certified ``pre_hi`` and
+``pre_lo`` within ``bound_rounding_limit`` of them; and every layer's
+spmm + bias over the served images inside its certificate, fp32 and
+int8.  Its spmm launches join the serve phase's in the summary.  Any
+failed check exits non-zero.  The last three lines are the card's name and power limit as ``nvidia-smi`` prints them, the
 per-kernel ``{"kernels": [...]}`` summary, and
 ``{"ok": true, "device": {...}}``.
 
@@ -164,6 +176,28 @@ GEN_BURSTS = (1, 7, 5, 2, 6, 4)  # arrivals between service steps
 # Relative to the largest logit of the plain route.
 GEN_BF16_NOISE_FACTOR = 2.0
 GEN_FP32_REL = 1e-3
+
+
+# prune: the paper's flow on full-width VGG16 for CIFAR-10 (Table II's
+# 86.03 % sparsity, 6 patterns a layer), trained on synthetic
+# class-prototype batches made from the seed, pixels clipped to the
+# certificate's declared input range
+PRUNE_BATCH = 64
+PRUNE_DENSE_STEPS = 40
+PRUNE_CFG = dict(target_sparsity=0.8603, num_patterns=6, admm_steps=40,
+                 admm_every=20, retrain_steps=20)
+# AdamW's rate for all three stages: at 1e-3 the dense loss of this
+# channel_norm VGG16 stays at ln 10 (chance) through the phase
+PRUNE_LR = 1e-4
+PRUNE_NOISE = 0.7  # tests/test_pruning.py's gen_batch
+PRUNE_REQUESTS = sum(BURSTS)  # served in the serve phase's bursts
+
+
+def prune_model_config():
+    """The ``prune`` phase's network: the paper's VGG16 for CIFAR-10."""
+    from repro_torch.models.cnn import vgg16_config
+
+    return vgg16_config(10, 32)
 
 
 def _jsonable(v):
@@ -647,6 +681,376 @@ def search_phase(seed, cfg, params, tparams, bits, images, dense_labels,
              for a, b in zip(rep["layers"], cpu_rep["layers"])],
          drift=rep["drift"])
     return {"launches": launches, "max_abs_err": worst, "program": loaded}
+
+
+def prune_batches(cfg, seed: int, lo: float, hi: float):
+    """Endless class-prototype batches ``(x, y)`` of ``PRUNE_BATCH``
+    images, as numpy: one seeded prototype per class, each image its
+    class's prototype plus ``PRUNE_NOISE`` normal noise, clipped to
+    ``[lo, hi]``."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.conv_channels[0][0], cfg.input_hw, cfg.input_hw)
+    protos = rng.normal(size=(cfg.num_classes, *shape))
+    while True:
+        y = rng.integers(0, cfg.num_classes, size=PRUNE_BATCH)
+        x = protos[y] + PRUNE_NOISE * rng.normal(size=(PRUNE_BATCH, *shape))
+        yield np.clip(x, lo, hi).astype(np.float32), y
+
+
+def attaining_image(w: np.ndarray, j: int, sign: float, amax: float,
+                    hw: int) -> np.ndarray:
+    """A ``[1, C, hw, hw]`` image whose conv1 patch around the centre
+    pixel is ``sign * amax * sign(w[j])`` and zero elsewhere: the input
+    in ``[-amax, amax]`` at which output column ``j``'s spmm + bias
+    reaches ``b_j + sign * amax * sum|w_j|``, the certificate's
+    ``pre_hi`` (``sign=+1``) or ``pre_lo`` (``sign=-1``) when ``j`` is the
+    column that sets it."""
+    _, c_in, k, _ = w.shape
+    img = np.zeros((1, c_in, hw, hw), np.float32)
+    c, r = hw // 2, k // 2
+    img[0, :, c - r:c + r + 1, c - r:c + r + 1] = sign * amax * np.sign(w[j])
+    return img
+
+
+def bound_rounding_limit(b_j: float, w_j: np.ndarray, amax: float) -> float:
+    """How far an fp32 spmm + bias may land from its exact value at the
+    attaining input: ``n * 2^-24 * (|b_j| + amax * sum|w_j|)`` for the
+    ``n`` terms it sums (the patch's products and the bias; 28 for a
+    3x3x3 conv1)."""
+    n = np.size(w_j) + 1
+    return n * 2.0 ** -24 * (abs(float(b_j))
+                             + amax * float(np.abs(w_j).astype(np.float64)
+                                            .sum()))
+
+
+def pre_activations(prog, images, dev) -> list:
+    """Each spmm layer's output plus bias (before ``channel_norm``, ReLU
+    and pooling; the logits for ``fc``) over ``images``, through the
+    dispatch the forward uses on ``dev``, each layer fed the previous
+    layer's output: ``[(name, [rows, columns] tensor)]``."""
+    import torch
+
+    from repro_torch.engine.executor import _Dispatch, _run_conv, _run_fc
+
+    class Recording(_Dispatch):
+        def spmm(self, x2d, prepared):
+            self.last = super().spmm(x2d, prepared)
+            return self.last
+
+    disp = Recording(dev)
+    x = torch.as_tensor(images, device=dev)
+    out = []
+    for op in prog.convs:
+        prep = disp.prepare(op.bp, op.bias)
+        x, _ = _run_conv(op, x, disp, prep)
+        out.append((op.name, disp.last[:, :op.c_out] + prep.bias))
+    prep = disp.prepare(prog.fc.bp, prog.fc.bias)
+    out.append(("fc", _run_fc(prog.fc, x.mean(dim=(2, 3)), disp, prep)))
+    return out
+
+
+def prune_phase(seed: int, dev) -> dict:
+    """The paper's flow, entirely in the port on the card: dense training
+    of full-width VGG16, ADMM pattern pruning, strict compiles (verified,
+    range-certified) in fp32 and int8 held against the same compiles on
+    the CPU, save and reload with verification, the analysis CLI on the
+    saved programs, serving through both spmm kernels, and the
+    certificates held against the kernels' outputs.  Returns the spmm
+    launches of its serving and the kernels' largest errors."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.analysis.ranges import DEFAULT_INPUT_RANGE
+    from repro_torch.core.patterns import ALL_ZERO, kernel_masks, masks_to_bits
+    from repro_torch.core.pruning import (
+        PruneConfig,
+        _grad,
+        admm_pattern_prune,
+        sparsity_of,
+    )
+    from repro_torch.engine import (
+        CompileOptions,
+        InferenceService,
+        compile_network,
+        load_program,
+        make_forward,
+        save_program,
+    )
+    from repro_torch.kernels import pattern_spmm as tk
+    from repro_torch.models.cnn import cnn_apply, conv_weight_names, init_cnn
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.optim import adamw
+    from repro_torch.serve.api import Request
+
+    cfg = prune_model_config()
+    names = conv_weight_names(cfg)
+    lo, hi = DEFAULT_INPUT_RANGE
+    amax = max(abs(lo), abs(hi))
+    stream = prune_batches(cfg, seed + 6, lo, hi)
+
+    def batches():
+        for x, y in stream:
+            yield (torch.as_tensor(x, device=dev),
+                   torch.as_tensor(y, device=dev))
+
+    def loss_fn(p, x, y):
+        return F.cross_entropy(cnn_apply(cfg, p, x), y)
+
+    # -- dense training ---------------------------------------------------
+    params = init_cnn(cfg, torch.Generator().manual_seed(seed), device=dev)
+    opt = adamw(weight_decay=0.0)
+    state = opt.init(params)
+    data = batches()
+    losses = []
+
+    def recorded(p, x, y):
+        loss = loss_fn(p, x, y)
+        losses.append(loss.detach())
+        return loss
+
+    t0 = time.perf_counter()
+    for _ in range(PRUNE_DENSE_STEPS):
+        grads = _grad(recorded, params, *next(data))
+        params, state = opt.update(grads, state, params, PRUNE_LR)
+    dense_losses = torch.stack(losses).tolist()
+    dense_s = time.perf_counter() - t0
+
+    # -- ADMM pattern pruning ---------------------------------------------
+    pcfg = PruneConfig(**PRUNE_CFG)
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    res = admm_pattern_prune(params, names, loss_fn, data, pcfg,
+                             adamw(weight_decay=0.0), lr=PRUNE_LR, seed=seed,
+                             tracer=tracer)
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t0
+    stages = {sp.name: sp.dur for sp in tracer.spans("prune")}
+    # the retrain span ends when its steps are enqueued; the device's
+    # work is done at the synchronize above
+    stages["retrain"] = prune_s - sum(v for k, v in stages.items()
+                                      if k != "retrain")
+    held_x, held_y = next(stream)
+    with torch.no_grad():
+        final_loss = float(loss_fn(res.params, torch.as_tensor(
+            held_x, device=dev), torch.as_tensor(held_y, device=dev)))
+    hparams = {n: {k: t.detach().cpu().numpy() for k, t in layer.items()}
+               for n, layer in res.params.items()}
+    layers = {}
+    for n in names:
+        pattern = res.pattern_bits[n]
+        bits = masks_to_bits(kernel_masks(hparams[n]["w"]))
+        used = sorted(set(np.unique(pattern).tolist()) - {ALL_ZERO})
+        layers[n] = {
+            "patterns_outside_dictionary": int((~np.isin(
+                pattern, res.dictionaries[n].patterns)).sum()),
+            "kernels_with_weights_outside_pattern": int(
+                np.count_nonzero(bits & ~pattern)),
+            # a pattern position left exactly zero: pruned before ADMM and
+            # never moved by a gradient (its input channel is dead)
+            "kernels_below_pattern": int(np.count_nonzero(bits != pattern)),
+            "nonzero_patterns": len(used),
+            "all_zero_kernels": float((pattern == ALL_ZERO).mean()),
+            "sparsity": res.layer_sparsity(n),
+        }
+    bad = [n for n, r in layers.items()
+           if r["patterns_outside_dictionary"]
+           or r["kernels_with_weights_outside_pattern"]
+           or r["nonzero_patterns"] > pcfg.num_patterns]
+    check(not bad, f"pruned layers {bad} leave their pattern dictionaries: "
+                   f"{ {n: layers[n] for n in bad} }")
+    check(np.isfinite(final_loss) and np.isfinite(dense_losses).all(),
+          "training loss not finite")
+
+    # -- strict compiles, card against CPU --------------------------------
+    progs, compile_s, spans = {}, {}, {}
+    for prec in ("fp32", "int8"):
+        ctr = Tracer()
+        t0 = time.perf_counter()
+        prog = compile_network(cfg, res.params, res.pattern_bits,
+                               options=CompileOptions(precision=prec,
+                                                      verify="strict",
+                                                      tracer=ctr),
+                               device=dev)
+        compile_s[prec] = time.perf_counter() - t0
+        spans[prec] = {sp.name: sp.dur for sp in ctr.spans("compile")
+                       if sp.name in ("verify", "ranges")}
+        t0 = time.perf_counter()
+        twin = compile_network(cfg, hparams, res.pattern_bits,
+                               options=CompileOptions(precision=prec,
+                                                      verify="strict"),
+                               device="cpu")
+        compile_s[f"{prec}_cpu_twin"] = time.perf_counter() - t0
+        check(prog.certificate is not None, f"{prec}: no certificate")
+        check(prog.certificate.to_manifest() == twin.certificate.to_manifest(),
+              f"{prec}: the card's certificate differs from the CPU's")
+        check(prog.verify().to_json() == twin.verify().to_json(),
+              f"{prec}: verifier reports differ between card and CPU")
+        mism = program_mismatches(prog, twin)
+        check(not mism, f"{prec}: strict compile differs from the CPU's in "
+                        f"{mism}")
+        progs[prec] = prog
+
+    # -- save, reload with verification, the analysis CLI -----------------
+    loaded, cpu_progs, load_s, cli = {}, {}, {}, {}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for prec, prog in progs.items():
+            path = save_program(os.path.join(tmp, f"pruned_{prec}"), prog)
+            t0 = time.perf_counter()
+            loaded[prec] = load_program(path, device=dev)  # verifies
+            load_s[prec] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            load_program(path, verify=False, device=dev)
+            load_s[f"{prec}_unverified"] = time.perf_counter() - t0
+            cpu_progs[prec] = load_program(path, device="cpu")
+            check(not program_mismatches(prog, loaded[prec]),
+                  f"{prec}: save/load changed the program")
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.analysis", "all", path,
+                 "--json"], capture_output=True, text=True, env=env,
+                cwd=ROOT, timeout=600)
+            cli_s = time.perf_counter() - t0
+            merged = json.loads(out.stdout) if out.returncode == 0 else {}
+            cli[prec] = {
+                "exit_code": out.returncode, "seconds": cli_s,
+                "certificate_equal": merged.get("ranges", {}).get(
+                    "certificate") == prog.certificate.to_manifest()}
+            check(out.returncode == 0 and cli[prec]["certificate_equal"],
+                  f"python -m repro_torch.analysis all on the {prec} program: "
+                  f"exit {out.returncode} {out.stderr[-500:]}")
+
+    # -- each spmm kernel against its plain version on the pruned bricks --
+    rng = np.random.default_rng(seed + 7)
+    max_err, kernel_rows = {}, {}
+    for kname, prec in (("pattern_spmm_cuda", "fp32"),
+                        ("pattern_spmm_quant_cuda", "int8")):
+        rows = []
+        for name, bp, x in layer_cases(loaded[prec], rng, dev):
+            kernel, plain = calls(kname, bp, x, dev)
+            r = compare(kname, kernel(), plain(), bp)
+            rows.append({"case": name, "k_max": bp.k_max,
+                         "bricks": int(bp.nnz.sum()), **r})
+        kernel_rows[kname] = rows
+        max_err[kname] = max(r["max_abs_diff"] for r in rows)
+        bad = [r["case"] for r in rows if not r["ok"]]
+        check(not bad, f"{kname} disagrees with its plain version on the "
+                       f"pruned layers {bad}")
+
+    # -- serving through both spmm kernels --------------------------------
+    drawn = [next(stream) for _ in range(-(-PRUNE_REQUESTS // PRUNE_BATCH))]
+    images = np.concatenate([x for x, _ in drawn])[:PRUNE_REQUESTS]
+    truth = np.concatenate([y for _, y in drawn])[:PRUNE_REQUESTS]
+    svc32 = InferenceService(loaded["fp32"], batch_slots=BATCH_SLOTS,
+                             device=dev)
+    svc8 = InferenceService(loaded["int8"], batch_slots=BATCH_SLOTS,
+                            device=dev)
+    svc32.warmup()
+    svc8.warmup()
+    # the pruned path: counts from 0, traffic through both services, read
+    tk.pattern_spmm_cuda.launches = 0
+    tk.pattern_spmm_quant_cuda.launches = 0
+    reqs32 = [Request(image=img) for img in images]
+    reqs8 = [Request(image=img) for img in images]
+    serve32_s = serve_bursts(svc32, reqs32)
+    serve8_s = serve_bursts(svc8, reqs8)
+    launches = {"pattern_spmm_cuda": tk.pattern_spmm_cuda.launches,
+                "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.launches}
+    spmms = len(cfg.conv_channels) + 1
+    batches_run = {"fp32": svc32.batches_run, "int8": svc8.batches_run}
+    check(all(r.done for r in reqs32 + reqs8), "a pruned request was not "
+                                                "served")
+    for kname, prec in (("pattern_spmm_cuda", "fp32"),
+                        ("pattern_spmm_quant_cuda", "int8")):
+        check(launches[kname] == spmms * batches_run[prec],
+              f"{kname} launches {launches[kname]} != {spmms} x "
+              f"{batches_run[prec]} {prec} batches of the pruned program")
+    logits32 = np.stack([r.logits for r in reqs32])
+    labels32 = np.array([r.label for r in reqs32])
+    labels8 = np.array([r.label for r in reqs8])
+    with torch.no_grad():
+        dense = cnn_apply(cfg, res.params, torch.as_tensor(
+            images, device=dev)).cpu().numpy()
+    top2 = np.sort(dense, axis=1)[:, -2:]
+    cpu_logits = make_forward(cpu_progs["fp32"], device="cpu")(images).numpy()
+    e2e = float(np.abs(logits32 - cpu_logits).max()
+                / max(1.0, float(np.abs(cpu_logits).max())))
+    parity = layer_parity(loaded["fp32"], cpu_progs["fp32"],
+                          images[:BATCH_SLOTS], dev)
+    check(bool(np.isfinite(logits32).all()), "pruned logits not finite")
+    check(bool((labels32 == dense.argmax(1)).all()),
+          "pruned program's labels differ from the dense reference's")
+    bad = [r["layer"] for r in parity if r["rel"] > LAYER_TOL]
+    check(not bad, f"pruned layers {bad} differ from the CPU plain path")
+    check(e2e <= E2E_TOL, f"pruned logits differ from the CPU plain path by "
+                          f"{e2e} (relative) > {E2E_TOL}")
+
+    # -- the certificates against the kernels ------------------------------
+    prog32 = loaded["fp32"]
+    cert = prog32.certificate.layer(prog32.convs[0].name)
+    w1 = hparams[names[0]]["w"].astype(np.float64)
+    b1 = np.asarray(prog32.convs[0].bias, np.float64)
+    reach = amax * np.abs(w1).reshape(w1.shape[0], -1).sum(axis=1)
+    hw = cfg.input_hw
+    centre = (hw // 2) * hw + hw // 2
+    bound_rows = []
+    for which, sign, j, bound in (
+        ("pre_hi", 1.0, int(np.argmax(b1 + reach)), cert.pre_hi),
+        ("pre_lo", -1.0, int(np.argmin(b1 - reach)), cert.pre_lo),
+    ):
+        img = attaining_image(hparams[names[0]]["w"], j, sign, amax, hw)
+        got = float(pre_activations(prog32, img, dev)[0][1][centre, j])
+        limit = bound_rounding_limit(b1[j], hparams[names[0]]["w"][j], amax)
+        bound_rows.append({"bound": which, "column": j, "certified": bound,
+                           "kernel": got, "distance": abs(got - bound),
+                           "limit": limit,
+                           "ok": abs(got - bound) <= limit})
+    check(all(r["ok"] for r in bound_rows),
+          f"conv1 through the kernel misses its certified bound: "
+          f"{bound_rows}")
+    inside = {}
+    for prec, prog in loaded.items():
+        rows = []
+        for (name, pre), entry in zip(pre_activations(prog, images, dev),
+                                      prog.certificate.layers):
+            check(name == entry.name, f"certificate order {entry.name} != "
+                                      f"{name}")
+            got_lo, got_hi = float(pre.min()), float(pre.max())
+            rows.append({"layer": name, "min": got_lo, "max": got_hi,
+                         "pre_lo": entry.pre_lo, "pre_hi": entry.pre_hi,
+                         "inside": entry.pre_lo <= got_lo
+                         and got_hi <= entry.pre_hi})
+        inside[prec] = rows
+        bad = [r["layer"] for r in rows if not r["inside"]]
+        check(not bad, f"{prec}: layers {bad} leave their certified "
+                       f"[pre_lo, pre_hi]")
+
+    emit("prune", model="vgg16 cifar10, trained on class-prototype batches",
+         seed=seed, batch=PRUNE_BATCH, dense_steps=PRUNE_DENSE_STEPS,
+         prune_config=PRUNE_CFG, lr=PRUNE_LR,
+         seconds={"dense_training": dense_s, **stages, "prune_total": prune_s},
+         dense_loss_first_last=[dense_losses[0], dense_losses[-1]],
+         final_loss_held_out=final_loss,
+         sparsity=sparsity_of(res.params, names), layers=layers,
+         compile_seconds=compile_s, verify_ranges_span_seconds=spans,
+         load_seconds=load_s, analysis_cli=cli,
+         certificate_equal_cpu=True, verifier_reports_equal_cpu=True,
+         fp32_safe={p: g.certificate.fp32_safe for p, g in loaded.items()},
+         kernel_cases=kernel_rows, requests=PRUNE_REQUESTS,
+         batches=batches_run, launches=launches,
+         requests_per_s={"fp32": PRUNE_REQUESTS / serve32_s,
+                         "int8": PRUNE_REQUESTS / serve8_s},
+         labels_match_dense=True,
+         min_dense_top2_margin=float((top2[:, 1] - top2[:, 0]).min()),
+         served_accuracy={"fp32": float((labels32 == truth).mean()),
+                          "int8": float((labels8 == truth).mean())},
+         e2e_rel_vs_cpu=e2e, layer_parity_vs_cpu=parity,
+         int8_top1_agreement_vs_fp32=float((labels8 == labels32).mean()),
+         conv1_bound=bound_rows, layers_inside_certificate=inside)
+    return {"launches": launches, "max_abs_err": max_err}
 
 
 def ou_cases(prog, params, images, dev) -> list[tuple]:
@@ -1377,19 +1781,25 @@ def run(seed: int, dev) -> dict:
     max_err["pattern_spmm_cuda"] = max(max_err["pattern_spmm_cuda"],
                                        searched["max_abs_err"])
 
-    # -- 7. ou_mvm on every conv's weight at real inputs ----------------
+    # -- 7. the paper's flow: train, pattern-prune, certify, serve -------
+    pruned = prune_phase(seed, dev)
+    for kname, n in pruned["launches"].items():
+        launches[kname] += n
+        max_err[kname] = max(max_err[kname], pruned["max_abs_err"][kname])
+
+    # -- 8. ou_mvm on every conv's weight at real inputs ----------------
     ou = ou_mvm_phase(loaded, params, images, dev)
     launches["ou_mvm_cuda"] = ou["launches"]
     max_err["ou_mvm_cuda"] = ou["max_abs_err"]
 
-    # -- 8. flash attention against its plain version, on the card ------
+    # -- 9. flash attention against its plain version, on the card ------
     fl = flash_phase(dev, GEN_SCFG["max_seq"])
     max_err["flash_attention_cuda"] = fl["max_abs_err"]
 
-    # -- 9. token generation, every prefill through the flash kernel ----
+    # -- 10. token generation, every prefill through the flash kernel ---
     launches["flash_attention_cuda"] = generate_phase(seed, dev)["launches"]
 
-    # -- 10. times at the main paths' shapes -----------------------------
+    # -- 11. times at the main paths' shapes -----------------------------
     summary = []
     per_layer = {}
     for kname in ("pattern_spmm_cuda", "pattern_spmm_quant_cuda"):

@@ -2,9 +2,17 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["host_array", "resolve_device"]
+
+
+def host_array(a) -> np.ndarray:
+    """A tensor (read off its device) or array-like as a host numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

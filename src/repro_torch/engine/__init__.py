@@ -6,9 +6,18 @@
 continuous batching; ``CompiledNetwork.hardware_report`` (and
 ``InferenceService.hardware_report`` for the traffic served) prices it
 on the paper's crossbar model.  ``compile_network(options=
-CompileOptions(optimize="auto"))`` runs the per-layer mapping search.
+CompileOptions(optimize="auto"))`` runs the per-layer mapping search;
+``CompileOptions(verify="strict")`` verifies the program and certifies
+its value ranges (``repro_torch.analysis``), and ``load_program``
+verifies by default.
 """
 
+from repro_torch.analysis.diagnostics import (
+    Diagnostic,
+    Report,
+    VerificationError,
+)
+from repro_torch.analysis.ranges import RangeCertificate
 from repro_torch.core.mapping import MappingCandidate
 from repro_torch.core.mapsearch import (
     MappingSearchConfig,
@@ -50,6 +59,7 @@ __all__ = [
     "CompiledConv",
     "CompiledFC",
     "CompiledNetwork",
+    "Diagnostic",
     "EngineConfig",
     "InferenceService",
     "LayerSkipStats",
@@ -58,8 +68,11 @@ __all__ = [
     "MappingSearchResult",
     "NetworkPartition",
     "ProgramFormatError",
+    "RangeCertificate",
+    "Report",
     "SchedulerFull",
     "SlotScheduler",
+    "VerificationError",
     "compile_network",
     "conv_mapping_search",
     "execute",

@@ -13,13 +13,16 @@ move to the program's device.
 search (``core/mapsearch.py``, host numpy, seeded) before each conv is
 lowered: the chosen candidate's column reorder shapes the operands and
 the candidate rides on ``CompiledConv.mapping`` into ``hardware_report``
-and the saved manifest.  The verifier pass (``verify=``) is not ported
-yet (ROADMAP Queue 1 item 8).
+and the saved manifest.  ``CompileOptions(verify=...)`` runs the static
+verifier and, on a structurally sound program, the range certification
+pass after lowering (``analysis/verify.py``, ``analysis/ranges.py``,
+host numpy): the certificate rides on ``program.certificate``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -38,7 +41,7 @@ from repro_torch.core.sparse import (
     build_block_pattern,
     nonzero_block_masks,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import host_array, resolve_device
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.models.cnn import CNNConfig
 from repro_torch.obs.trace import NULL_TRACER, Tracer
@@ -85,9 +88,9 @@ class CompileOptions:
     The geometry fields mirror :class:`EngineConfig`.  ``tracer`` records
     compile spans.  ``optimize`` is ``None`` (the paper's fixed scheme),
     ``'auto'`` (the default :class:`MappingSearchConfig`) or a
-    :class:`MappingSearchConfig`.  ``verify`` exists for parity with the
-    reference's options but only ``None`` is accepted until the static
-    analysis slice lands.
+    :class:`MappingSearchConfig`.  ``verify`` is ``None`` (skip the
+    static passes), ``'warn'`` or ``'strict'`` (see
+    :func:`compile_network`).
     """
 
     block: int = 128
@@ -100,6 +103,11 @@ class CompileOptions:
 
     def __post_init__(self):
         _check_geometry(self.precision, self.cell_bits)
+        if self.verify not in (None, "warn", "strict"):
+            raise ValueError(
+                f"verify must be None, 'warn' or 'strict', got "
+                f"{self.verify!r}"
+            )
         if self.optimize is not None and self.optimize != "auto" and not (
             isinstance(self.optimize, MappingSearchConfig)
         ):
@@ -107,11 +115,12 @@ class CompileOptions:
                 f"optimize must be None, 'auto' or a MappingSearchConfig, "
                 f"got {self.optimize!r}"
             )
-        if self.verify is not None:
-            raise NotImplementedError(
-                "CompileOptions(verify=...): the verifier and range "
-                "certification are not ported yet (ROADMAP Queue 1 item 8)"
-            )
+
+    @classmethod
+    def from_engine_config(cls, ecfg: EngineConfig, **kw) -> "CompileOptions":
+        """Lift a lowering geometry into full compile options."""
+        return cls(block=ecfg.block, tile=ecfg.tile,
+                   precision=ecfg.precision, cell_bits=ecfg.cell_bits, **kw)
 
     def engine_config(self) -> EngineConfig:
         """The :class:`EngineConfig` these options imply."""
@@ -127,13 +136,6 @@ def _pad_axis(a: np.ndarray, axis: int, mult: int) -> np.ndarray:
     widths = [(0, 0)] * a.ndim
     widths[axis] = (0, pad)
     return np.pad(a, widths)
-
-
-def _host(a) -> np.ndarray:
-    """A parameter (tensor or array) as a host numpy array."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
 
 
 def conv_matrix(w: np.ndarray) -> np.ndarray:
@@ -181,7 +183,7 @@ def lower_conv(
     device: str | torch.device = "cpu",
     mapping: MappingCandidate | None = None,
 ) -> CompiledConv:
-    w = _host(w).astype(np.float32)
+    w = host_array(w).astype(np.float32)
     c_out, c_in, kh, kw = w.shape
     if kh != kw:
         raise ValueError(f"{name}: non-square kernel {kh}x{kw}")
@@ -198,8 +200,8 @@ def lower_conv(
         bp=lower_matrix(conv_matrix(w), ecfg.block, ecfg.tile,
                         ecfg.precision, tracer=tracer, reorder=reorder,
                         device=device),
-        bias=_host(b).astype(np.float32).copy(),
-        pattern_bits=np.asarray(_host(pattern_bits), np.int64).copy(),
+        bias=host_array(b).astype(np.float32).copy(),
+        pattern_bits=np.asarray(host_array(pattern_bits), np.int64).copy(),
         mapping=mapping,
     )
 
@@ -208,14 +210,14 @@ def lower_fc(
     w, b, ecfg: EngineConfig, tracer: Tracer | None = None,
     reorder: str = "pattern", device: str | torch.device = "cpu",
 ) -> CompiledFC:
-    w = _host(w).astype(np.float32)
+    w = host_array(w).astype(np.float32)
     d_in, d_out = w.shape
     return CompiledFC(
         d_in=d_in,
         d_out=d_out,
         bp=lower_matrix(w, ecfg.block, ecfg.tile, ecfg.precision,
                         tracer=tracer, reorder=reorder, device=device),
-        bias=_host(b).astype(np.float32).copy(),
+        bias=host_array(b).astype(np.float32).copy(),
         reorder=reorder,
     )
 
@@ -253,7 +255,7 @@ def conv_mapping_search(
     masks, the precision-derived fixed scheme — and returns the full
     :class:`~repro_torch.core.mapsearch.MappingSearchResult`.
     """
-    w = _host(w).astype(np.float32)
+    w = host_array(w).astype(np.float32)
     if pattern_bits is None:
         pattern_bits = masks_to_bits(kernel_masks(w))
     kernel_size = w.shape[2] * w.shape[3]
@@ -262,7 +264,7 @@ def conv_mapping_search(
     )
     masks = nonzero_block_masks(wp, ecfg.block)
     return search_layer_mapping(
-        np.asarray(_host(pattern_bits), np.int64),
+        np.asarray(host_array(pattern_bits), np.int64),
         kernel_size=kernel_size,
         windows=out_hw * out_hw,
         fixed=_fixed_candidate(ecfg),
@@ -288,12 +290,19 @@ def compile_network(
       pattern_bits: per-conv packed 3x3 pattern bitmasks; recovered from
         the weights' nonzero structure for layers not listed.
       options: a :class:`CompileOptions` (geometry, precision, tracer,
-        mapping search).  With a tracer the compile is a
+        mapping search, verification).  With a tracer the compile is a
         ``compile_network`` span holding one ``lower:<name>`` span per
         layer, and with ``optimize`` one ``search:<name>`` span before
         each (``args``: evaluations, improved, the chosen candidate, its
         area and the fixed scheme's) and a ``search:fc`` span (the chosen
-        reorder and the bricks of every strategy).
+        reorder and the bricks of every strategy).  With ``verify`` the
+        static verifier runs as a ``verify`` span and, when it finds no
+        error, the range certification pass as a ``ranges`` span
+        (``args``: ``fp32_safe``, ``certified_cells``); V5xx diagnostics
+        join the same report and the certificate is attached as
+        ``program.certificate``.  ``'strict'`` raises
+        :class:`~repro_torch.analysis.diagnostics.VerificationError` on
+        any error diagnostic, ``'warn'`` emits a Python warning instead.
       device: where the kernel operands live; ``None`` means ``cuda``
         and raises when there is none.
     """
@@ -354,7 +363,7 @@ def compile_network(
         if search_cfg is not None:
             with tracer.span("search:fc", cat="compile") as sp:
                 wfc = _pad_axis(
-                    _pad_axis(_host(params["fc"]["w"]).astype(np.float32),
+                    _pad_axis(host_array(params["fc"]["w"]).astype(np.float32),
                               0, ecfg.block),
                     1, ecfg.tile,
                 )
@@ -366,7 +375,32 @@ def compile_network(
         with tracer.span("lower:fc", cat="compile"):
             fc = lower_fc(params["fc"]["w"], params["fc"]["b"], ecfg,
                           tracer=tracer, reorder=fc_reorder, device=device)
-    return CompiledNetwork(
+    program = CompiledNetwork(
         config=cfg, convs=convs, fc=fc, block=ecfg.block, tile=ecfg.tile,
         precision=ecfg.precision, cell_bits=ecfg.cell_bits,
     )
+    if options.verify is not None:
+        from repro_torch.analysis.ranges import analyze_network
+        from repro_torch.analysis.verify import verify_network
+
+        with tracer.span("verify", cat="compile"):
+            report = verify_network(program)
+        # the range certification pass only runs over structurally sound
+        # programs (its interval math assumes the verifier's contracts)
+        if report.ok:
+            with tracer.span("ranges", cat="compile") as sp:
+                report, cert = analyze_network(program, report=report)
+                program.certificate = cert
+                sp.args.update(
+                    fp32_safe=cert.fp32_safe,
+                    certified_cells=cert.certified_cells(),
+                )
+        if options.verify == "strict":
+            report.raise_if_errors("compile_network")
+        elif not report.ok:
+            warnings.warn(
+                "compile_network produced a program that fails "
+                "verification:\n" + report.format(),
+                stacklevel=2,
+            )
+    return program

@@ -10,10 +10,8 @@ runs it, ``serialize.py`` persists it, and
 crossbar model through ``core/mapping.map_layer`` +
 ``core/simulator.simulate_layer_multi``.  The pricing is host numpy
 copied from the reference, so every number in a report is bit-equal to
-the reference's for the same program.
-
-The static verifier (``CompiledNetwork.verify`` in the reference) is not
-ported yet (ROADMAP Queue 1 item 8).
+the reference's for the same program.  :meth:`CompiledNetwork.verify`
+runs the static verifier (``analysis/verify.py``).
 """
 
 from __future__ import annotations
@@ -103,8 +101,9 @@ class CompiledNetwork:
     program is quantized.
 
     ``certificate`` (optional) is the
-    :class:`~repro_torch.analysis.ranges.RangeCertificate` a program
-    compiled with verification by the reference carries;
+    :class:`~repro_torch.analysis.ranges.RangeCertificate` the
+    certification pass attaches (``compile_network`` with
+    ``CompileOptions(verify=...)``, in either package);
     ``hardware_report`` prices it as the ``certified_potential`` section
     and ``serialize.py`` persists it (manifest v4).
     """
@@ -132,6 +131,22 @@ class CompiledNetwork:
     def num_ops(self) -> int:
         # convs + global-avg-pool + fc
         return len(self.convs) + 2
+
+    def verify(self, strict: bool = False):
+        """Run the static program verifier (``analysis/verify.py``).
+
+        Returns the diagnostic
+        :class:`~repro_torch.analysis.diagnostics.Report`; with
+        ``strict=True`` raises
+        :class:`~repro_torch.analysis.diagnostics.VerificationError` when
+        any error diagnostic is present.
+        """
+        from repro_torch.analysis.verify import verify_network
+
+        report = verify_network(self)
+        if strict:
+            report.raise_if_errors("CompiledNetwork.verify")
+        return report
 
     def op_list(self) -> list[tuple[str, str]]:
         """Human-readable (op, detail) schedule, in execution order."""

@@ -12,7 +12,8 @@ is written.  The optional per-conv ``mapping`` (v3,
 ``certificate`` (v4,
 :class:`~repro_torch.analysis.ranges.RangeCertificate`) load as those
 objects and save back to the same manifest entries; only their structure
-is checked here (M003).
+is checked here (M003).  ``load_program`` verifies by default
+(``analysis/verify.py``), as the reference does.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.analysis.diagnostics import ProgramFormatError
 from repro_torch.analysis.ranges import RangeCertificate
 from repro_torch.core.mapping import MappingCandidate
 from repro_torch.core.sparse import BlockPatternWeight
@@ -46,20 +48,6 @@ _MANIFEST = "program.json"
 # certificate
 _FORMAT_VERSION = 4
 _SUPPORTED_VERSIONS = (1, 2, 3, 4)
-
-
-class ProgramFormatError(ValueError):
-    """A serialized program's manifest or payload is malformed.
-
-    Raised by :func:`load_program` *before* any array is constructed.
-    Carries the manifest rule id (``M001`` unreadable, ``M002`` bad
-    version, ``M003`` missing/ill-typed keys, ``M004`` missing payload
-    files, ``M005`` payload load failure).
-    """
-
-    def __init__(self, message: str, rule: str = "M003"):
-        super().__init__(message)
-        self.rule = rule
 
 
 def _save_array(directory: str, name: str, arr) -> str:
@@ -358,27 +346,22 @@ def validate_manifest(manifest: dict, directory: str) -> None:
 
 def load_program(
     directory: str,
-    verify: bool = False,
+    verify: bool = True,
     device: str | torch.device | None = None,
 ) -> CompiledNetwork:
     """Load a program written by :func:`save_program` (of either package).
 
     The manifest's version, keys and payload files are validated before
     any array is constructed, so a corrupt or truncated program raises
-    one :class:`ProgramFormatError` naming its rule.  The kernel operands
-    land on ``device`` (``None`` means ``cuda`` and raises when there is
+    one :class:`ProgramFormatError` naming its rule.  With ``verify=True``
+    (the default: saved programs are an untrusted input) the loaded
+    network also runs the full static verifier, and a
+    :class:`~repro_torch.analysis.diagnostics.VerificationError` carries
+    the diagnostic report.  Pass ``verify=False`` on hot paths that
+    reload programs this process just saved.  The kernel operands land
+    on ``device`` (``None`` means ``cuda`` and raises when there is
     none).
-
-    Differs from the reference, whose default is ``verify=True``: the
-    static verifier is not ported yet, so ``verify`` defaults to False
-    here and ``verify=True`` raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 8).
     """
-    if verify:
-        raise NotImplementedError(
-            "load_program(verify=True): the static verifier is not ported "
-            "yet (ROADMAP Queue 1 item 8)"
-        )
     device = resolve_device(device)
     directory = _resolve_directory(directory)
     manifest = read_manifest(directory)
@@ -437,7 +420,7 @@ def load_program(
                 f"program manifest certificate failed to decode: {e}",
                 rule="M003",
             ) from e
-    return CompiledNetwork(
+    program = CompiledNetwork(
         config=cfg,
         convs=convs,
         fc=fc,
@@ -448,3 +431,10 @@ def load_program(
         cell_bits=int(manifest.get("cell_bits", 4)),
         certificate=certificate,
     )
+    if verify:
+        from repro_torch.analysis.verify import verify_network
+
+        verify_network(program).raise_if_errors(
+            f"load_program({directory!r})"
+        )
+    return program

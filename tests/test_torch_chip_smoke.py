@@ -16,7 +16,7 @@ import time
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.configs import h2o_danube_1_8b
 from repro_torch.kernels import _build, ops
@@ -162,6 +162,15 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "FLASH_HEADS", (4, 2, 80))
     monkeypatch.setattr(cs, "FLASH_PATH_S", (17, 40))
     monkeypatch.setattr(cs, "FLASH_WINDOW", 16)
+    # the prune phase on the mini net: 3 dense steps, then ADMM 4 steps
+    # (projection every 2), 2 retrain steps
+    monkeypatch.setattr(cs, "prune_model_config",
+                        lambda: mini_cnn_config(4, 12, (8, 16, 16)))
+    monkeypatch.setattr(cs, "PRUNE_BATCH", 32)
+    monkeypatch.setattr(cs, "PRUNE_DENSE_STEPS", 3)
+    monkeypatch.setattr(cs, "PRUNE_CFG", dict(
+        target_sparsity=0.7, num_patterns=4, admm_steps=4, admm_every=2,
+        retrain_steps=2))
     # the fp32 and int8 switches must not leak out of the rehearsal
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
                         torch.backends.cuda.matmul.allow_tf32)
@@ -173,7 +182,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "serve", "search",
-        "ou_mvm", "flash", "generate", "times"]
+        "prune", "ou_mvm", "flash", "generate", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -203,14 +212,42 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         "conv1", "conv2", "conv3"}
     assert search["searched"]["area_cells"] <= search["fixed"]["area_cells"]
     assert search["searched"]["energy_pj"] <= search["fixed"]["energy_pj"]
-    ou = lines[7]
+    prune = lines[7]
+    assert set(prune["seconds"]) == {
+        "dense_training", "magnitude_prune", "dictionaries", "admm",
+        "project", "retrain", "prune_total"}
+    assert all(v >= 0 for v in prune["seconds"].values())
+    assert all(r["patterns_outside_dictionary"] == 0
+               and r["kernels_with_weights_outside_pattern"] == 0
+               and r["kernels_below_pattern"] >= 0
+               and r["nonzero_patterns"] <= 4
+               for r in prune["layers"].values())
+    assert 0.7 <= prune["sparsity"] < 1.0
+    assert {p: c["exit_code"] for p, c in prune["analysis_cli"].items()} == {
+        "fp32": 0, "int8": 0}
+    assert all(c["certificate_equal"] for c in prune["analysis_cli"].values())
+    assert set(prune["verify_ranges_span_seconds"]["int8"]) == {
+        "verify", "ranges"}
+    # 3 convs + FC per batch of 8: 64 requests in 9 batches, each program
+    assert prune["launches"] == {"pattern_spmm_cuda": 36,
+                                 "pattern_spmm_quant_cuda": 36}
+    assert [r["bound"] for r in prune["conv1_bound"]] == ["pre_hi", "pre_lo"]
+    assert all(r["ok"] and r["distance"] <= r["limit"]
+               for r in prune["conv1_bound"])
+    assert all(r["inside"] for rows in prune["layers_inside_certificate"]
+               .values() for r in rows)
+    assert [r["layer"] for r in prune["layers_inside_certificate"]["int8"]
+            ] == ["conv1", "conv2", "conv3", "fc"]
+    assert prune["e2e_rel_vs_cpu"] <= cs.E2E_TOL
+    assert 0.0 <= prune["int8_top1_agreement_vs_fp32"] <= 1.0
+    ou = lines[8]
     # 3 convs x 2 patches, the 3 sweep shapes, all-zero x, NaN case
     assert ou["calls"] == ou["launches"] == 11
     assert all(c["ok"] and c["finite"] and c["rerun_bit_identical"]
                and c["slab_cols"] >= 1 and c["blocks"] >= 1
                for c in ou["cases"])
     assert ou["cases"][-2]["skipped_band_share"] == 1.0
-    flash = lines[8]
+    flash = lines[9]
     # 14 sweep cases x 3 types, each path length bare and from a cache,
     # and kv_len < S
     assert len(flash["cases"]) == 14 * 3 + 2 * 2 + 1
@@ -220,7 +257,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                               else "tensor_core") for c in flash["cases"])
     half = [c for c in flash["cases"] if "float32" not in c["case"]]
     assert half and all(c["worst_over_rounding_limit"] <= 1.0 for c in half)
-    gen = lines[9]
+    gen = lines[10]
     assert gen["all_done"] and gen["trace_count"] == 1
     assert gen["requests"] == gen["prefills"] == 7
     assert gen["launches"] == gen["launches_expected"] == 2 * 7
@@ -232,7 +269,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(r["ok"] for r in gen["prefill_logits"])
     assert 0.0 <= gen["first_token_agreement_vs_plain"] <= 1.0
     assert gen["output_tokens"] == 7 * 4
-    times = lines[10]
+    times = lines[11]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40]
@@ -259,6 +296,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert res["kernels"][2]["library_ms"] > 0
     assert res["kernels"][3]["library_ms"] > 0
     assert res["kernels"][3]["launches"] == 2 * 7
+    # the spmm launches of the serve phase and of the prune phase
+    assert res["kernels"][0]["launches"] == 36 + 36
+    assert res["kernels"][1]["launches"] == 8 + 36
 
 
 @pytest.mark.parametrize("fault", ["none", "window", "kv_len"])
@@ -290,3 +330,62 @@ def test_flash_rounding_limit_fails_one_key_too_many(fault):
     row = cs.flash_row(c, y)
     assert row["worst_over_limit"] <= 1.0  # _tolerance alone passes it
     assert row["ok"] == (fault == "none")
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_bound_rounding_limit_counts_the_patch_and_the_bias():
+    cs = _load_chip_smoke()
+    w = np.full((3, 3, 3), -0.5, np.float32)
+    # 27 products and the bias: 28 terms of at most 2^-24 relative each
+    assert cs.bound_rounding_limit(2.0, w, 3.0) == 28 * 2.0 ** -24 * (
+        2.0 + 3.0 * 13.5)
+    assert cs.bound_rounding_limit(-1.0, w[:1], 1.0) == 10 * 2.0 ** -24 * 5.5
+
+
+@pytest.mark.parametrize("which", ["pre_hi", "pre_lo"])
+def test_attaining_patch_reaches_the_certified_bound(which):
+    """On the CPU's plain spmm: conv1's output at the centre pixel of the
+    attaining image equals the certificate's bound within the rounding
+    limit, and the same patch one pixel off the centre (a dropped brick
+    row, as a faulty kernel would compute it) misses it by more."""
+    from repro_torch.engine import CompileOptions, compile_network
+    from repro_torch.models.cnn import CNNConfig
+
+    cs = _load_chip_smoke()
+    cfg = CNNConfig(((3, 8), (8, 16)), frozenset({2}), 4, 12)
+    rng = np.random.default_rng(4)
+    params = {}
+    for i, (ci, co) in enumerate(cfg.conv_channels, start=1):
+        w = rng.normal(size=(co, ci, 3, 3)).astype(np.float32)
+        w[np.abs(w) < 0.5] = 0.0
+        params[f"conv{i}"] = {"w": w, "b": rng.normal(size=co).astype(
+            np.float32)}
+    params["fc"] = {"w": rng.normal(size=(16, 4)).astype(np.float32),
+                    "b": np.zeros(4, np.float32)}
+    prog = compile_network(cfg, params, options=CompileOptions(
+        block=16, tile=8, verify="strict"), device="cpu")
+    entry = prog.certificate.layer("conv1")
+    w1 = params["conv1"]["w"]
+    b1 = params["conv1"]["b"].astype(np.float64)
+    reach = 3.0 * np.abs(w1.astype(np.float64)).reshape(8, -1).sum(axis=1)
+    sign, j, bound = ((1.0, int(np.argmax(b1 + reach)), entry.pre_hi)
+                      if which == "pre_hi"
+                      else (-1.0, int(np.argmin(b1 - reach)), entry.pre_lo))
+    img = cs.attaining_image(w1, j, sign, 3.0, 12)
+    assert img.shape == (1, 3, 12, 12)
+    assert np.abs(img).max() == 3.0 and np.count_nonzero(img) <= 27
+    pre = cs.pre_activations(prog, img, torch.device("cpu"))
+    assert [n for n, _ in pre] == ["conv1", "conv2", "fc"]
+    centre = 6 * 12 + 6
+    got = float(pre[0][1][centre, j])
+    limit = cs.bound_rounding_limit(b1[j], w1[j], 3.0)
+    assert abs(got - bound) <= limit
+    off = float(pre[0][1][centre + 1, j])
+    assert abs(off - bound) > limit

@@ -18,7 +18,7 @@ import time
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs import get_smoke_config as j_smoke
 from repro.models.transformer import init_params as j_init_params

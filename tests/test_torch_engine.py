@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core.pruning import build_dictionaries, magnitude_prune, project_params
 from repro.engine import CompileOptions as JCompileOptions

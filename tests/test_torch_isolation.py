@@ -9,7 +9,7 @@ import textwrap
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -17,7 +17,9 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 # Runs in a fresh interpreter whose import system refuses jax and repro:
 # imports every module of the port, then compiles, runs and serves the
-# mini net on the CPU, and prints one JSON line.
+# mini net on the CPU, prunes it and compiles it with verification and
+# range certification, saves and reloads it (verifying), and prints one
+# JSON line.
 _ISOLATED = """
 import importlib, json, pkgutil, sys
 
@@ -56,10 +58,21 @@ logits = make_forward(prog, device="cpu")(x)
 err = float((logits - cnn_apply(cfg, params, torch.from_numpy(x))).abs().max())
 svc = InferenceService(prog, batch_slots=4, device="cpu")
 labels = svc.classify(x).tolist()
+from repro_torch.core.pruning import magnitude_prune
+from repro_torch.engine import load_program, save_program
+pruned = magnitude_prune(params, ["conv1", "conv2", "conv3"], 0.7)
+strict = compile_network(cfg, pruned, options=CompileOptions(
+    block=16, tile=16, precision="int8", verify="strict"), device="cpu")
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    back = load_program(save_program(tmp + "/p", strict), device="cpu")
+certified = (back.certificate is not None
+             and back.certificate.to_manifest()
+             == strict.certificate.to_manifest())
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(json.dumps({{"modules": modules, "err": err, "labels": labels,
                    "argmax": logits.argmax(-1).tolist(), "leaked": leaked,
-                   "traces": svc.trace_count()}}))
+                   "traces": svc.trace_count(), "certified": certified}}))
 """
 
 
@@ -84,6 +97,7 @@ def test_port_runs_with_jax_and_reference_refused():
     assert res["err"] < 1e-4
     assert res["labels"] == res["argmax"]
     assert res["traces"] == 1
+    assert res["certified"]
 
 
 def _port_files():
@@ -140,3 +154,31 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_collection_without_torch_keeps_the_jax_suite(tmp_path):
+    """With torch absent, as the reference's CI installs it, every
+    ``tests/test_torch_*.py`` skips at collection and the JAX tests beside
+    them are still collected (no collection error interrupts the run)."""
+    (tmp_path / "sitecustomize.py").write_text(
+        "import sys\nsys.modules['torch'] = None\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path),
+                                         os.path.join(ROOT, "src")])
+    env["JAX_PLATFORMS"] = "cpu"
+    tests = sorted(
+        os.path.join("tests", f) for f in os.listdir(os.path.join(ROOT, "tests"))
+        if f.startswith("test_torch_") and f.endswith(".py"))
+    assert len(tests) >= 10
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q", "-rs",
+         "-p", "no:cacheprovider", *tests, "tests/test_engine.py"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
+    ids = [ln for ln in out.stdout.splitlines() if "::" in ln]
+    assert any(ln.startswith("tests/test_engine.py::") for ln in ids)
+    assert not [ln for ln in ids if "test_torch_" in ln]
+    skipped = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("SKIPPED") and "could not import 'torch'" in ln]
+    assert len(skipped) == len(tests)

@@ -11,7 +11,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import crossbar as jxb
 from repro.core import indexing as jidx

@@ -12,7 +12,7 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import sparse as js
 from repro.core.pruning import build_dictionaries, magnitude_prune, project_params
@@ -28,7 +28,7 @@ from repro.obs.trace import Tracer as JTracer
 from repro_torch.core import sparse as ts
 from repro_torch.core.mapping import MappingCandidate
 from repro_torch.core.mapsearch import MappingSearchConfig
-from repro_torch.engine import CompileOptions, ProgramFormatError
+from repro_torch.engine import CompileOptions, ProgramFormatError, VerificationError
 from repro_torch.engine import compile_network as t_compile
 from repro_torch.engine import lowering as tlow
 from repro_torch.engine import serialize as tser
@@ -322,11 +322,23 @@ def test_save_is_atomic_and_old_is_found(saved):
     assert_programs_equal(tser.load_program(saved, device="cpu"), tprog)
 
 
-def test_not_yet_ported_options_raise(saved):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tser.load_program(saved, verify=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CompileOptions(verify="strict")
+def test_not_yet_ported_options_raise(saved, tmp_path):
+    # load_program verifies by default: a payload corrupted past the
+    # manifest checks raises VerificationError with the rule that caught it
+    tprog = tser.load_program(saved, device="cpu")
+    bad = tser.save_program(str(tmp_path / "bad"), tprog)
+    m = _manifest(bad)
+    path = os.path.join(bad, m["convs"][0]["bp"]["arrays"]["new_order"])
+    order = np.load(path)
+    order[0] = order[1]  # no longer a permutation: V101
+    np.save(path, order)
+    with pytest.raises(VerificationError) as ei:
+        tser.load_program(bad, device="cpu")
+    assert "V101" in ei.value.report.rules("error")
+    assert tser.load_program(bad, verify=False, device="cpu") is not None
+    with pytest.raises(ValueError, match="verify must be"):
+        CompileOptions(verify="bogus")
+    assert CompileOptions(verify="strict").verify == "strict"
     with pytest.raises(ValueError):
         CompileOptions(precision="fp16")
     # the mapping search is ported: the reference's validation

@@ -10,7 +10,7 @@ images.
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core.pruning import build_dictionaries, magnitude_prune, project_params
 from repro.engine import InferenceService as JInferenceService
