@@ -7,9 +7,12 @@ Drives the port's main paths at full width, through the entry points a
 user calls: compile the synthetic pattern-pruned VGG16 (CIFAR-10, 13
 convs, Table-II statistics) in fp32 and int8, save and reload the fp32
 program, and serve seeded requests through ``InferenceService`` on
-``cuda``; compile it again with the per-layer crossbar mapping search
-(``optimize="auto"``), serve it with skip statistics and price the served
-traffic with ``hardware_report``; train full-width VGG16 on seeded
+``cuda``, then sharded over a device mesh (a one-rank mesh in this
+process, a 2 x 2 gloo group of four processes on the card) with
+flash-decode of granite-3-2b over a split cache; compile it again with
+the per-layer crossbar mapping search (``optimize="auto"``), serve it
+with skip statistics and price the served traffic with
+``hardware_report``; train full-width VGG16 on seeded
 class-prototype batches, pattern-prune it with ``admm_pattern_prune``,
 compile it verified and range-certified, reload it with verification and
 serve it; run ``ops.ou_mvm`` on every conv's dense weight at real
@@ -21,8 +24,9 @@ kernel.  Before each path it builds the CUDA kernels from the sources in
 at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
-``kernels`` (kernel vs plain), ``serve``, ``search``, ``prune``,
-``ou_mvm``, ``flash`` (kernel vs plain), ``generate``, ``times``.  The
+``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
+``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
+``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -39,10 +43,25 @@ served fp32 labels equal to the dense ``cnn_apply`` (layers within
 kernel output at the input that attains its certified ``pre_hi`` and
 ``pre_lo`` within ``bound_rounding_limit`` of them; and every layer's
 spmm + bias over the served images inside its certificate, fp32 and
-int8.  Its spmm launches join the serve phase's in the summary.  Any
-failed check exits non-zero.  The last three lines are the card's name and power limit as ``nvidia-smi`` prints them, the
-per-kernel ``{"kernels": [...]}`` summary, and
-``{"ok": true, "device": {...}}``.
+int8.  Its spmm launches join the serve phase's in the summary.  The
+``shard`` phase runs the sharded path: (a) a one-rank mesh in this process
+(``make_mesh``, NCCL): the mesh forward bit-equal to the unsharded one in
+fp32 and int8, ``InferenceService(mesh=...)`` serving the same requests
+with equal labels, logits and skip statistics, and flash-decode
+(granite-3-2b at full width, 4 layers) on the gather strategy's tokens,
+each step within ``DECODE_LIMIT`` (bf16 flash no farther from the
+float32 model than ``GEN_BF16_NOISE_FACTOR`` times bf16 gather is, and
+float32 flash within ``GEN_FP32_REL`` of float32 gather); (b)
+``SHARD_MESH`` ranks of a ``gloo`` group spawned on this one card (NCCL
+takes one card per rank), each serving the requests through the
+programs partitioned with ``partition_network``: each fp32 layer within
+``LAYER_TOL`` of the single-device dispatch, logits within ``E2E_TOL``,
+equal fp32 labels, int8 within the reference's bars, equal statistics,
+every rank's spmm launches counted, and flash-decode over two cache
+chunks gated as in (a).  Its launches join the summary.  Any failed
+check exits non-zero.  The last three lines are the card's name and
+power limit as ``nvidia-smi`` prints them, the per-kernel
+``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and ``nvcc``; without a card it exits 1 and prints no
 result.  It imports neither ``jax`` nor the JAX package.
@@ -51,6 +70,7 @@ result.  It imports neither ``jax`` nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -191,6 +211,39 @@ PRUNE_CFG = dict(target_sparsity=0.8603, num_patterns=6, admm_steps=40,
 PRUNE_LR = 1e-4
 PRUNE_NOISE = 0.7  # tests/test_pruning.py's gen_batch
 PRUNE_REQUESTS = sum(BURSTS)  # served in the serve phase's bursts
+
+
+# shard: the sharded path.  (a) a one-rank mesh in this process (NCCL on
+# the card); (b) SHARD_MESH = (data, model) ranks of a gloo group spawned
+# on this one card (NCCL takes one card per rank), serving the same
+# requests.  int8 against the unsharded int8 run: the reference's bars
+# (tests/test_engine_sharded.py::test_sharded_quantized_forward).
+SHARD_MESH = (2, 2)
+SHARD_BACKEND = "gloo"  # scripts/shard_nccl.py runs (b) on NCCL, a card a rank
+SHARD_TIMEOUT_S = 600  # a collective that waits longer fails the run
+INT8_SHARD_ATOL = 5e-3
+INT8_SHARD_AGREE = 0.98
+# flash-decode: granite-3-2b at full width (no window, which the route
+# needs), DECODE_LAYERS deep, bf16 weights from the seed; DECODE_BATCH
+# prompts of DECODE_PROMPT tokens at one shared position, DECODE_STEPS
+# steps.  The cache of DECODE_MAX_SEQ slots splits into SHARD_MESH[1]
+# chunks, and the prompt reaches into the last one.
+DECODE_LAYERS = 4
+DECODE_BATCH = 4
+DECODE_PROMPT = 150
+DECODE_MAX_SEQ = 256
+DECODE_STEPS = 6
+# Each step's logits, relative to the largest float32 logit.  bf16 runs
+# round their logits to bf16, so two of them differ by whole bf16 steps
+# (one step of a logit near the largest is ~2^-8 relative) while either
+# one's distance from float32 can be under half a step: a bf16 route is
+# held against the float32 model, not against the other bf16 route.
+DECODE_LIMIT = (f"bf16 flash vs float32 gather <= {GEN_BF16_NOISE_FACTOR} x "
+                f"(bf16 gather vs float32 gather); float32 flash vs float32 "
+                f"gather <= {GEN_FP32_REL}")
+# a picklable function each rank of (b) calls before anything else (None:
+# nothing; the CPU rehearsal installs its counting plain versions there)
+SHARD_PREPARE = None
 
 
 def prune_model_config():
@@ -473,28 +526,34 @@ def host_ms(fn) -> float:
     return float(np.median(times))
 
 
-def layer_parity(prog, cpu_prog, images, dev) -> list[dict]:
-    """Each layer of the forward on the card against the same layer of
-    the plain path on the CPU, both fed the CPU path's input to that
-    layer: the per-layer difference without the compounding of earlier
-    layers' rounding through 13 ``channel_norm``s."""
+def layer_parity(prog, want_prog, images, dev, disp=None,
+                 want_dev="cpu") -> list[dict]:
+    """Each layer of ``prog`` through ``disp`` (default: the
+    single-device dispatch on ``dev``) against the same layer of
+    ``want_prog`` through the single-device dispatch on ``want_dev`` (the
+    plain path on the CPU by default), both fed the latter's input to
+    that layer: the per-layer difference without the compounding of
+    earlier layers' rounding through 13 ``channel_norm``s."""
     import torch
 
     from repro_torch.engine.executor import _Dispatch, _run_conv, _run_fc
 
-    card, host = _Dispatch(dev), _Dispatch(torch.device("cpu"))
-    x = torch.as_tensor(images)
+    got_d = disp or _Dispatch(dev)
+    want_d = _Dispatch(torch.device(want_dev))
+    x = torch.as_tensor(images, device=want_d.device)
     rows = []
-    for op, cop in zip([*prog.convs, prog.fc], [*cpu_prog.convs, cpu_prog.fc]):
+    for op, wop in zip([*prog.convs, prog.fc],
+                       [*want_prog.convs, want_prog.fc]):
         if op is prog.fc:
             x = x.mean(dim=(2, 3))
-            want = _run_fc(cop, x, host, host.prepare(cop.bp, cop.bias))
-            got = _run_fc(op, x.to(dev), card, card.prepare(op.bp, op.bias))
+            want = _run_fc(wop, x, want_d, want_d.prepare(wop.bp, wop.bias))
+            got = _run_fc(op, x.to(dev), got_d, got_d.prepare(op.bp, op.bias))
         else:
-            want, _ = _run_conv(cop, x, host, host.prepare(cop.bp, cop.bias))
-            got, _ = _run_conv(op, x.to(dev), card,
-                               card.prepare(op.bp, op.bias))
-        diff = float((got.cpu() - want).abs().max())
+            want, _ = _run_conv(wop, x, want_d,
+                                want_d.prepare(wop.bp, wop.bias))
+            got, _ = _run_conv(op, x.to(dev), got_d,
+                               got_d.prepare(op.bp, op.bias))
+        diff = float((got.to(want.device) - want).abs().max())
         scale = float(want.abs().max())
         rows.append({"layer": getattr(op, "name", "fc"), "max_abs_diff": diff,
                      "max_abs": scale, "rel": diff / max(scale, 1.0)})
@@ -1547,6 +1606,461 @@ def generate_phase(seed: int, dev) -> dict:
     return {"launches": launches}
 
 
+def build_decode_lm(seed: int, dev):
+    """(cfg, params, statics): granite-3-2b at full width, DECODE_LAYERS
+    deep, ``decode_strategy="flash"``, bf16 weights drawn on ``dev`` from
+    the seed (the same on every rank that asks)."""
+    import torch
+
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(
+        granite_3_2b.config(), n_layers=DECODE_LAYERS,
+        layer_types=(("attn", "mlp"),) * DECODE_LAYERS,
+        decode_strategy="flash")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, statics = init_params(cfg, gen, device=dev)
+    return cfg, params, statics
+
+
+def decode_steps(params, statics, prompts, steps: int, max_seq: int,
+                 cache_dtype, dev, teacher=None, mesh=None):
+    """Prefill ``prompts`` [B, L] (the flash kernel route), then ``steps``
+    decode steps at one shared position through the step
+    ``make_decode_step`` takes (``runtime.serve.decode_logits``), under
+    ``activation_sharding_ctx(mesh)`` when a mesh is given.  Feeds the
+    greedy tokens, or ``teacher``'s.  Returns (float32 logits
+    [steps, B, vocab], the tokens fed [steps, B], the greedy token of
+    ``make_decode_step`` at the last step)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models.transformer import apply_model, init_cache
+    from repro_torch.parallel.activations import activation_sharding_ctx
+    from repro_torch.runtime.serve import (
+        ServeConfig,
+        decode_logits,
+        make_decode_step,
+    )
+
+    b, n = prompts.shape
+    vocab = statics["cfg"].vocab
+    cache = init_cache(statics, b, max_seq, dtype=cache_dtype, device=dev)
+    ctx = (activation_sharding_ctx(mesh) if mesh is not None
+           else contextlib.nullcontext())
+    fed, out = [], []
+    with torch.no_grad(), ctx:
+        logits, _, _ = apply_model(
+            params, statics, torch.as_tensor(prompts, device=dev),
+            positions=torch.arange(n, device=dev), cache=cache, cache_pos=0,
+            cache_len=n, prefill=True)
+        tok = logits[:, -1, :vocab].argmax(-1)
+        for i in range(steps):
+            if teacher is not None:
+                tok = torch.as_tensor(teacher[i], device=dev)
+            fed.append(tok)
+            lg, cache = decode_logits(statics, params, cache, tok,
+                                      torch.tensor(n + i, device=dev))
+            out.append(lg)
+            tok = lg.argmax(-1)
+        decode = make_decode_step(statics["cfg"], statics, ServeConfig())
+        last, _ = decode(params, cache, fed[-1],
+                         torch.tensor(n + steps - 1, device=dev))
+    return torch.stack(out), torch.stack(fed), last
+
+
+def mesh_overhead(mesh_fn, plain_fn, x) -> dict:
+    """Host ms of a forward of ``x`` on the one-rank mesh and unsharded,
+    measured in turns (mesh, unsharded, unsharded, mesh), each the mean
+    of its two medians."""
+    t = [host_ms(lambda fn=fn: fn(x))
+         for fn in (mesh_fn, plain_fn, plain_fn, mesh_fn)]
+    return {"mesh": (t[0] + t[3]) / 2, "unsharded": (t[1] + t[2]) / 2,
+            "turns": t}
+
+
+def _stats(svc) -> dict:
+    return {k: (st.counts, st.windows)
+            for k, st in svc.activation_stats.layers.items()}
+
+
+def _stats_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k][0], b[k][0]) and a[k][1] == b[k][1] for k in a)
+
+
+def _spmm_counts() -> dict:
+    from repro_torch.kernels import pattern_spmm as tk
+
+    return {"pattern_spmm_cuda": tk.pattern_spmm_cuda.launches,
+            "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import pattern_spmm as tk
+
+    tk.pattern_spmm_cuda.launches = 0
+    tk.pattern_spmm_quant_cuda.launches = 0
+    tfa.flash_attention_cuda.launches = 0
+
+
+def flash_decode_runs(cfg, params, prompts, teacher, max_seq: int, dev,
+                      mesh) -> dict:
+    """Flash-decode under ``mesh`` on the teacher tokens, with the bf16
+    weights and with the same weights in float32: both runs' logits
+    (numpy), the sharded route's calls and flash-attention launches of
+    the bf16 run, those of the float32 run's prefill, and whether
+    ``make_decode_step``'s token at the last step is the bf16 logits'
+    argmax."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import init_statics
+
+    calls = attention.flash_decode_sharded.calls
+    lg, _, last = decode_steps(params, init_statics(cfg, dev), prompts,
+                               len(teacher), max_seq, torch.bfloat16, dev,
+                               teacher=teacher, mesh=mesh)
+    calls = attention.flash_decode_sharded.calls - calls
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    flash0 = tfa.flash_attention_cuda.launches
+    lg32, _, _ = decode_steps(_map_tensors(params, lambda t: t.float()),
+                              init_statics(cfg32, dev), prompts, len(teacher),
+                              max_seq, torch.float32, dev, teacher=teacher,
+                              mesh=mesh)
+    lg = lg.cpu().numpy()
+    return {"bf16": lg, "fp32": lg32.cpu().numpy(), "calls": calls,
+            "fp32_launches": tfa.flash_attention_cuda.launches - flash0,
+            "last_is_argmax": bool(np.array_equal(last.cpu().numpy(),
+                                                  lg[-1].argmax(-1)))}
+
+
+def shard_rank(rank: int, spec: dict) -> None:
+    """One rank of part (b): joins the gloo group, serves the requests
+    through ``InferenceService(mesh=...)`` on the partitioned programs,
+    holds each fp32 layer against the single-device dispatch, times a
+    sharded forward, and decodes with flash-decode on the teacher tokens.
+    Writes its results to ``rank<r>.pkl`` in ``spec["out"]``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.engine import (
+        InferenceService,
+        load_program,
+        make_forward,
+        partition_from_mesh,
+        partition_network,
+    )
+    from repro_torch.engine.executor import _ShardedDispatch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+    from repro_torch.serve.api import Request
+
+    if spec["prepare"] is not None:
+        spec["prepare"]()
+    world = spec["mesh"][0] * spec["mesh"][1]
+    dist.init_process_group(
+        spec["backend"], store=dist.FileStore(spec["store"], world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh(spec["mesh"], ("data", "model"),
+                         device_type=spec["device_type"])
+        dev = mesh_device(mesh)
+        data, model = spec["mesh"]
+        progs = {prec: partition_network(
+            load_program(spec[prec], verify=False, device=dev),
+            data=data, model=model) for prec in ("fp32", "int8")}
+        svcs = {prec: InferenceService(
+            progs[prec], batch_slots=spec["batch_slots"], mesh=mesh,
+            collect_stats=True, device=dev) for prec in progs}
+        for svc in svcs.values():
+            svc.warmup()
+        out = {"device": str(dev), "backend": dist.get_backend()}
+        # the main path: counts from 0, the requests through both
+        # services, read
+        _zero_counts()
+        t0 = time.perf_counter()
+        reqs = {}
+        for prec, svc in svcs.items():
+            reqs[prec] = [Request(image=img) for img in spec["images"]]
+            serve_bursts(svc, reqs[prec], spec["bursts"])
+        out["serve_seconds"] = time.perf_counter() - t0
+        out["launches"] = _spmm_counts()
+        out["batches"] = {p: svc.batches_run for p, svc in svcs.items()}
+        for prec in progs:
+            out[f"logits_{prec}"] = np.stack([r.logits for r in reqs[prec]])
+            out[f"labels_{prec}"] = np.array([r.label for r in reqs[prec]])
+            out[f"stats_{prec}"] = _stats(svcs[prec])
+        x8 = spec["images"][: spec["batch_slots"]]
+        prog = progs["fp32"]
+        out["layer_parity"] = layer_parity(
+            prog, prog, x8, dev, want_dev=dev, disp=_ShardedDispatch(
+                dev, mesh, partition_from_mesh(mesh, prog.partition)))
+        fwds = {prec: make_forward(prog, mesh=mesh)
+                for prec, prog in progs.items()}
+        out["forward_ms"] = {prec: host_ms(lambda f=f: f(x8))
+                             for prec, f in fwds.items()}
+        del svcs, progs, fwds
+        # flash-decode on the teacher tokens, model ranks over the cache
+        cfg, params, _ = spec["build_lm"](spec["seed"], dev)
+        flash0 = tfa.flash_attention_cuda.launches
+        out["flash"] = flash_decode_runs(cfg, params, spec["prompts"],
+                                         spec["teacher"], spec["max_seq"],
+                                         dev, mesh)
+        out["flash_attention_launches"] = (
+            tfa.flash_attention_cuda.launches - flash0
+            - out["flash"]["fp32_launches"])
+        with open(os.path.join(spec["out"], f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phase(seed: int, dev, loaded, prog8, images) -> dict:
+    """The sharded path: (a) a one-rank mesh in this process, (b) a gloo
+    group of ``SHARD_MESH`` ranks on this card; checks and the report."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.engine import InferenceService, make_forward, save_program
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_statics
+    from repro_torch.serve.api import Request
+
+    progs = {"fp32": loaded, "int8": prog8}
+    x8 = images[:BATCH_SLOTS]
+    # the single-device references: the same requests, the same bursts
+    ref = {}
+    for prec, prog in progs.items():
+        svc = InferenceService(prog, batch_slots=BATCH_SLOTS, device=dev,
+                               collect_stats=True)
+        reqs = [Request(image=img) for img in images]
+        serve_bursts(svc, reqs)
+        ref[prec] = {"logits": np.stack([r.logits for r in reqs]),
+                     "labels": np.array([r.label for r in reqs]),
+                     "stats": _stats(svc), "batches": svc.batches_run}
+    spmms = len(loaded.convs) + 1
+
+    # -- (a) a one-rank mesh in this process ---------------------------
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    fwd = {p: make_forward(prog, mesh=mesh) for p, prog in progs.items()}
+    one = {p: make_forward(prog, device=dev) for p, prog in progs.items()}
+    want = {p: one[p](images) for p in progs}
+    svc = InferenceService(loaded, batch_slots=BATCH_SLOTS, mesh=mesh,
+                           collect_stats=True)
+    svc.warmup()
+    # the main path: counts from 0, the mesh forwards and the service, read
+    _zero_counts()
+    got = {p: fwd[p](images) for p in progs}
+    reqs = [Request(image=img) for img in images]
+    serve_bursts(svc, reqs)
+    launches_a = _spmm_counts()
+    a = {
+        "mesh": [1, 1], "backend": str(dist.get_backend()),
+        "bit_equal": {p: bool(torch.equal(got[p], want[p])) for p in progs},
+        "service_labels_equal": bool(np.array_equal(
+            np.array([r.label for r in reqs]), ref["fp32"]["labels"])),
+        "service_logits_bit_equal": bool(np.array_equal(
+            np.stack([r.logits for r in reqs]), ref["fp32"]["logits"])),
+        "service_stats_equal": _stats_equal(_stats(svc),
+                                            ref["fp32"]["stats"]),
+        "trace_count": svc.trace_count(), "launches": launches_a,
+        "launches_expected": {
+            "pattern_spmm_cuda": spmms * (1 + svc.batches_run),
+            "pattern_spmm_quant_cuda": spmms},
+        "forward_ms": {p: mesh_overhead(fwd[p], one[p], x8) for p in progs},
+    }
+    del fwd, one, svc
+
+    # flash-decode against gather, teacher-forced on gather's tokens (a
+    # bf16 near-tie cannot make the runs diverge): bf16 flash no farther
+    # from the float32 model than GEN_BF16_NOISE_FACTOR x bf16 gather's
+    # own distance from it, float32 flash within GEN_FP32_REL of float32
+    # gather (decode_rows)
+    cfg, params, _ = build_decode_lm(seed, dev)
+    gather = init_statics(dataclasses.replace(cfg, decode_strategy="gather"),
+                          dev)
+    prompts = np.random.default_rng(seed + 7).integers(
+        1, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT)).astype(np.int64)
+    flash0 = tfa.flash_attention_cuda.launches
+    lg_g, fed, _ = decode_steps(params, gather, prompts, DECODE_STEPS,
+                                DECODE_MAX_SEQ, torch.bfloat16, dev)
+    teacher = fed.cpu().numpy()
+    fl = flash_decode_runs(cfg, params, prompts, teacher, DECODE_MAX_SEQ,
+                           dev, mesh)
+    flash_a = tfa.flash_attention_cuda.launches - flash0 - fl["fp32_launches"]
+    params32 = _map_tensors(params, lambda t: t.float())
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32",
+                                decode_strategy="gather")
+    lg_32, _, _ = decode_steps(params32, init_statics(cfg32, dev), prompts,
+                               DECODE_STEPS, DECODE_MAX_SEQ, torch.float32,
+                               dev, teacher=teacher)
+    del params32, params
+    lg_g, lg_32 = lg_g.cpu().numpy(), lg_32.cpu().numpy()
+
+    def rd(x, y) -> float:
+        return rel_diff(torch.as_tensor(x), torch.as_tensor(y))
+
+    def decode_rows(fl) -> list[dict]:
+        rows = []
+        for i in range(DECODE_STEPS):
+            noise = rd(lg_g[i], lg_32[i])
+            far = rd(fl["bf16"][i], lg_32[i])
+            d32 = rd(fl["fp32"][i], lg_32[i])
+            rows.append({
+                "step": i, "bf16_flash_vs_fp32": far,
+                "bf16_gather_vs_fp32": noise,
+                "bf16_limit": GEN_BF16_NOISE_FACTOR * noise,
+                "bf16_flash_vs_gather": rd(fl["bf16"][i], lg_g[i]),
+                "fp32_flash_vs_gather": d32,
+                "argmax_equal": bool(
+                    (fl["bf16"][i].argmax(-1) == lg_g[i].argmax(-1)).all()),
+                "ok": (far <= GEN_BF16_NOISE_FACTOR * noise
+                       and d32 <= GEN_FP32_REL)})
+        return rows
+
+    a["decode_limit"] = DECODE_LIMIT
+    a["decode"] = decode_rows(fl)
+    a["flash_decode_calls"] = fl["calls"]
+    a["flash_decode_calls_expected"] = (DECODE_STEPS + 1) * cfg.n_layers
+    a["make_decode_step_token_is_argmax"] = fl["last_is_argmax"]
+    torch.cuda.empty_cache()
+
+    # -- (b) SHARD_MESH ranks of a gloo group on this card -------------
+    data, model = SHARD_MESH
+    world = data * model
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        paths = {p: save_program(os.path.join(tmp, p), prog)
+                 for p, prog in progs.items()}
+        spec = {"mesh": SHARD_MESH, "backend": SHARD_BACKEND,
+                "device_type": dev.type,
+                "store": os.path.join(tmp, "store"), "out": tmp,
+                "prepare": SHARD_PREPARE, "images": images,
+                "bursts": BURSTS, "batch_slots": BATCH_SLOTS,
+                "build_lm": build_decode_lm, "seed": seed,
+                "prompts": prompts, "teacher": teacher,
+                "max_seq": DECODE_MAX_SEQ, **paths}
+        t0 = time.perf_counter()
+        mp.start_processes(shard_rank, args=(spec,), nprocs=world,
+                           join=True, start_method="spawn")
+        b_seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    r0 = ranks[0]
+    same = all(
+        all(np.array_equal(rk[k], r0[k]) for k in
+            ("logits_fp32", "logits_int8", "labels_fp32"))
+        and all(np.array_equal(rk["flash"][k], r0["flash"][k])
+                for k in ("bf16", "fp32"))
+        for rk in ranks[1:])
+    l8, w8 = r0["logits_int8"], ref["int8"]["logits"]
+    l32, w32 = r0["logits_fp32"], ref["fp32"]["logits"]
+    b = {
+        "mesh": list(SHARD_MESH), "ranks": world,
+        "devices": [rk["device"] for rk in ranks],
+        "backend": r0["backend"],
+        "transport": (
+            f"{SHARD_BACKEND}: {world} ranks on "
+            f"{len({rk['device'] for rk in ranks})} card(s)"
+            + ("; CUDA tensors staged through host memory, not a "
+               "multi-card NCCL run" if SHARD_BACKEND == "gloo" else "")),
+        "seconds": b_seconds, "serve_seconds": r0["serve_seconds"],
+        "ranks_agree": same,
+        "layer_limit": f"max|d| <= {LAYER_TOL} * max(1, max|layer|)",
+        "layer_parity": r0["layer_parity"],
+        "e2e_limit": f"max|d| <= {E2E_TOL} * max(1, max|unsharded logit|)",
+        "e2e_rel": rel_diff(torch.as_tensor(l32), torch.as_tensor(w32)),
+        "labels_fp32_equal": bool(np.array_equal(r0["labels_fp32"],
+                                                 ref["fp32"]["labels"])),
+        "int8_limit": (f"max|d| <= {INT8_SHARD_ATOL}; argmax agreement >= "
+                       f"{INT8_SHARD_AGREE}"),
+        "int8_max_abs_diff": float(np.abs(l8 - w8).max()),
+        "int8_argmax_agreement": float(
+            (l8.argmax(-1) == w8.argmax(-1)).mean()),
+        "stats_equal": {p: all(_stats_equal(rk[f"stats_{p}"],
+                                            ref[p]["stats"]) for rk in ranks)
+                        for p in progs},
+        "batches": r0["batches"],
+        "launches_per_rank": [rk["launches"] for rk in ranks],
+        "launches_expected_per_rank": {
+            "pattern_spmm_cuda": spmms * ref["fp32"]["batches"],
+            "pattern_spmm_quant_cuda": spmms * ref["int8"]["batches"]},
+        "forward_ms": r0["forward_ms"],
+        "decode_limit": DECODE_LIMIT,
+        "decode": decode_rows(r0["flash"]),
+        "flash_decode_calls": r0["flash"]["calls"],
+        "flash_decode_calls_expected": (DECODE_STEPS + 1) * cfg.n_layers,
+        "make_decode_step_token_is_argmax": r0["flash"]["last_is_argmax"],
+    }
+    emit("shard", decode_model=dict(
+        name=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], vocab=cfg.vocab,
+        batch=DECODE_BATCH, prompt=DECODE_PROMPT, max_seq=DECODE_MAX_SEQ,
+        steps=DECODE_STEPS), requests=len(images), part_a=a, part_b=b)
+    check(all(a["bit_equal"].values()),
+          f"one-rank mesh forward differs from the unsharded one: "
+          f"{a['bit_equal']}")
+    check(a["service_labels_equal"] and a["service_logits_bit_equal"]
+          and a["service_stats_equal"] and a["trace_count"] == 1,
+          "one-rank mesh service differs from the unsharded service")
+    check(launches_a == a["launches_expected"],
+          f"one-rank mesh spmm launches {launches_a} != "
+          f"{a['launches_expected']}")
+    for part, name in ((a, "one-rank mesh"), (b, f"{SHARD_MESH} gloo mesh")):
+        bad = [r["step"] for r in part["decode"] if not r["ok"]]
+        check(not bad, f"{name}: flash-decode logits off gather at steps "
+                       f"{bad}")
+        check(part["flash_decode_calls"] == part[
+            "flash_decode_calls_expected"],
+              f"{name}: flash-decode ran {part['flash_decode_calls']} times")
+        check(part["make_decode_step_token_is_argmax"],
+              f"{name}: make_decode_step's token is not the logits' argmax")
+    check(same, "the ranks of the gloo mesh returned different results")
+    bad = [r["layer"] for r in b["layer_parity"] if r["rel"] > LAYER_TOL]
+    check(not bad, f"gloo mesh: layers {bad} differ from the single-device "
+                   f"dispatch")
+    check(b["e2e_rel"] <= E2E_TOL, f"gloo mesh logits {b['e2e_rel']} "
+                                   f"(relative) off the unsharded service")
+    check(b["labels_fp32_equal"], "gloo mesh fp32 labels differ")
+    check(b["int8_max_abs_diff"] <= INT8_SHARD_ATOL
+          and b["int8_argmax_agreement"] >= INT8_SHARD_AGREE,
+          f"gloo mesh int8 logits off the unsharded int8 run: "
+          f"{b['int8_max_abs_diff']}, agreement "
+          f"{b['int8_argmax_agreement']}")
+    check(all(b["stats_equal"].values()),
+          f"gloo mesh skip statistics differ: {b['stats_equal']}")
+    for rk in b["launches_per_rank"]:
+        check(rk == b["launches_expected_per_rank"],
+              f"gloo mesh rank spmm launches {rk} != "
+              f"{b['launches_expected_per_rank']}")
+    launches = dict(launches_a)
+    for rk in b["launches_per_rank"]:
+        for k, n in rk.items():
+            launches[k] += n
+    launches["flash_attention_cuda"] = flash_a + sum(
+        rk["flash_attention_launches"] for rk in ranks)
+    return {"launches": launches}
+
+
 def _map_tensors(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
@@ -1775,6 +2289,11 @@ def run(seed: int, dev) -> dict:
     check(res["int8_alone_vs_cobatched_bit_identical"],
           "int8 logits served alone differ from co-batched")
 
+    # -- 5b. the sharded path ------------------------------------------
+    shard = shard_phase(seed, dev, loaded, prog8, images)
+    for kname in ("pattern_spmm_cuda", "pattern_spmm_quant_cuda"):
+        launches[kname] += shard["launches"][kname]
+
     # -- 6. the mapping search, served and priced -----------------------
     searched = search_phase(seed, cfg, params, tparams, bits, images,
                             labels32, loaded, dev)
@@ -1797,7 +2316,9 @@ def run(seed: int, dev) -> dict:
     max_err["flash_attention_cuda"] = fl["max_abs_err"]
 
     # -- 10. token generation, every prefill through the flash kernel ---
-    launches["flash_attention_cuda"] = generate_phase(seed, dev)["launches"]
+    launches["flash_attention_cuda"] = (
+        generate_phase(seed, dev)["launches"]
+        + shard["launches"]["flash_attention_cuda"])
 
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []
@@ -1972,6 +2493,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
+    import torch.distributed
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1979,6 +2501,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     res = run(args.seed, torch.device("cuda", 0))
+    if torch.distributed.is_initialized():  # the shard phase's own group
+        torch.distributed.destroy_process_group()
     print(res["smi"])
     print(json.dumps({"kernels": res["kernels"]}, default=_jsonable))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 ``compile_network`` lowers params to a ``CompiledNetwork``;
 ``save_program``/``load_program`` persist it in the reference's format;
-``make_forward``/``execute`` run it; ``InferenceService`` serves it with
-continuous batching; ``CompiledNetwork.hardware_report`` (and
-``InferenceService.hardware_report`` for the traffic served) prices it
-on the paper's crossbar model.  ``compile_network(options=
+``make_forward``/``execute`` run it, on one device or sharded over a
+``DeviceMesh`` (``partition_network``, ``launch/mesh.make_mesh``);
+``InferenceService`` serves it with continuous batching;
+``CompiledNetwork.hardware_report`` (and ``InferenceService.
+hardware_report`` for the traffic served) prices it on the paper's
+crossbar model.  ``compile_network(options=
 CompileOptions(optimize="auto"))`` runs the per-layer mapping search;
 ``CompileOptions(verify="strict")`` verifies the program and certifies
 its value ranges (``repro_torch.analysis``), and ``load_program``
@@ -39,7 +41,13 @@ from repro_torch.engine.lowering import (
     conv_mapping_search,
     lower_matrix,
 )
-from repro_torch.engine.partition import NetworkPartition, tile_assignment
+from repro_torch.engine.partition import (
+    NetworkPartition,
+    pad_bp_tiles,
+    partition_from_mesh,
+    partition_network,
+    tile_assignment,
+)
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.engine.scheduler import SchedulerFull, SlotScheduler
 from repro_torch.engine.serialize import (
@@ -80,6 +88,9 @@ __all__ = [
     "load_program",
     "lower_matrix",
     "make_forward",
+    "pad_bp_tiles",
+    "partition_from_mesh",
+    "partition_network",
     "read_manifest",
     "save_program",
     "search_layer_mapping",

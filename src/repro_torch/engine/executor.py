@@ -1,6 +1,6 @@
 """Executor: run a ``CompiledNetwork`` through the block-pattern spmm.
 
-Port of ``repro/engine/executor.py`` on one device.  ``make_forward``
+Port of ``repro/engine/executor.py``.  ``make_forward``
 returns a batched forward: per conv layer it extracts im2col patches
 (conv-as-spmm), dispatches through ``kernels/ops.pattern_spmm`` (the
 Hopper kernels on a CUDA device, the plain PyTorch path on the CPU),
@@ -28,6 +28,20 @@ activations per im2col row on the fly.  An ulp of fp32 noise in one
 layer can flip one int8 rounding in the next layer's activation
 quantization, so int8 logits agree with another execution of the same
 program to one quantization step, not to fp32 noise.
+
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` with dims
+``("data", "model")``, ``launch/mesh.py``) the same program executes
+sharded (``engine/partition.py``), in SPMD style: every rank calls the
+forward with the same global batch and gets the whole result back.  Each
+spmm runs tile-parallel: every ``model`` rank runs the kernel on its
+contiguous slab of (zero-padded) tiles, scatters its columns into full
+width, and an all-reduce over the model group combines the partials
+before the global inverse permutation.  Batch rows and the skip counters
+split over the ``data`` dim when the rows divide (an all-gather rebuilds
+the rows, an all-reduce sums the counters).  Padding tiles multiply
+zeros, so sharded and unsharded execution agree to fp32 reassociation
+noise (a slab has another kernel plan than the whole layer), a 1x1 mesh
+bit for bit, and the measured statistics exactly.
 """
 
 from __future__ import annotations
@@ -37,16 +51,24 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.sparse import BlockPatternWeight
 from repro_torch.device import resolve_device
+from repro_torch.engine.partition import (
+    NetworkPartition,
+    pad_bp_tiles,
+    partition_from_mesh,
+)
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.engine.stats import skip_patterns_and_masks, stats_from_counts
-from repro_torch.kernels.ops import _pad_to, pattern_spmm
+from repro_torch.kernels.ops import _pad_to, pattern_spmm, pattern_spmm_raw
 from repro_torch.kernels.pattern_spmm import kmajor_bricks
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.cnn import channel_norm, max_pool_2x2
 from repro_torch.obs.trace import Tracer
+from repro_torch.parallel.sharding import shard_block_pattern
 
 __all__ = ["extract_patches", "make_forward", "warmup_forward", "execute"]
 
@@ -138,6 +160,89 @@ class _Dispatch:
         return zero_selection_counts(patches, c_in, kk, masks, row_valid)
 
 
+class _ShardedDispatch(_Dispatch):
+    """Mesh execution: tile-parallel spmm (scatter + all-reduce over the
+    model group), batch rows and skip counters split over the data group.
+    Every rank runs this with the same global input and returns the
+    whole result."""
+
+    def __init__(self, device: torch.device, mesh, part: NetworkPartition):
+        super().__init__(device)
+        self.part = part
+        self.model_group = (mesh.get_group(part.model_axis)
+                            if part.model > 1 else None)
+        self.model_rank = (mesh.get_local_rank(part.model_axis)
+                           if part.model > 1 else 0)
+        self.data_group = (mesh.get_group(part.data_axis)
+                           if part.data > 1 else None)
+        self.data_rank = (mesh.get_local_rank(part.data_axis)
+                          if part.data > 1 else 0)
+        self.mesh = mesh
+
+    def prepare(self, bp: BlockPatternWeight, bias: np.ndarray) -> _Prepared:
+        """Pad the tile axis for the model ranks and keep this rank's slab
+        (its bricks, ids, ``nnz``, scales and the slab's K-major copy);
+        ``inv_order`` stays the whole layer's."""
+        padded = pad_bp_tiles(bp, self.part.model)
+        return super().prepare(
+            shard_block_pattern(padded, self.mesh, self.part.model_axis),
+            bias)
+
+    def _rows(self, m: int) -> slice | None:
+        """This rank's rows when the data dim divides ``m``, else None
+        (every rank computes all rows).  Decided per call on its own row
+        count, as the reference decides per spmm on static shapes, so the
+        fc rows of an odd batch are replicated."""
+        data = self.part.data
+        if data == 1 or m % data:
+            return None
+        per = m // data
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
+
+    def _gather_rows(self, y: torch.Tensor) -> torch.Tensor:
+        parts = [torch.empty_like(y) for _ in range(self.part.data)]
+        dist.all_gather(parts, y.contiguous(), group=self.data_group)
+        return torch.cat(parts)
+
+    def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
+        bp = prepared.bp
+        rows = self._rows(x2d.shape[0])
+        xl = x2d if rows is None else x2d[rows]
+        y = pattern_spmm_raw(
+            xl, bp.w_comp, bp.block_ids, bp.block, w_scales=bp.w_scales,
+            nnz=prepared.nnz, w_kmajor=prepared.w_kmajor,
+        )
+        if self.part.model > 1:
+            # The slabs are disjoint, so an all-gather would also
+            # reassemble them with less traffic; the scatter + all-reduce
+            # form is kept because it stays correct for any tile->device
+            # assignment, not just the contiguous one.
+            width = y.shape[1]
+            full = torch.zeros((y.shape[0], width * self.part.model),
+                               dtype=y.dtype, device=y.device)
+            off = self.model_rank * width
+            full[:, off:off + width] = y
+            dist.all_reduce(full, group=self.model_group)
+            y = full
+        if rows is not None:
+            y = self._gather_rows(y)
+        # Output Indexing Unit: the global inverse permutation after the
+        # combine (padded columns sit past every inv_order entry)
+        y = y.index_select(1, prepared.inv_order)
+        return y.to(x2d.dtype)
+
+    def counts(self, patches, c_in, kk, masks, row_valid=None):
+        rows = self._rows(patches.shape[0])
+        if rows is None:
+            return zero_selection_counts(patches, c_in, kk, masks, row_valid)
+        # the per-sample validity rows split with their patch rows
+        local = zero_selection_counts(
+            patches[rows], c_in, kk, masks,
+            None if row_valid is None else row_valid[rows])
+        dist.all_reduce(local, group=self.data_group)
+        return local
+
+
 def _run_conv(
     op: CompiledConv,
     x: torch.Tensor,
@@ -190,6 +295,20 @@ def _layer_windows(
     return windows
 
 
+def _mesh_rank_device(mesh, device) -> torch.device:
+    """This rank's device of ``mesh``; a ``device`` given as well must be
+    of the mesh's device type."""
+    own = mesh_device(mesh)
+    if device is None:
+        return own
+    device = torch.device(device)
+    if device.type != own.type:
+        raise ValueError(
+            f"device {device} is not on the mesh's {mesh.device_type!r} "
+            f"devices")
+    return device
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -207,16 +326,24 @@ def make_forward(
 
     Args:
       collect_stats: also measure per-layer all-zero-selection counts.
-      mesh, partition: multi-device execution is not ported yet; any
-        value raises ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+      mesh: a ``DeviceMesh`` (``launch/mesh.make_mesh``) to execute on,
+        every rank of its group calling with the same input.  Tiles split
+        over the mesh's model dim (all-reduced partial outputs), batch
+        rows and stat counters over the data dim; without a mesh the
+        single-device path runs.
+      partition: explicit :class:`~repro_torch.engine.partition.
+        NetworkPartition` (defaults to ``program.partition``, else read
+        off the mesh); validated against the mesh's dim sizes.  Without
+        ``mesh`` it raises ``ValueError``.
       tracer: with an *enabled* tracer, calls run an instrumented path
         that wraps each layer in a ``layer:<name>`` span and synchronises
         the device after it, so span durations are per-layer wall times,
         accumulated and exposed as ``fn.observed_times()``.
       device: where the forward runs; ``None`` means ``cuda`` and raises
-        when there is none.  The program's operands are copied there
-        once, here.  On ``cuda`` every spmm launches a Hopper kernel; on
-        the CPU it runs the kernel's plain PyTorch version.
+        when there is none (with a mesh: this rank's device of the mesh,
+        ``launch/mesh.mesh_device``).  The program's operands are copied
+        there once, here.  On ``cuda`` every spmm launches a Hopper
+        kernel; on the CPU it runs the kernel's plain PyTorch version.
 
     Returns ``fn(x: [B, C, H, W], valid=None) -> logits [B, num_classes]``
     (a tensor on ``device``), or with ``collect_stats`` ``(logits,
@@ -227,13 +354,15 @@ def make_forward(
     shape/dtype signatures the uninstrumented path has run (the
     reference counts jit traces, which are the same thing there).
     """
-    if mesh is not None or partition is not None:
-        raise NotImplementedError(
-            "make_forward(mesh=..., partition=...): multi-device execution "
-            "is not ported yet (ROADMAP Queue 1 item 10)"
-        )
-    device = resolve_device(device)
-    disp = _Dispatch(device)
+    if mesh is None:
+        if partition is not None:
+            raise ValueError("partition= requires mesh=")
+        device = resolve_device(device)
+        disp = _Dispatch(device)
+    else:
+        device = _mesh_rank_device(mesh, device)
+        part = partition_from_mesh(mesh, partition or program.partition)
+        disp = _ShardedDispatch(device, mesh, part)
     prepared = {op.name: disp.prepare(op.bp, op.bias) for op in program.convs}
     prepared["fc"] = disp.prepare(program.fc.bp, program.fc.bias)
 
@@ -344,28 +473,51 @@ def warmup_forward(fn, program: CompiledNetwork, batch_slots: int):
 
 
 # `execute`'s per-program forward cache is capped so a long-lived program
-# does not pin every device copy it was ever run with.
+# does not pin every device copy (and mesh) it was ever run with.
 _FORWARD_CACHE_MAX = 8
+
+
+def _dispatch_key(device: torch.device, mesh, partition):
+    """Stable, value-based cache key for a dispatch configuration.
+
+    Meshes are fingerprinted by dim names, shape, ranks and device type
+    rather than object identity, so two equal meshes share one cache
+    entry.  ``partition`` is a frozen dataclass and hashes by value.
+    """
+    mesh_key = None
+    if mesh is not None:
+        mesh_key = (
+            tuple(mesh.mesh_dim_names),
+            tuple(int(s) for s in mesh.shape),
+            tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+            mesh.device_type,
+        )
+    return (str(device), mesh_key, partition)
 
 
 def execute(
     program: CompiledNetwork,
     x,
     device: str | torch.device | None = None,
+    mesh=None,
+    partition=None,
 ) -> torch.Tensor:
     """One-shot convenience wrapper around :func:`make_forward`.
 
-    The forward is LRU-cached on the program per device, capped at
+    The forward is LRU-cached on the program per dispatch configuration
+    (device, mesh fingerprint, partition), capped at
     ``_FORWARD_CACHE_MAX`` entries.
     """
-    device = resolve_device(device)
+    device = (resolve_device(device) if mesh is None
+              else _mesh_rank_device(mesh, device))
     cache = program.__dict__.get("_forward_cache")
     if not isinstance(cache, OrderedDict):
         cache = program.__dict__["_forward_cache"] = OrderedDict()
-    key = str(device)
+    key = _dispatch_key(device, mesh, partition)
     fwd = cache.get(key)
     if fwd is None:
-        fwd = make_forward(program, device=device)
+        fwd = make_forward(program, mesh=mesh, partition=partition,
+                           device=device)
         cache[key] = fwd
         while len(cache) > _FORWARD_CACHE_MAX:
             cache.popitem(last=False)

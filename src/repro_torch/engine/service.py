@@ -1,6 +1,6 @@
 """Traffic-serving front end for compiled programs.
 
-Port of ``repro/engine/service.py`` on one device.  ``InferenceService``
+Port of ``repro/engine/service.py``.  ``InferenceService``
 serves classification requests through the continuous-batching
 scheduler (``engine/scheduler.py``): an optionally bounded request queue,
 a fixed number of batch slots refilled as they free up, and per-request
@@ -15,6 +15,13 @@ slots.  With ``collect_stats=True`` every batch also measures its
 activation-skip counters; the validity mask keeps dead slots out of the
 counters and the window totals, so the accumulated ``activation_stats``
 equal a one-shot stats forward over exactly the served images.
+
+With ``mesh=`` every batch executes sharded over a ``DeviceMesh``
+(``engine/executor.py``), SPMD style: every rank runs its own service and
+submits the same requests in the same order.  The scheduler's batching
+depends only on that order (it reads the clock for the latency metrics
+alone), so every rank runs the same batches and the ranks' collectives
+pair up.
 """
 
 from __future__ import annotations
@@ -43,13 +50,25 @@ class InferenceService:
         program: CompiledNetwork,
         batch_slots: int = 8,
         collect_stats: bool = False,
+        mesh=None,
+        partition=None,
         max_queue: int = 0,
         clock: Callable[[], float] = time.monotonic,
         tracer: Tracer | None = None,
         device: str | torch.device | None = None,
     ):
         """``device`` is where the forward runs (``None`` means ``cuda``
-        and raises when there is none).
+        and raises when there is none; with a mesh, this rank's device of
+        it).
+
+        With ``mesh=`` every batch executes sharded: batch slots split
+        over the mesh's data dim, each layer's tiles over the model dim.
+        The batch shape is always the full ``batch_slots``, so the data
+        dim divides it whenever ``batch_slots % data == 0``, and a
+        partly filled batch shards as a full one does.  Every rank of the
+        mesh's group must run the same service on the same requests, in
+        the same order (module docstring).  ``partition`` is handed to
+        ``make_forward`` (default: the program's).
 
         ``max_queue`` bounds the number of waiting requests (0 =
         unbounded); a full queue raises
@@ -63,8 +82,10 @@ class InferenceService:
         self.program = program
         self.batch_slots = batch_slots
         self.collect_stats = collect_stats
+        self.mesh = mesh
         self._forward = make_forward(
-            program, collect_stats=collect_stats, device=device
+            program, collect_stats=collect_stats, mesh=mesh,
+            partition=partition, device=device,
         )
         self.device = self._forward.device
         self._tracer = tracer or NULL_TRACER

@@ -30,9 +30,14 @@ Port of ``src/repro/models/attention.py``.  Four execution routes:
               chunked route, on the card too, as the reference's XLA
               decode does.
 
-``decode_strategy="flash"`` (flash-decode over a sequence-sharded cache)
-needs a device mesh and raises ``NotImplementedError`` (``ROADMAP.md``
-Queue 1 item 10).
+``decode_strategy="flash"``: a decode step at one shared position,
+without a window, inside ``parallel.activations.activation_sharding_ctx
+(mesh)`` whose model dim divides the cache length, takes the sequence-
+sharded flash-decode (:func:`flash_decode_sharded`): each model rank
+scores its chunk of the cache and the partial softmaxes merge through
+all-reduces.  Anywhere else (no mesh, a cache length the model dim does
+not divide) it falls through to the routes above, as the reference's
+does.
 
 Head padding: q heads are padded to a multiple of the TP degree
 (``parallel.sharding.padded_heads``); padded heads have zero in/out
@@ -47,8 +52,10 @@ returned cache is the one passed in, written at the new positions.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
@@ -57,10 +64,11 @@ from repro_torch.models.layers import (
     linear_init,
     rope_frequencies,
 )
-from repro_torch.parallel.sharding import padded_heads
+from repro_torch.parallel.activations import current_mesh
+from repro_torch.parallel.sharding import mesh_axis_sizes, padded_heads
 
 __all__ = ["AttnConfig", "attention_init", "attention_apply", "init_kv_cache",
-           "is_prefill"]
+           "is_prefill", "flash_decode_sharded"]
 
 _NEG = -1e30
 
@@ -78,8 +86,10 @@ class AttnConfig:
     model_shards: int = 16
     chunk: int = 1024  # kv chunk for the online-softmax path
     full_attn_max_seq: int = 8192  # einsum path below this
-    # decode against a sequence-sharded KV cache: 'gather' (one device:
-    # the plain route) or 'flash' (needs a mesh; not ported)
+    # decode against a sequence-sharded KV cache:
+    #  'gather' — every rank reads the whole cache (the plain route).
+    #  'flash'  — under a mesh: each 'model' rank scores its cache chunk,
+    #             log-sum-exp combine by all-reduce (flash_decode_sharded)
     decode_strategy: str = "gather"
 
     @property
@@ -205,6 +215,67 @@ def _chunked_attention(q, k, v, qpos, kpos, causal, window, kv_len,
     return (acc / torch.clamp(l_prev, min=1e-30)).to(q.dtype)
 
 
+def flash_decode_sharded(cfg: AttnConfig, q, k, v, kv_len, mesh):
+    """Flash-decode over a sequence-sharded cache, SPMD over ``mesh``.
+
+    q: [B, Hq, 1, D]; k, v: [B, T, Hkv, D], the whole cache on every rank
+    (T divisible by the mesh's ``model`` dim, of size n); ``kv_len`` the
+    shared valid length.  Model rank j scores every head against its
+    chunk ``[j*T/n, (j+1)*T/n)`` in float32, keys at and past ``kv_len``
+    masked; the partial softmaxes merge with an all-reduce (max) of the
+    running max, then one all-reduce (sum) of the rescaled denominators
+    and weighted values together.  Batch rows split over the data dims
+    (``pod``, ``data``) when they divide and are all-gathered back.
+    Returns [B, Hq, 1, D] in q's dtype on every rank.  Plain torch ops,
+    as the reference's ``_flash_decode_sharded`` is einsums; only the
+    combine moves data: O(B*H*D), not the cache.
+    ``flash_decode_sharded.calls`` counts the calls."""
+    flash_decode_sharded.calls += 1
+    b, hq, _, dh = q.shape
+    t = k.shape[1]
+    sizes = mesh_axis_sizes(mesh)
+    n_shards = sizes.get("model", 1)
+    t_loc = t // n_shards
+    j = mesh.get_local_rank("model") if n_shards > 1 else 0
+    dp = [a for a in ("pod", "data") if sizes.get(a, 1) > 1]
+    n_dp = math.prod(sizes[a] for a in dp)
+    split = bool(dp) and b % n_dp == 0
+    rows = slice(None)
+    if split:
+        r = 0
+        for a in dp:  # row block index, pod-major as the reference's spec
+            r = r * sizes[a] + mesh.get_local_rank(a)
+        b_loc = b // n_dp
+        rows = slice(r * b_loc, (r + 1) * b_loc)
+    qb = q[rows].float()
+    kh = k[rows, j * t_loc:(j + 1) * t_loc].transpose(1, 2)
+    vh = v[rows, j * t_loc:(j + 1) * t_loc].transpose(1, 2)
+    rep = (hq // cfg.n_kv_heads) if cfg.grouped else -(-hq // cfg.n_kv_heads)
+    kh = kh.repeat_interleave(rep, dim=1)[:, :hq]
+    vh = vh.repeat_interleave(rep, dim=1)[:, :hq]
+    kpos = j * t_loc + torch.arange(t_loc, device=q.device)
+    s = torch.einsum("bhqd,bhtd->bhqt", qb, kh.float()) * (dh ** -0.5)
+    s = torch.where(kpos[None, None, None, :] < kv_len, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    group = mesh.get_group("model") if n_shards > 1 else None
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m)
+    o = torch.einsum("bhqt,bhtd->bhqd", p, vh.float())
+    lo = torch.cat([p.sum(-1, keepdim=True), o], dim=-1)
+    if group is not None:
+        dist.all_reduce(lo, group=group)
+    out = (lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)).to(q.dtype)
+    for a in reversed(dp if split else []):
+        parts = [torch.empty_like(out) for _ in range(sizes[a])]
+        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(a))
+        out = torch.cat(parts)
+    return out
+
+
+flash_decode_sharded.calls = 0
+
+
 def is_prefill(s: int, positions, memory=None, cache=None,
                cache_pos=None) -> bool:
     """Whether a call is a prefill in the kernel route's sense (module
@@ -238,7 +309,8 @@ def attention_apply(
     (scalar / [S]) form — every batch row at the same decode position — or
     the per-row ([B,S] / [B]) form used by continuous batching, where each
     slot advances independently.  Per-row mode keeps the mask-based paths
-    (the SWA slice needs a shared scalar position and is skipped)."""
+    (the SWA slice and the sharded flash-decode need a shared scalar
+    position and are skipped)."""
     b, s, _ = x.shape
     dh, hq = cfg.d_head, cfg.hq_pad
     per_row = _is_tensor_vector(cache_pos) or _is_tensor_vector(cache_len)
@@ -289,13 +361,16 @@ def attention_apply(
                 else positions)
         kv_len = None
 
+    # flash-decode: sequence-sharded cache, all-reduce combine
     if (cfg.decode_strategy == "flash" and s == 1 and cache is not None
             and memory is None and cfg.window is None and not per_row):
-        # the reference's shard_map flash-decode over a sequence-sharded
-        # cache (attention.py:210)
-        raise NotImplementedError(
-            "decode_strategy='flash' needs a device mesh: sharded "
-            "flash-decode is ROADMAP.md Queue 1 item 10 of the port")
+        mesh = current_mesh()
+        if (mesh is not None
+                and k.shape[1] % mesh_axis_sizes(mesh).get("model", 1) == 0):
+            kv = kv_len if kv_len is not None else k.shape[1]
+            out = flash_decode_sharded(cfg, q.transpose(1, 2), k, v, kv, mesh)
+            out = out.transpose(1, 2).reshape(b, s, hq * dh)
+            return linear(params["wo"], out.to(x.dtype)), cache
 
     if kernel:
         kv = int(kv_len) if kv_len is not None else k.shape[1]

@@ -51,6 +51,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.parallel.activations import shard_activation
 from repro_torch.parallel.sharding import pad_to_multiple
 
 __all__ = ["ModelConfig", "find_structure", "init_statics", "init_params",
@@ -325,6 +326,7 @@ def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
     if static["ffn"] == "mlp":
         h = norm(params["norm2"], x)
         x = x + mlp_apply(params["mlp"], static["mlp"], h)
+    x = shard_activation(x, ("batch", "seq_shard", None))
     return x, new_cache
 
 
@@ -366,6 +368,7 @@ def apply_model(
     if "dec_pos" in params:
         dp = params["dec_pos"][positions].to(cdt)
         x = x + (dp if positions.dim() == 2 else dp[None])
+    x = shard_activation(x, ("batch", "seq_shard", None))
 
     for i, (p, st) in enumerate(zip(params["prefix_layers"],
                                     statics["prefix_layers"])):

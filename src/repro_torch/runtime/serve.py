@@ -49,6 +49,7 @@ from repro_torch.serve.api import Request as ServeRequest
 __all__ = [
     "ServeConfig",
     "make_prefill_step",
+    "decode_logits",
     "make_decode_step",
     "make_slot_prefill",
     "DecodeService",
@@ -83,19 +84,30 @@ def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
     return prefill
 
 
+def decode_logits(statics, params, cache, tokens, pos):
+    """One decode step's float32 logits [B, vocab] and the cache (written
+    in place at ``pos``): what :func:`make_decode_step` samples from.
+
+    tokens: [B] last emitted; pos: the position to write — a 0-d tensor
+    shared by every slot or a [B] vector of per-slot positions
+    (continuous batching).  At a shared position, inside
+    ``activation_sharding_ctx(mesh)`` and with ``decode_strategy=
+    "flash"``, attention takes the sharded flash-decode."""
+    per_row = pos.dim() > 0
+    logits, cache, _ = apply_model(
+        params, statics, tokens[:, None],
+        positions=pos[:, None] if per_row else pos[None],
+        cache=cache, cache_pos=pos, cache_len=pos + 1,
+    )
+    return logits[:, -1, : statics["cfg"].vocab].float(), cache
+
+
 def make_decode_step(cfg: ModelConfig, statics, scfg: ServeConfig):
     def decode(params, cache, tokens, pos, rng: torch.Generator | None = None):
-        """tokens: [B] last emitted; pos: the position to write — a
-        0-d tensor shared by every slot or a [B] vector of per-slot
-        positions (continuous batching).  With ``temperature > 0`` and a
+        """tokens: [B] last emitted; pos: the position to write (see
+        :func:`decode_logits`).  With ``temperature > 0`` and a
         generator, samples; else greedy."""
-        per_row = pos.dim() > 0
-        logits, cache, _ = apply_model(
-            params, statics, tokens[:, None],
-            positions=pos[:, None] if per_row else pos[None],
-            cache=cache, cache_pos=pos, cache_len=pos + 1,
-        )
-        logits = logits[:, -1, : cfg.vocab].float()
+        logits, cache = decode_logits(statics, params, cache, tokens, pos)
         if scfg.temperature > 0 and rng is not None:
             probs = torch.softmax(logits / scfg.temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=rng)[:, 0]

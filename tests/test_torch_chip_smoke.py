@@ -12,13 +12,14 @@ import dataclasses
 import importlib.util
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import h2o_danube_1_8b
+from repro_torch.configs import granite_3_2b, h2o_danube_1_8b
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ou_mvm as tou
@@ -86,6 +87,51 @@ def _quant_plain(*args, w_kmajor=None, plan=None):
     return tk.pattern_spmm_quant_plain(*args)
 
 
+def _fakes():
+    """(module, wrapper name, counting plain version) for every kernel."""
+    out = []
+    for mod, name, plain, counters in (
+        (tk, "pattern_spmm_cuda", tk.pattern_spmm_plain,
+         dict(reduce_launches=_splits)),
+        (tk, "pattern_spmm_quant_cuda", _quant_plain,
+         dict(reduce_launches=_quant_splits)),
+        (tou, "ou_mvm_cuda", tou.ou_mvm_plain, {}),
+        (tfa, "flash_attention_cuda", tfa.flash_attention_plain,
+         dict(launches_tensor_core=lambda q, *r, **k: q.dtype != torch.float32,
+              launches_simt=lambda q, *r, **k: q.dtype == torch.float32)),
+    ):
+        out.append((mod, name, _counting(plain, name, **counters)))
+    return out
+
+
+def _rank_fakes():
+    """What each spawned rank of the shard phase runs first: the counting
+    plain versions in place of the kernels and a no-op device sync (the
+    rank is a fresh process, which the parent's monkeypatches miss), on
+    one thread as the rest of the suite runs."""
+    torch.set_num_threads(1)
+    for mod, name, fake in _fakes():
+        setattr(mod, name, fake)
+        setattr(ops, name, fake)
+    torch.cuda.synchronize = lambda *a, **k: None
+
+
+def _smoke_decode_lm(seed, dev):
+    """The shard phase's decode model at CPU size: granite-3-2b (no
+    window) in bf16 with flash-decode, 2 layers of d_model 512 (8 heads
+    over 2 key heads of 64), vocabulary 2000.  The smoke config's 515
+    logits of ~8 are too few for the phase's bf16 rule: there both
+    distances it compares are one or two bf16 steps of the largest
+    logit (2^-5 at 8), and their ratio is that of two small integers."""
+    cfg = dataclasses.replace(
+        granite_3_2b.config(), n_layers=2, layer_types=(("attn", "mlp"),) * 2,
+        d_model=512, n_heads=8, n_kv_heads=2, d_head=64, d_ff=1024,
+        vocab=2000, decode_strategy="flash")
+    params, statics = init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return cfg, params, statics
+
+
 def _mini_model(seed):
     cfg = mini_cnn_config(4, 12, (8, 16, 16))
     rng = np.random.default_rng(seed)
@@ -119,17 +165,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
 
-    for mod, name, plain, counters in (
-        (tk, "pattern_spmm_cuda", tk.pattern_spmm_plain,
-         dict(reduce_launches=_splits)),
-        (tk, "pattern_spmm_quant_cuda", _quant_plain,
-         dict(reduce_launches=_quant_splits)),
-        (tou, "ou_mvm_cuda", tou.ou_mvm_plain, {}),
-        (tfa, "flash_attention_cuda", tfa.flash_attention_plain,
-         dict(launches_tensor_core=lambda q, *r, **k: q.dtype != torch.float32,
-              launches_simt=lambda q, *r, **k: q.dtype == torch.float32)),
-    ):
-        fake = _counting(plain, name, **counters)
+    for mod, name, fake in _fakes():
         monkeypatch.setattr(mod, name, fake)
         monkeypatch.setattr(ops, name, fake)
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
@@ -171,6 +207,19 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "PRUNE_CFG", dict(
         target_sparsity=0.7, num_patterns=4, admm_steps=4, admm_every=2,
         retrain_steps=2))
+    # the shard phase: part (b) on a group of 2 spawned ranks (1 x 2),
+    # flash-decode on a narrow granite, 2 prompts of 100 tokens in a cache
+    # of 128 slots, 3 steps
+    monkeypatch.setattr(cs, "SHARD_MESH", (1, 2))
+    monkeypatch.setattr(cs, "SHARD_PREPARE", _rank_fakes)
+    monkeypatch.setattr(cs, "build_decode_lm", _smoke_decode_lm)
+    monkeypatch.setattr(cs, "DECODE_BATCH", 2)
+    monkeypatch.setattr(cs, "DECODE_PROMPT", 100)
+    monkeypatch.setattr(cs, "DECODE_MAX_SEQ", 128)
+    monkeypatch.setattr(cs, "DECODE_STEPS", 3)
+    # the ranks find shard_rank by name: chip_smoke, importable
+    monkeypatch.syspath_prepend(ROOT)
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
     # the fp32 and int8 switches must not leak out of the rehearsal
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
                         torch.backends.cuda.matmul.allow_tf32)
@@ -181,8 +230,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
 
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["phase"] for ln in lines] == [
-        "device", "build", "compile", "kernels", "kernels", "serve", "search",
-        "prune", "ou_mvm", "flash", "generate", "times"]
+        "device", "build", "compile", "kernels", "kernels", "serve", "shard",
+        "search", "prune", "ou_mvm", "flash", "generate", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -202,7 +251,38 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                    and c["blocks"] >= 1 for c in kern["cases"])
     assert all(c["single_brick_exact"] and c["rel"] <= cs.QUANT_REL
                for c in lines[4]["cases"])
-    search = lines[6]
+    shard = lines[6]
+    a, b = shard["part_a"], shard["part_b"]
+    assert a["bit_equal"] == {"fp32": True, "int8": True}
+    assert a["service_labels_equal"] and a["service_logits_bit_equal"]
+    assert a["service_stats_equal"] and a["trace_count"] == 1
+    # 3 convs + FC: the fp32 and int8 mesh forwards, 9 served batches
+    assert a["launches"] == a["launches_expected"] == {
+        "pattern_spmm_cuda": 4 * 10, "pattern_spmm_quant_cuda": 4}
+    for part in (a, b):
+        assert part["decode_limit"] == cs.DECODE_LIMIT
+        assert [r["step"] for r in part["decode"]] == [0, 1, 2]
+        assert all(r["fp32_flash_vs_gather"] <= cs.GEN_FP32_REL
+                   and r["bf16_flash_vs_fp32"] <= r["bf16_limit"]
+                   for r in part["decode"])
+        assert all(r["ok"] for r in part["decode"])
+        assert part["flash_decode_calls"] == part[
+            "flash_decode_calls_expected"] == 2 * 4
+        assert part["make_decode_step_token_is_argmax"]
+    assert b["mesh"] == [1, 2] and b["ranks"] == 2 and b["ranks_agree"]
+    assert b["backend"] == "gloo" and "host memory" in b["transport"]
+    assert [r["layer"] for r in b["layer_parity"]] == [
+        "conv1", "conv2", "conv3", "fc"]
+    assert all(r["rel"] <= cs.LAYER_TOL for r in b["layer_parity"])
+    assert b["e2e_rel"] <= cs.E2E_TOL and b["labels_fp32_equal"]
+    assert b["int8_max_abs_diff"] <= cs.INT8_SHARD_ATOL
+    assert b["int8_argmax_agreement"] >= cs.INT8_SHARD_AGREE
+    assert b["stats_equal"] == {"fp32": True, "int8": True}
+    assert b["launches_per_rank"] == [b["launches_expected_per_rank"]] * 2
+    assert b["launches_expected_per_rank"] == {
+        "pattern_spmm_cuda": 36, "pattern_spmm_quant_cuda": 36}
+    assert set(b["forward_ms"]) == {"fp32", "int8"}
+    search = lines[7]
     assert search["bit_equal_vs_cpu_compile"] and search["never_worse"]
     assert set(search["chosen"]) == {"conv1", "conv2", "conv3"}
     assert search["launches"] == 4 * search["batches"]
@@ -212,7 +292,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         "conv1", "conv2", "conv3"}
     assert search["searched"]["area_cells"] <= search["fixed"]["area_cells"]
     assert search["searched"]["energy_pj"] <= search["fixed"]["energy_pj"]
-    prune = lines[7]
+    prune = lines[8]
     assert set(prune["seconds"]) == {
         "dense_training", "magnitude_prune", "dictionaries", "admm",
         "project", "retrain", "prune_total"}
@@ -240,14 +320,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
             ] == ["conv1", "conv2", "conv3", "fc"]
     assert prune["e2e_rel_vs_cpu"] <= cs.E2E_TOL
     assert 0.0 <= prune["int8_top1_agreement_vs_fp32"] <= 1.0
-    ou = lines[8]
+    ou = lines[9]
     # 3 convs x 2 patches, the 3 sweep shapes, all-zero x, NaN case
     assert ou["calls"] == ou["launches"] == 11
     assert all(c["ok"] and c["finite"] and c["rerun_bit_identical"]
                and c["slab_cols"] >= 1 and c["blocks"] >= 1
                for c in ou["cases"])
     assert ou["cases"][-2]["skipped_band_share"] == 1.0
-    flash = lines[9]
+    flash = lines[10]
     # 14 sweep cases x 3 types, each path length bare and from a cache,
     # and kv_len < S
     assert len(flash["cases"]) == 14 * 3 + 2 * 2 + 1
@@ -257,7 +337,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                               else "tensor_core") for c in flash["cases"])
     half = [c for c in flash["cases"] if "float32" not in c["case"]]
     assert half and all(c["worst_over_rounding_limit"] <= 1.0 for c in half)
-    gen = lines[10]
+    gen = lines[11]
     assert gen["all_done"] and gen["trace_count"] == 1
     assert gen["requests"] == gen["prefills"] == 7
     assert gen["launches"] == gen["launches_expected"] == 2 * 7
@@ -269,7 +349,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(r["ok"] for r in gen["prefill_logits"])
     assert 0.0 <= gen["first_token_agreement_vs_plain"] <= 1.0
     assert gen["output_tokens"] == 7 * 4
-    times = lines[11]
+    times = lines[12]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40]
@@ -295,10 +375,13 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert res["kernels"][1]["library_ms"] is None
     assert res["kernels"][2]["library_ms"] > 0
     assert res["kernels"][3]["library_ms"] > 0
-    assert res["kernels"][3]["launches"] == 2 * 7
-    # the spmm launches of the serve phase and of the prune phase
-    assert res["kernels"][0]["launches"] == 36 + 36
-    assert res["kernels"][1]["launches"] == 8 + 36
+    # the generate phase's prefills, then the shard phase's: gather's and
+    # flash's in (a) and one on each rank of (b), 2 layers each
+    assert res["kernels"][3]["launches"] == 2 * 7 + 2 * (2 + 2)
+    # the spmm launches of the serve, shard (a, then 2 ranks of b) and
+    # prune phases
+    assert res["kernels"][0]["launches"] == 36 + 40 + 2 * 36 + 36
+    assert res["kernels"][1]["launches"] == 8 + 4 + 2 * 36 + 36
 
 
 @pytest.mark.parametrize("fault", ["none", "window", "kv_len"])

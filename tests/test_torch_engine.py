@@ -172,6 +172,14 @@ def test_execute_caches_per_device(programs):
 
 
 def test_mesh_is_not_ported_yet(programs):
-    _, tprog = programs[("fp32", 9, 8)]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_forward(tprog, mesh=object(), device="cpu")
+    """``partition=`` without ``mesh=`` raises as the reference's does
+    (the sharded path itself: ``tests/test_torch_sharded.py``)."""
+    from repro.engine import NetworkPartition as JNetworkPartition
+    from repro_torch.engine import NetworkPartition
+
+    jprog, tprog = programs[("fp32", 9, 8)]
+    with pytest.raises(ValueError, match="partition= requires mesh=") as want:
+        j_make_forward(jprog, partition=JNetworkPartition(model=2))
+    with pytest.raises(ValueError, match="partition= requires mesh=") as got:
+        make_forward(tprog, partition=NetworkPartition(model=2), device="cpu")
+    assert str(got.value) == str(want.value)

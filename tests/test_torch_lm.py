@@ -316,12 +316,28 @@ def test_attention_apply_regimes(regime, kernel_calls):
 
 
 def test_flash_decode_strategy_raises():
-    _, tcfg, _, tp = _attn({"decode_strategy": "flash"})
-    cache = tatt.init_kv_cache(tcfg, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tatt.attention_apply(tp, tcfg, torch.zeros(1, 1, 64),
-                             torch.tensor([2]), cache=cache, cache_pos=2,
-                             cache_len=3)
+    """``decode_strategy='flash'`` with no mesh in context falls through
+    to the ordinary decode, as the reference's does: the same output and
+    cache as the reference at rtol 1e-5, and the sharded route untouched
+    (it runs under a mesh: ``tests/test_torch_sharded.py``)."""
+    jcfg, tcfg, p, tp = _attn({"decode_strategy": "flash"})
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, 1, 64)).astype(np.float32)
+    kv = rng.normal(size=(2, 2, 8, 2, 16)).astype(np.float32)
+    calls = tatt.flash_decode_sharded.calls
+    want, jc = jatt.attention_apply(
+        p, jcfg, jnp.asarray(x), jnp.asarray([2]),
+        cache={"k": jnp.asarray(kv[0]), "v": jnp.asarray(kv[1])},
+        cache_pos=jnp.int32(2), cache_len=jnp.int32(3))
+    got, tc = tatt.attention_apply(
+        tp, tcfg, _t(x), torch.tensor([2]),
+        cache={"k": _t(kv[0]), "v": _t(kv[1])}, cache_pos=2, cache_len=3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   rtol=1e-6, atol=1e-6)
+    assert tatt.flash_decode_sharded.calls == calls
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,139 @@
+"""One rank of a ``gloo`` process group for ``tests/test_torch_sharded.py``.
+
+    python tests/torch_mesh_worker.py <spec.pkl> <rank>
+
+The parent test writes a spec (the world size, a file-store path, the
+jobs and their numpy inputs) and starts one process per rank.  Each rank
+joins the group, runs every job through the port's public entry points
+on CPU meshes (``make_mesh(..., device_type="cpu")``), and writes its
+results to ``<out>.<rank>``.  It imports ``torch`` and ``repro_torch``
+only: the JAX references are computed in the parent and compared there.
+"""
+
+from __future__ import annotations
+
+import datetime
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def cnn_job(job: dict) -> dict:
+    """The mini programs on one mesh: forwards, stats, int8, the service,
+    ``execute`` and an explicit partition."""
+    from repro_torch.engine import (
+        InferenceService,
+        execute,
+        load_program,
+        make_forward,
+        partition_network,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    prog = load_program(job["fp32"], verify=False, device="cpu")
+    prog8 = load_program(job["int8"], verify=False, device="cpu")
+    out = {}
+    x = job["x"]
+    out["logits"] = _np(make_forward(prog, mesh=mesh)(x))
+    logits, stats = make_forward(prog, mesh=mesh, collect_stats=True)(
+        job["x_stats"], job["valid"])
+    out["stats_logits"] = _np(logits)
+    out["stats"] = {k: (st.counts, st.windows)
+                    for k, st in stats.layers.items()}
+    out["int8"] = _np(make_forward(prog8, mesh=mesh)(job["x_int8"]))
+    data, model = job["mesh"]
+    part = partition_network(prog, data=data, model=model)
+    out["partitioned"] = _np(execute(part, x, mesh=mesh))
+    calls = []
+    real = ops.pattern_spmm_raw
+
+    def counting(xm, *args, **kwargs):
+        calls.append(tuple(xm.shape))
+        return real(xm, *args, **kwargs)
+
+    # the executor's own reference, so every spmm of a served batch shows
+    import repro_torch.engine.executor as ex
+    ex.pattern_spmm_raw = counting
+    try:
+        svc = InferenceService(prog, batch_slots=job["batch_slots"],
+                               mesh=mesh, collect_stats=True)
+        out["service_labels"] = svc.classify(job["images"])
+    finally:
+        ex.pattern_spmm_raw = real
+    out["service_stats"] = {k: (st.counts, st.windows)
+                            for k, st in svc.activation_stats.layers.items()}
+    out["service_trace_count"] = svc.trace_count()
+    out["spmm_rows"] = calls
+    return out
+
+
+def flash_job(job: dict) -> dict:
+    """Prefill, then teacher-forced decode steps at one shared position
+    under ``activation_sharding_ctx(mesh)``: the logits of every step."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.models.transformer import (
+        apply_model,
+        init_cache,
+        init_statics,
+    )
+    from repro_torch.parallel.activations import activation_sharding_ctx
+    from repro_torch.runtime.serve import ServeConfig, decode_logits, \
+        make_decode_step
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    cfg = job["cfg"]
+    params = lm_params_from_numpy(job["params"], "cpu")
+    statics = init_statics(cfg, "cpu")
+    prompts = torch.as_tensor(job["prompts"])
+    b, n = prompts.shape
+    cache = init_cache(statics, b, job["max_seq"], dtype=torch.float32)
+    apply_model(params, statics, prompts, positions=torch.arange(n),
+                cache=cache, cache_pos=0, cache_len=n)
+    calls0 = attention.flash_decode_sharded.calls
+    steps = []
+    with activation_sharding_ctx(mesh):
+        for i, tok in enumerate(job["teacher"]):
+            logits, cache = decode_logits(
+                statics, params, cache, torch.as_tensor(tok),
+                torch.tensor(n + i))
+            steps.append(_np(logits))
+        # the serving step reaches the same route and samples greedily
+        decode = make_decode_step(cfg, statics, ServeConfig())
+        tok, _ = decode(params, cache, torch.as_tensor(job["teacher"][-1]),
+                        torch.tensor(n + len(job["teacher"]) - 1))
+    return {"logits": np.stack(steps), "greedy": _np(tok),
+            "flash_calls": attention.flash_decode_sharded.calls - calls0}
+
+
+JOBS = {"cnn": cnn_job, "flash": flash_job}
+
+
+def main(spec_path: str, rank: int) -> None:
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], spec["world"]),
+        rank=rank, world_size=spec["world"],
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    try:
+        out = {job["name"]: JOBS[job["kind"]](job) for job in spec["jobs"]}
+    finally:
+        dist.destroy_process_group()
+    with open(f"{spec['out']}.{rank}", "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))
