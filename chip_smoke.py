@@ -19,14 +19,20 @@ serve it; run ``ops.ou_mvm`` on every conv's dense weight at real
 inputs; generate tokens with full-width, full-depth
 h2o-danube-1.8B (pattern-sparse MLPs, bf16, weights from the seed)
 through ``DecodeService``, every prefill through the flash-attention
-kernel.  Before each path it builds the CUDA kernels from the sources in
-``src/`` and holds each against its plain PyTorch version on the card,
-at every shape the path gives it.
+kernel; then run the four architectures MoE, MLA and the MTP head
+unlock at full width, depth cut to fit one card (``lm_configs``):
+DeepSeek-V2 (MLA's absorbed decode against the expanded one, one MoE
+layer against its definition and a host recount of its capacity drops,
+served in bf16 through ``DecodeService``), DeepSeek-V3's MTP head,
+qwen2.5-32b's prefills through the flash kernel at D 128 and
+phi3-medium-14b's on the kv-repeat route.  Before each path it builds
+the CUDA kernels from the sources in ``src/`` and holds each against its
+plain PyTorch version on the card, at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
-``times``.  The
+``lm_configs``, ``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -57,8 +63,10 @@ takes one card per rank), each serving the requests through the
 programs partitioned with ``partition_network``: each fp32 layer within
 ``LAYER_TOL`` of the single-device dispatch, logits within ``E2E_TOL``,
 equal fp32 labels, int8 within the reference's bars, equal statistics,
-every rank's spmm launches counted, and flash-decode over two cache
-chunks gated as in (a).  Its launches join the summary.  Any failed
+every rank's spmm launches counted, flash-decode over two cache
+chunks gated as in (a), and DeepSeek-V2's smoke MoE expert-parallel over
+the model ranks within ``MOE_REL`` of each data shard's unsharded
+result.  Its launches join the summary.  Any failed
 check exits non-zero.  The last three lines are the card's name and
 power limit as ``nvidia-smi`` prints them, the per-kernel
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}``.
@@ -71,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -241,6 +250,39 @@ DECODE_STEPS = 6
 DECODE_LIMIT = (f"bf16 flash vs float32 gather <= {GEN_BF16_NOISE_FACTOR} x "
                 f"(bf16 gather vs float32 gather); float32 flash vs float32 "
                 f"gather <= {GEN_FP32_REL}")
+# (f) of the shard phase: DeepSeek-V2's smoke MoE (8 experts, top-2, 2
+# shared), expert-parallel over the model dim, on SHARD_MOE_SHAPE inputs
+# at the published capacity factor; within MOE_REL of each data shard's
+# own unsharded result (capacity counts a shard's tokens)
+SHARD_MOE_SHAPE = (4, 16)  # batch rows (split over data), tokens a row
+MOE_REL = 1e-5
+
+
+# lm_configs: the architectures that MoE, MLA and the MTP head unlock, each
+# at its full published width, depth cut only as far as one H100's 80 GB
+# forces (lm_config; PERF.md lists each cut with its bytes)
+LM_LAYERS = {"deepseek_v2_236b": 3, "deepseek_v3_671b": 1,
+             "qwen2_5_32b": 2, "phi3_medium_14b": 40}
+# (c) DeepSeek-V2 served in bf16 through DecodeService: LM_REQUESTS seeded
+# prompts of LM_LENGTHS tokens in LM_BURSTS, LM_NEW new tokens each
+LM_SCFG = dict(batch_slots=4, max_seq=1024, eos_id=-1)
+LM_REQUESTS = 8
+LM_LENGTHS = (16, 600)
+LM_NEW = 16
+LM_BURSTS = (1, 3, 2, 2)
+# (a) the absorbed MLA decode against the expanded one, fp32 (the
+# reference's own bar, tests/test_models.py::test_mla_absorbed_matches_expanded)
+MLA_REL = 2e-4
+# (b) one MoE layer in fp32 on the first prompt (prefill) and on one token
+# of each slot (decode)
+# (d) DeepSeek-V3's MTP head on LM_MTP_SHAPE tokens without a cache
+LM_MTP_SHAPE = (2, 256)
+# (e) qwen2.5-32b and phi3-medium-14b: prefill logits of prompts of
+# LM_DENSE_PROMPTS tokens on a cache of LM_DENSE_MAX_SEQ slots, bf16
+# against float32 by the generate phase's rule
+LM_DENSE_PROMPTS = (17, 300, 1000)
+LM_DENSE_MAX_SEQ = 1024
+
 # a picklable function each rank of (b) calls before anything else (None:
 # nothing; the CPU rehearsal installs its counting plain versions there)
 SHARD_PREPARE = None
@@ -1310,7 +1352,8 @@ def flash_cases(dev, max_seq: int) -> list[dict]:
                           path=False))
         cases.append(dict(case=f"path_S{s}_cache", q=q, k=k, v=v, causal=True,
                           window=FLASH_WINDOW, kv_len=s, dtype="bfloat16",
-                          path=True))
+                          path=True, heads=FLASH_HEADS,
+                          model="h2o_danube_1_8b"))
     # padded keys inside the queries' span: kv_len < Sq = Sk
     s = FLASH_PATH_S[-2]
     kv = normal(2, 1, hkv, s, d).bfloat16()
@@ -1318,6 +1361,18 @@ def flash_cases(dev, max_seq: int) -> list[dict]:
                       q=normal(1, hq, s, d).bfloat16(), k=kv[0], v=kv[1],
                       causal=True, window=FLASH_WINDOW, kv_len=7 * s // 10,
                       dtype="bfloat16", path=False))
+    # the lm_configs phase's qwen2.5-32b prefills: padded q heads over its
+    # kv heads at D 128, no window, keys from its LM_DENSE_MAX_SEQ cache
+    acfg = lm_config("qwen2_5_32b").attn_cfg(False)
+    heads = (acfg.hq_pad, acfg.n_kv_heads, acfg.d_head)
+    for s in LM_DENSE_PROMPTS:
+        kv = normal(2, LM_DENSE_MAX_SEQ, heads[1], heads[2]).bfloat16()
+        cases.append(dict(case=f"qwen_S{s}_cache",
+                          q=normal(1, heads[0], s, heads[2]).bfloat16(),
+                          k=kv[0:1].transpose(1, 2), v=kv[1:2].transpose(1, 2),
+                          causal=True, window=None, kv_len=s,
+                          dtype="bfloat16", path=True, heads=heads,
+                          model="qwen2_5_32b"))
     return cases
 
 
@@ -1520,10 +1575,7 @@ def generate_phase(seed: int, dev) -> dict:
 
     # prefill logits, kernel route against plain route, on the card
     bf16 = getattr(torch, scfg.cache_dtype)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
-    statics32 = {**statics, "cfg": cfg32}
-    params32 = _map_tensors(params, lambda t: t.float())
+    _, params32, statics32 = to_dtype(cfg, params, statics, "float32")
     order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
     compare = [order[0], order[len(order) // 2], GEN_LONG_AT]
     parity, first_agree = [], 0
@@ -1604,6 +1656,511 @@ def generate_phase(seed: int, dev) -> dict:
     check(not bad, f"prefill logits of the kernel route off the plain route "
                    f"for prompts of {bad} tokens")
     return {"launches": launches}
+
+
+def lm_config(arch: str):
+    """The ``lm_configs`` phase's config of ``arch``: its published config
+    at full width (the two dense models with their pattern-sparse MLPs),
+    the first ``LM_LAYERS[arch]`` layers."""
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").config(
+        sparse=arch in ("qwen2_5_32b", "phi3_medium_14b"))
+    n = LM_LAYERS[arch]
+    return dataclasses.replace(cfg, n_layers=n,
+                               layer_types=cfg.layer_types[:n])
+
+
+def build_lm_config(arch: str, seed: int, dev, dtype: str):
+    """(cfg, params, statics) of :func:`lm_config` with ``dtype`` weights
+    drawn on ``dev`` from the seed (drawn in float32 and cast, so the
+    bf16 weights are the float32 ones rounded)."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(lm_config(arch), param_dtype=dtype,
+                              compute_dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, statics = init_params(cfg, gen, device=dev)
+    return cfg, params, statics
+
+
+def param_bytes(params) -> int:
+    from repro_torch.models.transformer import _leaves
+
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def to_dtype(cfg, params, statics, dtype: str):
+    """The same model with every weight cast to ``dtype``."""
+    import torch
+
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    tdt = getattr(torch, dtype)
+    return cfg, _map_tensors(params, lambda t: t.to(tdt)), {
+        **statics, "cfg": cfg}
+
+
+class RecordedRoutes:
+    """Inside ``with``: every MoE layer's ``(tokens, top_e)`` as
+    ``models.moe._route`` chose them, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._real = [], moe._route
+
+        def record(params, cfg, xf):
+            w, e = self._real(params, cfg, xf)
+            self.calls.append((xf.shape[0], e))
+            return w, e
+
+        moe._route = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self._real
+
+
+def recount_kept(top_e: np.ndarray, cap: int, n_experts: int) -> np.ndarray:
+    """The capacity rule on the host, by its definition: the (token, k)
+    pairs in token-major order, each expert keeping its first ``cap``."""
+    seen = np.zeros(n_experts, int)
+    keep = np.zeros(top_e.size, bool)
+    for i, e in enumerate(top_e.reshape(-1)):
+        keep[i] = seen[e] < cap
+        seen[e] += 1
+    return keep.reshape(top_e.shape)
+
+
+def moe_loop(params, static, cfg, x, top_w, top_e, keep):
+    """The MoE layer by its definition, one expert at a time:
+    ``sum_k w_k FFN_e(x) + shared(x)`` over the kept (token, k) pairs, no
+    capacity gather, sort or scatter.  x: [T, D]."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import mlp_apply
+
+    t, k = top_e.shape
+    contrib = torch.zeros((t, k, x.shape[1]), dtype=x.dtype, device=x.device)
+    for e in torch.unique(top_e[keep]).tolist():
+        rows, ks = torch.nonzero((top_e == e) & keep, as_tuple=True)
+        w = {n: params["experts"][n][e].to(x.dtype)
+             for n in ("gate", "up", "down")}
+        xe = x[rows]
+        y = (F.silu(xe @ w["gate"]) * (xe @ w["up"])) @ w["down"]
+        contrib[rows, ks] = top_w[rows, ks, None] * y
+    out = contrib.sum(1)
+    if "shared" in params:
+        out = out + mlp_apply(params["shared"], static["shared"], x)
+    return out
+
+
+def moe_layer_gate(params, statics, tokens, name: str) -> dict:
+    """(b) on the first MoE layer of a float32 DeepSeek-V2: its input
+    stand-in is the RMS-normed embedding of ``tokens`` [T].  The card's
+    top-k ids = a stable host sort of its probabilities; with the
+    capacity factor raised so nothing drops, ``moe_apply`` = the loop over
+    every pair; at the published factor, the kept pairs = the host
+    recount and ``moe_apply`` = the loop over the kept pairs."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import linear, rmsnorm
+    from repro_torch.models.transformer import _index
+
+    cfg = statics["cfg"]
+    layer = _index(params["body"][0], 0)
+    p, st = layer["moe"], statics["body"][0]["moe"]
+    x = rmsnorm(layer["norm2"], params["embed"]["w"][tokens])
+    top_w, top_e = moe._route(p, cfg.moe, x)
+    probs = torch.softmax(linear(p["router"], x).float(), -1)
+    host = np.argsort(-probs.cpu().numpy(), axis=-1, kind="stable")[
+        :, :cfg.moe.top_k]
+    row = {"case": name, "tokens": int(x.shape[0]),
+           "top_k_equal_host_stable_sort": bool(np.array_equal(
+               top_e.cpu().numpy(), host))}
+    no_drop = dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    every = torch.ones_like(top_e, dtype=torch.bool)
+    for key, mcfg in (("no_drop", no_drop), ("published", cfg.moe)):
+        cap = moe.capacity(x.shape[0], mcfg)
+        keep = moe.kept_pairs(top_e, mcfg)
+        want_keep = recount_kept(top_e.cpu().numpy(), cap,
+                                 mcfg.n_experts)
+        got = moe.moe_apply(p, st, mcfg, x[None])[0]
+        want = moe_loop(p, st, mcfg, x, top_w, top_e,
+                        every if key == "no_drop" else keep)
+        row[key] = {"capacity_factor": mcfg.capacity_factor,
+                    "capacity": cap,
+                    "kept_equal_host_recount": bool(np.array_equal(
+                        keep.cpu().numpy(), want_keep)),
+                    "dropped_pairs": int((~keep).sum()),
+                    "rel_vs_loop": rel_diff(got, want)}
+    row["ok"] = (row["top_k_equal_host_stable_sort"]
+                 and row["no_drop"]["dropped_pairs"] == 0
+                 and all(row[k]["kept_equal_host_recount"]
+                         and row[k]["rel_vs_loop"] <= MOE_REL
+                         for k in ("no_drop", "published")))
+    return row
+
+
+def mla_decode_gate(params, statics, prompt, dev) -> dict:
+    """(a) on a float32 DeepSeek-V2: prefill ``prompt`` into a cache, then
+    layer 0's MLA at the next step, absorbed and expanded, each on its own
+    copy of that cache."""
+    import torch
+
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.mla import mla_apply
+    from repro_torch.models.transformer import apply_model, init_cache
+
+    cfg = statics["cfg"]
+    n = len(prompt)
+    cache = init_cache(statics, 1, LM_SCFG["max_seq"], dtype=torch.float32,
+                       device=dev)
+    toks = torch.as_tensor(prompt[None].astype(np.int64), device=dev)
+    logits, _, _ = apply_model(params, statics, toks,
+                               positions=torch.arange(n, device=dev),
+                               cache=cache, cache_pos=0, cache_len=n)
+    tok = logits[:, -1, :cfg.vocab].argmax(-1)
+    layer = params["prefix_layers"][0]
+    h = rmsnorm(layer["norm1"], params["embed"]["w"][tok][:, None])
+    pos = torch.tensor(n, device=dev)
+    out = {}
+    for absorbed in (True, False):
+        c = {k: v.clone() for k, v in cache["prefix_layers"][0].items()}
+        out[absorbed], _ = mla_apply(layer["attn"], cfg.mla, h, pos[None],
+                                     cache=c, cache_pos=pos,
+                                     cache_len=pos + 1, absorbed=absorbed)
+    rel = rel_diff(out[True], out[False])
+    return {"prompt_len": n, "step": n, "rel": rel, "limit": MLA_REL,
+            "ok": rel <= MLA_REL}
+
+
+def routes_of(calls) -> list:
+    return [e.cpu().numpy() for _, e in calls]
+
+
+def flip_share(a: list, b: list) -> float:
+    """Share of (layer, token) rows whose top-k expert sets differ."""
+    rows = flips = 0
+    for x, y in zip(a, b):
+        rows += x.shape[0]
+        flips += int((np.sort(x, -1) != np.sort(y, -1)).any(-1).sum())
+    return flips / max(rows, 1)
+
+
+def deepseek_v2_run(seed: int, dev) -> dict:
+    """(a), (b) and (c) on DeepSeek-V2: float32 first (the gates and each
+    prompt's first-token logits, prefilled alone as the service prefills
+    it); then, the float32 copy freed, the same weights drawn again in
+    bf16 (the float32 draws rounded) and served through
+    ``DecodeService``."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime.serve import DecodeService, ServeConfig
+    from repro_torch.serve.api import Request
+
+    t0 = time.perf_counter()
+    cfg, params, statics = build_lm_config("deepseek_v2_236b", seed, dev,
+                                           "float32")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 8)
+    lengths = rng.integers(LM_LENGTHS[0], LM_LENGTHS[1] + 1, LM_REQUESTS)
+    lengths[0] = LM_LENGTHS[1]
+    prompts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32)
+               for n in lengths]
+    weight_bytes = {"float32": param_bytes(params)}
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "layer_types": [list(t) for t in cfg.layer_types],
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "mla": dataclasses.asdict(cfg.mla),
+           "moe": dataclasses.asdict(cfg.moe), "d_ff": cfg.d_ff,
+           "init_seconds": init_s}
+    with torch.no_grad():
+        res["mla_absorbed_vs_expanded"] = mla_decode_gate(
+            params, statics, prompts[1], dev)
+        pre = torch.as_tensor(prompts[0].astype(np.int64), device=dev)
+        dec = torch.as_tensor(np.array([p[-1] for p in prompts[:4]],
+                                       np.int64), device=dev)
+        res["moe_layer"] = [moe_layer_gate(params, statics, pre, "prefill"),
+                            moe_layer_gate(params, statics, dec, "decode")]
+        first32, routes32 = [], []
+        for p in prompts:
+            with RecordedRoutes() as rec:
+                lg = prefill_logits(params, statics, p, LM_SCFG["max_seq"],
+                                    torch.float32, True, dev)
+            first32.append(lg[-1].clone())
+            routes32.append(routes_of(rec.calls))
+        router32 = params["body"][0]["moe"]["router"]["w"].clone()
+        peak = {"float32": torch.cuda.max_memory_allocated()}
+        del params, lg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, statics = build_lm_config("deepseek_v2_236b", seed, dev,
+                                               "bfloat16")
+        weight_bytes["bfloat16"] = param_bytes(params)
+        res["bf16_weights_are_fp32_rounded"] = bool(torch.equal(
+            params["body"][0]["moe"]["router"]["w"], router32.bfloat16()))
+        del router32
+        first16, routes16 = [], []
+        for p in prompts:
+            with RecordedRoutes() as rec:
+                lg = prefill_logits(params, statics, p, LM_SCFG["max_seq"],
+                                    torch.bfloat16, True, dev)
+            first16.append(lg[-1].clone())
+            routes16.append(routes_of(rec.calls))
+        del lg
+    res["weight_bytes"] = weight_bytes
+    res["first_token_vs_fp32"] = [
+        {"prompt_len": len(p), "rel": rel_diff(a, b),
+         "argmax_equal": bool(int(a.argmax()) == int(b.argmax())),
+         "route_flip_share": flip_share(r16, r32),
+         "finite": bool(torch.isfinite(a).all())}
+        for p, a, b, r16, r32 in zip(prompts, first16, first32, routes16,
+                                     routes32)]
+    del first32
+
+    scfg = ServeConfig(**LM_SCFG)
+    tracer = Tracer()
+    svc = DecodeService(cfg, statics, params, scfg, tracer=tracer,
+                        device=dev)
+    svc.submit(Request(prompt=np.ones(4, np.int32), max_new_tokens=2))
+    svc.run()  # warm-up through the real admit/decode path
+    svc.reset_metrics()
+    tracer.reset()
+    reqs = [Request(prompt=p, max_new_tokens=LM_NEW) for p in prompts]
+    with RecordedRoutes() as rec:
+        run_s = serve_bursts(svc, reqs, LM_BURSTS)
+    slots = LM_SCFG["batch_slots"]
+    drops = {"prefill": [0, 0], "decode": [0, 0]}
+    # the busiest expert's pairs over the mean load, per MoE call: the
+    # capacity is 1.25 x the mean, so a call above 1.25 drops pairs
+    busiest = {"prefill": [], "decode": []}
+    for t, e in rec.calls:
+        keep = moe.kept_pairs(e, cfg.moe)
+        kind = "decode" if t == slots else "prefill"
+        drops[kind][0] += int((~keep).sum())
+        drops[kind][1] += keep.numel()
+        load = np.bincount(e.cpu().numpy().ravel(),
+                           minlength=cfg.moe.n_experts)
+        busiest[kind].append(float(load.max() / load.mean()))
+    mid = sum(1 for ev in tracer.events()
+              if ev.get("args", {}).get("event") == "admit_mid_decode")
+    m = svc.metrics
+    res.update(
+        serve_config=LM_SCFG, requests=len(reqs), new_tokens=LM_NEW,
+        bursts=list(LM_BURSTS), prompt_lengths=[len(p) for p in prompts],
+        all_done=all(r.done and len(r.output) == LM_NEW for r in reqs),
+        trace_count=svc.trace_count(), admitted_mid_decode=mid,
+        first_token_is_bf16_prefill_argmax=[
+            int(r.output[0]) == int(f.argmax())
+            for r, f in zip(reqs, first16)],
+        drop_share={k: d / max(n, 1) for k, (d, n) in drops.items()},
+        dropped_pairs={k: v[0] for k, v in drops.items()},
+        busiest_expert_over_mean_load={
+            k: {"median": float(np.median(v)), "max": float(np.max(v))}
+            for k, v in busiest.items() if v},
+        routed_pairs={k: v[1] for k, v in drops.items()},
+        run_seconds=run_s,
+        tokens_per_s=sum(len(r.output) for r in reqs) / run_s,
+        ttft_p50_s=m["first_result_p50_s"], latency_p50_s=m["latency_p50_s"],
+        latency_p99_s=m["latency_p99_s"],
+        peak_memory_bytes={**peak,
+                           "bfloat16": torch.cuda.max_memory_allocated()})
+    return res
+
+
+def deepseek_v3_mtp_run(seed: int, dev) -> dict:
+    """(d): DeepSeek-V3's MTP head, float32 then the same weights in bf16,
+    on seeded tokens without a cache."""
+    import torch
+
+    from repro_torch.models.transformer import apply_model
+
+    cfg, params, statics = build_lm_config("deepseek_v3_671b", seed, dev,
+                                           "float32")
+    toks = torch.as_tensor(np.random.default_rng(seed + 9).integers(
+        1, cfg.vocab, LM_MTP_SHAPE), device=dev)
+    out = {}
+    nbytes = {}
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16":
+                cfg, params, statics = to_dtype(cfg, params, statics, dtype)
+                torch.cuda.empty_cache()
+            nbytes[dtype] = param_bytes(params)
+            logits, _, aux = apply_model(params, statics, toks)
+            out[dtype] = (logits[..., :cfg.vocab].float(),
+                          aux["mtp_logits"][..., :cfg.vocab].float(),
+                          tuple(aux["mtp_logits"].shape))
+    del params
+    noise = rel_diff(out["bfloat16"][0], out["float32"][0])
+    far = rel_diff(out["bfloat16"][1], out["float32"][1])
+    row = {"model": cfg.name, "layers": cfg.n_layers,
+           "layer_types": [list(t) for t in cfg.layer_types],
+           "mtp_layer": list(cfg.layer_types[-1]), "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "tokens": list(LM_MTP_SHAPE),
+           "weight_bytes": nbytes,
+           "mtp_logits_shape": list(out["bfloat16"][2]),
+           "mtp_logits_finite": bool(all(
+               torch.isfinite(o[1]).all() for o in out.values())),
+           "bf16_mtp_vs_fp32": far, "bf16_logits_vs_fp32": noise,
+           "bf16_limit": GEN_BF16_NOISE_FACTOR * noise,
+           "mtp_vs_logits_fp32": rel_diff(out["float32"][1],
+                                          out["float32"][0])}
+    row["ok"] = (row["mtp_logits_shape"] == [*LM_MTP_SHAPE, cfg.padded_vocab]
+                 and row["mtp_logits_finite"] and far <= row["bf16_limit"])
+    return row
+
+
+def dense_lm_run(arch: str, seed: int, dev) -> dict:
+    """(e): bf16 weights from the seed, each of ``LM_DENSE_PROMPTS``
+    prefilled by the kernel route (the main path: counts from 0, the
+    prefills, read), then the generate phase's rule against the same
+    weights in float32; the flash calls' head widths as launched."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ops
+
+    cfg, params, statics = build_lm_config(arch, seed, dev, "bfloat16")
+    acfg = cfg.attn_cfg(False)
+    rng = np.random.default_rng(seed + 10)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in LM_DENSE_PROMPTS]
+    widths = []
+    real = ops.flash_attention
+
+    def shapes(q, *args, **kwargs):
+        widths.append(int(q.shape[-1]))
+        return real(q, *args, **kwargs)
+
+    ops.flash_attention = shapes
+    try:
+        for key in ("launches", "launches_tensor_core", "launches_simt"):
+            setattr(tfa.flash_attention_cuda, key, 0)
+        kern = [prefill_logits(params, statics, p, LM_DENSE_MAX_SEQ,
+                               torch.bfloat16, True, dev) for p in prompts]
+        launches = tfa.flash_attention_cuda.launches
+        routes = {"tensor_core": tfa.flash_attention_cuda.launches_tensor_core,
+                  "simt": tfa.flash_attention_cuda.launches_simt}
+    finally:
+        ops.flash_attention = real
+    _, params32, statics32 = to_dtype(cfg, params, statics, "float32")
+    rows = []
+    for p, k16 in zip(prompts, kern):
+        plain = prefill_logits(params, statics, p, LM_DENSE_MAX_SEQ,
+                               torch.bfloat16, False, dev)
+        ref32 = prefill_logits(params32, statics32, p, LM_DENSE_MAX_SEQ,
+                               torch.float32, False, dev)
+        kern32 = prefill_logits(params32, statics32, p, LM_DENSE_MAX_SEQ,
+                                torch.float32, True, dev)
+        noise = rel_diff(plain, ref32)
+        row = {"prompt_len": len(p),
+               "bf16_kernel_vs_plain": rel_diff(k16, plain),
+               "bf16_plain_vs_fp32": noise,
+               "bf16_kernel_vs_fp32": rel_diff(k16, ref32),
+               "bf16_limit": GEN_BF16_NOISE_FACTOR * noise,
+               "fp32_kernel_vs_plain": rel_diff(kern32, ref32),
+               "finite": bool(torch.isfinite(k16).all())}
+        row["ok"] = (row["bf16_kernel_vs_plain"] <= row["bf16_limit"]
+                     and row["fp32_kernel_vs_plain"] <= GEN_FP32_REL
+                     and row["finite"])
+        rows.append(row)
+    nbytes = {"bfloat16": param_bytes(params),
+              "float32": param_bytes(params32)}
+    del params, params32
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "q_heads_padded": acfg.hq_pad, "grouped": acfg.grouped,
+            "d_head": cfg.d_head, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "qkv_bias": cfg.qkv_bias,
+            "sparse": cfg.sparse and dataclasses.asdict(cfg.sparse),
+            "weight_bytes": nbytes, "prefills": len(prompts),
+            "launches": launches, "launches_by_route": routes,
+            "launch_head_dims": sorted(set(widths)),
+            "launches_expected": (cfg.n_layers * len(prompts)
+                                  if acfg.grouped else 0),
+            "prefill_logits": rows}
+
+
+def lm_configs_phase(seed: int, dev) -> dict:
+    """The four architectures MoE, MLA and the MTP head unlock, at full
+    width: DeepSeek-V2 (a: MLA absorbed vs expanded; b: one MoE layer
+    against its definition; c: served in bf16), DeepSeek-V3 (d: the MTP
+    head), qwen2.5-32b and phi3-medium-14b (e: prefill logits, qwen's
+    through the flash kernel at D 128, phi3's on the kv-repeat route);
+    checks and the report."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ds2 = deepseek_v2_run(seed, dev)
+    torch.cuda.empty_cache()
+    ds3 = deepseek_v3_mtp_run(seed, dev)
+    torch.cuda.empty_cache()
+    dense = {arch: dense_lm_run(arch, seed, dev)
+             for arch in ("qwen2_5_32b", "phi3_medium_14b")}
+    seconds = time.perf_counter() - t0
+    published = {a: importlib.import_module(f"repro_torch.configs.{a}")
+                 .config().n_layers for a in LM_LAYERS}
+    emit("lm_configs", seconds=seconds,
+         depth={a: f"{n} of {published[a]} layers"
+                for a, n in LM_LAYERS.items()},
+         mla_limit=f"absorbed vs expanded <= {MLA_REL} x max(1, max|out|)",
+         moe_limit=(f"moe_apply vs the per-expert loop <= {MOE_REL} x "
+                    f"max(1, max|out|); kept pairs = host recount"),
+         mtp_limit=(f"bf16 mtp_logits vs fp32 <= {GEN_BF16_NOISE_FACTOR} x "
+                    f"(bf16 logits vs fp32)"),
+         deepseek_v2=ds2, deepseek_v3=ds3, **dense,
+         # deepseek_v2_run resets the counter between its two stages
+         peak_memory_bytes=max(torch.cuda.max_memory_allocated(),
+                               *ds2["peak_memory_bytes"].values()))
+    check(ds2["mla_absorbed_vs_expanded"]["ok"],
+          f"MLA absorbed decode off the expanded one: "
+          f"{ds2['mla_absorbed_vs_expanded']}")
+    bad = [r["case"] for r in ds2["moe_layer"] if not r["ok"]]
+    check(not bad, f"MoE layer off its definition or the host recount: {bad}")
+    check(ds2["bf16_weights_are_fp32_rounded"],
+          "DeepSeek-V2's bf16 weights are not its float32 weights rounded")
+    check(ds2["all_done"], "a DeepSeek-V2 request did not complete")
+    check(ds2["trace_count"] == 1,
+          f"DeepSeek-V2 decode trace_count {ds2['trace_count']} != 1")
+    check(ds2["admitted_mid_decode"] > 0,
+          "no DeepSeek-V2 slot was refilled mid-decode")
+    check(all(r["finite"] for r in ds2["first_token_vs_fp32"]),
+          "DeepSeek-V2 first-token logits not finite")
+    # the service prefills each prompt alone too, so its first token is
+    # that prefill's argmax: a wrong latent-cache write or slot scatter
+    # on the served path breaks it
+    check(all(ds2["first_token_is_bf16_prefill_argmax"]),
+          f"DeepSeek-V2 served first tokens off the bf16 prefill's argmax: "
+          f"{ds2['first_token_is_bf16_prefill_argmax']}")
+    check(ds3["ok"], f"DeepSeek-V3 MTP head: {ds3}")
+    qwen, phi3 = dense["qwen2_5_32b"], dense["phi3_medium_14b"]
+    for name, r in dense.items():
+        bad = [x["prompt_len"] for x in r["prefill_logits"] if not x["ok"]]
+        check(not bad, f"{name}: prefill logits off the rule for prompts of "
+                       f"{bad} tokens")
+        check(r["launches"] == r["launches_expected"],
+              f"{name}: flash launches {r['launches']} != "
+              f"{r['launches_expected']}")
+    check(qwen["grouped"] and qwen["launches_by_route"]["simt"] == 0
+          and qwen["launches_by_route"]["tensor_core"] == qwen["launches"]
+          and qwen["launch_head_dims"] == [qwen["d_head"]],
+          f"qwen flash launches by route {qwen['launches_by_route']}, head "
+          f"dims {qwen['launch_head_dims']}")
+    check(not phi3["grouped"] and phi3["launches"] == 0,
+          "phi3 must take the kv-repeat route, no flash launch")
+    return {"launches": qwen["launches"], "seconds": seconds}
 
 
 def build_decode_lm(seed: int, dev):
@@ -1740,6 +2297,39 @@ def flash_decode_runs(cfg, params, prompts, teacher, max_seq: int, dev,
                                                   lg[-1].argmax(-1)))}
 
 
+def moe_shard_run(seed: int, dev, mesh) -> dict:
+    """(f) on one rank: DeepSeek-V2's smoke MoE (float32 weights from the
+    seed, the same on every rank) on a seeded ``SHARD_MOE_SHAPE`` input,
+    expert-parallel under ``activation_sharding_ctx(mesh)``, against each
+    data shard's rows through the unsharded ``moe_apply`` (capacity
+    counted on the shard's tokens, as the sharded route counts it)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.parallel.activations import activation_sharding_ctx
+    from repro_torch.parallel.sharding import mesh_axis_sizes
+
+    cfg = get_smoke_config("deepseek_v2_236b").moe
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, static = moe.moe_init(gen, cfg, device=dev)
+    x = torch.as_tensor(np.random.default_rng(seed + 12).normal(
+        size=(*SHARD_MOE_SHAPE, cfg.d_model)).astype(np.float32), device=dev)
+    data = mesh_axis_sizes(mesh).get("data", 1)
+    calls = moe._moe_sharded.calls
+    with torch.no_grad():
+        with activation_sharding_ctx(mesh):
+            got = moe.moe_apply(params, static, cfg, x)
+        calls = moe._moe_sharded.calls - calls
+        want = torch.cat([moe.moe_apply(params, static, cfg, xs)
+                          for xs in x.chunk(data)])
+        whole = moe.moe_apply(params, static, cfg, x)
+    return {"config": dataclasses.asdict(cfg), "shape": list(x.shape),
+            "out": got.cpu().numpy(), "sharded_calls": calls,
+            "rel_vs_per_shard": rel_diff(got, want),
+            "rel_vs_whole_batch": rel_diff(got, whole)}
+
+
 def shard_rank(rank: int, spec: dict) -> None:
     """One rank of part (b): joins the gloo group, serves the requests
     through ``InferenceService(mesh=...)`` on the partitioned programs,
@@ -1821,6 +2411,8 @@ def shard_rank(rank: int, spec: dict) -> None:
         out["flash_attention_launches"] = (
             tfa.flash_attention_cuda.launches - flash0
             - out["flash"]["fp32_launches"])
+        # (f) expert parallelism over the model ranks
+        out["moe"] = moe_shard_run(spec["seed"], dev, mesh)
         with open(os.path.join(spec["out"], f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -1971,6 +2563,7 @@ def shard_phase(seed: int, dev, loaded, prog8, images) -> dict:
             ("logits_fp32", "logits_int8", "labels_fp32"))
         and all(np.array_equal(rk["flash"][k], r0["flash"][k])
                 for k in ("bf16", "fp32"))
+        and np.array_equal(rk["moe"]["out"], r0["moe"]["out"])
         for rk in ranks[1:])
     l8, w8 = r0["logits_int8"], ref["int8"]["logits"]
     l32, w32 = r0["logits_fp32"], ref["fp32"]["logits"]
@@ -2010,6 +2603,9 @@ def shard_phase(seed: int, dev, loaded, prog8, images) -> dict:
         "flash_decode_calls": r0["flash"]["calls"],
         "flash_decode_calls_expected": (DECODE_STEPS + 1) * cfg.n_layers,
         "make_decode_step_token_is_argmax": r0["flash"]["last_is_argmax"],
+        "moe_limit": (f"expert-parallel moe_apply vs each data shard's "
+                      f"unsharded moe_apply <= {MOE_REL} x max(1, max|out|)"),
+        "moe": {k: v for k, v in r0["moe"].items() if k != "out"},
     }
     emit("shard", decode_model=dict(
         name=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -2035,6 +2631,9 @@ def shard_phase(seed: int, dev, loaded, prog8, images) -> dict:
         check(part["make_decode_step_token_is_argmax"],
               f"{name}: make_decode_step's token is not the logits' argmax")
     check(same, "the ranks of the gloo mesh returned different results")
+    check(b["moe"]["sharded_calls"] == 1
+          and b["moe"]["rel_vs_per_shard"] <= MOE_REL,
+          f"gloo mesh: expert-parallel MoE {b['moe']}")
     bad = [r["layer"] for r in b["layer_parity"] if r["rel"] > LAYER_TOL]
     check(not bad, f"gloo mesh: layers {bad} differ from the single-device "
                    f"dispatch")
@@ -2320,6 +2919,10 @@ def run(seed: int, dev) -> dict:
         generate_phase(seed, dev)["launches"]
         + shard["launches"]["flash_attention_cuda"])
 
+    # -- 10b. MoE, MLA, the MTP head: the four configs they unlock -------
+    launches["flash_attention_cuda"] += lm_configs_phase(seed,
+                                                         dev)["launches"]
+
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []
     per_layer = {}
@@ -2403,13 +3006,16 @@ def run(seed: int, dev) -> dict:
     })
     fl_rows, fl_tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                            "bytes": 0.0, "ops": 0.0}
-    hq, hkv, d = FLASH_HEADS
     for c in fl["cases"]:
         q, k, v, n = c["q"], c["k"], c["v"], c["kv_len"]
-        kw = dict(causal=True, window=FLASH_WINDOW, kv_len=n)
+        hq, hkv, d = c["heads"]
+        window = c["window"]
+        kw = dict(causal=True, window=window, kv_len=n)
         qpos = torch.arange(n, device=dev)[:, None]
         kpos = torch.arange(k.shape[2], device=dev)[None, :]
-        mask = (kpos <= qpos) & (kpos > qpos - FLASH_WINDOW) & (kpos < n)
+        mask = (kpos <= qpos) & (kpos < n)
+        if window is not None:
+            mask &= kpos > qpos - window
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
@@ -2421,13 +3027,14 @@ def run(seed: int, dev) -> dict:
         lib_ms = device_ms(sdpa, dev)
         lib_diff = float((sdpa().float() - tfa.flash_attention_plain(
             q, k, v, **kw).float()).abs().max())
-        nbytes, ops = flash_cost(1, hq, hkv, n, n, d, 2, True, FLASH_WINDOW)
+        nbytes, ops = flash_cost(1, hq, hkv, n, n, d, 2, True, window)
         for key, val in (("ms", ms), ("plain_ms", plain),
                          ("library_ms", lib_ms), ("bytes", nbytes),
                          ("ops", ops)):
             fl_tot[key] += val
         fl_rows.append({
-            "case": c["case"], "route": flash_route(c["dtype"]),
+            "case": c["case"], "model": c["model"],
+            "route": flash_route(c["dtype"]),
             "q": list(q.shape), "k": list(k.shape),
             "kv_len": n, "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
             "library_max_abs_diff_vs_plain": lib_diff,
@@ -2476,9 +3083,14 @@ def run(seed: int, dev) -> dict:
          f"images ({spmms} launches), summed over layers; ou_mvm: ms per "
          f"call, summed over the {len(ou['cases'])} conv cases, GB/s of its "
          f"bytes (HBM {HBM_BYTES_PER_S / 1e12} TB/s); flash: ms "
-         f"per launch of the prefill's call at S in {list(FLASH_PATH_S)}, "
+         f"per launch of the prefill's call at S in {list(FLASH_PATH_S)} "
+         f"(h2o-danube) and {list(LM_DENSE_PROMPTS)} (qwen2.5-32b), "
          f"summed; its bound at the bf16 tensor cores' rate",
          per_layer=per_layer, searched_fp32_spmm_per_forward=searched_spmm,
+         flash_by_model={
+             m: {key: sum(r[key] for r in fl_rows if r["model"] == m)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms_bf16")}
+             for m in sorted({r["model"] for r in fl_rows})},
          forward_ms=forward_ms,
          service_without_stats=service_without_stats,
          spmm_share_of_forward={

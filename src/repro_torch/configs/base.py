@@ -4,10 +4,12 @@ Every ported architecture has a module exporting:
   config(shape: ShapeSpec|None, sparse=False) -> ModelConfig  (published)
   smoke_config() -> ModelConfig                 (reduced, CPU-runnable)
 
-Ported: ``granite_3_2b`` and ``h2o_danube_1_8b``.  The other eight
-architectures of ``ARCH_NAMES`` come with their mixers (``ROADMAP.md``
-Queue 1 item 11.6) and raise ``NotImplementedError`` here.  The
-reference's ``input_specs`` builds ``jax.ShapeDtypeStruct`` stand-ins for
+Ported: ``granite_3_2b``, ``h2o_danube_1_8b``, ``phi3_medium_14b``,
+``qwen2_5_32b``, ``deepseek_v2_236b`` and ``deepseek_v3_671b``.  The
+other four architectures of ``ARCH_NAMES`` come with the parts they
+need and raise ``NotImplementedError`` here naming the ``ROADMAP.md``
+Queue 1 item that unlocks each (``_UNLOCKED_BY``).  The reference's
+``input_specs`` builds ``jax.ShapeDtypeStruct`` stand-ins for
 its dry-run lowering and has no counterpart in the port.
 
 Shapes (seq_len x global_batch):
@@ -56,7 +58,17 @@ ARCH_NAMES = [
     "paligemma_3b",
 ]
 
-PORTED = ("granite_3_2b", "h2o_danube_1_8b")
+PORTED = ("granite_3_2b", "h2o_danube_1_8b", "phi3_medium_14b",
+          "qwen2_5_32b", "deepseek_v2_236b", "deepseek_v3_671b")
+
+# what each unported architecture waits for (ROADMAP.md Queue 1 item 11)
+_UNLOCKED_BY = {
+    "mamba2_780m": "the SSM mixer, item 11.3",
+    "jamba_1_5_large_398b": "the SSM mixer, item 11.3 (its MoE, item 11.1, "
+                            "is ported)",
+    "whisper_small": "the encoder and cross-attention, item 11.4",
+    "paligemma_3b": "the VLM prefix, item 11.5",
+}
 
 # archs with sub-quadratic sequence mixing -> long_500k runs
 _LONG_OK = {"jamba_1_5_large_398b", "mamba2_780m", "h2o_danube_1_8b"}
@@ -67,8 +79,8 @@ def _module(arch: str):
         raise KeyError(f"unknown architecture {arch!r}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch} is not ported: the other configs come with their mixers "
-            "(ROADMAP.md Queue 1 item 11.6)"
+            f"{arch} is not ported: it needs {_UNLOCKED_BY[arch]} "
+            "(ROADMAP.md Queue 1)"
         )
     return importlib.import_module(f"repro_torch.configs.{arch}")
 

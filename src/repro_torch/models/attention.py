@@ -149,6 +149,32 @@ def _is_tensor_vector(a) -> bool:
     return isinstance(a, torch.Tensor) and a.dim() > 0
 
 
+def _write_cache(cache: dict, new: dict, cache_pos, s: int) -> None:
+    """Write ``new`` ([B, S, ...] per key) into ``cache`` in place at
+    ``cache_pos``: per-row offsets [B], or one offset (an int or a 0-d
+    tensor) clamped to ``[0, T - S]`` as ``dynamic_update_slice`` clamps
+    it.  A tensor offset stays on the device."""
+    key0 = next(iter(new))
+    b = new[key0].shape[0]
+    dev = new[key0].device
+    pos0 = cache_pos if cache_pos is not None else 0
+    t = cache[key0].shape[1]
+    steps = torch.arange(s, device=dev)
+    if _is_tensor_vector(pos0):
+        rows = torch.arange(b, device=dev)[:, None]
+        cols = pos0[:, None] + steps[None, :]
+        for key, v in new.items():
+            cache[key][rows, cols] = v.to(cache[key].dtype)
+    elif isinstance(pos0, torch.Tensor):
+        cols = pos0.clamp(0, t - s) + steps
+        for key, v in new.items():
+            cache[key][:, cols] = v.to(cache[key].dtype)
+    else:
+        p0 = min(max(int(pos0), 0), t - s)
+        for key, v in new.items():
+            cache[key][:, p0:p0 + s] = v.to(cache[key].dtype)
+
+
 def _mask(qpos, kpos, causal: bool, window: int | None, kv_len):
     qq = qpos[..., :, None]
     kk = kpos[..., None, :]
@@ -331,18 +357,8 @@ def attention_apply(
         prefill = is_prefill(s, positions, memory, cache, cache_pos)
     kernel = prefill and memory is None and s > 1 and cfg.grouped
     if cache is not None and memory is None:
-        pos0 = cache_pos if cache_pos is not None else 0
+        _write_cache(cache, {"k": k, "v": v}, cache_pos, s)
         t = cache["k"].shape[1]
-        if _is_tensor_vector(pos0):
-            rows = torch.arange(b, device=x.device)[:, None]
-            cols = pos0[:, None] + torch.arange(s, device=x.device)[None, :]
-            cache["k"][rows, cols] = k.to(cache["k"].dtype)
-            cache["v"][rows, cols] = v.to(cache["v"].dtype)
-        else:
-            # dynamic_update_slice clamps the start so the update fits
-            p0 = min(max(int(pos0), 0), t - s)
-            cache["k"][:, p0:p0 + s] = k.to(cache["k"].dtype)
-            cache["v"][:, p0:p0 + s] = v.to(cache["v"].dtype)
         k_all, v_all = cache["k"], cache["v"]
         kpos = torch.arange(t, device=x.device)
         kv_len = cache_len

@@ -1,0 +1,185 @@
+"""Multi-head Latent Attention (DeepSeek-V2/V3).
+
+Port of ``src/repro/models/mla.py``.  KV state is compressed to a
+``kv_lora``-dim latent (plus a shared RoPE key of ``d_rope`` dims): the
+cache per token is kv_lora + d_rope values (576 for DeepSeek),
+independent of head count.
+
+Two compute paths, as in the reference:
+  * prefill — decompress K/V per head in float32 and run the plain
+    ``_full_attention`` / ``_chunked_attention`` of ``models.attention``
+    (the reference's XLA routes; never the flash kernel, which takes one
+    head width for q, k and v while MLA's values are narrower than its
+    keys);
+  * decode  — the *absorbed* form in float32: W_uk is folded into the
+    query and W_uv into the output projection, so attention runs in the
+    latent space (per-token cost O(h * kv_lora), no per-head KV).
+
+The cache ``{c_kv [B, T, kv_lora], k_rope [B, T, d_rope]}`` is written in
+place (the reference returns a new one) at a scalar offset, clamped so
+the update fits as ``dynamic_update_slice`` clamps it, or at per-row
+offsets ``[B]``; neither reads the device from the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.attention import (
+    _chunked_attention,
+    _expand_mask,
+    _full_attention,
+    _mask,
+    _write_cache,
+)
+from repro_torch.models.layers import (
+    apply_rope,
+    linear,
+    linear_init,
+    rmsnorm,
+    rmsnorm_init,
+    rope_frequencies,
+)
+
+__all__ = ["MLAConfig", "mla_init", "mla_apply", "init_mla_cache"]
+
+_NEG = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora: int = 512
+    q_lora: int = 1536
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+    rope_theta: float = 10000.0
+    model_shards: int = 16
+    chunk: int = 1024
+    full_attn_max_seq: int = 8192
+
+
+def mla_init(generator, cfg: MLAConfig, param_dtype=torch.float32,
+             device=None):
+    d, h = cfg.d_model, cfg.n_heads
+    kw = dict(param_dtype=param_dtype, device=device)
+    return {
+        "wq_a": linear_init(generator, d, cfg.q_lora, **kw),
+        "q_norm": rmsnorm_init(cfg.q_lora, param_dtype, device),
+        "wq_b": linear_init(generator, cfg.q_lora,
+                            h * (cfg.d_nope + cfg.d_rope), **kw),
+        "wkv_a": linear_init(generator, d, cfg.kv_lora + cfg.d_rope, **kw),
+        "kv_norm": rmsnorm_init(cfg.kv_lora, param_dtype, device),
+        "wkv_b": linear_init(generator, cfg.kv_lora,
+                             h * (cfg.d_nope + cfg.d_v), **kw),
+        "wo": linear_init(generator, h * cfg.d_v, d, **kw),
+    }
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_seq: int,
+                   dtype=torch.bfloat16, device=None):
+    return {
+        "c_kv": torch.zeros((batch, max_seq, cfg.kv_lora), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_seq, cfg.d_rope), dtype=dtype,
+                              device=device),
+    }
+
+
+def _batched(positions: torch.Tensor) -> torch.Tensor:
+    return positions if positions.dim() == 2 else positions[None, :]
+
+
+def _project_q(params, cfg: MLAConfig, x, positions):
+    b, s, _ = x.shape
+    q = linear(params["wq_b"],
+               rmsnorm(params["q_norm"], linear(params["wq_a"], x)))
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_nope + cfg.d_rope)
+    q_nope, q_rope = q[..., : cfg.d_nope], q[..., cfg.d_nope:]
+    freqs = rope_frequencies(cfg.d_rope, cfg.rope_theta, device=x.device)
+    return q_nope, apply_rope(q_rope, _batched(positions), freqs)
+
+
+def _compress_kv(params, cfg: MLAConfig, x, positions):
+    kv = linear(params["wkv_a"], x)  # [B, S, kv_lora + d_rope]
+    c_kv = rmsnorm(params["kv_norm"], kv[..., : cfg.kv_lora])
+    freqs = rope_frequencies(cfg.d_rope, cfg.rope_theta, device=x.device)
+    k_rope = apply_rope(kv[..., cfg.kv_lora:], _batched(positions), freqs)
+    return c_kv, k_rope
+
+
+def mla_apply(
+    params,
+    cfg: MLAConfig,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [S] (shared) or [B, S] (per-row)
+    cache: dict | None = None,
+    cache_pos=None,  # scalar or [B]
+    cache_len=None,  # scalar or [B]
+    absorbed: bool | None = None,
+) -> tuple[torch.Tensor, dict | None]:
+    """Returns (output [B, S, D], cache written in place)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    scale = (cfg.d_nope + cfg.d_rope) ** -0.5
+
+    q_nope, q_rope = _project_q(params, cfg, x, positions)
+    c_kv_new, k_rope_new = _compress_kv(params, cfg, x, positions)
+
+    if cache is not None:
+        _write_cache(cache, {"c_kv": c_kv_new, "k_rope": k_rope_new},
+                     cache_pos, s)
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        t = c_kv.shape[1]
+        kpos = torch.arange(t, device=x.device)
+    else:
+        c_kv, k_rope = c_kv_new, k_rope_new
+        t = s
+        kpos = positions
+
+    if absorbed is None:
+        absorbed = s == 1  # decode default
+
+    wkv_b = params["wkv_b"]["w"].reshape(cfg.kv_lora, h,
+                                         cfg.d_nope + cfg.d_v)
+    w_uk = wkv_b[..., : cfg.d_nope].float()  # [kv_lora, h, d_nope]
+    w_uv = wkv_b[..., cfg.d_nope:].float()  # [kv_lora, h, d_v]
+    c32 = c_kv.float()
+
+    if absorbed:
+        # fold W_uk into q: q_abs [B, S, h, kv_lora]
+        q_abs = torch.einsum("bshd,lhd->bshl", q_nope.float(), w_uk)
+        s_lat = torch.einsum("bshl,btl->bhst", q_abs, c32)
+        s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(),
+                              k_rope.float())
+        scores = (s_lat + s_rope) * scale
+        # [S, T] shared or [B, S, T] per-row -> [1|B, 1, S, T]
+        mask = _mask(positions, kpos, True, None, cache_len)
+        scores = torch.where(_expand_mask(mask), scores, _NEG)
+        p = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhst,btl->bshl", p, c32)
+        out = torch.einsum("bshl,lhv->bshv", o_lat, w_uv)
+    else:
+        # decompress per head and use the plain attention routes
+        k_nope = torch.einsum("btl,lhd->bthd", c32, w_uk)
+        v = torch.einsum("btl,lhv->bthv", c32, w_uv)
+        k_rope_h = k_rope[:, :, None, :].float().expand(b, t, h, cfg.d_rope)
+        k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+        q_full = torch.cat([q_nope.float(), q_rope.float()], dim=-1)
+        qh = q_full.transpose(1, 2)
+        kh = k_full.transpose(1, 2)
+        vh = v.transpose(1, 2)
+        if max(s, t) <= cfg.full_attn_max_seq:
+            out = _full_attention(qh, kh, vh, positions, kpos, True, None,
+                                  cache_len)
+        else:
+            out = _chunked_attention(qh, kh, vh, positions, kpos, True, None,
+                                     cache_len, cfg.chunk)
+        out = out.transpose(1, 2)  # [B, S, h, d_v]
+
+    out = out.reshape(b, s, h * cfg.d_v).to(x.dtype)
+    return linear(params["wo"], out), cache

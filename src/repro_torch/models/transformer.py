@@ -1,23 +1,24 @@
-"""Config-driven transformer assembly: the dense decoder.
+"""Config-driven transformer assembly.
 
-Port of ``src/repro/models/transformer.py`` for the mixers ``attn`` and
-``swa`` and the ffn ``mlp`` (dense or the paper's pattern-sparse MLP).
-A model is a sequence of layers; each layer is a (mixer, ffn) pair, and
-``layer_types`` lists every layer.  The stack is factored into an
-optional non-periodic *prefix* plus a repeating *period*; period params
-are stacked ``[n_periods, ...]`` as in the reference, and where the
-reference runs them with ``lax.scan`` the port loops over the stacked
-tensors in Python.  The reference's remat (``jax.checkpoint``) is a
-training concern and is left out: serving has no backward.
+Port of ``src/repro/models/transformer.py`` for the mixers ``attn``,
+``swa`` and ``mla`` (DeepSeek's latent attention, ``models.mla``), the
+ffns ``mlp`` (dense or the paper's pattern-sparse MLP) and ``moe``
+(``models.moe``), and DeepSeek-V3's MTP head.  A model is a sequence of
+layers; each layer is a (mixer, ffn) pair, and ``layer_types`` lists
+every layer.  The stack is factored into an optional non-periodic
+*prefix* (DeepSeek's leading dense layers) plus a repeating *period*;
+period params are stacked ``[n_periods, ...]`` as in the reference, and
+where the reference runs them with ``lax.scan`` the port loops over the
+stacked tensors in Python.  The reference's remat (``jax.checkpoint``) is
+a training concern and is left out: serving has no backward.
 
 Not ported yet, each raising ``NotImplementedError`` naming its
-``ROADMAP.md`` item: the ``moe`` ffn (Queue 1 item 11.1), the ``mla``
-mixer and the ``mtp`` head (11.2), the ``ssm`` mixer (11.3), the
+``ROADMAP.md`` item: the ``ssm`` mixer (Queue 1 item 11.3), the
 ``xattn`` mixer and the encoder (11.4), and ``prefix_embeds`` (11.5).
 
 Params are a plain dict of tensors; the statics (layer kinds, attention
-configs, sparse layouts with their device index tables) come from
-:func:`init_statics`, so params converted from the reference
+and MLA configs, sparse layouts with their device index tables) come
+from :func:`init_statics`, so params converted from the reference
 (``models.convert``) and params drawn here share them.  Caches are
 updated in place.
 """
@@ -51,6 +52,8 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.models.mla import MLAConfig, init_mla_cache, mla_apply, mla_init
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init, moe_static
 from repro_torch.parallel.activations import shard_activation
 from repro_torch.parallel.sharding import pad_to_multiple
 
@@ -58,9 +61,6 @@ __all__ = ["ModelConfig", "find_structure", "init_statics", "init_params",
            "init_cache", "apply_model", "count_params"]
 
 _NOT_PORTED = {
-    "moe": "the MoE ffn is ROADMAP.md Queue 1 item 11.1",
-    "mla": "the MLA mixer is ROADMAP.md Queue 1 item 11.2",
-    "mtp": "the MTP head is ROADMAP.md Queue 1 item 11.2",
     "ssm": "the SSM mixer is ROADMAP.md Queue 1 item 11.3",
     "xattn": "the cross-attention mixer is ROADMAP.md Queue 1 item 11.4",
     "encoder": "the encoder is ROADMAP.md Queue 1 item 11.4",
@@ -89,8 +89,8 @@ class ModelConfig:
     # ffn
     d_ff: int = 0
     act: str = "swiglu"
-    moe: object | None = None  # not ported (11.1)
-    mla: object | None = None  # not ported (11.2)
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     ssm: object | None = None  # not ported (11.3)
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
@@ -170,7 +170,10 @@ def _layer_static(cfg: ModelConfig, ltype: tuple[str, str], device) -> dict:
     static: dict = {"mixer": mixer, "ffn": ffn}
     if mixer in ("attn", "swa"):
         static["attn_cfg"] = cfg.attn_cfg(window=mixer == "swa")
-    elif mixer in ("xattn", "mla", "ssm"):
+    elif mixer == "mla":
+        assert cfg.mla is not None
+        static["mla_cfg"] = cfg.mla
+    elif mixer in ("xattn", "ssm"):
         raise _not_ported(mixer)
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
@@ -180,7 +183,8 @@ def _layer_static(cfg: ModelConfig, ltype: tuple[str, str], device) -> dict:
                                    model_shards=cfg.model_shards,
                                    device=device)
     elif ffn == "moe":
-        raise _not_ported("moe")
+        assert cfg.moe is not None
+        static["moe"] = moe_static(cfg.moe, device)
     elif ffn != "none":
         raise ValueError(f"unknown ffn {ffn!r}")
     return static
@@ -189,9 +193,12 @@ def _layer_static(cfg: ModelConfig, ltype: tuple[str, str], device) -> dict:
 def _layer_params(generator, cfg: ModelConfig, static: dict, device) -> dict:
     pdt = cfg.pdtype()
     norm_init = rmsnorm_init if cfg.norm == "rmsnorm" else layernorm_init
-    params = {"norm1": norm_init(cfg.d_model, pdt, device),
-              "attn": attention_init(generator, static["attn_cfg"], pdt,
-                                     device)}
+    params = {"norm1": norm_init(cfg.d_model, pdt, device)}
+    if static["mixer"] == "mla":
+        params["attn"] = mla_init(generator, static["mla_cfg"], pdt, device)
+    else:
+        params["attn"] = attention_init(generator, static["attn_cfg"], pdt,
+                                        device)
     if static["ffn"] != "none":
         params["norm2"] = norm_init(cfg.d_model, pdt, device)
     if static["ffn"] == "mlp":
@@ -199,22 +206,23 @@ def _layer_params(generator, cfg: ModelConfig, static: dict, device) -> dict:
             generator, cfg.d_model, cfg.d_ff, act=cfg.act, sparse=cfg.sparse,
             model_shards=cfg.model_shards, param_dtype=pdt, device=device,
         )
+    elif static["ffn"] == "moe":
+        params["moe"], _ = moe_init(generator, cfg.moe, pdt, device)
     return params
 
 
 def init_statics(cfg: ModelConfig, device=None) -> dict:
     """The model's static part: the layer structure (prefix, period,
-    number of periods), each layer's kind and attention config, and the
+    number of periods), each layer's kind and attention or MLA config,
+    the MTP layer's (``cfg.mtp``: the kind of the last layer), and the
     sparse MLP layouts with their index tables on ``device`` (``None``:
     ``cuda``, raising without one)."""
     if cfg.encoder_layers:
         raise _not_ported("encoder")
-    if cfg.mtp:
-        raise _not_ported("mtp")
     device = resolve_device(device)
     prefix, period = find_structure(cfg.layer_types)
     n_periods = (cfg.n_layers - prefix) // period
-    return {
+    statics = {
         "cfg": cfg,
         "device": device,
         "prefix": prefix,
@@ -225,14 +233,32 @@ def init_statics(cfg: ModelConfig, device=None) -> dict:
         "body": [_layer_static(cfg, cfg.layer_types[prefix + j], device)
                  for j in range(period)],
     }
+    if cfg.mtp:
+        statics["mtp_layer"] = _layer_static(cfg, cfg.layer_types[-1],
+                                             device)
+    return statics
 
 
-def _stack(trees: list):
-    """Stack parallel param trees leaf by leaf along a new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stacked_draws(draw, n: int):
+    """``n`` param trees from ``draw()``, stacked leaf by leaf along a new
+    leading axis.  Each draw is copied into its row and dropped before
+    the next, so one layer's params live beside the stack, never all
+    ``n`` (a DeepSeek MoE layer is 15 GB in float32)."""
+    stacked = None
+    for i in range(n):
+        layer = draw()
+        if stacked is None:
+            stacked = _empty_stack(layer, n)
+        for dst, src in zip(_leaves(_index(stacked, i)), _leaves(layer)):
+            dst.copy_(src)
+        del layer
+    return stacked
+
+
+def _empty_stack(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    return tree.new_empty((n, *tree.shape))
 
 
 def _index(tree, i: int):
@@ -266,10 +292,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
         for st in statics["prefix_layers"]
     ]
     params["body"] = [
-        _stack([_layer_params(generator, cfg, st, device)
-                for _ in range(statics["n_periods"])])
+        _stacked_draws(lambda st=st: _layer_params(generator, cfg, st,
+                                                   device),
+                       statics["n_periods"])
         for st in statics["body"]
     ]
+    if cfg.mtp:  # next-next-token head sharing the output head
+        params["mtp_layer"] = _layer_params(generator, cfg,
+                                            statics["mtp_layer"], device)
+        params["mtp_proj"] = linear_init(generator, 2 * cfg.d_model,
+                                         cfg.d_model, param_dtype=pdt,
+                                         device=device)
+        params["mtp_norm"] = norm_init(cfg.d_model, pdt, device)
     return params, statics
 
 
@@ -282,14 +316,18 @@ def _layer_cache(static, batch: int, max_seq: int, dtype, device):
     if static["mixer"] in ("attn", "swa"):
         return init_kv_cache(static["attn_cfg"], batch, max_seq, dtype,
                              device)
+    if static["mixer"] == "mla":
+        return init_mla_cache(static["mla_cfg"], batch, max_seq, dtype,
+                              device)
     raise ValueError(static["mixer"])
 
 
 def init_cache(statics, batch: int, max_seq: int | None = None,
                dtype=torch.bfloat16, device=None):
-    """Zeroed KV caches: ``[B, T, Hkv, D]`` per prefix layer and
-    ``[n_periods, B, T, Hkv, D]`` per period position, on ``device``
-    (default: the statics')."""
+    """Zeroed caches per prefix layer, batch first (attention ``k``/``v``
+    ``[B, T, Hkv, D]``, MLA ``c_kv`` ``[B, T, kv_lora]`` and ``k_rope``
+    ``[B, T, d_rope]``), and the same with ``n_periods`` in front per
+    period position, on ``device`` (default: the statics')."""
     cfg: ModelConfig = statics["cfg"]
     max_seq = max_seq or cfg.max_seq
     device = device if device is not None else statics["device"]
@@ -317,15 +355,24 @@ def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
                  cache_pos, cache_len, prefill: bool):
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     h = norm(params["norm1"], x)
-    out, new_cache = attention_apply(
-        params["attn"], static["attn_cfg"], h, positions,
-        cache=cache, cache_pos=cache_pos, cache_len=cache_len,
-        prefill=prefill,
-    )
+    if static["mixer"] == "mla":
+        out, new_cache = mla_apply(
+            params["attn"], static["mla_cfg"], h, positions,
+            cache=cache, cache_pos=cache_pos, cache_len=cache_len,
+        )
+    else:
+        out, new_cache = attention_apply(
+            params["attn"], static["attn_cfg"], h, positions,
+            cache=cache, cache_pos=cache_pos, cache_len=cache_len,
+            prefill=prefill,
+        )
     x = x + out
-    if static["ffn"] == "mlp":
+    if static["ffn"] != "none":
         h = norm(params["norm2"], x)
-        x = x + mlp_apply(params["mlp"], static["mlp"], h)
+        if static["ffn"] == "mlp":
+            x = x + mlp_apply(params["mlp"], static["mlp"], h)
+        else:
+            x = x + moe_apply(params["moe"], static["moe"], cfg.moe, h)
     x = shard_activation(x, ("batch", "seq_shard", None))
     return x, new_cache
 
@@ -343,7 +390,9 @@ def apply_model(
     prefill: bool | None = None,
 ):
     """Forward pass.  Returns (logits [B, S, vocab_padded], cache, aux);
-    the cache, when given, is written in place and returned.
+    the cache, when given, is written in place and returned.  With
+    ``cfg.mtp`` and no cache, ``aux["mtp_logits"]`` [B, S, vocab_padded]
+    are the next-next-token head's.
 
     ``prefill`` picks the attention route for every layer at once: the
     flash kernel where it is true (a prefill at positions ``arange(S)``
@@ -384,11 +433,26 @@ def apply_model(
 
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     hidden = norm(params["final_norm"], x)
+    logits = _head(params, cfg, hidden)
+
+    aux = {}
+    if cfg.mtp and cache is None:
+        # next-next-token head: combine hidden_t with embed(token_{t+1})
+        nxt = torch.roll(tokens, -1, dims=1)
+        e_next = params["embed"]["w"][nxt].to(cdt)
+        h_mtp = linear(params["mtp_proj"], torch.cat([hidden, e_next], -1))
+        h_mtp, _ = _apply_layer(params["mtp_layer"], statics["mtp_layer"],
+                                cfg, h_mtp, positions, None, None, None,
+                                prefill)
+        aux["mtp_logits"] = _head(params, cfg,
+                                  norm(params["mtp_norm"], h_mtp))
+    return logits, cache, aux
+
+
+def _head(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        logits = hidden @ params["embed"]["w"].to(cdt).T
-    else:
-        logits = linear(params["lm_head"], hidden)
-    return logits, cache, {}
+        return hidden @ params["embed"]["w"].to(cfg.cdtype()).T
+    return linear(params["lm_head"], hidden)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import granite_3_2b, h2o_danube_1_8b
+from repro_torch.configs import get_smoke_config, granite_3_2b, h2o_danube_1_8b
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ou_mvm as tou
@@ -132,6 +132,20 @@ def _smoke_decode_lm(seed, dev):
     return cfg, params, statics
 
 
+def _smoke_lm_config(arch):
+    """The lm_configs phase's models at CPU size: each architecture's
+    smoke config, qwen's with pattern-sparse MLPs, phi3's at
+    ``model_shards=16`` (6 q heads pad to 16 over 3 kv heads: the
+    kv-repeat route, as phi3's 48 over 10 at full width)."""
+    cfg = get_smoke_config(arch)
+    if arch == "qwen2_5_32b":
+        cfg = dataclasses.replace(cfg, sparse=PatternSparseConfig(
+            density=0.5, num_patterns=3, block=32, tile=32))
+    if arch == "phi3_medium_14b":
+        cfg = dataclasses.replace(cfg, model_shards=16)
+    return cfg
+
+
 def _mini_model(seed):
     cfg = mini_cnn_config(4, 12, (8, 16, 16))
     rng = np.random.default_rng(seed)
@@ -217,6 +231,19 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "DECODE_PROMPT", 100)
     monkeypatch.setattr(cs, "DECODE_MAX_SEQ", 128)
     monkeypatch.setattr(cs, "DECODE_STEPS", 3)
+    # the lm_configs phase at smoke size: DeepSeek-V2 served from 6 prompts
+    # of 5-30 tokens through 4 slots of 64, 4 new tokens each; the MTP
+    # head on 2 x 16 tokens; qwen and phi3 prefills of 17 and 40 tokens
+    monkeypatch.setattr(cs, "lm_config", _smoke_lm_config)
+    monkeypatch.setattr(cs, "LM_SCFG", dict(batch_slots=4, max_seq=64,
+                                            eos_id=-1))
+    monkeypatch.setattr(cs, "LM_REQUESTS", 6)
+    monkeypatch.setattr(cs, "LM_LENGTHS", (5, 30))
+    monkeypatch.setattr(cs, "LM_NEW", 4)
+    monkeypatch.setattr(cs, "LM_BURSTS", (1, 3, 2))
+    monkeypatch.setattr(cs, "LM_MTP_SHAPE", (2, 16))
+    monkeypatch.setattr(cs, "LM_DENSE_PROMPTS", (17, 40))
+    monkeypatch.setattr(cs, "LM_DENSE_MAX_SEQ", 64)
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -231,7 +258,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "serve", "shard",
-        "search", "prune", "ou_mvm", "flash", "generate", "times"]
+        "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
+        "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -282,6 +310,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert b["launches_expected_per_rank"] == {
         "pattern_spmm_cuda": 36, "pattern_spmm_quant_cuda": 36}
     assert set(b["forward_ms"]) == {"fp32", "int8"}
+    assert b["moe"]["sharded_calls"] == 1 and b["moe"]["shape"][:2] == list(
+        cs.SHARD_MOE_SHAPE)
+    assert b["moe"]["rel_vs_per_shard"] <= cs.MOE_REL
     search = lines[7]
     assert search["bit_equal_vs_cpu_compile"] and search["never_worse"]
     assert set(search["chosen"]) == {"conv1", "conv2", "conv3"}
@@ -329,9 +360,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert ou["cases"][-2]["skipped_band_share"] == 1.0
     flash = lines[10]
     # 14 sweep cases x 3 types, each path length bare and from a cache,
-    # and kv_len < S
-    assert len(flash["cases"]) == 14 * 3 + 2 * 2 + 1
-    assert flash["cases"][-1]["kv_len"] == 11
+    # kv_len < S, and qwen's two prefill lengths from its cache
+    assert len(flash["cases"]) == 14 * 3 + 2 * 2 + 1 + 2
+    assert flash["cases"][-3]["kv_len"] == 11
+    assert [c["case"] for c in flash["cases"][-2:]] == [
+        "qwen_S17_cache", "qwen_S40_cache"]
     assert all(c["ok"] and c["finite"] for c in flash["cases"])
     assert all(c["route"] == ("simt" if "float32" in c["case"]
                               else "tensor_core") for c in flash["cases"])
@@ -349,10 +382,44 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(r["ok"] for r in gen["prefill_logits"])
     assert 0.0 <= gen["first_token_agreement_vs_plain"] <= 1.0
     assert gen["output_tokens"] == 7 * 4
-    times = lines[12]
+    lm = lines[12]
+    ds2, ds3 = lm["deepseek_v2"], lm["deepseek_v3"]
+    assert lm["seconds"] > 0 and set(lm["depth"]) == set(cs.LM_LAYERS)
+    assert ds2["mla_absorbed_vs_expanded"]["ok"]
+    assert ds2["mla_absorbed_vs_expanded"]["rel"] <= cs.MLA_REL
+    assert [r["case"] for r in ds2["moe_layer"]] == ["prefill", "decode"]
+    for r in ds2["moe_layer"]:
+        assert r["ok"] and r["top_k_equal_host_stable_sort"]
+        assert r["no_drop"]["dropped_pairs"] == 0
+        assert r["published"]["kept_equal_host_recount"]
+    # 4 tokens of top-2 over 8 experts at 1.25: capacity 1
+    assert ds2["moe_layer"][1]["published"]["capacity"] == 1
+    assert ds2["all_done"] and ds2["trace_count"] == 1
+    assert ds2["admitted_mid_decode"] > 0 and ds2["requests"] == 6
+    assert len(ds2["first_token_vs_fp32"]) == 6
+    assert all(r["finite"] and 0.0 <= r["route_flip_share"] <= 1.0
+               for r in ds2["first_token_vs_fp32"])
+    assert set(ds2["drop_share"]) == {"prefill", "decode"}
+    assert ds2["routed_pairs"]["decode"] > 0
+    assert set(ds2["weight_bytes"]) == {"float32", "bfloat16"}
+    assert ds2["bf16_weights_are_fp32_rounded"]
+    assert set(ds2["peak_memory_bytes"]) == {"float32", "bfloat16"}
+    assert ds3["ok"] and ds3["mtp_logits_shape"] == [2, 16, 512]
+    assert ds3["bf16_mtp_vs_fp32"] <= ds3["bf16_limit"]
+    qwen, phi3 = lm["qwen2_5_32b"], lm["phi3_medium_14b"]
+    assert qwen["grouped"] and not phi3["grouped"]
+    assert qwen["launches"] == qwen["launches_expected"] == 2 * 2
+    assert qwen["launches_by_route"] == {"tensor_core": 4, "simt": 0}
+    assert qwen["launch_head_dims"] == [32]
+    assert phi3["launches"] == phi3["launches_expected"] == 0
+    for r in (qwen, phi3):
+        assert [x["prompt_len"] for x in r["prefill_logits"]] == [17, 40]
+        assert all(x["ok"] for x in r["prefill_logits"])
+    times = lines[13]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
-            ] == [17, 40]
+            ] == [17, 40, 17, 40]
+    assert set(times["flash_by_model"]) == {"h2o_danube_1_8b", "qwen2_5_32b"}
     assert all(r["route"] == "tensor_core"
                for r in times["per_layer"]["flash_attention_cuda"])
     assert all(r["splits"] >= 1 and r["tflops"] > 0 and r["bound_ms"] > 0
@@ -376,8 +443,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert res["kernels"][2]["library_ms"] > 0
     assert res["kernels"][3]["library_ms"] > 0
     # the generate phase's prefills, then the shard phase's: gather's and
-    # flash's in (a) and one on each rank of (b), 2 layers each
-    assert res["kernels"][3]["launches"] == 2 * 7 + 2 * (2 + 2)
+    # flash's in (a) and one on each rank of (b), 2 layers each; qwen's 2
+    # prefills of 2 layers
+    assert res["kernels"][3]["launches"] == 2 * 7 + 2 * (2 + 2) + 2 * 2
     # the spmm launches of the serve, shard (a, then 2 ranks of b) and
     # prune phases
     assert res["kernels"][0]["launches"] == 36 + 40 + 2 * 36 + 36

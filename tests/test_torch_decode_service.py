@@ -70,11 +70,12 @@ def _prompts(vocab, lengths, seed=0):
     return [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
 
 
-def test_same_greedy_tokens_as_reference(lm):
-    """Lockstep: the same submissions, one step at a time, through both
-    services; after each step the decode logits agree and, at the end,
-    every request's tokens are equal."""
-    (jcfg, jp, jst), (tcfg, tp, tst) = lm
+def _lockstep(jmodel, tmodel):
+    """The same submissions through the reference's and the port's
+    service, one step at a time; after each step the decode logits agree
+    within 1e-5 relative and, at the end, every request's tokens are
+    equal.  Returns the port's service."""
+    (jcfg, jp, jst), (tcfg, tp, tst) = jmodel, tmodel
     jsvc = JDecodeService(jcfg, jst, jp, JServeConfig(
         **SCFG, cache_dtype="float32"), capture_logits=True)
     tsvc = DecodeService(tcfg, tst, tp, ServeConfig(
@@ -107,6 +108,62 @@ def test_same_greedy_tokens_as_reference(lm):
     assert all(r.done for r in treqs)
     assert tsvc.trace_count() == 1
     assert tsvc.prefill_trace_count() == len(set(map(len, prompts)))
+    return tsvc
+
+
+def test_same_greedy_tokens_as_reference(lm):
+    """Lockstep on granite's smoke model (``_lockstep``)."""
+    _lockstep(*lm)
+
+
+@pytest.fixture(scope="module")
+def deepseek():
+    """DeepSeek-V2's smoke model (MLA caches, a dense layer, then two MoE
+    layers over 8 experts) in both packages."""
+    jcfg = j_smoke("deepseek_v2_236b")
+    jp, _, jst = j_init_params(jcfg, jax.random.PRNGKey(1))
+    tcfg = get_smoke_config("deepseek_v2_236b")
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return (jcfg, jp, jst), (tcfg, tp, init_statics(tcfg, "cpu"))
+
+
+def test_deepseek_v2_greedy_tokens_match_reference(deepseek):
+    """Lockstep on DeepSeek-V2's smoke model: MoE routing over the slots
+    a step holds, idle ones included (capacity 1 a step at two slots),
+    and MLA's absorbed decode over the latent cache; the same tokens and
+    step logits as the reference's service."""
+    svc = _lockstep(*deepseek)
+    shapes = {k: tuple(v.shape)
+              for k, v in svc.caches["prefix_layers"][0].items()}
+    assert shapes == {"c_kv": (2, 32, 32), "k_rope": (2, 32, 8)}
+
+
+def test_scatter_cache_row_on_latent_caches(deepseek):
+    """``_scatter_cache_row`` writes a single-row MLA cache (rank-3
+    leaves; the body's stacked ``[n_periods, B, T, .]``) into one slot
+    and leaves the other slots as they were."""
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.runtime.serve import _scatter_cache_row
+
+    _, (tcfg, tp, tst) = deepseek
+    batch = init_cache(tst, 3, 16, dtype=torch.float32)
+    row = init_cache(tst, 1, 16, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    for tree in (batch, row):
+        for layer in tree["prefix_layers"] + tree["body"]:
+            for v in layer.values():
+                v.copy_(torch.randn(v.shape, generator=gen))
+    before = {k: v.clone() for k, v in batch["body"][0].items()}
+    _scatter_cache_row(batch, row, 1)
+    for dst, src in zip(batch["prefix_layers"], row["prefix_layers"]):
+        for k in dst:
+            assert dst[k].dim() == 3
+            assert torch.equal(dst[k][1:2], src[k])
+    for k, v in batch["body"][0].items():
+        assert v.dim() == 4 and v.shape[0] == tst["n_periods"]
+        assert torch.equal(v[:, 1:2], row["body"][0][k])
+        assert torch.equal(v[:, 0], before[k][:, 0])
+        assert torch.equal(v[:, 2], before[k][:, 2])
 
 
 def test_step_functions_and_serve_loop_match_reference(lm):

@@ -5,9 +5,13 @@ same seeded tokens go through ``repro`` and ``repro_torch``, module by
 module: the layers (norms, RoPE, the dense and the pattern-sparse MLP,
 grouped and ungrouped), ``attention_apply`` in its regimes (the prefill
 kernel route, full, chunked, per-row decode, the SWA decode slice), and
-``apply_model`` on the ``granite_3_2b`` and ``h2o_danube_1_8b`` smoke
-configs and a small pattern-sparse config.  The sparse layouts are the
-reference's numpy, copied, and must be bit-equal.  Then the reference's
+``apply_model`` on the smoke configs of every ported architecture
+(granite, h2o-danube, phi3 grouped and, at ``model_shards=16``, on the
+kv-repeat route, qwen with its qkv bias, DeepSeek-V2 with MLA and MoE,
+DeepSeek-V3 with its MTP head) and a small pattern-sparse config.  The
+sparse layouts are the reference's numpy, copied, and must be
+bit-equal.  bf16 MoE models are compared on the reference's routes
+(``_SameRoutes``).  Then the reference's
 own invariants, run on the port: prefill/decode consistency and SWA
 masking.
 
@@ -32,12 +36,15 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.configs import h2o_danube_1_8b as j_h2o
 from repro.models import attention as jatt
 from repro.models import layers as jl
+from repro.models import moe as jmoe
 from repro.models import transformer as jtr
 
 from repro_torch.configs import ARCH_NAMES, PORTED, get_config, get_smoke_config
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tatt
 from repro_torch.models import layers as tl
+from repro_torch.models import mla as tmla
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttr
 from repro_torch.models.convert import lm_params_from_numpy
 
@@ -67,9 +74,10 @@ def _port_cfg(jcfg):
     """The port's ModelConfig with the reference config's fields."""
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(ttr.ModelConfig)}
-    if jcfg.sparse is not None:
-        fields["sparse"] = tl.PatternSparseConfig(
-            **dataclasses.asdict(jcfg.sparse))
+    for name, cls in (("sparse", tl.PatternSparseConfig),
+                      ("moe", tmoe.MoEConfig), ("mla", tmla.MLAConfig)):
+        if getattr(jcfg, name) is not None:
+            fields[name] = cls(**dataclasses.asdict(getattr(jcfg, name)))
     return ttr.ModelConfig(**fields)
 
 
@@ -117,30 +125,58 @@ def test_model_statics_equal_reference():
     sparse smoke config) equals the reference's: layer kinds, attention
     configs, and each sparse layout's tables, bit for bit."""
     for jcfg in (j_h2o.config(sparse=True), _sparse_smoke()):
-        jst = _reference_statics(jcfg)
-        tst = ttr.init_statics(_port_cfg(jcfg), "cpu")
-        for key in ("prefix", "period", "n_periods"):
-            assert tst[key] == jst[key]
-        for a, b in zip(tst["prefix_layers"] + tst["body"],
-                        jst["prefix_layers"] + jst["body"]):
-            assert (a["mixer"], a["ffn"]) == (b["mixer"], b["ffn"])
-            assert dataclasses.asdict(a["attn_cfg"]) == dataclasses.asdict(
-                b["attn_cfg"])
-            ma, mb = a["mlp"], b["mlp"]
-            assert ma["act"] == mb["act"]
-            assert dataclasses.asdict(ma["sparse"]) == dataclasses.asdict(
-                mb["sparse"])
-            for name in ("gate", "up", "down"):
-                sa, sb = ma[name], mb[name]
-                for key in ("block", "tile", "n_out"):
-                    assert sa[key] == sb[key]
-                for key in ("block_ids", "inv_order"):
-                    assert sa[key].dtype == sb[key].dtype
-                    np.testing.assert_array_equal(sa[key], sb[key])
-                assert [g["tiles"] for g in sa["groups"]] == [
-                    g["tiles"] for g in sb["groups"]]
-                for ga, gb in zip(sa["groups"], sb["groups"]):
-                    np.testing.assert_array_equal(ga["blocks"], gb["blocks"])
+        _assert_statics_equal(jcfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_32b", "phi3_medium_14b",
+                                  "deepseek_v2_236b", "deepseek_v3_671b"])
+def test_new_model_statics_equal_reference(arch):
+    """The same for the full-size configs MoE, MLA and the MTP head
+    unlock (the dense two pattern-sparse): MLA configs, the MoE's shared
+    MLP and the MTP layer's static too."""
+    jmod = importlib.import_module(f"repro.configs.{arch}")
+    _assert_statics_equal(jmod.config(sparse=True))
+
+
+def _assert_statics_equal(jcfg):
+    jst = _reference_statics(jcfg)
+    tst = ttr.init_statics(_port_cfg(jcfg), "cpu")
+    for key in ("prefix", "period", "n_periods"):
+        assert tst[key] == jst[key]
+    layers = zip(tst["prefix_layers"] + tst["body"],
+                 jst["prefix_layers"] + jst["body"])
+    if jcfg.mtp:
+        layers = list(layers) + [(tst["mtp_layer"], jst["mtp_layer"])]
+    for a, b in layers:
+        assert (a["mixer"], a["ffn"]) == (b["mixer"], b["ffn"])
+        for key in ("attn_cfg", "mla_cfg"):
+            assert (key in a) == (key in b)
+            if key in a:
+                assert dataclasses.asdict(a[key]) == dataclasses.asdict(
+                    b[key])
+        if a["ffn"] == "moe":
+            assert a["moe"]["shared"]["act"] == b["moe"]["shared"]["act"]
+            assert a["moe"]["shared"]["sparse"] is b["moe"]["shared"][
+                "sparse"] is None
+            continue
+        ma, mb = a["mlp"], b["mlp"]
+        assert ma["act"] == mb["act"]
+        if mb["sparse"] is None:
+            assert ma["sparse"] is None
+            continue
+        assert dataclasses.asdict(ma["sparse"]) == dataclasses.asdict(
+            mb["sparse"])
+        for name in ("gate", "up", "down"):
+            sa, sb = ma[name], mb[name]
+            for key in ("block", "tile", "n_out"):
+                assert sa[key] == sb[key]
+            for key in ("block_ids", "inv_order"):
+                assert sa[key].dtype == sb[key].dtype
+                np.testing.assert_array_equal(sa[key], sb[key])
+            assert [g["tiles"] for g in sa["groups"]] == [
+                g["tiles"] for g in sb["groups"]]
+            for ga, gb in zip(sa["groups"], sb["groups"]):
+                np.testing.assert_array_equal(ga["blocks"], gb["blocks"])
 
 
 def _reference_statics(jcfg):
@@ -359,38 +395,125 @@ CONFIGS = {
     "granite_3_2b": lambda: j_smoke("granite_3_2b"),
     "h2o_danube_1_8b": lambda: j_smoke("h2o_danube_1_8b"),
     "sparse_smoke": _sparse_smoke,
+    "phi3_medium_14b": lambda: j_smoke("phi3_medium_14b"),
+    # 6 q heads pad to 16 over 3 kv heads: 16 % 3 != 0, the kv-repeat route
+    "phi3_kv_repeat": lambda: dataclasses.replace(
+        j_smoke("phi3_medium_14b"), model_shards=16),
+    "qwen2_5_32b": lambda: j_smoke("qwen2_5_32b"),
+    "deepseek_v2_236b": lambda: j_smoke("deepseek_v2_236b"),
+    "deepseek_v3_671b": lambda: j_smoke("deepseek_v3_671b"),
 }
+
+
+def _kernel_layers(tcfg) -> int:
+    """Layers whose prefill takes the flash kernel: grouped attention
+    (MLA never does)."""
+    grouped = tcfg.attn_cfg(False).grouped if tcfg.n_kv_heads else False
+    return sum(m in ("attn", "swa") and grouped for m, _ in tcfg.layer_types)
+
+
+# bf16 MoE: a route the two packages choose differently must be a near tie
+# of the router's probabilities (absolute); a wrong route is ~0.1 off
+NEAR_TIE = 1e-2
+
+
+class _SameRoutes:
+    """bf16 MoE models: each reference forward records every MoE layer's
+    ``top_e`` (an ordered ``jax.debug.callback``), and the
+    port's next forward takes those routes, weighting them with its own
+    router probabilities.  A near-tie of the router flips a route between
+    any two bf16 computations, and a flipped route moves its token by
+    O(1) and, through the capacity, other tokens' drops too, so logits
+    are compared on the same routes.  Where the port's own choice
+    differs from the route it is given, the choice must be a near tie
+    (``NEAR_TIE``): ``flips`` counts those rows, ``worst_gap`` keeps the
+    largest such gap."""
+
+    def __init__(self, monkeypatch):
+        self.routes, self.flips, self.worst_gap, self.calls = [], 0, 0.0, 0
+        real_j, real_t = jmoe._route, tmoe._route
+
+        def record(params, cfg, xf):
+            w, e = real_j(params, cfg, xf)
+            jax.debug.callback(lambda a: self.routes.append(np.array(a)), e,
+                               ordered=True)
+            return w, e
+
+        def forced(params, cfg, xf):
+            _, own = real_t(params, cfg, xf)
+            e = torch.as_tensor(self.routes.pop(0))
+            probs = torch.softmax(tl.linear(params["router"], xf).float(),
+                                  dim=-1)
+            for r in torch.nonzero((own.sort(-1).values
+                                    != e.sort(-1).values).any(-1))[:, 0]:
+                gap = float(probs[r, own[r]].sum() - probs[r, e[r]].sum())
+                self.flips += 1
+                self.worst_gap = max(self.worst_gap, gap)
+            self.calls += 1
+            w = probs.gather(-1, e)
+            if cfg.router_scale:
+                w = w / (w.sum(-1, keepdim=True) + 1e-9)
+            return w.to(xf.dtype), e
+
+        monkeypatch.setattr(jmoe, "_route", record)
+        monkeypatch.setattr(tmoe, "_route", forced)
+
+    def reference(self, fn, *args, **kwargs):
+        out = fn(*args, **kwargs)
+        jax.effects_barrier()
+        return out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_apply_model_matches_reference(name, dtype, kernel_calls):
-    """Logits without a cache (the prefill kernel route, the window
-    masking inside it for h2o-danube: 40 tokens > window 16), then a
-    cached prefill and two shared-position decode steps."""
-    jcfg, jp, jst, tcfg, tp, tst = _models(CONFIGS[name](), dtype)
+def test_apply_model_matches_reference(name, dtype, kernel_calls,
+                                       monkeypatch):
+    """Logits without a cache (the prefill kernel route where the heads
+    group, the window masking inside it for h2o-danube: 40 tokens >
+    window 16; DeepSeek-V3's ``mtp_logits`` too), then a cached prefill
+    and two shared-position decode steps.  In float32 the MoE routes are
+    the port's own; in bf16 they are the reference's (``_SameRoutes``)."""
+    jcfg = CONFIGS[name]()
+    same = None
+    if dtype == "bfloat16" and jcfg.moe is not None:
+        same = _SameRoutes(monkeypatch)
+    jcfg, jp, jst, tcfg, tp, tst = _models(jcfg, dtype)
+    ref = same.reference if same else (lambda fn, *a, **k: fn(*a, **k))
     assert ttr.count_params(tp) == jtr.count_params(jp)
     toks = np.random.default_rng(5).integers(0, jcfg.vocab, (2, 40))
     tol = F32_REL if dtype == "float32" else BF16_REL
-    jlog, _, _ = jtr.apply_model(jp, jst, jnp.asarray(toks))
-    tlog, _, _ = ttr.apply_model(tp, tst, _t(toks))
+    jlog, _, jaux = ref(jtr.apply_model, jp, jst, jnp.asarray(toks))
+    tlog, _, taux = ttr.apply_model(tp, tst, _t(toks))
     assert tlog.shape == (2, 40, jcfg.padded_vocab) and tlog.dtype == getattr(
         torch, dtype)
     assert _rel(tlog.float().numpy(), jlog) <= tol
-    assert len(kernel_calls) == jcfg.n_layers
+    assert set(taux) == set(jaux) == ({"mtp_logits"} if jcfg.mtp else set())
+    if jcfg.mtp:
+        assert taux["mtp_logits"].shape == tlog.shape
+        assert _rel(taux["mtp_logits"].float().numpy(),
+                    jaux["mtp_logits"]) <= tol
+    n_kernel = _kernel_layers(tcfg)
+    assert len(kernel_calls) == n_kernel
     jcache = jtr.init_cache(jst, 2, 48, dtype=jnp.float32)
     tcache = ttr.init_cache(tst, 2, 48, dtype=torch.float32)
     for start, stop in ((0, 30), (30, 31), (31, 32)):
         pos = np.arange(start, stop)
-        jlog, jcache, _ = jtr.apply_model(
-            jp, jst, jnp.asarray(toks[:, start:stop]),
+        jlog, jcache, _ = ref(
+            jtr.apply_model, jp, jst, jnp.asarray(toks[:, start:stop]),
             positions=jnp.asarray(pos), cache=jcache,
             cache_pos=jnp.int32(start), cache_len=jnp.int32(stop))
         tlog, tcache, _ = ttr.apply_model(
             tp, tst, _t(toks[:, start:stop]), positions=_t(pos),
             cache=tcache, cache_pos=start, cache_len=stop)
         assert _rel(tlog.float().numpy(), jlog) <= tol
-    assert len(kernel_calls) == 2 * jcfg.n_layers  # decode: plain route
+    assert len(kernel_calls) == 2 * n_kernel  # decode: plain route
+    if same is not None:
+        # four forwards through every MoE layer, the first through the
+        # MTP layer's too
+        n_moe = sum(f == "moe" for _, f in jcfg.layer_types)
+        mtp_moe = int(jcfg.mtp and jcfg.layer_types[-1][1] == "moe")
+        assert same.calls == 4 * n_moe + mtp_moe and not same.routes
+        assert same.worst_gap <= NEAR_TIE, (same.flips, same.worst_gap)
 
 
 def test_apply_model_decides_the_route_once(kernel_calls, monkeypatch):
@@ -409,6 +532,32 @@ def test_apply_model_decides_the_route_once(kernel_calls, monkeypatch):
     plain, _, _ = ttr.apply_model(tp, tst, toks, prefill=False)
     assert len(tests) == 1 and len(kernel_calls) == tcfg.n_layers
     assert _rel(kern.numpy(), plain.numpy()) <= F32_REL
+
+
+def test_stacked_body_rows_are_the_layer_draws():
+    """``init_params`` stacks the body one draw at a time: each row of a
+    stacked leaf is the layer the generator drew at its turn (the draw
+    order of embed, head, norms, prefix, body, MTP), so a model drawn
+    from a seed keeps its weights."""
+    tcfg = get_smoke_config("deepseek_v3_671b")
+    params, statics = ttr.init_params(tcfg, torch.Generator().manual_seed(4),
+                                      device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    tl.embed_init(gen, tcfg.padded_vocab, tcfg.d_model)
+    tl.linear_init(gen, tcfg.d_model, tcfg.padded_vocab)
+    for st, p in zip(statics["prefix_layers"], params["prefix_layers"]):
+        want = ttr._layer_params(gen, tcfg, st, "cpu")
+        assert all(torch.equal(a, b) for a, b in zip(ttr._leaves(p),
+                                                     ttr._leaves(want)))
+    for st, body in zip(statics["body"], params["body"]):
+        for rep in range(statics["n_periods"]):
+            want = ttr._layer_params(gen, tcfg, st, "cpu")
+            got = ttr._index(body, rep)
+            assert all(torch.equal(a, b) for a, b in zip(
+                ttr._leaves(got), ttr._leaves(want)))
+    want = ttr._layer_params(gen, tcfg, statics["mtp_layer"], "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        ttr._leaves(params["mtp_layer"]), ttr._leaves(want)))
 
 
 def test_prefill_decode_consistency():
@@ -455,18 +604,19 @@ def test_configs_copied_exactly():
         assert get_config(arch, "decode_32k") == _port_cfg(
             j_get_config(arch, "decode_32k"))
         assert get_smoke_config(arch) == _port_cfg(j_smoke(arch))
-    for arch in set(ARCH_NAMES) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="11.6"):
+    unlocked_by = {"mamba2_780m": "item 11.3",
+                   "jamba_1_5_large_398b": "item 11.3",
+                   "whisper_small": "item 11.4", "paligemma_3b": "item 11.5"}
+    assert set(ARCH_NAMES) - set(PORTED) == set(unlocked_by)
+    for arch, item in unlocked_by.items():
+        with pytest.raises(NotImplementedError, match=item):
             get_smoke_config(arch)
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("layer_types", (("mla", "mlp"),), "11.2"),
-    ("layer_types", (("attn", "moe"),), "11.1"),
     ("layer_types", (("ssm", "none"),), "11.3"),
     ("layer_types", (("xattn", "mlp"),), "11.4"),
     ("encoder_layers", 2, "11.4"),
-    ("mtp", True, "11.2"),
 ])
 def test_unported_parts_raise(field, value, item):
     cfg = dataclasses.replace(get_smoke_config("granite_3_2b"), n_layers=1,

@@ -11,8 +11,9 @@ Twins of ``tests/test_engine_sharded.py``, ``tests/test_partition.py``,
   * groups of 2, 4 and 8 ranks in spawned processes
     (``tests/torch_mesh_worker.py``, which imports only torch and
     repro_torch; a file-store rendezvous under ``tmp_path``): meshes
-    (1, 2), (1, 4), (1, 8) and (2, 4) with an odd batch of 7, and the
-    sharded flash-decode at (1, 2) and (2, 2).  The references are
+    (1, 2), (1, 4), (1, 8) and (2, 4) with an odd batch of 7, the
+    sharded flash-decode at (1, 2) and (2, 2), and DeepSeek-V2's smoke
+    MoE expert-parallel at (1, 2) and (2, 2).  The references are
     computed here with the JAX package and compared here.
 
 The program is the reference's uneven mini program (``block=9, tile=8``,
@@ -22,7 +23,12 @@ than one model rank runs zero-padded tiles.  Limits: fp32 logits within
 and argmax agreement >= 0.98 of the unsharded int8 run and >= 0.95 of
 fp32 (the reference's bars: a reassociation ulp in one layer can flip an
 int8 rounding in the next), top-1 agreement >= 0.98 with JAX's int8;
-flash-decode logits within 1e-5 of JAX relative to the largest logit.
+flash-decode logits within 1e-5 of JAX relative to the largest logit;
+the expert-parallel MoE within 1e-5 relative of the reference's
+``_moe_local`` (with its shared experts) over the whole batch at capacity
+factor 8.0 (no drop: ``tests/test_distributed.py``'s test), and over each
+data shard alone at 1.25 and 0.5 (capacity counted on the shard's
+tokens, as the reference's ``shard_map`` counts it).
 """
 
 import dataclasses
@@ -52,6 +58,7 @@ from repro.engine import pad_bp_tiles as j_pad_bp_tiles
 from repro.engine import partition_from_mesh as j_partition_from_mesh
 from repro.launch.mesh import make_mesh as j_make_mesh
 from repro.models import cnn as jcnn
+from repro.models import moe as jmoe
 from repro.models import transformer as jtr
 from repro.parallel.activations import (
     activation_sharding_ctx as j_activation_sharding_ctx,
@@ -77,6 +84,7 @@ from repro_torch.engine.partition import padded_tiles
 from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.models import attention as tatt
 from repro_torch.models import cnn as tcnn
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttr
 from repro_torch.models.convert import lm_params_from_numpy
 from repro_torch.obs.trace import Tracer
@@ -261,6 +269,30 @@ def _flash_job(lm, mesh, b) -> dict:
             "teacher": ref[b]["teacher"], "max_seq": FLASH_MAX_SEQ}
 
 
+MOE_CASES = (("no_drop", 8.0), ("drops", 1.25), ("many_drops", 0.5))
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """DeepSeek-V2's smoke MoE (8 experts top-2, 2 shared; 2 model
+    shards): the reference's params as numpy and an input [4, 6, D]."""
+    jcfg = dataclasses.replace(j_smoke("deepseek_v2_236b").moe,
+                               model_shards=2)
+    jp, _, _ = jmoe.moe_init(jax.random.PRNGKey(3), jcfg)
+    x = np.random.default_rng(11).normal(size=(4, 6, jcfg.d_model)).astype(
+        np.float32)
+    return jcfg, jax.tree_util.tree_map(np.asarray, jp), x
+
+
+def _moe_job(moe_model, mesh) -> dict:
+    jcfg, params, x = moe_model
+    cases = [(name, tmoe.MoEConfig(**dataclasses.asdict(
+        dataclasses.replace(jcfg, capacity_factor=cf))), x)
+        for name, cf in MOE_CASES]
+    return {"name": f"moe{mesh}", "kind": "moe", "mesh": mesh,
+            "params": params, "cases": cases}
+
+
 def _world(tmp_path_factory, world, jobs):
     results = _run_ranks(tmp_path_factory.mktemp(f"world{world}"), world,
                          jobs)
@@ -286,17 +318,18 @@ def _assert_same(a, b, what):
 
 
 @pytest.fixture(scope="module")
-def world2(tmp_path_factory, net, lm):
+def world2(tmp_path_factory, net, lm, moe_model):
     return _world(tmp_path_factory, 2, [
         _cnn_job(net, tmp_path_factory.mktemp("p2"), (1, 2)),
-        _flash_job(lm, (1, 2), 4)])
+        _flash_job(lm, (1, 2), 4), _moe_job(moe_model, (1, 2))])
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory, net, lm):
+def world4(tmp_path_factory, net, lm, moe_model):
     return _world(tmp_path_factory, 4, [
         _cnn_job(net, tmp_path_factory.mktemp("p4"), (1, 4)),
-        _flash_job(lm, (2, 2), 4), _flash_job(lm, (2, 2), 3)])
+        _flash_job(lm, (2, 2), 4), _flash_job(lm, (2, 2), 3),
+        _moe_job(moe_model, (2, 2))])
 
 
 @pytest.fixture(scope="module")
@@ -741,3 +774,31 @@ def test_sharded_flash_decode_matches_reference(request, lm, mesh):
         assert res["flash_calls"] == (FLASH_STEPS + 1) * 2  # 2 layers
         np.testing.assert_array_equal(res["greedy"],
                                       res["logits"][-1].argmax(-1))
+
+
+@pytest.mark.parametrize("case,cf", MOE_CASES)
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=str)
+def test_expert_parallel_moe_matches_reference(request, moe_model, mesh,
+                                               case, cf):
+    """Each model rank runs 4 of the 8 experts on its data shard; the
+    all-reduce over ``model`` and the all-gather over ``data`` give every
+    rank the reference's result: at capacity factor 8.0 the whole
+    batch's ``_moe_local`` (no pair drops), at 1.25 and 0.5 each data
+    shard's own (drops counted on the shard's tokens)."""
+    jcfg, params, x = moe_model
+    res = _results(request, mesh, "moe")
+    assert res["sharded_calls"] == len(MOE_CASES)
+    jcfg = dataclasses.replace(jcfg, capacity_factor=cf)
+    jst = {"shared": {"act": jcfg.act, "sparse": None}}
+
+    def ref(xs):
+        return np.asarray(jmoe.moe_apply(params, jst, jcfg, jnp.asarray(xs)))
+
+    if case == "no_drop":
+        want = ref(x)
+    else:
+        want = np.concatenate([ref(xs) for xs in np.split(x, mesh[0])])
+    assert res[case].shape == x.shape
+    assert _rel(res[case], want) <= F32_REL
+    if case != "no_drop" and mesh[0] > 1:  # shards' capacity != batch's
+        assert _rel(ref(x), want) > F32_REL

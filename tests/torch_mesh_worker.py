@@ -116,7 +116,29 @@ def flash_job(job: dict) -> dict:
             "flash_calls": attention.flash_decode_sharded.calls - calls0}
 
 
-JOBS = {"cnn": cnn_job, "flash": flash_job}
+def moe_job(job: dict) -> dict:
+    """``moe_apply`` under ``activation_sharding_ctx(mesh)`` (expert
+    parallel over ``model``, rows over ``data``) on each case's input:
+    the outputs and the expert-parallel route's calls."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.parallel.activations import activation_sharding_ctx
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    params = lm_params_from_numpy(job["params"], "cpu")
+    out = {}
+    calls0 = moe._moe_sharded.calls
+    with activation_sharding_ctx(mesh):
+        for name, cfg, x in job["cases"]:
+            static = moe.moe_static(cfg, "cpu")
+            out[name] = _np(moe.moe_apply(params, static, cfg,
+                                          torch.as_tensor(x)))
+    out["sharded_calls"] = moe._moe_sharded.calls - calls0
+    return out
+
+
+JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job}
 
 
 def main(spec_path: str, rank: int) -> None:
