@@ -25,14 +25,22 @@ DeepSeek-V2 (MLA's absorbed decode against the expanded one, one MoE
 layer against its definition and a host recount of its capacity drops,
 served in bf16 through ``DecodeService``), DeepSeek-V3's MTP head,
 qwen2.5-32b's prefills through the flash kernel at D 128 and
-phi3-medium-14b's on the kv-repeat route.  Before each path it builds
+phi3-medium-14b's on the kv-repeat route; then the three the SSM mixer
+and the encoder with cross-attention unlock (``ssm_whisper``): the SSD
+against a token-by-token recurrence at mamba2's and jamba's widths,
+mamba2-780m at all 48 layers (a cached prefill and decode against a
+cacheless forward in float32, served in bf16 through
+``DecodeService``), jamba-1.5-large's first 5 of 72 layers served in
+bf16 (every prefill's attention through the flash kernel, each call
+held to the flash phase's rounding limit) and whisper-small whole (the
+handoff with frames in float32, a bf16 batch).  Before each path it builds
 the CUDA kernels from the sources in ``src/`` and holds each against its
 plain PyTorch version on the card, at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
-``lm_configs``, ``times``.  The
+``lm_configs``, ``ssm_whisper``, ``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -282,6 +290,59 @@ LM_MTP_SHAPE = (2, 256)
 # against float32 by the generate phase's rule
 LM_DENSE_PROMPTS = (17, 300, 1000)
 LM_DENSE_MAX_SEQ = 1024
+
+# ssm_whisper: the architectures the SSM mixer and the encoder with
+# cross-attention unlock, each at its published width (ssm_config):
+# mamba2-780m and whisper-small whole, jamba-1.5-large its first
+# JAMBA_LAYERS of 72 layers (48.0 GB of bf16 weights: the 4 SSM layers, the
+# attention layer at position 4, 2 MoE layers of 16 experts; 6 layers would
+# be 68 GB, and a float32 twin of the 5 96 GB)
+JAMBA_LAYERS = 5
+# (a) one SSM layer of each width in float32 against a token-by-token
+# recurrence written here from the formulas (ssd_recurrence).  The final
+# state and the conv window: every value within SSD_ATOL + SSD_RTOL *
+# |recurrence|, tests/test_models.py's bound between its chunked scan and
+# its recurrence (chunk 4 there).  The output: max|d| <= SSD_OUT_REL *
+# max|recurrence|.  At a chunk of 128 the chunked form's decay exp(cum_i -
+# cum_j) differences cumulative sums that reach hundreds, so its float32
+# error is absolute at the output's scale, and the reference's own JAX
+# scan misses the elementwise bound on outputs near zero by 5.1x at
+# mamba2's width (scripts/ssd_chunk_error.py: max|d| 1.7e-5 of the
+# largest); a wrong mask, group, decay or pad moves the output by O(1).
+# S = 1000 pads the last chunk of 128; 4500 is the generate phase's long
+# prompt.
+SSD_S = {"mamba2_780m": (1000, 4500), "jamba_1_5_large_398b": (1000,)}
+SSD_ATOL, SSD_RTOL = 1e-5, 1e-4
+SSD_OUT_REL = 1e-4
+# (b) and (d): the state handoff in float32.  Prefill P tokens into a
+# cache, then HANDOFF_STEPS greedy decode steps (WHISPER_STEPS for
+# whisper); the logits at the prefill's last position and at
+# every step against one cacheless forward over all the tokens, within
+# HANDOFF_REL of the largest logit.  Both run the same float32 model and
+# differ only in the order of float sums (the chunked scan against the
+# recurrence, a cache read against the in-register keys), ~1e-6 a layer;
+# a state or a conv window not carried over, or a memory not kept, moves
+# the logits by O(10 %) of the largest.
+HANDOFF_PROMPTS = (17, 1000)
+HANDOFF_STEPS = 4
+HANDOFF_REL = 1e-4
+# (c) mamba2 served in bf16 as the generate phase serves h2o-danube
+# (GEN_SCFG, gen_prompts, GEN_NEW, GEN_BURSTS)
+# jamba served in bf16 through DecodeService(JAMBA_SCFG): JAMBA_REQUESTS
+# seeded prompts of JAMBA_LENGTHS tokens in JAMBA_BURSTS, JAMBA_NEW new
+# tokens each
+JAMBA_SCFG = dict(batch_slots=4, max_seq=1024, eos_id=-1)
+JAMBA_REQUESTS = 8
+JAMBA_LENGTHS = (16, 1000)
+JAMBA_NEW = 16
+JAMBA_BURSTS = (1, 3, 2, 2)
+# whisper: (d) one prompt of WHISPER_PROMPT tokens on WHISPER_FRAMES stub
+# frame embeddings [1, enc_seq, d], then WHISPER_STEPS greedy decode
+# steps; (e) a bf16 batch of WHISPER_BATCH prompts against the float32
+# model on the same inputs
+WHISPER_PROMPT = 32
+WHISPER_STEPS = 8
+WHISPER_BATCH = 4
 
 # a picklable function each rank of (b) calls before anything else (None:
 # nothing; the CPU rehearsal installs its counting plain versions there)
@@ -1669,19 +1730,23 @@ def lm_config(arch: str):
                                layer_types=cfg.layer_types[:n])
 
 
-def build_lm_config(arch: str, seed: int, dev, dtype: str):
-    """(cfg, params, statics) of :func:`lm_config` with ``dtype`` weights
-    drawn on ``dev`` from the seed (drawn in float32 and cast, so the
-    bf16 weights are the float32 ones rounded)."""
+def draw_model(cfg, seed: int, dev, dtype: str):
+    """(cfg, params, statics) of ``cfg`` with ``dtype`` weights drawn on
+    ``dev`` from the seed (drawn in float32 and cast, one tensor at a
+    time, so the bf16 weights are the float32 ones rounded)."""
     import torch
 
     from repro_torch.models.transformer import init_params
 
-    cfg = dataclasses.replace(lm_config(arch), param_dtype=dtype,
-                              compute_dtype=dtype)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params, statics = init_params(cfg, gen, device=dev)
     return cfg, params, statics
+
+
+def build_lm_config(arch: str, seed: int, dev, dtype: str):
+    """:func:`draw_model` of :func:`lm_config`."""
+    return draw_model(lm_config(arch), seed, dev, dtype)
 
 
 def param_bytes(params) -> int:
@@ -2161,6 +2226,510 @@ def lm_configs_phase(seed: int, dev) -> dict:
     check(not phi3["grouped"] and phi3["launches"] == 0,
           "phi3 must take the kv-repeat route, no flash launch")
     return {"launches": qwen["launches"], "seconds": seconds}
+
+
+def ssm_config(arch: str):
+    """The ``ssm_whisper`` phase's config of ``arch`` at its published
+    width: mamba2-780m and whisper-small whole, jamba-1.5-large its first
+    ``JAMBA_LAYERS`` layers."""
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").config()
+    if arch == "jamba_1_5_large_398b":
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS,
+                                  layer_types=cfg.layer_types[:JAMBA_LAYERS])
+    return cfg
+
+
+def ssd_recurrence(params, cfg, x):
+    """One Mamba-2 layer on ``x`` [B, S, D] in float32, token by token from
+    its formulas, sharing no code with ``models.ssm``: z, xBC, dt = x W_in;
+    xBC through the depthwise causal conv (``conv1d``, groups = channels)
+    plus bias and SiLU; dt = softplus(dt + dt_bias), a = -exp(A_log);
+    per head h with its group's B and C, s_t = exp(dt_t a) s_{t-1} +
+    dt_t x_t B_t^T and y_t = s_t C_t + D x_t; out = RMSNorm(y * SiLU(z))
+    W_out.  Returns (out, the last d_conv - 1 rows of xBC, s_S)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, _ = x.shape
+    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
+    h, p, k = cfg.n_heads, cfg.head_dim, cfg.d_conv
+    f = {name: t.float() for name, t in params.items()
+         if isinstance(t, torch.Tensor)}
+    zxbcdt = x.float() @ params["in_proj"]["w"].float()
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + cfg.conv_dim]
+    dt = zxbcdt[..., di + cfg.conv_dim:] + f["dt_bias"]
+    dt = dt.clamp(min=0) + torch.log1p(torch.exp(-dt.abs()))  # softplus
+    a = -torch.exp(f["A_log"])
+    conv = F.conv1d(F.pad(xbc.transpose(1, 2), (k - 1, 0)),
+                    f["conv_w"].T[:, None, :], f["conv_b"],
+                    groups=cfg.conv_dim).transpose(1, 2)
+    xc = F.silu(conv)
+    xs = xc[..., :di].reshape(b, s, h, p)
+    group = torch.arange(h, device=x.device) // (h // g)
+    bh = xc[..., di:di + g * n].reshape(b, s, g, n)[:, :, group]
+    ch = xc[..., di + g * n:].reshape(b, s, g, n)[:, :, group]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        state = (torch.exp(dt[:, t] * a)[..., None, None] * state
+                 + (dt[:, t, :, None] * xs[:, t])[..., None]
+                 * bh[:, t, :, None, :])
+        ys.append((state * ch[:, t, :, None, :]).sum(-1))
+    y = (torch.stack(ys, 1) + xs * f["D"][None, None, :, None]).reshape(
+        b, s, di)
+    y = y * F.silu(z)
+    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + 1e-6) * params[
+        "norm"]["scale"].float()
+    return y @ params["out_proj"]["w"].float(), xbc[:, -(k - 1):], state
+
+
+def ssd_rows(arch: str, seed: int, dev) -> list[dict]:
+    """(a): one float32 SSM layer of ``arch``'s width from the seed, on
+    seeded inputs of each length of ``SSD_S[arch]``: ``ssm_apply`` (the
+    chunked scan, written into a cache) against :func:`ssd_recurrence`,
+    the output, the final state and the conv window."""
+    import torch
+
+    from repro_torch.models.ssm import init_ssm_cache, ssm_apply, ssm_init
+
+    cfg = ssm_config(arch).ssm
+    params = ssm_init(torch.Generator(device=dev).manual_seed(seed + 12),
+                      cfg, torch.float32, dev)
+    rng = np.random.default_rng(seed + 13)
+    rows = []
+    for s in SSD_S[arch]:
+        x = torch.as_tensor(rng.normal(size=(1, s, cfg.d_model)).astype(
+            np.float32), device=dev)
+        cache = init_ssm_cache(cfg, 1, device=dev)
+        with torch.no_grad():
+            out, _ = ssm_apply(params, cfg, x, cache)
+            want = ssd_recurrence(params, cfg, x)
+        row = {"model": arch, "S": s, "chunk": cfg.chunk,
+               "pad": (-s) % cfg.chunk, "heads": cfg.n_heads,
+               "head_dim": cfg.head_dim, "d_state": cfg.d_state}
+        for name, got, ref in zip(("out", "conv", "state"),
+                                  (out, cache["conv"], cache["state"]), want):
+            d = (got - ref).abs()
+            row[name] = {
+                "max_abs_diff": float(d.max()),
+                "max_abs_ref": float(ref.abs().max()),
+                "rel": float(d.max() / ref.abs().max()),
+                "worst_over_elementwise": float(
+                    (d / (SSD_ATOL + SSD_RTOL * ref.abs())).max())}
+        row["ok"] = (row["out"]["rel"] <= SSD_OUT_REL
+                     and row["conv"]["worst_over_elementwise"] <= 1.0
+                     and row["state"]["worst_over_elementwise"] <= 1.0)
+        rows.append(row)
+    return rows
+
+
+def handoff_row(params, statics, prompt, steps: int, dev,
+                frames=None) -> dict:
+    """(b) and (d): prefill ``prompt`` [n] into a float32 cache, take
+    ``steps`` greedy decode steps through ``decode_logits`` (what
+    ``make_decode_step`` samples from), then one cacheless forward over
+    the n + steps tokens; the logits at position n - 1 and at each step,
+    relative to the cacheless forward's largest."""
+    import torch
+
+    from repro_torch.models.transformer import apply_model, init_cache
+    from repro_torch.runtime.serve import decode_logits
+
+    cfg = statics["cfg"]
+    extra = {} if frames is None else {"frames": frames}
+    n = len(prompt)
+    toks = torch.zeros((1, n + steps), dtype=torch.long, device=dev)
+    toks[0, :n] = torch.as_tensor(prompt.astype(np.int64), device=dev)
+    cache = init_cache(statics, 1, n + steps, dtype=torch.float32,
+                       device=dev)
+    logits, _, _ = apply_model(params, statics, toks[:, :n],
+                               positions=torch.arange(n, device=dev),
+                               cache=cache, cache_pos=0, cache_len=n, **extra)
+    got = [logits[0, -1, :cfg.vocab].float()]
+    for i in range(n, n + steps):
+        toks[0, i] = got[-1].argmax()
+        lg, cache = decode_logits(statics, params, cache, toks[:, i],
+                                  torch.tensor(i, device=dev))
+        got.append(lg[0])
+    full, _, _ = apply_model(params, statics, toks, **extra)
+    want = full[0, n - 1:, :cfg.vocab].float()
+    got = torch.stack(got)
+    rel = rel_diff(got, want)
+    finite = bool(torch.isfinite(got).all())
+    return {"prompt_len": n, "steps": steps, "rel": rel,
+            "limit": HANDOFF_REL, "finite": finite,
+            "max_abs_logit": float(want.abs().max()),
+            "greedy_tokens": toks[0, n:].tolist(),
+            "ok": rel <= HANDOFF_REL and finite}
+
+
+def service_split(tracer) -> dict:
+    """Host seconds of a service run's prefill and decode spans, and the
+    decode steps and tokens they hold."""
+    spans = tracer.spans()
+    pre = [sp.dur for sp in spans if sp.name == "serve.prefill"]
+    dec = [sp for sp in spans if sp.name == "serve.decode"]
+    dec_s = sum(sp.dur for sp in dec)
+    tokens = sum(int(sp.args["live"]) for sp in dec)
+    return {"prefills": len(pre), "prefill_seconds": sum(pre),
+            "decode_steps": len(dec), "decode_seconds": dec_s,
+            "decode_tokens_per_s": tokens / dec_s if dec_s else None}
+
+
+def ssm_cache_bytes(cache, slots: int) -> int:
+    """Bytes of the SSM leaves (``conv``, ``state``) of a cache, a slot."""
+    from repro_torch.models.transformer import _leaves
+
+    layers = [c for c in cache["prefix_layers"] + cache["body"]
+              if "state" in c]
+    return sum(t.numel() * t.element_size() for t in _leaves(layers)) // slots
+
+
+def mamba2_run(seed: int, dev) -> dict:
+    """(b) and (c) on mamba2-780m at all 48 layers: float32 first (the
+    handoff, and each served prompt's last prefill logits), then the same
+    weights in bf16 (the float32 ones rounded) served through
+    ``DecodeService`` as the generate phase serves h2o-danube."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime.serve import DecodeService, ServeConfig
+    from repro_torch.serve.api import Request
+
+    t0 = time.perf_counter()
+    cfg, params, statics = draw_model(ssm_config("mamba2_780m"), seed,
+                                       dev, "float32")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 14)
+    prompts = gen_prompts(cfg.vocab, seed + 6)
+    res = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "ssm": dataclasses.asdict(cfg.ssm),
+           "init_seconds": init_s,
+           "weight_bytes": {"float32": param_bytes(params)}}
+    with torch.no_grad():
+        res["handoff"] = [
+            handoff_row(params, statics, rng.integers(1, cfg.vocab, n),
+                        HANDOFF_STEPS, dev)
+            for n in HANDOFF_PROMPTS]
+        first32 = [prefill_logits(params, statics, p, GEN_SCFG["max_seq"],
+                                  torch.float32, True, dev)[-1].clone()
+                   for p in prompts]
+    res["peak_memory_bytes"] = {"float32": torch.cuda.max_memory_allocated()}
+    cfg, params, statics = to_dtype(cfg, params, statics, "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["weight_bytes"]["bfloat16"] = param_bytes(params)
+
+    scfg = ServeConfig(**GEN_SCFG)
+    tracer = Tracer()
+    svc = DecodeService(cfg, statics, params, scfg, tracer=tracer, device=dev)
+    svc.submit(Request(prompt=np.ones(4, np.int32), max_new_tokens=2))
+    svc.run()  # warm-up through the real admit/decode path
+    svc.reset_metrics()
+    tracer.reset()
+    launches0 = tfa.flash_attention_cuda.launches
+    reqs = [Request(prompt=p, max_new_tokens=GEN_NEW) for p in prompts]
+    run_s = serve_bursts(svc, reqs, GEN_BURSTS)
+    m = svc.metrics
+    split = service_split(tracer)
+    mid = sum(1 for e in tracer.events()
+              if e.get("args", {}).get("event") == "admit_mid_decode")
+    alone = {}
+    for i in (0, GEN_LONG_AT):
+        r = Request(prompt=prompts[i], max_new_tokens=GEN_NEW)
+        svc.submit(r)
+        svc.run()
+        alone[i] = r.output == reqs[i].output
+    first = []
+    with torch.no_grad():
+        for p, r, f32 in zip(prompts, reqs, first32):
+            lg = prefill_logits(params, statics, p, scfg.max_seq,
+                                torch.bfloat16, True, dev)[-1]
+            first.append({"prompt_len": len(p),
+                          "first_token_is_argmax": int(r.output[0]) == int(
+                              lg.argmax()),
+                          "bf16_vs_fp32": rel_diff(lg, f32),
+                          "finite": bool(torch.isfinite(lg).all())})
+    out_tokens = sum(len(r.output) for r in reqs)
+    res.update(
+        serve_config=GEN_SCFG, requests=len(reqs), new_tokens=GEN_NEW,
+        bursts=list(GEN_BURSTS), prompt_lengths=[len(p) for p in prompts],
+        all_done=all(r.done and len(r.output) == GEN_NEW for r in reqs),
+        trace_count=svc.trace_count(), admitted_mid_decode=mid,
+        alone_vs_cobatched_equal=alone, first_tokens=first,
+        ssm_cache_bytes_per_slot=ssm_cache_bytes(svc.caches,
+                                                 scfg.batch_slots),
+        flash_launches=tfa.flash_attention_cuda.launches - launches0,
+        run_seconds=run_s, output_tokens=out_tokens,
+        tokens_per_s=out_tokens / run_s, **split,
+        ttft_p50_s=m["first_result_p50_s"], ttft_p99_s=m["first_result_p99_s"],
+        latency_p50_s=m["latency_p50_s"], latency_p99_s=m["latency_p99_s"])
+    res["peak_memory_bytes"]["bfloat16"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def jamba_run(seed: int, dev) -> dict:
+    """jamba-1.5-large's first ``JAMBA_LAYERS`` layers in bf16 from the
+    seed: served through ``DecodeService`` (the main path: flash counts
+    from 0, the bursts, read), then each prompt's bf16 prefill again with
+    its flash calls recorded (q, k, v at the real hidden state and the
+    kernel's output), each held to the flash phase's rounding limit."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _leaves
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime.serve import DecodeService, ServeConfig
+    from repro_torch.serve.api import Request
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, statics = draw_model(
+        ssm_config("jamba_1_5_large_398b"), seed, dev, "bfloat16")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = param_bytes(params)
+    largest = max(t.numel() for t in _leaves(params))
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "layer_types": [list(t) for t in cfg.layer_types],
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "q_heads_padded": cfg.attn_cfg(False).hq_pad,
+           "grouped": cfg.attn_cfg(False).grouped, "d_head": cfg.d_head,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "moe": dataclasses.asdict(cfg.moe),
+           "ssm": dataclasses.asdict(cfg.ssm), "init_seconds": init_s,
+           "weight_bytes": nbytes,
+           # the weights plus the largest tensor's float32 draw, cast
+           "reckoned_peak_bytes": nbytes + 4 * largest,
+           "draw_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    rng = np.random.default_rng(seed + 15)
+    lengths = rng.integers(JAMBA_LENGTHS[0], JAMBA_LENGTHS[1] + 1,
+                           JAMBA_REQUESTS)
+    lengths[0] = JAMBA_LENGTHS[1]
+    prompts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32)
+               for n in lengths]
+    scfg = ServeConfig(**JAMBA_SCFG)
+    tracer = Tracer()
+    svc = DecodeService(cfg, statics, params, scfg, tracer=tracer, device=dev)
+    svc.submit(Request(prompt=np.ones(4, np.int32), max_new_tokens=2))
+    svc.run()  # warm-up through the real admit/decode path
+    svc.reset_metrics()
+    tracer.reset()
+    widths = []
+    real = ops.flash_attention
+
+    def shapes(q, *args, **kwargs):
+        widths.append(int(q.shape[-1]))
+        return real(q, *args, **kwargs)
+
+    ops.flash_attention = shapes
+    try:
+        # the jamba path: counts from 0, the bursts through the service, read
+        for key in ("launches", "launches_tensor_core", "launches_simt"):
+            setattr(tfa.flash_attention_cuda, key, 0)
+        reqs = [Request(prompt=p, max_new_tokens=JAMBA_NEW) for p in prompts]
+        with RecordedRoutes() as rec:
+            run_s = serve_bursts(svc, reqs, JAMBA_BURSTS)
+        launches = tfa.flash_attention_cuda.launches
+        routes = {"tensor_core": tfa.flash_attention_cuda.launches_tensor_core,
+                  "simt": tfa.flash_attention_cuda.launches_simt}
+    finally:
+        ops.flash_attention = real
+    drops = {"prefill": [0, 0], "decode": [0, 0]}
+    for t, e in rec.calls:
+        keep = moe.kept_pairs(e, cfg.moe)
+        kind = "decode" if t == scfg.batch_slots else "prefill"
+        drops[kind][0] += int((~keep).sum())
+        drops[kind][1] += keep.numel()
+    mid = sum(1 for ev in tracer.events()
+              if ev.get("args", {}).get("event") == "admit_mid_decode")
+    m = svc.metrics
+
+    # each prompt's bf16 prefill again, its flash calls recorded
+    calls = []
+
+    def record(q, k, v, **kw):
+        y = real(q, k, v, **kw)
+        calls.append((dict(q=q, k=k, v=v, **kw), y))
+        return y
+
+    first = []
+    ops.flash_attention = record
+    try:
+        with torch.no_grad():
+            for p, r in zip(prompts, reqs):
+                lg = prefill_logits(params, statics, p, scfg.max_seq,
+                                    torch.bfloat16, True, dev)[-1]
+                first.append(int(r.output[0]) == int(lg.argmax()))
+    finally:
+        ops.flash_attention = real
+    flash = []
+    for c, y in calls:
+        case = {**c, "case": f"jamba_S{c['q'].shape[2]}", "dtype": "bfloat16"}
+        flash.append(flash_row(case, y))
+    res.update(
+        serve_config=JAMBA_SCFG, requests=len(reqs), new_tokens=JAMBA_NEW,
+        bursts=list(JAMBA_BURSTS), prompt_lengths=[len(p) for p in prompts],
+        all_done=all(r.done and len(r.output) == JAMBA_NEW for r in reqs),
+        trace_count=svc.trace_count(), admitted_mid_decode=mid,
+        first_token_is_bf16_prefill_argmax=first,
+        launches=launches, launches_by_route=routes,
+        launch_head_dims=sorted(set(widths)),
+        launches_expected=sum(mx == "attn" for mx, _ in cfg.layer_types)
+        * len(reqs),
+        flash_vs_plain=flash,
+        drop_share={k: d / max(n, 1) for k, (d, n) in drops.items()},
+        routed_pairs={k: v[1] for k, v in drops.items()},
+        run_seconds=run_s,
+        tokens_per_s=sum(len(r.output) for r in reqs) / run_s,
+        **service_split(tracer),
+        ttft_p50_s=m["first_result_p50_s"], latency_p50_s=m["latency_p50_s"],
+        latency_p99_s=m["latency_p99_s"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return res
+
+
+def whisper_run(seed: int, dev) -> dict:
+    """(d) and (e) on whisper-small whole (12 encoder and 12 decoder
+    layers), frames from the seed: float32 first, then the same weights
+    in bf16."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.transformer import apply_model, init_cache
+    from repro_torch.runtime.serve import ServeConfig, make_prefill_step
+
+    cfg, params, statics = draw_model(ssm_config("whisper_small"), seed,
+                                       dev, "float32")
+    rng = np.random.default_rng(seed + 16)
+    launches0 = tfa.flash_attention_cuda.launches
+
+    def frames(batch):
+        return torch.as_tensor(rng.normal(
+            size=(batch, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+            device=dev)
+
+    one = frames(1)
+    prompt = rng.integers(1, cfg.vocab, WHISPER_PROMPT)
+    batch = torch.as_tensor(rng.integers(1, cfg.vocab, (
+        WHISPER_BATCH, WHISPER_PROMPT)), device=dev)
+    many = frames(WHISPER_BATCH)
+    acfg = cfg.attn_cfg(False)
+    res = {"model": cfg.name, "layers": {"encoder": cfg.encoder_layers,
+                                         "decoder": cfg.n_layers},
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "q_heads_padded": acfg.hq_pad, "grouped": acfg.grouped,
+           "enc_seq": cfg.enc_seq, "vocab": cfg.vocab,
+           "weight_bytes": {"float32": param_bytes(params)}}
+    with torch.no_grad():
+        res["handoff"] = handoff_row(params, statics, prompt, WHISPER_STEPS,
+                                     dev, frames=one)
+        # the step function a user calls: its token is the prefill's argmax
+        cache = init_cache(statics, 1, WHISPER_PROMPT, dtype=torch.float32,
+                           device=dev)
+        tok, cache = make_prefill_step(cfg, statics, ServeConfig())(
+            params, cache, torch.as_tensor(prompt[None], device=dev),
+            extras={"frames": one})
+        res["prefill_step_token_is_handoff_first"] = (
+            int(tok[0]) == res["handoff"]["greedy_tokens"][0])
+        want, _, _ = apply_model(params, statics, batch, frames=many)
+        cfg, params, statics = to_dtype(cfg, params, statics, "bfloat16")
+        torch.cuda.empty_cache()
+        got, _, _ = apply_model(params, statics, batch,
+                                frames=many.to(torch.bfloat16))
+    res["weight_bytes"]["bfloat16"] = param_bytes(params)
+    res["bf16_batch"] = {
+        "shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+        "bf16_vs_fp32": rel_diff(got[..., :cfg.vocab].float(),
+                                 want[..., :cfg.vocab].float())}
+    res["flash_launches"] = tfa.flash_attention_cuda.launches - launches0
+    return res
+
+
+def ssm_whisper_phase(seed: int, dev) -> dict:
+    """The three architectures the SSM mixer and the encoder with
+    cross-attention unlock, at full width: (a) the SSD against a
+    token-by-token recurrence at mamba2's and jamba's widths; mamba2 at
+    all 48 layers ((b) the state handoff in float32, (c) served in bf16);
+    jamba's first 5 layers served in bf16, its prefills through the
+    flash kernel; whisper-small ((d) the handoff with frames in float32,
+    (e) a bf16 batch); checks and the report."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ssd = [r for arch in SSD_S for r in ssd_rows(arch, seed, dev)]
+    torch.cuda.empty_cache()
+    mamba = mamba2_run(seed, dev)
+    torch.cuda.empty_cache()
+    jamba = jamba_run(seed, dev)
+    torch.cuda.empty_cache()
+    whisper = whisper_run(seed, dev)
+    seconds = time.perf_counter() - t0
+    emit("ssm_whisper", seconds=seconds,
+         depth={"mamba2_780m": "48 of 48 layers",
+                "jamba_1_5_large_398b": f"{JAMBA_LAYERS} of 72 layers",
+                "whisper_small": "12 + 12 of 12 + 12 layers"},
+         ssd_limit=f"output: max|d| <= {SSD_OUT_REL} x max|recurrence|; "
+                   f"conv window and state: |d| <= {SSD_ATOL} + {SSD_RTOL} "
+                   f"x |recurrence|, each value",
+         handoff_limit=f"max|d| <= {HANDOFF_REL} x max(1, max|cacheless "
+                       f"logit|)",
+         ssd=ssd, mamba2_780m=mamba, jamba_1_5_large_398b=jamba,
+         whisper_small=whisper,
+         peak_memory_bytes=max(torch.cuda.max_memory_allocated(),
+                               *mamba["peak_memory_bytes"].values(),
+                               jamba["draw_peak_memory_bytes"],
+                               jamba["peak_memory_bytes"]))
+    bad = [(r["model"], r["S"]) for r in ssd if not r["ok"]]
+    check(not bad, f"SSD off the token-by-token recurrence: {bad}")
+    bad = [r["prompt_len"] for r in mamba["handoff"] if not r["ok"]]
+    check(not bad, f"mamba2 cached prefill + decode off the cacheless "
+                   f"forward for prompts of {bad} tokens")
+    check(mamba["all_done"], "a mamba2 request did not complete")
+    check(mamba["trace_count"] == 1,
+          f"mamba2 decode trace_count {mamba['trace_count']} != 1")
+    check(mamba["admitted_mid_decode"] > 0,
+          "no mamba2 slot was refilled mid-decode")
+    check(all(r["first_token_is_argmax"] and r["finite"]
+              for r in mamba["first_tokens"]),
+          "mamba2 served first tokens off the bf16 prefill's argmax, or "
+          "its prefill logits not finite")
+    check(all(mamba["alone_vs_cobatched_equal"].values()),
+          f"mamba2 co-batched tokens differ from alone: "
+          f"{mamba['alone_vs_cobatched_equal']}")
+    check(jamba["all_done"], "a jamba request did not complete")
+    check(jamba["admitted_mid_decode"] > 0,
+          "no jamba slot was refilled mid-decode")
+    check(all(jamba["first_token_is_bf16_prefill_argmax"]),
+          f"jamba served first tokens off the bf16 prefill's argmax: "
+          f"{jamba['first_token_is_bf16_prefill_argmax']}")
+    check(jamba["grouped"] and jamba["launches"] == jamba["launches_expected"]
+          and jamba["launches_by_route"]["tensor_core"] == jamba["launches"]
+          and jamba["launch_head_dims"] == [jamba["d_head"]],
+          f"jamba flash launches {jamba['launches']} (expected "
+          f"{jamba['launches_expected']}), by route "
+          f"{jamba['launches_by_route']}, head dims "
+          f"{jamba['launch_head_dims']}")
+    bad = [r["case"] for r in jamba["flash_vs_plain"] if not r["ok"]]
+    check(jamba["flash_vs_plain"] and not bad,
+          f"jamba's flash calls off the plain version: {bad}")
+    check(whisper["handoff"]["ok"],
+          f"whisper cached prefill + decode off the cacheless forward: "
+          f"{whisper['handoff']}")
+    check(whisper["prefill_step_token_is_handoff_first"],
+          "make_prefill_step's token is not the prefill's argmax")
+    check(whisper["bf16_batch"]["finite"], "whisper bf16 logits not finite")
+    check(not whisper["grouped"] and whisper["flash_launches"] == 0,
+          "whisper's heads do not group: no flash launch expected")
+    return {"launches": jamba["launches"], "seconds": seconds,
+            "max_abs_err": max(r["max_abs_diff"]
+                               for r in jamba["flash_vs_plain"])}
 
 
 def build_decode_lm(seed: int, dev):
@@ -2922,6 +3491,12 @@ def run(seed: int, dev) -> dict:
     # -- 10b. MoE, MLA, the MTP head: the four configs they unlock -------
     launches["flash_attention_cuda"] += lm_configs_phase(seed,
                                                          dev)["launches"]
+
+    # -- 10c. the SSM mixer, the encoder and cross-attention --------------
+    sw = ssm_whisper_phase(seed, dev)
+    launches["flash_attention_cuda"] += sw["launches"]
+    max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
+                                          sw["max_abs_err"])
 
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []

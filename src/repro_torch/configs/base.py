@@ -4,13 +4,11 @@ Every ported architecture has a module exporting:
   config(shape: ShapeSpec|None, sparse=False) -> ModelConfig  (published)
   smoke_config() -> ModelConfig                 (reduced, CPU-runnable)
 
-Ported: ``granite_3_2b``, ``h2o_danube_1_8b``, ``phi3_medium_14b``,
-``qwen2_5_32b``, ``deepseek_v2_236b`` and ``deepseek_v3_671b``.  The
-other four architectures of ``ARCH_NAMES`` come with the parts they
-need and raise ``NotImplementedError`` here naming the ``ROADMAP.md``
-Queue 1 item that unlocks each (``_UNLOCKED_BY``).  The reference's
-``input_specs`` builds ``jax.ShapeDtypeStruct`` stand-ins for
-its dry-run lowering and has no counterpart in the port.
+Ported: every architecture of ``ARCH_NAMES`` but ``paligemma_3b``,
+which raises ``NotImplementedError`` here naming what it waits for
+(``_UNLOCKED_BY``).  The reference's ``input_specs`` (and whisper's
+``extra_inputs``) build ``jax.ShapeDtypeStruct`` stand-ins for its
+dry-run lowering and have no counterpart in the port.
 
 Shapes (seq_len x global_batch):
   train_4k     4,096 x 256   training
@@ -59,15 +57,14 @@ ARCH_NAMES = [
 ]
 
 PORTED = ("granite_3_2b", "h2o_danube_1_8b", "phi3_medium_14b",
-          "qwen2_5_32b", "deepseek_v2_236b", "deepseek_v3_671b")
+          "qwen2_5_32b", "deepseek_v2_236b", "deepseek_v3_671b",
+          "mamba2_780m", "jamba_1_5_large_398b", "whisper_small")
 
 # what each unported architecture waits for (ROADMAP.md Queue 1 item 11)
 _UNLOCKED_BY = {
-    "mamba2_780m": "the SSM mixer, item 11.3",
-    "jamba_1_5_large_398b": "the SSM mixer, item 11.3 (its MoE, item 11.1, "
-                            "is ported)",
-    "whisper_small": "the encoder and cross-attention, item 11.4",
-    "paligemma_3b": "the VLM prefix, item 11.5",
+    "paligemma_3b": "the VLM prefix, item 11.5, and a flash kernel for its "
+                    "head width of 256 (kernels/flash_attention.py's "
+                    "MAX_HEAD_DIM is 128)",
 }
 
 # archs with sub-quadratic sequence mixing -> long_500k runs

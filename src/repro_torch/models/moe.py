@@ -54,6 +54,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_init,
     mlp_static,
+    silu,
 )
 from repro_torch.parallel.activations import current_mesh
 from repro_torch.parallel.sharding import mesh_axis_sizes
@@ -188,7 +189,7 @@ def _dispatch_compute_combine(
     h = torch.einsum("ecd,edf->ecf", xe, experts["up"].to(xf.dtype))
     if cfg.act == "swiglu":
         g = torch.einsum("ecd,edf->ecf", xe, experts["gate"].to(xf.dtype))
-        h = F.silu(g) * h
+        h = silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     ye = torch.einsum("ecf,efd->ecd", h, experts["down"].to(xf.dtype))

@@ -1,20 +1,29 @@
 """Config-driven transformer assembly.
 
-Port of ``src/repro/models/transformer.py`` for the mixers ``attn``,
-``swa`` and ``mla`` (DeepSeek's latent attention, ``models.mla``), the
-ffns ``mlp`` (dense or the paper's pattern-sparse MLP) and ``moe``
-(``models.moe``), and DeepSeek-V3's MTP head.  A model is a sequence of
+Port of ``src/repro/models/transformer.py``.  A model is a sequence of
 layers; each layer is a (mixer, ffn) pair, and ``layer_types`` lists
-every layer.  The stack is factored into an optional non-periodic
-*prefix* (DeepSeek's leading dense layers) plus a repeating *period*;
-period params are stacked ``[n_periods, ...]`` as in the reference, and
-where the reference runs them with ``lax.scan`` the port loops over the
-stacked tensors in Python.  The reference's remat (``jax.checkpoint``) is
-a training concern and is left out: serving has no backward.
+every layer:
 
-Not ported yet, each raising ``NotImplementedError`` naming its
-``ROADMAP.md`` item: the ``ssm`` mixer (Queue 1 item 11.3), the
-``xattn`` mixer and the encoder (11.4), and ``prefix_embeds`` (11.5).
+  mixer: 'attn' | 'swa' | 'mla' (DeepSeek's latent attention,
+         ``models.mla``) | 'ssm' (Mamba-2's SSD, ``models.ssm``) |
+         'xattn' (whisper's decoder: self-attention, then cross-attention
+         on the encoder's output)
+  ffn:   'mlp' (dense or the paper's pattern-sparse MLP) | 'moe'
+         (``models.moe``) | 'none'
+
+The stack is factored into an optional non-periodic *prefix*
+(DeepSeek's leading dense layers) plus a repeating *period* (jamba's
+8-layer attention/Mamba/MoE unit); period params are stacked
+``[n_periods, ...]`` as in the reference, and where the reference runs
+them with ``lax.scan`` the port loops over the stacked tensors in
+Python.  Enc-dec (whisper) adds an encoder stack, run over stub frame
+embeddings (``frames``), whose output the decoder's cross-attention
+reads; DeepSeek-V3 adds its MTP head.  The reference's remat
+(``jax.checkpoint``) is a training concern and is left out: serving has
+no backward.
+
+Not ported yet: ``prefix_embeds`` (the VLM prefix, ``ROADMAP.md`` Queue
+1 item 11.5), raising ``NotImplementedError`` naming it.
 
 Params are a plain dict of tensors; the statics (layer kinds, attention
 and MLA configs, sparse layouts with their device index tables) come
@@ -54,6 +63,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mla import MLAConfig, init_mla_cache, mla_apply, mla_init
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init, moe_static
+from repro_torch.models.ssm import SSMConfig, init_ssm_cache, ssm_apply, ssm_init
 from repro_torch.parallel.activations import shard_activation
 from repro_torch.parallel.sharding import pad_to_multiple
 
@@ -61,9 +71,6 @@ __all__ = ["ModelConfig", "find_structure", "init_statics", "init_params",
            "init_cache", "apply_model", "count_params"]
 
 _NOT_PORTED = {
-    "ssm": "the SSM mixer is ROADMAP.md Queue 1 item 11.3",
-    "xattn": "the cross-attention mixer is ROADMAP.md Queue 1 item 11.4",
-    "encoder": "the encoder is ROADMAP.md Queue 1 item 11.4",
     "prefix": "the VLM prefix is ROADMAP.md Queue 1 item 11.5",
 }
 
@@ -91,11 +98,12 @@ class ModelConfig:
     act: str = "swiglu"
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
-    ssm: object | None = None  # not ported (11.3)
+    ssm: SSMConfig | None = None
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
     mtp: bool = False
-    # enc-dec (whisper): not ported (11.4)
+    # enc-dec (whisper): encoder layer count; encoder input is stub frame
+    # embeddings [B, enc_seq, d_model]
     encoder_layers: int = 0
     enc_seq: int = 0
     # vlm (paligemma): prefix patch embeddings, not ported (11.5)
@@ -170,11 +178,16 @@ def _layer_static(cfg: ModelConfig, ltype: tuple[str, str], device) -> dict:
     static: dict = {"mixer": mixer, "ffn": ffn}
     if mixer in ("attn", "swa"):
         static["attn_cfg"] = cfg.attn_cfg(window=mixer == "swa")
+    elif mixer == "xattn":
+        static["attn_cfg"] = cfg.attn_cfg(window=False)
+        static["xattn_cfg"] = dataclasses.replace(
+            static["attn_cfg"], causal=False, rope_theta=None)
     elif mixer == "mla":
         assert cfg.mla is not None
         static["mla_cfg"] = cfg.mla
-    elif mixer in ("xattn", "ssm"):
-        raise _not_ported(mixer)
+    elif mixer == "ssm":
+        assert cfg.ssm is not None
+        static["ssm_cfg"] = cfg.ssm
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn == "mlp":
@@ -196,9 +209,15 @@ def _layer_params(generator, cfg: ModelConfig, static: dict, device) -> dict:
     params = {"norm1": norm_init(cfg.d_model, pdt, device)}
     if static["mixer"] == "mla":
         params["attn"] = mla_init(generator, static["mla_cfg"], pdt, device)
+    elif static["mixer"] == "ssm":
+        params["attn"] = ssm_init(generator, static["ssm_cfg"], pdt, device)
     else:
         params["attn"] = attention_init(generator, static["attn_cfg"], pdt,
                                         device)
+    if static["mixer"] == "xattn":
+        params["xnorm"] = norm_init(cfg.d_model, pdt, device)
+        params["xattn"] = attention_init(generator, static["xattn_cfg"], pdt,
+                                         device)
     if static["ffn"] != "none":
         params["norm2"] = norm_init(cfg.d_model, pdt, device)
     if static["ffn"] == "mlp":
@@ -213,12 +232,12 @@ def _layer_params(generator, cfg: ModelConfig, static: dict, device) -> dict:
 
 def init_statics(cfg: ModelConfig, device=None) -> dict:
     """The model's static part: the layer structure (prefix, period,
-    number of periods), each layer's kind and attention or MLA config,
-    the MTP layer's (``cfg.mtp``: the kind of the last layer), and the
-    sparse MLP layouts with their index tables on ``device`` (``None``:
-    ``cuda``, raising without one)."""
-    if cfg.encoder_layers:
-        raise _not_ported("encoder")
+    number of periods), each layer's kind and attention, MLA or SSM
+    config, the MTP layer's (``cfg.mtp``: the kind of the last layer),
+    the encoder layers' (``cfg.encoder_layers``: bidirectional attention
+    without RoPE, then the MLP), and the sparse MLP layouts with their
+    index tables on ``device`` (``None``: ``cuda``, raising without
+    one)."""
     device = resolve_device(device)
     prefix, period = find_structure(cfg.layer_types)
     n_periods = (cfg.n_layers - prefix) // period
@@ -236,6 +255,11 @@ def init_statics(cfg: ModelConfig, device=None) -> dict:
     if cfg.mtp:
         statics["mtp_layer"] = _layer_static(cfg, cfg.layer_types[-1],
                                              device)
+    if cfg.encoder_layers:
+        enc = _layer_static(cfg, ("attn", "mlp"), device)
+        enc["attn_cfg"] = dataclasses.replace(enc["attn_cfg"], causal=False,
+                                              rope_theta=None)
+        statics["encoder"] = enc
     return statics
 
 
@@ -248,17 +272,11 @@ def _stacked_draws(draw, n: int):
     for i in range(n):
         layer = draw()
         if stacked is None:
-            stacked = _empty_stack(layer, n)
+            stacked = _zeros_stack(layer, n)
         for dst, src in zip(_leaves(_index(stacked, i)), _leaves(layer)):
             dst.copy_(src)
         del layer
     return stacked
-
-
-def _empty_stack(tree, n: int):
-    if isinstance(tree, dict):
-        return {k: _empty_stack(v, n) for k, v in tree.items()}
-    return tree.new_empty((n, *tree.shape))
 
 
 def _index(tree, i: int):
@@ -266,6 +284,13 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _zeros_stack(tree, n: int):
+    """Zeros of every leaf's shape, dtype and device with ``n`` in front."""
+    if isinstance(tree, dict):
+        return {k: _zeros_stack(v, n) for k, v in tree.items()}
+    return tree.new_zeros((n, *tree.shape))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -297,6 +322,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                        statics["n_periods"])
         for st in statics["body"]
     ]
+    if cfg.encoder_layers:  # whisper: learned positions, stacked layers
+        params["enc_pos"] = (torch.randn(
+            (cfg.enc_seq, cfg.d_model), generator=generator,
+            dtype=torch.float32, device=device) * 0.02).to(pdt)
+        params["encoder"] = _stacked_draws(
+            lambda: _layer_params(generator, cfg, statics["encoder"], device),
+            cfg.encoder_layers)
+        params["enc_norm"] = norm_init(cfg.d_model, pdt, device)
     if cfg.mtp:  # next-next-token head sharing the output head
         params["mtp_layer"] = _layer_params(generator, cfg,
                                             statics["mtp_layer"], device)
@@ -313,21 +346,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
 
 
 def _layer_cache(static, batch: int, max_seq: int, dtype, device):
-    if static["mixer"] in ("attn", "swa"):
+    mixer = static["mixer"]
+    if mixer in ("attn", "swa"):
         return init_kv_cache(static["attn_cfg"], batch, max_seq, dtype,
                              device)
-    if static["mixer"] == "mla":
+    if mixer == "xattn":
+        return {"self": init_kv_cache(static["attn_cfg"], batch, max_seq,
+                                      dtype, device)}
+    if mixer == "mla":
         return init_mla_cache(static["mla_cfg"], batch, max_seq, dtype,
                               device)
-    raise ValueError(static["mixer"])
+    if mixer == "ssm":  # float32 whatever ``dtype``, as the reference's
+        return init_ssm_cache(static["ssm_cfg"], batch, device=device)
+    raise ValueError(mixer)
 
 
 def init_cache(statics, batch: int, max_seq: int | None = None,
                dtype=torch.bfloat16, device=None):
     """Zeroed caches per prefix layer, batch first (attention ``k``/``v``
-    ``[B, T, Hkv, D]``, MLA ``c_kv`` ``[B, T, kv_lora]`` and ``k_rope``
-    ``[B, T, d_rope]``), and the same with ``n_periods`` in front per
-    period position, on ``device`` (default: the statics')."""
+    ``[B, T, Hkv, D]``, ``xattn``'s under ``"self"``, MLA ``c_kv``
+    ``[B, T, kv_lora]`` and ``k_rope`` ``[B, T, d_rope]``, SSM ``conv``
+    ``[B, d_conv - 1, conv_dim]`` and ``state`` ``[B, H, P, N]`` in
+    float32 whatever ``dtype``), and the same with ``n_periods`` in front
+    per period position, on ``device`` (default: the statics').  An
+    encoder-decoder adds ``memory`` ``[B, enc_seq, d_model]``."""
     cfg: ModelConfig = statics["cfg"]
     max_seq = max_seq or cfg.max_seq
     device = device if device is not None else statics["device"]
@@ -338,11 +380,10 @@ def init_cache(statics, batch: int, max_seq: int | None = None,
     }
     for st in statics["body"]:
         one = _layer_cache(st, batch, max_seq, dtype, device)
-        cache["body"].append({
-            k: torch.zeros((statics["n_periods"], *x.shape), dtype=x.dtype,
-                           device=x.device)
-            for k, x in one.items()
-        })
+        cache["body"].append(_zeros_stack(one, statics["n_periods"]))
+    if cfg.encoder_layers:
+        cache["memory"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                      dtype=dtype, device=device)
     return cache
 
 
@@ -352,14 +393,29 @@ def init_cache(statics, batch: int, max_seq: int | None = None,
 
 
 def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
-                 cache_pos, cache_len, prefill: bool):
+                 cache_pos, cache_len, prefill: bool, memory=None):
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
+    mixer = static["mixer"]
     h = norm(params["norm1"], x)
-    if static["mixer"] == "mla":
+    if mixer == "mla":
         out, new_cache = mla_apply(
             params["attn"], static["mla_cfg"], h, positions,
             cache=cache, cache_pos=cache_pos, cache_len=cache_len,
         )
+    elif mixer == "ssm":  # its route follows S == 1 alone, not ``prefill``
+        out, new_cache = ssm_apply(params["attn"], static["ssm_cfg"], h,
+                                   cache)
+    elif mixer == "xattn":
+        out, _ = attention_apply(
+            params["attn"], static["attn_cfg"], h, positions,
+            cache=cache["self"] if cache is not None else None,
+            cache_pos=cache_pos, cache_len=cache_len, prefill=prefill,
+        )
+        x = x + out
+        h = norm(params["xnorm"], x)
+        out, _ = attention_apply(params["xattn"], static["xattn_cfg"], h,
+                                 positions, memory=memory, prefill=False)
+        new_cache = cache
     else:
         out, new_cache = attention_apply(
             params["attn"], static["attn_cfg"], h, positions,
@@ -375,6 +431,19 @@ def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
             x = x + moe_apply(params["moe"], static["moe"], cfg.moe, h)
     x = shard_activation(x, ("batch", "seq_shard", None))
     return x, new_cache
+
+
+def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor):
+    """Whisper encoder over stub frame embeddings [B, enc_seq, d]: every
+    layer bidirectional at positions ``arange(enc_seq)`` without a cache,
+    so its attention is a prefill in the kernel route's sense."""
+    norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
+    x = frames.to(cfg.cdtype()) + params["enc_pos"].to(cfg.cdtype())
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    for i in range(cfg.encoder_layers):
+        x, _ = _apply_layer(_index(params["encoder"], i), statics["encoder"],
+                            cfg, x, pos, None, None, None, True)
+    return norm(params["enc_norm"], x)
 
 
 def apply_model(
@@ -394,6 +463,11 @@ def apply_model(
     ``cfg.mtp`` and no cache, ``aux["mtp_logits"]`` [B, S, vocab_padded]
     are the next-next-token head's.
 
+    An encoder-decoder encodes ``frames`` [B, enc_seq, d] when given and
+    stores the encoder's output as the cache's ``memory`` (replacing the
+    entry, in the compute dtype, as the reference's new cache holds it);
+    without ``frames`` it reads ``cache["memory"]``.
+
     ``prefill`` picks the attention route for every layer at once: the
     flash kernel where it is true (a prefill at positions ``arange(S)``
     from cache position 0, see ``models.attention``), the plain routes
@@ -401,8 +475,6 @@ def apply_model(
     ``cache_pos``, with one read of the device."""
     if prefix_embeds is not None:
         raise _not_ported("prefix")
-    if frames is not None:
-        raise _not_ported("encoder")
     cfg: ModelConfig = statics["cfg"]
     cdt = cfg.cdtype()
     _, s = tokens.shape
@@ -419,17 +491,27 @@ def apply_model(
         x = x + (dp if positions.dim() == 2 else dp[None])
     x = shard_activation(x, ("batch", "seq_shard", None))
 
+    memory = None
+    if cfg.encoder_layers:
+        if frames is not None:
+            memory = _encode(params, statics, cfg, frames)
+            if cache is not None:
+                cache["memory"] = memory
+        elif cache is not None:
+            memory = cache["memory"]
+
     for i, (p, st) in enumerate(zip(params["prefix_layers"],
                                     statics["prefix_layers"])):
         c = cache["prefix_layers"][i] if cache is not None else None
         x, _ = _apply_layer(p, st, cfg, x, positions, c, cache_pos, cache_len,
-                            prefill)
+                            prefill, memory)
 
     for rep in range(statics["n_periods"]):
         for j, st in enumerate(statics["body"]):
             c = _index(cache["body"][j], rep) if cache is not None else None
             x, _ = _apply_layer(_index(params["body"][j], rep), st, cfg, x,
-                                positions, c, cache_pos, cache_len, prefill)
+                                positions, c, cache_pos, cache_len, prefill,
+                                memory)
 
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     hidden = norm(params["final_norm"], x)

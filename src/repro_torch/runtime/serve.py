@@ -20,13 +20,16 @@ in the scheduler and only fixed-shape tensors (``tokens [B]``,
     overwrites;
   * admission prefills the prompt at its exact length on a fresh
     single-row cache and copies that row into the batched cache
-    (``make_slot_prefill``); prefill takes the flash-attention kernel on
-    the card (``models/attention.py``), and
+    (``make_slot_prefill``) — exact for recurrent SSM state too, where a
+    padded batch prefill would fold pad garbage into the state; prefill
+    takes the flash-attention kernel on the card
+    (``models/attention.py``), and
     :meth:`DecodeService.prefill_trace_count` counts the distinct prompt
     lengths;
   * a request's tokens are bit-identical co-batched or solo: every
-    per-row op (masked attention, the MLP, sampling) is independent
-    across batch rows.
+    per-row op (masked attention, the SSM scan, the MLP, sampling) is
+    independent across batch rows (MoE's capacity is not: it counts the
+    batch's tokens, as the reference's does).
 
 :class:`ServeLoop` keeps the drain-a-list-of-requests API on top of it.
 """
@@ -42,7 +45,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.engine.scheduler import SlotScheduler
-from repro_torch.models.transformer import ModelConfig, apply_model, init_cache
+from repro_torch.models.transformer import (
+    ModelConfig,
+    _leaves,
+    apply_model,
+    init_cache,
+)
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serve.api import Request as ServeRequest
 
@@ -68,7 +76,12 @@ class ServeConfig:
 
 def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
     def prefill(params, cache, tokens, extras=None):
-        """tokens: [B, S] -> (next_token [B], cache).  A VLM patch prefix
+        """tokens: [B, S] -> (next_token [B], cache).  ``extras`` go to
+        ``apply_model``: an encoder-decoder's stub frame embeddings
+        (``extras['frames']`` [B, enc_seq, d]) are encoded and their
+        output kept as the cache's ``memory``, which the decode steps
+        read (this is how whisper is served: ``DecodeService`` encodes no
+        frames, as the reference's does not).  A VLM patch prefix
         (``extras['prefix_embeds']``) is not ported (``apply_model``
         raises)."""
         total = tokens.shape[1]
@@ -120,15 +133,17 @@ def make_decode_step(cfg: ModelConfig, statics, scfg: ServeConfig):
 
 def _scatter_cache_row(batch_cache, row_cache, slot: int):
     """Write the single-row ``row_cache`` into row ``slot`` of the batched
-    cache, in place.  Prefix layers carry batch on axis 0; the stacked
-    body carries periods in front, so batch sits on axis 1."""
-    for dst, src in zip(batch_cache["prefix_layers"],
-                        row_cache["prefix_layers"]):
-        for k in dst:
-            dst[k][slot:slot + 1].copy_(src[k])
-    for dst, src in zip(batch_cache["body"], row_cache["body"]):
-        for k in dst:
-            dst[k][:, slot:slot + 1].copy_(src[k])
+    cache, in place, cast to the batched cache's dtypes.  Prefix layers
+    and the encoder memory carry batch on axis 0; the stacked body
+    carries periods in front, so batch sits on axis 1."""
+    for dst, src in zip(_leaves(batch_cache["prefix_layers"]),
+                        _leaves(row_cache["prefix_layers"])):
+        dst[slot:slot + 1].copy_(src)
+    for dst, src in zip(_leaves(batch_cache["body"]),
+                        _leaves(row_cache["body"])):
+        dst[:, slot:slot + 1].copy_(src)
+    if "memory" in batch_cache:
+        batch_cache["memory"][slot:slot + 1].copy_(row_cache["memory"])
     return batch_cache
 
 

@@ -146,6 +146,22 @@ def _smoke_lm_config(arch):
     return cfg
 
 
+def _smoke_ssm_config(arch):
+    """The ssm_whisper phase's models at CPU size: each smoke config,
+    jamba's cut to its first 5 layers as the phase cuts the published one,
+    whisper's with 6 heads of 6 kv heads padded to 16 (``model_shards=16``):
+    ungrouped, the kv-repeat route, as whisper-small's 12 over 12 padded
+    to 16."""
+    cfg = get_smoke_config(arch)
+    if arch == "jamba_1_5_large_398b":
+        cfg = dataclasses.replace(cfg, n_layers=5,
+                                  layer_types=cfg.layer_types[:5])
+    if arch == "whisper_small":
+        cfg = dataclasses.replace(cfg, n_heads=6, n_kv_heads=6,
+                                  model_shards=16)
+    return cfg
+
+
 def _mini_model(seed):
     cfg = mini_cnn_config(4, 12, (8, 16, 16))
     rng = np.random.default_rng(seed)
@@ -244,6 +260,24 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "LM_MTP_SHAPE", (2, 16))
     monkeypatch.setattr(cs, "LM_DENSE_PROMPTS", (17, 40))
     monkeypatch.setattr(cs, "LM_DENSE_MAX_SEQ", 64)
+    # the ssm_whisper phase at smoke size: the SSD at 13 and 21 tokens (chunk
+    # 8: a padded tail), mamba2's handoff at 17 and 30 and served as the
+    # generate phase serves; jamba (5 layers) from 6 prompts of 5-30 tokens
+    # through 4 slots of 64, 4 new each; whisper 12 prompt tokens and 4
+    # greedy steps on 24 frames, a bf16 batch of 2
+    monkeypatch.setattr(cs, "ssm_config", _smoke_ssm_config)
+    monkeypatch.setattr(cs, "SSD_S", {"mamba2_780m": (13, 21),
+                                      "jamba_1_5_large_398b": (13,)})
+    monkeypatch.setattr(cs, "HANDOFF_PROMPTS", (17, 30))
+    monkeypatch.setattr(cs, "JAMBA_SCFG", dict(batch_slots=4, max_seq=64,
+                                               eos_id=-1))
+    monkeypatch.setattr(cs, "JAMBA_REQUESTS", 6)
+    monkeypatch.setattr(cs, "JAMBA_LENGTHS", (5, 30))
+    monkeypatch.setattr(cs, "JAMBA_NEW", 4)
+    monkeypatch.setattr(cs, "JAMBA_BURSTS", (1, 3, 2))
+    monkeypatch.setattr(cs, "WHISPER_PROMPT", 12)
+    monkeypatch.setattr(cs, "WHISPER_STEPS", 4)
+    monkeypatch.setattr(cs, "WHISPER_BATCH", 2)
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -259,7 +293,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
-        "times"]
+        "ssm_whisper", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -415,7 +449,51 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     for r in (qwen, phi3):
         assert [x["prompt_len"] for x in r["prefill_logits"]] == [17, 40]
         assert all(x["ok"] for x in r["prefill_logits"])
-    times = lines[13]
+    sw = lines[13]
+    assert sw["seconds"] > 0 and set(sw["depth"]) == {
+        "mamba2_780m", "jamba_1_5_large_398b", "whisper_small"}
+    assert [(r["model"], r["S"], r["pad"]) for r in sw["ssd"]] == [
+        ("mamba2_780m", 13, 3), ("mamba2_780m", 21, 3),
+        ("jamba_1_5_large_398b", 13, 3)]
+    assert all(r["ok"] and r["out"]["rel"] <= cs.SSD_OUT_REL
+               and r["state"]["worst_over_elementwise"] <= 1.0
+               for r in sw["ssd"])
+    mamba, jamba, whisper = (sw["mamba2_780m"], sw["jamba_1_5_large_398b"],
+                             sw["whisper_small"])
+    assert [r["prompt_len"] for r in mamba["handoff"]] == [17, 30]
+    assert all(r["ok"] and r["rel"] <= cs.HANDOFF_REL and r["steps"] == 4
+               for r in mamba["handoff"])
+    assert mamba["all_done"] and mamba["trace_count"] == 1
+    assert mamba["requests"] == 7 and mamba["admitted_mid_decode"] > 0
+    assert all(mamba["alone_vs_cobatched_equal"].values())
+    assert len(mamba["first_tokens"]) == 7
+    assert all(r["first_token_is_argmax"] and r["finite"]
+               for r in mamba["first_tokens"])
+    # 4 layers of conv (3 x (128 + 2 x 16) float32) and state (8 x 16 x 16)
+    assert mamba["ssm_cache_bytes_per_slot"] == 4 * 4 * (3 * 160 + 8 * 16 * 16)
+    assert mamba["flash_launches"] == 0
+    for r in (mamba, jamba):
+        assert r["prefills"] == r["requests"] and r["decode_steps"] > 0
+        assert 0 < r["prefill_seconds"] + r["decode_seconds"]
+    assert jamba["layers"] == 5 and jamba["grouped"]
+    assert [t[0] for t in jamba["layer_types"]] == ["ssm"] * 4 + ["attn"]
+    assert jamba["all_done"] and jamba["admitted_mid_decode"] > 0
+    assert jamba["launches"] == jamba["launches_expected"] == 6
+    assert jamba["launches_by_route"] == {"tensor_core": 6, "simt": 0}
+    assert jamba["launch_head_dims"] == [16]
+    assert len(jamba["flash_vs_plain"]) == 6
+    assert all(r["ok"] for r in jamba["flash_vs_plain"])
+    assert all(jamba["first_token_is_bf16_prefill_argmax"])
+    assert set(jamba["drop_share"]) == {"prefill", "decode"}
+    assert jamba["reckoned_peak_bytes"] > jamba["weight_bytes"] > 0
+    assert whisper["layers"] == {"encoder": 2, "decoder": 2}
+    assert not whisper["grouped"] and whisper["flash_launches"] == 0
+    assert whisper["handoff"]["ok"] and whisper["handoff"]["steps"] == 4
+    assert len(whisper["handoff"]["greedy_tokens"]) == 4
+    assert whisper["prefill_step_token_is_handoff_first"]
+    assert whisper["bf16_batch"]["finite"]
+    assert whisper["bf16_batch"]["shape"] == [2, 12, 512]
+    times = lines[14]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40, 17, 40]
@@ -444,8 +522,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert res["kernels"][3]["library_ms"] > 0
     # the generate phase's prefills, then the shard phase's: gather's and
     # flash's in (a) and one on each rank of (b), 2 layers each; qwen's 2
-    # prefills of 2 layers
-    assert res["kernels"][3]["launches"] == 2 * 7 + 2 * (2 + 2) + 2 * 2
+    # prefills of 2 layers; jamba's 6 served prefills of its attention layer
+    assert res["kernels"][3]["launches"] == 2 * 7 + 2 * (2 + 2) + 2 * 2 + 6
     # the spmm launches of the serve, shard (a, then 2 ranks of b) and
     # prune phases
     assert res["kernels"][0]["launches"] == 36 + 40 + 2 * 36 + 36
@@ -540,3 +618,60 @@ def test_attaining_patch_reaches_the_certified_bound(which):
     assert abs(got - bound) <= limit
     off = float(pre[0][1][centre + 1, j])
     assert abs(off - bound) > limit
+
+
+def test_ssd_recurrence_oracle_matches_reference():
+    """``chip_smoke.ssd_recurrence`` (the token-by-token oracle of the
+    ``ssm_whisper`` phase) against the reference's ``ssm_apply`` on the
+    same float32 layer: two groups of B and C, 21 tokens over chunks of
+    8, every value of the output, the conv window and the state within
+    ``tests/test_models.py``'s elementwise bound (the phase's for the
+    state and the window; at chunk 8 the output meets it too)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import ssm as jssm
+    from repro_torch.models.convert import lm_params_from_numpy
+
+    cs = _load_chip_smoke()
+    jcfg = jssm.SSMConfig(d_model=32, d_state=8, head_dim=8, n_groups=2,
+                          chunk=8, model_shards=1)
+    params, _ = jssm.ssm_init(jax.random.PRNGKey(0), jcfg)
+    keys = iter(jax.random.split(jax.random.PRNGKey(1), 16))
+    params = jax.tree.map(
+        lambda a: a + 0.1 * jax.random.normal(next(keys), a.shape), params)
+    x = np.random.default_rng(2).normal(size=(2, 21, 32)).astype(np.float32)
+    want, cache = jssm.ssm_apply(params, jcfg, jnp.asarray(x),
+                                 jssm.init_ssm_cache(jcfg, 2))
+    tparams = lm_params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    from repro_torch.models.ssm import SSMConfig
+
+    got = cs.ssd_recurrence(tparams, SSMConfig(**dataclasses.asdict(jcfg)),
+                            torch.from_numpy(x))
+    for g, w in zip(got, (want, cache["conv"], cache["state"])):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert (np.abs(g.numpy() - w)
+                <= cs.SSD_ATOL + cs.SSD_RTOL * np.abs(w)).all()
+
+
+def test_jamba_cut_keeps_every_layer_kind():
+    """The phase's jamba: the published config's widths, its first 5
+    layers (4 SSM, the attention layer at position 4, MoE on the odd
+    ones), structured as a prefix of 4 and a period of 1."""
+    from repro_torch.configs import jamba_1_5_large_398b
+    from repro_torch.models.transformer import find_structure
+
+    cs = _load_chip_smoke()
+    cfg = cs.ssm_config("jamba_1_5_large_398b")
+    full = jamba_1_5_large_398b.config()
+    assert cfg.n_layers == cs.JAMBA_LAYERS == 5
+    assert cfg.layer_types == full.layer_types[:5]
+    assert dataclasses.replace(cfg, n_layers=72,
+                               layer_types=full.layer_types) == full
+    assert [m for m, _ in cfg.layer_types] == ["ssm"] * 4 + ["attn"]
+    assert [f for _, f in cfg.layer_types] == ["mlp", "moe"] * 2 + ["mlp"]
+    assert find_structure(cfg.layer_types) == (4, 1)
+    for arch in ("mamba2_780m", "whisper_small"):
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        assert cs.ssm_config(arch) == mod.config()

@@ -3,7 +3,9 @@
 The same prompts go through the JAX ``DecodeService`` and the port's, on
 the ``granite_3_2b`` smoke model with the same parameters (float32, a
 float32 cache): the same greedy tokens, and each decode step's logits
-within 1e-5 relative to the largest.  Inside the port, mid-decode
+within 1e-5 relative to the largest; the same on DeepSeek-V2's, mamba2's
+and jamba's smoke models, and whisper's through the step functions with
+its encoder's frames.  Inside the port, mid-decode
 admission gives every request the tokens of a solo run with decode run
 at one input signature (``tests/test_serve.py``'s property).  Then the
 port's ``ServingServer`` over real sockets, serving generation and
@@ -31,6 +33,7 @@ from repro_torch.engine import compile_network, make_forward
 from repro_torch.engine.scheduler import SlotScheduler
 from repro_torch.models.cnn import init_cnn, mini_cnn_config
 from repro_torch.models.convert import lm_params_from_numpy
+from repro_torch.models.ssm import SSMConfig, ssm_init
 from repro_torch.models.transformer import init_params, init_statics
 from repro_torch.obs.trace import Tracer
 from repro_torch.runtime.serve import DecodeService, ServeConfig
@@ -166,6 +169,103 @@ def test_scatter_cache_row_on_latent_caches(deepseek):
         assert torch.equal(v[:, 2], before[k][:, 2])
 
 
+@pytest.fixture(scope="module", params=["mamba2_780m", "jamba_1_5_large_398b"])
+def ssm_lm(request):
+    """mamba2's smoke model (four SSM layers) or jamba's (SSM, attention
+    and MoE layers) in both packages."""
+    jcfg = j_smoke(request.param)
+    jp, _, jst = j_init_params(jcfg, jax.random.PRNGKey(2))
+    tcfg = get_smoke_config(request.param)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return (jcfg, jp, jst), (tcfg, tp, init_statics(tcfg, "cpu"))
+
+
+def test_ssm_greedy_tokens_match_reference(ssm_lm):
+    """Lockstep with more requests than slots (``tests/test_system.py``'s
+    mamba2 serve-loop case, against the reference): each admission
+    prefills a fresh row and scatters its float32 SSM state into the
+    batched cache, and the recurrence decodes on it."""
+    svc = _lockstep(*ssm_lm)
+    body = svc.caches["body"]
+    ssm = [c for c in body if "state" in c]
+    assert ssm and all(c["state"].dtype == c["conv"].dtype == torch.float32
+                       for c in ssm)
+
+
+@pytest.fixture(scope="module")
+def whisper():
+    """whisper's smoke model (2 encoder and 2 decoder layers, 24 frames)
+    in both packages."""
+    jcfg = j_smoke("whisper_small")
+    jp, _, jst = j_init_params(jcfg, jax.random.PRNGKey(3))
+    tcfg = get_smoke_config("whisper_small")
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return (jcfg, jp, jst), (tcfg, tp, init_statics(tcfg, "cpu"))
+
+
+def test_whisper_prefill_with_frames_then_decode_match_reference(whisper):
+    """``make_prefill_step`` with ``extras={"frames": ...}`` encodes the
+    frames and keeps the encoder's output as the cache's ``memory``;
+    ``make_decode_step`` then cross-attends to it: the reference's greedy
+    tokens at every step, and the memory the reference's new cache
+    holds."""
+    from repro.models.transformer import init_cache as j_init_cache
+    from repro.runtime.serve import make_decode_step as j_decode
+    from repro.runtime.serve import make_prefill_step as j_prefill
+
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+
+    (jcfg, jp, jst), (tcfg, tp, tst) = whisper
+    jscfg = JServeConfig(**SCFG, cache_dtype="float32")
+    tscfg = ServeConfig(**SCFG, cache_dtype="float32")
+    toks = np.stack(_prompts(jcfg.vocab, (7, 7), seed=5))
+    frames = np.random.default_rng(6).normal(
+        size=(2, jcfg.enc_seq, jcfg.d_model)).astype(np.float32)
+    jc = j_init_cache(jst, 2, 32, dtype=jax.numpy.float32)
+    tc = init_cache(tst, 2, 32, dtype=torch.float32)
+    jt, jc = j_prefill(jcfg, jst, jscfg)(
+        jp, jc, jax.numpy.asarray(toks),
+        extras={"frames": jax.numpy.asarray(frames)})
+    tt, tc = make_prefill_step(tcfg, tst, tscfg)(
+        tp, tc, torch.as_tensor(toks, dtype=torch.long),
+        extras={"frames": torch.from_numpy(frames)})
+    np.testing.assert_allclose(tc["memory"].numpy(), np.asarray(jc["memory"]),
+                               rtol=1e-5, atol=1e-5)
+    assert tc["memory"].abs().sum() > 0
+    jdec, tdec = j_decode(jcfg, jst, jscfg), make_decode_step(tcfg, tst, tscfg)
+    for pos in range(7, 12):
+        assert tt.tolist() == np.asarray(jt).tolist()
+        jt, jc = jdec(jp, jc, jt, jax.numpy.int32(pos))
+        tt, tc = tdec(tp, tc, tt, torch.tensor(pos))
+    assert tt.tolist() == np.asarray(jt).tolist()
+
+
+def test_scatter_cache_row_on_nested_and_memory_caches(whisper):
+    """``_scatter_cache_row`` on whisper's cache: the decoder layers'
+    nested ``{"self": {"k", "v"}}`` and the encoder ``memory`` (batch on
+    axis 0) land in the slot, the other slots untouched."""
+    from repro_torch.models.transformer import _leaves, init_cache
+    from repro_torch.runtime.serve import _scatter_cache_row
+
+    _, (tcfg, tp, tst) = whisper
+    batch = init_cache(tst, 3, 16, dtype=torch.float32)
+    row = init_cache(tst, 1, 16, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    for v in list(_leaves(batch)) + list(_leaves(row)):
+        v.copy_(torch.randn(v.shape, generator=gen))
+    before = {k: [v.clone() for v in _leaves(batch[k])]
+              for k in ("body", "memory")}
+    _scatter_cache_row(batch, row, 2)
+    assert set(batch["body"][0]) == {"self"}
+    for key, axis in (("body", 1), ("memory", 0)):
+        dst, src = list(_leaves(batch[key])), list(_leaves(row[key]))
+        assert dst and len(dst) == len(src) == len(before[key])
+        for d, s_, o in zip(dst, src, before[key]):
+            assert torch.equal(d.narrow(axis, 2, 1), s_)
+            assert torch.equal(d.narrow(axis, 0, 2), o.narrow(axis, 0, 2))
+
+
 def test_step_functions_and_serve_loop_match_reference(lm):
     """``make_prefill_step`` on a batch of equal-length prompts, then
     ``make_decode_step`` at one shared position, greedy: the tokens of
@@ -259,6 +359,10 @@ def test_entry_points_raise_without_cuda(lm, monkeypatch):
         lambda: lm_params_from_numpy({"w": np.zeros(2, np.float32)}),
         lambda: init_statics(tcfg),
         lambda: init_params(tcfg, torch.Generator()),
+        lambda: ssm_init(torch.Generator(), SSMConfig(d_model=64)),
+        lambda: init_statics(get_smoke_config("whisper_small")),
+        lambda: init_params(get_smoke_config("whisper_small"),
+                            torch.Generator()),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
