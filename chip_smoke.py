@@ -33,14 +33,20 @@ cacheless forward in float32, served in bf16 through
 ``DecodeService``), jamba-1.5-large's first 5 of 72 layers served in
 bf16 (every prefill's attention through the flash kernel, each call
 held to the flash phase's rounding limit) and whisper-small whole (the
-handoff with frames in float32, a bf16 batch).  Before each path it builds
+handoff with frames in float32, a bf16 batch); then the VLM prefix
+(``vlm``): paligemma-3b whole, 256 seeded patch embeddings in front of
+each prompt, every prefill's attention through the flash kernel's
+256-wide build (its calls held to the plain version on both routes), the
+cached prefill + decode against a cacheless forward in float32, then in
+bf16 the prefix prefills and decode steps through the step functions and
+text-only requests through ``DecodeService``.  Before each path it builds
 the CUDA kernels from the sources in ``src/`` and holds each against its
 plain PyTorch version on the card, at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
-``lm_configs``, ``ssm_whisper``, ``times``.  The
+``lm_configs``, ``ssm_whisper``, ``vlm``, ``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -166,9 +172,12 @@ KERNELS = {
 # query heads over 8 key heads, D 80, bf16, window 4096), each at a prompt
 # length of FLASH_PATH_S both as a bare [S, S] attention and as the
 # prefill reads it: keys from the [1, max_seq, 8, 80] cache through a
-# transposed view, kv_len = S < max_seq; and once with kv_len < Sq = Sk
+# transposed view, kv_len = S < max_seq; and once with kv_len < Sq = Sk.
+# The last sweep shape is paligemma's heads (16, 8 of them padded, over 1
+# kv head) at D 256, the kernels' 256-wide builds
 FLASH_SWEEP = ((1, 2, 1, 64, 64, 32), (2, 4, 2, 100, 100, 64),
-               (1, 3, 3, 128, 256, 32), (1, 8, 2, 77, 77, 80))
+               (1, 3, 3, 128, 256, 32), (1, 8, 2, 77, 77, 80),
+               (1, 16, 1, 130, 130, 256))
 FLASH_TYPES = ("float32", "bfloat16", "float16")
 FLASH_HEADS = (32, 8, 80)  # query heads, key heads, head dim
 FLASH_PATH_S = (17, 128, 1000, 4500)
@@ -343,6 +352,32 @@ JAMBA_BURSTS = (1, 3, 2, 2)
 WHISPER_PROMPT = 32
 WHISPER_STEPS = 8
 WHISPER_BATCH = 4
+
+# vlm: paligemma-3b whole (18 layers, d_model 2048, vocabulary 257,216),
+# weights from the seed, with the stub SigLIP tower's output: prefix_len
+# (256) seeded patch embeddings [1, 256, d_model] in front of prompts of
+# VLM_PROMPTS tokens, so the flash kernel (16 q heads over 1, D 256) sees
+# Sq = 272, 556 and 1256, keys from a cache of VLM_MAX_SEQ slots.
+# (a) each prefill's flash calls at those shapes, bf16 on the tensor cores
+# at the flash phase's rounding limit and fp32 on the SIMT kernel at
+# flash_tolerance, each the same bits on a rerun.  (b) float32: the
+# cached prefill with the prefix and VLM_HANDOFF_STEPS greedy decode
+# steps against one cacheless forward, within HANDOFF_REL.  (c) bf16
+# (the float32 weights rounded): prefill logits by the generate phase's
+# rule; the first token of make_prefill_step is the bf16 prefill's
+# argmax; VLM_DECODE tokens through make_decode_step after it; text-only
+# requests served through DecodeService(VLM_SCFG) as the reference serves
+# paligemma, co-batched = alone.  Flash launches = 18 x the prefills, all
+# on the tensor cores.
+VLM_PROMPTS = (16, 300, 1000)
+VLM_MAX_SEQ = 1536
+VLM_HANDOFF_STEPS = 8
+VLM_DECODE = 32
+VLM_SCFG = dict(batch_slots=4, max_seq=1024, eos_id=-1)
+VLM_REQUESTS = 8
+VLM_LENGTHS = (16, 600)
+VLM_NEW = 16
+VLM_BURSTS = (1, 3, 2, 2)
 
 # a picklable function each rank of (b) calls before anything else (None:
 # nothing; the CPU rehearsal installs its counting plain versions there)
@@ -1434,6 +1469,32 @@ def flash_cases(dev, max_seq: int) -> list[dict]:
                           causal=True, window=None, kv_len=s,
                           dtype="bfloat16", path=True, heads=heads,
                           model="qwen2_5_32b"))
+    # the vlm phase's paligemma prefills: 16 q heads over 1 at D 256, no
+    # window, the patches and the prompt from its VLM_MAX_SEQ cache; bf16
+    # (the path's type) and fp32 (the SIMT route at the same shapes)
+    vcfg = vlm_config()
+    acfg = vcfg.attn_cfg(False)
+    heads = (acfg.hq_pad, acfg.n_kv_heads, acfg.d_head)
+    for n in VLM_PROMPTS:
+        s = vcfg.prefix_len + n
+        q = normal(1, heads[0], s, heads[2])
+        kv = normal(2, VLM_MAX_SEQ, heads[1], heads[2])
+        for dt in ("bfloat16", "float32"):
+            tdt = getattr(torch, dt)
+            cases.append(dict(
+                case=f"paligemma_S{s}_cache" + ("_float32" if dt == "float32"
+                                                 else ""),
+                q=q.to(tdt), k=kv[0:1].to(tdt).transpose(1, 2),
+                v=kv[1:2].to(tdt).transpose(1, 2), causal=True, window=None,
+                kv_len=s, dtype=dt, path=dt == "bfloat16", heads=heads,
+                model="paligemma_3b"))
+    # padded keys inside the queries' span at D 256: kv_len < Sq = Sk
+    s = vcfg.prefix_len + VLM_PROMPTS[len(VLM_PROMPTS) // 2]
+    kv = normal(2, 1, heads[1], s, heads[2]).bfloat16()
+    cases.append(dict(case=f"paligemma_S{s}_kvlen{7 * s // 10}",
+                      q=normal(1, heads[0], s, heads[2]).bfloat16(), k=kv[0],
+                      v=kv[1], causal=True, window=None, kv_len=7 * s // 10,
+                      dtype="bfloat16", path=False))
     return cases
 
 
@@ -1553,22 +1614,25 @@ def gen_prompts(vocab: int, seed: int) -> list[np.ndarray]:
 
 
 def prefill_logits(params, statics, prompt, max_seq, cache_dtype, kernel,
-                   dev):
+                   dev, prefix=None):
     """float32 [L, vocab] logits of one prompt's prefill on a fresh cache,
     as the service prefills it, by the kernel route or the plain one
     (``apply_model``'s ``prefill`` flag: false keeps every layer on the
-    attention's full or chunked route, and nothing else changes)."""
+    attention's full or chunked route, and nothing else changes).  With
+    ``prefix`` ([1, P, d] patch embeddings) in front: L = P + the
+    prompt's length, as ``make_prefill_step`` prefills it."""
     import torch
 
     from repro_torch.models.transformer import apply_model, init_cache
 
-    n = len(prompt)
+    extra = {} if prefix is None else {"prefix_embeds": prefix}
+    n = len(prompt) + (0 if prefix is None else prefix.shape[1])
     row = init_cache(statics, 1, max_seq, dtype=cache_dtype, device=dev)
     toks = torch.as_tensor(prompt[None].astype(np.int64), device=dev)
     with torch.no_grad():
         logits, _, _ = apply_model(
             params, statics, toks, positions=torch.arange(n, device=dev),
-            cache=row, cache_pos=0, cache_len=n, prefill=kernel)
+            cache=row, cache_pos=0, cache_len=n, prefill=kernel, **extra)
     return logits[0, :, : statics["cfg"].vocab].float()
 
 
@@ -2325,12 +2389,14 @@ def ssd_rows(arch: str, seed: int, dev) -> list[dict]:
 
 
 def handoff_row(params, statics, prompt, steps: int, dev,
-                frames=None) -> dict:
-    """(b) and (d): prefill ``prompt`` [n] into a float32 cache, take
-    ``steps`` greedy decode steps through ``decode_logits`` (what
-    ``make_decode_step`` samples from), then one cacheless forward over
-    the n + steps tokens; the logits at position n - 1 and at each step,
-    relative to the cacheless forward's largest."""
+                frames=None, prefix=None) -> dict:
+    """(b) and (d), and the vlm phase's (b): prefill ``prompt`` [n] (after
+    ``prefix``'s P patch embeddings, when given) into a float32 cache,
+    take ``steps`` greedy decode steps through ``decode_logits`` (what
+    ``make_decode_step`` samples from) at positions P + n, ..., then one
+    cacheless forward over the prefix and the n + steps tokens; the
+    logits at position P + n - 1 and at each step, relative to the
+    cacheless forward's largest."""
     import torch
 
     from repro_torch.models.transformer import apply_model, init_cache
@@ -2338,22 +2404,26 @@ def handoff_row(params, statics, prompt, steps: int, dev,
 
     cfg = statics["cfg"]
     extra = {} if frames is None else {"frames": frames}
+    p = 0
+    if prefix is not None:
+        extra, p = {"prefix_embeds": prefix}, prefix.shape[1]
     n = len(prompt)
     toks = torch.zeros((1, n + steps), dtype=torch.long, device=dev)
     toks[0, :n] = torch.as_tensor(prompt.astype(np.int64), device=dev)
-    cache = init_cache(statics, 1, n + steps, dtype=torch.float32,
+    cache = init_cache(statics, 1, p + n + steps, dtype=torch.float32,
                        device=dev)
     logits, _, _ = apply_model(params, statics, toks[:, :n],
-                               positions=torch.arange(n, device=dev),
-                               cache=cache, cache_pos=0, cache_len=n, **extra)
+                               positions=torch.arange(p + n, device=dev),
+                               cache=cache, cache_pos=0, cache_len=p + n,
+                               **extra)
     got = [logits[0, -1, :cfg.vocab].float()]
     for i in range(n, n + steps):
         toks[0, i] = got[-1].argmax()
         lg, cache = decode_logits(statics, params, cache, toks[:, i],
-                                  torch.tensor(i, device=dev))
+                                  torch.tensor(p + i, device=dev))
         got.append(lg[0])
     full, _, _ = apply_model(params, statics, toks, **extra)
-    want = full[0, n - 1:, :cfg.vocab].float()
+    want = full[0, p + n - 1:, :cfg.vocab].float()
     got = torch.stack(got)
     rel = rel_diff(got, want)
     finite = bool(torch.isfinite(got).all())
@@ -2471,6 +2541,26 @@ def mamba2_run(seed: int, dev) -> dict:
     return res
 
 
+def recorded_flash_calls(fn):
+    """(result of ``fn()``, [(call's arguments, kernel output)]): every
+    ``ops.flash_attention`` call ``fn`` makes, recorded."""
+    from repro_torch.kernels import ops
+
+    calls = []
+    real = ops.flash_attention
+
+    def record(q, k, v, **kw):
+        y = real(q, k, v, **kw)
+        calls.append((dict(q=q, k=k, v=v, **kw), y))
+        return y
+
+    ops.flash_attention = record
+    try:
+        return fn(), calls
+    finally:
+        ops.flash_attention = real
+
+
 def jamba_run(seed: int, dev) -> dict:
     """jamba-1.5-large's first ``JAMBA_LAYERS`` layers in bf16 from the
     seed: served through ``DecodeService`` (the main path: flash counts
@@ -2551,23 +2641,13 @@ def jamba_run(seed: int, dev) -> dict:
     m = svc.metrics
 
     # each prompt's bf16 prefill again, its flash calls recorded
-    calls = []
-
-    def record(q, k, v, **kw):
-        y = real(q, k, v, **kw)
-        calls.append((dict(q=q, k=k, v=v, **kw), y))
-        return y
-
-    first = []
-    ops.flash_attention = record
-    try:
+    def first_tokens():
         with torch.no_grad():
-            for p, r in zip(prompts, reqs):
-                lg = prefill_logits(params, statics, p, scfg.max_seq,
-                                    torch.bfloat16, True, dev)[-1]
-                first.append(int(r.output[0]) == int(lg.argmax()))
-    finally:
-        ops.flash_attention = real
+            return [int(r.output[0]) == int(prefill_logits(
+                params, statics, p, scfg.max_seq, torch.bfloat16, True,
+                dev)[-1].argmax()) for p, r in zip(prompts, reqs)]
+
+    first, calls = recorded_flash_calls(first_tokens)
     flash = []
     for c, y in calls:
         case = {**c, "case": f"jamba_S{c['q'].shape[2]}", "dtype": "bfloat16"}
@@ -2730,6 +2810,290 @@ def ssm_whisper_phase(seed: int, dev) -> dict:
     return {"launches": jamba["launches"], "seconds": seconds,
             "max_abs_err": max(r["max_abs_diff"]
                                for r in jamba["flash_vs_plain"])}
+
+
+def vlm_config():
+    """The ``vlm`` phase's model: paligemma-3b as published, whole."""
+    from repro_torch.configs import paligemma_3b
+
+    return paligemma_3b.config()
+
+
+def vlm_reckoning(cfg) -> dict:
+    """Parameters and bytes of ``cfg``'s weights and of one row's float32
+    logits at the longest prefill, reckoned from the config alone."""
+    acfg = cfg.attn_cfg(False)
+    d, dh = cfg.d_model, cfg.d_head
+    attn = d * acfg.hq_pad * dh * 2 + d * acfg.n_kv_heads * dh * 2
+    mlp = 2 * d * cfg.d_ff  # gelu: up and down, no gate
+    n = cfg.padded_vocab * d + cfg.n_layers * (attn + mlp + 2 * d) + d
+    s = cfg.prefix_len + max(VLM_PROMPTS)
+    return {"params": n, "attention_per_layer": attn, "mlp_per_layer": mlp,
+            "bfloat16_bytes": 2 * n, "float32_bytes": 4 * n,
+            "float32_logits_bytes_per_row": 4 * s * cfg.padded_vocab,
+            "longest_prefill": s}
+
+
+def vlm_flash_rows(calls, dtype: str) -> list[dict]:
+    """:func:`flash_row` of each recorded paligemma call, and whether the
+    kernel gives the same bits on a rerun."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    rows = []
+    for c, y in calls:
+        row = flash_row({**c, "case": f"paligemma_S{c['q'].shape[2]}_{dtype}",
+                         "dtype": dtype}, y)
+        row["rerun_bit_identical"] = bool(torch.equal(
+            tfa.flash_attention_cuda(c["q"], c["k"], c["v"],
+                                     causal=c["causal"], window=c["window"],
+                                     kv_len=c["kv_len"]), y))
+        rows.append(row)
+    return rows
+
+
+def vlm_phase(seed: int, dev) -> dict:
+    """paligemma-3b whole, its patch prefix in front of every prompt of
+    ``VLM_PROMPTS``: (a) each prefill's flash calls at the path's shapes
+    against the plain version; (b) the float32 cached prefill + decode
+    against a cacheless forward; (c) the bf16 main path: the prefix
+    prefills and ``VLM_DECODE`` tokens through the step functions, then
+    text-only requests through ``DecodeService``, every prefill through
+    the flash kernel at D 256; checks and the report."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.transformer import count_params, init_cache
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime.serve import (
+        DecodeService,
+        ServeConfig,
+        make_decode_step,
+        make_prefill_step,
+    )
+    from repro_torch.serve.api import Request
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, statics = draw_model(vlm_config(), seed, dev, "float32")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    acfg = cfg.attn_cfg(False)
+    rng = np.random.default_rng(seed + 17)
+    p = cfg.prefix_len
+    patches = torch.as_tensor(rng.normal(size=(1, p, cfg.d_model)).astype(
+        np.float32), device=dev)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in VLM_PROMPTS]
+    res = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "q_heads_padded": acfg.hq_pad, "grouped": acfg.grouped,
+           "d_head": cfg.d_head, "d_ff": cfg.d_ff, "act": cfg.act,
+           "vocab": cfg.vocab, "prefix_len": p,
+           "prompt_lengths": list(VLM_PROMPTS),
+           "prefill_lengths": [p + n for n in VLM_PROMPTS],
+           "reckoned": vlm_reckoning(cfg), "params": count_params(params),
+           "weight_bytes": {"float32": param_bytes(params)},
+           "init_seconds": init_s}
+
+    # (b) float32: cached prefill with the prefix + decode = cacheless
+    with torch.no_grad():
+        res["handoff"] = [handoff_row(params, statics, pr, VLM_HANDOFF_STEPS,
+                                      dev, prefix=patches) for pr in prompts]
+        # (a) the SIMT route at the path's shapes: the kernel route's
+        # prefill in float32, its flash calls recorded
+        ref32, calls32 = [], []
+        for pr in prompts:
+            lg, calls = recorded_flash_calls(lambda pr=pr: prefill_logits(
+                params, statics, pr, VLM_MAX_SEQ, torch.float32, True, dev,
+                prefix=patches))
+            ref32.append(prefill_logits(params, statics, pr, VLM_MAX_SEQ,
+                                        torch.float32, False, dev,
+                                        prefix=patches))
+            res.setdefault("fp32_kernel_vs_plain", []).append(
+                rel_diff(lg, ref32[-1]))
+            calls32 += calls
+    res["peak_memory_bytes"] = {"float32": torch.cuda.max_memory_allocated()}
+    flash32 = vlm_flash_rows(calls32, "float32")
+    del calls32
+    cfg, params, statics = to_dtype(cfg, params, statics, "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res["weight_bytes"]["bfloat16"] = param_bytes(params)
+    bf16 = torch.bfloat16
+
+    scfg = ServeConfig(**VLM_SCFG)
+    svc_tracer = Tracer()
+    svc = DecodeService(cfg, statics, params, scfg, tracer=svc_tracer,
+                        device=dev)
+    svc.submit(Request(prompt=np.ones(4, np.int32), max_new_tokens=2))
+    svc.run()  # warm-up through the real admit/decode path
+    svc.reset_metrics()
+    svc_tracer.reset()
+    lengths = rng.integers(VLM_LENGTHS[0], VLM_LENGTHS[1] + 1, VLM_REQUESTS)
+    texts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32)
+             for n in lengths]
+    prefill = make_prefill_step(cfg, statics, scfg)
+    decode = make_decode_step(cfg, statics, scfg)
+
+    # the vlm path: counts from 0, the prefix prefills and their decode
+    # steps, then the text-only requests through the service, read
+    for key in ("launches", "launches_tensor_core", "launches_simt"):
+        setattr(tfa.flash_attention_cuda, key, 0)
+    served, step_s = [], []
+    with torch.no_grad():
+        for pr in prompts:
+            cache = init_cache(statics, 1, VLM_MAX_SEQ, dtype=bf16,
+                               device=dev)
+            toks = torch.as_tensor(pr[None].astype(np.int64), device=dev)
+            t1 = time.perf_counter()
+            tok, cache = prefill(params, cache, toks,
+                                 extras={"prefix_embeds": patches})
+            out = [int(tok[0])]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pos = p + len(pr)
+            for i in range(VLM_DECODE):
+                tok, cache = decode(params, cache, tok,
+                                    torch.tensor(pos + i, device=dev))
+                out.append(int(tok[0]))
+            torch.cuda.synchronize()
+            step_s.append({"prefill_s": t2 - t1,
+                           "decode_s_per_step": (time.perf_counter() - t2)
+                           / VLM_DECODE})
+            served.append(out)
+            del cache
+    reqs = [Request(prompt=t, max_new_tokens=VLM_NEW) for t in texts]
+    run_s = serve_bursts(svc, reqs, VLM_BURSTS)
+    launches = tfa.flash_attention_cuda.launches
+    routes = {"tensor_core": tfa.flash_attention_cuda.launches_tensor_core,
+              "simt": tfa.flash_attention_cuda.launches_simt}
+    m = svc.metrics
+    split = service_split(svc_tracer)
+    mid = sum(1 for e in svc_tracer.events()
+              if e.get("args", {}).get("event") == "admit_mid_decode")
+    alone = {}
+    for i in (0, VLM_REQUESTS - 1):
+        r = Request(prompt=texts[i], max_new_tokens=VLM_NEW)
+        svc.submit(r)
+        svc.run()
+        alone[i] = r.output == reqs[i].output
+
+    # (c) the bf16 prefill logits against float32, and (a) the
+    # tensor-core route's calls at the path's shapes
+    parity, calls16 = [], []
+    with torch.no_grad():
+        for pr, f32, out in zip(prompts, ref32, served):
+            kern, calls = recorded_flash_calls(lambda pr=pr: prefill_logits(
+                params, statics, pr, VLM_MAX_SEQ, bf16, True, dev,
+                prefix=patches))
+            calls16 += calls
+            plain = prefill_logits(params, statics, pr, VLM_MAX_SEQ, bf16,
+                                   False, dev, prefix=patches)
+            noise = rel_diff(plain, f32)
+            row = {"prompt_len": len(pr), "prefill_len": p + len(pr),
+                   "bf16_kernel_vs_plain": rel_diff(kern, plain),
+                   "bf16_plain_vs_fp32": noise,
+                   "bf16_kernel_vs_fp32": rel_diff(kern, f32),
+                   "bf16_limit": GEN_BF16_NOISE_FACTOR * noise,
+                   "first_token_is_bf16_prefill_argmax": out[0] == int(
+                       kern[-1].argmax()),
+                   "finite": bool(torch.isfinite(kern).all()),
+                   "logits_shape": [p + len(pr), cfg.vocab],
+                   "decoded_tokens": len(out) - 1}
+            row["ok"] = (row["bf16_kernel_vs_plain"] <= row["bf16_limit"]
+                         and row["first_token_is_bf16_prefill_argmax"]
+                         and row["finite"] and kern.shape[0] == p + len(pr))
+            parity.append(row)
+    flash16 = vlm_flash_rows(calls16, "bfloat16")
+    del calls16
+    res.update(
+        fp32_limit=GEN_FP32_REL, prefill_logits=parity,
+        prefix_prefill_step_seconds=step_s, prefix_served_tokens=served,
+        serve_config=VLM_SCFG, requests=len(reqs), new_tokens=VLM_NEW,
+        bursts=list(VLM_BURSTS), text_prompt_lengths=[len(t) for t in texts],
+        all_done=all(r.done and len(r.output) == VLM_NEW for r in reqs),
+        trace_count=svc.trace_count(), admitted_mid_decode=mid,
+        alone_vs_cobatched_equal=alone,
+        prefills_with_prefix=len(prompts), launches=launches,
+        launches_by_route=routes,
+        launches_expected=cfg.n_layers * (len(prompts) + len(reqs)),
+        run_seconds=run_s,
+        tokens_per_s=sum(len(r.output) for r in reqs) / run_s, **split,
+        ttft_p50_s=m["first_result_p50_s"], latency_p50_s=m["latency_p50_s"],
+        latency_p99_s=m["latency_p99_s"])
+    res["peak_memory_bytes"]["bfloat16"] = torch.cuda.max_memory_allocated()
+    flash = {"bfloat16": flash16, "float32": flash32}
+    return res, flash
+
+
+def vlm_phase_run(seed: int, dev) -> dict:
+    """:func:`vlm_phase`, its JSON line and its checks."""
+    t0 = time.perf_counter()
+    res, flash = vlm_phase(seed, dev)
+    seconds = time.perf_counter() - t0
+    shapes = sorted({tuple(r["q"]) for rows in flash.values() for r in rows})
+    emit("vlm", seconds=seconds, depth=f"{res['layers']} of 18 layers",
+         handoff_limit=f"max|d| <= {HANDOFF_REL} x max(1, max|cacheless "
+                       f"logit|)",
+         flash_limit="bf16: flash_tolerance and the rounding limit; fp32: "
+                     "flash_tolerance; each the same bits on a rerun",
+         flash_shapes=[list(x) for x in shapes],
+         flash_vs_plain={dt: {"calls": len(rows),
+                              "worst_over_limit": max(
+                                  (r["worst_over_limit"] for r in rows),
+                                  default=None),
+                              "worst_over_rounding_limit": max(
+                                  (r.get("worst_over_rounding_limit", 0.0)
+                                   for r in rows), default=None),
+                              "max_abs_diff": max(
+                                  (r["max_abs_diff"] for r in rows),
+                                  default=None),
+                              "failed": [r["case"] for r in rows
+                                         if not r["ok"]
+                                         or not r["rerun_bit_identical"]]}
+                         for dt, rows in flash.items()},
+         **res)
+    calls = res["layers"] * len(VLM_PROMPTS)
+    for dt, rows in flash.items():
+        bad = [r["case"] for r in rows
+               if not r["ok"] or not r["rerun_bit_identical"]]
+        check(len(rows) == calls and not bad,
+              f"paligemma's {dt} flash calls: {len(rows)} of {calls} "
+              f"recorded, off the plain version or not rerun-identical: "
+              f"{bad}")
+    widths = {r["q"][-1] for rows in flash.values() for r in rows}
+    check(widths == {res["d_head"]},
+          f"paligemma's flash calls at head widths {widths}")
+    bad = [r["prompt_len"] for r in res["handoff"] if not r["ok"]]
+    check(not bad, f"paligemma cached prefill + decode off the cacheless "
+                   f"forward for prompts of {bad} tokens")
+    bad = [n for n, r in zip(VLM_PROMPTS, res["fp32_kernel_vs_plain"])
+           if r > GEN_FP32_REL]
+    check(not bad, f"paligemma's float32 kernel route off the plain route "
+                   f"for prompts of {bad} tokens")
+    bad = [r["prompt_len"] for r in res["prefill_logits"] if not r["ok"]]
+    check(not bad, f"paligemma's bf16 prefill with the prefix failed for "
+                   f"prompts of {bad} tokens: {res['prefill_logits']}")
+    check(res["all_done"], "a paligemma request did not complete")
+    check(res["trace_count"] == 1,
+          f"paligemma decode trace_count {res['trace_count']} != 1")
+    check(all(res["alone_vs_cobatched_equal"].values()),
+          f"paligemma co-batched tokens differ from alone: "
+          f"{res['alone_vs_cobatched_equal']}")
+    check(all(len(t) == VLM_DECODE + 1 for t in res["prefix_served_tokens"]),
+          "paligemma's decode steps did not all run")
+    check(res["params"] == res["reckoned"]["params"],
+          f"paligemma has {res['params']} parameters, reckoned "
+          f"{res['reckoned']['params']}")
+    check(res["grouped"] and res["launches"] == res["launches_expected"]
+          and res["launches_by_route"]["tensor_core"] == res["launches"],
+          f"paligemma flash launches {res['launches']} (expected "
+          f"{res['launches_expected']}), by route {res['launches_by_route']}")
+    return {"launches": res["launches"], "seconds": seconds,
+            "max_abs_err": max(r["max_abs_diff"]
+                               for r in flash["bfloat16"])}
 
 
 def build_decode_lm(seed: int, dev):
@@ -3498,6 +3862,12 @@ def run(seed: int, dev) -> dict:
     max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
                                           sw["max_abs_err"])
 
+    # -- 10d. the VLM prefix: paligemma-3b whole, flash at D 256 ----------
+    vlm = vlm_phase_run(seed, dev)
+    launches["flash_attention_cuda"] += vlm["launches"]
+    max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
+                                          vlm["max_abs_err"])
+
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []
     per_layer = {}
@@ -3659,8 +4029,9 @@ def run(seed: int, dev) -> dict:
          f"call, summed over the {len(ou['cases'])} conv cases, GB/s of its "
          f"bytes (HBM {HBM_BYTES_PER_S / 1e12} TB/s); flash: ms "
          f"per launch of the prefill's call at S in {list(FLASH_PATH_S)} "
-         f"(h2o-danube) and {list(LM_DENSE_PROMPTS)} (qwen2.5-32b), "
-         f"summed; its bound at the bf16 tensor cores' rate",
+         f"(h2o-danube), {list(LM_DENSE_PROMPTS)} (qwen2.5-32b) and "
+         f"prefix_len + {list(VLM_PROMPTS)} (paligemma-3b), summed; its "
+         f"bound at the bf16 tensor cores' rate",
          per_layer=per_layer, searched_fp32_spmm_per_forward=searched_spmm,
          flash_by_model={
              m: {key: sum(r[key] for r in fl_rows if r["model"] == m)

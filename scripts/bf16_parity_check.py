@@ -4,9 +4,11 @@ the CPU.
 
     PYTHONPATH=src:tests JAX_PLATFORMS=cpu python3 scripts/bf16_parity_check.py
 
-1. SiLU on 200,000 seeded bf16 values: the share of them on which
-   ``torch.nn.functional.silu`` (rounded once) and ``models.layers.silu``
-   (``jax.nn.silu``'s steps, each rounded) differ from ``jax.nn.silu``.
+1. SiLU and GELU on 200,000 seeded bf16 values: the share of them on
+   which ``torch.nn.functional.silu`` and ``gelu(approximate="tanh")``
+   (rounded once) and ``models.layers.silu`` and ``models.layers.gelu``
+   (``jax.nn.silu``'s and ``jax.nn.gelu``'s steps, each rounded) differ
+   from ``jax.nn.silu`` and ``jax.nn.gelu``.
 2. mamba2's smoke model in bf16: the logits of 40 seeded tokens from the
    reference jitted as XLA compiles it by default (float32 excess
    precision inside fusions), compiled with
@@ -17,6 +19,10 @@ the CPU.
    with ``xla_allow_excess_precision=False``: the port's logits with
    ``models.layers.silu`` and with ``F.silu`` in its place, and the
    largest router-probability gap where the port would route otherwise.
+4. whisper's and paligemma's smoke models in bf16 (the GELU MLP; the
+   same frames, the same patch prefix): the port's logits with
+   ``models.layers.gelu`` and with ``F.gelu(approximate="tanh")`` in its
+   place, each against the reference jitted as the tests run it.
 
 Distances are max|d| / max(1, max|reference|), as the tests take them.
 One JSON object on stdout.  Needs both packages, no GPU.
@@ -48,6 +54,14 @@ def main() -> int:
     out["silu_share_differing_from_jax"] = {
         name: float((fn(xt).float().numpy() != want).mean())
         for name, fn in (("F.silu", F.silu), ("layers.silu", layers.silu))}
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x, jnp.bfloat16)), np.float32)
+
+    def gelu_once(t):
+        return F.gelu(t, approximate="tanh")
+
+    out["gelu_share_differing_from_jax"] = {
+        name: float((fn(xt).float().numpy() != want).mean())
+        for name, fn in (("F.gelu", gelu_once), ("layers.gelu", layers.gelu))}
 
     def compiled(fn, statics, *args, excess: bool):
         call = jax.jit(lambda p, a: fn(p, statics, *a)).lower(*args[:1],
@@ -90,6 +104,20 @@ def main() -> int:
                            "route_flips": same.flips,
                            "worst_router_gap": same.worst_gap}
     out["jamba_smoke_bf16"] = jamba
+
+    for arch in ("whisper_small", "paligemma_3b"):
+        _, jp, jst, _, tp, tst = T._models(T.CONFIGS[arch](), "bfloat16")
+        jx, tx = T._extras(jst["cfg"], 2)
+        ref = np.asarray(T.jtr.apply_model(jp, jst, jnp.asarray(toks),
+                                           **jx)[0], np.float32)
+        row = {}
+        for name, gelu in (("layers.gelu", layers.gelu),
+                           ("F.gelu", gelu_once)):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(layers, "gelu", gelu)
+                got = T.ttr.apply_model(tp, tst, T._t(toks), **tx)[0]
+            row[name] = T._rel(got.float().numpy(), ref)
+        out[f"{arch}_smoke_bf16_port_vs_reference"] = row
     print(json.dumps(out))
     return 0
 

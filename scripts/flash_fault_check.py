@@ -12,9 +12,12 @@ temporary directory; the source in the repository is never changed), all
 ``chip_smoke.flash_row``: ``_tolerance`` against the plain version, and
 for 16-bit inputs the rounding limit against the plain version in fp32.
 For each build it reports the cases each limit fails and the worst
-ratios.  Exits 0 when the unedited build passes every case and every
-fault fails at least one; one JSON object on stdout, also written to
-``--out``.  Needs a CUDA device and ``nvcc``.
+ratios, and apart the cases at head width 256 (the sweep's paligemma
+shape and paligemma's prefills, the kernels' 256-wide builds).  Exits 0
+when the unedited build passes every case and every fault fails at
+least one case at D 256 and the 16-bit rounding limit at that width; one
+JSON object on stdout, also written to ``--out``.  Needs a CUDA device
+and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -121,6 +124,7 @@ def main(argv=None) -> int:
                        if r["worst_over_limit"] > 1.0 or not r["finite"]]
             rnd_bad = [r["case"] for r in rows
                        if r.get("worst_over_rounding_limit", 0.0) > 1.0]
+            wide = [r for r in rows if r["q"][-1] == 256]
             path = [r for r in rows if r["case"].startswith("path_")]
             res["builds"][name] = {
                 "failed": bool(tol_bad or rnd_bad),
@@ -130,6 +134,15 @@ def main(argv=None) -> int:
                 "worst_over_rounding_limit": max(
                     r.get("worst_over_rounding_limit", 0.0) for r in rows),
                 "path_max_abs_diff": max(r["max_abs_diff"] for r in path),
+                "d256_cases": len(wide),
+                "d256_failed_tolerance": [
+                    r["case"] for r in wide
+                    if r["worst_over_limit"] > 1.0 or not r["finite"]],
+                "d256_failed_rounding_limit": [
+                    r["case"] for r in wide
+                    if r.get("worst_over_rounding_limit", 0.0) > 1.0],
+                "d256_worst_over_rounding_limit": max(
+                    r.get("worst_over_rounding_limit", 0.0) for r in wide),
                 "path": {r["case"]: {k: r.get(k) for k in (
                     "max_abs_diff", "worst_over_limit", "max_abs_diff_fp32",
                     "max_abs_plain", "fp32_excess_over_row_max",
@@ -139,7 +152,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     builds = res["builds"]
     res["ok"] = (not builds["unedited"]["failed"] and all(
-        b["failed"] for n, b in builds.items() if n != "unedited"))
+        b["failed"] and b["d256_failed_rounding_limit"]
+        for n, b in builds.items() if n != "unedited"))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)

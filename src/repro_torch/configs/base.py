@@ -4,11 +4,10 @@ Every ported architecture has a module exporting:
   config(shape: ShapeSpec|None, sparse=False) -> ModelConfig  (published)
   smoke_config() -> ModelConfig                 (reduced, CPU-runnable)
 
-Ported: every architecture of ``ARCH_NAMES`` but ``paligemma_3b``,
-which raises ``NotImplementedError`` here naming what it waits for
-(``_UNLOCKED_BY``).  The reference's ``input_specs`` (and whisper's
-``extra_inputs``) build ``jax.ShapeDtypeStruct`` stand-ins for its
-dry-run lowering and have no counterpart in the port.
+Ported: every architecture of ``ARCH_NAMES``.  The reference's
+``input_specs`` (and whisper's and paligemma's ``extra_inputs``) build
+``jax.ShapeDtypeStruct`` stand-ins for its dry-run lowering and have no
+counterpart in the port.
 
 Shapes (seq_len x global_batch):
   train_4k     4,096 x 256   training
@@ -58,14 +57,8 @@ ARCH_NAMES = [
 
 PORTED = ("granite_3_2b", "h2o_danube_1_8b", "phi3_medium_14b",
           "qwen2_5_32b", "deepseek_v2_236b", "deepseek_v3_671b",
-          "mamba2_780m", "jamba_1_5_large_398b", "whisper_small")
-
-# what each unported architecture waits for (ROADMAP.md Queue 1 item 11)
-_UNLOCKED_BY = {
-    "paligemma_3b": "the VLM prefix, item 11.5, and a flash kernel for its "
-                    "head width of 256 (kernels/flash_attention.py's "
-                    "MAX_HEAD_DIM is 128)",
-}
+          "mamba2_780m", "jamba_1_5_large_398b", "whisper_small",
+          "paligemma_3b")
 
 # archs with sub-quadratic sequence mixing -> long_500k runs
 _LONG_OK = {"jamba_1_5_large_398b", "mamba2_780m", "h2o_danube_1_8b"}
@@ -74,11 +67,6 @@ _LONG_OK = {"jamba_1_5_large_398b", "mamba2_780m", "h2o_danube_1_8b"}
 def _module(arch: str):
     if arch not in ARCH_NAMES:
         raise KeyError(f"unknown architecture {arch!r}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported: it needs {_UNLOCKED_BY[arch]} "
-            "(ROADMAP.md Queue 1)"
-        )
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -40,12 +40,16 @@
 // SIMT layout (fp32): 128 threads per block, BQ = 64 query rows, BK = 64
 // keys per tile.  Thread (rg, cg) = (tid / 8, tid % 8) owns query rows
 // 4rg..4rg+3; for the scores it owns keys cg + 8j (j < 8), for the output
-// columns cg + 8j (j < 16, up to D = 128).  The 8 lanes of a row group are
+// columns cg + 8j (j < DM / 8).  The kernel is instantiated for a widest
+// head DM of 128 (D <= 128: 16 output columns a row, the register plan of
+// the D-80 and D-128 paths) and of 256 (D in (128, 256]: 32 columns a row,
+// 128 fp32 accumulators a thread).  The 8 lanes of a row group are
 // neighbours in one warp, so a row's max and sum are warp shuffles and the
 // probabilities a row group writes to shared memory are read back by the
 // same warp.  Shared memory: Q and K at a row stride of D + 1 (odd, so the
 // four rows a warp reads at one depth fall in different banks), V at D, P
-// at BK + 1: 78,592 bytes at D = 80, 115,456 at D = 128.
+// at BK + 1: 78,592 bytes at D = 80, 115,456 at D = 128, 213,760 at
+// D = 256 (one block an SM, under the 232,448-byte opt-in limit).
 //
 // Each C entry point launches on the stream it is given and returns
 // cudaGetLastError().
@@ -61,10 +65,9 @@ namespace {
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // keys per tile
 constexpr int THREADS = 128;
-constexpr int DMAX = 128;    // largest head dimension
+constexpr int DMAX = 256;    // largest head dimension
 constexpr int RPT = 4;       // query rows per thread
 constexpr int CPT = BK / 8;  // keys per thread in a score tile
-constexpr int DPT = DMAX / 8;  // output columns per thread
 
 struct Params {
   const void* q;
@@ -88,8 +91,11 @@ size_t smem_bytes(int D) {
           (size_t)BQ * (BK + 1));
 }
 
+// DM: the widest head this instantiation takes (128 or 256)
+template <int DM>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const Params p) {
+  constexpr int DPT = DM / 8;  // output columns per thread
   extern __shared__ float smem[];
   const int D = p.D;
   const int ldq = D + 1;
@@ -237,15 +243,21 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+template <int DM>
+cudaError_t launch_simt(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, B * p.Hq);
-  flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<DM><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+cudaError_t launch_fp32(const Params& p, int B, cudaStream_t stream) {
+  if (p.D <= 128) return launch_simt<128>(p, B, stream);
+  return launch_simt<DMAX>(p, B, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -257,9 +269,19 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // at a row stride of DP + 8 elements (DP: D rounded up to an instantiated
 // width, the extra columns zero-filled), so the 8 rows one ldmatrix reads
 // fall in 8 different 16-byte bank groups.  Q's fragments are loaded once
-// with ldmatrix; K and V tiles of 64 keys are copied with cp.async
-// (16 bytes, zero-filled past kv_len and past D) into the second of two
-// stages while the first is computed.
+// with ldmatrix (at DP = 256 at each k16 step, below); K and V tiles of
+// 64 keys are copied with cp.async (16 bytes, zero-filled past kv_len and
+// past D) into the second of two stages while the first is computed.
+//
+// DP = 256 (paligemma's head width): the fragments of Q (16 k16 steps x
+// 4 registers), the output accumulators (32 n8 tiles x 4) and one key
+// tile's scores (8 x 4) would hold 224 registers a thread before any
+// address, against the 255 a thread may have.  So at DP = 256 Q's
+// fragments are read again from shared memory (where Q stays for the
+// whole block) at each k16 step of Q K^T: one more ldmatrix beside the
+// four that read K, and 64 registers freed, as FA-2 does at D = 256.
+// Shared memory is 2 x (64 + 4 x 64) x 264 = 168,960 bytes: one block
+// an SM.
 //
 // S = Q K^T: per key tile a warp holds 16 x 64 fp32 scores in the MMA's
 // accumulator fragments: thread (lane) holds rows lane/4 and lane/4 + 8,
@@ -383,12 +405,12 @@ constexpr size_t smem_bytes(int dp) {
   return sizeof(uint16_t) * (size_t)(BQ + 4 * BKV) * (dp + 8);
 }
 
-// Three blocks an SM up to D = 80, two above.  At D = 80 ptxas spills ~64
-// bytes a thread to fit 168 registers, and on an H100 (700 W) the
-// 4500-token prefill call still ran ~10 % faster than at two blocks with
-// no spill.
+// Three blocks an SM up to D = 80, two up to 128, one at 256 (shared
+// memory holds no second).  At D = 80 ptxas spills ~64 bytes a thread to
+// fit 168 registers, and on an H100 (700 W) the 4500-token prefill call
+// still ran ~10 % faster than at two blocks with no spill.
 template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS, DP <= 80 ? 3 : 2)
+__global__ void __launch_bounds__(THREADS, DP <= 80 ? 3 : DP <= 128 ? 2 : 1)
 flash_mma_kernel(const Params p) {
   constexpr int LD = DP + 8;  // row stride in elements
   constexpr int KS = DP / 16;  // k16 steps of Q K^T
@@ -446,7 +468,8 @@ flash_mma_kernel(const Params p) {
   if (tile_lo < tile_hi) load_kv(tile_lo, 0);
   asm volatile("cp.async.commit_group;\n" ::);
 
-  uint32_t qf[KS][4];
+  // Q's fragments, held for the whole walk below DP = 256
+  uint32_t qf[DP == 256 ? 1 : KS][4];
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -465,11 +488,13 @@ flash_mma_kernel(const Params p) {
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
-    if (tile == tile_lo) {
+    if constexpr (DP != 256) {
+      if (tile == tile_lo) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                            (lane >> 4) * 8);
+        for (int ks = 0; ks < KS; ++ks)
+          ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                              (lane >> 4) * 8);
+      }
     }
     const T* kt = Ks + buf * BKV * LD;
     const T* vt = Vs + buf * BKV * LD;
@@ -481,13 +506,21 @@ flash_mma_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (DP == 256) {
+        ldsm_x4(qa, Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                        (lane >> 4) * 8);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+      }
 #pragma unroll
       for (int np = 0; np < BKV / 16; ++np) {
         uint32_t kb[4];
         ldsm_x4(kb, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                         ks * 16 + ((lane >> 3) & 1) * 8);
-        Ops<T>::mma(sc[2 * np], qf[ks], kb[0], kb[1]);
-        Ops<T>::mma(sc[2 * np + 1], qf[ks], kb[2], kb[3]);
+        Ops<T>::mma(sc[2 * np], qa, kb[0], kb[1]);
+        Ops<T>::mma(sc[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -607,7 +640,8 @@ cudaError_t launch_d(const Params& p, int B, cudaStream_t stream) {
   if (p.D <= 32) return launch<T, 32>(p, B, stream);
   if (p.D <= 64) return launch<T, 64>(p, B, stream);
   if (p.D <= 80) return launch<T, 80>(p, B, stream);
-  return launch<T, 128>(p, B, stream);
+  if (p.D <= 128) return launch<T, 128>(p, B, stream);
+  return launch<T, 256>(p, B, stream);
 }
 
 }  // namespace tc
@@ -641,7 +675,7 @@ extern "C" int flash_attention_fwd(FLASH_ARGS) {
   Params p{q,   k,   v,   o,   q_b, q_h, q_s,   k_b,    k_h,    k_s,
            v_b, v_h, v_s, o_b, o_h, o_s, Hq,    Hkv,    Sq,     Sk,
            D,   scale, causal, window, kv_len};
-  return (int)launch(p, B, (cudaStream_t)stream);
+  return (int)launch_fp32(p, B, (cudaStream_t)stream);
 }
 
 extern "C" int flash_attention_fwd_mma(FLASH_ARGS) {

@@ -26,6 +26,11 @@ failure:
 - fp32 inputs: the SIMT kernel on the CUDA cores (fp32's 2e-5 tolerance
   cannot be met through 16-bit tensor-core inputs).
 
+Both routes take head widths up to ``MAX_HEAD_DIM`` = 256
+(paligemma's); above 128 each runs its 256-wide build, which on the
+tensor-core route reads Q's fragments from shared memory at each step
+instead of holding them in registers (``csrc/flash_attention.cu``).
+
 The kernel folds GQA itself (query head ``h`` reads key head
 ``h // group``) and addresses every tensor through its strides with a
 unit stride along D, so it reads a ``[B, S, H, D]`` cache through a
@@ -51,7 +56,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["MAX_HEAD_DIM", "flash_attention_cuda", "flash_attention_plain"]
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # both routes; D above 128 runs the kernels' 256-wide build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_ROWS = 65535  # CUDA's limit on gridDim.y, which counts B * Hq
 
@@ -136,9 +141,12 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
                          scale: float | None = None,
                          kv_len: int | None = None) -> torch.Tensor:
     """FA-2 forward: q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D] (Hq a
-    multiple of Hkv, D <= 128, any strides) -> [B, Hq, Sq, D] in q's
-    dtype.  Query positions start at 0; ``kv_len`` (default Sk) masks the
-    keys at and after it; ``scale`` defaults to D ** -0.5."""
+    multiple of Hkv, D <= 256, any strides) -> [B, Hq, Sq, D] in q's
+    dtype; above 256 it raises.  Each route runs the narrowest build that
+    holds D (tensor cores: 32, 64, 80, 128, 256 wide, the extra columns
+    zero-filled; SIMT: 128, 256).  Query positions start at 0;
+    ``kv_len`` (default Sk) masks the keys at and after it; ``scale``
+    defaults to D ** -0.5."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, scale, kv_len)
     if q.device.type != "cuda":

@@ -45,10 +45,10 @@ import math
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from repro_torch.models.layers import (
     _normal,
+    gelu,
     linear,
     linear_init,
     mlp_apply,
@@ -191,7 +191,7 @@ def _dispatch_compute_combine(
         g = torch.einsum("ecd,edf->ecf", xe, experts["gate"].to(xf.dtype))
         h = silu(g) * h
     else:
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        h = gelu(h)
     ye = torch.einsum("ecf,efd->ecd", h, experts["down"].to(xf.dtype))
     ye = torch.cat([ye.reshape(e_loc * cap, d),
                     torch.zeros((1, d), dtype=ye.dtype, device=dev)])

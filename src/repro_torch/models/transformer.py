@@ -18,12 +18,10 @@ The stack is factored into an optional non-periodic *prefix*
 them with ``lax.scan`` the port loops over the stacked tensors in
 Python.  Enc-dec (whisper) adds an encoder stack, run over stub frame
 embeddings (``frames``), whose output the decoder's cross-attention
-reads; DeepSeek-V3 adds its MTP head.  The reference's remat
-(``jax.checkpoint``) is a training concern and is left out: serving has
-no backward.
-
-Not ported yet: ``prefix_embeds`` (the VLM prefix, ``ROADMAP.md`` Queue
-1 item 11.5), raising ``NotImplementedError`` naming it.
+reads; a VLM (paligemma) puts stub patch embeddings (``prefix_embeds``)
+in front of the tokens; DeepSeek-V3 adds its MTP head.  The reference's
+remat (``jax.checkpoint``) is a training concern and is left out:
+serving has no backward.
 
 Params are a plain dict of tensors; the statics (layer kinds, attention
 and MLA configs, sparse layouts with their device index tables) come
@@ -70,15 +68,6 @@ from repro_torch.parallel.sharding import pad_to_multiple
 __all__ = ["ModelConfig", "find_structure", "init_statics", "init_params",
            "init_cache", "apply_model", "count_params"]
 
-_NOT_PORTED = {
-    "prefix": "the VLM prefix is ROADMAP.md Queue 1 item 11.5",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"not ported: {_NOT_PORTED[what]}")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -106,7 +95,7 @@ class ModelConfig:
     # embeddings [B, enc_seq, d_model]
     encoder_layers: int = 0
     enc_seq: int = 0
-    # vlm (paligemma): prefix patch embeddings, not ported (11.5)
+    # vlm (paligemma): patch embeddings [B, prefix_len, d_model] in front
     prefix_len: int = 0
     # sparsity (the paper's technique, block-granular)
     sparse: PatternSparseConfig | None = None
@@ -458,10 +447,17 @@ def apply_model(
     frames: torch.Tensor | None = None,
     prefill: bool | None = None,
 ):
-    """Forward pass.  Returns (logits [B, S, vocab_padded], cache, aux);
-    the cache, when given, is written in place and returned.  With
+    """Forward pass.  Returns (logits [B, S(+P), vocab_padded], cache,
+    aux); the cache, when given, is written in place and returned.  With
     ``cfg.mtp`` and no cache, ``aux["mtp_logits"]`` [B, S, vocab_padded]
     are the next-next-token head's.
+
+    A VLM's stub patch embeddings ``prefix_embeds`` [B, P, d] go in front
+    of the embedded tokens (after the tokens' ``sqrt(d_model)`` scale,
+    which they do not get), in the compute dtype, as the reference puts
+    them: the sequence is then P + S long, ``positions`` default to
+    ``arange(P + S)``, every layer attends over the prefix causally, and
+    the logits cover all P + S positions.
 
     An encoder-decoder encodes ``frames`` [B, enc_seq, d] when given and
     stores the encoder's output as the cache's ``memory`` (replacing the
@@ -473,8 +469,6 @@ def apply_model(
     from cache position 0, see ``models.attention``), the plain routes
     where it is false; ``None`` decides it here from ``positions`` and
     ``cache_pos``, with one read of the device."""
-    if prefix_embeds is not None:
-        raise _not_ported("prefix")
     cfg: ModelConfig = statics["cfg"]
     cdt = cfg.cdtype()
     _, s = tokens.shape
@@ -482,6 +476,9 @@ def apply_model(
     x = params["embed"]["w"][tokens].to(cdt)
     if cfg.tie_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cdt)  # gemma convention
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cdt), x], dim=1)
+        s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     if prefill is None:

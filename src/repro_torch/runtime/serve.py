@@ -82,9 +82,13 @@ def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
         output kept as the cache's ``memory``, which the decode steps
         read (this is how whisper is served: ``DecodeService`` encodes no
         frames, as the reference's does not).  A VLM patch prefix
-        (``extras['prefix_embeds']``) is not ported (``apply_model``
-        raises)."""
+        (``extras['prefix_embeds']`` [B, P, d]) extends the context:
+        positions and the cache length cover P + S, so decoding goes on
+        at position P + S (paligemma is served so: ``DecodeService``
+        takes no prefix, as the reference's takes none)."""
         total = tokens.shape[1]
+        if extras and "prefix_embeds" in extras:
+            total += extras["prefix_embeds"].shape[1]
         logits, cache, _ = apply_model(
             params, statics, tokens,
             positions=torch.arange(total, device=tokens.device),

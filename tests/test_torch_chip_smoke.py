@@ -162,6 +162,14 @@ def _smoke_ssm_config(arch):
     return cfg
 
 
+def _smoke_vlm_config():
+    """The vlm phase's model at CPU size: paligemma's smoke config (8
+    patches, 4 heads over 1 of 16) at ``model_shards=16``, so its 4 q
+    heads pad to 16 over the one kv head as the published 8 do."""
+    return dataclasses.replace(get_smoke_config("paligemma_3b"),
+                               model_shards=16)
+
+
 def _mini_model(seed):
     cfg = mini_cnn_config(4, 12, (8, 16, 16))
     rng = np.random.default_rng(seed)
@@ -278,6 +286,20 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "WHISPER_PROMPT", 12)
     monkeypatch.setattr(cs, "WHISPER_STEPS", 4)
     monkeypatch.setattr(cs, "WHISPER_BATCH", 2)
+    # the vlm phase at smoke size: 8 patches in front of prompts of 5 and
+    # 12 tokens (Sq 13 and 20) in a cache of 64, 3 handoff steps, 4 decode
+    # steps; 4 text-only requests of 5-20 tokens through 2 slots, 3 new each
+    monkeypatch.setattr(cs, "vlm_config", _smoke_vlm_config)
+    monkeypatch.setattr(cs, "VLM_PROMPTS", (5, 12))
+    monkeypatch.setattr(cs, "VLM_MAX_SEQ", 64)
+    monkeypatch.setattr(cs, "VLM_HANDOFF_STEPS", 3)
+    monkeypatch.setattr(cs, "VLM_DECODE", 4)
+    monkeypatch.setattr(cs, "VLM_SCFG", dict(batch_slots=2, max_seq=64,
+                                             eos_id=-1))
+    monkeypatch.setattr(cs, "VLM_REQUESTS", 4)
+    monkeypatch.setattr(cs, "VLM_LENGTHS", (5, 20))
+    monkeypatch.setattr(cs, "VLM_NEW", 3)
+    monkeypatch.setattr(cs, "VLM_BURSTS", (1, 2, 1))
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -293,7 +315,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
-        "ssm_whisper", "times"]
+        "ssm_whisper", "vlm", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -393,12 +415,19 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                for c in ou["cases"])
     assert ou["cases"][-2]["skipped_band_share"] == 1.0
     flash = lines[10]
-    # 14 sweep cases x 3 types, each path length bare and from a cache,
-    # kv_len < S, and qwen's two prefill lengths from its cache
-    assert len(flash["cases"]) == 14 * 3 + 2 * 2 + 1 + 2
-    assert flash["cases"][-3]["kv_len"] == 11
-    assert [c["case"] for c in flash["cases"][-2:]] == [
-        "qwen_S17_cache", "qwen_S40_cache"]
+    # 18 sweep cases (4 of them at D 256) x 3 types, each path length bare
+    # and from a cache, kv_len < S, qwen's two prefill lengths from its
+    # cache, paligemma's two in bf16 and fp32 from its cache, and
+    # paligemma's heads with kv_len < S
+    assert len(flash["cases"]) == 18 * 3 + 2 * 2 + 1 + 2 + 2 * 2 + 1
+    assert sum(c["q"][-1] == 256 for c in flash["cases"]) == 4 * 3
+    assert flash["cases"][-8]["kv_len"] == 11
+    assert [c["case"] for c in flash["cases"][-7:]] == [
+        "qwen_S17_cache", "qwen_S40_cache", "paligemma_S13_cache",
+        "paligemma_S13_cache_float32", "paligemma_S20_cache",
+        "paligemma_S20_cache_float32", "paligemma_S20_kvlen14"]
+    assert [c["q"] for c in flash["cases"][-5:]] == [
+        [1, 16, 13, 16]] * 2 + [[1, 16, 20, 16]] * 3
     assert all(c["ok"] and c["finite"] for c in flash["cases"])
     assert all(c["route"] == ("simt" if "float32" in c["case"]
                               else "tensor_core") for c in flash["cases"])
@@ -493,11 +522,36 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert whisper["prefill_step_token_is_handoff_first"]
     assert whisper["bf16_batch"]["finite"]
     assert whisper["bf16_batch"]["shape"] == [2, 12, 512]
-    times = lines[14]
+    vlm = lines[14]
+    assert vlm["seconds"] > 0 and vlm["layers"] == 2 and vlm["prefix_len"] == 8
+    assert vlm["q_heads_padded"] == 16 and vlm["grouped"]
+    assert vlm["prefill_lengths"] == [13, 20]
+    assert vlm["params"] == vlm["reckoned"]["params"]
+    assert vlm["reckoned"]["float32_bytes"] == vlm["weight_bytes"]["float32"]
+    assert [r["prompt_len"] for r in vlm["handoff"]] == [5, 12]
+    assert all(r["ok"] and r["steps"] == 3 for r in vlm["handoff"])
+    assert all(r <= cs.GEN_FP32_REL for r in vlm["fp32_kernel_vs_plain"])
+    assert [r["prefill_len"] for r in vlm["prefill_logits"]] == [13, 20]
+    assert all(r["ok"] and r["first_token_is_bf16_prefill_argmax"]
+               and r["decoded_tokens"] == 4 for r in vlm["prefill_logits"])
+    assert [len(t) for t in vlm["prefix_served_tokens"]] == [5, 5]
+    assert vlm["all_done"] and vlm["trace_count"] == 1
+    assert all(vlm["alone_vs_cobatched_equal"].values())
+    assert vlm["requests"] == vlm["prefills"] == 4
+    assert vlm["prefills_with_prefix"] == 2
+    assert vlm["launches"] == vlm["launches_expected"] == 2 * 6
+    assert vlm["launches_by_route"] == {"tensor_core": 12, "simt": 0}
+    assert vlm["flash_shapes"] == [[1, 16, 13, 16], [1, 16, 20, 16]]
+    for dt in ("bfloat16", "float32"):
+        assert vlm["flash_vs_plain"][dt]["calls"] == 2 * 2
+        assert vlm["flash_vs_plain"][dt]["failed"] == []
+    assert vlm["flash_vs_plain"]["bfloat16"]["worst_over_rounding_limit"] <= 1
+    times = lines[15]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
-            ] == [17, 40, 17, 40]
-    assert set(times["flash_by_model"]) == {"h2o_danube_1_8b", "qwen2_5_32b"}
+            ] == [17, 40, 17, 40, 13, 20]
+    assert set(times["flash_by_model"]) == {"h2o_danube_1_8b", "qwen2_5_32b",
+                                            "paligemma_3b"}
     assert all(r["route"] == "tensor_core"
                for r in times["per_layer"]["flash_attention_cuda"])
     assert all(r["splits"] >= 1 and r["tflops"] > 0 and r["bound_ms"] > 0
@@ -522,8 +576,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert res["kernels"][3]["library_ms"] > 0
     # the generate phase's prefills, then the shard phase's: gather's and
     # flash's in (a) and one on each rank of (b), 2 layers each; qwen's 2
-    # prefills of 2 layers; jamba's 6 served prefills of its attention layer
-    assert res["kernels"][3]["launches"] == 2 * 7 + 2 * (2 + 2) + 2 * 2 + 6
+    # prefills of 2 layers; jamba's 6 served prefills of its attention
+    # layer; paligemma's 2 prefix prefills and 4 requests of 2 layers
+    assert res["kernels"][3]["launches"] == (2 * 7 + 2 * (2 + 2) + 2 * 2 + 6
+                                             + 2 * 6)
     # the spmm launches of the serve, shard (a, then 2 ranks of b) and
     # prune phases
     assert res["kernels"][0]["launches"] == 36 + 40 + 2 * 36 + 36

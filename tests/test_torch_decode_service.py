@@ -4,8 +4,9 @@ The same prompts go through the JAX ``DecodeService`` and the port's, on
 the ``granite_3_2b`` smoke model with the same parameters (float32, a
 float32 cache): the same greedy tokens, and each decode step's logits
 within 1e-5 relative to the largest; the same on DeepSeek-V2's, mamba2's
-and jamba's smoke models, and whisper's through the step functions with
-its encoder's frames.  Inside the port, mid-decode
+and jamba's smoke models, whisper's through the step functions with
+its encoder's frames, and paligemma's through them with its patch
+prefix.  Inside the port, mid-decode
 admission gives every request the tokens of a solo run with decode run
 at one input signature (``tests/test_serve.py``'s property).  Then the
 port's ``ServingServer`` over real sockets, serving generation and
@@ -235,6 +236,49 @@ def test_whisper_prefill_with_frames_then_decode_match_reference(whisper):
     assert tc["memory"].abs().sum() > 0
     jdec, tdec = j_decode(jcfg, jst, jscfg), make_decode_step(tcfg, tst, tscfg)
     for pos in range(7, 12):
+        assert tt.tolist() == np.asarray(jt).tolist()
+        jt, jc = jdec(jp, jc, jt, jax.numpy.int32(pos))
+        tt, tc = tdec(tp, tc, tt, torch.tensor(pos))
+    assert tt.tolist() == np.asarray(jt).tolist()
+
+
+def test_paligemma_prefill_with_prefix_then_decode_match_reference():
+    """``make_prefill_step`` with ``extras={"prefix_embeds": ...}`` puts the
+    patches in front of the prompt and counts them in the positions and
+    the cache's length, so decoding goes on at P + S: the reference's
+    greedy tokens at the prefill and every decode step, and the keys the
+    reference's cache holds over prefix and prompt (float32, 1e-5)."""
+    from repro.models.transformer import init_cache as j_init_cache
+    from repro.runtime.serve import make_decode_step as j_decode
+    from repro.runtime.serve import make_prefill_step as j_prefill
+
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.runtime.serve import make_decode_step, make_prefill_step
+
+    jcfg = j_smoke("paligemma_3b")
+    jp, _, jst = j_init_params(jcfg, jax.random.PRNGKey(4))
+    tcfg = get_smoke_config("paligemma_3b")
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tst = init_statics(tcfg, "cpu")
+    jscfg = JServeConfig(**SCFG, cache_dtype="float32")
+    tscfg = ServeConfig(**SCFG, cache_dtype="float32")
+    p = jcfg.prefix_len
+    toks = np.stack(_prompts(jcfg.vocab, (9, 9), seed=7))
+    patches = np.random.default_rng(8).normal(
+        size=(2, p, jcfg.d_model)).astype(np.float32)
+    jc = j_init_cache(jst, 2, 32, dtype=jax.numpy.float32)
+    tc = init_cache(tst, 2, 32, dtype=torch.float32)
+    jt, jc = j_prefill(jcfg, jst, jscfg)(
+        jp, jc, jax.numpy.asarray(toks),
+        extras={"prefix_embeds": jax.numpy.asarray(patches)})
+    tt, tc = make_prefill_step(tcfg, tst, tscfg)(
+        tp, tc, torch.as_tensor(toks, dtype=torch.long),
+        extras={"prefix_embeds": torch.from_numpy(patches)})
+    jk, tk_ = np.asarray(jc["body"][0]["k"]), tc["body"][0]["k"].numpy()
+    np.testing.assert_allclose(tk_, jk, rtol=1e-5, atol=1e-5)
+    assert np.abs(tk_[:, :, p + 8]).sum() > 0 and not tk_[:, :, p + 9:].any()
+    jdec, tdec = j_decode(jcfg, jst, jscfg), make_decode_step(tcfg, tst, tscfg)
+    for pos in range(p + 9, p + 14):
         assert tt.tolist() == np.asarray(jt).tolist()
         jt, jc = jdec(jp, jc, jt, jax.numpy.int32(pos))
         tt, tc = tdec(tp, tc, tt, torch.tensor(pos))

@@ -4,7 +4,8 @@ The same numpy inputs go through ``repro.kernels.ops.flash_attention``
 (the Pallas kernel in interpret mode, and the XLA oracle) and the port's
 ``ops.flash_attention`` (on the CPU, the wrapper's plain version), over
 ``tests/test_kernels.py``'s sweep plus the generation path's head
-dimension 80, a GQA group of 4 and padded keys (``kv_len``).  The
+dimension 80, a GQA group of 4, paligemma's head width 256 under an MQA
+group of 16, and padded keys (``kv_len``).  The
 reference's wrapper repeats the key heads; the port folds them, so a
 difference in the fold would show here.
 """
@@ -29,12 +30,15 @@ from repro_torch.kernels._build import find_nvcc
 from repro_torch.kernels.ref import flash_attention_ref
 
 # tests/test_kernels.py's sweep (b, hq, hkv, sq, sk, d), its causal x window
-# grid (causal only where sq == sk, as there), plus D = 80 and a group of 4
+# grid (causal only where sq == sk, as there), plus D = 80 and a group of 4,
+# and D = 256 under a group of 16
 SHAPES = [
     (1, 2, 1, 64, 64, 32),
     (2, 4, 2, 100, 100, 64),  # unaligned seq
     (1, 3, 3, 128, 256, 32),  # cross-length
     (1, 8, 2, 77, 77, 80),  # the path's head dim, GQA group 4, ragged
+    # paligemma's heads: 16 (8 padded) over 1 kv head, D 256, ragged
+    (1, 16, 1, 130, 130, 256),
 ]
 CASES = [
     (shape, causal, window)
@@ -282,11 +286,78 @@ def test_flash_tensor_core_route_on_card():
 
 
 @pytest.mark.gpu
+def test_flash_head_width_256_on_card():
+    """Both routes at D 256 (the kernels' 256-wide builds) against the
+    plain version: bf16 and fp16 on the tensor cores within ``_tolerance``
+    and the rounding limit of the plain version in fp32, fp32 on the SIMT
+    kernel within its ``_tolerance``, each the same bits on a rerun, at
+    paligemma's prefill (16 q heads over 1, causal, keys from a cache of
+    1536 through its transposed view, kv_len = S) and with a window and
+    kv_len; D 200 runs the same builds (its columns padded to 256); D 264
+    raises on both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        find_nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    half_ulp = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+    for (b, hq, hkv, sq, sk, d), causal, window, kv_len, cache in (
+            ((1, 16, 1, 272, 1536, 256), True, None, 272, True),
+            ((1, 16, 1, 130, 130, 256), True, 33, None, False),
+            ((2, 4, 2, 100, 300, 256), False, None, 250, False),
+            ((2, 4, 2, 100, 300, 200), True, 40, 250, False)):
+        q, k, v = _qkv(b, hq, hkv, sq, sk, d)
+        if cache:  # [B, T, Hkv, D] memory, read through a transposed view
+            k = np.ascontiguousarray(k.transpose(0, 2, 1, 3)).transpose(
+                0, 2, 1, 3)
+            v = np.ascontiguousarray(v.transpose(0, 2, 1, 3)).transpose(
+                0, 2, 1, 3)
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
+        for dt in ("bfloat16", "float16", "float32"):
+            tdt = getattr(torch, dt)
+            args = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
+            if cache:
+                args = [args[0].to(dev)] + [
+                    a.transpose(1, 2).contiguous().to(dev).transpose(1, 2)
+                    for a in args[1:]]
+            else:
+                args = [a.to(dev) for a in args]
+            mma = dt != "float32"
+            n0 = (tfa.flash_attention_cuda.launches_tensor_core if mma
+                  else tfa.flash_attention_cuda.launches_simt)
+            got = tfa.flash_attention_cuda(*args, **kw)
+            again = tfa.flash_attention_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            n1 = (tfa.flash_attention_cuda.launches_tensor_core if mma
+                  else tfa.flash_attention_cuda.launches_simt)
+            assert n1 == n0 + 2 and torch.equal(got, again)
+            want = tfa.flash_attention_plain(*args, **kw)
+            tol = _tolerance("bfloat16" if mma else dt)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            if mma:
+                want32 = tfa.flash_attention_plain(
+                    *(a.float() for a in args), **kw)
+                mag = want32.abs()
+                lim = half_ulp[dt] * mag + 2.0 ** -16 * mag.amax(
+                    -1, keepdim=True)
+                assert ((got.float() - want32).abs() <= lim).all(), (
+                    (b, hq, hkv, sq, sk, d), dt)
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, 4, 50, 264, device=dev, dtype=dt)
+        with pytest.raises(ValueError, match="264 > 256"):
+            tfa.flash_attention_cuda(q, q[:, :2], q[:, :2])
+
+
+@pytest.mark.gpu
 def test_flash_attention_cuda_matches_plain_on_card():
     """The kernel against its plain version on the card: the sweep in
-    three types, the path's shapes (32 q heads, 8 kv heads, D 80, bf16)
-    at ragged lengths with the window, padded keys, a transposed cache
-    view, D = 128, and fully masked rows (exact zeros)."""
+    three types (D 256 among them), the path's shapes (32 q heads, 8 kv
+    heads, D 80, bf16) at ragged lengths with the window, padded keys, a
+    transposed cache view, D = 128, and fully masked rows (exact
+    zeros)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     try:

@@ -10,7 +10,8 @@ kernel route, full, chunked, per-row decode, the SWA decode slice), and
 kv-repeat route, qwen with its qkv bias, DeepSeek-V2 with MLA and MoE,
 DeepSeek-V3 with its MTP head, mamba2 with the SSM mixer, jamba with
 SSM, attention and MoE layers, whisper with its encoder and
-cross-attention over the same ``frames``) and a small pattern-sparse
+cross-attention over the same ``frames``, paligemma with the same patch
+``prefix_embeds`` in front of its tokens) and a small pattern-sparse
 config.  The
 sparse layouts are the reference's numpy, copied, and must be
 bit-equal.  bf16 MoE models are compared on the reference's routes
@@ -22,8 +23,10 @@ Tolerances: float32 logits within 1e-5 relative to the largest logit
 (the two frameworks sum in different orders); bfloat16 within 3e-2 of
 it, about eight bf16 ulps (2^-8 each), since the two round at other
 places (the port's prefill attention keeps P and the output in float32,
-the reference rounds P to bf16).  The port's SiLU is ``jax.nn.silu``'s
-own arithmetic (``models.layers.silu``), bit-equal to it in bf16.
+the reference rounds P to bf16).  The port's SiLU and GELU are
+``jax.nn.silu``'s and ``jax.nn.gelu``'s own arithmetic
+(``models.layers.silu``, ``models.layers.gelu``), bit-equal to them in
+bf16.
 """
 
 import dataclasses
@@ -262,6 +265,28 @@ def test_silu_is_jax_silu(dtype):
         np.testing.assert_allclose(got, want, rtol=3e-7, atol=1e-30)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_is_jax_gelu(dtype):
+    """``layers.gelu`` is ``jax.nn.gelu``'s arithmetic (``approximate=True``,
+    each step rounded in x's dtype): bit-equal in bf16, where
+    ``F.gelu(approximate="tanh")``, rounded once, differs in ~43 % of
+    values.  In float32 the two ``tanh``s may differ in the last bit, and
+    ``1 + tanh`` and the products carry that to at most a few ulps of
+    ``x`` (measured 3.9 x 2^-24 |x|): held to 2^-21 |x|."""
+    x = (3 * np.random.default_rng(0).normal(size=100_000)).astype(
+        np.float32)
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x, jnp.dtype(dtype))),
+                      np.float32)
+    got = tl.gelu(_t(x).to(getattr(torch, dtype))).float().numpy()
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, want)
+        once = torch.nn.functional.gelu(_t(x).bfloat16(), approximate="tanh")
+        assert (once.float().numpy() != want).mean() > 0.3
+    else:
+        assert (np.abs(got - want) <= 2.0 ** -21 * np.abs(x)).all()
+    assert tl._act("gelu", _t(x[:64])).equal(tl.gelu(_t(x[:64])))
+
+
 @pytest.mark.parametrize("grouped", [True, False])
 @pytest.mark.parametrize("permuted", [False, True])
 def test_sparse_linear_matches_reference(grouped, permuted):
@@ -441,6 +466,8 @@ CONFIGS = {
     # bidirectional ones too) group and take the kernel route here;
     # whisper-small's 12 heads pad to 16 over 12 and do not
     "whisper_small": lambda: j_smoke("whisper_small"),
+    # 8 seeded patch embeddings in front of the tokens; 4 heads over 1
+    "paligemma_3b": lambda: j_smoke("paligemma_3b"),
 }
 
 
@@ -453,14 +480,19 @@ def _kernel_layers(tcfg) -> int:
     return grouped * (attn + tcfg.encoder_layers)
 
 
-def _frames(jcfg, batch: int):
-    """Seeded stub frame embeddings [batch, enc_seq, d] for an
-    encoder-decoder, else no extra inputs."""
-    if not jcfg.encoder_layers:
+def _extras(jcfg, batch: int):
+    """The stub inputs beside the tokens, (reference's, port's): seeded
+    frame embeddings [batch, enc_seq, d] for an encoder-decoder, patch
+    embeddings [batch, prefix_len, d] for a VLM, else none."""
+    if jcfg.encoder_layers:
+        name, n = "frames", jcfg.enc_seq
+    elif jcfg.prefix_len:
+        name, n = "prefix_embeds", jcfg.prefix_len
+    else:
         return {}, {}
     f = np.random.default_rng(11).normal(
-        size=(batch, jcfg.enc_seq, jcfg.d_model)).astype(np.float32)
-    return {"frames": jnp.asarray(f)}, {"frames": _t(f)}
+        size=(batch, n, jcfg.d_model)).astype(np.float32)
+    return {name: jnp.asarray(f)}, {name: _t(f)}
 
 
 # bf16 MoE: a route the two packages choose differently must be a near tie
@@ -521,7 +553,9 @@ def test_apply_model_matches_reference(name, dtype, kernel_calls,
     over 30 tokens, a tail of 6 past the chunk of 8, then the one-token
     recurrence on the cached state; whisper: the same ``frames`` to both
     packages, encoded at the prefill and read from the cache's
-    ``memory`` after it).  In float32 the MoE routes are the port's own;
+    ``memory`` after it; paligemma: the same ``prefix_embeds`` in front
+    of the tokens, logits over prefix and tokens, the cached prefill at
+    positions ``arange(P + 30)`` and the decode steps after it).  In float32 the MoE routes are the port's own;
     in bf16 they are the reference's (``_SameRoutes``).
 
     bf16 models with SSM layers are held against the reference compiled
@@ -552,12 +586,13 @@ def test_apply_model_matches_reference(name, dtype, kernel_calls,
     assert ttr.count_params(tp) == jtr.count_params(jp)
     toks = np.random.default_rng(5).integers(0, jcfg.vocab, (2, 40))
     tol = F32_REL if dtype == "float32" else BF16_REL
-    jframes, tframes = _frames(jcfg, 2)
+    jframes, tframes = _extras(jcfg, 2)
+    prefix = jcfg.prefix_len if "prefix_embeds" in tframes else 0
     jlog, _, jaux = ref(jtr.apply_model, jp, jst, jnp.asarray(toks),
                         **jframes)
     tlog, _, taux = ttr.apply_model(tp, tst, _t(toks), **tframes)
-    assert tlog.shape == (2, 40, jcfg.padded_vocab) and tlog.dtype == getattr(
-        torch, dtype)
+    assert tlog.shape == (2, prefix + 40, jcfg.padded_vocab)
+    assert tlog.dtype == getattr(torch, dtype)
     assert _rel(tlog.float().numpy(), jlog) <= tol
     assert set(taux) == set(jaux) == ({"mtp_logits"} if jcfg.mtp else set())
     if jcfg.mtp:
@@ -569,16 +604,20 @@ def test_apply_model_matches_reference(name, dtype, kernel_calls,
     jcache = jtr.init_cache(jst, 2, 48, dtype=jnp.float32)
     tcache = ttr.init_cache(tst, 2, 48, dtype=torch.float32)
     for start, stop in ((0, 30), (30, 31), (31, 32)):
-        pos = np.arange(start, stop)
+        # a prefix sits in front of the prefill's tokens, so the
+        # positions and the cache's length count it
+        pos = np.arange(start + prefix * (start > 0), stop + prefix)
         extra = (jframes, tframes) if start == 0 else ({}, {})
         jlog, jcache, _ = ref(
             jtr.apply_model, jp, jst, jnp.asarray(toks[:, start:stop]),
             positions=jnp.asarray(pos), cache=jcache,
-            cache_pos=jnp.int32(start), cache_len=jnp.int32(stop),
+            cache_pos=jnp.int32(pos[0]), cache_len=jnp.int32(pos[-1] + 1),
             **extra[0])
         tlog, tcache, _ = ttr.apply_model(
             tp, tst, _t(toks[:, start:stop]), positions=_t(pos),
-            cache=tcache, cache_pos=start, cache_len=stop, **extra[1])
+            cache=tcache, cache_pos=int(pos[0]), cache_len=int(pos[-1] + 1),
+            **extra[1])
+        assert tlog.shape[1] == len(pos)
         assert _rel(tlog.float().numpy(), jlog) <= tol
     assert len(kernel_calls) == 2 * n_kernel  # decode: plain route
     if same is not None:
@@ -678,23 +717,25 @@ def test_configs_copied_exactly():
         assert get_config(arch, "decode_32k") == _port_cfg(
             j_get_config(arch, "decode_32k"))
         assert get_smoke_config(arch) == _port_cfg(j_smoke(arch))
-    assert set(ARCH_NAMES) - set(PORTED) == {"paligemma_3b"}
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11\.5.*MAX_HEAD_DIM is 128"):
-        get_smoke_config("paligemma_3b")
+    assert set(PORTED) == set(ARCH_NAMES)
 
 
 @pytest.mark.parametrize("arch", ["mamba2_780m", "jamba_1_5_large_398b",
-                                  "whisper_small"])
+                                  "whisper_small", "paligemma_3b"])
 def test_converted_params_match_port_init(arch):
-    """``lm_params_from_numpy`` carries the SSM leaves and whisper's
-    ``encoder``, ``enc_pos`` and ``enc_norm`` as they are: the converted
-    reference tree has the keys, shapes and dtypes of the port's own
-    ``init_params`` on the same config."""
+    """``lm_params_from_numpy`` carries the SSM leaves, whisper's
+    ``encoder``, ``enc_pos`` and ``enc_norm``, and paligemma's tied
+    embeddings (no ``lm_head``) as they are: the converted reference tree
+    has the keys, shapes and dtypes of the port's own ``init_params`` on
+    the same config.  paligemma's smoke config at ``model_shards=16`` pads
+    its 4 q heads to 16, as the published one pads 8: the padded heads'
+    columns of ``wq`` and rows of ``wo`` arrive as the reference's zeros."""
     jcfg = j_smoke(arch)
+    if arch == "paligemma_3b":
+        jcfg = dataclasses.replace(jcfg, model_shards=16)
     params, _, _ = jtr.init_params(jcfg, jax.random.PRNGKey(0))
     conv = lm_params_from_numpy(_np(params), "cpu")
-    own, _ = ttr.init_params(get_smoke_config(arch),
+    own, _ = ttr.init_params(_port_cfg(jcfg),
                              torch.Generator().manual_seed(0), device="cpu")
 
     def flat(tree, path=()):
@@ -711,12 +752,89 @@ def test_converted_params_match_port_init(arch):
     keys = {p[0] for p in got}
     if arch == "whisper_small":
         assert {"encoder", "enc_pos", "enc_norm", "dec_pos"} <= keys
+    elif arch == "paligemma_3b":
+        assert "lm_head" not in keys and "embed" in keys
+        real = jcfg.n_heads * jcfg.d_head
+        attn = conv["body"][0]["attn"]
+        assert attn["wq"]["w"].shape[-1] == 16 * jcfg.d_head
+        assert not attn["wq"]["w"][..., real:].any()
+        assert not attn["wo"]["w"][:, real:].any()
+        assert attn["wq"]["w"][..., :real].abs().sum() > 0
+        np.testing.assert_array_equal(
+            attn["wq"]["w"].numpy(),
+            np.asarray(params["body"][0]["attn"]["wq"]["w"]))
     else:
         assert any(p[-1] == "A_log" for p in got)
 
 
-def test_prefix_embeds_raise():
-    _, _, _, tcfg, tp, tst = _models(j_smoke("granite_3_2b"))
-    with pytest.raises(NotImplementedError, match="item 11.5"):
-        ttr.apply_model(tp, tst, torch.zeros(1, 2, dtype=torch.long),
-                        prefix_embeds=torch.zeros(1, 2, tcfg.d_model))
+def test_prefix_cached_prefill_and_decode_equal_cacheless():
+    """paligemma's smoke model in float32: the patches and a prompt
+    prefilled into a cache (``make_prefill_step`` with ``extras=
+    {"prefix_embeds": ...}``), then greedy decode steps at P + S, P + S +
+    1, ... through ``make_decode_step``, against one cacheless forward
+    over the patches and every token: the logits at the prefill's last
+    position and at each step within 1e-5 of the largest, the prefill's
+    token its argmax."""
+    from repro_torch.runtime.serve import (
+        ServeConfig,
+        decode_logits,
+        make_prefill_step,
+    )
+
+    _, _, _, tcfg, tp, tst = _models(j_smoke("paligemma_3b"))
+    p, n, steps = tcfg.prefix_len, 12, 4
+    rng = np.random.default_rng(9)
+    patches = _t(rng.normal(size=(1, p, tcfg.d_model)).astype(np.float32))
+    toks = torch.zeros((1, n + steps), dtype=torch.long)
+    toks[0, :n] = _t(rng.integers(1, tcfg.vocab, n))
+    cache = ttr.init_cache(tst, 1, p + n + steps, dtype=torch.float32)
+    first, cache = make_prefill_step(tcfg, tst, ServeConfig())(
+        tp, cache, toks[:, :n], extras={"prefix_embeds": patches})
+    toks[0, n] = first[0]
+    got = []
+    for i in range(n, n + steps):
+        lg, cache = decode_logits(tst, tp, cache, toks[:, i],
+                                  torch.tensor(p + i))
+        got.append(lg[0])
+        if i + 1 < n + steps:
+            toks[0, i + 1] = lg[0].argmax()
+    full, _, _ = ttr.apply_model(tp, tst, toks, prefix_embeds=patches)
+    want = full[0, p + n:, :tcfg.vocab]
+    assert full.shape[1] == p + n + steps
+    assert int(full[0, p + n - 1, :tcfg.vocab].argmax()) == int(first[0])
+    assert _rel(torch.stack(got).numpy(), want.numpy()) <= F32_REL
+    assert cache["body"][0]["k"][0, 0, p + n + steps - 1].abs().sum() > 0
+
+
+def test_attention_at_paligemma_width(kernel_calls):
+    """One attention layer at paligemma's own attention width (d_model
+    2048, 8 q heads padded to 16 over 1 kv head, D 256) in float32 on 40
+    tokens: a cached prefill, which takes the flash route (on the CPU its
+    plain version) at D 256, and one decode step, against the reference's
+    ``attention_apply``, 1e-5 relative to the largest output (and the
+    cache's keys and values to the largest of each)."""
+    kw = dict(d_model=2048, n_heads=8, n_kv_heads=1, d_head=256,
+              model_shards=16)
+    jcfg = jatt.AttnConfig(**kw)
+    assert jcfg.hq_pad == 16
+    p = jatt.attention_init(jax.random.PRNGKey(7), jcfg)[0]
+    tp = lm_params_from_numpy(_np(p), "cpu")
+    tcfg = tatt.AttnConfig(**kw)
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(1, 41, 2048)).astype(np.float32)
+    jc = {k: jnp.zeros((1, 48, 1, 256)) for k in ("k", "v")}
+    tc = {k: torch.zeros(1, 48, 1, 256) for k in ("k", "v")}
+    for lo, hi in ((0, 40), (40, 41)):
+        pos = np.arange(lo, hi)
+        want, jc = jatt.attention_apply(
+            p, jcfg, jnp.asarray(x[:, lo:hi]), jnp.asarray(pos), cache=jc,
+            cache_pos=jnp.int32(lo), cache_len=jnp.int32(hi))
+        got, tc = tatt.attention_apply(
+            tp, tcfg, _t(x[:, lo:hi]), _t(pos), cache=tc, cache_pos=lo,
+            cache_len=hi)
+        assert _rel(got.numpy(), want) <= F32_REL
+    assert kernel_calls == [(1, 16, 40, 256)]
+    # the keys in the cache: sums of 2048 products, so relative to the
+    # largest, as the outputs
+    for key in ("k", "v"):
+        assert _rel(tc[key].numpy(), jc[key]) <= F32_REL
