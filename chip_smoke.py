@@ -39,14 +39,22 @@ each prompt, every prefill's attention through the flash kernel's
 256-wide build (its calls held to the plain version on both routes), the
 cached prefill + decode against a cacheless forward in float32, then in
 bf16 the prefix prefills and decode steps through the step functions and
-text-only requests through ``DecodeService``.  Before each path it builds
+text-only requests through ``DecodeService``; then training (``train``):
+full-width, full-depth h2o-danube-1.8B trained through
+``runtime.train.Trainer`` on the plain routes (the loss must fall), a
+restart drill at 2 of its 24 layers in a spawned process under
+deterministic algorithms (a failure injected, the async checkpoint
+restored: losses and final state bit-equal to an uninterrupted run), the
+trained weights served through the flash kernel (each call held to its
+plain version), and every kernel wrapper refusing an input that requires
+grad.  Before each path it builds
 the CUDA kernels from the sources in ``src/`` and holds each against its
 plain PyTorch version on the card, at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
-``lm_configs``, ``ssm_whisper``, ``vlm``, ``times``.  The
+``lm_configs``, ``ssm_whisper``, ``vlm``, ``train``, ``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -378,6 +386,51 @@ VLM_REQUESTS = 8
 VLM_LENGTHS = (16, 600)
 VLM_NEW = 16
 VLM_BURSTS = (1, 3, 2, 2)
+
+# train: h2o-danube-1.8B as the generate phase serves it (24 layers,
+# d_model 2560, vocabulary 32,000, pattern-sparse MLPs, bf16 params from
+# the seed), AdamW with float32 moments, through runtime.train's Trainer
+# on the plain routes.  (a) TRAIN_STEPS steps at full depth on
+# TRAIN_BATCH packed batches of a SyntheticCorpus of TRAIN_CORPUS_VOCAB
+# tokens (valid ids of the 32,000; the corpus at 32,000 would be a
+# 32,000^2 float64 matrix, 8.2 GB): the mean of the last TRAIN_LAST
+# losses below the first by more than TRAIN_FALL (tests/test_train.py's
+# bar), one checkpoint at the end, timed.  (b) the restart drill at full
+# width with the depth cut to DRILL_LAYERS (a full-depth state is ~18 GB
+# to write each time): async checkpoints every DRILL_CKPT_EVERY steps, a
+# failure injected at DRILL_FAIL_AT, a fresh Trainer restored from the
+# latest checkpoint and the data fast-forwarded; every loss and the final
+# state bit-equal to an uninterrupted run, under
+# torch.use_deterministic_algorithms, in a process of its own.  (c) (a)'s
+# trained weights served
+# through DecodeService(TRAIN_SCFG): flash launches = 24 x the prefills,
+# all on the tensor cores, each prompt's prefill calls held to the flash
+# phase's rounding limit, each served first token its prefill's argmax.
+# (d) each kernel wrapper refuses a CUDA input that requires grad, and a
+# granite-3-2b smoke float32 step on the card gives the CPU's loss and
+# grad norm within GUARD_REL.
+TRAIN_BATCH = (4, 512)  # rows, tokens a row
+TRAIN_STEPS = 8
+TRAIN_CORPUS_VOCAB = 1024
+TRAIN_LR = 1e-3
+TRAIN_LAST = 2
+TRAIN_FALL = 0.1
+DRILL_LAYERS = 2
+DRILL_CKPT_EVERY = 2
+DRILL_FAIL_AT = 5
+TRAIN_SCFG = dict(batch_slots=4, max_seq=1024, eos_id=-1)
+TRAIN_REQUESTS = 8
+TRAIN_LENGTHS = (16, 600)
+TRAIN_NEW = 16
+TRAIN_BURSTS = (1, 3, 2, 2)
+GUARD_REL = 1e-5
+# cuBLAS is reproducible under torch.use_deterministic_algorithms only
+# with this workspace config, read when a process first starts cuBLAS.
+# The drill's spawned process gets it in its environment; set for this
+# whole script (the earlier phases start cuBLAS), it slowed the generate
+# phase's host-bound decode by over a third on an H100 80GB HBM3 at 700
+# W (scripts/cublas_workspace_ab.py; PERF.md)
+DRILL_CUBLAS_WORKSPACE = ":4096:8"
 
 # a picklable function each rank of (b) calls before anything else (None:
 # nothing; the CPU rehearsal installs its counting plain versions there)
@@ -1543,6 +1596,33 @@ def flash_row(c: dict, y) -> dict:
         ok = ok and row["worst_over_rounding_limit"] <= 1.0
     row["ok"] = ok
     return row
+
+
+def flash_term_limit(c: dict, y) -> dict:
+    """A 16-bit flash call's output ``y`` against the plain version in fp32
+    at half an ulp of each value plus ``FLASH_SUM_SLACK`` of the sum of
+    the absolute terms that value sums, ``sum_j p_j |v_j| / l`` (the plain
+    version over ``|v|``): the bound the kernel's arithmetic states (fp32
+    sums, P split into two 16-bit terms, ``csrc/flash_attention.cu``).
+    The rounding limit (:func:`flash_row`) takes its slack from the row's
+    largest |value| instead, which a row whose value cancels (|o| far
+    below ``sum_j p_j |v_j| / l``, as trained heads give) can exceed
+    while it holds this one."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    kw = dict(causal=c["causal"], window=c["window"], kv_len=c["kv_len"])
+    q, k, v = c["q"].float(), c["k"].float(), c["v"].float()
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    terms = tfa.flash_attention_plain(q, k, v.abs(), **kw)
+    d = (y.float() - want).abs()
+    lim = FLASH_HALF_ULP[c["dtype"]] * want.abs() + FLASH_SUM_SLACK * terms
+    over = torch.where(d == 0, torch.zeros_like(d), d / lim)
+    return {"worst_over_term_limit": float(over.max()),
+            "min_row_max_over_terms": float(
+                (want.abs().amax(-1) / terms.amax(-1).clamp(min=1e-30))
+                .min())}
 
 
 def flash_rows(dev, max_seq: int) -> tuple[list[dict], list[dict]]:
@@ -3096,6 +3176,465 @@ def vlm_phase_run(seed: int, dev) -> dict:
                                for r in flash["bfloat16"])}
 
 
+def train_config():
+    """The ``train`` phase's model: the generate phase's h2o-danube-1.8B."""
+    from repro_torch.configs import h2o_danube_1_8b
+
+    return h2o_danube_1_8b.config(sparse=True)
+
+
+def train_reckoning(params) -> dict:
+    """Bytes of a training step's state, from the params: the params and
+    their grads in the params' dtype, AdamW's two float32 moments; the
+    update holds the grads, their clipped copy, the old and the new
+    moments and params at once.  Activations come on top."""
+    from repro_torch.models.transformer import _leaves
+
+    n = sum(t.numel() for t in _leaves(params))
+    p = sum(t.numel() * t.element_size() for t in _leaves(params))
+    moments = 2 * 4 * n  # mu and nu in float32
+    return {"params": n, "params_bytes": p, "grads_bytes": p,
+            "moments_bytes": moments, "state_bytes": p + moments,
+            "update_peak_bytes": 4 * p + 2 * moments}
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def timed_saves(trainer) -> list:
+    """Wrap ``trainer.ckpt.save`` to record how long each call holds the
+    loop (the whole write when synchronous, the host snapshot when
+    async); returns the list it appends to."""
+    seconds = []
+    save = trainer.ckpt.save
+
+    def timed(step, tree):
+        t0 = time.perf_counter()
+        save(step, tree)
+        seconds.append(time.perf_counter() - t0)
+
+    trainer.ckpt.save = timed
+    return seconds
+
+
+def train_data(seed: int, corpus, batch):
+    """Packed ``batch`` = (rows, tokens a row) batches of ``corpus``."""
+    from repro_torch.data import DataConfig, packed_batches
+
+    rows, seq = batch
+    return packed_batches(DataConfig(vocab=corpus.vocab, seq_len=seq,
+                                     global_batch=rows, seed=seed), corpus)
+
+
+def train_full(seed: int, dev, corpus, ckpt_dir) -> tuple:
+    """(a): TRAIN_STEPS steps of the full model through ``Trainer``;
+    returns the report and the trained (cfg, params, statics)."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (
+        TrainConfig,
+        Trainer,
+        init_train_state,
+        make_train_step,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = train_config()
+    t0 = time.perf_counter()
+    params, statics = init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reckoned = train_reckoning(params)
+    opt = adamw(weight_decay=0.0)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                       ckpt_dir=ckpt_dir)
+    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg)
+    trainer = Trainer(step, init_train_state(params, opt, tcfg),
+                      train_data(seed, corpus, TRAIN_BATCH), tcfg)
+    del params
+    saves = timed_saves(trainer)
+    t0 = time.perf_counter()
+    hist = trainer.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rows, seq = TRAIN_BATCH
+    secs = [h["seconds"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    last = float(np.mean(losses[-TRAIN_LAST:]))
+    res = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "d_ff": cfg.d_ff,
+           "sparse": dataclasses.asdict(cfg.sparse),
+           "param_dtype": cfg.param_dtype, "optimizer": "adamw, float32 "
+           "moments, weight_decay 0", "lr": TRAIN_LR,
+           "batch": list(TRAIN_BATCH), "corpus_vocab": TRAIN_CORPUS_VOCAB,
+           "init_seconds": init_s, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "loss_first": losses[0], f"loss_mean_last_{TRAIN_LAST}": last,
+           "loss_fell": losses[0] - last, "fall_limit": TRAIN_FALL,
+           "step_seconds": secs,
+           "tokens_per_s_after_first": rows * seq * (len(secs) - 1)
+           / sum(secs[1:]),
+           "run_seconds": run_s, "reckoned": reckoned,
+           "peak_memory_bytes": peak,
+           "checkpoint": {"steps": [TRAIN_STEPS], "seconds": saves,
+                          "bytes": dir_bytes(ckpt_dir)}}
+    return res, (cfg, trainer.state["params"], statics)
+
+
+def drill_spec(seed: int, dev, ckpt_dir: str) -> dict:
+    """What the drill's process needs, its config cut to DRILL_LAYERS."""
+    import torch
+
+    full = train_config()
+    return {"cfg": dataclasses.replace(
+                full, n_layers=DRILL_LAYERS,
+                layer_types=full.layer_types[:DRILL_LAYERS]),
+            "seed": seed, "device": str(dev), "ckpt_dir": ckpt_dir,
+            "threads": torch.get_num_threads(), "batch": TRAIN_BATCH,
+            "corpus_vocab": TRAIN_CORPUS_VOCAB, "lr": TRAIN_LR,
+            "steps": TRAIN_STEPS, "ckpt_every": DRILL_CKPT_EVERY,
+            "fail_at": DRILL_FAIL_AT}
+
+
+def drill_rank(rank: int, spec: dict) -> None:
+    """The drill's process: :func:`train_drill` under deterministic
+    algorithms, its result written to ``drill.pkl`` in the checkpoint
+    directory."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(spec["threads"])
+    torch.use_deterministic_algorithms(True)
+    res = train_drill(spec)
+    with open(os.path.join(spec["ckpt_dir"], "drill.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def train_drill(spec: dict) -> dict:
+    """(b): an uninterrupted run against one that fails at
+    ``spec["fail_at"]`` and restarts from its latest async checkpoint."""
+    import torch
+
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models.transformer import _leaves, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (
+        FailureInjector,
+        SimulatedFailure,
+        TrainConfig,
+        Trainer,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg, seed, dev = spec["cfg"], spec["seed"], torch.device(spec["device"])
+    steps, every, fail_at = spec["steps"], spec["ckpt_every"], spec["fail_at"]
+    corpus = SyntheticCorpus(spec["corpus_vocab"], seed)
+    opt = adamw(weight_decay=0.0)
+
+    def trainer(name, injector=None, **kw):
+        """A fresh Trainer from the seed (and its batch stream), writing
+        its checkpoints under ``name``."""
+        tcfg = TrainConfig(steps=steps, ckpt_dir=os.path.join(
+            spec["ckpt_dir"], name), **kw)
+        params, statics = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg)
+        batches = train_data(seed, corpus, spec["batch"])
+        return Trainer(step, init_train_state(params, opt, tcfg), batches,
+                       tcfg, injector=injector), batches
+
+    drill = dict(ckpt_every=every, async_ckpt=True)
+    ref, _ = trainer("uninterrupted", ckpt_every=steps)
+    ref_hist = ref.run()
+    failed, _ = trainer("failed", FailureInjector({fail_at: "node-failure"}),
+                        **drill)
+    saves = timed_saves(failed)
+    try:
+        failed.run()
+        raised = False
+    except SimulatedFailure:
+        raised = True
+    failed.ckpt.close()  # the writer finishes what it was handed
+    ckpt_bytes = dir_bytes(os.path.join(
+        spec["ckpt_dir"], "failed", f"step_{failed.ckpt.latest_step():010d}"))
+    resumed, batches = trainer("failed", **drill)
+    t0 = time.perf_counter()
+    at = resumed.maybe_restore()
+    restore_s = time.perf_counter() - t0
+    for _ in range(at):
+        next(batches)
+    hist = resumed.run()
+    resumed.ckpt.close()
+    losses = {h["step"]: h["loss"] for h in failed.history + hist}
+    ref_losses = {h["step"]: h["loss"] for h in ref_hist}
+    return {"layers": cfg.n_layers, "steps": steps, "ckpt_every": every,
+            "async": True, "failure_at": fail_at, "failure_raised": raised,
+            "restored_step": at, "restore_seconds": restore_s,
+            "deterministic_algorithms":
+                torch.are_deterministic_algorithms_enabled(),
+            "cublas_workspace_config": os.environ.get(
+                "CUBLAS_WORKSPACE_CONFIG"),
+            "losses_uninterrupted": [h["loss"] for h in ref_hist],
+            "losses_interrupted": [losses[k] for k in sorted(losses)],
+            "losses_bit_equal": losses == ref_losses,
+            "final_state_bit_equal": all(torch.equal(a, b) for a, b in zip(
+                _leaves(ref.state), _leaves(resumed.state))),
+            "async_save_blocking_seconds": saves,
+            "checkpoint_bytes": ckpt_bytes,
+            "reckoned_checkpoint_bytes": train_reckoning(
+                ref.state["params"])["state_bytes"]}
+
+
+def run_drill(seed: int, dev) -> dict:
+    """(b) in a spawned process of its own, so that only it runs cuBLAS
+    under ``DRILL_CUBLAS_WORKSPACE``; returns its result and seconds."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        was = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = DRILL_CUBLAS_WORKSPACE
+        t0 = time.perf_counter()
+        try:
+            mp.start_processes(drill_rank, args=(drill_spec(seed, dev,
+                                                            ckpt_dir),),
+                               nprocs=1, join=True, start_method="spawn")
+        finally:
+            if was is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = was
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(ckpt_dir, "drill.pkl"), "rb") as f:
+            res = pickle.load(f)
+    return {**res, "process_seconds": seconds}
+
+
+def train_serve(trained, seed: int, dev) -> dict:
+    """(c): the trained weights through ``DecodeService`` (the main path:
+    flash counts from 0, the bursts, read), then each prompt's prefill
+    again with its flash calls recorded and held to the rounding limit."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.runtime.serve import DecodeService, ServeConfig
+    from repro_torch.serve.api import Request
+
+    cfg, params, statics = trained
+    rng = np.random.default_rng(seed + 21)
+    lengths = rng.integers(TRAIN_LENGTHS[0], TRAIN_LENGTHS[1] + 1,
+                           TRAIN_REQUESTS)
+    lengths[0] = TRAIN_LENGTHS[1]
+    prompts = [rng.integers(1, TRAIN_CORPUS_VOCAB, int(n)).astype(np.int32)
+               for n in lengths]
+    scfg = ServeConfig(**TRAIN_SCFG)
+    svc = DecodeService(cfg, statics, params, scfg, device=dev)
+    svc.submit(Request(prompt=np.ones(4, np.int32), max_new_tokens=2))
+    svc.run()  # warm-up through the real admit/decode path
+    # the serve-after-train path: counts from 0, the bursts, read
+    for key in ("launches", "launches_tensor_core", "launches_simt"):
+        setattr(tfa.flash_attention_cuda, key, 0)
+    reqs = [Request(prompt=p, max_new_tokens=TRAIN_NEW) for p in prompts]
+    run_s = serve_bursts(svc, reqs, TRAIN_BURSTS)
+    launches = tfa.flash_attention_cuda.launches
+    routes = {"tensor_core": tfa.flash_attention_cuda.launches_tensor_core,
+              "simt": tfa.flash_attention_cuda.launches_simt}
+
+    def first_tokens():
+        return [int(prefill_logits(params, statics, p, scfg.max_seq,
+                                   torch.bfloat16, True, dev)[-1].argmax())
+                for p in prompts]
+
+    firsts, calls = recorded_flash_calls(first_tokens)
+    flash = []
+    for c, y in calls:
+        case = {**c, "case": f"trained_S{c['q'].shape[2]}",
+                "dtype": "bfloat16"}
+        row = {**flash_row(case, y), **flash_term_limit(case, y)}
+        row["ok"] = (row["worst_over_limit"] <= 1.0 and row["finite"]
+                     and row["worst_over_term_limit"] <= 1.0)
+        flash.append(row)
+    outputs = [t for r in reqs for t in r.output]
+    attn = sum(m in ("attn", "swa") for m, _ in cfg.layer_types)
+    res = {"serve_config": TRAIN_SCFG, "requests": len(reqs),
+           "new_tokens": TRAIN_NEW, "bursts": list(TRAIN_BURSTS),
+           "prompt_lengths": [len(p) for p in prompts],
+           "all_done": all(r.done and len(r.output) == TRAIN_NEW
+                           for r in reqs),
+           "tokens_below_vocab": all(0 <= t < cfg.vocab for t in outputs),
+           "first_token_is_prefill_argmax": [
+               int(r.output[0]) == f for r, f in zip(reqs, firsts)],
+           "launches": launches, "launches_by_route": routes,
+           "launches_expected": attn * len(reqs),
+           "flash_calls_checked": len(flash),
+           "flash_limit": "flash_tolerance and half an ulp of each value + "
+                          f"{FLASH_SUM_SLACK} x sum_j p_j |v_j| / l "
+                          "(flash_term_limit)",
+           "flash_worst_over_term_limit": max(
+               r["worst_over_term_limit"] for r in flash),
+           "flash_worst_over_rounding_limit": max(
+               r["worst_over_rounding_limit"] for r in flash),
+           "flash_calls_over_rounding_limit": [
+               {k: r[k] for k in ("case", "worst_over_rounding_limit",
+                                  "worst_over_term_limit",
+                                  "min_row_max_over_terms")}
+               for r in flash if r["worst_over_rounding_limit"] > 1.0],
+           "flash_max_abs_diff": max(r["max_abs_diff"] for r in flash),
+           "flash_failed": [r for r in flash if not r["ok"]],
+           "run_seconds": run_s,
+           "tokens_per_s": len(outputs) / run_s}
+    return res
+
+
+def train_guards(seed: int, dev) -> dict:
+    """(d): the four wrappers refuse CUDA inputs that require grad, and
+    one granite-3-2b smoke float32 step on the card against the CPU."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, packed_batches
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ou_mvm as tou
+    from repro_torch.kernels import pattern_spmm as tk
+    from repro_torch.models.transformer import init_params, init_statics
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, init_train_state
+    from repro_torch.runtime import make_train_step
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, dtype=torch.float32, grad=False):
+        return torch.randn(shape, generator=g, device=dev).to(
+            dtype).requires_grad_(grad)
+
+    ids = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    nnz = torch.full((2,), 2, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    calls = {
+        "pattern_spmm_cuda": (tk.pattern_spmm_cuda, lambda: (
+            rand(3, 8, grad=True), rand(2, 2, 4, 4), ids, nnz, 4)),
+        "pattern_spmm_quant_cuda": (tk.pattern_spmm_quant_cuda, lambda: (
+            torch.ones((3, 8), dtype=torch.int8, device=dev),
+            torch.ones((2, 2, 4, 4), dtype=torch.int8, device=dev), ids,
+            rand(2, 2, grad=True), nnz, 4)),
+        "ou_mvm_cuda": (tou.ou_mvm_cuda, lambda: (rand(20, grad=True),
+                                                  rand(20, 8))),
+        "flash_attention_cuda": (tfa.flash_attention_cuda, lambda: (
+            rand(1, 2, 5, 16, dtype=bf, grad=True), rand(1, 1, 5, 16, dtype=bf),
+            rand(1, 1, 5, 16, dtype=bf))),
+    }
+    refused = {}
+    for name, (fn, args) in calls.items():
+        n0 = fn.launches
+        try:
+            fn(*args())
+            refused[name] = False
+        except ValueError as e:
+            refused[name] = "grad" in str(e) and fn.launches == n0
+
+    cfg = get_smoke_config("granite_3_2b")
+    params, _ = init_params(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+    batch = next(packed_batches(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                           global_batch=8, seed=seed)))
+    opt = adamw(weight_decay=0.0)
+    tcfg = TrainConfig(steps=1)
+    metrics = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        statics = init_statics(cfg, device)
+        p = _map_tensors(params, lambda t: t.to(device))
+        step = make_train_step(cfg, statics, opt, lambda s: 1e-3, tcfg)
+        _, m = step(init_train_state(p, opt, tcfg),
+                    {k: torch.as_tensor(v, device=device)
+                     for k, v in batch.items()})
+        metrics[where] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    rel = {k: abs(metrics["card"][k] - metrics["cpu"][k])
+           / abs(metrics["cpu"][k]) for k in ("loss", "grad_norm")}
+    res = {"refused": refused, "smoke_step": metrics,
+           "smoke_step_rel": rel, "smoke_limit": GUARD_REL,
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
+    return res
+
+
+def train_phase(seed: int, dev) -> dict:
+    """The ``train`` phase, (a) to (d), and its JSON line."""
+    import torch
+
+    from repro_torch.data import SyntheticCorpus
+
+    t0 = time.perf_counter()
+    corpus = SyntheticCorpus(TRAIN_CORPUS_VOCAB, seed)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        full, trained = train_full(seed, dev, corpus, ckpt_dir)
+    served = train_serve(trained, seed, dev)
+    del trained
+    torch.cuda.empty_cache()
+    drill = run_drill(seed, dev)
+    guards = train_guards(seed, dev)
+    seconds = time.perf_counter() - t0
+    emit("train", seconds=seconds, full=full, drill=drill, serve=served,
+         guards=guards)
+    train_checks(full, drill, served, guards)
+    return {"launches": served["launches"],
+            "max_abs_err": served["flash_max_abs_diff"]}
+
+
+def train_checks(full, drill, served, guards) -> None:
+    """The ``train`` phase's gates, after its line is printed."""
+    losses = full["losses"]
+    last = full[f"loss_mean_last_{TRAIN_LAST}"]
+    check(all(np.isfinite(losses)), f"danube's losses {losses}")
+    check(last < losses[0] - TRAIN_FALL,
+          f"danube did not learn: {losses[0]} -> {last} over the last "
+          f"{TRAIN_LAST} of {TRAIN_STEPS} steps")
+    check(drill["deterministic_algorithms"]
+          and drill["cublas_workspace_config"] == DRILL_CUBLAS_WORKSPACE,
+          f"the drill ran without deterministic algorithms or cuBLAS "
+          f"workspace {drill['cublas_workspace_config']}")
+    check(drill["failure_raised"], "the injected failure did not fire")
+    check(drill["restored_step"]
+          == DRILL_FAIL_AT - DRILL_FAIL_AT % DRILL_CKPT_EVERY,
+          f"restored step {drill['restored_step']}")
+    check(drill["losses_bit_equal"],
+          f"restarted losses {drill['losses_interrupted']} != "
+          f"uninterrupted {drill['losses_uninterrupted']}")
+    check(drill["final_state_bit_equal"], "the restarted run's final "
+                                          "state differs from the "
+                                          "uninterrupted run's")
+    check(served["all_done"], "a request for the trained model did not "
+                              "complete")
+    check(served["tokens_below_vocab"], "a served token is outside the "
+                                        "vocabulary")
+    check(all(served["first_token_is_prefill_argmax"]),
+          f"served first tokens vs prefill argmax: "
+          f"{served['first_token_is_prefill_argmax']}")
+    check(served["launches"] == served["launches_expected"]
+          and served["launches_by_route"]["tensor_core"]
+          == served["launches"],
+          f"trained danube's flash launches {served['launches']} (expected "
+          f"{served['launches_expected']}), by route "
+          f"{served['launches_by_route']}")
+    check(served["flash_calls_checked"] == served["launches_expected"]
+          and not served["flash_failed"],
+          f"trained danube's flash calls off their limit: "
+          f"{[r['case'] for r in served['flash_failed']]} "
+          f"({served['flash_calls_checked']} checked)")
+    check(all(guards["refused"].values()),
+          f"a wrapper took an input that requires grad: {guards['refused']}")
+    check(max(guards["smoke_step_rel"].values()) <= GUARD_REL,
+          f"granite smoke step on the card vs the CPU: "
+          f"{guards['smoke_step_rel']}")
+
+
 def build_decode_lm(seed: int, dev):
     """(cfg, params, statics): granite-3-2b at full width, DECODE_LAYERS
     deep, ``decode_strategy="flash"``, bf16 weights drawn on ``dev`` from
@@ -3867,6 +4406,12 @@ def run(seed: int, dev) -> dict:
     launches["flash_attention_cuda"] += vlm["launches"]
     max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
                                           vlm["max_abs_err"])
+
+    # -- 10e. training: danube trained, its restart drill, then served ---
+    tr = train_phase(seed, dev)
+    launches["flash_attention_cuda"] += tr["launches"]
+    max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
+                                          tr["max_abs_err"])
 
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []

@@ -52,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels._grad_guard import refuse_grad
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["MAX_HEAD_DIM", "flash_attention_cuda", "flash_attention_plain"]
@@ -146,7 +147,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     holds D (tensor cores: 32, 64, 80, 128, 256 wide, the extra columns
     zero-filled; SIMT: 128, 256).  Query positions start at 0;
     ``kv_len`` (default Sk) masks the keys at and after it; ``scale``
-    defaults to D ** -0.5."""
+    defaults to D ** -0.5.  An input that requires grad raises, on any
+    device: the kernel has no backward."""
+    refuse_grad("flash_attention_cuda", q=q, k=k, v=v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, scale, kv_len)
     if q.device.type != "cuda":

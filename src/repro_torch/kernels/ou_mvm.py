@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels._grad_guard import refuse_grad
 
 __all__ = ["OuPlan", "band_flags", "ou_mvm_cuda", "ou_mvm_plain"]
 
@@ -123,7 +124,9 @@ def ou_mvm_plain(x: torch.Tensor, w: torch.Tensor, ou_rows: int = 9,
 def ou_mvm_cuda(x: torch.Tensor, w: torch.Tensor, ou_rows: int = 9,
                 ou_cols: int = 8) -> torch.Tensor:
     """OU-walked MVM: x [R], w [R, C], any float type (upcast to float32)
-    -> float32 [C], skipping all-zero input bands."""
+    -> float32 [C], skipping all-zero input bands.  An input that requires
+    grad raises, on any device: the kernel has no backward."""
+    refuse_grad("ou_mvm_cuda", x=x, w=w)
     if x.device.type == "cpu":
         return ou_mvm_plain(x, w, ou_rows, ou_cols)
     if x.device.type != "cuda":

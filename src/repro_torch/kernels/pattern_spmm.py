@@ -53,6 +53,7 @@ import torch
 
 from repro_torch.core.sparse import pattern_spmm_torch, pattern_spmm_torch_quant
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels._grad_guard import refuse_grad
 
 __all__ = [
     "SplitPlan",
@@ -274,7 +275,9 @@ def pattern_spmm_cuda(x, w_comp, block_ids, nnz, block: int, *,
     """fp32 block-pattern spmm: x [M, K] -> float32 [M, T*tile], reordered
     columns.  ``block_ids`` and ``nnz`` are int32 on x's device; a bf16 or
     fp16 ``x`` is upcast to float32 (what ``jnp.dot(bf16, fp32)`` does).
-    ``plan`` defaults to :func:`_split_plan` of the shapes."""
+    ``plan`` defaults to :func:`_split_plan` of the shapes.  An input that
+    requires grad raises, on any device: the kernel has no backward."""
+    refuse_grad("pattern_spmm_cuda", x=x, w_comp=w_comp)
     if x.device.type == "cpu":
         return pattern_spmm_plain(x, w_comp, block_ids, nnz, block)
     if x.device.type != "cuda":
@@ -319,7 +322,10 @@ def pattern_spmm_quant_cuda(
     columns, dequantized on the weight side only (the caller multiplies
     the per-row activation scale).  ``w_kmajor`` is
     :func:`kmajor_bricks` of ``w_comp``, made here per call when not
-    given; ``plan`` defaults to :func:`_quant_plan` of the shapes."""
+    given; ``plan`` defaults to :func:`_quant_plan` of the shapes.  An
+    input that requires grad raises, on any device."""
+    refuse_grad("pattern_spmm_quant_cuda", xq=xq, w_comp=w_comp,
+                w_scales=w_scales)
     if xq.device.type == "cpu":
         return pattern_spmm_quant_plain(
             xq, w_comp, block_ids, w_scales, nnz, block

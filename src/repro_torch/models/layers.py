@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.sparse import pattern_spmm_torch
 from repro_torch.kernels.ops import pattern_spmm_raw
 
 __all__ = [
@@ -203,7 +204,8 @@ def _sparse_params(generator, static, k_in: int, cfg: PatternSparseConfig,
     return {"w_comp": w}
 
 
-def sparse_linear(params, static, x: torch.Tensor) -> torch.Tensor:
+def sparse_linear(params, static, x: torch.Tensor,
+                  kernels: bool = True) -> torch.Tensor:
     """y = x @ W_compressed.
 
     When the layout carries dictionary groups (tiles sharing a pattern are
@@ -211,8 +213,10 @@ def sparse_linear(params, static, x: torch.Tensor) -> torch.Tensor:
     + one dense matmul per *pattern* (pattern blocks), the paper's compute
     structure; the reference leaves those matmuls to XLA outside any Pallas
     kernel, and here they are ``torch.matmul``.  An arbitrary ``block_ids``
-    table with no groups goes through ``kernels.ops.pattern_spmm_raw``:
-    the Hopper spmm kernel on a CUDA tensor.
+    table with no groups goes through ``kernels.ops.pattern_spmm_raw``
+    (the Hopper spmm kernel on a CUDA tensor), or, with ``kernels=False``,
+    through its plain version ``core.sparse.pattern_spmm_torch`` (the
+    reference's ``pattern_spmm_xla``), which autograd differentiates.
     """
     groups = static.get("groups")
     tables = static["tables"]
@@ -235,11 +239,14 @@ def sparse_linear(params, static, x: torch.Tensor) -> torch.Tensor:
             )
             outs.append(xg @ wg)
         y = torch.cat(outs, dim=-1)
-    else:
+    elif kernels:
         y = pattern_spmm_raw(
             xm, w_comp.float(), tables["block_ids"], block,
             nnz=tables["nnz"],
         ).to(x.dtype)
+    else:
+        y = pattern_spmm_torch(xm, w_comp, tables["block_ids"], block,
+                               out_dtype=torch.float32).to(x.dtype)
     y = y.reshape(*lead, y.shape[-1])
     n_out = static["n_out"]
     if y.shape[-1] != n_out:  # drop tile-padding columns
@@ -414,16 +421,19 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
-def mlp_apply(params, static, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(params, static, x: torch.Tensor,
+              kernels: bool = True) -> torch.Tensor:
+    """The MLP; ``kernels`` goes to each sparse projection
+    (:func:`sparse_linear`)."""
     sparse = static.get("sparse")
     if sparse is not None:
-        up = sparse_linear(params["up"], static["up"], x)
+        up = sparse_linear(params["up"], static["up"], x, kernels)
         if static["act"] == "swiglu":
-            gate = sparse_linear(params["gate"], static["gate"], x)
+            gate = sparse_linear(params["gate"], static["gate"], x, kernels)
             h = silu(gate) * up
         else:
             h = _act(static["act"], up)
-        return sparse_linear(params["down"], static["down"], h)
+        return sparse_linear(params["down"], static["down"], h, kernels)
     up = linear(params["up"], x)
     if static["act"] == "swiglu":
         h = silu(linear(params["gate"], x)) * up

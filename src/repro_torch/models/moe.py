@@ -263,9 +263,10 @@ def _moe_sharded(params, cfg: MoEConfig, x: torch.Tensor, mesh
 _moe_sharded.calls = 0
 
 
-def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor
-              ) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D]."""
+def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor,
+              kernels: bool = True) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D]; ``kernels`` goes to the shared
+    experts' MLP (``layers.mlp_apply``)."""
     mesh = current_mesh()
     use_sharded = False
     if mesh is not None:
@@ -278,5 +279,6 @@ def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor
     else:
         out = _moe_local(params, cfg, x)
     if "shared" in params:
-        out = out + mlp_apply(params["shared"], static["shared"], x)
+        out = out + mlp_apply(params["shared"], static["shared"], x,
+                              kernels)
     return out

@@ -20,8 +20,8 @@ Python.  Enc-dec (whisper) adds an encoder stack, run over stub frame
 embeddings (``frames``), whose output the decoder's cross-attention
 reads; a VLM (paligemma) puts stub patch embeddings (``prefix_embeds``)
 in front of the tokens; DeepSeek-V3 adds its MTP head.  The reference's
-remat (``jax.checkpoint``) is a training concern and is left out:
-serving has no backward.
+remat (``jax.checkpoint``) only trades memory for recompute and is left
+out: a training step (``runtime.train``) keeps every activation.
 
 Params are a plain dict of tensors; the statics (layer kinds, attention
 and MLA configs, sparse layouts with their device index tables) come
@@ -382,7 +382,8 @@ def init_cache(statics, batch: int, max_seq: int | None = None,
 
 
 def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
-                 cache_pos, cache_len, prefill: bool, memory=None):
+                 cache_pos, cache_len, prefill: bool, memory=None,
+                 kernels: bool = True):
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     mixer = static["mixer"]
     h = norm(params["norm1"], x)
@@ -415,23 +416,27 @@ def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
     if static["ffn"] != "none":
         h = norm(params["norm2"], x)
         if static["ffn"] == "mlp":
-            x = x + mlp_apply(params["mlp"], static["mlp"], h)
+            x = x + mlp_apply(params["mlp"], static["mlp"], h, kernels)
         else:
-            x = x + moe_apply(params["moe"], static["moe"], cfg.moe, h)
+            x = x + moe_apply(params["moe"], static["moe"], cfg.moe, h,
+                              kernels)
     x = shard_activation(x, ("batch", "seq_shard", None))
     return x, new_cache
 
 
-def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor):
+def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,
+            kernels: bool = True):
     """Whisper encoder over stub frame embeddings [B, enc_seq, d]: every
     layer bidirectional at positions ``arange(enc_seq)`` without a cache,
-    so its attention is a prefill in the kernel route's sense."""
+    so its attention is a prefill in the kernel route's sense (the plain
+    routes with ``kernels=False``)."""
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     x = frames.to(cfg.cdtype()) + params["enc_pos"].to(cfg.cdtype())
     pos = torch.arange(frames.shape[1], device=frames.device)
     for i in range(cfg.encoder_layers):
         x, _ = _apply_layer(_index(params["encoder"], i), statics["encoder"],
-                            cfg, x, pos, None, None, None, True)
+                            cfg, x, pos, None, None, None, kernels,
+                            kernels=kernels)
     return norm(params["enc_norm"], x)
 
 
@@ -446,6 +451,7 @@ def apply_model(
     prefix_embeds: torch.Tensor | None = None,
     frames: torch.Tensor | None = None,
     prefill: bool | None = None,
+    kernels: bool = True,
 ):
     """Forward pass.  Returns (logits [B, S(+P), vocab_padded], cache,
     aux); the cache, when given, is written in place and returned.  With
@@ -468,7 +474,15 @@ def apply_model(
     flash kernel where it is true (a prefill at positions ``arange(S)``
     from cache position 0, see ``models.attention``), the plain routes
     where it is false; ``None`` decides it here from ``positions`` and
-    ``cache_pos``, with one read of the device."""
+    ``cache_pos``, with one read of the device.
+
+    ``kernels=False`` sends every layer to its plain version, whatever
+    ``prefill`` says: the decoder's and the encoder's attention to the
+    full or chunked route, and an ungrouped sparse linear to
+    ``core.sparse.pattern_spmm_torch``.  Autograd differentiates those,
+    and the kernel wrappers refuse inputs that require grad, so a
+    training step passes it (``runtime.train``).  Serving keeps the
+    default."""
     cfg: ModelConfig = statics["cfg"]
     cdt = cfg.cdtype()
     _, s = tokens.shape
@@ -481,7 +495,9 @@ def apply_model(
         s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
-    if prefill is None:
+    if not kernels:
+        prefill = False
+    elif prefill is None:
         prefill = is_prefill(s, positions, cache=cache, cache_pos=cache_pos)
     if "dec_pos" in params:
         dp = params["dec_pos"][positions].to(cdt)
@@ -491,7 +507,7 @@ def apply_model(
     memory = None
     if cfg.encoder_layers:
         if frames is not None:
-            memory = _encode(params, statics, cfg, frames)
+            memory = _encode(params, statics, cfg, frames, kernels)
             if cache is not None:
                 cache["memory"] = memory
         elif cache is not None:
@@ -501,14 +517,14 @@ def apply_model(
                                     statics["prefix_layers"])):
         c = cache["prefix_layers"][i] if cache is not None else None
         x, _ = _apply_layer(p, st, cfg, x, positions, c, cache_pos, cache_len,
-                            prefill, memory)
+                            prefill, memory, kernels)
 
     for rep in range(statics["n_periods"]):
         for j, st in enumerate(statics["body"]):
             c = _index(cache["body"][j], rep) if cache is not None else None
             x, _ = _apply_layer(_index(params["body"][j], rep), st, cfg, x,
                                 positions, c, cache_pos, cache_len, prefill,
-                                memory)
+                                memory, kernels)
 
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     hidden = norm(params["final_norm"], x)
@@ -522,7 +538,7 @@ def apply_model(
         h_mtp = linear(params["mtp_proj"], torch.cat([hidden, e_next], -1))
         h_mtp, _ = _apply_layer(params["mtp_layer"], statics["mtp_layer"],
                                 cfg, h_mtp, positions, None, None, None,
-                                prefill)
+                                prefill, kernels=kernels)
         aux["mtp_logits"] = _head(params, cfg,
                                   norm(params["mtp_norm"], h_mtp))
     return logits, cache, aux

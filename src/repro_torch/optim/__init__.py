@@ -1,4 +1,5 @@
-"""Functional optimizers for the port (``optim/optimizers.py``)."""
+"""Functional optimizers (``optim/optimizers.py``) and int8 gradient
+compression with error feedback (``optim/compression.py``)."""
 
 from repro_torch.optim.optimizers import (  # noqa: F401
     Optimizer,
@@ -9,4 +10,11 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     lion,
     linear_warmup_cosine,
     sgd,
+)
+from repro_torch.optim.compression import (  # noqa: F401
+    CompressionState,
+    compress_gradients,
+    decompress_gradients,
+    error_feedback_allreduce,
+    init_compression_state,
 )

@@ -24,6 +24,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ou_mvm as tou
 from repro_torch.kernels import pattern_spmm as tk
+from repro_torch.kernels._grad_guard import refuse_grad
 from repro_torch.models.cnn import mini_cnn_config
 from repro_torch.models.layers import PatternSparseConfig
 from repro_torch.models.transformer import init_params
@@ -53,10 +54,12 @@ class _HostEvent:
 
 
 def _counting(plain, name, **counters):
-    """A plain version counting launches as the wrapper ``name`` does; each
-    of ``counters`` (name -> predicate of the call's arguments) grows by
-    one per call for which its predicate holds."""
+    """A plain version counting launches as the wrapper ``name`` does (and
+    refusing inputs that require grad, as it does); each of ``counters``
+    (name -> predicate of the call's arguments) grows by one per call for
+    which its predicate holds."""
     def launch(*args, **kwargs):
+        refuse_grad(name, **{f"arg{i}": a for i, a in enumerate(args)})
         launch.launches += 1
         for key, pred in counters.items():
             setattr(launch, key, getattr(launch, key)
@@ -170,6 +173,16 @@ def _smoke_vlm_config():
                                model_shards=16)
 
 
+def _smoke_train_config():
+    """The train phase's model at CPU size: the generate phase's smoke
+    h2o-danube (bf16, pattern-sparse MLPs, window 16)."""
+    return dataclasses.replace(
+        h2o_danube_1_8b.smoke_config(), d_ff=384, model_shards=4,
+        param_dtype="bfloat16", compute_dtype="bfloat16",
+        sparse=PatternSparseConfig(density=0.5, num_patterns=3, block=32,
+                                   tile=32))
+
+
 def _mini_model(seed):
     cfg = mini_cnn_config(4, 12, (8, 16, 16))
     rng = np.random.default_rng(seed)
@@ -187,11 +200,7 @@ def _mini_model(seed):
 def _smoke_lm(seed, dev):
     """h2o-danube's smoke config (window 16) with pattern-sparse MLPs in
     bf16: the generate phase's model at CPU size."""
-    cfg = dataclasses.replace(
-        h2o_danube_1_8b.smoke_config(), d_ff=384, model_shards=4,
-        param_dtype="bfloat16", compute_dtype="bfloat16",
-        sparse=PatternSparseConfig(density=0.5, num_patterns=3, block=32,
-                                   tile=32))
+    cfg = _smoke_train_config()
     params, statics = init_params(
         cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
     return cfg, params, statics
@@ -300,6 +309,20 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "VLM_LENGTHS", (5, 20))
     monkeypatch.setattr(cs, "VLM_NEW", 3)
     monkeypatch.setattr(cs, "VLM_BURSTS", (1, 2, 1))
+    # the train phase at smoke size: 8 steps of 2 x 32 tokens from a
+    # 64-token corpus, the drill at 1 of 2 layers; 6 prompts of 5-30 tokens
+    # through 3 slots of 64, 3 new tokens each
+    monkeypatch.setattr(cs, "train_config", _smoke_train_config)
+    monkeypatch.setattr(cs, "TRAIN_BATCH", (2, 32))
+    monkeypatch.setattr(cs, "TRAIN_CORPUS_VOCAB", 64)
+    monkeypatch.setattr(cs, "TRAIN_LR", 3e-3)
+    monkeypatch.setattr(cs, "DRILL_LAYERS", 1)
+    monkeypatch.setattr(cs, "TRAIN_SCFG", dict(batch_slots=3, max_seq=64,
+                                               eos_id=-1))
+    monkeypatch.setattr(cs, "TRAIN_REQUESTS", 6)
+    monkeypatch.setattr(cs, "TRAIN_LENGTHS", (5, 30))
+    monkeypatch.setattr(cs, "TRAIN_NEW", 3)
+    monkeypatch.setattr(cs, "TRAIN_BURSTS", (1, 3, 2))
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -315,7 +338,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
-        "ssm_whisper", "vlm", "times"]
+        "ssm_whisper", "vlm", "train", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -546,7 +569,34 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert vlm["flash_vs_plain"][dt]["calls"] == 2 * 2
         assert vlm["flash_vs_plain"][dt]["failed"] == []
     assert vlm["flash_vs_plain"]["bfloat16"]["worst_over_rounding_limit"] <= 1
-    times = lines[15]
+    train = lines[15]
+    full, drill = train["full"], train["drill"]
+    assert len(full["losses"]) == cs.TRAIN_STEPS
+    assert full["loss_fell"] > cs.TRAIN_FALL
+    assert full["checkpoint"]["bytes"] >= full["reckoned"]["state_bytes"]
+    assert len(full["checkpoint"]["seconds"]) == 1
+    assert full["reckoned"]["update_peak_bytes"] == (
+        4 * full["reckoned"]["params_bytes"]
+        + 2 * full["reckoned"]["moments_bytes"])
+    assert drill["failure_raised"] and drill["restored_step"] == 4
+    assert drill["losses_bit_equal"] and drill["final_state_bit_equal"]
+    assert len(drill["losses_interrupted"]) == cs.TRAIN_STEPS
+    assert len(drill["async_save_blocking_seconds"]) == 2
+    assert drill["checkpoint_bytes"] >= drill["reckoned_checkpoint_bytes"]
+    served = train["serve"]
+    assert served["all_done"] and served["tokens_below_vocab"]
+    assert all(served["first_token_is_prefill_argmax"])
+    assert served["launches"] == served["launches_expected"] == 2 * 6
+    assert served["launches_by_route"] == {"tensor_core": 12, "simt": 0}
+    assert served["flash_calls_checked"] == 12
+    assert served["flash_failed"] == []
+    guards = train["guards"]
+    assert guards["refused"] == {k: True for k in cs.KERNELS}
+    assert max(guards["smoke_step_rel"].values()) <= cs.GUARD_REL
+    assert drill["deterministic_algorithms"]
+    assert drill["cublas_workspace_config"] == ":4096:8"
+    assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    times = lines[16]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40, 17, 40, 13, 20]
@@ -577,9 +627,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     # the generate phase's prefills, then the shard phase's: gather's and
     # flash's in (a) and one on each rank of (b), 2 layers each; qwen's 2
     # prefills of 2 layers; jamba's 6 served prefills of its attention
-    # layer; paligemma's 2 prefix prefills and 4 requests of 2 layers
+    # layer; paligemma's 2 prefix prefills and 4 requests of 2 layers; the
+    # trained danube's 6 requests of 2 layers
     assert res["kernels"][3]["launches"] == (2 * 7 + 2 * (2 + 2) + 2 * 2 + 6
-                                             + 2 * 6)
+                                             + 2 * 6 + 2 * 6)
     # the spmm launches of the serve, shard (a, then 2 ranks of b) and
     # prune phases
     assert res["kernels"][0]["launches"] == 36 + 40 + 2 * 36 + 36
@@ -615,6 +666,9 @@ def test_flash_rounding_limit_fails_one_key_too_many(fault):
     row = cs.flash_row(c, y)
     assert row["worst_over_limit"] <= 1.0  # _tolerance alone passes it
     assert row["ok"] == (fault == "none")
+    # the train phase's limit, its slack from the sum of |terms|, too
+    term = cs.flash_term_limit(c, y)["worst_over_term_limit"]
+    assert (term <= 1.0) == (fault == "none")
 
 
 def _load_chip_smoke():

@@ -22,6 +22,7 @@ except ImportError:
 
 from repro_torch.core import quantize as tq
 from repro_torch.core import sparse as ts
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ou_mvm as tou
 from repro_torch.kernels import pattern_spmm as tk
@@ -934,3 +935,51 @@ def test_ou_mvm_column_slabs_on_card():
         assert ((y1 - want).abs() <= lim).all()
         if tou._ou_vec(wt) == 1:
             assert torch.equal(y1, y)
+
+
+def _grad_calls(dev):
+    """(wrapper, its call) for each of the four CUDA wrappers on small
+    valid inputs on ``dev``, one float input requiring grad."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32, grad=False):
+        return torch.randn(shape, generator=g, device=dev).to(
+            dtype).requires_grad_(grad)
+
+    ids = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    nnz = torch.full((2,), 2, dtype=torch.int32, device=dev)
+    w8 = torch.ones((2, 2, 4, 4), dtype=torch.int8, device=dev)
+    xq = torch.ones((3, 8), dtype=torch.int8, device=dev)
+    half = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    return [
+        (tk.pattern_spmm_cuda, lambda: tk.pattern_spmm_cuda(
+            rand(3, 8, grad=True), rand(2, 2, 4, 4), ids, nnz, 4)),
+        (tk.pattern_spmm_quant_cuda, lambda: tk.pattern_spmm_quant_cuda(
+            xq, w8, ids, rand(2, 2, grad=True), nnz, 4)),
+        (tou.ou_mvm_cuda, lambda: tou.ou_mvm_cuda(rand(20, grad=True),
+                                                  rand(20, 8))),
+        (tfa.flash_attention_cuda, lambda: tfa.flash_attention_cuda(
+            rand(1, 2, 5, 16, dtype=half, grad=True),
+            rand(1, 1, 5, 16, dtype=half), rand(1, 1, 5, 16, dtype=half))),
+    ]
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_wrappers_refuse_inputs_that_require_grad(i):
+    """The kernels have no backward, so a wrapper given an input that
+    requires grad raises, before its CPU branch too: it never returns an
+    output cut off from the graph."""
+    wrapper, call = _grad_calls(torch.device("cpu"))[i]
+    with pytest.raises(ValueError, match="require.*grad.*kernels=False"):
+        call()
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_inputs_that_require_grad_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for wrapper, call in _grad_calls(torch.device("cuda")):
+        n0 = wrapper.launches
+        with pytest.raises(ValueError, match="require.*grad"):
+            call()
+        assert wrapper.launches == n0

@@ -1,4 +1,5 @@
-"""One rank of a ``gloo`` process group for ``tests/test_torch_sharded.py``.
+"""One rank of a ``gloo`` process group for ``tests/test_torch_sharded.py``
+(and ``tests/test_torch_fault_data.py``'s ``data`` job).
 
     python tests/torch_mesh_worker.py <spec.pkl> <rank>
 
@@ -138,7 +139,29 @@ def moe_job(job: dict) -> dict:
     return out
 
 
-JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job}
+def data_job(job: dict) -> dict:
+    """``shard_batch`` of one host batch on a (data, model) mesh, and
+    ``error_feedback_allreduce`` of this rank's own gradients (row
+    ``rank`` of each case) over the world."""
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import (
+        error_feedback_allreduce,
+        init_compression_state,
+    )
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    rank = dist.get_rank()
+    rows = shard_batch(job["batch"], mesh)
+    grads = {k: torch.as_tensor(v[rank]) for k, v in job["grads"].items()}
+    reduced, state = error_feedback_allreduce(
+        grads, init_compression_state(grads))
+    return {"rows": {k: _np(v) for k, v in rows.items()},
+            "reduced": {k: _np(v) for k, v in reduced.items()},
+            "residual": {k: _np(v) for k, v in state.items()}}
+
+
+JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job, "data": data_job}
 
 
 def main(spec_path: str, rank: int) -> None:
