@@ -47,14 +47,24 @@ deterministic algorithms (a failure injected, the async checkpoint
 restored: losses and final state bit-equal to an uninterrupted run), the
 trained weights served through the flash kernel (each call held to its
 plain version), and every kernel wrapper refusing an input that requires
-grad.  Before each path it builds
+grad; the drill's process also runs the sharded step on a one-rank mesh
+against the unsharded step, bit for bit; then sharded training
+(``train_shard``): a 2 x 2 gloo mesh of four spawned ranks on the card
+trains danube at full width cut to 4 layers through the sharded step
+(params split by their logical specs, ZeRO-1 moments, each rank its rows
+of the batch; losses and gathered params held to the unsharded run, each
+rank's resident bytes to those reckoned from its placements), checkpoints
+whole leaves and restores them in this process bit for bit, and runs
+``pipeline_apply`` of danube's decoder layer over a 4-stage mesh of the
+same ranks against the sequential fold.  Before each path it builds
 the CUDA kernels from the sources in ``src/`` and holds each against its
 plain PyTorch version on the card, at every shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
-``lm_configs``, ``ssm_whisper``, ``vlm``, ``train``, ``times``.  The
+``lm_configs``, ``ssm_whisper``, ``vlm``, ``train``, ``train_shard``,
+``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -103,6 +113,7 @@ import argparse
 import dataclasses
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -435,6 +446,45 @@ DRILL_CUBLAS_WORKSPACE = ":4096:8"
 # a picklable function each rank of (b) calls before anything else (None:
 # nothing; the CPU rehearsal installs its counting plain versions there)
 SHARD_PREPARE = None
+
+# The train_shard phase: (e) in the drill's process, the sharded
+# step on a one-rank mesh (NCCL on the card) for ONE_RANK_STEPS steps of
+# the drill's model, bit-equal to the unsharded steps; (f) a
+# SHARD_TRAIN_MESH (data, model) gloo mesh of spawned ranks on this card
+# training h2o-danube-1.8B at full width cut to SHARD_TRAIN_LAYERS layers
+# in float32 params, SHARD_TRAIN_STEPS steps of SHARD_TRAIN_BATCH (each
+# rank its rows): every step's loss within SHARD_TRAIN_REL of the
+# unsharded float32 run (on rank 0), the params gathered after each step
+# by tests/test_torch_train_step.py's rule (off the unsharded step by >=
+# ADAM_OFF x lr only where the step-1 gradient is below NOISE_FLOOR of
+# its leaf's largest or ADAM_EPS_REGION x Adam's eps, at most MAX_ILL of
+# all weights; after step 2 the share alone), each rank's resident param and moment bytes = those
+# reckoned from param_shardings / _zero1 before the run, the checkpoint
+# of the last step (whole leaves, rank 0 writes) restored in this
+# one-rank process bit-equal (sha256 per leaf); the same run in bf16
+# params reported beside the unsharded bf16 run's distance from float32;
+# (g) pipeline_apply over PIPE_STAGES gloo ranks of a stage mesh: one
+# danube decoder layer at full width in float32 (kernels=False) as the
+# layer, PIPE_LAYERS layers, PIPE_MICRO microbatches of 1 x PIPE_TOKENS,
+# within PIPE_REL of the largest |value| of the sequential fold on one
+# rank (bit-equality reported).
+ONE_RANK_STEPS = 2
+SHARD_TRAIN_MESH = (2, 2)
+SHARD_TRAIN_LAYERS = 4
+SHARD_TRAIN_BATCH = (4, 512)
+SHARD_TRAIN_STEPS = 2
+SHARD_TRAIN_REL = 1e-4
+ADAM_OFF = 0.05  # of lr
+NOISE_FLOOR = 1e-5
+ADAM_EPS = 1e-8  # optim.adamw's default eps
+ADAM_EPS_REGION = 10
+MAX_ILL = 1e-3
+SGD_LR = 1e3  # p0 - p1 = lr * g recovers the step-1 gradient
+PIPE_STAGES = 4
+PIPE_LAYERS = 8
+PIPE_MICRO = 6
+PIPE_TOKENS = 256
+PIPE_REL = 1e-6
 
 
 def prune_model_config():
@@ -3375,7 +3425,9 @@ def train_drill(spec: dict) -> dict:
     resumed.ckpt.close()
     losses = {h["step"]: h["loss"] for h in failed.history + hist}
     ref_losses = {h["step"]: h["loss"] for h in ref_hist}
-    return {"layers": cfg.n_layers, "steps": steps, "ckpt_every": every,
+    one_rank = one_rank_mesh_steps(spec, corpus)
+    return {"one_rank_mesh": one_rank,
+            "layers": cfg.n_layers, "steps": steps, "ckpt_every": every,
             "async": True, "failure_at": fail_at, "failure_raised": raised,
             "restored_step": at, "restore_seconds": restore_s,
             "deterministic_algorithms":
@@ -3391,6 +3443,64 @@ def train_drill(spec: dict) -> dict:
             "checkpoint_bytes": ckpt_bytes,
             "reckoned_checkpoint_bytes": train_reckoning(
                 ref.state["params"])["state_bytes"]}
+
+
+def one_rank_mesh_steps(spec: dict, corpus) -> dict:
+    """(e): ONE_RANK_STEPS steps of the drill's model unsharded, then
+    through the sharded step on a one-rank mesh (its own group: NCCL on
+    the card), from the same seed and batches; losses and every leaf of
+    the state compared bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import (
+        _leaves,
+        init_params,
+        init_specs,
+    )
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+        train_shardings,
+    )
+
+    cfg, seed, dev = spec["cfg"], spec["seed"], torch.device(spec["device"])
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    backend = str(dist.get_backend())
+    opt = adamw(weight_decay=0.0)
+    tcfg = TrainConfig(steps=ONE_RANK_STEPS)
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        params, statics = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        shardings = (train_shardings(init_specs(cfg), params, mesh)
+                     if name == "sharded" else None)
+        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg,
+                               shardings=shardings)
+        state = init_train_state(params, opt, tcfg, shardings)
+        del params
+        batches = train_data(seed, corpus, spec["batch"])
+        losses = []
+        for _ in range(ONE_RANK_STEPS):
+            b = next(batches)
+            state, m = step(state, shard_batch(b, mesh) if shardings
+                            else {k: torch.as_tensor(v, device=dev)
+                                  for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        runs[name] = (losses, state)
+    dist.destroy_process_group()
+    (l0, s0), (l1, s1) = runs["unsharded"], runs["sharded"]
+    return {"mesh": [1, 1], "backend": backend, "steps": ONE_RANK_STEPS,
+            "losses_unsharded": l0, "losses_sharded": l1,
+            "losses_bit_equal": l0 == l1,
+            "state_bit_equal": all(torch.equal(a, b) for a, b in zip(
+                _leaves(s0), _leaves(s1))),
+            "seconds": time.perf_counter() - t0}
 
 
 def run_drill(seed: int, dev) -> dict:
@@ -3610,6 +3720,11 @@ def train_checks(full, drill, served, guards) -> None:
     check(drill["final_state_bit_equal"], "the restarted run's final "
                                           "state differs from the "
                                           "uninterrupted run's")
+    one = drill["one_rank_mesh"]
+    check(one["losses_bit_equal"] and one["state_bit_equal"],
+          f"the sharded step on a one-rank mesh differs from the unsharded "
+          f"step: losses {one['losses_sharded']} vs "
+          f"{one['losses_unsharded']}, state equal {one['state_bit_equal']}")
     check(served["all_done"], "a request for the trained model did not "
                               "complete")
     check(served["tokens_below_vocab"], "a served token is outside the "
@@ -3633,6 +3748,530 @@ def train_checks(full, drill, served, guards) -> None:
     check(max(guards["smoke_step_rel"].values()) <= GUARD_REL,
           f"granite smoke step on the card vs the CPU: "
           f"{guards['smoke_step_rel']}")
+
+
+def cut_layers(cfg, n: int, dtype: str):
+    """``cfg`` cut to its first ``n`` layers (danube's are all alike), in
+    ``dtype`` params and compute."""
+    if len(set(cfg.layer_types)) != 1:
+        raise ValueError(f"{cfg.name} mixes layer kinds; cut it by hand")
+    return dataclasses.replace(cfg, n_layers=n,
+                               layer_types=cfg.layer_types[:1] * n,
+                               param_dtype=dtype, compute_dtype=dtype)
+
+
+def _cuda_peak(dev) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _reset_peak(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models.transformer import _leaves
+
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def adam_rule(got, want, grads, lr: float) -> dict:
+    """tests/test_torch_train_step.py's rule, leaf by leaf on the device:
+    weights of ``got`` off ``want`` by >= ADAM_OFF x lr, and how many of
+    them have a well-posed gradient (``grads``; None: not classified):
+    |g| at or above NOISE_FLOOR of its leaf's largest and at or above
+    ADAM_EPS_REGION x Adam's eps.  Below the latter Adam's first step,
+    lr g / (|g| + eps), follows the gradient's absolute rounding noise:
+    a change of 0.05 eps in g moves it by up to 0.05 lr.  The weights off
+    where only the first condition fails to hold are listed."""
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+
+    off, posed_off, total, worst, near_eps = 0, 0, 0, 0.0, []
+    gs = dict(_leaf_paths(grads)) if grads is not None else {}
+    for (key, a), (_, b) in zip(_leaf_paths(got), _leaf_paths(want)):
+        d = (a.float() - b.float()).abs()
+        far = d >= ADAM_OFF * lr
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+        off += int(far.sum())
+        if grads is None or not bool(far.any()):
+            continue
+        g = gs[key].abs()
+        above_floor = g >= NOISE_FLOOR * g.max()
+        posed = above_floor & (g >= ADAM_EPS_REGION * ADAM_EPS)
+        posed_off += int((far & posed).sum())
+        for i in _flat_nonzero(far & above_floor & ~posed)[:8]:
+            near_eps.append({"leaf": key, "abs_grad": float(g.view(-1)[i]),
+                             "leaf_max_abs_grad": float(g.max()),
+                             "diff_over_lr": float(d.view(-1)[i]) / lr})
+    return {"off": off, "total": total, "share_off": off / total,
+            "off_where_posed": posed_off if grads is not None else None,
+            "off_near_eps": near_eps, "max_abs_diff": worst,
+            "limit": f">= {ADAM_OFF} x lr off only where |g| < {NOISE_FLOOR} "
+            f"x the leaf's max or < {ADAM_EPS_REGION} x eps {ADAM_EPS}; "
+            f"share <= {MAX_ILL}"}
+
+
+def _flat_nonzero(mask) -> list:
+    """Flat indices where ``mask`` holds."""
+    return mask.view(-1).nonzero().view(-1).tolist()
+
+
+def whole_state_hashes(state, shardings) -> dict | None:
+    """sha256 of every leaf of a sharded state gathered whole (every rank
+    takes part), by checkpoint key, on rank 0; None elsewhere."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.parallel.sharding import gather_tensor
+    from repro_torch.runtime import state_placements
+
+    placed = dict(_leaf_paths(state_placements(shardings, state)))
+    out = {}
+    for key, leaf in _leaf_paths(state):
+        if key in placed:
+            leaf = gather_tensor(leaf, placed[key], shardings.mesh)
+        out[key] = _sha256(leaf)
+    return out if dist.get_rank() == 0 else None
+
+
+def _sha256(t) -> str:
+    """sha256 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def unsharded_runs(spec, batches, dev) -> dict:
+    """(f)'s references on one rank: the float32 model's step-1 gradient
+    (an SGD step at SGD_LR), AdamW's params after each step and its
+    losses, and the bf16 model's losses."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.optim.optimizers import _map
+    from repro_torch.runtime import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    tcfg = TrainConfig(steps=len(batches))
+    out = {}
+    for name, cfg in (("float32", spec["cfg"]), ("bfloat16",
+                                                 spec["cfg_bf16"])):
+        params, statics = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(spec["seed"]),
+            device=dev)
+        put = [{k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+               for b in batches]
+        if name == "float32":
+            step = make_train_step(cfg, statics, sgd(), lambda s: SGD_LR,
+                                   tcfg)
+            p1, _ = step(init_train_state(params, sgd(), tcfg), put[0])
+            out["grads1"] = _map(lambda a, b: (a - b) / SGD_LR, params,
+                                 p1["params"])
+            del p1
+        opt = adamw(weight_decay=0.0)
+        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg)
+        state = init_train_state(params, opt, tcfg)
+        del params
+        losses, kept = [], []
+        for b in put:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            if name == "float32":
+                kept.append(state["params"])
+        out[name] = {"losses": losses, "params": kept}
+    return out
+
+
+def sharded_train_run(spec, mesh, dev) -> dict:
+    """(f) on one rank of ``mesh``: the float32 model through the sharded
+    step and ``Trainer`` (a checkpoint at the last step), gathered and
+    held to the unsharded run (rank 0), then the bf16 model's losses."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticCorpus, shard_batch
+    from repro_torch.models.transformer import (
+        _leaves,
+        init_params,
+        init_specs,
+    )
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.runtime import (
+        TrainConfig,
+        Trainer,
+        init_train_state,
+        make_train_step,
+        train_shardings,
+    )
+
+    seed, rank = spec["seed"], dist.get_rank()
+    corpus = SyntheticCorpus(spec["corpus_vocab"], seed)
+    stream = train_data(seed, corpus, spec["batch"])
+    batches = [next(stream) for _ in range(spec["steps"])]
+    res = {"device": str(dev), "backend": str(dist.get_backend()),
+           "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")}}
+    ref = None
+    if rank == 0:  # the unsharded references, before the main path
+        t0 = time.perf_counter()
+        ref = unsharded_runs(spec, batches, dev)
+        _sync(dev)
+        res["unsharded_seconds"] = time.perf_counter() - t0
+    dist.barrier()
+    _reset_peak(dev)
+    opt = adamw(weight_decay=0.0)
+    runs = {}
+    for name, cfg in (("float32", spec["cfg"]), ("bfloat16",
+                                                 spec["cfg_bf16"])):
+        t0 = time.perf_counter()
+        params, statics = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        shardings = train_shardings(init_specs(cfg), params, mesh)
+        tcfg = TrainConfig(steps=spec["steps"], ckpt_every=spec["steps"],
+                           ckpt_dir=os.path.join(spec["out"], name))
+        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg,
+                               shardings=shardings)
+        state = init_train_state(params, opt, tcfg, shardings)
+        del params
+        size = {"float32": 4, "bfloat16": 2}[name]
+        reckoned = {
+            "params": size * sum(math.prod(pl.slab_shape) for pl in
+                                 _leaves(shardings.params)),
+            "moments": 2 * 4 * sum(math.prod(pl.slab_shape) for pl in
+                                   _leaves(shardings.moments)),
+            "whole_params": size * sum(math.prod(pl.shape) for pl in
+                                       _leaves(shardings.params))}
+        rows = {"reckoned_bytes": reckoned}
+        losses, rules = [], []
+        if name == "float32":
+            # step 1 by the bare step, gathered and held to the reference
+            t1 = time.perf_counter()
+            state, m = step(state, shard_batch(batches[0], mesh))
+            losses.append(float(m["loss"]))
+            _sync(dev)
+            rows["step1_seconds"] = time.perf_counter() - t1
+            got = gather_tree(state["params"], shardings.params, mesh)
+            if rank == 0:
+                rules.append(adam_rule(got, ref["float32"]["params"][0],
+                                       ref["grads1"], spec["lr"]))
+            del got
+            # the rest through Trainer, which checkpoints the last step
+            trainer = Trainer(step, state, iter(batches[1:]), tcfg,
+                              put_batch=lambda b: shard_batch(b, mesh),
+                              shardings=shardings)
+            saves = timed_saves(trainer)
+            hist = trainer.run()
+            state = trainer.state
+            losses += [h["loss"] for h in hist]
+            rows["trainer_step_seconds"] = [h["seconds"] for h in hist]
+            rows["checkpoint_seconds"] = saves
+            got = gather_tree(state["params"], shardings.params, mesh)
+            if rank == 0:
+                rules.append(adam_rule(got, ref["float32"]["params"][-1],
+                                       None, spec["lr"]))
+            del got
+            rows["state_sha256"] = whole_state_hashes(state, shardings)
+        else:
+            for b in batches:
+                state, m = step(state, shard_batch(b, mesh))
+                losses.append(float(m["loss"]))
+        rows["resident_bytes"] = {
+            "params": _nbytes(state["params"]),
+            "moments": _nbytes(state["opt_state"]["mu"])
+            + _nbytes(state["opt_state"]["nu"])}
+        rows["losses"] = losses
+        rows["rules"] = rules
+        _sync(dev)
+        rows["seconds"] = time.perf_counter() - t0
+        del state
+        runs[name] = rows
+    res["runs"] = runs
+    res["peak_memory_bytes"] = _cuda_peak(dev)
+    if rank == 0:
+        res["unsharded_losses"] = {k: ref[k]["losses"]
+                                   for k in ("float32", "bfloat16")}
+    return res
+
+
+def pipeline_run(spec, dev) -> dict:
+    """(g) on one rank: ``pipeline_apply`` of danube's decoder layer over a
+    stage mesh of the world; rank 0 also folds the layers in order."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import (
+        _apply_layer,
+        _index,
+        init_params,
+    )
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    mesh = make_mesh((dist.get_world_size(),), ("stage",),
+                     device_type=dev.type)
+    cfg = spec["pipe_cfg"]
+    params, statics = init_params(
+        cfg, torch.Generator(device=dev).manual_seed(spec["seed"]),
+        device=dev)
+    stacked, st = params["body"][0], statics["body"][0]
+    del params
+    n, tokens = spec["pipe_micro"], spec["pipe_tokens"]
+    x = torch.as_tensor(np.random.default_rng(spec["seed"] + 31).normal(
+        size=(n, 1, tokens, cfg.d_model)).astype(np.float32), device=dev)
+    positions = torch.arange(tokens, device=dev)
+
+    def layer(p, h):
+        return _apply_layer(p, st, cfg, h, positions, None, None, None,
+                            False, kernels=False)[0]
+
+    _reset_peak(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    y = pipeline_apply(layer, stacked, x, mesh, "stage")
+    _sync(dev)
+    res = {"seconds": time.perf_counter() - t0,
+           "peak_memory_bytes": _cuda_peak(dev),
+           "sha256": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()}
+    if dist.get_rank() == 0:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fold = []
+            for m in range(n):
+                h = x[m]
+                for i in range(cfg.n_layers):
+                    h = layer(_index(stacked, i), h)
+                fold.append(h)
+            fold = torch.stack(fold)
+        _sync(dev)
+        top = float(fold.abs().max())
+        res.update({"fold_seconds": time.perf_counter() - t0,
+                    "max_abs_diff": float((y - fold).abs().max()),
+                    "fold_max_abs": top,
+                    "bit_equal": bool(torch.equal(y, fold)),
+                    "finite": bool(torch.isfinite(y).all())})
+    return res
+
+
+def train_shard_rank(rank: int, spec: dict) -> None:
+    """One rank of (f) and (g): joins the gloo group, runs both, writes
+    ``rank<r>.pkl`` in ``spec["out"]``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+
+    if spec["prepare"] is not None:
+        spec["prepare"]()
+    world = math.prod(spec["mesh"])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh(spec["mesh"], ("data", "model"),
+                         device_type=spec["device_type"])
+        dev = mesh_device(mesh)
+        t0 = time.perf_counter()
+        out = {"f": sharded_train_run(spec, mesh, dev)}
+        out["f"]["part_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["g"] = pipeline_run(spec, dev)
+        out["g"]["part_seconds"] = time.perf_counter() - t0
+        with open(os.path.join(spec["out"], f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def restore_one_rank(spec, dev) -> dict:
+    """(f)'s checkpoint restored in this process: a one-rank mesh's state
+    through ``Trainer.maybe_restore``, each leaf hashed."""
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params, init_specs
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (
+        TrainConfig,
+        Trainer,
+        init_train_state,
+        make_train_step,
+        train_shardings,
+    )
+
+    t0 = time.perf_counter()
+    cfg = spec["cfg"]
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    params, statics = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        spec["seed"]), device=dev)
+    shardings = train_shardings(init_specs(cfg), params, mesh)
+    opt = adamw(weight_decay=0.0)
+    tcfg = TrainConfig(steps=spec["steps"],
+                       ckpt_dir=os.path.join(spec["out"], "float32"))
+    trainer = Trainer(make_train_step(cfg, statics, opt, lambda s: 0.0, tcfg,
+                                      shardings=shardings),
+                      init_train_state(params, opt, tcfg, shardings),
+                      iter(()), tcfg, shardings=shardings)
+    del params
+    at = trainer.maybe_restore()
+    hashes = {k: _sha256(v) for k, v in _leaf_paths(trainer.state)}
+    return {"restored_step": at, "sha256": hashes,
+            "seconds": time.perf_counter() - t0}
+
+
+def train_shard_phase(seed: int, dev) -> dict:
+    """The ``train_shard`` phase, (f) and (g), and its JSON line; (e) runs
+    in the train phase's drill process."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    full = train_config()
+    world = math.prod(SHARD_TRAIN_MESH)
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        spec = {"mesh": SHARD_TRAIN_MESH, "device_type": dev.type,
+                "store": os.path.join(tmp, "store"), "out": tmp,
+                "prepare": SHARD_PREPARE, "seed": seed,
+                "cfg": cut_layers(full, SHARD_TRAIN_LAYERS, "float32"),
+                "cfg_bf16": cut_layers(full, SHARD_TRAIN_LAYERS, "bfloat16"),
+                "batch": SHARD_TRAIN_BATCH, "steps": SHARD_TRAIN_STEPS,
+                "corpus_vocab": TRAIN_CORPUS_VOCAB, "lr": TRAIN_LR,
+                "pipe_cfg": cut_layers(full, PIPE_LAYERS, "float32"),
+                "pipe_micro": PIPE_MICRO, "pipe_tokens": PIPE_TOKENS}
+        if PIPE_STAGES != world:
+            raise ValueError("the pipeline's stages are the mesh's ranks")
+        t0 = time.perf_counter()
+        mp.start_processes(train_shard_rank, args=(spec,), nprocs=world,
+                           join=True, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        _reset_peak(dev)
+        restored = restore_one_rank(spec, dev)
+        restored["peak_memory_bytes"] = _cuda_peak(dev)
+    f0, g0 = ranks[0]["f"], ranks[0]["g"]
+    f32, bf16 = f0["runs"]["float32"], f0["runs"]["bfloat16"]
+    ref = f0["unsharded_losses"]
+
+    def rels(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    cfg = spec["cfg"]
+    f = {"model": cfg.name, "layers": f"{SHARD_TRAIN_LAYERS} of "
+         f"{full.n_layers}", "d_model": cfg.d_model, "vocab": cfg.vocab,
+         "sparse": dataclasses.asdict(cfg.sparse) if cfg.sparse else None,
+         "mesh": list(SHARD_TRAIN_MESH), "backend": f0["backend"],
+         "transport": f"gloo: {world} ranks on "
+         f"{len({rk['f']['device'] for rk in ranks})} card(s), CUDA "
+         f"tensors staged through host memory",
+         "batch": list(SHARD_TRAIN_BATCH), "steps": SHARD_TRAIN_STEPS,
+         "lr": TRAIN_LR, "loss_limit": f"rel <= {SHARD_TRAIN_REL}",
+         "losses_float32": f32["losses"],
+         "losses_unsharded_float32": ref["float32"],
+         "loss_rel_float32": rels(f32["losses"], ref["float32"]),
+         "ranks_losses_equal": all(
+             rk["f"]["runs"][n]["losses"] == f0["runs"][n]["losses"]
+             for rk in ranks for n in ("float32", "bfloat16")),
+         "params_rule": f32["rules"],
+         "resident_bytes": [rk["f"]["runs"]["float32"]["resident_bytes"]
+                            for rk in ranks],
+         "reckoned_bytes": [rk["f"]["runs"]["float32"]["reckoned_bytes"]
+                            for rk in ranks],
+         "coords": [rk["f"]["coords"] for rk in ranks],
+         "step1_seconds": [rk["f"]["runs"]["float32"]["step1_seconds"]
+                           for rk in ranks],
+         "trainer_step_seconds": f32["trainer_step_seconds"],
+         "checkpoint_seconds": f32["checkpoint_seconds"],
+         "restore": {"restored_step": restored["restored_step"],
+                     "bit_equal": restored["sha256"] == f32["state_sha256"],
+                     "leaves": len(restored["sha256"]),
+                     "seconds": restored["seconds"],
+                     "peak_memory_bytes": restored["peak_memory_bytes"]},
+         "bf16_not_gated": {
+             "losses": bf16["losses"], "losses_unsharded": ref["bfloat16"],
+             "rel_vs_unsharded_bf16": rels(bf16["losses"], ref["bfloat16"]),
+             "unsharded_bf16_rel_vs_float32": rels(ref["bfloat16"],
+                                                   ref["float32"])},
+         "unsharded_seconds_rank0": f0["unsharded_seconds"],
+         "seconds_per_rank": [rk["f"]["part_seconds"] for rk in ranks],
+         "peak_memory_bytes_per_rank": [rk["f"]["peak_memory_bytes"]
+                                        for rk in ranks]}
+    pcfg = spec["pipe_cfg"]
+    g = {"layer": f"{pcfg.name} decoder layer, float32, kernels=False",
+         "d_model": pcfg.d_model,
+         "layers": PIPE_LAYERS, "stages": PIPE_STAGES,
+         "layers_per_stage": PIPE_LAYERS // PIPE_STAGES,
+         "microbatches": PIPE_MICRO, "microbatch": [1, PIPE_TOKENS],
+         "limit": f"max|pipe - fold| <= {PIPE_REL} x max|fold|",
+         "max_abs_diff": g0["max_abs_diff"], "fold_max_abs": g0["fold_max_abs"],
+         "bit_equal": g0["bit_equal"], "finite": g0["finite"],
+         "ranks_equal": len({rk["g"]["sha256"] for rk in ranks}) == 1,
+         "seconds_per_rank": [rk["g"]["seconds"] for rk in ranks],
+         "fold_seconds": g0["fold_seconds"],
+         "peak_memory_bytes_per_rank": [rk["g"]["peak_memory_bytes"]
+                                        for rk in ranks]}
+    emit("train_shard", seconds=time.perf_counter() - t_phase,
+         spawn_seconds=spawn_s, part_f=f, part_g=g)
+    train_shard_checks(f, g)
+    return {}
+
+
+def train_shard_checks(f, g) -> None:
+    """The ``train_shard`` phase's gates, after its line is printed."""
+    check(f["ranks_losses_equal"], "the mesh's ranks report different losses")
+    check(all(np.isfinite(f["losses_float32"]))
+          and max(f["loss_rel_float32"]) <= SHARD_TRAIN_REL,
+          f"sharded float32 losses {f['losses_float32']} vs unsharded "
+          f"{f['losses_unsharded_float32']}")
+    step1, last = f["params_rule"]
+    check(step1["off_where_posed"] == 0 and step1["share_off"] <= MAX_ILL,
+          f"sharded params after step 1 off the unsharded step: {step1}")
+    check(last["share_off"] <= MAX_ILL,
+          f"sharded params after the last step off the unsharded run: {last}")
+    for have, want in zip(f["resident_bytes"], f["reckoned_bytes"]):
+        check(have["params"] == want["params"]
+              and have["moments"] == want["moments"],
+              f"a rank's resident bytes {have} != reckoned {want}")
+    check(f["restore"]["restored_step"] == SHARD_TRAIN_STEPS
+          and f["restore"]["bit_equal"],
+          f"the mesh's checkpoint restored in one rank: {f['restore']}")
+    check(g["finite"] and g["ranks_equal"]
+          and g["max_abs_diff"] <= PIPE_REL * g["fold_max_abs"],
+          f"pipeline_apply vs the sequential fold: {g['max_abs_diff']} "
+          f"(largest {g['fold_max_abs']}), ranks equal {g['ranks_equal']}")
 
 
 def build_decode_lm(seed: int, dev):
@@ -4412,6 +5051,9 @@ def run(seed: int, dev) -> dict:
     launches["flash_attention_cuda"] += tr["launches"]
     max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
                                           tr["max_abs_err"])
+
+    # -- 10f. sharded training: ZeRO-1 on a 2 x 2 mesh, restore, GPipe ---
+    train_shard_phase(seed, dev)
 
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []

@@ -26,6 +26,16 @@ layout, so a checkpoint written by either package restores in the other:
     host memory before it returns and writes on a worker thread, so the
     train loop blocks only for the device-to-host copy.
   * **Retention** — keep the last ``keep`` checkpoints.
+  * **Sharded states and elastic restore** — the reference stores every
+    leaf whole, whatever its sharding, and restores it under any target
+    sharding.  ``Checkpointer(mesh=, placements=)`` takes a state whose
+    leaves are this rank's slabs (``parallel.sharding.Placement``, by
+    key; a leaf without one is whole): each save all-gathers every leaf
+    over the mesh, rank 0 alone writes the whole leaves, then every rank
+    meets at a barrier (after the write, or in ``wait`` when async).
+    ``restore_checkpoint(placements=)`` cuts each rank's slab from the
+    whole leaf, so a checkpoint saved on one mesh restores onto another,
+    onto one device, and in the reference.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.sharding import gather_tensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "Checkpointer"]
 
@@ -146,23 +159,35 @@ def _load(path: str, entry: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_checkpoint(directory: str, step: int, target, devices=None):
+def restore_checkpoint(directory: str, step: int, target, devices=None,
+                       placements=None):
     """Restore into the structure of ``target`` (tensors, numpy arrays or
     numbers as leaves), each leaf a tensor on the device of the target's
     leaf (the CPU for a leaf that is not a tensor), or of ``devices``'s
-    matching leaf when given.  A key the checkpoint lacks raises
-    ``KeyError``; a shape that differs from the target's, ``ValueError``."""
+    matching leaf when given.  With ``placements`` (a tree of
+    ``Placement`` in the target's structure; a leaf without one is
+    whole), each leaf is this rank's slab of the whole leaf saved, and the
+    target holds slabs.  A key the checkpoint lacks raises ``KeyError``; a
+    shape that differs from the target's (or a placement's whole shape),
+    ``ValueError``."""
     path = os.path.join(directory, f"step_{step:010d}")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     by_key = {e["key"]: e for e in manifest["leaves"]}
     placed = dict(_leaf_paths(devices)) if devices is not None else {}
+    slabs = dict(_leaf_paths(placements)) if placements is not None else {}
 
     def restore(key, leaf):
         entry = by_key.get(key)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         t = _load(path, entry)
+        if key in slabs:
+            if tuple(t.shape) != slabs[key].shape:
+                raise ValueError(
+                    f"leaf {key!r}: checkpoint shape {tuple(t.shape)} != "
+                    f"placed {slabs[key].shape}")
+            t = t[slabs[key].slices]
         if tuple(t.shape) != tuple(_shape(leaf)):
             raise ValueError(
                 f"leaf {key!r}: checkpoint shape {tuple(t.shape)} != target "
@@ -180,12 +205,16 @@ def restore_checkpoint(directory: str, step: int, target, devices=None):
 
 
 class Checkpointer:
-    """Retention + optional async writes over save/restore."""
+    """Retention + optional async writes over save/restore; with ``mesh``
+    and ``placements``, of a sharded state (module docstring)."""
 
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = False,
+                 mesh=None, placements=None):
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh
+        self.placements = placements
         self._queue: queue.Queue | None = None
         self._worker: threading.Thread | None = None
         self._errors: list[BaseException] = []
@@ -209,16 +238,39 @@ class Checkpointer:
                 self._queue.task_done()
 
     def save(self, step: int, tree):
+        if self.placements is not None:
+            tree = self._gather(tree)
+            if dist.get_rank() != 0:  # rank 0 alone writes
+                if not self.async_save:
+                    dist.barrier()
+                return
         if self.async_save:
             host = _map_with_path(lambda _, leaf: _snapshot(leaf), tree)
             self._queue.put((step, host))
         else:
             save_checkpoint(self.directory, step, tree)
             self._gc()
+            if self.placements is not None:
+                dist.barrier()
+
+    def _gather(self, tree):
+        """Every leaf whole, gathered over the mesh leaf by leaf; rank 0
+        keeps a host copy of each, the others drop theirs."""
+        slabs = dict(_leaf_paths(self.placements))
+        keep = dist.get_rank() == 0
+
+        def whole(key, leaf):
+            if key in slabs:
+                leaf = gather_tensor(leaf, slabs[key], self.mesh)
+            return _snapshot(leaf) if keep else None
+
+        return _map_with_path(whole, tree)
 
     def wait(self):
         if self._queue is not None:
             self._queue.join()
+        if self.placements is not None:
+            dist.barrier()
         if self._errors:
             raise self._errors[0]
 
@@ -232,7 +284,8 @@ class Checkpointer:
         return latest_step(self.directory)
 
     def restore(self, step: int, target, devices=None):
-        return restore_checkpoint(self.directory, step, target, devices)
+        return restore_checkpoint(self.directory, step, target, devices,
+                                  self.placements)
 
     def _gc(self):
         steps = sorted(

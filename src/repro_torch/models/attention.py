@@ -62,13 +62,15 @@ from repro_torch.models.layers import (
     apply_rope,
     linear,
     linear_init,
+    linear_specs,
     rope_frequencies,
 )
 from repro_torch.parallel.activations import current_mesh
 from repro_torch.parallel.sharding import mesh_axis_sizes, padded_heads
 
-__all__ = ["AttnConfig", "attention_init", "attention_apply", "init_kv_cache",
-           "is_prefill", "flash_decode_sharded"]
+__all__ = ["AttnConfig", "attention_init", "attention_specs",
+           "attention_apply", "init_kv_cache", "is_prefill",
+           "flash_decode_sharded"]
 
 _NEG = -1e30
 
@@ -118,6 +120,18 @@ def attention_init(generator, cfg: AttnConfig, param_dtype=torch.float32,
         params["wq"]["w"][:, real:] = 0.0
         params["wo"]["w"][real:] = 0.0
     return params
+
+
+def attention_specs(cfg: AttnConfig) -> dict:
+    """The specs of :func:`attention_init`'s params: heads over ``model``;
+    the key/value projections only where their width divides
+    ``model_shards``."""
+    hkv_width = cfg.n_kv_heads * cfg.d_head
+    kv_axis = "kv_heads" if hkv_width % cfg.model_shards == 0 else None
+    return {"wq": linear_specs("embed", "heads", bias=cfg.qkv_bias),
+            "wk": linear_specs("embed", kv_axis, bias=cfg.qkv_bias),
+            "wv": linear_specs("embed", kv_axis, bias=cfg.qkv_bias),
+            "wo": linear_specs("heads", "embed")}
 
 
 def init_kv_cache(

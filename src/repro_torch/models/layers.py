@@ -3,10 +3,13 @@
 Port of ``src/repro/models/layers.py``.  Every ``*_init`` draws from an
 explicit ``torch.Generator`` (on the device it creates its tensors on)
 and returns a dict of parameter tensors — the MLP and the pattern-sparse
-linear also return their static layout.  The reference's logical-axis
-specs are left out: the port runs on one device.  All ``*_apply`` are
-functions of their arguments.  Compute dtype is the caller's; params are
-created in ``param_dtype``.
+linear also return their static layout.  The reference's ``*_init``
+also returns the params' logical-axis specs; here a ``*_specs`` beside
+each ``*_init`` builds that tree (tuples of logical axis names, the
+reference's, leaf for leaf) from the same arguments and draws nothing,
+and ``parallel.sharding.tree_pspecs`` resolves it on a mesh.  All
+``*_apply`` are functions of their arguments.  Compute dtype is the
+caller's; params are created in ``param_dtype``.
 
 The pattern-sparse layouts (``_fake_block_ids``, ``_fake_pattern_groups``)
 are the reference's numpy, copied, so a layout here is bit-equal to the
@@ -33,6 +36,8 @@ __all__ = [
     "sparse_linear_static", "sparse_linear_init", "sparse_linear",
     "sparse_tables",
     "mlp_static", "mlp_init", "mlp_apply", "silu", "gelu",
+    "rmsnorm_specs", "layernorm_specs", "embed_specs", "linear_specs",
+    "sparse_linear_specs", "mlp_specs",
     "rope_frequencies", "apply_rope",
 ]
 
@@ -192,6 +197,11 @@ def sparse_linear_init(
                           device), static
 
 
+def sparse_linear_specs() -> dict:
+    """The compressed weight's tile axis is the tensor-parallel dim."""
+    return {"w_comp": ("tiles", None, None, None)}
+
+
 def _sparse_params(generator, static, k_in: int, cfg: PatternSparseConfig,
                    param_dtype, device) -> dict:
     """``w_comp`` for a sparse layout: normal bricks scaled by
@@ -274,6 +284,10 @@ def rmsnorm_init(d: int, param_dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=param_dtype, device=device)}
 
 
+def rmsnorm_specs() -> dict:
+    return {"scale": ("embed",)}
+
+
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -284,6 +298,10 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def layernorm_init(d: int, param_dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=param_dtype, device=device),
             "bias": torch.zeros((d,), dtype=param_dtype, device=device)}
+
+
+def layernorm_specs() -> dict:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -299,6 +317,10 @@ def embed_init(generator, vocab: int, d: int, param_dtype=torch.float32,
                device=None):
     return {"w": _normal(generator, (vocab, d), d ** -0.5, param_dtype,
                          device)}
+
+
+def embed_specs() -> dict:
+    return {"w": ("vocab", "embed")}
 
 
 def linear_init(
@@ -317,6 +339,15 @@ def linear_init(
     return p
 
 
+def linear_specs(in_axis: str | None = "embed", out_axis: str | None = "ff",
+                 bias: bool = False) -> dict:
+    """``w`` is ``(in_axis, out_axis)``; the bias follows the output."""
+    s = {"w": (in_axis, out_axis)}
+    if bias:
+        s["b"] = (out_axis,)
+    return s
+
+
 def linear(params, x: torch.Tensor) -> torch.Tensor:
     y = x @ params["w"].to(x.dtype)
     if "b" in params:
@@ -327,6 +358,15 @@ def linear(params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeLU), optionally pattern-sparse
 # ---------------------------------------------------------------------------
+
+
+def _mlp_is_sparse(d_model: int, d_ff: int,
+                   sparse: PatternSparseConfig | None,
+                   model_shards: int) -> bool:
+    """The sparse config applies to both projections' shapes."""
+    return sparse is not None and sparse.applicable(
+        d_model, d_ff, model_shards
+    ) and sparse.applicable(d_ff, d_model, model_shards)
 
 
 def mlp_static(
@@ -340,10 +380,7 @@ def mlp_static(
     """The MLP's static part: its activation and, when the sparse config
     applies to both projections' shapes, the three sparse layouts."""
     static = {"act": act, "sparse": None}
-    use_sparse = sparse is not None and sparse.applicable(
-        d_model, d_ff, model_shards
-    ) and sparse.applicable(d_ff, d_model, model_shards)
-    if use_sparse:
+    if _mlp_is_sparse(d_model, d_ff, sparse, model_shards):
         static["sparse"] = sparse
         shapes = {"up": (d_model, d_ff, 2), "down": (d_ff, d_model, 3)}
         if act == "swiglu":
@@ -385,6 +422,21 @@ def mlp_init(
         params["down"] = linear_init(generator, d_ff, d_model,
                                      param_dtype=param_dtype, device=device)
     return params, static
+
+
+def mlp_specs(
+    d_model: int,
+    d_ff: int,
+    act: str = "swiglu",
+    sparse: PatternSparseConfig | None = None,
+    model_shards: int = 16,
+) -> dict:
+    """The specs of :func:`mlp_init`'s params for the same arguments."""
+    names = ("gate", "up", "down") if act == "swiglu" else ("up", "down")
+    if _mlp_is_sparse(d_model, d_ff, sparse, model_shards):
+        return {n: sparse_linear_specs() for n in names}
+    return {n: linear_specs("ff", "embed") if n == "down"
+            else linear_specs("embed", "ff") for n in names}
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -38,12 +38,15 @@ from repro_torch.models.layers import (
     apply_rope,
     linear,
     linear_init,
+    linear_specs,
     rmsnorm,
     rmsnorm_init,
+    rmsnorm_specs,
     rope_frequencies,
 )
 
-__all__ = ["MLAConfig", "mla_init", "mla_apply", "init_mla_cache"]
+__all__ = ["MLAConfig", "mla_init", "mla_specs", "mla_apply",
+           "init_mla_cache"]
 
 _NEG = -1e30
 
@@ -78,6 +81,18 @@ def mla_init(generator, cfg: MLAConfig, param_dtype=torch.float32,
                              h * (cfg.d_nope + cfg.d_v), **kw),
         "wo": linear_init(generator, h * cfg.d_v, d, **kw),
     }
+
+
+def mla_specs(cfg: MLAConfig) -> dict:
+    """The specs of :func:`mla_init`'s params: the low-rank widths
+    replicated, the heads over ``model``."""
+    return {"wq_a": linear_specs("embed", "q_lora"),
+            "q_norm": rmsnorm_specs(),
+            "wq_b": linear_specs("q_lora", "heads"),
+            "wkv_a": linear_specs("embed", "kv_lora"),
+            "kv_norm": rmsnorm_specs(),
+            "wkv_b": linear_specs("kv_lora", "heads"),
+            "wo": linear_specs("heads", "embed")}
 
 
 def init_mla_cache(cfg: MLAConfig, batch: int, max_seq: int,

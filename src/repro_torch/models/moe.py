@@ -51,16 +51,18 @@ from repro_torch.models.layers import (
     gelu,
     linear,
     linear_init,
+    linear_specs,
     mlp_apply,
     mlp_init,
+    mlp_specs,
     mlp_static,
     silu,
 )
 from repro_torch.parallel.activations import current_mesh
 from repro_torch.parallel.sharding import mesh_axis_sizes
 
-__all__ = ["MoEConfig", "moe_static", "moe_init", "moe_apply", "capacity",
-           "kept_pairs"]
+__all__ = ["MoEConfig", "moe_static", "moe_init", "moe_specs", "moe_apply",
+           "capacity", "kept_pairs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +117,20 @@ def moe_init(generator, cfg: MoEConfig, param_dtype=torch.float32,
             model_shards=cfg.model_shards, param_dtype=param_dtype,
             device=device)
     return params, static
+
+
+def moe_specs(cfg: MoEConfig) -> dict:
+    """The specs of :func:`moe_init`'s params: the router replicated, the
+    routed experts over ``model`` (expert parallel), the shared experts'
+    dense MLP."""
+    specs = {"router": linear_specs("embed", "unsharded"),
+             "experts": {name: ("expert", None, None)
+                         for name in ("gate", "up", "down")}}
+    if cfg.n_shared:
+        specs["shared"] = mlp_specs(cfg.d_model, _d_ff_shared(cfg),
+                                    act=cfg.act, sparse=None,
+                                    model_shards=cfg.model_shards)
+    return specs
 
 
 def capacity(t: int, cfg: MoEConfig) -> int:

@@ -36,12 +36,15 @@ from repro_torch.models.layers import (
     _normal,
     linear,
     linear_init,
+    linear_specs,
     rmsnorm,
     rmsnorm_init,
+    rmsnorm_specs,
     silu,
 )
 
-__all__ = ["SSMConfig", "ssm_init", "ssm_apply", "init_ssm_cache"]
+__all__ = ["SSMConfig", "ssm_init", "ssm_specs", "ssm_apply",
+           "init_ssm_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +93,16 @@ def ssm_init(generator, cfg: SSMConfig, param_dtype=torch.float32,
         "norm": rmsnorm_init(di, param_dtype, device),
         "out_proj": linear_init(generator, di, d, **kw),
     }
+
+
+def ssm_specs(cfg: SSMConfig) -> dict:
+    """The specs of :func:`ssm_init`'s params: the inner width and the
+    heads over ``model``."""
+    return {"in_proj": linear_specs("embed", "ff"),
+            "conv_w": ("conv", "ff"), "conv_b": ("ff",),
+            "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+            "norm": rmsnorm_specs(),
+            "out_proj": linear_specs("ff", "embed")}
 
 
 def init_ssm_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,

@@ -43,30 +43,54 @@ from repro_torch.models.attention import (
     AttnConfig,
     attention_apply,
     attention_init,
+    attention_specs,
     init_kv_cache,
     is_prefill,
 )
 from repro_torch.models.layers import (
     PatternSparseConfig,
     embed_init,
+    embed_specs,
     layernorm,
     layernorm_init,
+    layernorm_specs,
     linear,
     linear_init,
+    linear_specs,
     mlp_apply,
     mlp_init,
+    mlp_specs,
     mlp_static,
     rmsnorm,
     rmsnorm_init,
+    rmsnorm_specs,
 )
-from repro_torch.models.mla import MLAConfig, init_mla_cache, mla_apply, mla_init
-from repro_torch.models.moe import MoEConfig, moe_apply, moe_init, moe_static
-from repro_torch.models.ssm import SSMConfig, init_ssm_cache, ssm_apply, ssm_init
+from repro_torch.models.mla import (
+    MLAConfig,
+    init_mla_cache,
+    mla_apply,
+    mla_init,
+    mla_specs,
+)
+from repro_torch.models.moe import (
+    MoEConfig,
+    moe_apply,
+    moe_init,
+    moe_specs,
+    moe_static,
+)
+from repro_torch.models.ssm import (
+    SSMConfig,
+    init_ssm_cache,
+    ssm_apply,
+    ssm_init,
+    ssm_specs,
+)
 from repro_torch.parallel.activations import shard_activation
 from repro_torch.parallel.sharding import pad_to_multiple
 
 __all__ = ["ModelConfig", "find_structure", "init_statics", "init_params",
-           "init_cache", "apply_model", "count_params"]
+           "init_specs", "init_cache", "apply_model", "count_params"]
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -327,6 +351,74 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                                          device=device)
         params["mtp_norm"] = norm_init(cfg.d_model, pdt, device)
     return params, statics
+
+
+def _layer_specs(cfg: ModelConfig, ltype: tuple[str, str]) -> dict:
+    """The specs of one layer's params (:func:`_layer_params`)."""
+    mixer, ffn = ltype
+    norm = rmsnorm_specs if cfg.norm == "rmsnorm" else layernorm_specs
+    specs: dict = {"norm1": norm()}
+    if mixer == "mla":
+        specs["attn"] = mla_specs(cfg.mla)
+    elif mixer == "ssm":
+        specs["attn"] = ssm_specs(cfg.ssm)
+    elif mixer in ("attn", "swa", "xattn"):
+        specs["attn"] = attention_specs(cfg.attn_cfg(window=mixer == "swa"))
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if mixer == "xattn":
+        specs["xnorm"] = norm()
+        specs["xattn"] = attention_specs(cfg.attn_cfg(window=False))
+    if ffn != "none":
+        specs["norm2"] = norm()
+    if ffn == "mlp":
+        specs["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, act=cfg.act,
+                                 sparse=cfg.sparse,
+                                 model_shards=cfg.model_shards)
+    elif ffn == "moe":
+        specs["moe"] = moe_specs(cfg.moe)
+    elif ffn != "none":
+        raise ValueError(f"unknown ffn {ffn!r}")
+    return specs
+
+
+def _stacked_specs(specs):
+    """A stacked tree's specs: ``None`` in front of each leaf's, for the
+    leading axis the layers stack on."""
+    if isinstance(specs, dict):
+        return {k: _stacked_specs(v) for k, v in specs.items()}
+    return (None,) + tuple(specs)
+
+
+def init_specs(cfg: ModelConfig) -> dict:
+    """The logical-axis specs of :func:`init_params`'s params: the tree the
+    reference's ``init_params`` returns second, leaf for leaf (a tuple of
+    logical axis names, or ``None``, per dim).  The stacked ``body`` and
+    ``encoder`` leaves get a leading ``None``, ``prefix_layers`` and
+    ``body`` are lists, and ``lm_head`` is absent when the embeddings are
+    tied.  Built from the config alone: no tensor is drawn and no device
+    is touched, so a full config costs nothing."""
+    norm = rmsnorm_specs if cfg.norm == "rmsnorm" else layernorm_specs
+    specs: dict = {"embed": embed_specs()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = linear_specs("embed", "vocab")
+    specs["final_norm"] = norm()
+    if cfg.rope_theta is None:
+        specs["dec_pos"] = ("seq", "embed")
+    prefix, period = find_structure(cfg.layer_types)
+    specs["prefix_layers"] = [_layer_specs(cfg, cfg.layer_types[i])
+                              for i in range(prefix)]
+    specs["body"] = [_stacked_specs(_layer_specs(
+        cfg, cfg.layer_types[prefix + j])) for j in range(period)]
+    if cfg.encoder_layers:
+        specs["enc_pos"] = ("seq", "embed")
+        specs["encoder"] = _stacked_specs(_layer_specs(cfg, ("attn", "mlp")))
+        specs["enc_norm"] = norm()
+    if cfg.mtp:
+        specs["mtp_layer"] = _layer_specs(cfg, cfg.layer_types[-1])
+        specs["mtp_proj"] = linear_specs("embed", "embed")
+        specs["mtp_norm"] = norm()
+    return specs
 
 
 # ---------------------------------------------------------------------------

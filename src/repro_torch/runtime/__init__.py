@@ -11,7 +11,10 @@ from repro_torch.runtime.fault import (  # noqa: F401
 from repro_torch.runtime.train import (  # noqa: F401
     TrainConfig,
     Trainer,
+    TrainShardings,
     cross_entropy,
     init_train_state,
     make_train_step,
+    state_placements,
+    train_shardings,
 )

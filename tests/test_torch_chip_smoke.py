@@ -323,6 +323,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "TRAIN_LENGTHS", (5, 30))
     monkeypatch.setattr(cs, "TRAIN_NEW", 3)
     monkeypatch.setattr(cs, "TRAIN_BURSTS", (1, 3, 2))
+    # the train_shard phase at smoke size: the 2 x 2 mesh trains 4 layers
+    # of the smoke danube on 4 x 32 tokens; the pipeline's microbatches
+    # are 1 x 16 tokens
+    monkeypatch.setattr(cs, "SHARD_TRAIN_BATCH", (4, 32))
+    monkeypatch.setattr(cs, "PIPE_TOKENS", 16)
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -338,7 +343,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
-        "ssm_whisper", "vlm", "train", "times"]
+        "ssm_whisper", "vlm", "train", "train_shard", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -596,7 +601,30 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert drill["deterministic_algorithms"]
     assert drill["cublas_workspace_config"] == ":4096:8"
     assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
-    times = lines[16]
+    one = drill["one_rank_mesh"]
+    assert one["mesh"] == [1, 1] and one["backend"] == "gloo"
+    assert one["losses_bit_equal"] and one["state_bit_equal"]
+    assert len(one["losses_sharded"]) == cs.ONE_RANK_STEPS
+    ts = lines[16]
+    f, g = ts["part_f"], ts["part_g"]
+    assert f["mesh"] == [2, 2] and f["layers"] == "4 of 2"
+    assert f["ranks_losses_equal"] and len(f["losses_float32"]) == 2
+    assert max(f["loss_rel_float32"]) <= cs.SHARD_TRAIN_REL
+    assert [r["off_where_posed"] for r in f["params_rule"]] == [0, None]
+    assert all(r["share_off"] <= cs.MAX_ILL for r in f["params_rule"])
+    assert f["resident_bytes"] == [
+        {k: r[k] for k in ("params", "moments")} for r in f["reckoned_bytes"]]
+    # ZeRO-1: each rank holds less than the whole state
+    assert all(r["params"] < r["whole_params"] for r in f["reckoned_bytes"])
+    assert sorted(tuple(c.values()) for c in f["coords"]) == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    assert f["restore"]["bit_equal"] and f["restore"]["restored_step"] == 2
+    assert len(f["checkpoint_seconds"]) == 1
+    assert len(f["bf16_not_gated"]["losses"]) == 2
+    assert g["layers"] == 8 and g["stages"] == 4 and g["microbatches"] == 6
+    assert g["finite"] and g["ranks_equal"]
+    assert g["max_abs_diff"] <= cs.PIPE_REL * g["fold_max_abs"]
+    times = lines[17]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40, 17, 40, 13, 20]

@@ -1,5 +1,7 @@
 """One rank of a ``gloo`` process group for ``tests/test_torch_sharded.py``
-(and ``tests/test_torch_fault_data.py``'s ``data`` job).
+(and ``tests/test_torch_fault_data.py``'s ``data`` job,
+``tests/test_torch_sharded_train.py``'s ``train`` and ``restore`` jobs,
+``tests/test_torch_pipeline.py``'s ``pipeline`` job).
 
     python tests/torch_mesh_worker.py <spec.pkl> <rank>
 
@@ -161,7 +163,128 @@ def data_job(job: dict) -> dict:
             "residual": {k: _np(v) for k, v in state.items()}}
 
 
-JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job, "data": data_job}
+def _whole_state(state, shardings) -> dict | None:
+    """The sharded training state gathered whole (every rank takes part),
+    as numpy by checkpoint key on rank 0, ``None`` elsewhere."""
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.parallel.sharding import gather_tensor
+    from repro_torch.runtime.train import state_placements
+
+    placed = dict(_leaf_paths(state_placements(shardings, state)))
+    out = {}
+    for key, leaf in _leaf_paths(state):
+        if key in placed:
+            leaf = gather_tensor(leaf, placed[key], shardings.mesh)
+        out[key] = _np(leaf)
+    return out if dist.get_rank() == 0 else None
+
+
+def _train_setup(job: dict):
+    """(mesh, cfg, statics, whole params, shardings, opt, tcfg) of a
+    ``train`` or ``restore`` job."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.models.transformer import init_specs, init_statics
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import TrainConfig, train_shardings
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    cfg = job["cfg"]
+    params = lm_params_from_numpy(job["params"], "cpu")
+    shardings = train_shardings(init_specs(cfg), params, mesh)
+    tcfg = TrainConfig(steps=len(job.get("batches", ())) or 1,
+                       ckpt_every=1, ckpt_dir=job.get("ckpt_dir"),
+                       **job.get("tcfg", {}))
+    return (mesh, cfg, init_statics(cfg, "cpu"), params, shardings,
+            adamw(weight_decay=0.0), tcfg)
+
+
+def train_job(job: dict) -> dict:
+    """The sharded train step through ``Trainer`` (a checkpoint after
+    every step when ``job["save"]``) on this rank's rows of each batch:
+    the metrics, this rank's slab shapes and coordinates, and the state
+    gathered whole (rank 0)."""
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.data import shard_batch
+    from repro_torch.runtime.train import (
+        Trainer,
+        init_train_state,
+        make_train_step,
+    )
+
+    mesh, cfg, statics, params, shardings, opt, tcfg = _train_setup(job)
+    lr = job["lr"]
+    step = make_train_step(cfg, statics, opt, lambda s: lr, tcfg,
+                           shardings=shardings)
+    state = init_train_state(params, opt, tcfg, shardings=shardings)
+    slabs = {k: tuple(t.shape) for k, t in _leaf_paths(state)}
+    if job["save"]:
+        trainer = Trainer(step, state, iter(job["batches"]), tcfg,
+                          put_batch=lambda b: shard_batch(b, mesh),
+                          shardings=shardings)
+        hist = trainer.run()
+        metrics = [{k: h[k] for k in ("loss", "grad_norm")} for h in hist]
+        state = trainer.state
+    else:
+        metrics = []
+        for batch in job["batches"]:
+            state, m = step(state, shard_batch(batch, mesh))
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return {"metrics": metrics, "slabs": slabs,
+            "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")},
+            "state": _whole_state(state, shardings)}
+
+
+def restore_job(job: dict) -> dict:
+    """A fresh sharded state on this job's mesh restored through
+    ``Trainer.maybe_restore`` from the checkpoints in ``job["ckpt_dir"]``:
+    the step restored, this rank's slab shapes and the state gathered
+    whole (rank 0)."""
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.runtime.train import (
+        Trainer,
+        init_train_state,
+        make_train_step,
+    )
+
+    mesh, cfg, statics, params, shardings, opt, tcfg = _train_setup(job)
+    step = make_train_step(cfg, statics, opt, lambda s: 0.0, tcfg,
+                           shardings=shardings)
+    trainer = Trainer(step, init_train_state(params, opt, tcfg,
+                                             shardings=shardings),
+                      iter(()), tcfg, shardings=shardings)
+    at = trainer.maybe_restore()
+    return {"restored_step": at,
+            "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")},
+            "slabs": {k: tuple(t.shape)
+                      for k, t in _leaf_paths(trainer.state)},
+            "state": _whole_state(trainer.state, shardings)}
+
+
+def pipeline_job(job: dict) -> dict:
+    """``pipeline_apply`` of ``tanh(x @ w)`` over a ``stage`` mesh of the
+    whole world, for each case ``(ws, x)``; a case whose layers do not
+    split over the stages records the error."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    mesh = make_mesh((dist.get_world_size(),), ("stage",),
+                     device_type="cpu")
+    out = {}
+    for name, ws, x in job["cases"]:
+        try:
+            y = pipeline_apply(lambda w, h: torch.tanh(h @ w),
+                               torch.as_tensor(ws), torch.as_tensor(x),
+                               mesh, "stage")
+            out[name] = _np(y)
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job, "data": data_job,
+        "train": train_job, "restore": restore_job,
+        "pipeline": pipeline_job}
 
 
 def main(spec_path: str, rank: int) -> None:
