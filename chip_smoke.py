@@ -52,19 +52,30 @@ against the unsharded step, bit for bit; then sharded training
 (``train_shard``): a 2 x 2 gloo mesh of four spawned ranks on the card
 trains danube at full width cut to 4 layers through the sharded step
 (params split by their logical specs, ZeRO-1 moments, each rank its rows
-of the batch; losses and gathered params held to the unsharded run, each
-rank's resident bytes to those reckoned from its placements), checkpoints
-whole leaves and restores them in this process bit for bit, and runs
-``pipeline_apply`` of danube's decoder layer over a 4-stage mesh of the
-same ranks against the sequential fold.  Before each path it builds
-the CUDA kernels from the sources in ``src/`` and holds each against its
-plain PyTorch version on the card, at every shape the path gives it.
+of the batch, attention heads and the sparse MLPs' tiles computed on
+each rank's ``model`` slab; losses and gathered params held to the
+unsharded run, each rank's resident bytes to those reckoned from its
+placements and the params it all-gathers each step to the leaves not
+computed on their slabs), checkpoints whole leaves and restores them in
+this process bit for bit, runs ``pipeline_apply`` of danube's decoder
+layer over a 4-stage mesh of the same ranks against the sequential fold,
+and trains jamba-1.5-large at smoke width the same way (experts and
+attention on their slabs, the SSM gathered); then (``entry_points``) the
+serving launcher ``python -m repro_torch.launch.serve`` serves
+full-width, full-depth h2o-danube-1.8B, every prefill through the flash
+kernel, and the example twins run (``serve_decode_torch.py``,
+``quickstart_torch.py``, ``serve_http_torch.py --check`` on both
+backends, its generation trace through ``benchmarks/check_baseline.py
+--require-mid-decode``), each a subprocess whose failure fails the run.
+Before each path it builds the CUDA kernels from the sources in ``src/``
+and holds each against its plain PyTorch version on the card, at every
+shape the path gives it.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
 ``lm_configs``, ``ssm_whisper``, ``vlm``, ``train``, ``train_shard``,
-``times``.  The
+``entry_points``, ``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -467,7 +478,13 @@ SHARD_PREPARE = None
 # danube decoder layer at full width in float32 (kernels=False) as the
 # layer, PIPE_LAYERS layers, PIPE_MICRO microbatches of 1 x PIPE_TOKENS,
 # within PIPE_REL of the largest |value| of the sequential fold on one
-# rank (bit-equality reported).
+# rank (bit-equality reported); (h) jamba-1.5-large at smoke width
+# (jamba_shard_config; a full-width MoE layer in float32 with its moments
+# does not fit a quarter of the card), JAMBA_SHARD_BATCH, the gates of
+# (f).  (f) and (h) compute on the model slabs (parallel.tensor): each
+# step all-gathers exactly the params' leaves not computed on their slabs
+# (their bytes reckoned from the specs), and their bf16 runs stay within
+# SHARD_TRAIN_BF16_REL of the unsharded bf16 run.
 ONE_RANK_STEPS = 2
 SHARD_TRAIN_MESH = (2, 2)
 SHARD_TRAIN_LAYERS = 4
@@ -480,11 +497,25 @@ ADAM_EPS = 1e-8  # optim.adamw's default eps
 ADAM_EPS_REGION = 10
 MAX_ILL = 1e-3
 SGD_LR = 1e3  # p0 - p1 = lr * g recovers the step-1 gradient
+SHARD_TRAIN_BF16_REL = 1e-2
+JAMBA_SHARD_BATCH = (4, 256)
 PIPE_STAGES = 4
 PIPE_LAYERS = 8
 PIPE_MICRO = 6
 PIPE_TOKENS = 256
 PIPE_REL = 1e-6
+
+
+# The entry_points phase: the launcher serves full-width, full-depth
+# h2o-danube-1.8B (ENTRY_NEW tokens a request); the HTTP twin's --check
+# serves ENTRY_HTTP requests a backend (ci.yml's serve-smoke count: fewer
+# leave generation's occupancy under its floor, in the reference too)
+ENTRY_NEW = 16
+ENTRY_SERVE_ARGS = ["--arch", "h2o_danube_1_8b", "--requests", "8",
+                    "--slots", "4", "--prompt-len", "16", "--new-tokens",
+                    str(ENTRY_NEW)]
+ENTRY_HTTP = 100
+ENTRY_TIMEOUT_S = 300
 
 
 def prune_model_config():
@@ -3903,9 +3934,12 @@ def unsharded_runs(spec, batches, dev) -> dict:
 
 
 def sharded_train_run(spec, mesh, dev) -> dict:
-    """(f) on one rank of ``mesh``: the float32 model through the sharded
-    step and ``Trainer`` (a checkpoint at the last step), gathered and
-    held to the unsharded run (rank 0), then the bf16 model's losses."""
+    """(f) or (h) (``spec`` the part's) on one rank of ``mesh``: the
+    float32 model through the sharded step, which computes on the
+    ``model`` slabs (``parallel.tensor``), and ``Trainer`` (a checkpoint
+    at the last step), gathered and held to the unsharded run (rank 0),
+    then the bf16 model's losses; each step's collective bytes
+    (``step.comm``) beside the params' bytes reckoned to be gathered."""
     import torch
     import torch.distributed as dist
 
@@ -3916,7 +3950,9 @@ def sharded_train_run(spec, mesh, dev) -> dict:
         init_specs,
     )
     from repro_torch.optim import adamw
-    from repro_torch.parallel.sharding import gather_tree
+    from repro_torch.optim.optimizers import _leaves as _flat
+    from repro_torch.parallel.sharding import gather_tree, mesh_axis_sizes
+    from repro_torch.parallel.tensor import slab_leaves
     from repro_torch.runtime import (
         TrainConfig,
         Trainer,
@@ -3940,6 +3976,7 @@ def sharded_train_run(spec, mesh, dev) -> dict:
     dist.barrier()
     _reset_peak(dev)
     opt = adamw(weight_decay=0.0)
+    n_model = mesh_axis_sizes(mesh)["model"]
     runs = {}
     for name, cfg in (("float32", spec["cfg"]), ("bfloat16",
                                                  spec["cfg_bf16"])):
@@ -3954,14 +3991,22 @@ def sharded_train_run(spec, mesh, dev) -> dict:
         state = init_train_state(params, opt, tcfg, shardings)
         del params
         size = {"float32": 4, "bfloat16": 2}[name]
+        # the leaves the step gathers: split, and not computed on the slab
+        gathered = [pl for pl, on_slab in zip(
+            _flat(shardings.params), _flat(slab_leaves(
+                cfg, statics, shardings.params, n_model)))
+            if not on_slab and not pl.whole]
         reckoned = {
             "params": size * sum(math.prod(pl.slab_shape) for pl in
                                  _leaves(shardings.params)),
             "moments": 2 * 4 * sum(math.prod(pl.slab_shape) for pl in
                                    _leaves(shardings.moments)),
             "whole_params": size * sum(math.prod(pl.shape) for pl in
-                                       _leaves(shardings.params))}
-        rows = {"reckoned_bytes": reckoned}
+                                       _leaves(shardings.params)),
+            "gathered_params": size * sum(math.prod(pl.shape)
+                                          for pl in gathered),
+            "gathered_leaves": len(gathered)}
+        rows = {"reckoned_bytes": reckoned, "comm": []}
         losses, rules = [], []
         if name == "float32":
             # step 1 by the bare step, gathered and held to the reference
@@ -3970,6 +4015,7 @@ def sharded_train_run(spec, mesh, dev) -> dict:
             losses.append(float(m["loss"]))
             _sync(dev)
             rows["step1_seconds"] = time.perf_counter() - t1
+            rows["comm"].append(dict(step.comm))
             got = gather_tree(state["params"], shardings.params, mesh)
             if rank == 0:
                 rules.append(adam_rule(got, ref["float32"]["params"][0],
@@ -3981,6 +4027,7 @@ def sharded_train_run(spec, mesh, dev) -> dict:
                               shardings=shardings)
             saves = timed_saves(trainer)
             hist = trainer.run()
+            rows["comm"].append(dict(step.comm))
             state = trainer.state
             losses += [h["loss"] for h in hist]
             rows["trainer_step_seconds"] = [h["seconds"] for h in hist]
@@ -3995,6 +4042,7 @@ def sharded_train_run(spec, mesh, dev) -> dict:
             for b in batches:
                 state, m = step(state, shard_batch(b, mesh))
                 losses.append(float(m["loss"]))
+                rows["comm"].append(dict(step.comm))
         rows["resident_bytes"] = {
             "params": _nbytes(state["params"]),
             "moments": _nbytes(state["opt_state"]["mu"])
@@ -4075,8 +4123,8 @@ def pipeline_run(spec, dev) -> dict:
 
 
 def train_shard_rank(rank: int, spec: dict) -> None:
-    """One rank of (f) and (g): joins the gloo group, runs both, writes
-    ``rank<r>.pkl`` in ``spec["out"]``."""
+    """One rank of (f), (g) and (h): joins the gloo group, runs them,
+    writes ``rank<r>.pkl`` in ``spec["out"]``."""
     import datetime
     import pickle
 
@@ -4097,12 +4145,12 @@ def train_shard_rank(rank: int, spec: dict) -> None:
         mesh = make_mesh(spec["mesh"], ("data", "model"),
                          device_type=spec["device_type"])
         dev = mesh_device(mesh)
-        t0 = time.perf_counter()
-        out = {"f": sharded_train_run(spec, mesh, dev)}
-        out["f"]["part_seconds"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out["g"] = pipeline_run(spec, dev)
-        out["g"]["part_seconds"] = time.perf_counter() - t0
+        out = {}
+        for key in ("f", "g", "h"):
+            t0 = time.perf_counter()
+            out[key] = (pipeline_run(spec, dev) if key == "g" else
+                        sharded_train_run(spec["parts"][key], mesh, dev))
+            out[key]["part_seconds"] = time.perf_counter() - t0
         with open(os.path.join(spec["out"], f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -4146,9 +4194,22 @@ def restore_one_rank(spec, dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def jamba_shard_config():
+    """(h)'s model: jamba-1.5-large at smoke width (attention, Mamba and
+    MoE layers; a full-width MoE layer and its moments do not fit a
+    quarter of the card)."""
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config("jamba_1_5_large_398b")
+
+
+def with_dtype(cfg, dtype: str):
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
 def train_shard_phase(seed: int, dev) -> dict:
-    """The ``train_shard`` phase, (f) and (g), and its JSON line; (e) runs
-    in the train phase's drill process."""
+    """The ``train_shard`` phase, (f), (g) and (h), and its JSON line; (e)
+    runs in the train phase's drill process."""
     import pickle
 
     import torch
@@ -4160,13 +4221,22 @@ def train_shard_phase(seed: int, dev) -> dict:
     t_phase = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        cfg_f = cut_layers(full, SHARD_TRAIN_LAYERS, "float32")
+        cfg_h = with_dtype(jamba_shard_config(), "float32")
+        parts = {
+            "f": {"seed": seed, "cfg": cfg_f, "batch": SHARD_TRAIN_BATCH,
+                  "cfg_bf16": cut_layers(full, SHARD_TRAIN_LAYERS,
+                                         "bfloat16"),
+                  "corpus_vocab": TRAIN_CORPUS_VOCAB},
+            "h": {"seed": seed, "cfg": cfg_h, "batch": JAMBA_SHARD_BATCH,
+                  "cfg_bf16": with_dtype(cfg_h, "bfloat16"),
+                  "corpus_vocab": min(TRAIN_CORPUS_VOCAB, cfg_h.vocab)}}
+        for key, part in parts.items():
+            part.update(steps=SHARD_TRAIN_STEPS, lr=TRAIN_LR,
+                        out=os.path.join(tmp, key))
         spec = {"mesh": SHARD_TRAIN_MESH, "device_type": dev.type,
                 "store": os.path.join(tmp, "store"), "out": tmp,
-                "prepare": SHARD_PREPARE, "seed": seed,
-                "cfg": cut_layers(full, SHARD_TRAIN_LAYERS, "float32"),
-                "cfg_bf16": cut_layers(full, SHARD_TRAIN_LAYERS, "bfloat16"),
-                "batch": SHARD_TRAIN_BATCH, "steps": SHARD_TRAIN_STEPS,
-                "corpus_vocab": TRAIN_CORPUS_VOCAB, "lr": TRAIN_LR,
+                "prepare": SHARD_PREPARE, "seed": seed, "parts": parts,
                 "pipe_cfg": cut_layers(full, PIPE_LAYERS, "float32"),
                 "pipe_micro": PIPE_MICRO, "pipe_tokens": PIPE_TOKENS}
         if PIPE_STAGES != world:
@@ -4179,56 +4249,18 @@ def train_shard_phase(seed: int, dev) -> dict:
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 ranks.append(pickle.load(f))
-        _reset_peak(dev)
-        restored = restore_one_rank(spec, dev)
-        restored["peak_memory_bytes"] = _cuda_peak(dev)
-    f0, g0 = ranks[0]["f"], ranks[0]["g"]
-    f32, bf16 = f0["runs"]["float32"], f0["runs"]["bfloat16"]
-    ref = f0["unsharded_losses"]
-
-    def rels(a, b):
-        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
-
-    cfg = spec["cfg"]
-    f = {"model": cfg.name, "layers": f"{SHARD_TRAIN_LAYERS} of "
-         f"{full.n_layers}", "d_model": cfg.d_model, "vocab": cfg.vocab,
-         "sparse": dataclasses.asdict(cfg.sparse) if cfg.sparse else None,
-         "mesh": list(SHARD_TRAIN_MESH), "backend": f0["backend"],
-         "transport": f"gloo: {world} ranks on "
-         f"{len({rk['f']['device'] for rk in ranks})} card(s), CUDA "
-         f"tensors staged through host memory",
-         "batch": list(SHARD_TRAIN_BATCH), "steps": SHARD_TRAIN_STEPS,
-         "lr": TRAIN_LR, "loss_limit": f"rel <= {SHARD_TRAIN_REL}",
-         "losses_float32": f32["losses"],
-         "losses_unsharded_float32": ref["float32"],
-         "loss_rel_float32": rels(f32["losses"], ref["float32"]),
-         "ranks_losses_equal": all(
-             rk["f"]["runs"][n]["losses"] == f0["runs"][n]["losses"]
-             for rk in ranks for n in ("float32", "bfloat16")),
-         "params_rule": f32["rules"],
-         "resident_bytes": [rk["f"]["runs"]["float32"]["resident_bytes"]
-                            for rk in ranks],
-         "reckoned_bytes": [rk["f"]["runs"]["float32"]["reckoned_bytes"]
-                            for rk in ranks],
-         "coords": [rk["f"]["coords"] for rk in ranks],
-         "step1_seconds": [rk["f"]["runs"]["float32"]["step1_seconds"]
-                           for rk in ranks],
-         "trainer_step_seconds": f32["trainer_step_seconds"],
-         "checkpoint_seconds": f32["checkpoint_seconds"],
-         "restore": {"restored_step": restored["restored_step"],
-                     "bit_equal": restored["sha256"] == f32["state_sha256"],
-                     "leaves": len(restored["sha256"]),
-                     "seconds": restored["seconds"],
-                     "peak_memory_bytes": restored["peak_memory_bytes"]},
-         "bf16_not_gated": {
-             "losses": bf16["losses"], "losses_unsharded": ref["bfloat16"],
-             "rel_vs_unsharded_bf16": rels(bf16["losses"], ref["bfloat16"]),
-             "unsharded_bf16_rel_vs_float32": rels(ref["bfloat16"],
-                                                   ref["float32"])},
-         "unsharded_seconds_rank0": f0["unsharded_seconds"],
-         "seconds_per_rank": [rk["f"]["part_seconds"] for rk in ranks],
-         "peak_memory_bytes_per_rank": [rk["f"]["peak_memory_bytes"]
-                                        for rk in ranks]}
+        restored = {}
+        for key, part in parts.items():
+            _reset_peak(dev)
+            restored[key] = restore_one_rank(part, dev)
+            restored[key]["peak_memory_bytes"] = _cuda_peak(dev)
+    f = shard_train_report(parts["f"], [rk["f"] for rk in ranks],
+                           restored["f"], world)
+    f["layers"] = f"{SHARD_TRAIN_LAYERS} of {full.n_layers}"
+    h = shard_train_report(parts["h"], [rk["h"] for rk in ranks],
+                           restored["h"], world)
+    h["width"] = "smoke"
+    g0 = ranks[0]["g"]
     pcfg = spec["pipe_cfg"]
     g = {"layer": f"{pcfg.name} decoder layer, float32, kernels=False",
          "d_model": pcfg.d_model,
@@ -4244,13 +4276,81 @@ def train_shard_phase(seed: int, dev) -> dict:
          "peak_memory_bytes_per_rank": [rk["g"]["peak_memory_bytes"]
                                         for rk in ranks]}
     emit("train_shard", seconds=time.perf_counter() - t_phase,
-         spawn_seconds=spawn_s, part_f=f, part_g=g)
-    train_shard_checks(f, g)
+         spawn_seconds=spawn_s, part_f=f, part_g=g, part_h=h)
+    for part in (f, h):
+        train_shard_checks(part)
+    check(g["finite"] and g["ranks_equal"]
+          and g["max_abs_diff"] <= PIPE_REL * g["fold_max_abs"],
+          f"pipeline_apply vs the sequential fold: {g['max_abs_diff']} "
+          f"(largest {g['fold_max_abs']}), ranks equal {g['ranks_equal']}")
     return {}
 
 
-def train_shard_checks(f, g) -> None:
-    """The ``train_shard`` phase's gates, after its line is printed."""
+def shard_train_report(part, ranks, restored, world) -> dict:
+    """(f)'s or (h)'s report from every rank's ``sharded_train_run``."""
+    r0 = ranks[0]
+    f32, bf16 = r0["runs"]["float32"], r0["runs"]["bfloat16"]
+    ref = r0["unsharded_losses"]
+
+    def rels(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    cfg = part["cfg"]
+    return {
+        "model": cfg.name, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "layer_types": [list(t) for t in cfg.layer_types],
+        "sparse": dataclasses.asdict(cfg.sparse) if cfg.sparse else None,
+        "mesh": list(SHARD_TRAIN_MESH), "backend": r0["backend"],
+        "transport": f"gloo: {world} ranks on "
+        f"{len({rk['device'] for rk in ranks})} card(s), CUDA tensors "
+        f"staged through host memory",
+        "compute": "tensor parallel over model (parallel.tensor): "
+        "attention heads, MLP ff or tiles, experts on their slabs; the "
+        "rest gathered",
+        "batch": list(part["batch"]), "steps": part["steps"],
+        "lr": part["lr"], "loss_limit": f"rel <= {SHARD_TRAIN_REL}",
+        "losses_float32": f32["losses"],
+        "losses_unsharded_float32": ref["float32"],
+        "loss_rel_float32": rels(f32["losses"], ref["float32"]),
+        "ranks_losses_equal": all(
+            rk["runs"][n]["losses"] == r0["runs"][n]["losses"]
+            for rk in ranks for n in ("float32", "bfloat16")),
+        "params_rule": f32["rules"],
+        "resident_bytes": [rk["runs"]["float32"]["resident_bytes"]
+                           for rk in ranks],
+        "reckoned_bytes": [rk["runs"]["float32"]["reckoned_bytes"]
+                           for rk in ranks],
+        "comm_per_step": [rk["runs"]["float32"]["comm"] for rk in ranks],
+        "comm_per_step_bf16": [rk["runs"]["bfloat16"]["comm"]
+                               for rk in ranks],
+        "reckoned_bytes_bf16": [rk["runs"]["bfloat16"]["reckoned_bytes"]
+                                for rk in ranks],
+        "coords": [rk["coords"] for rk in ranks],
+        "step1_seconds": [rk["runs"]["float32"]["step1_seconds"]
+                          for rk in ranks],
+        "trainer_step_seconds": [rk["runs"]["float32"][
+            "trainer_step_seconds"] for rk in ranks],
+        "checkpoint_seconds": f32["checkpoint_seconds"],
+        "restore": {"restored_step": restored["restored_step"],
+                    "bit_equal": restored["sha256"] == f32["state_sha256"],
+                    "leaves": len(restored["sha256"]),
+                    "seconds": restored["seconds"],
+                    "peak_memory_bytes": restored["peak_memory_bytes"]},
+        "bf16": {
+            "limit": f"rel <= {SHARD_TRAIN_BF16_REL} of the unsharded bf16 "
+            f"run",
+            "losses": bf16["losses"], "losses_unsharded": ref["bfloat16"],
+            "rel_vs_unsharded_bf16": rels(bf16["losses"], ref["bfloat16"]),
+            "unsharded_bf16_rel_vs_float32": rels(ref["bfloat16"],
+                                                  ref["float32"])},
+        "unsharded_seconds_rank0": r0["unsharded_seconds"],
+        "seconds_per_rank": [rk["part_seconds"] for rk in ranks],
+        "peak_memory_bytes_per_rank": [rk["peak_memory_bytes"]
+                                       for rk in ranks]}
+
+
+def train_shard_checks(f) -> None:
+    """The gates of (f) or (h), after the phase's line is printed."""
     check(f["ranks_losses_equal"], "the mesh's ranks report different losses")
     check(all(np.isfinite(f["losses_float32"]))
           and max(f["loss_rel_float32"]) <= SHARD_TRAIN_REL,
@@ -4265,13 +4365,113 @@ def train_shard_checks(f, g) -> None:
         check(have["params"] == want["params"]
               and have["moments"] == want["moments"],
               f"a rank's resident bytes {have} != reckoned {want}")
+    for comm, want in ((f["comm_per_step"], f["reckoned_bytes"]),
+                       (f["comm_per_step_bf16"], f["reckoned_bytes_bf16"])):
+        for steps, reck in zip(comm, want):
+            check(all(c["param_gather_bytes"] == reck["gathered_params"]
+                      for c in steps),
+                  f"params all-gathered per step {steps} != the gathered "
+                  f"leaves' {reck['gathered_params']} bytes")
+    check(all(c["model_reduce_bytes"] > 0 for steps in f["comm_per_step"]
+              for c in steps),
+          "no activation was all-reduced over model: compute not split")
     check(f["restore"]["restored_step"] == SHARD_TRAIN_STEPS
           and f["restore"]["bit_equal"],
           f"the mesh's checkpoint restored in one rank: {f['restore']}")
-    check(g["finite"] and g["ranks_equal"]
-          and g["max_abs_diff"] <= PIPE_REL * g["fold_max_abs"],
-          f"pipeline_apply vs the sequential fold: {g['max_abs_diff']} "
-          f"(largest {g['fold_max_abs']}), ranks equal {g['ranks_equal']}")
+    check(all(np.isfinite(f["bf16"]["losses"]))
+          and max(f["bf16"]["rel_vs_unsharded_bf16"]) <= SHARD_TRAIN_BF16_REL,
+          f"sharded bf16 losses vs the unsharded bf16 run: {f['bf16']}")
+
+
+def entry_points_phase(dev) -> dict:
+    """The ``entry_points`` phase: the serving launcher and the example
+    twins run as a user runs them, each a subprocess on ``dev``
+    (``--device``) from this checkout's ``src``.  ``python -m
+    repro_torch.launch.serve`` serves full-width, full-depth
+    h2o-danube-1.8B (``ENTRY_SERVE_ARGS``; its report through
+    ``--metrics-out``): every request its ``ENTRY_NEW`` tokens, every
+    prefill's 24 layers through the flash kernel.  Then
+    ``serve_decode_torch.py``, ``quickstart_torch.py`` and
+    ``serve_http_torch.py --check`` for both backends (``ENTRY_HTTP``
+    requests, traced), the generation trace through the unchanged
+    ``benchmarks/check_baseline.py --require-mid-decode``.  Any non-zero
+    exit fails the run, after the phase's line."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    runs = {}
+    t_phase = time.perf_counter()
+    ex = os.path.join(ROOT, "examples")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        def run(name, args):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, *args], cwd=tmp, env=env,
+                                 capture_output=True, text=True,
+                                 timeout=ENTRY_TIMEOUT_S)
+            runs[name] = {
+                "command": " ".join(os.path.relpath(a, ROOT)
+                                    if a.startswith(ROOT) else a
+                                    for a in args),
+                "exit_code": out.returncode,
+                "seconds": time.perf_counter() - t0,
+                "stdout_tail": out.stdout.strip().splitlines()[-3:]}
+            if out.returncode:
+                print(out.stderr[-4000:], file=sys.stderr)
+            return out.returncode == 0
+
+        report = os.path.join(tmp, "serve.json")
+        serve = None
+        if run("launch_serve", ["-m", "repro_torch.launch.serve",
+                                *ENTRY_SERVE_ARGS, "--device", dev.type,
+                                "--metrics-out", report]):
+            with open(report) as f:
+                serve = json.load(f)
+        run("serve_decode", [os.path.join(ex, "serve_decode_torch.py"),
+                             "--device", dev.type])
+        run("quickstart", [os.path.join(ex, "quickstart_torch.py"),
+                           "--device", dev.type])
+        http = [os.path.join(ex, "serve_http_torch.py"), "--check",
+                "--device", dev.type, "--requests", str(ENTRY_HTTP)]
+        run("serve_http_classify", [*http, "--trace-out",
+                                    os.path.join(tmp, "classify.json")])
+        trace = os.path.join(tmp, "generate.json")
+        run("serve_http_generate", [*http, "--backend", "generate",
+                                    "--trace-out", trace])
+        run("check_baseline_trace", [
+            os.path.join(ROOT, "benchmarks", "check_baseline.py"),
+            "--trace", trace, "--require-mid-decode"])
+    res = {"seconds": time.perf_counter() - t_phase, "runs": runs}
+    launches = 0
+    if serve is not None:
+        launches = serve["kernel_launches"]["flash_attention_cuda"]
+        # on the CPU (the rehearsal) every wrapper takes its plain version
+        expected = (serve["layers"] * serve["requests"] if dev.type == "cuda"
+                    else 0)
+        res["launch_serve"] = {
+            "model": serve["arch"], "layers": serve["layers"],
+            "device": serve["device"], "requests": serve["requests"],
+            "tokens_per_request": sorted({len(o) for o in serve["outputs"]}),
+            "tokens": serve["tokens"], "seconds": serve["seconds"],
+            "tokens_per_s": serve["tokens_per_s"],
+            "occupancy_mean": serve["scheduler"]["occupancy_mean"],
+            "latency_mean_s": serve["scheduler"]["latency_mean_s"],
+            "flash_launches": launches,
+            "flash_launches_expected": expected,
+            "kernel_launches": serve["kernel_launches"]}
+    emit("entry_points", **res)
+    for name, r in runs.items():
+        check(r["exit_code"] == 0, f"{name} ({r['command']}) exited "
+                                   f"{r['exit_code']}")
+    s = res["launch_serve"]
+    check(s["tokens_per_request"] == [ENTRY_NEW],
+          f"launcher requests returned {s['tokens_per_request']} tokens, "
+          f"not {ENTRY_NEW}")
+    check(launches == s["flash_launches_expected"],
+          f"launcher flash launches {launches} != "
+          f"{s['layers']} layers x {s['requests']} prefills")
+    return {"launches": launches}
 
 
 def build_decode_lm(seed: int, dev):
@@ -5054,6 +5254,9 @@ def run(seed: int, dev) -> dict:
 
     # -- 10f. sharded training: ZeRO-1 on a 2 x 2 mesh, restore, GPipe ---
     train_shard_phase(seed, dev)
+
+    # -- 10g. the serving launcher and the example twins, as users run them
+    launches["flash_attention_cuda"] += entry_points_phase(dev)["launches"]
 
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []

@@ -67,10 +67,11 @@ from repro_torch.models.layers import (
 )
 from repro_torch.parallel.activations import current_mesh
 from repro_torch.parallel.sharding import mesh_axis_sizes, padded_heads
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 __all__ = ["AttnConfig", "attention_init", "attention_specs",
-           "attention_apply", "init_kv_cache", "is_prefill",
-           "flash_decode_sharded"]
+           "attention_apply", "attention_apply_tp", "init_kv_cache",
+           "is_prefill", "flash_decode_sharded"]
 
 _NEG = -1e30
 
@@ -423,3 +424,29 @@ def attention_apply(
                                      cfg.window, kv_len, cfg.chunk)
     out = out.transpose(1, 2).reshape(b, s, hq * dh)
     return linear(params["wo"], out.to(x.dtype)), cache
+
+
+def attention_apply_tp(tp, params, cfg: AttnConfig, x: torch.Tensor,
+                       positions: torch.Tensor,
+                       memory: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`attention_apply` on this rank's heads over ``tp``'s ``model``
+    group (``parallel.tensor``, whose ``attention_splits`` holds for
+    ``cfg``), without a cache or the kernel: ``params`` are the rank's
+    slabs, columns of ``wq``/``wk``/``wv`` (and their biases) and rows of
+    ``wo`` for query heads ``[r * Hq / n, (r + 1) * Hq / n)`` and the key
+    heads they group over, so the plain routes run on the rank's heads
+    as on all of them; the heads' products with ``wo`` sum over the
+    group.  Returns the output [B, S, D]."""
+    local = dataclasses.replace(cfg, n_heads=cfg.hq_pad // tp.size,
+                                n_kv_heads=cfg.n_kv_heads // tp.size,
+                                model_shards=1)
+    wo = params["wo"]
+    part, _ = attention_apply(
+        {**params, "wo": {"w": wo["w"]}}, local, copy_to_model(x, tp),
+        positions, memory=None if memory is None else copy_to_model(memory,
+                                                                     tp),
+        prefill=False)
+    out = reduce_from_model(part, tp)
+    if "b" in wo:
+        out = out + wo["b"].to(out.dtype)
+    return out

@@ -26,6 +26,11 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparse import pattern_spmm_torch
 from repro_torch.kernels.ops import pattern_spmm_raw
+from repro_torch.parallel.tensor import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+)
 
 __all__ = [
     "PatternSparseConfig",
@@ -34,8 +39,8 @@ __all__ = [
     "embed_init",
     "linear_init", "linear",
     "sparse_linear_static", "sparse_linear_init", "sparse_linear",
-    "sparse_tables",
-    "mlp_static", "mlp_init", "mlp_apply", "silu", "gelu",
+    "sparse_tables", "sparse_tiles", "sparse_columns",
+    "mlp_static", "mlp_init", "mlp_apply", "mlp_apply_tp", "silu", "gelu",
     "rmsnorm_specs", "layernorm_specs", "embed_specs", "linear_specs",
     "sparse_linear_specs", "mlp_specs",
     "rope_frequencies", "apply_rope",
@@ -228,9 +233,22 @@ def sparse_linear(params, static, x: torch.Tensor,
     through its plain version ``core.sparse.pattern_spmm_torch`` (the
     reference's ``pattern_spmm_xla``), which autograd differentiates.
     """
+    return sparse_columns(sparse_tiles(params, static, x, 0, kernels),
+                          static)
+
+
+def sparse_tiles(params, static, x: torch.Tensor, t0: int,
+                 kernels: bool = True) -> torch.Tensor:
+    """x @ the tiles ``[t0, t0 + T)`` of a compressed weight whose
+    ``params["w_comp"]`` holds those ``T`` tiles (all of them at ``t0 =
+    0``, a tensor-parallel rank's slab otherwise): ``[..., T * tile]``
+    columns in tile order, before :func:`sparse_columns`.  A dictionary
+    group that the slab cuts computes its tiles inside the slab, on the
+    group's own block gather."""
     groups = static.get("groups")
     tables = static["tables"]
     w_comp = params["w_comp"].to(x.dtype)
+    t1 = t0 + w_comp.shape[0]
     block, tile = static["block"], static.get("tile", w_comp.shape[-1])
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1])
@@ -239,30 +257,38 @@ def sparse_linear(params, static, x: torch.Tensor,
         xb = xm.reshape(m, -1, block)
         outs = []
         for g, blocks in zip(groups, tables["groups"]):
-            t0, t1 = g["tiles"]
+            g0, g1 = max(g["tiles"][0], t0), min(g["tiles"][1], t1)
+            if g0 >= g1:
+                continue
             s_p = len(g["blocks"])
             # pattern block: gather once, one dense matmul (paper Fig 4)
             xg = xb.index_select(1, blocks).reshape(m, s_p * block)
             # bricks of this group in tile order -> [s_p*block, cols]
-            wg = w_comp[t0:t1, :s_p].permute(1, 2, 0, 3).reshape(
-                s_p * block, (t1 - t0) * tile
+            wg = w_comp[g0 - t0:g1 - t0, :s_p].permute(1, 2, 0, 3).reshape(
+                s_p * block, (g1 - g0) * tile
             )
             outs.append(xg @ wg)
         y = torch.cat(outs, dim=-1)
     elif kernels:
         y = pattern_spmm_raw(
-            xm, w_comp.float(), tables["block_ids"], block,
-            nnz=tables["nnz"],
+            xm, w_comp.float(), tables["block_ids"][t0:t1], block,
+            nnz=tables["nnz"][t0:t1],
         ).to(x.dtype)
     else:
-        y = pattern_spmm_torch(xm, w_comp, tables["block_ids"], block,
+        y = pattern_spmm_torch(xm, w_comp, tables["block_ids"][t0:t1], block,
                                out_dtype=torch.float32).to(x.dtype)
-    y = y.reshape(*lead, y.shape[-1])
+    return y.reshape(*lead, y.shape[-1])
+
+
+def sparse_columns(y: torch.Tensor, static) -> torch.Tensor:
+    """All tiles' columns (:func:`sparse_tiles` at ``t0 = 0``) as the
+    layer's output: the tile-padding columns dropped, then the inverse
+    permutation (the Output Indexing Unit)."""
     n_out = static["n_out"]
     if y.shape[-1] != n_out:  # drop tile-padding columns
         y = y[..., :n_out]
-    if tables["inv_order"] is not None:
-        y = y.index_select(-1, tables["inv_order"])
+    if static["tables"]["inv_order"] is not None:
+        y = y.index_select(-1, static["tables"]["inv_order"])
     return y
 
 
@@ -492,6 +518,38 @@ def mlp_apply(params, static, x: torch.Tensor,
     else:
         h = _act(static["act"], up)
     return linear(params["down"], h)
+
+
+def mlp_apply_tp(tp, params, static, x: torch.Tensor,
+                 kernels: bool = True) -> torch.Tensor:
+    """:func:`mlp_apply` on this rank's slab over ``tp``'s ``model``
+    group (``parallel.tensor``): dense, column-parallel ``up``/``gate``
+    and row-parallel ``down`` with one all-reduce; sparse, each rank its
+    tiles of each projection, whose columns are gathered whole (the tile
+    order and ``inv_order`` span all of ``ff``, and ``down``'s
+    ``block_ids`` read all of it)."""
+    x = copy_to_model(x, tp)
+    if static.get("sparse") is None:
+        up = linear(params["up"], x)
+        if static["act"] == "swiglu":
+            h = silu(linear(params["gate"], x)) * up
+        else:
+            h = _act(static["act"], up)
+        down = params["down"]
+        y = reduce_from_model(h @ down["w"].to(h.dtype), tp)
+        return y + down["b"].to(h.dtype) if "b" in down else y
+
+    def proj(name, inp):
+        t0 = tp.rank * params[name]["w_comp"].shape[0]
+        cols = sparse_tiles(params[name], static[name], inp, t0, kernels)
+        return sparse_columns(gather_from_model(cols, tp), static[name])
+
+    up = proj("up", x)
+    if static["act"] == "swiglu":
+        h = silu(proj("gate", x)) * up
+    else:
+        h = _act(static["act"], up)
+    return proj("down", copy_to_model(h, tp))
 
 
 # ---------------------------------------------------------------------------

@@ -60,9 +60,15 @@ from repro_torch.models.layers import (
 )
 from repro_torch.parallel.activations import current_mesh
 from repro_torch.parallel.sharding import mesh_axis_sizes
+from repro_torch.parallel.tensor import (
+    copy_to_model,
+    data_shards,
+    gather_over_data,
+    reduce_from_model,
+)
 
 __all__ = ["MoEConfig", "moe_static", "moe_init", "moe_specs", "moe_apply",
-           "capacity", "kept_pairs"]
+           "moe_apply_tp", "capacity", "kept_pairs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,14 +147,20 @@ def capacity(t: int, cfg: MoEConfig) -> int:
 
 
 def _dispatch_slots(top_e: torch.Tensor, t: int, cfg: MoEConfig, e0: int,
-                    e_loc: int):
+                    e_loc: int, earlier=None):
     """The reference's sort-based dispatch of the (token, k) pairs of
     ``top_e`` [T, k] to the local experts ``[e0, e0 + e_loc)``:
     (order, tok_sorted, slot, keep), each over the pairs in expert order.
     ``slot`` is the pair's row in the ``[e_loc * cap + 1]`` gather (the
-    last row the sentinel of every dropped or foreign pair)."""
+    last row the sentinel of every dropped or foreign pair).
+
+    ``earlier`` = (pairs [E] each expert took on the row blocks before
+    this one, tokens of all row blocks) dispatches these tokens as the
+    batch's row block: capacity over all its tokens, each pair's place in
+    its expert's queue after the earlier blocks' pairs (the reference's
+    dispatch of the whole batch, cut to these rows)."""
     dev = top_e.device
-    cap = capacity(t, cfg)
+    cap = capacity(t if earlier is None else earlier[1], cfg)
     flat_e = top_e.reshape(-1) - e0  # local expert index (may be OOB)
     flat_tok = torch.arange(t, device=dev).repeat_interleave(cfg.top_k)
     local = (flat_e >= 0) & (flat_e < e_loc)
@@ -160,6 +172,10 @@ def _dispatch_slots(top_e: torch.Tensor, t: int, cfg: MoEConfig, e0: int,
     group_start = torch.searchsorted(
         e_sorted, torch.arange(e_loc + 1, device=dev), side="left")
     pos_in_group = seg_pos - group_start[e_sorted.clamp(0, e_loc)]
+    if earlier is not None:
+        before = torch.cat([earlier[0][e0:e0 + e_loc],
+                            earlier[0].new_zeros(1)])
+        pos_in_group = pos_in_group + before[e_sorted.clamp(0, e_loc)]
     keep = (e_sorted < e_loc) & (pos_in_group < cap)
     slot = torch.where(keep, e_sorted * cap + pos_in_group, e_loc * cap)
     return order, flat_tok[order], slot, keep
@@ -182,6 +198,7 @@ def _dispatch_compute_combine(
     experts: dict,  # local expert weights [E_loc, ...]
     cfg: MoEConfig,
     e0: int,  # first global expert id owned locally
+    earlier=None,  # see _dispatch_slots
 ) -> torch.Tensor:
     """Capacity-gather local tokens to local experts, run the FFNs, and
     combine the weighted outputs.  Returns the *partial* output [T, D]
@@ -190,8 +207,9 @@ def _dispatch_compute_combine(
     k = cfg.top_k
     dev = xf.device
     e_loc = experts["up"].shape[0]
-    cap = capacity(t, cfg)
-    order, tok_sorted, slot, keep = _dispatch_slots(top_e, t, cfg, e0, e_loc)
+    cap = capacity(t if earlier is None else earlier[1], cfg)
+    order, tok_sorted, slot, keep = _dispatch_slots(top_e, t, cfg, e0, e_loc,
+                                                    earlier)
     # a foreign or dropped pair's weight is zero wherever it lands
     w_sorted = torch.where(keep, top_w.reshape(-1)[order], 0.0)
 
@@ -294,6 +312,41 @@ def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor,
         out = _moe_sharded(params, cfg, x, mesh)
     else:
         out = _moe_local(params, cfg, x)
+    if "shared" in params:
+        out = out + mlp_apply(params["shared"], static["shared"], x,
+                              kernels)
+    return out
+
+
+def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
+                 split: bool, kernels: bool = True) -> torch.Tensor:
+    """:func:`moe_apply` inside the sharded train step
+    (``parallel.tensor.tensor_parallel_ctx``), on this rank's rows of the
+    batch: the training twin of :func:`_moe_sharded`, with gradients.
+    With ``split`` (``parallel.tensor.experts_split``) ``params["experts"]``
+    is the rank's slab of ``tp``'s ``model`` group: every token of the
+    rows runs through the slab's experts and the partial outputs sum over
+    the group; else every rank runs all experts.  The router and the
+    shared experts run whole.  Capacity and each pair's place in its
+    expert's queue are the whole batch's (the rows' row block after the
+    earlier blocks', counts all-gathered over ``pod``/``data``), as the
+    reference's step computes them over its global batch."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    top_w, top_e = _route(params, cfg, xf)
+    r, blocks = data_shards(tp.mesh)
+    counts = gather_over_data(tp.mesh, torch.bincount(
+        top_e.reshape(-1), minlength=cfg.n_experts))
+    earlier = (counts[:r].sum(0), b * s * blocks)
+    if split:
+        e_loc = cfg.n_experts // tp.size
+        out = reduce_from_model(_dispatch_compute_combine(
+            copy_to_model(xf, tp), copy_to_model(top_w, tp), top_e,
+            params["experts"], cfg, tp.rank * e_loc, earlier), tp)
+    else:
+        out = _dispatch_compute_combine(xf, top_w, top_e, params["experts"],
+                                        cfg, 0, earlier)
+    out = out.reshape(b, s, d)
     if "shared" in params:
         out = out + mlp_apply(params["shared"], static["shared"], x,
                               kernels)

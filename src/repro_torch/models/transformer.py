@@ -42,6 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     AttnConfig,
     attention_apply,
+    attention_apply_tp,
     attention_init,
     attention_specs,
     init_kv_cache,
@@ -58,6 +59,7 @@ from repro_torch.models.layers import (
     linear_init,
     linear_specs,
     mlp_apply,
+    mlp_apply_tp,
     mlp_init,
     mlp_specs,
     mlp_static,
@@ -75,6 +77,7 @@ from repro_torch.models.mla import (
 from repro_torch.models.moe import (
     MoEConfig,
     moe_apply,
+    moe_apply_tp,
     moe_init,
     moe_specs,
     moe_static,
@@ -86,6 +89,7 @@ from repro_torch.models.ssm import (
     ssm_init,
     ssm_specs,
 )
+from repro_torch.parallel import tensor
 from repro_torch.parallel.activations import shard_activation
 from repro_torch.parallel.sharding import pad_to_multiple
 
@@ -476,6 +480,10 @@ def init_cache(statics, batch: int, max_seq: int | None = None,
 def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
                  cache_pos, cache_len, prefill: bool, memory=None,
                  kernels: bool = True):
+    tp = tensor.current()
+    if tp is not None:
+        return _apply_layer_tp(tp, params, static, cfg, x, positions, cache,
+                               memory, kernels)
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     mixer = static["mixer"]
     h = norm(params["norm1"], x)
@@ -514,6 +522,50 @@ def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
                               kernels)
     x = shard_activation(x, ("batch", "seq_shard", None))
     return x, new_cache
+
+
+def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
+                    cache, memory, kernels: bool):
+    """One layer inside the sharded train step's
+    ``parallel.tensor.tensor_parallel_ctx``: the blocks of
+    ``tensor.layer_splits`` on this rank's slabs of ``tp``'s ``model``
+    group, the rest (MLA, the SSM, norms) whole, and MoE's capacity the
+    whole batch's (``moe.moe_apply_tp``).  Training keeps no cache."""
+    if cache is not None:
+        raise ValueError("tensor-parallel compute is the train step's: it "
+                         "keeps no cache")
+    split = tensor.layer_splits(cfg, static, tp.size)
+    norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
+    mixer = static["mixer"]
+
+    def attend(name, key, h, mem=None):
+        if name in split:
+            return attention_apply_tp(tp, params[name], static[key], h,
+                                      positions, memory=mem)
+        return attention_apply(params[name], static[key], h, positions,
+                               memory=mem, prefill=False)[0]
+
+    h = norm(params["norm1"], x)
+    if mixer == "mla":
+        out, _ = mla_apply(params["attn"], static["mla_cfg"], h, positions)
+    elif mixer == "ssm":
+        out, _ = ssm_apply(params["attn"], static["ssm_cfg"], h, None)
+    else:
+        out = attend("attn", "attn_cfg", h)
+    if mixer == "xattn":
+        x = x + out
+        out = attend("xattn", "xattn_cfg", norm(params["xnorm"], x), memory)
+    x = x + out
+    if static["ffn"] == "none":
+        return x, None
+    h = norm(params["norm2"], x)
+    if static["ffn"] == "moe":
+        return x + moe_apply_tp(tp, params["moe"], static["moe"], cfg.moe, h,
+                                "moe" in split, kernels), None
+    if "mlp" in split:
+        return x + mlp_apply_tp(tp, params["mlp"], static["mlp"], h,
+                                kernels), None
+    return x + mlp_apply(params["mlp"], static["mlp"], h, kernels), None
 
 
 def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,

@@ -17,12 +17,12 @@ of tensors.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.optim.optimizers import _map, _unzip
+from repro_torch.optim.optimizers import _leaves, _map, _unzip
 
 __all__ = [
     "CompressionState",
@@ -39,28 +39,36 @@ def init_compression_state(grads_like) -> CompressionState:
     return _map(lambda g: torch.zeros_like(g, dtype=torch.float32), grads_like)
 
 
-def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 quantization with a per-tensor float32 scale."""
-    amax = x.abs().max() + 1e-12
-    scale = amax / 127.0
+def _quantize(x: torch.Tensor, amax: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with a per-tensor float32 scale from
+    ``amax``, the whole leaf's largest |value|."""
+    scale = (amax + 1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
 @torch.no_grad()
 def compress_gradients(
-    grads, state: CompressionState
+    grads, state: CompressionState, reduce_amax: Callable | None = None,
 ) -> tuple[tuple[Any, Any], CompressionState]:
     """Quantize (grad + residual) to int8; the residual carries the error.
 
+    ``reduce_amax`` (the sharded train step's) takes the list of per-leaf
+    largest |values| and returns it with each slab leaf's the largest over
+    the ranks that hold its slabs, so a leaf's scale is the whole leaf's.
     Returns ((int8_tree, scale_tree), new_state)."""
+    xs = _map(lambda g, r: g.float() + r, grads, state)
+    amax = [x.abs().max() for x in _leaves(xs)]
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
+    it = iter(amax)
 
-    def one(g, r):
-        x = g.float() + r
-        q, s = _quantize(x)
+    def one(x):
+        q, s = _quantize(x, next(it))
         return q, s, x - q.float() * s
 
-    qs, scales, residuals = _unzip(_map(one, grads, state), 3)
+    qs, scales, residuals = _unzip(_map(one, xs), 3)
     return (qs, scales), residuals
 
 

@@ -61,14 +61,20 @@ def _unzip(flat, n: int) -> list:
 
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in _leaves(tree)))
+def global_norm(tree, reduce: Callable | None = None) -> torch.Tensor:
+    """The norm of all leaves together.  ``reduce`` (the sharded train
+    step's) takes the list of per-leaf sums of squares and returns it
+    with each slab leaf's summed over the ranks that hold its slabs."""
+    sq = [torch.sum(torch.square(x.float())) for x in _leaves(tree)]
+    if reduce is not None:
+        sq = reduce(sq)
+    return torch.sqrt(sum(sq))
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float,
+                        reduce: Callable | None = None):
+    norm = global_norm(tree, reduce)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return _map(lambda x: x * scale.to(x.dtype), tree), norm
 

@@ -47,6 +47,7 @@ __all__ = [
     "tree_pspecs",
     "tree_shardings",
     "shard_tensor",
+    "cut_slab",
     "gather_tensor",
     "shard_tree",
     "gather_tree",
@@ -220,6 +221,21 @@ def shard_tensor(full: torch.Tensor, pl: Placement) -> torch.Tensor:
         raise ValueError(f"tensor of shape {tuple(full.shape)} placed as "
                          f"{pl.shape}")
     return full if pl.whole else full[pl.slices].clone()
+
+
+def cut_slab(slab: torch.Tensor, pl: Placement, sub: Placement
+             ) -> torch.Tensor:
+    """The part of ``pl``'s slab of a leaf that ``sub``, a placement of
+    the same leaf inside it, keeps (ZeRO-1's moment slab of a param
+    slab), a tensor of its own (the slab itself when they are equal)."""
+    if tuple(slab.shape) != pl.slab_shape or sub.shape != pl.shape:
+        raise ValueError(f"slab {tuple(slab.shape)} of {pl.shape} cut as "
+                         f"{sub.slab_shape} of {sub.shape}")
+    cut = tuple(slice(s.start - p.start, s.stop - p.start)
+                for s, p in zip(sub.slices, pl.slices))
+    if any(c.start < 0 or c.stop > n for c, n in zip(cut, pl.slab_shape)):
+        raise ValueError(f"{sub} does not lie inside {pl}")
+    return slab if sub.slab_shape == pl.slab_shape else slab[cut].clone()
 
 
 def gather_tensor(slab: torch.Tensor, pl: Placement, mesh,

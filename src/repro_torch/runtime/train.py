@@ -45,12 +45,22 @@ one device.  What each rank stores:
   * ``step`` and the optimizer's ``count``: whole on every rank, as the
     reference's ``P()``.
 
-Compute is gathered, not split: each step all-gathers the whole params
-on every rank (FSDP style) and each rank runs the whole model forward and
-backward on its rows.  So the ``model`` ranks of one data shard do the
-same arithmetic on the same rows: storage is split over ``model``,
-compute is not (tensor-parallel compute is later work, ``ROADMAP.md``).
-The gradient is all-reduced whole, then cut to the rank's moment slab.
+Compute is split over ``model`` where the reference's GSPMD step
+splits it (``parallel.tensor``): inside ``tensor_parallel_ctx`` the
+attention heads, the MLPs' ``ff`` (the sparse MLPs' tiles) and the MoE
+experts compute on the rank's slabs, whose gradients stay slabs; every
+other leaf (MLA, the SSM, the embedding and the head, norms, routers)
+is all-gathered over the mesh each step and computed whole, its
+gradient whole on every rank.  The gradients are all-reduced over
+``pod``/``data`` as they come (gloo has no reduce-scatter), then cut to
+the rank's moment slab.  Two whole-leaf quantities stay whole-leaf: the
+global norm sums the slab leaves' squares over ``model``, and int8
+compression takes each slab leaf's scale from its largest value over
+``model``.  MoE capacity is counted over the whole batch
+(``models.moe.moe_apply_tp``).  ``step.comm`` holds the last step's
+bytes: ``param_gather_bytes`` (the params all-gathered, whole),
+``model_reduce_bytes`` and ``model_gather_bytes`` (activations and
+their gradients all-reduced and all-gathered over ``model``).
 
 A sharded state checkpoints through ``Trainer``: whole leaves gathered
 over the mesh, written once by rank 0 in the reference's layout, then a
@@ -82,11 +92,13 @@ from repro_torch.optim import (
 )
 from repro_torch.optim.optimizers import _leaves, _map
 from repro_torch.parallel.sharding import (
+    cut_slab,
     gather_tensor,
-    gather_tree,
     mesh_axis_sizes,
+    shard_tensor,
     shard_tree,
 )
+from repro_torch.parallel.tensor import slab_leaves, tensor_parallel_ctx
 from repro_torch.runtime.fault import FailureInjector, StragglerDetector
 
 __all__ = ["TrainConfig", "TrainShardings", "train_shardings",
@@ -243,12 +255,57 @@ def make_train_step(
         return loss, grads
 
     sharded = shardings is not None
+    mesh = shardings.mesh if sharded else None
+    n_model = mesh_axis_sizes(mesh).get("model", 1) if sharded else 1
+    # leaves computed on their slabs (parallel.tensor); gathered otherwise
+    slab = (slab_leaves(cfg, statics, shardings.params, n_model) if sharded
+            else None)
+    if sharded:
+        _check_slabs(shardings.params, slab)
 
-    def whole(tree):
-        """A params-shaped tree whole: gathered over the mesh if sharded."""
+    def whole(tree, count: bool = False):
+        """A params-shaped tree with every leaf that is not computed on
+        its slab whole: gathered over the mesh if sharded."""
         if not sharded:
             return tree
-        return gather_tree(tree, shardings.params, shardings.mesh)
+
+        def one(t, pl, on_slab):
+            if on_slab or pl.whole:
+                return t
+            out = gather_tensor(t, pl, mesh)
+            if count:
+                step.comm["param_gather_bytes"] += (out.numel()
+                                                    * out.element_size())
+            return out
+
+        return _map(one, tree, shardings.params, slab)
+
+    def over_model(tree, op):
+        """A hook of ``global_norm`` / ``compress_gradients``: their
+        per-leaf values of ``tree``'s leaves, each slab leaf's reduced by
+        ``op`` over ``model`` in one all-reduce; None when no leaf is a
+        slab."""
+        flags = _leaves(_map(lambda _, s: s, tree, slab)) if sharded else []
+        at = [i for i, s in enumerate(flags) if s]
+        if not at:
+            return None
+
+        def reduce(vals):
+            t = torch.stack([vals[i] for i in at])
+            dist.all_reduce(t, op=op, group=mesh.get_group("model"))
+            vals = list(vals)
+            for j, i in enumerate(at):
+                vals[i] = t[j]
+            return vals
+
+        return reduce
+
+    def to_moments(tree):
+        """A params-shaped tree (slab leaves on their slabs, the rest
+        whole) cut to this rank's ZeRO-1 moment slabs."""
+        return _map(lambda t, pl, z, on_slab: cut_slab(t, pl, z) if on_slab
+                    else shard_tensor(t, z), tree, shardings.params,
+                    shardings.moments, slab)
 
     def update(grads, opt_state, params, lr):
         """The optimizer's update; sharded, on this rank's moment slabs
@@ -257,24 +314,33 @@ def make_train_step(
         if not sharded:
             return opt.update(grads, opt_state, params, lr)
         z = shardings.moments
-        slabs, new_opt = opt.update(shard_tree(grads, z), opt_state,
-                                    shard_tree(params, z), lr)
-        return _map(lambda t, pl: gather_tensor(t, pl, shardings.mesh,
-                                                ("data",)), slabs, z), new_opt
+        slabs, new_opt = opt.update(to_moments(grads), opt_state,
+                                    to_moments(params), lr)
+        return _map(lambda t, pl: gather_tensor(t, pl, mesh, ("data",)),
+                    slabs, z), new_opt
 
     def step(state, batch):
-        params = whole(state["params"])
-        loss, grads = loss_and_grads(params, batch)
-        if sharded:
-            loss, grads = _mean_over_data(shardings.mesh, loss, grads)
-        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        step.comm = dict.fromkeys(step.comm, 0)
+        params = whole(state["params"], count=True)
+        if sharded and mesh.size() > 1:
+            with tensor_parallel_ctx(mesh) as tp:
+                loss, grads = loss_and_grads(params, batch)
+            step.comm["model_reduce_bytes"] = tp.reduce_bytes
+            step.comm["model_gather_bytes"] = tp.gather_bytes
+            loss, grads = _mean_over_data(mesh, loss, grads)
+        else:
+            loss, grads = loss_and_grads(params, batch)
+        grads, gnorm = clip_by_global_norm(
+            grads, tcfg.grad_clip, over_model(grads, dist.ReduceOp.SUM))
         if tcfg.grad_compression:
             comp, new_comp_state = compress_gradients(
-                grads, whole(state["comp_state"])
-            )
+                grads, whole(state["comp_state"]),
+                over_model(grads, dist.ReduceOp.MAX))
             grads = decompress_gradients(comp)
             if sharded:
-                new_comp_state = shard_tree(new_comp_state, shardings.params)
+                new_comp_state = _map(
+                    lambda t, pl, on_slab: t if on_slab else shard_tensor(
+                        t, pl), new_comp_state, shardings.params, slab)
         lr = lr_fn(state["step"])
         new_params, new_opt = update(grads, state["opt_state"], params, lr)
         new_state = {
@@ -287,7 +353,23 @@ def make_train_step(
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return new_state, metrics
 
+    step.comm = dict.fromkeys(("param_gather_bytes", "model_reduce_bytes",
+                               "model_gather_bytes"), 0)
     return step
+
+
+def _check_slabs(placements, slab) -> None:
+    """Every leaf computed on its slab is split over ``model`` alone, as
+    ``parallel.tensor``'s rules and ``launch.steps.param_shardings``
+    both derive it from the specs."""
+    def one(pl, on_slab):
+        if on_slab and (pl.whole or any(
+                e not in (None, "model") for e in pl.pspec)):
+            raise ValueError(f"a leaf computed on its model slab is placed "
+                             f"as {pl.pspec} over {pl.shape}")
+        return None
+
+    _map(one, placements, slab)
 
 
 def init_train_state(params, opt: Optimizer, tcfg: TrainConfig,

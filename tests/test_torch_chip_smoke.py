@@ -328,6 +328,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     # are 1 x 16 tokens
     monkeypatch.setattr(cs, "SHARD_TRAIN_BATCH", (4, 32))
     monkeypatch.setattr(cs, "PIPE_TOKENS", 16)
+    # (h): jamba's smoke config (as on the card) on 4 x 32 tokens
+    monkeypatch.setattr(cs, "JAMBA_SHARD_BATCH", (4, 32))
+    # the entry_points phase: the launcher on the smoke danube, 4 requests
+    # through 2 slots; the twins at their own sizes on the CPU
+    monkeypatch.setattr(cs, "ENTRY_SERVE_ARGS", [
+        "--arch", "h2o_danube_1_8b", "--smoke", "--requests", "4",
+        "--slots", "2", "--prompt-len", "8", "--new-tokens",
+        str(cs.ENTRY_NEW)])
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -343,7 +351,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
-        "ssm_whisper", "vlm", "train", "train_shard", "times"]
+        "ssm_whisper", "vlm", "train", "train_shard", "entry_points",
+        "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -606,25 +615,59 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert one["losses_bit_equal"] and one["state_bit_equal"]
     assert len(one["losses_sharded"]) == cs.ONE_RANK_STEPS
     ts = lines[16]
-    f, g = ts["part_f"], ts["part_g"]
-    assert f["mesh"] == [2, 2] and f["layers"] == "4 of 2"
-    assert f["ranks_losses_equal"] and len(f["losses_float32"]) == 2
-    assert max(f["loss_rel_float32"]) <= cs.SHARD_TRAIN_REL
-    assert [r["off_where_posed"] for r in f["params_rule"]] == [0, None]
-    assert all(r["share_off"] <= cs.MAX_ILL for r in f["params_rule"])
-    assert f["resident_bytes"] == [
-        {k: r[k] for k in ("params", "moments")} for r in f["reckoned_bytes"]]
-    # ZeRO-1: each rank holds less than the whole state
-    assert all(r["params"] < r["whole_params"] for r in f["reckoned_bytes"])
-    assert sorted(tuple(c.values()) for c in f["coords"]) == [
-        (0, 0), (0, 1), (1, 0), (1, 1)]
-    assert f["restore"]["bit_equal"] and f["restore"]["restored_step"] == 2
-    assert len(f["checkpoint_seconds"]) == 1
-    assert len(f["bf16_not_gated"]["losses"]) == 2
+    f, g, h = ts["part_f"], ts["part_g"], ts["part_h"]
+    assert f["layers"] == "4 of 2" and h["width"] == "smoke"
+    assert h["model"] == "jamba_smoke"
+    for part in (f, h):
+        assert part["mesh"] == [2, 2]
+        assert part["ranks_losses_equal"]
+        assert len(part["losses_float32"]) == 2
+        assert max(part["loss_rel_float32"]) <= cs.SHARD_TRAIN_REL
+        assert [r["off_where_posed"] for r in part["params_rule"]] == [0,
+                                                                       None]
+        assert all(r["share_off"] <= cs.MAX_ILL for r in part["params_rule"])
+        assert part["resident_bytes"] == [
+            {k: r[k] for k in ("params", "moments")}
+            for r in part["reckoned_bytes"]]
+        # ZeRO-1: each rank holds less than the whole state
+        assert all(r["params"] < r["whole_params"]
+                   for r in part["reckoned_bytes"])
+        assert sorted(tuple(c.values()) for c in part["coords"]) == [
+            (0, 0), (0, 1), (1, 0), (1, 1)]
+        assert part["restore"]["bit_equal"]
+        assert part["restore"]["restored_step"] == 2
+        assert len(part["checkpoint_seconds"]) == 1
+        assert max(part["bf16"]["rel_vs_unsharded_bf16"]) <= (
+            cs.SHARD_TRAIN_BF16_REL)
+        # tensor-parallel compute: only the embedding and the head (and,
+        # for jamba, its SSM, routers and norms' split leaves) gathered,
+        # each step; activations all-reduced over model
+        for comm, reck in zip(part["comm_per_step"], part["reckoned_bytes"]):
+            assert [c["param_gather_bytes"] for c in comm] == [
+                reck["gathered_params"]] * 2
+            assert all(c["model_reduce_bytes"] > 0 for c in comm)
+            assert reck["gathered_params"] < reck["whole_params"]
+    # danube's sparse MLPs gather their tiles' columns; jamba's are dense
+    assert all(c["model_gather_bytes"] > 0
+               for comm in f["comm_per_step"] for c in comm)
+    # danube: the embedding and the head are its only split leaves left
+    assert {r["gathered_leaves"] for r in f["reckoned_bytes"]} == {2}
     assert g["layers"] == 8 and g["stages"] == 4 and g["microbatches"] == 6
     assert g["finite"] and g["ranks_equal"]
     assert g["max_abs_diff"] <= cs.PIPE_REL * g["fold_max_abs"]
-    times = lines[17]
+    ep = lines[17]
+    assert set(ep["runs"]) == {"launch_serve", "serve_decode", "quickstart",
+                               "serve_http_classify", "serve_http_generate",
+                               "check_baseline_trace"}
+    assert all(r["exit_code"] == 0 for r in ep["runs"].values())
+    served = ep["launch_serve"]
+    assert served["model"] == "h2o_danube_1_8b_smoke"
+    assert served["requests"] == 4 and served["tokens_per_request"] == [16]
+    assert served["flash_launches"] == served["flash_launches_expected"] == 0
+    assert served["device"] == "cpu" and served["tokens_per_s"] > 0
+    assert any("check ok" in ln
+               for ln in ep["runs"]["serve_http_generate"]["stdout_tail"])
+    times = lines[18]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40, 17, 40, 13, 20]

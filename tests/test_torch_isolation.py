@@ -118,8 +118,16 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+def _example_twins():
+    ex = os.path.join(ROOT, "examples")
+    return sorted(os.path.join(ex, f) for f in os.listdir(ex)
+                  if f.endswith("_torch.py"))
+
+
 def test_no_module_of_the_port_imports_jax_or_reference():
-    paths = [*_port_files(), os.path.join(ROOT, "chip_smoke.py")]
+    paths = [*_port_files(), os.path.join(ROOT, "chip_smoke.py"),
+             *_example_twins()]
+    assert len(_example_twins()) >= 5
     assert len(paths) > 20
     offenders = {
         os.path.relpath(p, ROOT): sorted(set(_imported_roots(p)) & FORBIDDEN)
@@ -182,3 +190,70 @@ def test_collection_without_torch_keeps_the_jax_suite(tmp_path):
     skipped = [ln for ln in out.stdout.splitlines()
                if ln.startswith("SKIPPED") and "could not import 'torch'" in ln]
     assert len(skipped) == len(tests)
+
+
+# Runs one of the port's entry points (``run_module`` or ``run_path``) in
+# a fresh interpreter whose import system refuses jax and repro, with
+# ``argv``; prints the modules of jax and repro it loaded.
+_ENTRY = """
+import json, runpy, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("refused import of " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = {argv!r}
+runpy.{how}({target!r}, run_name="__main__")
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in {forbidden!r})))
+"""
+
+
+@pytest.mark.parametrize("how,target,argv", [
+    ("run_module", "repro_torch.launch.serve",
+     ["--arch", "granite_3_2b", "--smoke", "--requests", "3",
+      "--new-tokens", "3"]),
+    ("run_path", "serve_decode_torch.py", ["--requests", "3",
+                                           "--new-tokens", "3"]),
+    ("run_path", "quickstart_torch.py", []),
+    ("run_path", "serve_http_torch.py", ["--requests", "8"]),
+])
+def test_entry_points_run_with_jax_and_reference_refused(how, target, argv):
+    """The launcher and the example twins import neither jax nor the JAX
+    package, and run on the CPU when asked."""
+    if how == "run_path":
+        target = os.path.join(ROOT, "examples", target)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    env["OMP_NUM_THREADS"] = "1"
+    code = textwrap.dedent(_ENTRY).format(
+        forbidden=FORBIDDEN, argv=[target, *argv, "--device", "cpu"],
+        how=how, target=target)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_launcher_and_examples_need_cuda_unless_asked(monkeypatch):
+    """Without ``--device cpu`` the launcher and the example twins raise
+    without a card; they never drop to the CPU on their own."""
+    import importlib.util
+
+    from repro_torch.launch import serve as tserve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--arch", "granite_3_2b", "--smoke"])
+    for name in ("quickstart_torch", "serve_decode_torch",
+                 "serve_http_torch"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        monkeypatch.setattr(sys, "argv", [name])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main()

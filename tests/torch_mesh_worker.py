@@ -1,7 +1,9 @@
 """One rank of a ``gloo`` process group for ``tests/test_torch_sharded.py``
 (and ``tests/test_torch_fault_data.py``'s ``data`` job,
 ``tests/test_torch_sharded_train.py``'s ``train`` and ``restore`` jobs,
-``tests/test_torch_pipeline.py``'s ``pipeline`` job).
+``tests/test_torch_pipeline.py``'s ``pipeline`` job,
+``tests/test_torch_tensor_parallel.py``'s ``tp_mlp`` and ``tp_train``
+jobs).
 
     python tests/torch_mesh_worker.py <spec.pkl> <rank>
 
@@ -16,6 +18,7 @@ only: the JAX references are computed in the parent and compared there.
 from __future__ import annotations
 
 import datetime
+import math
 import pickle
 import sys
 
@@ -261,6 +264,108 @@ def restore_job(job: dict) -> dict:
             "state": _whole_state(trainer.state, shardings)}
 
 
+def tp_mlp_job(job: dict) -> dict:
+    """``layers.mlp_apply_tp`` on this rank's slab of each MLP of
+    ``job["cases"]`` (whole numpy params) inside ``tensor_parallel_ctx``:
+    the output, the input's gradient and the slab's gradients under the
+    upstream gradient ``dy``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import mlp_apply_tp, mlp_specs, mlp_static
+    from repro_torch.optim.optimizers import _map
+    from repro_torch.parallel.sharding import shard_tree, tree_shardings
+    from repro_torch.parallel.tensor import tensor_parallel_ctx
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    out = {}
+    for name, (d, ff, act, sparse, shards), params, x, dy in job["cases"]:
+        static = mlp_static(d, ff, act, sparse, shards, device="cpu")
+        whole = _map(torch.as_tensor, params)
+        slabs = shard_tree(whole, tree_shardings(
+            mlp_specs(d, ff, act, sparse, shards), whole, mesh))
+        live = _map(lambda t: t.detach().clone().requires_grad_(True), slabs)
+        xt = torch.as_tensor(x).requires_grad_(True)
+        with tensor_parallel_ctx(mesh) as tp:
+            y = mlp_apply_tp(tp, live, static, xt, kernels=False)
+            (y * torch.as_tensor(dy)).sum().backward()
+        out[name] = {"y": _np(y), "dx": _np(xt.grad),
+                     "grads": _map(lambda t: _np(t.grad), live),
+                     "reduce_bytes": tp.reduce_bytes,
+                     "gather_bytes": tp.gather_bytes}
+    return out
+
+
+def tp_train_job(job: dict) -> dict:
+    """The sharded step with tensor-parallel compute, ``job["steps"]``
+    steps of each case of ``job["cases"]`` (a port config, whole numpy
+    params, a batch, a ``TrainConfig``'s fields): per step the metrics,
+    the bytes the step moved (``step.comm``), the params gathered whole
+    (rank 0) and the placements the step all-gathered over the mesh,
+    against the leaves ``parallel.tensor.slab_leaves`` keeps on their
+    slabs."""
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.models.transformer import init_specs, init_statics
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import _leaves
+    from repro_torch.parallel.sharding import gather_tree, mesh_axis_sizes
+    from repro_torch.parallel.tensor import slab_leaves
+    from repro_torch.runtime import train as rt
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    n_model = mesh_axis_sizes(mesh)["model"]
+    real = rt.gather_tensor
+    gathered: list = []
+
+    def spy(t, pl, mesh, axes=None):
+        if axes is None:
+            gathered.append(id(pl))
+        return real(t, pl, mesh, axes)
+
+    out = {}
+    for name, cfg, nparams, batch, tkw in job["cases"]:
+        params = lm_params_from_numpy(nparams, "cpu")
+        statics = init_statics(cfg, "cpu")
+        shardings = rt.train_shardings(init_specs(cfg), params, mesh)
+        tcfg = rt.TrainConfig(steps=job["steps"], **tkw)
+        opt = adamw(weight_decay=0.0)
+        step = rt.make_train_step(
+            cfg, statics, opt, lambda s: job["lr"], tcfg,
+            model_kwargs_fn=lambda b: {k: b[k] for k in ("frames",)
+                                       if k in b},
+            shardings=shardings)
+        state = rt.init_train_state(params, opt, tcfg, shardings)
+        del params
+        slab = slab_leaves(cfg, statics, shardings.params, n_model)
+        pls, flags = _leaves(shardings.params), _leaves(slab)
+        size = torch.empty((), dtype=cfg.pdtype()).element_size()
+        rows = []
+        for _ in range(job["steps"]):
+            gathered.clear()
+            rt.gather_tensor = spy
+            try:
+                state, m = step(state, shard_batch(batch, mesh))
+            finally:
+                rt.gather_tensor = real
+            got = gather_tree(state["params"], shardings.params, mesh)
+            rows.append({
+                "metrics": {k: float(m[k]) for k in ("loss", "grad_norm")},
+                "comm": dict(step.comm), "gathered": list(gathered),
+                "params": ({k: _np(v) for k, v in _leaf_paths(got)}
+                           if dist.get_rank() == 0 else None)})
+        out[name] = {
+            "steps": rows,
+            "slab_ids": [id(pl) for pl, s in zip(pls, flags) if s],
+            "gathered_ids": [id(pl) for pl, s in zip(pls, flags)
+                             if not s and not pl.whole],
+            "gathered_bytes": size * sum(
+                math.prod(pl.shape) for pl, s in zip(pls, flags)
+                if not s and not pl.whole),
+            "slab_leaves": sum(flags)}
+    return out
+
+
 def pipeline_job(job: dict) -> dict:
     """``pipeline_apply`` of ``tanh(x @ w)`` over a ``stage`` mesh of the
     whole world, for each case ``(ws, x)``; a case whose layers do not
@@ -284,7 +389,8 @@ def pipeline_job(job: dict) -> dict:
 
 JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job, "data": data_job,
         "train": train_job, "restore": restore_job,
-        "pipeline": pipeline_job}
+        "pipeline": pipeline_job, "tp_mlp": tp_mlp_job,
+        "tp_train": tp_train_job}
 
 
 def main(spec_path: str, rank: int) -> None:
