@@ -52,15 +52,20 @@ against the unsharded step, bit for bit; then sharded training
 (``train_shard``): a 2 x 2 gloo mesh of four spawned ranks on the card
 trains danube at full width cut to 4 layers through the sharded step
 (params split by their logical specs, ZeRO-1 moments, each rank its rows
-of the batch, attention heads and the sparse MLPs' tiles computed on
-each rank's ``model`` slab; losses and gathered params held to the
-unsharded run, each rank's resident bytes to those reckoned from its
-placements and the params it all-gathers each step to the leaves not
-computed on their slabs), checkpoints whole leaves and restores them in
-this process bit for bit, runs ``pipeline_apply`` of danube's decoder
-layer over a 4-stage mesh of the same ranks against the sequential fold,
-and trains jamba-1.5-large at smoke width the same way (experts and
-attention on their slabs, the SSM gathered); then (``entry_points``) the
+of the batch, attention heads, the sparse MLPs' tiles and the
+vocabulary of the embedding and the head computed on each rank's
+``model`` slab; losses and gathered params held to the unsharded run,
+each rank's resident bytes to those reckoned from its placements, no
+param all-gathered, and the bytes all-reduced and re-laid out over
+``model`` each step to those reckoned from the shapes), checkpoints
+whole leaves and restores them in this process bit for bit, runs
+``pipeline_apply`` of danube's decoder layer over a 4-stage mesh of the
+same ranks against the sequential fold, trains jamba-1.5-large at smoke
+width the same way (experts, attention and the SSM's heads on their
+slabs, the SSM's packed columns re-laid out), DeepSeek-V2 at full width
+cut to its first layer (MLA's heads and the vocabulary of 102,400 split)
+and mamba2-780m at full width cut to 8 of its 48 layers (the SSM's heads
+and the tied vocabulary split); then (``entry_points``) the
 serving launcher ``python -m repro_torch.launch.serve`` serves
 full-width, full-depth h2o-danube-1.8B, every prefill through the flash
 kernel, and the example twins run (``serve_decode_torch.py``,
@@ -122,6 +127,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -469,10 +475,16 @@ SHARD_PREPARE = None
 # by tests/test_torch_train_step.py's rule (off the unsharded step by >=
 # ADAM_OFF x lr only where the step-1 gradient is below NOISE_FLOOR of
 # its leaf's largest or ADAM_EPS_REGION x Adam's eps, at most MAX_ILL of
-# all weights; after step 2 the share alone), each rank's resident param and moment bytes = those
-# reckoned from param_shardings / _zero1 before the run, the checkpoint
-# of the last step (whole leaves, rank 0 writes) restored in this
-# one-rank process bit-equal (sha256 per leaf); the same run in bf16
+# all weights; after step 2 the share alone; where a part's own float32
+# reference, stepped from params moved by one ulp (NUDGES seeds), fails
+# that rule against its unmoved run (mamba2's on an H100), and the part
+# is not held to the fixed floors alone ((f) and (h) are), also where
+# that weight's measured change of g (reference_noise) can move Adam's
+# first step by ADAM_OFF x lr, with no more weights off than the
+# reference's own worst), each rank's resident param and moment bytes =
+# those reckoned from param_shardings / _zero1 before the run, the
+# checkpoint of the last step (whole leaves, rank 0 writes) restored in
+# this one-rank process bit-equal (sha256 per leaf); the same run in bf16
 # params reported beside the unsharded bf16 run's distance from float32;
 # (g) pipeline_apply over PIPE_STAGES gloo ranks of a stage mesh: one
 # danube decoder layer at full width in float32 (kernels=False) as the
@@ -481,9 +493,14 @@ SHARD_PREPARE = None
 # rank (bit-equality reported); (h) jamba-1.5-large at smoke width
 # (jamba_shard_config; a full-width MoE layer in float32 with its moments
 # does not fit a quarter of the card), JAMBA_SHARD_BATCH, the gates of
-# (f).  (f) and (h) compute on the model slabs (parallel.tensor): each
-# step all-gathers exactly the params' leaves not computed on their slabs
-# (their bytes reckoned from the specs), and their bf16 runs stay within
+# (f); (i) DeepSeek-V2 at full width cut to its first layer (MLA and the
+# dense MLP), DEEPSEEK_SHARD_BATCH, and (j) mamba2-780m at full width cut
+# to MAMBA_SHARD_LAYERS layers, MAMBA_SHARD_BATCH, the gates of (f) but
+# the checkpoint ((f) and (h) cover it).  Every part computes on the
+# model slabs (parallel.tensor): each step all-gathers no param (the
+# leaves not computed on their slabs: none in these models), all-reduces
+# and re-lays out over model the bytes parallel.tensor.model_bytes
+# reckons from the shapes, and its bf16 run stays within
 # SHARD_TRAIN_BF16_REL of the unsharded bf16 run.
 ONE_RANK_STEPS = 2
 SHARD_TRAIN_MESH = (2, 2)
@@ -496,9 +513,13 @@ NOISE_FLOOR = 1e-5
 ADAM_EPS = 1e-8  # optim.adamw's default eps
 ADAM_EPS_REGION = 10
 MAX_ILL = 1e-3
+NUDGES = 3  # one-ulp moves of the reference's params (seeds)
 SGD_LR = 1e3  # p0 - p1 = lr * g recovers the step-1 gradient
 SHARD_TRAIN_BF16_REL = 1e-2
 JAMBA_SHARD_BATCH = (4, 256)
+DEEPSEEK_SHARD_BATCH = (4, 512)
+MAMBA_SHARD_LAYERS = 8
+MAMBA_SHARD_BATCH = (4, 512)
 PIPE_STAGES = 4
 PIPE_LAYERS = 8
 PIPE_MICRO = 6
@@ -3818,30 +3839,47 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def adam_rule(got, want, grads, lr: float) -> dict:
-    """tests/test_torch_train_step.py's rule, leaf by leaf on the device:
+def adam_rule(got, want, grads, lr: float, noise=None) -> dict:
+    """tests/test_torch_train_step.py's rule, leaf by leaf on the device
+    of ``got`` (``(key, leaf)`` pairs in checkpoint order; ``want`` and
+    ``grads`` may lie on the host):
     weights of ``got`` off ``want`` by >= ADAM_OFF x lr, and how many of
     them have a well-posed gradient (``grads``; None: not classified):
     |g| at or above NOISE_FLOOR of its leaf's largest and at or above
-    ADAM_EPS_REGION x Adam's eps.  Below the latter Adam's first step,
-    lr g / (|g| + eps), follows the gradient's absolute rounding noise:
-    a change of 0.05 eps in g moves it by up to 0.05 lr.  The weights off
-    where only the first condition fails to hold are listed."""
+    ADAM_EPS_REGION x Adam's eps (the fixed floors), and, with ``noise``
+    (leaf key -> each weight's measured change dg of the reference's
+    gradient, ``reference_noise``), where Adam's first step at |g| - dg
+    (above 0) lies within ADAM_OFF x lr of its step at |g|.  Below the
+    eps region Adam's first step, lr g / (|g| + eps), follows the
+    gradient's absolute rounding noise: a change of 0.05 eps in g moves
+    it by up to 0.05 lr; where the measured change can move it by
+    ADAM_OFF x lr the reference's own step moves by as much (the step is
+    concave in |g|, so the change down bounds the change up).  The
+    weights off where only the first condition fails to hold are listed,
+    and the count the fixed floors alone call well posed is reported
+    beside."""
     from repro_torch.checkpoint.checkpointer import _leaf_paths
 
     off, posed_off, total, worst, near_eps = 0, 0, 0, 0.0, []
+    fixed_off = 0
     gs = dict(_leaf_paths(grads)) if grads is not None else {}
-    for (key, a), (_, b) in zip(_leaf_paths(got), _leaf_paths(want)):
-        d = (a.float() - b.float()).abs()
+    for (key, a), (_, b) in zip(got, _leaf_paths(want)):
+        d = (a.float() - b.to(a.device).float()).abs()
         far = d >= ADAM_OFF * lr
         total += d.numel()
         worst = max(worst, float(d.max()))
         off += int(far.sum())
         if grads is None or not bool(far.any()):
             continue
-        g = gs[key].abs()
+        g = gs[key].to(a.device).abs()
         above_floor = g >= NOISE_FLOOR * g.max()
-        posed = above_floor & (g >= ADAM_EPS_REGION * ADAM_EPS)
+        fixed = above_floor & (g >= ADAM_EPS_REGION * ADAM_EPS)
+        posed = fixed
+        if noise is not None:
+            low = g - noise[key].to(a.device)
+            posed = posed & (low > 0) & (
+                g / (g + ADAM_EPS) - low / (low + ADAM_EPS) < ADAM_OFF)
+        fixed_off += int((far & fixed).sum())
         posed_off += int((far & posed).sum())
         for i in _flat_nonzero(far & above_floor & ~posed)[:8]:
             near_eps.append({"leaf": key, "abs_grad": float(g.view(-1)[i]),
@@ -3849,10 +3887,28 @@ def adam_rule(got, want, grads, lr: float) -> dict:
                              "diff_over_lr": float(d.view(-1)[i]) / lr})
     return {"off": off, "total": total, "share_off": off / total,
             "off_where_posed": posed_off if grads is not None else None,
+            "off_where_posed_by_fixed_floors": (fixed_off if grads is not None
+                                                else None),
             "off_near_eps": near_eps, "max_abs_diff": worst,
             "limit": f">= {ADAM_OFF} x lr off only where |g| < {NOISE_FLOOR} "
-            f"x the leaf's max or < {ADAM_EPS_REGION} x eps {ADAM_EPS}; "
-            f"share <= {MAX_ILL}"}
+            f"x the leaf's max or < {ADAM_EPS_REGION} x eps {ADAM_EPS}"
+            + ("" if noise is None else
+               " or where the weight's measured one-ulp change of g can "
+               f"move Adam's first step by {ADAM_OFF} x lr")
+            + f"; share <= {MAX_ILL}"}
+
+
+def one_ulp(params, seed: int):
+    """``params`` with every float32 weight moved by one ulp, up or down
+    by a seeded coin: a change far below anything a step's rule is meant
+    to see."""
+    import torch
+
+    from repro_torch.optim.optimizers import _leaves, _map
+
+    gen = torch.Generator(device=_leaves(params)[0].device).manual_seed(seed)
+    return _map(lambda t: t * (1 + 2.0 ** -23 * (2 * torch.randint(
+        0, 2, t.shape, generator=gen, device=t.device) - 1)), params)
 
 
 def _flat_nonzero(mask) -> list:
@@ -3889,9 +3945,12 @@ def _sha256(t) -> str:
 
 
 def unsharded_runs(spec, batches, dev) -> dict:
-    """(f)'s references on one rank: the float32 model's step-1 gradient
-    (an SGD step at SGD_LR), AdamW's params after each step and its
-    losses, and the bf16 model's losses."""
+    """A part's references on one rank: the float32 model's step-1
+    gradient (an SGD step at SGD_LR), AdamW's params after each step and
+    its losses, and the bf16 model's losses.  The gradient and the params
+    are kept in host memory, so the card holds only the sharded run's
+    state beside them, and the float32 reference held to itself
+    (:func:`reference_noise`)."""
     import torch
 
     from repro_torch.models.transformer import init_params
@@ -3913,12 +3972,16 @@ def unsharded_runs(spec, batches, dev) -> dict:
         put = [{k: torch.as_tensor(v, device=dev) for k, v in b.items()}
                for b in batches]
         if name == "float32":
-            step = make_train_step(cfg, statics, sgd(), lambda s: SGD_LR,
-                                   tcfg)
-            p1, _ = step(init_train_state(params, sgd(), tcfg), put[0])
-            out["grads1"] = _map(lambda a, b: (a - b) / SGD_LR, params,
-                                 p1["params"])
-            del p1
+            sgd_step = make_train_step(cfg, statics, sgd(),
+                                       lambda s: SGD_LR, tcfg)
+
+            def grads_at(p):
+                p1, _ = sgd_step(init_train_state(p, sgd(), tcfg), put[0])
+                return _map(lambda a, b: ((a - b) / SGD_LR).cpu(), p,
+                            p1["params"])
+
+            out["grads1"] = grads_at(params)
+            start = _map(lambda t: t.cpu(), params)
         opt = adamw(weight_decay=0.0)
         step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg)
         state = init_train_state(params, opt, tcfg)
@@ -3928,21 +3991,79 @@ def unsharded_runs(spec, batches, dev) -> dict:
             state, m = step(state, b)
             losses.append(float(m["loss"]))
             if name == "float32":
-                kept.append(state["params"])
+                kept.append(_map(lambda t: t.cpu(), state["params"]))
+        del state
         out[name] = {"losses": losses, "params": kept}
+        if name == "float32":
+            out["reference_noise"] = reference_noise(
+                spec, start, out["grads1"], kept[0], grads_at,
+                lambda p: step(init_train_state(p, opt, tcfg), put[0])[0],
+                dev)
+    return out
+
+
+def reference_noise(spec, start, grads1, kept1, grads_at, step1,
+                    dev) -> dict:
+    """The float32 reference held to itself: from ``start`` (host) moved
+    by one ulp (``one_ulp``, NUDGES seeds), AdamW's step 1 (``step1``)
+    held to the unmoved run's (``kept1``) by ``adam_rule``.
+    ``noise_clause``: the part is not held to the fixed floors alone
+    (``spec["fixed_floors"]``) and some such step fails them; then
+    ``grad_noise`` holds each weight's largest change of the step-1
+    gradient (``grads_at``) over the moves, and the steps are held again
+    with it."""
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.optim.optimizers import _map
+
+    def moved(k):
+        return one_ulp(_map(lambda t: t.to(dev), start), spec["seed"] + 1 + k)
+
+    def held(noise=None):
+        rules = []
+        for k in range(NUDGES):
+            state = step1(moved(k))
+            rules.append(adam_rule(_leaf_paths(state["params"]), kept1,
+                                   grads1, spec["lr"], noise))
+            del state
+        return rules
+
+    rules = held()
+    out = {"noise_clause": not spec["fixed_floors"] and any(
+        r["off_where_posed"] for r in rules), "grad_noise": None,
+        "grad_noise_rel_max": None}
+    if out["noise_clause"]:
+        noise = None
+        for k in range(NUDGES):
+            g = dict(_leaf_paths(grads_at(moved(k))))
+            change = {key: (g[key] - g1).abs()
+                      for key, g1 in _leaf_paths(grads1)}
+            noise = change if noise is None else {
+                key: torch.maximum(noise[key], c)
+                for key, c in change.items()}
+        out["grad_noise"] = noise
+        out["grad_noise_rel_max"] = max(
+            float(noise[key].max() / g1.abs().max())
+            for key, g1 in _leaf_paths(grads1) if g1.abs().max() > 0)
+        rules = held(noise)
+    out["self_rules"] = rules
     return out
 
 
 def sharded_train_run(spec, mesh, dev) -> dict:
-    """(f) or (h) (``spec`` the part's) on one rank of ``mesh``: the
-    float32 model through the sharded step, which computes on the
-    ``model`` slabs (``parallel.tensor``), and ``Trainer`` (a checkpoint
-    at the last step), gathered and held to the unsharded run (rank 0),
-    then the bf16 model's losses; each step's collective bytes
-    (``step.comm``) beside the params' bytes reckoned to be gathered."""
+    """A part, (f), (h), (i) or (j) (``spec`` the part's), on one rank of
+    ``mesh``: the float32 model through the sharded step, which computes
+    on the ``model`` slabs (``parallel.tensor``), held to the unsharded
+    run (rank 0; the params gathered leaf by leaf), then the bf16 model's
+    losses; with ``spec["checkpoint"]`` the steps after the first run
+    through ``Trainer``, which checkpoints the last.  Each step's
+    collective bytes (``step.comm``) beside those reckoned: the params'
+    bytes to be gathered and ``parallel.tensor.model_bytes``'s."""
     import torch
     import torch.distributed as dist
 
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
     from repro_torch.data import SyntheticCorpus, shard_batch
     from repro_torch.models.transformer import (
         _leaves,
@@ -3951,8 +4072,8 @@ def sharded_train_run(spec, mesh, dev) -> dict:
     )
     from repro_torch.optim import adamw
     from repro_torch.optim.optimizers import _leaves as _flat
-    from repro_torch.parallel.sharding import gather_tree, mesh_axis_sizes
-    from repro_torch.parallel.tensor import slab_leaves
+    from repro_torch.parallel.sharding import gather_tensor, mesh_axis_sizes
+    from repro_torch.parallel.tensor import model_bytes, slab_leaves
     from repro_torch.runtime import (
         TrainConfig,
         Trainer,
@@ -3973,10 +4094,28 @@ def sharded_train_run(spec, mesh, dev) -> dict:
         ref = unsharded_runs(spec, batches, dev)
         _sync(dev)
         res["unsharded_seconds"] = time.perf_counter() - t0
+        res["unsharded_peak_memory_bytes"] = _cuda_peak(dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     dist.barrier()
     _reset_peak(dev)
     opt = adamw(weight_decay=0.0)
-    n_model = mesh_axis_sizes(mesh)["model"]
+    sizes = mesh_axis_sizes(mesh)
+    n_model = sizes["model"]
+    rows, seq = np.shape(batches[0]["tokens"])
+    my_rows = rows // (sizes["data"] * sizes.get("pod", 1))
+
+    def rule(state, placements, want, grads, noise):
+        """The params rule on rank 0, each leaf gathered in turn (every
+        rank takes part in each gather)."""
+        pairs = ((k, gather_tensor(t, pl, mesh)) for (k, t), (_, pl) in zip(
+            _leaf_paths(state["params"]), _leaf_paths(placements)))
+        if rank == 0:
+            rules.append(adam_rule(pairs, want, grads, spec["lr"], noise))
+        else:
+            for _ in pairs:
+                pass
+
     runs = {}
     for name, cfg in (("float32", spec["cfg"]), ("bfloat16",
                                                  spec["cfg_bf16"])):
@@ -4005,7 +4144,8 @@ def sharded_train_run(spec, mesh, dev) -> dict:
                                        _leaves(shardings.params)),
             "gathered_params": size * sum(math.prod(pl.shape)
                                           for pl in gathered),
-            "gathered_leaves": len(gathered)}
+            "gathered_leaves": len(gathered),
+            **model_bytes(cfg, statics, n_model, my_rows, seq - 1)}
         rows = {"reckoned_bytes": reckoned, "comm": []}
         losses, rules = [], []
         if name == "float32":
@@ -4016,28 +4156,37 @@ def sharded_train_run(spec, mesh, dev) -> dict:
             _sync(dev)
             rows["step1_seconds"] = time.perf_counter() - t1
             rows["comm"].append(dict(step.comm))
-            got = gather_tree(state["params"], shardings.params, mesh)
-            if rank == 0:
-                rules.append(adam_rule(got, ref["float32"]["params"][0],
-                                       ref["grads1"], spec["lr"]))
-            del got
-            # the rest through Trainer, which checkpoints the last step
-            trainer = Trainer(step, state, iter(batches[1:]), tcfg,
-                              put_batch=lambda b: shard_batch(b, mesh),
-                              shardings=shardings)
-            saves = timed_saves(trainer)
-            hist = trainer.run()
-            rows["comm"].append(dict(step.comm))
-            state = trainer.state
-            losses += [h["loss"] for h in hist]
-            rows["trainer_step_seconds"] = [h["seconds"] for h in hist]
-            rows["checkpoint_seconds"] = saves
-            got = gather_tree(state["params"], shardings.params, mesh)
-            if rank == 0:
-                rules.append(adam_rule(got, ref["float32"]["params"][-1],
-                                       None, spec["lr"]))
-            del got
-            rows["state_sha256"] = whole_state_hashes(state, shardings)
+            rule(state, shardings.params,
+                 ref["float32"]["params"][0] if rank == 0 else None,
+                 ref["grads1"] if rank == 0 else None,
+                 ref["reference_noise"]["grad_noise"] if rank == 0
+                 else None)
+            if spec["checkpoint"]:
+                # the rest through Trainer, which checkpoints the last step
+                trainer = Trainer(step, state, iter(batches[1:]), tcfg,
+                                  put_batch=lambda b: shard_batch(b, mesh),
+                                  shardings=shardings)
+                saves = timed_saves(trainer)
+                hist = trainer.run()
+                rows["comm"].append(dict(step.comm))
+                state = trainer.state
+                losses += [h["loss"] for h in hist]
+                rows["trainer_step_seconds"] = [h["seconds"] for h in hist]
+                rows["checkpoint_seconds"] = saves
+            else:
+                rows["step_seconds"] = []
+                for b in batches[1:]:
+                    t1 = time.perf_counter()
+                    state, m = step(state, shard_batch(b, mesh))
+                    losses.append(float(m["loss"]))
+                    _sync(dev)
+                    rows["step_seconds"].append(time.perf_counter() - t1)
+                    rows["comm"].append(dict(step.comm))
+            rule(state, shardings.params,
+                 ref["float32"]["params"][-1] if rank == 0 else None, None,
+                 None)
+            if spec["checkpoint"]:
+                rows["state_sha256"] = whole_state_hashes(state, shardings)
         else:
             for b in batches:
                 state, m = step(state, shard_batch(b, mesh))
@@ -4055,9 +4204,13 @@ def sharded_train_run(spec, mesh, dev) -> dict:
         runs[name] = rows
     res["runs"] = runs
     res["peak_memory_bytes"] = _cuda_peak(dev)
+    res["peak_reserved_bytes"] = (torch.cuda.max_memory_reserved(dev)
+                                  if dev.type == "cuda" else 0)
     if rank == 0:
         res["unsharded_losses"] = {k: ref[k]["losses"]
                                    for k in ("float32", "bfloat16")}
+        res["reference_noise"] = {k: v for k, v in ref[
+            "reference_noise"].items() if k != "grad_noise"}
     return res
 
 
@@ -4123,8 +4276,8 @@ def pipeline_run(spec, dev) -> dict:
 
 
 def train_shard_rank(rank: int, spec: dict) -> None:
-    """One rank of (f), (g) and (h): joins the gloo group, runs them,
-    writes ``rank<r>.pkl`` in ``spec["out"]``."""
+    """One rank of (f) to (j): joins the gloo group, runs them, writes
+    ``rank<r>.pkl`` in ``spec["out"]``."""
     import datetime
     import pickle
 
@@ -4135,6 +4288,11 @@ def train_shard_rank(rank: int, spec: dict) -> None:
 
     if spec["prepare"] is not None:
         spec["prepare"]()
+    # four ranks share the card: each part's blocks returned to it before
+    # the next (empty_cache), and segments that grow in place, so one
+    # part's cached blocks do not pile up under the next's larger ones
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     world = math.prod(spec["mesh"])
     dist.init_process_group(
         "gloo", store=dist.FileStore(spec["store"], world), rank=rank,
@@ -4146,7 +4304,10 @@ def train_shard_rank(rank: int, spec: dict) -> None:
                          device_type=spec["device_type"])
         dev = mesh_device(mesh)
         out = {}
-        for key in ("f", "g", "h"):
+        for key in ("f", "g", "h", "i", "j"):
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
             t0 = time.perf_counter()
             out[key] = (pipeline_run(spec, dev) if key == "g" else
                         sharded_train_run(spec["parts"][key], mesh, dev))
@@ -4203,6 +4364,23 @@ def jamba_shard_config():
     return get_smoke_config("jamba_1_5_large_398b")
 
 
+def deepseek_shard_config():
+    """(i)'s model: DeepSeek-V2-236B at full width (the phase keeps its
+    first layer, MLA and the dense SwiGLU MLP of d_ff 12288; vocabulary
+    102,400)."""
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek_v2_236b")
+
+
+def mamba2_shard_config():
+    """(j)'s model: mamba2-780m at full width (48 heads of 64, tied
+    vocabulary 50,280 padded to 50,432)."""
+    from repro_torch.configs import get_config
+
+    return get_config("mamba2_780m")
+
+
 def with_dtype(cfg, dtype: str):
     return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
 
@@ -4223,14 +4401,26 @@ def train_shard_phase(seed: int, dev) -> dict:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         cfg_f = cut_layers(full, SHARD_TRAIN_LAYERS, "float32")
         cfg_h = with_dtype(jamba_shard_config(), "float32")
+        ds, mamba = deepseek_shard_config(), mamba2_shard_config()
+        cfg_i = with_dtype(dataclasses.replace(
+            ds, n_layers=1, layer_types=ds.layer_types[:1]), "float32")
+        cfg_j = cut_layers(mamba, MAMBA_SHARD_LAYERS, "float32")
         parts = {
             "f": {"seed": seed, "cfg": cfg_f, "batch": SHARD_TRAIN_BATCH,
                   "cfg_bf16": cut_layers(full, SHARD_TRAIN_LAYERS,
                                          "bfloat16"),
-                  "corpus_vocab": TRAIN_CORPUS_VOCAB},
+                  "corpus_vocab": TRAIN_CORPUS_VOCAB, "checkpoint": True,
+                  "fixed_floors": True},
             "h": {"seed": seed, "cfg": cfg_h, "batch": JAMBA_SHARD_BATCH,
                   "cfg_bf16": with_dtype(cfg_h, "bfloat16"),
-                  "corpus_vocab": min(TRAIN_CORPUS_VOCAB, cfg_h.vocab)}}
+                  "corpus_vocab": min(TRAIN_CORPUS_VOCAB, cfg_h.vocab),
+                  "checkpoint": True, "fixed_floors": True}}
+        for key, cfg, batch in (("i", cfg_i, DEEPSEEK_SHARD_BATCH),
+                                ("j", cfg_j, MAMBA_SHARD_BATCH)):
+            parts[key] = {"seed": seed, "cfg": cfg, "batch": batch,
+                          "cfg_bf16": with_dtype(cfg, "bfloat16"),
+                          "corpus_vocab": min(TRAIN_CORPUS_VOCAB, cfg.vocab),
+                          "checkpoint": False, "fixed_floors": False}
         for key, part in parts.items():
             part.update(steps=SHARD_TRAIN_STEPS, lr=TRAIN_LR,
                         out=os.path.join(tmp, key))
@@ -4251,15 +4441,19 @@ def train_shard_phase(seed: int, dev) -> dict:
                 ranks.append(pickle.load(f))
         restored = {}
         for key, part in parts.items():
+            if not part["checkpoint"]:
+                continue
             _reset_peak(dev)
             restored[key] = restore_one_rank(part, dev)
             restored[key]["peak_memory_bytes"] = _cuda_peak(dev)
-    f = shard_train_report(parts["f"], [rk["f"] for rk in ranks],
-                           restored["f"], world)
+    reports = {key: shard_train_report(part, [rk[key] for rk in ranks],
+                                       restored.get(key), world)
+               for key, part in parts.items()}
+    f, h, i, j = (reports[k] for k in "fhij")
     f["layers"] = f"{SHARD_TRAIN_LAYERS} of {full.n_layers}"
-    h = shard_train_report(parts["h"], [rk["h"] for rk in ranks],
-                           restored["h"], world)
     h["width"] = "smoke"
+    i["layers"] = f"1 of {ds.n_layers}"
+    j["layers"] = f"{MAMBA_SHARD_LAYERS} of {mamba.n_layers}"
     g0 = ranks[0]["g"]
     pcfg = spec["pipe_cfg"]
     g = {"layer": f"{pcfg.name} decoder layer, float32, kernels=False",
@@ -4276,8 +4470,9 @@ def train_shard_phase(seed: int, dev) -> dict:
          "peak_memory_bytes_per_rank": [rk["g"]["peak_memory_bytes"]
                                         for rk in ranks]}
     emit("train_shard", seconds=time.perf_counter() - t_phase,
-         spawn_seconds=spawn_s, part_f=f, part_g=g, part_h=h)
-    for part in (f, h):
+         spawn_seconds=spawn_s, part_f=f, part_g=g, part_h=h, part_i=i,
+         part_j=j)
+    for part in (f, h, i, j):
         train_shard_checks(part)
     check(g["finite"] and g["ranks_equal"]
           and g["max_abs_diff"] <= PIPE_REL * g["fold_max_abs"],
@@ -4287,7 +4482,8 @@ def train_shard_phase(seed: int, dev) -> dict:
 
 
 def shard_train_report(part, ranks, restored, world) -> dict:
-    """(f)'s or (h)'s report from every rank's ``sharded_train_run``."""
+    """A part's report from every rank's ``sharded_train_run``
+    (``restored``: the one-rank restore of its checkpoint, or None)."""
     r0 = ranks[0]
     f32, bf16 = r0["runs"]["float32"], r0["runs"]["bfloat16"]
     ref = r0["unsharded_losses"]
@@ -4305,8 +4501,9 @@ def shard_train_report(part, ranks, restored, world) -> dict:
         f"{len({rk['device'] for rk in ranks})} card(s), CUDA tensors "
         f"staged through host memory",
         "compute": "tensor parallel over model (parallel.tensor): "
-        "attention heads, MLP ff or tiles, experts on their slabs; the "
-        "rest gathered",
+        "attention, MLA and SSM heads (the SSM's columns re-laid out), MLP "
+        "ff or tiles, experts, the vocabulary on their slabs; what does "
+        "not divide gathered",
         "batch": list(part["batch"]), "steps": part["steps"],
         "lr": part["lr"], "loss_limit": f"rel <= {SHARD_TRAIN_REL}",
         "losses_float32": f32["losses"],
@@ -4316,6 +4513,8 @@ def shard_train_report(part, ranks, restored, world) -> dict:
             rk["runs"][n]["losses"] == r0["runs"][n]["losses"]
             for rk in ranks for n in ("float32", "bfloat16")),
         "params_rule": f32["rules"],
+        "fixed_floors": part["fixed_floors"],
+        "reference_noise": r0["reference_noise"],
         "resident_bytes": [rk["runs"]["float32"]["resident_bytes"]
                            for rk in ranks],
         "reckoned_bytes": [rk["runs"]["float32"]["reckoned_bytes"]
@@ -4328,14 +4527,16 @@ def shard_train_report(part, ranks, restored, world) -> dict:
         "coords": [rk["coords"] for rk in ranks],
         "step1_seconds": [rk["runs"]["float32"]["step1_seconds"]
                           for rk in ranks],
-        "trainer_step_seconds": [rk["runs"]["float32"][
-            "trainer_step_seconds"] for rk in ranks],
-        "checkpoint_seconds": f32["checkpoint_seconds"],
-        "restore": {"restored_step": restored["restored_step"],
-                    "bit_equal": restored["sha256"] == f32["state_sha256"],
-                    "leaves": len(restored["sha256"]),
-                    "seconds": restored["seconds"],
-                    "peak_memory_bytes": restored["peak_memory_bytes"]},
+        "later_step_seconds": [rk["runs"]["float32"].get(
+            "trainer_step_seconds", rk["runs"]["float32"].get("step_seconds"))
+            for rk in ranks],
+        "checkpoint_seconds": f32.get("checkpoint_seconds"),
+        "restore": None if restored is None else {
+            "restored_step": restored["restored_step"],
+            "bit_equal": restored["sha256"] == f32["state_sha256"],
+            "leaves": len(restored["sha256"]),
+            "seconds": restored["seconds"],
+            "peak_memory_bytes": restored["peak_memory_bytes"]},
         "bf16": {
             "limit": f"rel <= {SHARD_TRAIN_BF16_REL} of the unsharded bf16 "
             f"run",
@@ -4344,13 +4545,18 @@ def shard_train_report(part, ranks, restored, world) -> dict:
             "unsharded_bf16_rel_vs_float32": rels(ref["bfloat16"],
                                                   ref["float32"])},
         "unsharded_seconds_rank0": r0["unsharded_seconds"],
+        "unsharded_peak_memory_bytes_rank0": r0[
+            "unsharded_peak_memory_bytes"],
         "seconds_per_rank": [rk["part_seconds"] for rk in ranks],
         "peak_memory_bytes_per_rank": [rk["peak_memory_bytes"]
-                                       for rk in ranks]}
+                                       for rk in ranks],
+        "peak_reserved_bytes_per_rank": [rk["peak_reserved_bytes"]
+                                         for rk in ranks]}
 
 
 def train_shard_checks(f) -> None:
-    """The gates of (f) or (h), after the phase's line is printed."""
+    """The gates of a part, (f), (h), (i) or (j), after the phase's line
+    is printed."""
     check(f["ranks_losses_equal"], "the mesh's ranks report different losses")
     check(all(np.isfinite(f["losses_float32"]))
           and max(f["loss_rel_float32"]) <= SHARD_TRAIN_REL,
@@ -4359,6 +4565,16 @@ def train_shard_checks(f) -> None:
     step1, last = f["params_rule"]
     check(step1["off_where_posed"] == 0 and step1["share_off"] <= MAX_ILL,
           f"sharded params after step 1 off the unsharded step: {step1}")
+    ref = f["reference_noise"]
+    check(not (ref["noise_clause"] and f["fixed_floors"]),
+          "a part held to the fixed floors took the measured-noise clause")
+    if ref["noise_clause"]:  # the reference fails the fixed floors itself
+        check(all(r["off_where_posed"] == 0 for r in ref["self_rules"]),
+              f"the reference's own one-ulp steps off where posed: {ref}")
+        worst = max(r["off"] for r in ref["self_rules"])
+        check(step1["off"] <= worst,
+              f"the sharded step moves {step1['off']} weights off, the "
+              f"reference's own one-ulp steps at most {worst}")
     check(last["share_off"] <= MAX_ILL,
           f"sharded params after the last step off the unsharded run: {last}")
     for have, want in zip(f["resident_bytes"], f["reckoned_bytes"]):
@@ -4368,16 +4584,23 @@ def train_shard_checks(f) -> None:
     for comm, want in ((f["comm_per_step"], f["reckoned_bytes"]),
                        (f["comm_per_step_bf16"], f["reckoned_bytes_bf16"])):
         for steps, reck in zip(comm, want):
-            check(all(c["param_gather_bytes"] == reck["gathered_params"]
-                      for c in steps),
-                  f"params all-gathered per step {steps} != the gathered "
-                  f"leaves' {reck['gathered_params']} bytes")
+            check(reck["gathered_params"] == 0,
+                  f"a leaf that divides over model is gathered: {reck}")
+            for key, want_key in (("param_gather_bytes", "gathered_params"),
+                                  ("model_reduce_bytes",
+                                   "model_reduce_bytes"),
+                                  ("model_relayout_bytes",
+                                   "model_relayout_bytes")):
+                check(all(c[key] == reck[want_key] for c in steps),
+                      f"{key} per step {[c[key] for c in steps]} != "
+                      f"reckoned {reck[want_key]}")
     check(all(c["model_reduce_bytes"] > 0 for steps in f["comm_per_step"]
               for c in steps),
           "no activation was all-reduced over model: compute not split")
-    check(f["restore"]["restored_step"] == SHARD_TRAIN_STEPS
-          and f["restore"]["bit_equal"],
-          f"the mesh's checkpoint restored in one rank: {f['restore']}")
+    if f["restore"] is not None:
+        check(f["restore"]["restored_step"] == SHARD_TRAIN_STEPS
+              and f["restore"]["bit_equal"],
+              f"the mesh's checkpoint restored in one rank: {f['restore']}")
     check(all(np.isfinite(f["bf16"]["losses"]))
           and max(f["bf16"]["rel_vs_unsharded_bf16"]) <= SHARD_TRAIN_BF16_REL,
           f"sharded bf16 losses vs the unsharded bf16 run: {f['bf16']}")

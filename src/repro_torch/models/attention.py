@@ -67,7 +67,11 @@ from repro_torch.models.layers import (
 )
 from repro_torch.parallel.activations import current_mesh
 from repro_torch.parallel.sharding import mesh_axis_sizes, padded_heads
-from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
+from repro_torch.parallel.tensor import (
+    column_product,
+    relayout_columns,
+    row_product,
+)
 
 __all__ = ["AttnConfig", "attention_init", "attention_specs",
            "attention_apply", "attention_apply_tp", "init_kv_cache",
@@ -413,40 +417,69 @@ def attention_apply(
                                   causal=cfg.causal, window=cfg.window,
                                   kv_len=kv)
     else:
-        qh, kh, vh = _expand_kv(cfg, q, k, v)
-        causal = cfg.causal and memory is None
-        t = kh.shape[2]
-        if max(s, t) <= cfg.full_attn_max_seq:
-            out = _full_attention(qh, kh, vh, positions, kpos, causal,
-                                  cfg.window, kv_len)
-        else:
-            out = _chunked_attention(qh, kh, vh, positions, kpos, causal,
-                                     cfg.window, kv_len, cfg.chunk)
+        out = _plain_attention(cfg, q, k, v, positions, kpos,
+                               cfg.causal and memory is None, kv_len)
     out = out.transpose(1, 2).reshape(b, s, hq * dh)
     return linear(params["wo"], out.to(x.dtype)), cache
+
+
+def _plain_attention(cfg: AttnConfig, q, k, v, positions, kpos,
+                     causal: bool, kv_len) -> torch.Tensor:
+    """The plain routes (full, or chunked past ``full_attn_max_seq``)
+    over q [B, S, Hq, D] and k, v [B, T, Hkv, D]: [B, Hq, S, D]."""
+    qh, kh, vh = _expand_kv(cfg, q, k, v)
+    if max(q.shape[1], kh.shape[2]) <= cfg.full_attn_max_seq:
+        return _full_attention(qh, kh, vh, positions, kpos, causal,
+                               cfg.window, kv_len)
+    return _chunked_attention(qh, kh, vh, positions, kpos, causal,
+                              cfg.window, kv_len, cfg.chunk)
 
 
 def attention_apply_tp(tp, params, cfg: AttnConfig, x: torch.Tensor,
                        positions: torch.Tensor,
                        memory: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`attention_apply` on this rank's heads over ``tp``'s ``model``
-    group (``parallel.tensor``, whose ``attention_splits`` holds for
-    ``cfg``), without a cache or the kernel: ``params`` are the rank's
-    slabs, columns of ``wq``/``wk``/``wv`` (and their biases) and rows of
-    ``wo`` for query heads ``[r * Hq / n, (r + 1) * Hq / n)`` and the key
-    heads they group over, so the plain routes run on the rank's heads
-    as on all of them; the heads' products with ``wo`` sum over the
-    group.  Returns the output [B, S, D]."""
-    local = dataclasses.replace(cfg, n_heads=cfg.hq_pad // tp.size,
-                                n_kv_heads=cfg.n_kv_heads // tp.size,
-                                model_shards=1)
-    wo = params["wo"]
-    part, _ = attention_apply(
-        {**params, "wo": {"w": wo["w"]}}, local, copy_to_model(x, tp),
-        positions, memory=None if memory is None else copy_to_model(memory,
-                                                                     tp),
-        prefill=False)
-    out = reduce_from_model(part, tp)
-    if "b" in wo:
-        out = out + wo["b"].to(out.dtype)
-    return out
+    group (``parallel.tensor``, whose ``attention_splits`` or
+    ``attention_reads_one_kv_head`` holds for ``cfg``), without a cache
+    or the kernel: ``params`` are the rank's slabs, columns of
+    ``wq``/``wk``/``wv`` (and their biases) and rows of ``wo`` for query
+    heads ``[r * Hq / n, (r + 1) * Hq / n)`` and the key heads they group
+    over, so the plain routes run on the rank's heads as on all of them:
+    the projections are column products and ``wo`` a row product
+    (``column_product``, ``row_product``).  Where the ranks outnumber the
+    key heads, the rank's query heads read one key head, whose
+    ``wk``/``wv`` columns (biases too) are re-laid out from the ranks'
+    slabs (``relayout_columns``: each column's gradient sums over the
+    ranks that read it).  Returns the output [B, S, D]."""
+    b, s, _ = x.shape
+    dh, dt = cfg.d_head, x.dtype
+    params = dict(params)
+    if cfg.n_kv_heads % tp.size:  # one key head a rank
+        group = cfg.hq_pad // cfg.n_kv_heads
+        per = cfg.hq_pad // tp.size
+        cols = [list(range(r * per // group * dh, (r * per // group + 1) * dh))
+                for r in range(tp.size)]
+        for name in ("wk", "wv"):
+            params[name] = {k: relayout_columns(t, cols, tp)
+                            for k, t in params[name].items()}
+    if memory is None:
+        q, k, v = column_product(x, [params["wq"], params["wk"],
+                                     params["wv"]], tp, dt)
+    else:
+        q = column_product(x, params["wq"], tp, dt)
+        k, v = column_product(memory, [params["wk"], params["wv"]], tp, dt)
+    t = k.shape[1]
+    q = q.reshape(b, s, -1, dh)
+    k, v = k.reshape(b, t, -1, dh), v.reshape(b, t, -1, dh)
+    if cfg.rope_theta is not None and memory is None:
+        freqs = rope_frequencies(dh, cfg.rope_theta, device=x.device)
+        pos_b = positions if positions.dim() == 2 else positions[None, :]
+        q, k = apply_rope(q, pos_b, freqs), apply_rope(k, pos_b, freqs)
+    local = dataclasses.replace(cfg, n_heads=q.shape[2],
+                                n_kv_heads=k.shape[2], model_shards=1)
+    kpos = (torch.arange(t, device=x.device) if memory is not None
+            else positions)
+    out = _plain_attention(local, q, k, v, positions, kpos,
+                           cfg.causal and memory is None, None)
+    out = out.transpose(1, 2).reshape(b, s, -1).to(dt)
+    return row_product(out, params["wo"], tp, dt)

@@ -27,9 +27,10 @@ import torch.nn.functional as F
 from repro_torch.core.sparse import pattern_spmm_torch
 from repro_torch.kernels.ops import pattern_spmm_raw
 from repro_torch.parallel.tensor import (
+    column_product,
     copy_to_model,
     gather_from_model,
-    reduce_from_model,
+    row_product,
 )
 
 __all__ = [
@@ -523,21 +524,21 @@ def mlp_apply(params, static, x: torch.Tensor,
 def mlp_apply_tp(tp, params, static, x: torch.Tensor,
                  kernels: bool = True) -> torch.Tensor:
     """:func:`mlp_apply` on this rank's slab over ``tp``'s ``model``
-    group (``parallel.tensor``): dense, column-parallel ``up``/``gate``
-    and row-parallel ``down`` with one all-reduce; sparse, each rank its
-    tiles of each projection, whose columns are gathered whole (the tile
-    order and ``inv_order`` span all of ``ff``, and ``down``'s
-    ``block_ids`` read all of it)."""
-    x = copy_to_model(x, tp)
+    group (``parallel.tensor``): dense, ``up``/``gate`` a column product
+    and ``down`` a row product (``column_product``, ``row_product``);
+    sparse, each rank its tiles of each projection, whose columns are
+    gathered whole (the tile order and ``inv_order`` span all of ``ff``,
+    and ``down``'s ``block_ids`` read all of it)."""
     if static.get("sparse") is None:
-        up = linear(params["up"], x)
         if static["act"] == "swiglu":
-            h = silu(linear(params["gate"], x)) * up
+            gate, up = column_product(x, [params["gate"], params["up"]], tp,
+                                      x.dtype)
+            h = silu(gate) * up
         else:
-            h = _act(static["act"], up)
-        down = params["down"]
-        y = reduce_from_model(h @ down["w"].to(h.dtype), tp)
-        return y + down["b"].to(h.dtype) if "b" in down else y
+            h = _act(static["act"], column_product(x, params["up"], tp,
+                                                   x.dtype))
+        return row_product(h, params["down"], tp, x.dtype)
+    x = copy_to_model(x, tp)
 
     def proj(name, inp):
         t0 = tp.rank * params[name]["w_comp"].shape[0]

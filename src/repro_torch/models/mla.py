@@ -19,6 +19,9 @@ The cache ``{c_kv [B, T, kv_lora], k_rope [B, T, d_rope]}`` is written in
 place (the reference returns a new one) at a scalar offset, clamped so
 the update fits as ``dynamic_update_slice`` clamps it, or at per-row
 offsets ``[B]``; neither reads the device from the host.
+
+:func:`mla_apply_tp` is the expanded route on one rank's heads of the
+sharded train step's ``model`` group (``parallel.tensor``).
 """
 
 from __future__ import annotations
@@ -44,9 +47,14 @@ from repro_torch.models.layers import (
     rmsnorm_specs,
     rope_frequencies,
 )
+from repro_torch.parallel.tensor import (
+    column_product,
+    copy_to_model,
+    row_product,
+)
 
 __all__ = ["MLAConfig", "mla_init", "mla_specs", "mla_apply",
-           "init_mla_cache"]
+           "mla_apply_tp", "init_mla_cache"]
 
 _NEG = -1e30
 
@@ -109,13 +117,21 @@ def _batched(positions: torch.Tensor) -> torch.Tensor:
     return positions if positions.dim() == 2 else positions[None, :]
 
 
-def _project_q(params, cfg: MLAConfig, x, positions):
-    b, s, _ = x.shape
-    q = linear(params["wq_b"],
-               rmsnorm(params["q_norm"], linear(params["wq_a"], x)))
-    q = q.reshape(b, s, cfg.n_heads, cfg.d_nope + cfg.d_rope)
+def _latent_q(params, x):
+    return rmsnorm(params["q_norm"], linear(params["wq_a"], x))
+
+
+def _project_q(params, cfg: MLAConfig, c_q, positions, tp=None):
+    """The heads' queries from the latent ``c_q``: as many heads as
+    ``wq_b`` has columns for (with ``tp``, a column product over its
+    ranks)."""
+    b, s, _ = c_q.shape
+    q = (linear(params["wq_b"], c_q) if tp is None
+         else column_product(c_q, params["wq_b"], tp, c_q.dtype))
+    q = q.reshape(b, s, q.shape[-1] // (cfg.d_nope + cfg.d_rope),
+                  cfg.d_nope + cfg.d_rope)
     q_nope, q_rope = q[..., : cfg.d_nope], q[..., cfg.d_nope:]
-    freqs = rope_frequencies(cfg.d_rope, cfg.rope_theta, device=x.device)
+    freqs = rope_frequencies(cfg.d_rope, cfg.rope_theta, device=c_q.device)
     return q_nope, apply_rope(q_rope, _batched(positions), freqs)
 
 
@@ -142,7 +158,8 @@ def mla_apply(
     h = cfg.n_heads
     scale = (cfg.d_nope + cfg.d_rope) ** -0.5
 
-    q_nope, q_rope = _project_q(params, cfg, x, positions)
+    q_nope, q_rope = _project_q(params, cfg, _latent_q(params, x),
+                                positions)
     c_kv_new, k_rope_new = _compress_kv(params, cfg, x, positions)
 
     if cache is not None:
@@ -179,22 +196,59 @@ def mla_apply(
         o_lat = torch.einsum("bhst,btl->bshl", p, c32)
         out = torch.einsum("bshl,lhv->bshv", o_lat, w_uv)
     else:
-        # decompress per head and use the plain attention routes
-        k_nope = torch.einsum("btl,lhd->bthd", c32, w_uk)
-        v = torch.einsum("btl,lhv->bthv", c32, w_uv)
-        k_rope_h = k_rope[:, :, None, :].float().expand(b, t, h, cfg.d_rope)
-        k_full = torch.cat([k_nope, k_rope_h], dim=-1)
-        q_full = torch.cat([q_nope.float(), q_rope.float()], dim=-1)
-        qh = q_full.transpose(1, 2)
-        kh = k_full.transpose(1, 2)
-        vh = v.transpose(1, 2)
-        if max(s, t) <= cfg.full_attn_max_seq:
-            out = _full_attention(qh, kh, vh, positions, kpos, True, None,
-                                  cache_len)
-        else:
-            out = _chunked_attention(qh, kh, vh, positions, kpos, True, None,
-                                     cache_len, cfg.chunk)
-        out = out.transpose(1, 2)  # [B, S, h, d_v]
+        out = _expanded(cfg, h, w_uk, w_uv, q_nope, q_rope, c32, k_rope,
+                        positions, kpos, cache_len)
 
     out = out.reshape(b, s, h * cfg.d_v).to(x.dtype)
     return linear(params["wo"], out), cache
+
+
+def _expanded(cfg: MLAConfig, h: int, w_uk, w_uv, q_nope, q_rope, c32,
+              k_rope, positions, kpos, cache_len):
+    """The expanded route: K/V decompressed per head in float32, then
+    the plain attention routes.  Returns [B, S, h, d_v]."""
+    b, t = c32.shape[:2]
+    s = q_nope.shape[1]
+    k_nope = torch.einsum("btl,lhd->bthd", c32, w_uk)
+    v = torch.einsum("btl,lhv->bthv", c32, w_uv)
+    k_rope_h = k_rope[:, :, None, :].float().expand(b, t, h, cfg.d_rope)
+    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    q_full = torch.cat([q_nope.float(), q_rope.float()], dim=-1)
+    qh = q_full.transpose(1, 2)
+    kh = k_full.transpose(1, 2)
+    vh = v.transpose(1, 2)
+    if max(s, t) <= cfg.full_attn_max_seq:
+        out = _full_attention(qh, kh, vh, positions, kpos, True, None,
+                              cache_len)
+    else:
+        out = _chunked_attention(qh, kh, vh, positions, kpos, True, None,
+                                 cache_len, cfg.chunk)
+    return out.transpose(1, 2)  # [B, S, h, d_v]
+
+
+def mla_apply_tp(tp, params, cfg: MLAConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """The expanded route of :func:`mla_apply`, without a cache, on this
+    rank's ``n_heads / n`` heads over ``tp``'s ``model`` group
+    (``parallel.tensor.mla_splits`` holds for ``cfg``): ``wq_b`` and
+    ``wkv_b`` are the rank's column slabs, ``wo`` its row slab.  The
+    latents (``wq_a`` and ``q_norm``, ``wkv_a`` and ``kv_norm``, and the
+    shared RoPE key) compute whole on every rank and enter the heads'
+    products by ``copy_to_model`` (in float32, as the expanded route
+    reads them), so their gradients sum the ranks' heads; ``wq_b`` is a
+    column product and ``wo`` a row product (``parallel.tensor``).
+    Returns the output [B, S, D]."""
+    b, s, _ = x.shape
+    h = cfg.n_heads // tp.size
+    q_nope, q_rope = _project_q(params, cfg, _latent_q(params, x),
+                                positions, tp)
+    c_kv, k_rope = _compress_kv(params, cfg, x, positions)
+    latent = copy_to_model(torch.cat([c_kv, k_rope], -1).float(), tp)
+    c_kv, k_rope = latent[..., :cfg.kv_lora], latent[..., cfg.kv_lora:]
+    wkv_b = params["wkv_b"]["w"].reshape(cfg.kv_lora, h,
+                                         cfg.d_nope + cfg.d_v)
+    out = _expanded(cfg, h, wkv_b[..., :cfg.d_nope].float(),
+                    wkv_b[..., cfg.d_nope:].float(), q_nope, q_rope,
+                    c_kv.float(), k_rope, positions, positions, None)
+    out = out.reshape(b, s, h * cfg.d_v).to(x.dtype)
+    return row_product(out, params["wo"], tp, x.dtype)

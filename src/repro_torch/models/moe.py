@@ -53,6 +53,7 @@ from repro_torch.models.layers import (
     linear_init,
     linear_specs,
     mlp_apply,
+    mlp_apply_tp,
     mlp_init,
     mlp_specs,
     mlp_static,
@@ -319,18 +320,21 @@ def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor,
 
 
 def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
-                 split: bool, kernels: bool = True) -> torch.Tensor:
+                 split: bool, kernels: bool = True,
+                 shared_split: bool = False) -> torch.Tensor:
     """:func:`moe_apply` inside the sharded train step
     (``parallel.tensor.tensor_parallel_ctx``), on this rank's rows of the
     batch: the training twin of :func:`_moe_sharded`, with gradients.
     With ``split`` (``parallel.tensor.experts_split``) ``params["experts"]``
     is the rank's slab of ``tp``'s ``model`` group: every token of the
     rows runs through the slab's experts and the partial outputs sum over
-    the group; else every rank runs all experts.  The router and the
-    shared experts run whole.  Capacity and each pair's place in its
-    expert's queue are the whole batch's (the rows' row block after the
-    earlier blocks', counts all-gathered over ``pod``/``data``), as the
-    reference's step computes them over its global batch."""
+    the group; else every rank runs all experts.  The router runs whole,
+    and the shared experts on their ``ff`` slabs with ``shared_split``
+    (``layers.mlp_apply_tp``), else whole.  Capacity and each pair's
+    place in its expert's queue are the whole batch's (the rows' row
+    block after the earlier blocks', counts all-gathered over
+    ``pod``/``data``), as the reference's step computes them over its
+    global batch."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     top_w, top_e = _route(params, cfg, xf)
@@ -347,7 +351,10 @@ def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
         out = _dispatch_compute_combine(xf, top_w, top_e, params["experts"],
                                         cfg, 0, earlier)
     out = out.reshape(b, s, d)
-    if "shared" in params:
+    if "shared" in params and shared_split:
+        out = out + mlp_apply_tp(tp, params["shared"], static["shared"], x,
+                                 kernels)
+    elif "shared" in params:
         out = out + mlp_apply(params["shared"], static["shared"], x,
                               kernels)
     return out

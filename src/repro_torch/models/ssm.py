@@ -19,6 +19,12 @@ here reads the device from the host.
 The cache ``{conv [B, d_conv - 1, conv_dim], state [B, H, P, N]}`` is
 written in place (the reference returns a new one).
 
+:func:`ssm_apply_tp` is the sharded train step's twin
+(``parallel.tensor``): each rank of the ``model`` group computes its
+heads, the columns of ``in_proj`` and the conv re-laid out from their
+storage slabs (:func:`ssm_columns`), the gated RMSNorm's sum of squares
+all-reduced over the inner width, ``out_proj`` row-parallel.
+
 Technique note (DESIGN §4): the paper's pattern sparsity applies to
 in_proj / out_proj (plain matmuls); the SSD recurrence itself has no
 weight matrix to prune.
@@ -42,9 +48,16 @@ from repro_torch.models.layers import (
     rmsnorm_specs,
     silu,
 )
+from repro_torch.parallel.tensor import (
+    column_product,
+    copy_to_model,
+    reduce_from_model,
+    relayout_columns,
+    row_product,
+)
 
 __all__ = ["SSMConfig", "ssm_init", "ssm_specs", "ssm_apply",
-           "init_ssm_cache"]
+           "ssm_apply_tp", "ssm_columns", "init_ssm_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,14 +126,6 @@ def init_ssm_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,
         "state": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
                              dtype=dtype, device=device),
     }
-
-
-def _split_in_proj(cfg: SSMConfig, zxbcdt: torch.Tensor):
-    di = cfg.d_inner
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di: di + cfg.conv_dim]
-    dt = zxbcdt[..., di + cfg.conv_dim:]  # [.., h]
-    return z, xbc, dt
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -211,18 +216,37 @@ def ssm_apply(
     cache: dict | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """Returns (output [B, S, D], cache written in place)."""
-    b, s, _ = x.shape
-    h, p, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
+    return _ssm(params, cfg, x, cache)
 
-    zxbcdt = linear(params["in_proj"], x)
-    z, xbc, dt = _split_in_proj(cfg, zxbcdt)
+
+def _ssm(params, cfg: SSMConfig, x: torch.Tensor, cache: dict | None,
+         tp=None):
+    """:func:`ssm_apply` on the heads ``params`` carry: ``A_log`` gives
+    their count H, ``in_proj``'s width (``2 H P + 2 G N + H``, packed
+    z | x | B | C | dt) the groups G.  With ``tp`` these are one rank's
+    (:func:`ssm_apply_tp`): ``in_proj`` a column product and ``out_proj``
+    a row product over the ranks (``parallel.tensor``, each rounding once
+    as one product does), and the gated RMSNorm's sum of squares sums
+    over the ranks."""
+    b, s, _ = x.shape
+    p, n = cfg.head_dim, cfg.d_state
+    h = params["A_log"].shape[-1]
+    di = h * p
+    g = (params["in_proj"]["w"].shape[-1] - 2 * di - h) // (2 * n)
+
+    if tp is None:
+        zxbcdt = linear(params["in_proj"], x)
+    else:
+        zxbcdt = column_product(x, params["in_proj"], tp, x.dtype)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di: 2 * di + 2 * g * n]
+    dt = zxbcdt[..., 2 * di + 2 * g * n:]  # [.., h]
     dt = _softplus(dt.float() + params["dt_bias"].float())  # [B, S, H]
     a = -torch.exp(params["A_log"].float())  # [H]
 
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(cfg, xbc, params["conv_w"],
                                  params["conv_b"], conv_state)
-    di = cfg.d_inner
     xh = xbc[..., :di].reshape(b, s, h, p).float()
     Bmat = xbc[..., di: di + g * n].reshape(b, s, g, n).float()
     Cmat = xbc[..., di + g * n:].reshape(b, s, g, n).float()
@@ -254,10 +278,71 @@ def ssm_apply(
 
     y = y + xh * params["D"].float()[None, None, :, None]
     y = y.reshape(b, s, di).to(x.dtype)
-    y = rmsnorm(params["norm"], y * silu(z.float()).to(x.dtype))
-    out = linear(params["out_proj"], y)
+    y = y * silu(z.float()).to(x.dtype)
+    if tp is None:
+        out = linear(params["out_proj"], rmsnorm(params["norm"], y))
+    else:
+        out = row_product(_gated_norm_tp(tp, params["norm"], y,
+                                         cfg.d_inner),
+                          params["out_proj"], tp, y.dtype)
 
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(final_state)
     return out, cache
+
+
+def _gated_norm_tp(tp, params, y: torch.Tensor, width: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rmsnorm`` over the whole inner width of which ``y`` is
+    this rank's slice: the sum of squares summed over ``tp``'s ranks (its
+    gradient too, as every rank's slice reads it), and ``params``'s whole
+    ``scale`` entering by ``copy_to_model``, so its gradient sums the
+    ranks' slices and stays whole."""
+    yf = y.float()
+    ss = copy_to_model(reduce_from_model(
+        (yf * yf).sum(dim=-1, keepdim=True), tp), tp)
+    w = y.shape[-1]
+    scale = copy_to_model(params["scale"], tp)[tp.rank * w:(tp.rank + 1) * w]
+    out = yf * torch.rsqrt(ss / width + eps)
+    return (out * scale.float()).to(y.dtype)
+
+
+def ssm_columns(cfg: SSMConfig, n: int) -> tuple[list, list]:
+    """For each of ``n`` model ranks, the columns (global indices) it
+    computes with, of ``in_proj`` (z | x | B | C | dt) and of the conv
+    (x | B | C): its heads ``[r H / n, (r + 1) H / n)`` of z, x and dt
+    and the groups they read of B and C, in the packed order, so one
+    rank's columns pack as a model of its heads does."""
+    h, p, g, ns = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
+    di, rep, hl = cfg.d_inner, h // g, h // n
+    in_cols, conv_cols = [], []
+    for r in range(n):
+        ch = list(range(r * hl * p, (r + 1) * hl * p))
+        g0, g1 = r * hl // rep, ((r + 1) * hl - 1) // rep + 1
+        grp = list(range(g0 * ns, g1 * ns))
+        xbc = ch + [di + c for c in grp] + [di + g * ns + c for c in grp]
+        in_cols.append(ch + [di + c for c in xbc]
+                       + [2 * di + 2 * g * ns + r * hl + i
+                          for i in range(hl)])
+        conv_cols.append(xbc)
+    return in_cols, conv_cols
+
+
+def ssm_apply_tp(tp, params, cfg: SSMConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """:func:`ssm_apply` without a cache on this rank's heads over
+    ``tp``'s ``model`` group (``parallel.tensor.ssm_splits`` holds for
+    ``cfg``): ``params`` are the rank's storage slabs.  The columns of
+    ``in_proj``, ``conv_w`` and ``conv_b`` this rank's heads compute with
+    are re-laid out from the ranks' slabs (``relayout_columns``, the
+    gradients sent back to the owners); ``A_log``, ``D``, ``dt_bias`` and
+    ``out_proj``'s rows are the rank's heads already.  Returns the
+    output [B, S, D], summed over the group."""
+    in_cols, conv_cols = ssm_columns(cfg, tp.size)
+    local = {**params,
+             "in_proj": {"w": relayout_columns(params["in_proj"]["w"],
+                                               in_cols, tp)},
+             "conv_w": relayout_columns(params["conv_w"], conv_cols, tp),
+             "conv_b": relayout_columns(params["conv_b"], conv_cols, tp)}
+    return _ssm(local, cfg, x, None, tp)[0]

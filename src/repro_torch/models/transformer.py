@@ -71,6 +71,7 @@ from repro_torch.models.mla import (
     MLAConfig,
     init_mla_cache,
     mla_apply,
+    mla_apply_tp,
     mla_init,
     mla_specs,
 )
@@ -86,6 +87,7 @@ from repro_torch.models.ssm import (
     SSMConfig,
     init_ssm_cache,
     ssm_apply,
+    ssm_apply_tp,
     ssm_init,
     ssm_specs,
 )
@@ -529,8 +531,9 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
     """One layer inside the sharded train step's
     ``parallel.tensor.tensor_parallel_ctx``: the blocks of
     ``tensor.layer_splits`` on this rank's slabs of ``tp``'s ``model``
-    group, the rest (MLA, the SSM, norms) whole, and MoE's capacity the
-    whole batch's (``moe.moe_apply_tp``).  Training keeps no cache."""
+    group, the rest (norms, and a block whose heads do not divide) whole,
+    and MoE's capacity the whole batch's (``moe.moe_apply_tp``).
+    Training keeps no cache."""
     if cache is not None:
         raise ValueError("tensor-parallel compute is the train step's: it "
                          "keeps no cache")
@@ -546,8 +549,13 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
                                memory=mem, prefill=False)[0]
 
     h = norm(params["norm1"], x)
-    if mixer == "mla":
+    if mixer == "mla" and "mla" in split:
+        out = mla_apply_tp(tp, params["attn"], static["mla_cfg"], h,
+                           positions)
+    elif mixer == "mla":
         out, _ = mla_apply(params["attn"], static["mla_cfg"], h, positions)
+    elif mixer == "ssm" and "ssm" in split:
+        out = ssm_apply_tp(tp, params["attn"], static["ssm_cfg"], h)
     elif mixer == "ssm":
         out, _ = ssm_apply(params["attn"], static["ssm_cfg"], h, None)
     else:
@@ -561,7 +569,8 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
     h = norm(params["norm2"], x)
     if static["ffn"] == "moe":
         return x + moe_apply_tp(tp, params["moe"], static["moe"], cfg.moe, h,
-                                "moe" in split, kernels), None
+                                "moe" in split, kernels,
+                                "moe_shared" in split), None
     if "mlp" in split:
         return x + mlp_apply_tp(tp, params["mlp"], static["mlp"], h,
                                 kernels), None
@@ -626,12 +635,22 @@ def apply_model(
     ``core.sparse.pattern_spmm_torch``.  Autograd differentiates those,
     and the kernel wrappers refuse inputs that require grad, so a
     training step passes it (``runtime.train``).  Serving keeps the
-    default."""
+    default.
+
+    Inside the sharded train step's ``parallel.tensor.
+    tensor_parallel_ctx``, where the vocabulary splits over ``model``
+    (``tensor.vocab_splits``), the lookups read this rank's rows of the
+    table and the logits (the MTP head's too) are this rank's slab of
+    the padded vocabulary's columns, ``[B, S(+P), vocab_padded / n]``,
+    which ``runtime.train.cross_entropy`` reduces over the group."""
     cfg: ModelConfig = statics["cfg"]
     cdt = cfg.cdtype()
     _, s = tokens.shape
+    tp = tensor.current()
+    vocab_tp = (tp if tp is not None and tensor.vocab_splits(cfg, tp.size)
+                else None)
 
-    x = params["embed"]["w"][tokens].to(cdt)
+    x = _embed(params, cfg, tokens, vocab_tp)
     if cfg.tie_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cdt)  # gemma convention
     if prefix_embeds is not None:
@@ -672,23 +691,49 @@ def apply_model(
 
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     hidden = norm(params["final_norm"], x)
-    logits = _head(params, cfg, hidden)
+    logits = _head(params, cfg, hidden, vocab_tp)
 
     aux = {}
     if cfg.mtp and cache is None:
         # next-next-token head: combine hidden_t with embed(token_{t+1})
         nxt = torch.roll(tokens, -1, dims=1)
-        e_next = params["embed"]["w"][nxt].to(cdt)
+        e_next = _embed(params, cfg, nxt, vocab_tp)
         h_mtp = linear(params["mtp_proj"], torch.cat([hidden, e_next], -1))
         h_mtp, _ = _apply_layer(params["mtp_layer"], statics["mtp_layer"],
                                 cfg, h_mtp, positions, None, None, None,
                                 prefill, kernels=kernels)
         aux["mtp_logits"] = _head(params, cfg,
-                                  norm(params["mtp_norm"], h_mtp))
+                                  norm(params["mtp_norm"], h_mtp), vocab_tp)
     return logits, cache, aux
 
 
-def _head(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    """The tokens' rows of the table, in the compute dtype.  With ``tp``
+    (``tensor.vocab_splits``) the table is this rank's slab of rows: the
+    tokens outside it look up row 0 and are zeroed, and the ranks' rows
+    sum over the group (one of them nonzero, so the sum is exact)."""
+    w = params["embed"]["w"]
+    if tp is None:
+        return w[tokens].to(cfg.cdtype())
+    rows = w.shape[0]
+    local = tokens - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = w[torch.where(inside, local, 0)].to(cfg.cdtype())
+    return tensor.reduce_from_model(
+        torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device)), tp)
+
+
+def _head(params, cfg: ModelConfig, hidden: torch.Tensor,
+          tp=None) -> torch.Tensor:
+    """The logits; with ``tp`` (``tensor.vocab_splits``) this rank's slab
+    of the vocabulary's columns, a column product
+    (``tensor.column_product``)."""
+    if tp is not None:
+        head = ({"w": params["embed"]["w"].T} if cfg.tie_embeddings
+                else params["lm_head"])
+        return tensor.column_product(hidden, head, tp, cfg.cdtype())
     if cfg.tie_embeddings:
         return hidden @ params["embed"]["w"].to(cfg.cdtype()).T
     return linear(params["lm_head"], hidden)

@@ -45,22 +45,34 @@ one device.  What each rank stores:
   * ``step`` and the optimizer's ``count``: whole on every rank, as the
     reference's ``P()``.
 
-Compute is split over ``model`` where the reference's GSPMD step
-splits it (``parallel.tensor``): inside ``tensor_parallel_ctx`` the
-attention heads, the MLPs' ``ff`` (the sparse MLPs' tiles) and the MoE
-experts compute on the rank's slabs, whose gradients stay slabs; every
-other leaf (MLA, the SSM, the embedding and the head, norms, routers)
-is all-gathered over the mesh each step and computed whole, its
-gradient whole on every rank.  The gradients are all-reduced over
-``pod``/``data`` as they come (gloo has no reduce-scatter), then cut to
-the rank's moment slab.  Two whole-leaf quantities stay whole-leaf: the
-global norm sums the slab leaves' squares over ``model``, and int8
-compression takes each slab leaf's scale from its largest value over
-``model``.  MoE capacity is counted over the whole batch
-(``models.moe.moe_apply_tp``).  ``step.comm`` holds the last step's
-bytes: ``param_gather_bytes`` (the params all-gathered, whole),
-``model_reduce_bytes`` and ``model_gather_bytes`` (activations and
-their gradients all-reduced and all-gathered over ``model``).
+Compute is split over ``model`` where the reference's GSPMD step splits
+it (``parallel.tensor``): inside ``tensor_parallel_ctx`` the attention
+heads (one key head re-laid out to each rank where the ranks outnumber
+the key heads), MLA's heads, the SSM's heads (its packed columns re-laid
+out), the MLPs' ``ff`` (the sparse MLPs' tiles), the MoE experts and
+shared experts, and the embedding's and the head's vocabulary compute on
+the rank's slabs, whose gradients stay slabs; the logits are then a slab
+of columns, and :func:`cross_entropy` reduces its max, its sum of
+exponentials and the labels' logits over ``model``.  A split leaf whose
+block's heads or widths do not divide over ``model``
+(``parallel.tensor.layer_splits``) is all-gathered over the mesh each
+step and computed whole, its gradient whole on every rank, as the whole
+leaves (norms, routers, latent projections) are.  The gradients are
+all-reduced over ``pod``/``data`` as they come (gloo has no
+reduce-scatter), then cut to the rank's moment slab.  Two whole-leaf
+quantities stay whole-leaf: the global norm sums the slab leaves'
+squares over ``model``, and int8 compression takes each slab leaf's
+scale from its largest value over ``model``.  MoE capacity is counted
+over the whole batch (``models.moe.moe_apply_tp``), and with
+microbatches over the global microbatch: the batch is all-gathered over
+``pod``/``data`` and each rank's microbatch ``j`` is its row block of
+the global rows ``[j B / n, (j + 1) B / n)``, as the reference cuts
+them.  ``step.comm`` holds the last step's bytes: ``param_gather_bytes``
+(the params all-gathered, whole), ``model_reduce_bytes`` and
+``model_gather_bytes`` (activations and their gradients all-reduced and
+all-gathered over ``model``) and ``model_relayout_bytes`` (the SSM's
+param columns re-laid out over ``model``, forward, and their gradients
+back).
 
 A sharded state checkpoints through ``Trainer``: whole leaves gathered
 over the mesh, written once by rank 0 in the reference's layout, then a
@@ -98,7 +110,15 @@ from repro_torch.parallel.sharding import (
     shard_tensor,
     shard_tree,
 )
-from repro_torch.parallel.tensor import slab_leaves, tensor_parallel_ctx
+from repro_torch.parallel.tensor import (
+    current,
+    data_shards,
+    gather_over_data,
+    reduce_from_model,
+    slab_leaves,
+    tensor_parallel_ctx,
+    vocab_splits,
+)
 from repro_torch.runtime.fault import FailureInjector, StragglerDetector
 
 __all__ = ["TrainConfig", "TrainShardings", "train_shardings",
@@ -168,14 +188,32 @@ def _mean_over_data(mesh, loss, grads):
 
 
 def cross_entropy(
-    logits: torch.Tensor, labels: torch.Tensor, vocab: int
+    logits: torch.Tensor, labels: torch.Tensor, vocab: int, tp=None
 ) -> torch.Tensor:
     """Mean CE in float32; the padding columns (``>= vocab``) are set to
     -1e30 before the log-softmax, so they carry no probability.  Each
     row's label log-probability is picked by a mask and a sum (exact: one
     term is nonzero), so the backward scatters nothing and is
-    deterministic on the card."""
+    deterministic on the card.
+
+    With ``tp`` (a ``parallel.tensor.TensorParallel``), ``logits`` are
+    this rank's slab of the padded vocabulary's columns (rank ``r`` the
+    columns ``[r W, (r + 1) W)``): the row max is all-reduced by ``MAX``
+    and detached, the sum of exponentials and the label's logit (picked
+    where the global column is the label) sum over the group, so every
+    rank returns the whole loss."""
     lf = logits.float()
+    if tp is not None:
+        w = lf.shape[-1]
+        cols = tp.rank * w + torch.arange(w, device=lf.device)
+        lf = torch.where(cols < vocab, lf, -1e30)
+        m = tp.all_reduce(lf.detach().amax(dim=-1, keepdim=True),
+                          dist.ReduceOp.MAX)
+        sumexp = reduce_from_model(torch.exp(lf - m).sum(-1), tp)
+        pick = cols == labels[..., None].long()
+        picked = reduce_from_model(torch.where(
+            pick, lf, torch.zeros((), device=lf.device)).sum(-1), tp)
+        return -(picked - m[..., 0] - torch.log(sumexp)).mean()
     if logits.shape[-1] > vocab:
         lf = torch.cat([lf[..., :vocab],
                         lf.new_full((*lf.shape[:-1], lf.shape[-1] - vocab),
@@ -215,12 +253,15 @@ def make_train_step(
                                      **kwargs)
         if logits.shape[1] != labels.shape[1]:  # vlm prefix: score suffix
             logits = logits[:, -labels.shape[1]:]
-        loss = cross_entropy(logits, labels, cfg.vocab)
+        # the logits are a vocabulary slab where apply_model split it
+        tp = current()
+        tp = tp if tp is not None and vocab_splits(cfg, tp.size) else None
+        loss = cross_entropy(logits, labels, cfg.vocab, tp)
         if "mtp_logits" in aux:
             mtp_labels = torch.roll(labels, -1, dims=1)
             loss = loss + tcfg.mtp_weight * cross_entropy(
                 aux["mtp_logits"][:, : mtp_labels.shape[1]], mtp_labels,
-                cfg.vocab,
+                cfg.vocab, tp,
             )
         return loss
 
@@ -237,15 +278,30 @@ def make_train_step(
                   for g, p in zip(grads, leaves))
         return loss.detach(), _map(lambda _: next(it), params)
 
+    def microbatch(batch, j: int) -> dict:
+        """Microbatch ``j`` of ``tcfg.microbatches`` of the global
+        ``batch``: its rows ``[j B / n, (j + 1) B / n)`` (the reference's
+        ``reshape((n, B // n))``); sharded, this rank's row block of
+        them."""
+        nmb = tcfg.microbatches
+        b = batch["tokens"].shape[0]
+        r, blocks = data_shards(mesh) if sharded else (0, 1)
+        if b % (nmb * blocks):
+            raise ValueError(f"{b} rows do not cut into {nmb} microbatches "
+                             f"of {blocks} row blocks")
+        per = b // (nmb * blocks)
+        lo = j * b // nmb + r * per
+        return {k: v[lo:lo + per] for k, v in batch.items()}
+
     def loss_and_grads(params, batch):
         nmb = tcfg.microbatches
         if nmb > 1:
-            b = batch["tokens"].shape[0]
-            per = b // nmb
+            if sharded:  # the global batch: row blocks in order
+                batch = {k: gather_over_data(mesh, v).flatten(0, 1)
+                         for k, v in batch.items()}
             loss, grads = 0.0, None
             for j in range(nmb):
-                mbatch = {k: v[j * per:(j + 1) * per] for k, v in batch.items()}
-                l_j, g_j = value_and_grad(params, mbatch)
+                l_j, g_j = value_and_grad(params, microbatch(batch, j))
                 loss = loss + l_j
                 grads = g_j if grads is None else _map(torch.add, grads, g_j)
             loss = loss / nmb
@@ -327,6 +383,7 @@ def make_train_step(
                 loss, grads = loss_and_grads(params, batch)
             step.comm["model_reduce_bytes"] = tp.reduce_bytes
             step.comm["model_gather_bytes"] = tp.gather_bytes
+            step.comm["model_relayout_bytes"] = tp.relayout_bytes
             loss, grads = _mean_over_data(mesh, loss, grads)
         else:
             loss, grads = loss_and_grads(params, batch)
@@ -354,7 +411,8 @@ def make_train_step(
         return new_state, metrics
 
     step.comm = dict.fromkeys(("param_gather_bytes", "model_reduce_bytes",
-                               "model_gather_bytes"), 0)
+                               "model_gather_bytes", "model_relayout_bytes"),
+                              0)
     return step
 
 

@@ -328,8 +328,17 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     # are 1 x 16 tokens
     monkeypatch.setattr(cs, "SHARD_TRAIN_BATCH", (4, 32))
     monkeypatch.setattr(cs, "PIPE_TOKENS", 16)
-    # (h): jamba's smoke config (as on the card) on 4 x 32 tokens
+    # (h): jamba's smoke config (as on the card) on 4 x 32 tokens; (i) and
+    # (j): DeepSeek-V2's first layer and 2 of mamba2's layers at smoke
+    # width on 4 x 32 tokens
     monkeypatch.setattr(cs, "JAMBA_SHARD_BATCH", (4, 32))
+    monkeypatch.setattr(cs, "deepseek_shard_config",
+                        lambda: get_smoke_config("deepseek_v2_236b"))
+    monkeypatch.setattr(cs, "mamba2_shard_config",
+                        lambda: get_smoke_config("mamba2_780m"))
+    monkeypatch.setattr(cs, "DEEPSEEK_SHARD_BATCH", (4, 32))
+    monkeypatch.setattr(cs, "MAMBA_SHARD_LAYERS", 2)
+    monkeypatch.setattr(cs, "MAMBA_SHARD_BATCH", (4, 32))
     # the entry_points phase: the launcher on the smoke danube, 4 requests
     # through 2 slots; the twins at their own sizes on the CPU
     monkeypatch.setattr(cs, "ENTRY_SERVE_ARGS", [
@@ -616,9 +625,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert len(one["losses_sharded"]) == cs.ONE_RANK_STEPS
     ts = lines[16]
     f, g, h = ts["part_f"], ts["part_g"], ts["part_h"]
+    i, j = ts["part_i"], ts["part_j"]
     assert f["layers"] == "4 of 2" and h["width"] == "smoke"
     assert h["model"] == "jamba_smoke"
-    for part in (f, h):
+    assert i["layers"] == "1 of 3" and i["layer_types"] == [["mla", "mlp"]]
+    assert j["layers"] == "2 of 4"
+    for part in (f, h, i, j):
         assert part["mesh"] == [2, 2]
         assert part["ranks_losses_equal"]
         assert len(part["losses_float32"]) == 2
@@ -626,6 +638,20 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert [r["off_where_posed"] for r in part["params_rule"]] == [0,
                                                                        None]
         assert all(r["share_off"] <= cs.MAX_ILL for r in part["params_rule"])
+        # the reference held to itself: its steps from params one ulp
+        # away; (f) and (h) stay on the fixed floors, a part whose own
+        # reference fails them takes each weight's measured change
+        noise = part["reference_noise"]
+        assert part["fixed_floors"] == (part in (f, h))
+        assert len(noise["self_rules"]) == cs.NUDGES
+        assert not (noise["noise_clause"] and part["fixed_floors"])
+        assert noise["noise_clause"] == (not part["fixed_floors"] and any(
+            r["off_where_posed_by_fixed_floors"]
+            for r in noise["self_rules"]))
+        if noise["noise_clause"]:
+            assert 0 <= noise["grad_noise_rel_max"] < 1
+            assert all(r["off_where_posed"] == 0
+                       for r in noise["self_rules"])
         assert part["resident_bytes"] == [
             {k: r[k] for k in ("params", "moments")}
             for r in part["reckoned_bytes"]]
@@ -634,24 +660,29 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                    for r in part["reckoned_bytes"])
         assert sorted(tuple(c.values()) for c in part["coords"]) == [
             (0, 0), (0, 1), (1, 0), (1, 1)]
-        assert part["restore"]["bit_equal"]
-        assert part["restore"]["restored_step"] == 2
-        assert len(part["checkpoint_seconds"]) == 1
+        if part in (f, h):  # (i) and (j) keep no checkpoint
+            assert part["restore"]["bit_equal"]
+            assert part["restore"]["restored_step"] == 2
+            assert len(part["checkpoint_seconds"]) == 1
+        else:
+            assert part["restore"] is None
         assert max(part["bf16"]["rel_vs_unsharded_bf16"]) <= (
             cs.SHARD_TRAIN_BF16_REL)
-        # tensor-parallel compute: only the embedding and the head (and,
-        # for jamba, its SSM, routers and norms' split leaves) gathered,
-        # each step; activations all-reduced over model
+        # tensor-parallel compute: no split leaf gathered, each step;
+        # activations all-reduced over model and, where an SSM splits,
+        # its columns re-laid out, by the bytes reckoned
         for comm, reck in zip(part["comm_per_step"], part["reckoned_bytes"]):
-            assert [c["param_gather_bytes"] for c in comm] == [
-                reck["gathered_params"]] * 2
-            assert all(c["model_reduce_bytes"] > 0 for c in comm)
-            assert reck["gathered_params"] < reck["whole_params"]
+            assert [c["param_gather_bytes"] for c in comm] == [0] * 2
+            assert reck["gathered_leaves"] == 0
+            assert [c["model_reduce_bytes"] for c in comm] == [
+                reck["model_reduce_bytes"]] * 2
+            assert [c["model_relayout_bytes"] for c in comm] == [
+                reck["model_relayout_bytes"]] * 2
+            assert reck["model_reduce_bytes"] > 0
+            assert (reck["model_relayout_bytes"] > 0) == (part in (h, j))
     # danube's sparse MLPs gather their tiles' columns; jamba's are dense
     assert all(c["model_gather_bytes"] > 0
                for comm in f["comm_per_step"] for c in comm)
-    # danube: the embedding and the head are its only split leaves left
-    assert {r["gathered_leaves"] for r in f["reckoned_bytes"]} == {2}
     assert g["layers"] == 8 and g["stages"] == 4 and g["microbatches"] == 6
     assert g["finite"] and g["ranks_equal"]
     assert g["max_abs_diff"] <= cs.PIPE_REL * g["fold_max_abs"]

@@ -13,9 +13,12 @@ same ``frames`` and paligemma with the same ``prefix_embeds`` through
     ``grad_norm`` within 1e-5 relative, and the (clipped) gradients
     recovered from the update within 1e-4 of each leaf's largest |g|;
   * with AdamW, for granite at microbatches 1 and 2, each with and
-    without int8 gradient compression, and for DeepSeek-V3 (the MTP loss)
-    and paligemma (the suffix scored): ``loss`` within 1e-5 relative and
-    the updated params within ``0.05 * lr``, the reference's own bound
+    without int8 gradient compression, for DeepSeek-V3 (the MTP loss)
+    and paligemma (the suffix scored), and for jamba and DeepSeek-V2 at
+    microbatches 2 (MoE capacity counted over each microbatch, whose
+    seeded routes drop pairs; the grad norm within 1e-5 relative too):
+    ``loss`` within 1e-5 relative and the updated params within
+    ``0.05 * lr``, the reference's own bound
     (``tests/test_train.py::test_microbatching_matches_full_batch``):
     Adam's first step moves a weight by about ``lr`` whatever its
     gradient, so a gradient near the float32 noise floor moves it by a
@@ -199,6 +202,7 @@ def _adamw_case(arch, rows=4, **tkw):
         jr = _by_key(jstate["comp_state"])
         for key, r in _leaf_paths(tstate["comp_state"]):
             assert r.dtype == torch.float32 and r.shape == jr[key].shape
+    return tm, jm
 
 
 @pytest.mark.parametrize("compression", [False, True])
@@ -213,3 +217,33 @@ def test_adamw_step_mtp_and_suffix_match_reference(arch):
     """DeepSeek-V3 adds its MTP loss on ``roll(labels, -1)``; paligemma
     scores the suffix after its 8 patches."""
     _adamw_case(arch)
+
+
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b",
+                                  "deepseek_v2_236b"])
+def test_adamw_step_moe_microbatches_match_reference(arch, monkeypatch):
+    """Two microbatches of 2 rows: the reference cuts microbatch j from
+    rows ``[2 j, 2 j + 2)`` and counts MoE capacity over it alone; so
+    does the port, and the seeded routes of each microbatch drop pairs
+    in some MoE layer, so a capacity counted over other rows would
+    show."""
+    from repro_torch.models import moe as tmoe
+
+    tm, jm = _adamw_case(arch, microbatches=2)
+    assert _rel(tm["grad_norm"], jm["grad_norm"]) <= REL
+    _, _, _, tcfg, tp, tst, batch, kw = _setup(arch, 4)
+    drops = []
+    real = tmoe._route
+
+    def spy(p, c, xf):
+        out = real(p, c, xf)
+        drops.append(int((~tmoe.kept_pairs(out[1], c)).sum()))
+        return out
+
+    monkeypatch.setattr(tmoe, "_route", spy)
+    tokens = torch.as_tensor(batch["tokens"])[:, :-1]
+    with torch.no_grad():
+        for j in (0, 1):
+            drops.clear()
+            ttr.apply_model(tp, tst, tokens[2 * j:2 * j + 2], kernels=False)
+            assert sum(drops) > 0, (j, drops)

@@ -2,8 +2,8 @@
 (and ``tests/test_torch_fault_data.py``'s ``data`` job,
 ``tests/test_torch_sharded_train.py``'s ``train`` and ``restore`` jobs,
 ``tests/test_torch_pipeline.py``'s ``pipeline`` job,
-``tests/test_torch_tensor_parallel.py``'s ``tp_mlp`` and ``tp_train``
-jobs).
+``tests/test_torch_tensor_parallel.py``'s ``tp_mlp``, ``tp_blocks``
+and ``tp_train`` jobs).
 
     python tests/torch_mesh_worker.py <spec.pkl> <rank>
 
@@ -294,6 +294,67 @@ def tp_mlp_job(job: dict) -> dict:
     return out
 
 
+def tp_blocks_job(job: dict) -> dict:
+    """The tensor-parallel twins of the blocks that split over ``model``
+    beside the MLP, on this rank's slabs of each case's whole numpy params
+    inside ``tensor_parallel_ctx``, under the upstream gradient ``dy``:
+    ``"vocab"`` the lookup, the head and ``cross_entropy`` (its loss and
+    the lookup's output), ``"ssm"`` ``ssm_apply_tp``, ``"attn"``
+    ``attention_apply_tp`` and ``"mla"`` ``mla_apply_tp`` (their output
+    and input's gradient); each with its
+    slabs' gradients and the bytes each collective moved."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.attention import (
+        attention_apply_tp,
+        attention_specs,
+    )
+    from repro_torch.models.mla import mla_apply_tp, mla_specs
+    from repro_torch.models.ssm import ssm_apply_tp, ssm_specs
+    from repro_torch.optim.optimizers import _map
+    from repro_torch.parallel.sharding import shard_tree, tree_shardings
+    from repro_torch.parallel.tensor import tensor_parallel_ctx
+    from repro_torch.runtime.train import cross_entropy
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    out = {}
+    for name, kind, cfg, params, inputs in job["cases"]:
+        whole = _map(torch.as_tensor, params)
+        specs = {"vocab": lambda: transformer.init_specs(cfg),
+                 "ssm": lambda: ssm_specs(cfg),
+                 "attn": lambda: attention_specs(cfg),
+                 "mla": lambda: mla_specs(cfg)}[kind]()
+        specs = {k: specs[k] for k in whole}
+        slabs = shard_tree(whole, tree_shardings(specs, whole, mesh))
+        live = _map(lambda t: t.detach().clone().requires_grad_(True), slabs)
+        res = {}
+        with tensor_parallel_ctx(mesh) as tp:
+            if kind == "vocab":
+                x = transformer._embed(live, cfg, torch.as_tensor(
+                    inputs["tokens"]), tp)
+                logits = transformer._head(live, cfg, x, tp)
+                y = cross_entropy(logits, torch.as_tensor(inputs["labels"]),
+                                  cfg.vocab, tp)
+                y.backward()
+                res.update(loss=float(y), x=_np(x))
+            else:
+                xt = torch.as_tensor(inputs["x"]).requires_grad_(True)
+                pos = torch.arange(xt.shape[1])
+                if kind == "ssm":
+                    y = ssm_apply_tp(tp, live, cfg, xt)
+                elif kind == "attn":
+                    y = attention_apply_tp(tp, live, cfg, xt, pos)
+                else:
+                    y = mla_apply_tp(tp, live, cfg, xt, pos)
+                (y * torch.as_tensor(inputs["dy"])).sum().backward()
+                res.update(y=_np(y), dx=_np(xt.grad))
+        res.update(grads=_map(lambda t: _np(t.grad), live),
+                   reduce_bytes=tp.reduce_bytes,
+                   relayout_bytes=tp.relayout_bytes)
+        out[name] = res
+    return out
+
+
 def tp_train_job(job: dict) -> dict:
     """The sharded step with tensor-parallel compute, ``job["steps"]``
     steps of each case of ``job["cases"]`` (a port config, whole numpy
@@ -332,8 +393,8 @@ def tp_train_job(job: dict) -> dict:
         opt = adamw(weight_decay=0.0)
         step = rt.make_train_step(
             cfg, statics, opt, lambda s: job["lr"], tcfg,
-            model_kwargs_fn=lambda b: {k: b[k] for k in ("frames",)
-                                       if k in b},
+            model_kwargs_fn=lambda b: {k: b[k] for k in (
+                "frames", "prefix_embeds") if k in b},
             shardings=shardings)
         state = rt.init_train_state(params, opt, tcfg, shardings)
         del params
@@ -357,6 +418,10 @@ def tp_train_job(job: dict) -> dict:
         out[name] = {
             "steps": rows,
             "slab_ids": [id(pl) for pl, s in zip(pls, flags) if s],
+            "gathered_paths": [
+                k for (k, pl), (_, s) in zip(_leaf_paths(shardings.params),
+                                             _leaf_paths(slab))
+                if not s and not pl.whole],
             "gathered_ids": [id(pl) for pl, s in zip(pls, flags)
                              if not s and not pl.whole],
             "gathered_bytes": size * sum(
@@ -390,7 +455,7 @@ def pipeline_job(job: dict) -> dict:
 JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job, "data": data_job,
         "train": train_job, "restore": restore_job,
         "pipeline": pipeline_job, "tp_mlp": tp_mlp_job,
-        "tp_train": tp_train_job}
+        "tp_blocks": tp_blocks_job, "tp_train": tp_train_job}
 
 
 def main(spec_path: str, rank: int) -> None:
