@@ -71,7 +71,20 @@ full-width, full-depth h2o-danube-1.8B, every prefill through the flash
 kernel, and the example twins run (``serve_decode_torch.py``,
 ``quickstart_torch.py``, ``serve_http_torch.py --check`` on both
 backends, its generation trace through ``benchmarks/check_baseline.py
---require-mid-decode``), each a subprocess whose failure fails the run.
+--require-mid-decode``), each a subprocess whose failure fails the run;
+then (``dryrun``) the dry run's reckonings held against the card: (a)
+``launch.op_stats`` over fake tensors predicts the train phase's
+full-width danube step, whose real run on the card must count the same
+FLOPs, peak within ``DRYRUN_PEAK_REL`` of the prediction and take no
+less than its roofline bound; (b) the predicted collective bytes of the
+``train_shard`` phase's (f) step, by kind, equal its ``step.comm``; (c)
+four spawned gloo ranks serve danube at full width, cut to 4 layers,
+through the placed prefill (the flash kernel on each gathered layer,
+each call held to its plain version) and 8 placed decode steps: tokens
+equal to the unsharded run's, each rank's resident bytes its slabs',
+and a placed decode step's peak and collective bytes as predicted; (d)
+two production cells of ``python -m repro_torch.launch.dryrun`` (256
+fake ranks) with status ok.
 Before each path it builds the CUDA kernels from the sources in ``src/``
 and holds each against its plain PyTorch version on the card, at every
 shape the path gives it.
@@ -80,7 +93,7 @@ Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
 ``lm_configs``, ``ssm_whisper``, ``vlm``, ``train``, ``train_shard``,
-``entry_points``, ``times``.  The
+``entry_points``, ``dryrun``, ``times``.  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -537,6 +550,19 @@ ENTRY_SERVE_ARGS = ["--arch", "h2o_danube_1_8b", "--requests", "8",
                     str(ENTRY_NEW)]
 ENTRY_HTTP = 100
 ENTRY_TIMEOUT_S = 300
+
+
+# the dryrun phase: (a) the train phase's step predicted, then measured;
+# (c) placed serving of danube cut as (f) on the 2 x 2 gloo mesh; (d) the
+# production cells planned through run_cell
+DRYRUN_PEAK_REL = 0.10
+DRYRUN_BATCH = 4  # (c): prompts, split over data
+DRYRUN_PROMPT = 124  # (c): prompt tokens; decode crosses the slab edge at 128
+DRYRUN_MAX_SEQ = 256  # (c): cache positions, split over model
+DRYRUN_DECODE = 8
+DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k"),
+                ("qwen2_5_32b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 600
 
 
 def prune_model_config():
@@ -4478,7 +4504,8 @@ def train_shard_phase(seed: int, dev) -> dict:
           and g["max_abs_diff"] <= PIPE_REL * g["fold_max_abs"],
           f"pipeline_apply vs the sequential fold: {g['max_abs_diff']} "
           f"(largest {g['fold_max_abs']}), ranks equal {g['ranks_equal']}")
-    return {}
+    # (f)'s first step on rank 0, which the dryrun phase predicts
+    return {"f_cfg": cfg_f, "f_comm": f["comm_per_step"][0][0]}
 
 
 def shard_train_report(part, ranks, restored, world) -> dict:
@@ -4604,6 +4631,451 @@ def train_shard_checks(f) -> None:
     check(all(np.isfinite(f["bf16"]["losses"]))
           and max(f["bf16"]["rel_vs_unsharded_bf16"]) <= SHARD_TRAIN_BF16_REL,
           f"sharded bf16 losses vs the unsharded bf16 run: {f['bf16']}")
+
+
+def dryrun_train_predict(cfg, batch, tokens_dtype: str) -> dict:
+    """(a)'s prediction: the train phase's unsharded step (AdamW, no
+    weight decay, ``TRAIN_LR``) over fake tensors on the host, counted by
+    ``launch.op_stats``; the state and the batch are its inputs."""
+    import torch
+
+    from repro_torch.launch.dryrun import _static_tensors
+    from repro_torch.launch.op_stats import OpStats, fake_mode
+    from repro_torch.models.transformer import init_params, init_statics
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    statics = init_statics(cfg, "cpu")
+    opt = adamw(weight_decay=0.0)
+    tcfg = TrainConfig()
+    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg)
+    mode = fake_mode()
+    with mode:
+        params, _ = init_params(cfg, torch.Generator(), device="cpu")
+        state = init_train_state(params, opt, tcfg)
+        del params
+        rows, seq = batch
+        toks = torch.zeros((rows, seq + 1), dtype=getattr(torch,
+                                                          tokens_dtype))
+        t0 = time.perf_counter()
+        with OpStats() as st:
+            st.add_inputs(state, {"tokens": toks},
+                          _static_tensors(statics))
+            step(state, {"tokens": toks})
+    return {"flops": st.flops, "bytes": st.bytes,
+            "peak_bytes": st.peak_bytes, "trace_s": time.perf_counter() - t0}
+
+
+def dryrun_plan(spec: dict, which: str, out: str) -> None:
+    """One planning process of the dryrun phase (a fake process group of
+    its own): ``which`` is ``"abc"`` (the predictions of (a), (b) and
+    (c)) or a cell of ``DRYRUN_CELLS`` by index (d); writes a pickle."""
+    import pickle
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.optim import adamw
+
+    torch.set_num_threads(1)
+    res = {}
+    if which == "abc":
+        res["a"] = dryrun_train_predict(spec["train_cfg"], spec["batch"],
+                                        spec["tokens_dtype"])
+        mesh = make_fake_mesh(spec["mesh"], ("data", "model"))
+        rows, seq = spec["f_batch"]
+        built = build_step("h2o_danube_1_8b", ShapeSpec("part_f", "train",
+                                                        seq, rows),
+                           mesh, cfg=spec["f_cfg"],
+                           opt=adamw(weight_decay=0.0))
+        stats, secs = dryrun.measure(built, mesh)
+        res["b"] = {"by_kind": dict(stats.collective_bytes_by_kind),
+                    "by_dim": dict(stats.collective_bytes_by_dim),
+                    "step_comm": dict(built.fn.comm), "trace_s": secs}
+        built = build_step("h2o_danube_1_8b", ShapeSpec(
+            "part_c", "decode", spec["max_seq"], spec["serve_batch"]),
+            mesh, cfg=spec["serve_cfg"])
+        stats, secs = dryrun.measure(built, mesh)
+        res["c"] = {"by_kind": dict(stats.collective_bytes_by_kind),
+                    "peak_bytes": stats.peak_bytes,
+                    "flops": stats.flops, "trace_s": secs}
+    else:
+        arch, shape = spec["cells"][int(which)]
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, False, spec["out"], force=True)
+        rec["seconds"] = time.perf_counter() - t0
+        res["d"] = rec
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def dryrun_serve_rank(rank: int, spec: dict) -> None:
+    """One rank of (c): joins the gloo group, holds its slabs of the
+    float32 danube (4 layers, full width) and of the bf16 cache (as the
+    production steps keep it), runs the
+    placed prefill (flash launches counted, each call recorded) and
+    ``DRYRUN_DECODE`` placed decode steps, then a measured placed decode
+    step on the plain routes (its peak above what was allocated before
+    it, and its collectives, by ``launch.op_stats``); rank 0 also serves
+    the whole batch unsharded first.  Writes ``serve<r>.pkl``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if spec["prepare"] is not None:
+        spec["prepare"]()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    world = math.prod(spec["mesh"])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        dryrun_serve_run(rank, spec)
+    except BaseException:
+        # the spawn reports the first rank it sees fail, often a peer
+        # whose connection this rank's exit closed: keep every cause
+        import traceback
+
+        with open(os.path.join(spec["out"], f"serve{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_serve_run(rank: int, spec: dict) -> None:
+    """:func:`dryrun_serve_rank`'s work, in the rank's group."""
+    import pickle
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch.dryrun import _static_tensors
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+    from repro_torch.launch.op_stats import OpStats
+    from repro_torch.models.transformer import (
+        _leaves,
+        init_cache,
+        init_params,
+        init_specs,
+    )
+    from repro_torch.parallel.tensor import data_shards
+    from repro_torch.runtime.serve import (
+        ServeConfig,
+        decode_logits,
+        make_prefill_step,
+        place_serving_state,
+        serve_shardings,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(spec["mesh"], ("data", "model"),
+                     device_type=spec["device_type"])
+    dev = mesh_device(mesh)
+    cfg = spec["serve_cfg"]
+    params, statics = init_params(
+        cfg, torch.Generator(device=dev).manual_seed(spec["seed"]),
+        device=dev)
+    b, p, t = spec["serve_batch"], spec["prompt"], spec["max_seq"]
+    prompts = torch.as_tensor(np.random.default_rng(spec["seed"] + 41)
+                              .integers(1, cfg.vocab, (b, p)), device=dev)
+    scfg = ServeConfig(max_seq=t, cache_dtype="bfloat16")
+    out = {"device": str(dev)}
+
+    def serve(params, cache, rows, shardings):
+        tok, cache = make_prefill_step(cfg, statics, scfg,
+                                       shardings=shardings)(
+            params, cache, prompts[rows])
+        toks = [tok]
+        for i in range(spec["steps"]):
+            logits, cache = decode_logits(
+                statics, params, cache, tok,
+                torch.tensor(p + i, device=dev), shardings)
+            tok = logits.argmax(dim=-1)
+            toks.append(tok)
+        return [x.cpu().numpy() for x in toks], cache
+
+    with torch.no_grad():
+        if rank == 0:
+            cache = init_cache(statics, b, t, torch.bfloat16, device=dev)
+            out["unsharded_tokens"], _ = serve(params, cache,
+                                               slice(None), None)
+            del cache
+        cache = init_cache(statics, b, t, torch.bfloat16, device=dev)
+        sh = serve_shardings(init_specs(cfg), params, cache, mesh)
+        out["reckoned_bytes"] = sum(
+            math.prod(pl.slab_shape) * x.element_size()
+            for x, pl in zip([*_leaves(params), *_leaves(cache)],
+                             [*_leaves(sh.params), *_leaves(sh.cache)]))
+        p_slab, c_slab = place_serving_state(params, cache, sh)
+        del params, cache
+        gc.collect()
+        r, n = data_shards(mesh)
+        rows = slice(r * b // n, (r + 1) * b // n)
+        tfa.flash_attention_cuda.launches = 0
+        (toks, c_slab), calls = recorded_flash_calls(
+            lambda: serve(p_slab, c_slab, rows, sh))
+        out["flash_launches"] = tfa.flash_attention_cuda.launches
+        out["rows"] = (rows.start, rows.stop)
+        out["tokens"] = toks
+        out["flash_rows"] = [flash_row(dict(
+            case=f"placed prefill layer {i}", dtype=cfg.compute_dtype,
+            **c), y) for i, (c, y) in enumerate(calls)]
+        out["resident_bytes"] = _nbytes(p_slab) + _nbytes(c_slab)
+        # the measured step: a placed decode at the cache's last
+        # position on the plain routes, as the dry run plans it
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        tok = torch.zeros(b // n, dtype=torch.int32, device=dev)
+        pos = torch.tensor(t - 1, dtype=torch.int32, device=dev)
+        _reset_peak(dev)
+        before = (torch.cuda.memory_allocated(dev)
+                  if dev.type == "cuda" else 0)
+        with OpStats().name_groups(mesh) as st:
+            st.add_inputs(p_slab, c_slab, tok, pos,
+                          _static_tensors(statics))
+            inputs = int(st.bytes)
+            decode_logits(statics, p_slab, c_slab, tok, pos, sh,
+                          kernels=False)
+        _sync(dev)
+        out["measured_peak_bytes"] = (
+            _cuda_peak(dev) - before + inputs
+            if dev.type == "cuda" else st.peak_bytes)
+        out["input_bytes"] = inputs
+        out["op_stats_peak_bytes"] = st.peak_bytes
+        out["by_kind"] = dict(st.collective_bytes_by_kind)
+        out["flops"] = st.flops
+    with open(os.path.join(spec["out"], f"serve{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def dryrun_train_measure(seed: int, dev, pred: dict) -> dict:
+    """(a) measured: one step of the train phase's danube on the card
+    under ``launch.op_stats`` (the same counter as the prediction), its
+    time, and its peak above what was allocated before it plus its
+    inputs (what the prediction counts)."""
+    import torch
+
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.dryrun import _static_tensors
+    from repro_torch.launch.op_stats import OpStats
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+    from repro_torch.runtime.train import _to_device
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = train_config()
+    params, statics = init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    opt = adamw(weight_decay=0.0)
+    tcfg = TrainConfig()
+    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg)
+    state = init_train_state(params, opt, tcfg)
+    del params
+    batch = _to_device(next(train_data(seed, SyntheticCorpus(
+        TRAIN_CORPUS_VOCAB, seed), TRAIN_BATCH)), dev)
+    _sync(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_peak(dev)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    with OpStats() as st:
+        st.add_inputs(state, batch, _static_tensors(statics))
+        inputs = int(st.bytes)
+        state, _ = step(state, batch)
+        _sync(dev)
+    measured = (_cuda_peak(dev) - before + inputs
+                if dev.type == "cuda" else st.peak_bytes)
+    # the step's time without the counter's per-op work
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    bound_s = max(pred["flops"] / dryrun_peak_flops(cfg),
+                  pred["bytes"] / HBM_BYTES_PER_S)
+    return {"model": cfg.name, "batch": list(TRAIN_BATCH),
+            "flops_predicted": pred["flops"], "flops_measured": st.flops,
+            "peak_predicted_bytes": pred["peak_bytes"],
+            "peak_measured_bytes": measured,
+            "input_bytes": inputs,
+            "peak_rel": abs(pred["peak_bytes"] - measured) / measured,
+            "peak_limit": DRYRUN_PEAK_REL,
+            "step_seconds": seconds, "bound_seconds": bound_s,
+            "bound_by": ("operations" if pred["flops"] / dryrun_peak_flops(
+                cfg) >= pred["bytes"] / HBM_BYTES_PER_S else "bytes"),
+            "predict_trace_s": pred["trace_s"]}
+
+
+def dryrun_peak_flops(cfg) -> float:
+    return PEAK_FP32_FLOPS if cfg.compute_dtype == "float32" \
+        else PEAK_BF16_FLOPS
+
+
+def dryrun_phase(seed: int, dev, shard_train: dict) -> dict:
+    """The ``dryrun`` phase, (a) to (d), and its JSON line; the planning
+    runs in three spawned processes (fake process groups of their own)
+    while the card measures."""
+    import pickle
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.runtime.train import comm_by_kind
+
+    t_phase = time.perf_counter()
+    full = train_config()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        spec = {"train_cfg": full, "batch": TRAIN_BATCH,
+                "tokens_dtype": "int32", "mesh": SHARD_TRAIN_MESH,
+                "f_cfg": shard_train["f_cfg"], "f_batch": SHARD_TRAIN_BATCH,
+                "serve_cfg": cut_layers(full, SHARD_TRAIN_LAYERS, "float32"),
+                "serve_batch": DRYRUN_BATCH, "prompt": DRYRUN_PROMPT,
+                "max_seq": DRYRUN_MAX_SEQ, "steps": DRYRUN_DECODE,
+                "cells": DRYRUN_CELLS, "out": os.path.join(tmp, "cells"),
+                "seed": seed, "device_type": dev.type,
+                "store": os.path.join(tmp, "store"), "prepare": SHARD_PREPARE}
+        ctx = mp.get_context("spawn")
+        plans = ["abc"] + [str(i) for i in range(len(DRYRUN_CELLS))]
+        procs = [ctx.Process(target=dryrun_plan, args=(
+            spec, w, os.path.join(tmp, f"plan_{w}.pkl"))) for w in plans]
+        for pr in procs:
+            pr.start()
+        try:
+            world = math.prod(SHARD_TRAIN_MESH)
+            t0 = time.perf_counter()
+            try:
+                mp.start_processes(dryrun_serve_rank,
+                                   args=(dict(spec, out=tmp),), nprocs=world,
+                                   join=True, start_method="spawn")
+            except Exception:
+                for r in range(world):
+                    err = os.path.join(tmp, f"serve{r}.err")
+                    if os.path.exists(err):
+                        with open(err) as f:
+                            print(f"dryrun rank {r}:\n{f.read()}",
+                                  file=sys.stderr)
+                raise
+            serve_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"serve{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+            for pr in procs:
+                pr.join(DRYRUN_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+        check(all(pr.exitcode == 0 for pr in procs),
+              f"a planning process failed: exit codes "
+              f"{[pr.exitcode for pr in procs]}")
+        plan = {}
+        for w in plans:
+            with open(os.path.join(tmp, f"plan_{w}.pkl"), "rb") as f:
+                plan[w] = pickle.load(f)
+    abc = plan["abc"]
+    a = dryrun_train_measure(seed, dev, abc["a"])
+    f_kind = {k: v for k, v in comm_by_kind(shard_train["f_comm"]).items()
+              if v}
+    b = {"predicted_by_kind": {k: v for k, v in abc["b"]["by_kind"].items()
+                               if v},
+         "step_comm_by_kind": f_kind, "step_comm": shard_train["f_comm"],
+         "predicted_by_dim": abc["b"]["by_dim"],
+         "predict_trace_s": abc["b"]["trace_s"]}
+    r0 = ranks[0]
+    c = {"model": f"{spec['serve_cfg'].name}, {SHARD_TRAIN_LAYERS} of "
+         f"{full.n_layers} layers, float32, bf16 cache",
+         "mesh": list(SHARD_TRAIN_MESH), "batch": DRYRUN_BATCH,
+         "prompt": DRYRUN_PROMPT, "max_seq": DRYRUN_MAX_SEQ,
+         "decode_steps": DRYRUN_DECODE,
+         "tokens_equal_unsharded": all(
+             all(np.array_equal(tok, r0["unsharded_tokens"][i][
+                 rk["rows"][0]:rk["rows"][1]])
+                 for i, tok in enumerate(rk["tokens"])) for rk in ranks),
+         "resident_bytes": [rk["resident_bytes"] for rk in ranks],
+         "reckoned_bytes": [rk["reckoned_bytes"] for rk in ranks],
+         "flash_launches_per_rank": [rk["flash_launches"] for rk in ranks],
+         "flash_launches_expected_per_rank": SHARD_TRAIN_LAYERS,
+         "flash_rows_ok": all(row["ok"] for rk in ranks
+                              for row in rk["flash_rows"]),
+         "flash_max_abs_diff": max(row["max_abs_diff"] for rk in ranks
+                                   for row in rk["flash_rows"]),
+         "decode_peak_predicted_bytes": abc["c"]["peak_bytes"],
+         "decode_peak_measured_bytes": [rk["measured_peak_bytes"]
+                                        for rk in ranks],
+         "decode_input_bytes": [rk["input_bytes"] for rk in ranks],
+         "decode_by_kind_predicted": abc["c"]["by_kind"],
+         "decode_by_kind_measured": [rk["by_kind"] for rk in ranks],
+         "decode_flops_predicted": abc["c"]["flops"],
+         "decode_flops_measured": [rk["flops"] for rk in ranks],
+         "serve_seconds": serve_s}
+    c["decode_peak_rel"] = [abs(abc["c"]["peak_bytes"] - m) / m
+                            for m in c["decode_peak_measured_bytes"]]
+    d = [{k: plan[str(i)]["d"].get(k) for k in (
+        "arch", "shape", "mesh", "status", "error", "chips", "kind",
+        "trace_s", "seconds", "hlo_flops_per_device", "memory",
+        "dominant_term", "roofline", "useful_flops_ratio")}
+        for i in range(len(DRYRUN_CELLS))]
+    emit("dryrun", card=nvidia_smi(), seconds=time.perf_counter() - t_phase,
+         part_a=a, part_b=b, part_c=c, part_d=d)
+    check(a["flops_predicted"] == a["flops_measured"] > 0,
+          f"(a) fake FLOPs {a['flops_predicted']} != the card's "
+          f"{a['flops_measured']}")
+    check(a["peak_rel"] <= DRYRUN_PEAK_REL,
+          f"(a) predicted peak {a['peak_predicted_bytes']} vs measured "
+          f"{a['peak_measured_bytes']}: rel {a['peak_rel']} > "
+          f"{DRYRUN_PEAK_REL}")
+    check(a["step_seconds"] >= a["bound_seconds"],
+          f"(a) the step took {a['step_seconds']} s, under its roofline "
+          f"bound {a['bound_seconds']} s: the count is wrong")
+    check(b["predicted_by_kind"] == b["step_comm_by_kind"]
+          and b["predicted_by_kind"],
+          f"(b) predicted collective bytes {b['predicted_by_kind']} != "
+          f"(f)'s step.comm {b['step_comm_by_kind']}")
+    check(c["tokens_equal_unsharded"],
+          "(c) placed tokens differ from the unsharded run's")
+    check(c["resident_bytes"] == c["reckoned_bytes"],
+          f"(c) resident bytes {c['resident_bytes']} != reckoned "
+          f"{c['reckoned_bytes']}")
+    check(c["flash_rows_ok"], "(c) a placed prefill's flash call is off its "
+                              "plain version")
+    check(c["flash_launches_per_rank"] == [SHARD_TRAIN_LAYERS] * len(ranks),
+          f"(c) flash launches {c['flash_launches_per_rank']}")
+    check(all(rel <= DRYRUN_PEAK_REL for rel in c["decode_peak_rel"]),
+          f"(c) decode peak {c['decode_peak_predicted_bytes']} vs measured "
+          f"{c['decode_peak_measured_bytes']}")
+    check(all(m == abc["c"]["by_kind"] for m in c["decode_by_kind_measured"])
+          and abc["c"]["by_kind"],
+          f"(c) predicted collective bytes {abc['c']['by_kind']} != "
+          f"measured {c['decode_by_kind_measured']}")
+    check(all(m == abc["c"]["flops"] for m in c["decode_flops_measured"]),
+          "(c) decode FLOPs predicted != measured")
+    for cell in d:
+        check(cell["status"] == "ok",
+              f"(d) {cell['arch']} {cell['shape']}: {cell['status']} "
+              f"{cell.get('error')}")
+    return {"launches": sum(c["flash_launches_per_rank"]),
+            "max_abs_err": c["flash_max_abs_diff"]}
 
 
 def entry_points_phase(dev) -> dict:
@@ -5476,10 +5948,17 @@ def run(seed: int, dev) -> dict:
                                           tr["max_abs_err"])
 
     # -- 10f. sharded training: ZeRO-1 on a 2 x 2 mesh, restore, GPipe ---
-    train_shard_phase(seed, dev)
+    shard_train = train_shard_phase(seed, dev)
 
     # -- 10g. the serving launcher and the example twins, as users run them
     launches["flash_attention_cuda"] += entry_points_phase(dev)["launches"]
+
+    # -- 10h. the dry run held against the card: op statistics, placed
+    # serving, production cells ------------------------------------------
+    dr = dryrun_phase(seed, dev, shard_train)
+    launches["flash_attention_cuda"] += dr["launches"]
+    max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
+                                          dr["max_abs_err"])
 
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []

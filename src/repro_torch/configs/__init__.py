@@ -7,6 +7,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeSpec,
     get_config,
     get_smoke_config,
+    input_specs,
     runnable,
     skip_reason,
 )

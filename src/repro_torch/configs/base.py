@@ -3,11 +3,12 @@
 Every ported architecture has a module exporting:
   config(shape: ShapeSpec|None, sparse=False) -> ModelConfig  (published)
   smoke_config() -> ModelConfig                 (reduced, CPU-runnable)
+  extra_inputs(cfg, shape) -> dict[str, Tensor] (stub frontends; whisper
+                                                and paligemma only)
 
-Ported: every architecture of ``ARCH_NAMES``.  The reference's
-``input_specs`` (and whisper's and paligemma's ``extra_inputs``) build
-``jax.ShapeDtypeStruct`` stand-ins for its dry-run lowering and have no
-counterpart in the port.
+Ported: every architecture of ``ARCH_NAMES``.  :func:`input_specs` and
+the ``extra_inputs`` give ``meta`` tensors (shape and dtype, no storage),
+PyTorch's ``ShapeDtypeStruct``, for the dry run (``launch/dryrun.py``).
 
 Shapes (seq_len x global_batch):
   train_4k     4,096 x 256   training
@@ -23,8 +24,10 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
+import torch
+
 __all__ = ["ShapeSpec", "SHAPES", "ARCH_NAMES", "PORTED", "get_config",
-           "get_smoke_config", "runnable", "skip_reason"]
+           "get_smoke_config", "input_specs", "runnable", "skip_reason"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +95,32 @@ def skip_reason(arch: str, shape: str) -> str | None:
         "long_500k requires sub-quadratic attention; "
         f"{arch} is a pure full-attention architecture (DESIGN §4)"
     )
+
+
+def input_specs(arch: str, shape: str | ShapeSpec, cfg=None) -> dict:
+    """``meta`` tensors standing in for every model input of the step the
+    (arch, shape) cell builds: ``tokens`` (int32; ``[B, S + 1]`` to
+    train, ``[B, S]`` to prefill, ``[B]`` to decode, with the 0-d
+    ``pos``) and the architecture's ``extra_inputs``.  A VLM's ``S`` is
+    the text's, ``seq_len - prefix_len``: the patch prefix takes the rest
+    of the backbone's context."""
+    spec = SHAPES[shape] if isinstance(shape, str) else shape
+    cfg = cfg or get_config(arch, spec)
+    mod = _module(arch)
+    b, s = spec.global_batch, spec.seq_len
+    s_text = s - (cfg.prefix_len or 0)
+
+    def meta(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    out: dict = {}
+    if spec.kind == "train":
+        out["tokens"] = meta(b, s_text + 1)
+    elif spec.kind == "prefill":
+        out["tokens"] = meta(b, s_text)
+    else:  # decode: one new token against a cache of seq_len
+        out["tokens"] = meta(b)
+        out["pos"] = meta()
+    if hasattr(mod, "extra_inputs"):
+        out.update(mod.extra_inputs(cfg, spec))
+    return out

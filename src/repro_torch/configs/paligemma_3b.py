@@ -3,15 +3,16 @@ vocab=257216 — SigLIP + gemma.  [arXiv:2407.07726; hf]
 
 The SigLIP vision tower is a stub per the assignment: the caller passes
 precomputed patch embeddings [B, 256, d_model] as ``prefix_embeds``,
-which prefix the token sequence (``models.transformer.apply_model``).
-The reference's ``extra_inputs`` builds ``jax.ShapeDtypeStruct``
-stand-ins for its dry-run lowering and has no counterpart in the port.
+which prefix the token sequence (``models.transformer.apply_model``);
+:func:`extra_inputs` gives their ``meta`` stand-in for the dry run.
 Backbone is gemma-2b style: MQA (kv=1), gelu MLP, tied embeddings scaled
 by sqrt(d_model).  Its head width of 256 runs the flash kernel's 256-wide
 build at every prefill (8 q heads padded to 16 over the one kv head).
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models.transformer import ModelConfig
@@ -41,6 +42,14 @@ def config(shape: ShapeSpec | None = None, sparse: bool = False) -> ModelConfig:
         model_shards=16,
         max_seq=max_seq,
     )
+
+
+def extra_inputs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    if shape.kind == "decode":
+        return {}  # patches were consumed at prefill; cache holds them
+    return {"prefix_embeds": torch.empty(
+        (shape.global_batch, cfg.prefix_len, cfg.d_model),
+        dtype=cfg.cdtype(), device="meta")}
 
 
 def smoke_config() -> ModelConfig:

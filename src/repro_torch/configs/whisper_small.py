@@ -3,13 +3,14 @@
 
 The 12-layer figure is per stack (12 encoder + 12 decoder).  The conv
 frontend is a stub per the assignment: the caller passes precomputed
-frame embeddings [B, 1500, d_model] as ``frames``.  The reference's
-``extra_inputs`` builds ``jax.ShapeDtypeStruct`` stand-ins for its dry-run
-lowering and has no counterpart in the port.  Decoder uses learned
+frame embeddings [B, 1500, d_model] as ``frames``; :func:`extra_inputs`
+gives their ``meta`` stand-in for the dry run.  Decoder uses learned
 positions (rope_theta=None) and layernorm, per the paper.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models.transformer import ModelConfig
@@ -39,6 +40,12 @@ def config(shape: ShapeSpec | None = None, sparse: bool = False) -> ModelConfig:
         model_shards=16,
         max_seq=max_seq,
     )
+
+
+def extra_inputs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    return {"frames": torch.empty(
+        (shape.global_batch, cfg.enc_seq, cfg.d_model), dtype=cfg.cdtype(),
+        device="meta")}
 
 
 def smoke_config() -> ModelConfig:

@@ -12,6 +12,11 @@ module touches no process group and no device.
 Single pod: (data=16, model=16) — 256 devices.  Multi-pod: (pod=2,
 data=16, model=16) — 512 devices; the pod axis is pure data parallelism.
 
+Planning: :func:`make_fake_mesh` starts a ``fake`` process group of
+``prod(shape)`` ranks in this process, as rank 0, whose collectives move
+nothing; the dry run (``launch/dryrun.py``) plans the 256- and 512-rank
+production meshes on it with fake tensors, allocating nothing.
+
 Launching: ``torchrun --nproc-per-node N`` starts N ranks that each call
 :func:`make_mesh` with a shape of N devices; a single process asks for a
 one-rank mesh and :func:`make_mesh` starts its one-rank group itself.
@@ -29,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["make_mesh", "make_production_mesh", "make_local_mesh",
-           "mesh_device"]
+           "mesh_device", "make_fake_mesh"]
 
 
 def _local_rank() -> int:
@@ -104,10 +109,40 @@ def mesh_device(mesh) -> torch.device:
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str | None = None):
+                         device_type: str | None = None, fake: bool = False):
+    """The single-pod (data=16, model=16) or multi-pod (pod=2, data=16,
+    model=16) mesh: over the launched ranks, or with ``fake`` over a
+    planning world of that many ranks (:func:`make_fake_mesh`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if fake:
+        return make_fake_mesh(shape, axes)
     return make_mesh(shape, axes, device_type=device_type)
+
+
+def make_fake_mesh(shape, axes):
+    """A CPU ``DeviceMesh`` of ``shape`` over a ``fake`` process group of
+    ``prod(shape)`` ranks in this process, which is its rank 0.  Every
+    collective over it returns at once and moves nothing, so a step run
+    over fake tensors on it plans rank 0's share of a mesh of any size
+    (the reference's ``--xla_force_host_platform_device_count``).  A
+    default group of another kind or size must not be running; an
+    earlier fake group of another size is replaced."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group is running; plan in a "
+                               "process of its own")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *,

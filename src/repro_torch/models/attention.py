@@ -37,7 +37,10 @@ sharded flash-decode (:func:`flash_decode_sharded`): each model rank
 scores its chunk of the cache and the partial softmaxes merge through
 all-reduces.  Anywhere else (no mesh, a cache length the model dim does
 not divide) it falls through to the routes above, as the reference's
-does.
+does.  In a placed decode step (``runtime.serve`` with ``shardings=``)
+each rank holds only its slab of the cache, and a layer without a window
+reads that slab through :func:`flash_decode_placed`, writing the new
+position into the rank that owns it.
 
 Head padding: q heads are padded to a multiple of the TP degree
 (``parallel.sharding.padded_heads``); padded heads have zero in/out
@@ -66,7 +69,12 @@ from repro_torch.models.layers import (
     rope_frequencies,
 )
 from repro_torch.parallel.activations import current_mesh
-from repro_torch.parallel.sharding import mesh_axis_sizes, padded_heads
+from repro_torch.parallel.sharding import (
+    _entry_axes,
+    gather_tensor,
+    mesh_axis_sizes,
+    padded_heads,
+)
 from repro_torch.parallel.tensor import (
     column_product,
     relayout_columns,
@@ -75,7 +83,8 @@ from repro_torch.parallel.tensor import (
 
 __all__ = ["AttnConfig", "attention_init", "attention_specs",
            "attention_apply", "attention_apply_tp", "init_kv_cache",
-           "is_prefill", "flash_decode_sharded"]
+           "is_prefill", "flash_decode_sharded", "PlacedKV",
+           "flash_decode_placed"]
 
 _NEG = -1e30
 
@@ -321,6 +330,71 @@ def flash_decode_sharded(cfg: AttnConfig, q, k, v, kv_len, mesh):
 flash_decode_sharded.calls = 0
 
 
+class PlacedKV(dict):
+    """A layer's ``{"k", "v"}`` cache held as this rank's slabs
+    (``placements``: their ``parallel.sharding.Placement``s) in a placed
+    decode step (``placed``: the step's ``runtime.serve`` view of its rows
+    and write position).  :func:`attention_apply` reads it through
+    :func:`flash_decode_placed`, never whole."""
+
+    def __init__(self, slabs: dict, placements: dict, placed):
+        super().__init__(slabs)
+        self.placements, self.placed = placements, placed
+
+
+def flash_decode_placed(cfg: AttnConfig, q, k_new, v_new, cache: PlacedKV,
+                        kv_len):
+    """Flash-decode on a placed cache: the reference's
+    ``_flash_decode_sharded`` over a sequence-sharded cache that each rank
+    holds only its slab of (batch rows over ``data``, positions over
+    ``model``, ``launch.steps.cache_pspec``).
+
+    q: [b, Hq, 1, D] and k_new, v_new: [b, 1, Hkv, D] of this rank's
+    compute rows; ``kv_len`` the shared valid length.  The new key and
+    value are gathered to the whole batch and the rank whose slab holds
+    the step's position writes them there.  The queries of the slab's
+    batch rows then score the slab's positions in float32 (keys at and
+    past ``kv_len`` masked), and the partial softmaxes merge over the
+    ranks that split the positions: an all-reduce (max) of the running
+    max, then one all-reduce (sum) of the rescaled denominators and
+    weighted values, O(B*H*D).  The slab rows' outputs are gathered over
+    the ranks that split the rows and the compute rows' returned, [b, Hq,
+    1, D] in q's dtype.  ``flash_decode_placed.calls`` counts the
+    calls."""
+    flash_decode_placed.calls += 1
+    placed, pls = cache.placed, cache.placements
+    mesh, pl = placed.mesh, pls["k"]
+    for key, new in (("k", k_new), ("v", v_new)):
+        placed.write_seq(cache[key], pls[key], placed.to_batch(new))
+    rows, seq = pl.slices[0], pl.slices[1]
+    hq, dh = q.shape[1], q.shape[-1]
+    qb = placed.to_batch(q)[rows].float()
+    rep = (hq // cfg.n_kv_heads) if cfg.grouped else -(-hq // cfg.n_kv_heads)
+    kh = cache["k"].transpose(1, 2).repeat_interleave(rep, dim=1)[:, :hq]
+    vh = cache["v"].transpose(1, 2).repeat_interleave(rep, dim=1)[:, :hq]
+    kpos = seq.start + torch.arange(seq.stop - seq.start, device=q.device)
+    s = torch.einsum("bhqd,bhtd->bhqt", qb, kh.float()) * (dh ** -0.5)
+    s = torch.where(kpos[None, None, None, :] < kv_len, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    sizes = mesh_axis_sizes(mesh)
+    groups = [mesh.get_group(a) for a in _entry_axes(
+        pl.pspec[1] if len(pl.pspec) > 1 else None) if sizes[a] > 1]
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    p = torch.exp(s - m)
+    o = torch.einsum("bhqt,bhtd->bhqd", p, vh.float())
+    lo = torch.cat([p.sum(-1, keepdim=True), o], dim=-1)
+    for g in groups:
+        dist.all_reduce(lo, group=g)
+    out = (lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)).to(q.dtype)
+    out = gather_tensor(out, dataclasses.replace(pl, pspec=pl.pspec[:1]),
+                        mesh)
+    return out[placed.rows]
+
+
+flash_decode_placed.calls = 0
+
+
 def is_prefill(s: int, positions, memory=None, cache=None,
                cache_pos=None) -> bool:
     """Whether a call is a prefill in the kernel route's sense (module
@@ -371,6 +445,12 @@ def attention_apply(
         pos_b = positions if positions.dim() == 2 else positions[None, :]
         q = apply_rope(q, pos_b, freqs)
         k = apply_rope(k, pos_b, freqs)
+
+    if isinstance(cache, PlacedKV):  # a placed decode's flash route
+        out = flash_decode_placed(cfg, q.transpose(1, 2), k, v, cache,
+                                  cache_len)
+        out = out.transpose(1, 2).reshape(b, s, hq * dh)
+        return linear(params["wo"], out.to(x.dtype)), cache
 
     if prefill is None:
         prefill = is_prefill(s, positions, memory, cache, cache_pos)

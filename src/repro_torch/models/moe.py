@@ -13,7 +13,13 @@ reference chooses them (:func:`moe_apply`):
     shards meet by an all-gather, so every rank returns the whole result
     (SPMD, as ``launch/mesh.py`` sets out);
   * **single device** (:func:`_moe_local`): the same dispatch over every
-    token and every expert.
+    token and every expert;
+  * **batch rows** (inside :func:`rows_over_data`, which a placed serving
+    step enters): each rank routes its row block of the batch through
+    every expert, with capacity and each pair's place in its expert's
+    queue the whole batch's (the counts all-gathered over ``pod`` /
+    ``data``), as :func:`moe_apply_tp` counts them in the sharded train
+    step.
 
 Dispatch is sort-based (dropless up to the capacity factor): (token, k)
 pairs sort by expert id, each expert takes up to ``cap`` tokens and the
@@ -40,6 +46,8 @@ from the host.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 
@@ -69,7 +77,22 @@ from repro_torch.parallel.tensor import (
 )
 
 __all__ = ["MoEConfig", "moe_static", "moe_init", "moe_specs", "moe_apply",
-           "moe_apply_tp", "capacity", "kept_pairs"]
+           "moe_apply_tp", "capacity", "kept_pairs", "rows_over_data"]
+
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("moe_rows",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def rows_over_data(mesh):
+    """Inside the block, :func:`moe_apply` takes a rank's row block of the
+    batch over ``mesh``'s ``pod``/``data`` dims and counts capacity over
+    the whole batch (module docstring)."""
+    token = _ROWS.set(mesh)
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,21 +325,43 @@ def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor,
               kernels: bool = True) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]; ``kernels`` goes to the shared
     experts' MLP (``layers.mlp_apply``)."""
+    rows_mesh = _ROWS.get()
     mesh = current_mesh()
     use_sharded = False
-    if mesh is not None:
+    if rows_mesh is not None:
+        b, s, d = x.shape
+        xf = x.reshape(b * s, d)
+        top_w, top_e = _route(params, cfg, xf)
+        out = _dispatch_compute_combine(
+            xf, top_w, top_e, params["experts"], cfg, 0,
+            _earlier(rows_mesh, top_e, cfg.n_experts)).reshape(b, s, d)
+    elif mesh is not None:
         sizes = mesh_axis_sizes(mesh)
         n_dp = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
         use_sharded = (x.shape[0] % n_dp == 0
                        and cfg.n_experts % sizes.get("model", 1) == 0)
     if use_sharded:
         out = _moe_sharded(params, cfg, x, mesh)
-    else:
+    elif rows_mesh is None:
         out = _moe_local(params, cfg, x)
     if "shared" in params:
         out = out + mlp_apply(params["shared"], static["shared"], x,
                               kernels)
     return out
+
+
+def _earlier(mesh, top_e: torch.Tensor, n_experts: int):
+    """``_dispatch_slots``' ``earlier`` for this rank's row block over
+    ``mesh``'s ``pod``/``data`` dims: the pairs each expert took on the
+    earlier row blocks (every block's counts all-gathered), and the
+    tokens of all blocks.  The counts are a comparison's sum, which a
+    fake tensor can take (``bincount``'s length depends on the data)."""
+    r, blocks = data_shards(mesh)
+    flat = top_e.reshape(-1)
+    mine = (flat[:, None] == torch.arange(n_experts, device=flat.device)
+            ).sum(0)
+    counts = gather_over_data(mesh, mine)
+    return counts[:r].sum(0), top_e.shape[0] * blocks
 
 
 def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
@@ -338,10 +383,7 @@ def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     top_w, top_e = _route(params, cfg, xf)
-    r, blocks = data_shards(tp.mesh)
-    counts = gather_over_data(tp.mesh, torch.bincount(
-        top_e.reshape(-1), minlength=cfg.n_experts))
-    earlier = (counts[:r].sum(0), b * s * blocks)
+    earlier = _earlier(tp.mesh, top_e, cfg.n_experts)
     if split:
         e_loc = cfg.n_experts // tp.size
         out = reduce_from_model(_dispatch_compute_combine(

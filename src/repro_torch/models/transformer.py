@@ -96,7 +96,8 @@ from repro_torch.parallel.activations import shard_activation
 from repro_torch.parallel.sharding import pad_to_multiple
 
 __all__ = ["ModelConfig", "find_structure", "init_statics", "init_params",
-           "init_specs", "init_cache", "apply_model", "count_params"]
+           "init_specs", "init_cache", "cache_specs", "apply_model",
+           "count_params", "model_flops_per_token"]
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -474,6 +475,13 @@ def init_cache(statics, batch: int, max_seq: int | None = None,
     return cache
 
 
+def cache_specs(statics):
+    """The reference's ``cache_specs``: ``None``, since a cache leaf's
+    placement follows its name and rank (``launch.steps.cache_pspec``),
+    not a logical spec."""
+    return None
+
+
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
@@ -578,19 +586,32 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
 
 
 def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,
-            kernels: bool = True):
+            kernels: bool = True, placed=None):
     """Whisper encoder over stub frame embeddings [B, enc_seq, d]: every
     layer bidirectional at positions ``arange(enc_seq)`` without a cache,
     so its attention is a prefill in the kernel route's sense (the plain
-    routes with ``kernels=False``)."""
+    routes with ``kernels=False``).  ``placed``: each layer's params
+    gathered from their slabs just before it runs."""
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
-    x = frames.to(cfg.cdtype()) + params["enc_pos"].to(cfg.cdtype())
+    top = _take(params, placed, "enc_pos", "enc_norm")
+    x = frames.to(cfg.cdtype()) + top["enc_pos"].to(cfg.cdtype())
     pos = torch.arange(frames.shape[1], device=frames.device)
     for i in range(cfg.encoder_layers):
-        x, _ = _apply_layer(_index(params["encoder"], i), statics["encoder"],
-                            cfg, x, pos, None, None, None, kernels,
-                            kernels=kernels)
-    return norm(params["enc_norm"], x)
+        p = _index(params["encoder"], i)
+        if placed is not None:
+            p = placed.gather(p, placed.stacked("encoder"))
+        x, _ = _apply_layer(p, statics["encoder"], cfg, x, pos, None, None,
+                            None, kernels, kernels=kernels)
+    return norm(top["enc_norm"], x)
+
+
+def _take(params, placed, *keys) -> dict:
+    """The entries ``keys`` of ``params`` that it has, whole: with
+    ``placed``, all-gathered from this rank's slabs."""
+    sub = {k: params[k] for k in keys if k in params}
+    if placed is None:
+        return sub
+    return placed.gather(sub, {k: placed.params[k] for k in sub})
 
 
 def apply_model(
@@ -605,6 +626,7 @@ def apply_model(
     frames: torch.Tensor | None = None,
     prefill: bool | None = None,
     kernels: bool = True,
+    placed=None,
 ):
     """Forward pass.  Returns (logits [B, S(+P), vocab_padded], cache,
     aux); the cache, when given, is written in place and returned.  With
@@ -642,15 +664,28 @@ def apply_model(
     (``tensor.vocab_splits``), the lookups read this rank's rows of the
     table and the logits (the MTP head's too) are this rank's slab of
     the padded vocabulary's columns, ``[B, S(+P), vocab_padded / n]``,
-    which ``runtime.train.cross_entropy`` reduces over the group."""
+    which ``runtime.train.cross_entropy`` reduces over the group.
+
+    ``placed`` (``runtime.serve``'s placed serving steps, which pass it):
+    ``params`` and ``cache`` are this rank's slabs and ``tokens`` (and
+    ``frames``, ``prefix_embeds``) its batch rows.  Storage split,
+    compute gathered: each layer's params and cache slabs are
+    all-gathered just before it runs (the embedding, the head and the
+    encoder's layers too), it computes on the rank's rows, and its new
+    cache entries are cut back to the rank's slabs; with
+    ``decode_strategy="flash"`` a decode's attention reads its own cache
+    slab instead (``models.attention.flash_decode_placed``).  The logits
+    are the rank's rows'."""
     cfg: ModelConfig = statics["cfg"]
+    if placed is not None and cache is None:
+        raise ValueError("placed serving steps keep a cache")
     cdt = cfg.cdtype()
     _, s = tokens.shape
     tp = tensor.current()
     vocab_tp = (tp if tp is not None and tensor.vocab_splits(cfg, tp.size)
                 else None)
 
-    x = _embed(params, cfg, tokens, vocab_tp)
+    x = _embed(_take(params, placed, "embed"), cfg, tokens, vocab_tp)
     if cfg.tie_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cdt)  # gemma convention
     if prefix_embeds is not None:
@@ -663,35 +698,48 @@ def apply_model(
     elif prefill is None:
         prefill = is_prefill(s, positions, cache=cache, cache_pos=cache_pos)
     if "dec_pos" in params:
-        dp = params["dec_pos"][positions].to(cdt)
+        dp = _take(params, placed, "dec_pos")["dec_pos"][positions].to(cdt)
         x = x + (dp if positions.dim() == 2 else dp[None])
     x = shard_activation(x, ("batch", "seq_shard", None))
 
     memory = None
     if cfg.encoder_layers:
         if frames is not None:
-            memory = _encode(params, statics, cfg, frames, kernels)
+            memory = _encode(params, statics, cfg, frames, kernels, placed)
             if cache is not None:
-                cache["memory"] = memory
+                cache["memory"] = (memory if placed is None else
+                                   placed.cut(memory, placed.cache["memory"]))
         elif cache is not None:
-            memory = cache["memory"]
+            memory = (cache["memory"] if placed is None else placed.rows_of(
+                cache["memory"], placed.cache["memory"]))
+
+    def layer(x, p, st, c, where):
+        if placed is None:
+            return _apply_layer(p, st, cfg, x, positions, c, cache_pos,
+                                cache_len, prefill, memory, kernels)[0]
+        p_pl, c_pl = placed.layer(where)
+        p = placed.gather(p, p_pl)
+        run = placed.layer_cache(st, c, c_pl)
+        with placed.moe_rows():
+            x, _ = _apply_layer(p, st, cfg, x, positions, run, cache_pos,
+                                cache_len, prefill, memory, kernels)
+        placed.store(run, c, c_pl)
+        return x
 
     for i, (p, st) in enumerate(zip(params["prefix_layers"],
                                     statics["prefix_layers"])):
         c = cache["prefix_layers"][i] if cache is not None else None
-        x, _ = _apply_layer(p, st, cfg, x, positions, c, cache_pos, cache_len,
-                            prefill, memory, kernels)
+        x = layer(x, p, st, c, ("prefix_layers", i))
 
     for rep in range(statics["n_periods"]):
         for j, st in enumerate(statics["body"]):
             c = _index(cache["body"][j], rep) if cache is not None else None
-            x, _ = _apply_layer(_index(params["body"][j], rep), st, cfg, x,
-                                positions, c, cache_pos, cache_len, prefill,
-                                memory, kernels)
+            x = layer(x, _index(params["body"][j], rep), st, c, ("body", j))
 
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
-    hidden = norm(params["final_norm"], x)
-    logits = _head(params, cfg, hidden, vocab_tp)
+    hidden = norm(_take(params, placed, "final_norm")["final_norm"], x)
+    logits = _head(_take(params, placed, "embed" if cfg.tie_embeddings
+                         else "lm_head"), cfg, hidden, vocab_tp)
 
     aux = {}
     if cfg.mtp and cache is None:
@@ -757,3 +805,42 @@ def _leaves(tree):
 
 def count_params(params) -> int:
     return sum(int(x.numel()) for x in _leaves(params))
+
+
+def model_flops_per_token(cfg: ModelConfig, active_only: bool = True) -> float:
+    """6 * N(active): a training step's FLOPs per token by the matmul
+    params (MODEL_FLOPS of the roofline table), the reference's
+    arithmetic."""
+    d = cfg.d_model
+    n = 0
+    for mixer, ffn in cfg.layer_types:
+        if mixer in ("attn", "swa"):
+            n += d * cfg.n_heads * cfg.d_head * 2  # q + o
+            n += d * cfg.n_kv_heads * cfg.d_head * 2  # k + v
+        elif mixer == "xattn":
+            n += (d * cfg.n_heads * cfg.d_head * 2
+                  + d * cfg.n_kv_heads * cfg.d_head * 2) * 2
+        elif mixer == "mla":
+            m = cfg.mla
+            n += d * m.q_lora + m.q_lora * m.n_heads * (m.d_nope + m.d_rope)
+            n += d * (m.kv_lora + m.d_rope)
+            n += m.kv_lora * m.n_heads * (m.d_nope + m.d_v)
+            n += m.n_heads * m.d_v * d
+        elif mixer == "ssm":
+            sc = cfg.ssm
+            n += d * (2 * sc.d_inner + 2 * sc.n_groups * sc.d_state
+                      + sc.n_heads)
+            n += sc.d_inner * d
+        if ffn == "mlp":
+            mult = 3 if cfg.act == "swiglu" else 2
+            n += mult * d * cfg.d_ff
+        elif ffn == "moe":
+            mo = cfg.moe
+            active = mo.top_k if active_only else mo.n_experts
+            mult = 3 if mo.act == "swiglu" else 2
+            n += mult * d * mo.d_ff_expert * active
+            if mo.n_shared:
+                f_sh = mo.d_ff_shared or mo.n_shared * mo.d_ff_expert
+                n += mult * d * f_sh
+    n += cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    return 6.0 * n

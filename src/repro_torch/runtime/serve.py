@@ -1,9 +1,29 @@
 """Serving runtime: prefill + decode steps and continuous-batching decode.
 
-Port of ``src/repro/runtime/serve.py`` on one device.
-``make_prefill_step`` / ``make_decode_step`` build the step functions:
-one prompt's prefill, and one new token per row against a KV cache of
-``max_seq``.  The caches are updated in place.
+Port of ``src/repro/runtime/serve.py``.  ``make_prefill_step`` /
+``make_decode_step`` build the step functions: one prompt's prefill, and
+one new token per row against a KV cache of ``max_seq``.  The caches are
+updated in place.
+
+**Placed** (``shardings=`` a :class:`ServeShardings` over a
+``DeviceMesh``, the reference's production serving steps,
+``launch/steps.py``): every rank holds only its slabs, the params' by
+``launch.steps.param_shardings`` and the caches' by
+``launch.steps.cache_shardings`` (batch over ``data``, positions over
+``model``, an SSM's conv over ``ff`` and its state over ``heads``), and
+calls the step with its batch rows (over ``pod`` and ``data``, pod-major,
+where they divide the batch; else every row), getting its rows' next
+tokens.  Storage split, compute gathered, as the sharded train step
+does (``models.transformer.apply_model``'s ``placed``): each layer's
+param and cache slabs are all-gathered just before it runs, it computes
+on the rank's rows, and its new cache entries (the positions written,
+or an SSM's whole state) are gathered over the rows and cut back to
+each rank's slab.  It is exact by construction, and a rank's peak is
+its slabs plus one layer whole.  With ``decode_strategy="flash"`` a
+decode's attention layers without a window gather no key or value:
+``models.attention.flash_decode_placed`` reads the rank's slab.
+:func:`place_serving_state` cuts the whole params and cache into a
+rank's slabs.
 
 :class:`DecodeService` is the continuous-batching generation backend:
 per-slot decode positions (``pos [batch_slots]``) let the shared
@@ -36,6 +56,7 @@ in the scheduler and only fixed-shape tensors (``tokens [B]``,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable
@@ -45,6 +66,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.engine.scheduler import SlotScheduler
+from repro_torch.models.attention import PlacedKV
+from repro_torch.models.moe import rows_over_data
 from repro_torch.models.transformer import (
     ModelConfig,
     _leaves,
@@ -52,10 +75,22 @@ from repro_torch.models.transformer import (
     init_cache,
 )
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.parallel.sharding import (
+    Placement,
+    _map,
+    _shape,
+    gather_tensor,
+    shard_tensor,
+    shard_tree,
+)
+from repro_torch.parallel.tensor import data_shards, gather_over_data
 from repro_torch.serve.api import Request as ServeRequest
 
 __all__ = [
     "ServeConfig",
+    "ServeShardings",
+    "serve_shardings",
+    "place_serving_state",
     "make_prefill_step",
     "decode_logits",
     "make_decode_step",
@@ -74,7 +109,189 @@ class ServeConfig:
     cache_dtype: str = "bfloat16"
 
 
-def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
+@dataclasses.dataclass(frozen=True)
+class ServeShardings:
+    """Where each rank of ``mesh`` keeps its share of a serving state:
+    ``params`` and ``cache``, trees of ``parallel.sharding.Placement``,
+    and the cache's ``batch`` rows."""
+
+    mesh: object
+    params: object
+    cache: object
+    batch: int
+
+
+def _cache_batch(cache) -> int:
+    """The batch rows of a cache tree (of tensors or placements): a prefix
+    layer's or the memory's first dim, else a stacked leaf's second."""
+    if "memory" in cache:
+        return _shape(cache["memory"])[0]
+    if cache["prefix_layers"]:
+        return _shape(next(_leaves(cache["prefix_layers"])))[0]
+    return _shape(next(_leaves(cache["body"])))[1]
+
+
+def _named_leaves(tree, name: str = ""):
+    """(key, leaf) of every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, k)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _named_leaves(v, name)
+    else:
+        yield name, tree
+
+
+def serve_shardings(specs, params, cache, mesh) -> ServeShardings:
+    """The placements of a serving state on ``mesh``: the params' from
+    their logical specs (``models.transformer.init_specs``) and shapes,
+    the cache's from its leaves (tensors or shapes)."""
+    from repro_torch.launch.steps import cache_shardings, param_shardings
+
+    return ServeShardings(mesh, param_shardings(specs, params, mesh),
+                          cache_shardings(cache, mesh), _cache_batch(cache))
+
+
+def place_serving_state(params, cache, shardings: ServeShardings):
+    """This rank's slabs of the whole ``params`` and ``cache``."""
+    return (shard_tree(params, shardings.params),
+            shard_tree(cache, shardings.cache))
+
+
+def _drop_lead(pl: Placement) -> Placement:
+    """One layer's placement within a stacked leaf's (its leading dim,
+    which no mesh axis splits, dropped)."""
+    return Placement(pl.shape[1:], pl.pspec[1:], pl.blocks[1:], pl.index[1:])
+
+
+# cache leaves indexed by position: a step rewrites only the positions it
+# writes
+_SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
+class _Placed:
+    """One placed step's view of the rank's slabs (``apply_model``'s
+    ``placed``): the rank's compute rows, the step's write position
+    ``pos`` (already clamped as the cache write clamps it) and length
+    ``s``, and whether a decode's attention reads its cache slab
+    (``flash``)."""
+
+    def __init__(self, shardings: ServeShardings, pos: int, s: int,
+                 flash: bool):
+        self.mesh = shardings.mesh
+        self.params, self.cache = shardings.params, shardings.cache
+        r, n = data_shards(self.mesh)
+        self.split = n > 1 and shardings.batch % n == 0
+        r, n = (r, n) if self.split else (0, 1)
+        per = shardings.batch // n
+        self.rows = slice(r * per, (r + 1) * per)
+        self.pos, self.s, self.flash = pos, s, flash
+
+    def moe_rows(self):
+        """The context a layer runs in: MoE capacity over the whole batch
+        where the ranks split its rows (``models.moe.rows_over_data``)."""
+        return rows_over_data(self.mesh) if self.split else \
+            contextlib.nullcontext()
+
+    def gather(self, tree, placements):
+        """Whole leaves from this rank's slabs."""
+        return _map(lambda t, pl: gather_tensor(t, pl, self.mesh), tree,
+                    placements)
+
+    def stacked(self, key: str, j: int | None = None, tree=None):
+        """The one-layer placements of a stacked subtree: ``key`` of
+        ``tree`` (default: the params'), its ``j``-th entry for a list."""
+        tree = self.params if tree is None else tree
+        return _map(_drop_lead, tree[key] if j is None else tree[key][j])
+
+    def layer(self, where):
+        """(param placements, cache placements) of the layer at ``where``
+        (``("prefix_layers", i)`` or ``("body", j)``)."""
+        key, i = where
+        if key == "prefix_layers":
+            return self.params[key][i], self.cache[key][i]
+        return self.stacked(key, i), self.stacked(key, i, self.cache)
+
+    def to_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows from every rank's compute rows."""
+        return gather_over_data(self.mesh, t).flatten(0, 1) if self.split \
+            else t
+
+    def rows_of(self, slab: torch.Tensor, pl: Placement) -> torch.Tensor:
+        """This rank's compute rows of a leaf, gathered whole from its
+        slabs."""
+        return gather_tensor(slab, pl, self.mesh)[self.rows]
+
+    def cut(self, t: torch.Tensor, pl: Placement) -> torch.Tensor:
+        """This rank's slab of a leaf of which every rank computed its
+        rows ``t``."""
+        return shard_tensor(self.to_batch(t), pl)
+
+    def layer_cache(self, static: dict, slabs, placements):
+        """The cache a layer computes with: its leaves gathered whole and
+        cut to the compute rows, or, for a flash decode's attention, the
+        slabs themselves (``PlacedKV``)."""
+        if slabs is None:
+            return None
+        cfg = static.get("attn_cfg")
+        flash = (self.flash and self.s == 1 and cfg is not None
+                 and cfg.window is None)
+
+        def walk(tree, pl):
+            if isinstance(tree, dict):
+                if flash and set(tree) == {"k", "v"}:
+                    return PlacedKV(tree, pl, self)
+                return {k: walk(v, pl[k]) for k, v in tree.items()}
+            return self.rows_of(tree, pl)
+
+        return walk(slabs, placements)
+
+    def write_seq(self, slab: torch.Tensor, pl: Placement,
+                  new: torch.Tensor) -> None:
+        """Write the whole batch's ``new`` [B, s, ...], the positions
+        ``[pos, pos + s)``, into the part of them this rank's slab
+        holds."""
+        rows, seq = pl.slices[0], pl.slices[1]
+        lo, hi = max(self.pos, seq.start), min(self.pos + self.s, seq.stop)
+        if lo < hi:
+            slab[:, lo - seq.start:hi - seq.start] = new[
+                rows, lo - self.pos:hi - self.pos].to(slab.dtype)
+
+    def store(self, run, slabs, placements, name: str = "") -> None:
+        """Cut a layer's new cache entries (``run``, what it computed
+        with) back to this rank's slabs."""
+        if run is None or isinstance(run, PlacedKV):
+            return
+        if isinstance(run, dict):
+            for k in run:
+                self.store(run[k], slabs[k], placements[k], k)
+        elif name in _SEQ_LEAVES:
+            new = run[:, self.pos:self.pos + self.s]
+            self.write_seq(slabs, placements, self.to_batch(new))
+        else:
+            slabs.copy_(shard_tensor(self.to_batch(run), placements))
+
+
+def _placed(shardings: ServeShardings | None, pos: int, s: int,
+            flash: bool) -> _Placed | None:
+    """The step's :class:`_Placed`, its write position clamped to
+    ``[0, T - s]`` as the cache write clamps it (``T`` the positions of
+    the cache's first leaf indexed by position)."""
+    if shardings is None:
+        return None
+    for key, at in (("prefix_layers", 1), ("body", 2)):
+        t = next((pl.shape[at] for name, pl in _named_leaves(
+            shardings.cache[key]) if name in _SEQ_LEAVES), None)
+        if t is not None:
+            pos = min(max(pos, 0), t - s)
+            break
+    return _Placed(shardings, pos, s, flash)
+
+
+def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig,
+                      shardings: ServeShardings | None = None,
+                      kernels: bool = True):
     def prefill(params, cache, tokens, extras=None):
         """tokens: [B, S] -> (next_token [B], cache).  ``extras`` go to
         ``apply_model``: an encoder-decoder's stub frame embeddings
@@ -85,7 +302,10 @@ def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
         (``extras['prefix_embeds']`` [B, P, d]) extends the context:
         positions and the cache length cover P + S, so decoding goes on
         at position P + S (paligemma is served so: ``DecodeService``
-        takes no prefix, as the reference's takes none)."""
+        takes no prefix, as the reference's takes none).  With
+        ``shardings`` the params and cache are this rank's slabs and
+        ``tokens`` and ``extras`` its rows (module docstring); with
+        ``kernels=False`` every layer takes its plain route."""
         total = tokens.shape[1]
         if extras and "prefix_embeds" in extras:
             total += extras["prefix_embeds"].shape[1]
@@ -93,6 +313,8 @@ def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
             params, statics, tokens,
             positions=torch.arange(total, device=tokens.device),
             cache=cache, cache_pos=0, cache_len=total, prefill=True,
+            kernels=kernels,
+            placed=_placed(shardings, 0, total, False),
             **(extras or {}),
         )
         next_tok = logits[:, -1, : cfg.vocab].argmax(dim=-1)
@@ -101,7 +323,9 @@ def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig):
     return prefill
 
 
-def decode_logits(statics, params, cache, tokens, pos):
+def decode_logits(statics, params, cache, tokens, pos,
+                  shardings: ServeShardings | None = None,
+                  kernels: bool = True):
     """One decode step's float32 logits [B, vocab] and the cache (written
     in place at ``pos``): what :func:`make_decode_step` samples from.
 
@@ -109,22 +333,37 @@ def decode_logits(statics, params, cache, tokens, pos):
     shared by every slot or a [B] vector of per-slot positions
     (continuous batching).  At a shared position, inside
     ``activation_sharding_ctx(mesh)`` and with ``decode_strategy=
-    "flash"``, attention takes the sharded flash-decode."""
+    "flash"``, attention takes the sharded flash-decode.  With
+    ``shardings`` (a shared position only) the params and cache are this
+    rank's slabs and ``tokens`` its rows (module docstring); the position
+    is read to the host once."""
     per_row = pos.dim() > 0
+    placed = None
+    if shardings is not None:
+        if per_row:
+            raise ValueError("a placed decode step takes one position "
+                             "shared by every row")
+        placed = _placed(shardings, int(pos), 1,
+                         statics["cfg"].decode_strategy == "flash")
     logits, cache, _ = apply_model(
         params, statics, tokens[:, None],
         positions=pos[:, None] if per_row else pos[None],
-        cache=cache, cache_pos=pos, cache_len=pos + 1,
+        cache=cache, cache_pos=pos, cache_len=pos + 1, kernels=kernels,
+        placed=placed,
     )
     return logits[:, -1, : statics["cfg"].vocab].float(), cache
 
 
-def make_decode_step(cfg: ModelConfig, statics, scfg: ServeConfig):
+def make_decode_step(cfg: ModelConfig, statics, scfg: ServeConfig,
+                     shardings: ServeShardings | None = None,
+                     kernels: bool = True):
     def decode(params, cache, tokens, pos, rng: torch.Generator | None = None):
         """tokens: [B] last emitted; pos: the position to write (see
-        :func:`decode_logits`).  With ``temperature > 0`` and a
-        generator, samples; else greedy."""
-        logits, cache = decode_logits(statics, params, cache, tokens, pos)
+        :func:`decode_logits`, which takes ``shardings`` and
+        ``kernels``).  With ``temperature > 0`` and a generator,
+        samples; else greedy."""
+        logits, cache = decode_logits(statics, params, cache, tokens, pos,
+                                      shardings, kernels)
         if scfg.temperature > 0 and rng is not None:
             probs = torch.softmax(logits / scfg.temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=rng)[:, 0]

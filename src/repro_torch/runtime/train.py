@@ -70,9 +70,13 @@ the global rows ``[j B / n, (j + 1) B / n)``, as the reference cuts
 them.  ``step.comm`` holds the last step's bytes: ``param_gather_bytes``
 (the params all-gathered, whole), ``model_reduce_bytes`` and
 ``model_gather_bytes`` (activations and their gradients all-reduced and
-all-gathered over ``model``) and ``model_relayout_bytes`` (the SSM's
+all-gathered over ``model``), ``model_relayout_bytes`` (the SSM's
 param columns re-laid out over ``model``, forward, and their gradients
-back).
+back), ``model_stat_bytes`` (the global norm's and int8 compression's
+per-leaf statistics over ``model``), ``data_reduce_bytes`` (the loss and
+the gradients over ``pod``/``data``) and ``zero_gather_bytes`` (the
+updated params all-gathered over ``data``); :func:`comm_by_kind` sums
+them by collective kind.
 
 A sharded state checkpoints through ``Trainer``: whole leaves gathered
 over the mesh, written once by rank 0 in the reference's layout, then a
@@ -104,6 +108,7 @@ from repro_torch.optim import (
 )
 from repro_torch.optim.optimizers import _leaves, _map
 from repro_torch.parallel.sharding import (
+    _entry_axes,
     cut_slab,
     gather_tensor,
     mesh_axis_sizes,
@@ -122,7 +127,8 @@ from repro_torch.parallel.tensor import (
 from repro_torch.runtime.fault import FailureInjector, StragglerDetector
 
 __all__ = ["TrainConfig", "TrainShardings", "train_shardings",
-           "state_placements", "cross_entropy", "make_train_step",
+           "state_placements", "cross_entropy", "comm_by_kind",
+           "make_train_step",
            "init_train_state", "Trainer"]
 
 
@@ -171,10 +177,11 @@ def state_placements(shardings: TrainShardings, state) -> dict:
     return tree
 
 
-def _mean_over_data(mesh, loss, grads):
+def _mean_over_data(mesh, loss, grads, comm: dict):
     """The loss and the gradient averaged over the ranks that hold other
     rows of the batch (``pod`` and ``data``); ranks of one data shard
-    reduce identical values in the same order, so they stay equal."""
+    reduce identical values in the same order, so they stay equal.
+    ``comm["data_reduce_bytes"]`` grows by the bytes all-reduced."""
     sizes = mesh_axis_sizes(mesh)
     axes = [a for a in ("pod", "data") if sizes.get(a, 1) > 1]
     n = math.prod(sizes[a] for a in axes)
@@ -184,7 +191,21 @@ def _mean_over_data(mesh, loss, grads):
     for t in [loss, *_leaves(grads)]:
         for a in axes:
             dist.all_reduce(t, group=mesh.get_group(a))
+            comm["data_reduce_bytes"] += t.numel() * t.element_size()
     return loss / n, _map(lambda g: g / n, grads)
+
+
+def comm_by_kind(comm: dict) -> dict:
+    """A sharded step's ``step.comm`` summed by collective kind, under
+    ``launch.op_stats``' names (an all-gather's bytes its whole
+    output's): what ``OpStats.collective_bytes_by_kind`` counts of the
+    same step without microbatches, MoE or int8 compression (whose
+    gathers ``step.comm`` does not count)."""
+    return {"all-gather": comm["param_gather_bytes"]
+            + comm["model_gather_bytes"] + comm["zero_gather_bytes"],
+            "all-reduce": comm["model_reduce_bytes"]
+            + comm["model_stat_bytes"] + comm["data_reduce_bytes"],
+            "all-to-all": comm["model_relayout_bytes"]}
 
 
 def cross_entropy(
@@ -349,6 +370,7 @@ def make_train_step(
         def reduce(vals):
             t = torch.stack([vals[i] for i in at])
             dist.all_reduce(t, op=op, group=mesh.get_group("model"))
+            step.comm["model_stat_bytes"] += t.numel() * t.element_size()
             vals = list(vals)
             for j, i in enumerate(at):
                 vals[i] = t[j]
@@ -372,8 +394,17 @@ def make_train_step(
         z = shardings.moments
         slabs, new_opt = opt.update(to_moments(grads), opt_state,
                                     to_moments(params), lr)
-        return _map(lambda t, pl: gather_tensor(t, pl, mesh, ("data",)),
-                    slabs, z), new_opt
+        n_data = mesh_axis_sizes(mesh).get("data", 1)
+
+        def back(t, pl):
+            out = gather_tensor(t, pl, mesh, ("data",))
+            if n_data > 1 and any("data" in _entry_axes(e)
+                                  for e in pl.pspec):
+                step.comm["zero_gather_bytes"] += (out.numel()
+                                                   * out.element_size())
+            return out
+
+        return _map(back, slabs, z), new_opt
 
     def step(state, batch):
         step.comm = dict.fromkeys(step.comm, 0)
@@ -384,7 +415,7 @@ def make_train_step(
             step.comm["model_reduce_bytes"] = tp.reduce_bytes
             step.comm["model_gather_bytes"] = tp.gather_bytes
             step.comm["model_relayout_bytes"] = tp.relayout_bytes
-            loss, grads = _mean_over_data(mesh, loss, grads)
+            loss, grads = _mean_over_data(mesh, loss, grads, step.comm)
         else:
             loss, grads = loss_and_grads(params, batch)
         grads, gnorm = clip_by_global_norm(
@@ -411,7 +442,9 @@ def make_train_step(
         return new_state, metrics
 
     step.comm = dict.fromkeys(("param_gather_bytes", "model_reduce_bytes",
-                               "model_gather_bytes", "model_relayout_bytes"),
+                               "model_gather_bytes", "model_relayout_bytes",
+                               "model_stat_bytes", "data_reduce_bytes",
+                               "zero_gather_bytes"),
                               0)
     return step
 

@@ -345,6 +345,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         "--arch", "h2o_danube_1_8b", "--smoke", "--requests", "4",
         "--slots", "2", "--prompt-len", "8", "--new-tokens",
         str(cs.ENTRY_NEW)])
+    # the dryrun phase: (c) 4 prompts of 20 tokens in a cache of 32, 3
+    # decode steps; (d) one production cell that plans in seconds
+    monkeypatch.setattr(cs, "DRYRUN_PROMPT", 20)
+    monkeypatch.setattr(cs, "DRYRUN_MAX_SEQ", 32)
+    monkeypatch.setattr(cs, "DRYRUN_DECODE", 3)
+    monkeypatch.setattr(cs, "DRYRUN_CELLS", (("mamba2_780m", "long_500k"),))
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -361,7 +367,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         "device", "build", "compile", "kernels", "kernels", "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
         "ssm_whisper", "vlm", "train", "train_shard", "entry_points",
-        "times"]
+        "dryrun", "times"]
     serve = lines[5]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
@@ -698,7 +704,22 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert served["device"] == "cpu" and served["tokens_per_s"] > 0
     assert any("check ok" in ln
                for ln in ep["runs"]["serve_http_generate"]["stdout_tail"])
-    times = lines[18]
+    dr = lines[18]
+    a, b, c = dr["part_a"], dr["part_b"], dr["part_c"]
+    assert a["flops_predicted"] == a["flops_measured"] > 0
+    assert a["peak_rel"] <= cs.DRYRUN_PEAK_REL
+    assert a["step_seconds"] >= a["bound_seconds"] > 0
+    assert b["predicted_by_kind"] == b["step_comm_by_kind"]
+    assert set(b["predicted_by_kind"]) == {"all-gather", "all-reduce"}
+    assert c["tokens_equal_unsharded"] and c["flash_rows_ok"]
+    assert c["resident_bytes"] == c["reckoned_bytes"]
+    assert c["flash_launches_per_rank"] == [4] * 4
+    assert all(m == c["decode_by_kind_predicted"]
+               for m in c["decode_by_kind_measured"])
+    assert all(rel <= cs.DRYRUN_PEAK_REL for rel in c["decode_peak_rel"])
+    assert [(x["arch"], x["status"]) for x in dr["part_d"]] == [
+        ("mamba2_780m", "ok")]
+    times = lines[19]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40, 17, 40, 13, 20]
@@ -730,9 +751,10 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     # flash's in (a) and one on each rank of (b), 2 layers each; qwen's 2
     # prefills of 2 layers; jamba's 6 served prefills of its attention
     # layer; paligemma's 2 prefix prefills and 4 requests of 2 layers; the
-    # trained danube's 6 requests of 2 layers
+    # trained danube's 6 requests of 2 layers; the dryrun phase's placed
+    # prefill of 4 layers on each of 4 ranks
     assert res["kernels"][3]["launches"] == (2 * 7 + 2 * (2 + 2) + 2 * 2 + 6
-                                             + 2 * 6 + 2 * 6)
+                                             + 2 * 6 + 2 * 6 + 4 * 4)
     # the spmm launches of the serve, shard (a, then 2 ranks of b) and
     # prune phases
     assert res["kernels"][0]["launches"] == 36 + 40 + 2 * 36 + 36

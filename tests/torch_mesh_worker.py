@@ -3,7 +3,8 @@
 ``tests/test_torch_sharded_train.py``'s ``train`` and ``restore`` jobs,
 ``tests/test_torch_pipeline.py``'s ``pipeline`` job,
 ``tests/test_torch_tensor_parallel.py``'s ``tp_mlp``, ``tp_blocks``
-and ``tp_train`` jobs).
+and ``tp_train`` jobs, ``tests/test_torch_dryrun.py``'s ``placed_serve``
+job).
 
     python tests/torch_mesh_worker.py <spec.pkl> <rank>
 
@@ -452,10 +453,81 @@ def pipeline_job(job: dict) -> dict:
     return out
 
 
+def placed_serve_job(job: dict) -> dict:
+    """The placed serving steps (``runtime.serve`` with ``shardings=``):
+    this rank's slabs of the whole params and a float32 cache, a prefill
+    of its rows of the prompts, then ``job["steps"]`` greedy decode steps
+    at one shared position.  Returns the rows' tokens and decode logits,
+    the bytes the rank holds after the steps and those its placements
+    reckon, and the placed flash-decode calls."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import flash_decode_placed
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.models.transformer import (
+        _leaves,
+        init_cache,
+        init_specs,
+        init_statics,
+    )
+    from repro_torch.parallel.tensor import data_shards
+    from repro_torch.runtime.serve import (
+        ServeConfig,
+        decode_logits,
+        make_prefill_step,
+        place_serving_state,
+        serve_shardings,
+    )
+
+    cfg = dataclasses.replace(get_smoke_config(job["arch"]),
+                              **job["overrides"])
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    statics = init_statics(cfg, "cpu")
+    params = lm_params_from_numpy(job["params"], "cpu")
+    tokens = torch.as_tensor(job["tokens"], dtype=torch.long)
+    b, length = tokens.shape
+    cache = init_cache(statics, b, job["max_seq"], dtype=torch.float32,
+                       device="cpu")
+    sh = serve_shardings(init_specs(cfg), params, cache, mesh)
+    reckoned = sum(math.prod(pl.slab_shape) * t.element_size()
+                   for t, pl in zip([*_leaves(params), *_leaves(cache)],
+                                    [*_leaves(sh.params),
+                                     *_leaves(sh.cache)]))
+    p_slab, c_slab = place_serving_state(params, cache, sh)
+    del params, cache
+    r, n = data_shards(mesh)
+    per = b // n if b % n == 0 else b
+    rows = slice(r * per, (r + 1) * per) if b % n == 0 else slice(None)
+    extras = ({"frames": torch.as_tensor(job["frames"])[rows]}
+              if job.get("frames") is not None else None)
+    calls = flash_decode_placed.calls
+    scfg = ServeConfig(max_seq=job["max_seq"], cache_dtype="float32")
+    with torch.no_grad():
+        tok, c_slab = make_prefill_step(cfg, statics, scfg, shardings=sh)(
+            p_slab, c_slab, tokens[rows], extras)
+        out = {"tokens": [_np(tok)], "logits": []}
+        for i in range(job["steps"]):
+            logits, c_slab = decode_logits(statics, p_slab, c_slab, tok,
+                                           torch.tensor(length + i), sh)
+            tok = logits.argmax(dim=-1)
+            out["tokens"].append(_np(tok))
+            out["logits"].append(_np(logits))
+    out["rows"] = (rows.start or 0, rows.stop if rows.stop is not None
+                   else b)
+    out["resident_bytes"] = sum(t.numel() * t.element_size() for t in
+                                [*_leaves(p_slab), *_leaves(c_slab)])
+    out["reckoned_bytes"] = reckoned
+    out["flash_calls"] = flash_decode_placed.calls - calls
+    return out
+
+
 JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job, "data": data_job,
         "train": train_job, "restore": restore_job,
         "pipeline": pipeline_job, "tp_mlp": tp_mlp_job,
-        "tp_blocks": tp_blocks_job, "tp_train": tp_train_job}
+        "tp_blocks": tp_blocks_job, "tp_train": tp_train_job,
+        "placed_serve": placed_serve_job}
 
 
 def main(spec_path: str, rank: int) -> None:
