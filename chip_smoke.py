@@ -450,6 +450,13 @@ VLM_BURSTS = (1, 3, 2, 2)
 # (d) each kernel wrapper refuses a CUDA input that requires grad, and a
 # granite-3-2b smoke float32 step on the card gives the CPU's loss and
 # grad norm within GUARD_REL.
+# (a) runs with the reference's remat (ModelConfig.remat, the default);
+# its peak stays within the update's reckoned bytes (train_reckoning:
+# the grads and their clipped copy, the old and the new params and
+# moments; AdamW's float32 temporaries are a piece's, not a leaf's) and
+# within DRYRUN_PEAK_REL of the dryrun phase's prediction of one such
+# step.  (f), in the drill's process: one batch's loss and gradients
+# with remat and without, bit for bit (step.loss_and_grads).
 TRAIN_BATCH = (4, 512)  # rows, tokens a row
 TRAIN_STEPS = 8
 TRAIN_CORPUS_VOCAB = 1024
@@ -513,8 +520,10 @@ SHARD_PREPARE = None
 # model slabs (parallel.tensor): each step all-gathers no param (the
 # leaves not computed on their slabs: none in these models), all-reduces
 # and re-lays out over model the bytes parallel.tensor.model_bytes
-# reckons from the shapes, and its bf16 run stays within
-# SHARD_TRAIN_BF16_REL of the unsharded bf16 run.
+# reckons from the shapes (each period's forward again, remat),
+# reduce-scatters over data the ZeRO-1 moment slabs' bytes of its
+# gradients, and its bf16 run stays within SHARD_TRAIN_BF16_REL of the
+# unsharded bf16 run.
 ONE_RANK_STEPS = 2
 SHARD_TRAIN_MESH = (2, 2)
 SHARD_TRAIN_LAYERS = 4
@@ -552,10 +561,17 @@ ENTRY_HTTP = 100
 ENTRY_TIMEOUT_S = 300
 
 
-# the dryrun phase: (a) the train phase's step predicted, then measured;
+# the dryrun phase: (a) the train phase's step predicted (remat: the
+# checkpointed peak, the FLOPs with the recomputed forward), then
+# measured, and the train phase's own peak held to the prediction; then
+# the step's loss and gradients alone, with remat and without, each
+# peak held to its prediction and the measured fall to at least
+# REMAT_FALL_SHARE of the predicted (the activations remat drops); (b)
+# (f)'s collectives, its gradients' reduce-scatter over data included;
 # (c) placed serving of danube cut as (f) on the 2 x 2 gloo mesh; (d) the
 # production cells planned through run_cell
 DRYRUN_PEAK_REL = 0.10
+REMAT_FALL_SHARE = 0.5
 DRYRUN_BATCH = 4  # (c): prompts, split over data
 DRYRUN_PROMPT = 124  # (c): prompt tokens; decode crosses the slab edge at 128
 DRYRUN_MAX_SEQ = 256  # (c): cache positions, split over model
@@ -3314,8 +3330,10 @@ def train_config():
 def train_reckoning(params) -> dict:
     """Bytes of a training step's state, from the params: the params and
     their grads in the params' dtype, AdamW's two float32 moments; the
-    update holds the grads, their clipped copy, the old and the new
-    moments and params at once.  Activations come on top."""
+    update holds at most the grads, their clipped copy, the old and the
+    new moments and params at once (``update_peak_bytes``), its float32
+    temporaries a piece's (``optim.optimizers.UPDATE_CHUNK``).  With
+    remat the backward's activations stay below that."""
     from repro_torch.models.transformer import _leaves
 
     n = sum(t.numel() for t in _leaves(params))
@@ -3397,7 +3415,7 @@ def train_full(seed: int, dev, corpus, ckpt_dir) -> tuple:
     last = float(np.mean(losses[-TRAIN_LAST:]))
     res = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "d_ff": cfg.d_ff,
-           "sparse": dataclasses.asdict(cfg.sparse),
+           "sparse": dataclasses.asdict(cfg.sparse), "remat": cfg.remat,
            "param_dtype": cfg.param_dtype, "optimizer": "adamw, float32 "
            "moments, weight_decay 0", "lr": TRAIN_LR,
            "batch": list(TRAIN_BATCH), "corpus_vocab": TRAIN_CORPUS_VOCAB,
@@ -3410,6 +3428,7 @@ def train_full(seed: int, dev, corpus, ckpt_dir) -> tuple:
            / sum(secs[1:]),
            "run_seconds": run_s, "reckoned": reckoned,
            "peak_memory_bytes": peak,
+           "peak_limit_bytes": reckoned["update_peak_bytes"],
            "checkpoint": {"steps": [TRAIN_STEPS], "seconds": saves,
                           "bytes": dir_bytes(ckpt_dir)}}
     return res, (cfg, trainer.state["params"], statics)
@@ -3505,6 +3524,7 @@ def train_drill(spec: dict) -> dict:
     ref_losses = {h["step"]: h["loss"] for h in ref_hist}
     one_rank = one_rank_mesh_steps(spec, corpus)
     return {"one_rank_mesh": one_rank,
+            "remat": remat_loss_and_grads(spec, corpus),
             "layers": cfg.n_layers, "steps": steps, "ckpt_every": every,
             "async": True, "failure_at": fail_at, "failure_raised": raised,
             "restored_step": at, "restore_seconds": restore_s,
@@ -3521,6 +3541,35 @@ def train_drill(spec: dict) -> dict:
             "checkpoint_bytes": ckpt_bytes,
             "reckoned_checkpoint_bytes": train_reckoning(
                 ref.state["params"])["state_bytes"]}
+
+
+def remat_loss_and_grads(spec: dict, corpus) -> dict:
+    """(f): the drill's model on its first batch, the step's loss and
+    gradients (``step.loss_and_grads``) with remat and without, compared
+    bit for bit."""
+    import torch
+
+    from repro_torch.models.transformer import _leaves, init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import TrainConfig, make_train_step
+    from repro_torch.runtime.train import _to_device
+
+    cfg, seed, dev = spec["cfg"], spec["seed"], torch.device(spec["device"])
+    params, statics = init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    batch = _to_device(next(train_data(seed, corpus, spec["batch"])), dev)
+    out = {}
+    for remat in (True, False):
+        st = dict(statics, cfg=dataclasses.replace(cfg, remat=remat))
+        step = make_train_step(cfg, st, adamw(weight_decay=0.0),
+                               lambda s: spec["lr"], TrainConfig())
+        loss, grads = step.loss_and_grads(params, batch)
+        out[remat] = (loss, list(_leaves(grads)))
+    (l1, g1), (l0, g0) = out[True], out[False]
+    return {"loss_remat": float(l1), "loss_no_remat": float(l0),
+            "loss_bit_equal": torch.equal(l1, l0), "grad_leaves": len(g1),
+            "grads_bit_equal": len(g1) == len(g0) and all(
+                torch.equal(a, b) for a, b in zip(g1, g0))}
 
 
 def one_rank_mesh_steps(spec: dict, corpus) -> dict:
@@ -3773,7 +3822,8 @@ def train_phase(seed: int, dev) -> dict:
          guards=guards)
     train_checks(full, drill, served, guards)
     return {"launches": served["launches"],
-            "max_abs_err": served["flash_max_abs_diff"]}
+            "max_abs_err": served["flash_max_abs_diff"],
+            "peak_memory_bytes": full["peak_memory_bytes"]}
 
 
 def train_checks(full, drill, served, guards) -> None:
@@ -3781,6 +3831,11 @@ def train_checks(full, drill, served, guards) -> None:
     losses = full["losses"]
     last = full[f"loss_mean_last_{TRAIN_LAST}"]
     check(all(np.isfinite(losses)), f"danube's losses {losses}")
+    check(full["remat"]
+          and full["peak_memory_bytes"] <= full["peak_limit_bytes"],
+          f"danube's peak {full['peak_memory_bytes']} with remat "
+          f"{full['remat']}: above the update's reckoned "
+          f"{full['peak_limit_bytes']}")
     check(last < losses[0] - TRAIN_FALL,
           f"danube did not learn: {losses[0]} -> {last} over the last "
           f"{TRAIN_LAST} of {TRAIN_STEPS} steps")
@@ -3798,6 +3853,11 @@ def train_checks(full, drill, served, guards) -> None:
     check(drill["final_state_bit_equal"], "the restarted run's final "
                                           "state differs from the "
                                           "uninterrupted run's")
+    rm = drill["remat"]
+    check(rm["loss_bit_equal"] and rm["grads_bit_equal"],
+          f"(f) remat changes the loss or the gradients: loss "
+          f"{rm['loss_remat']} vs {rm['loss_no_remat']}, gradients equal "
+          f"{rm['grads_bit_equal']}")
     one = drill["one_rank_mesh"]
     check(one["losses_bit_equal"] and one["state_bit_equal"],
           f"the sharded step on a one-rank mesh differs from the unsharded "
@@ -4171,6 +4231,10 @@ def sharded_train_run(spec, mesh, dev) -> dict:
             "gathered_params": size * sum(math.prod(pl.shape)
                                           for pl in gathered),
             "gathered_leaves": len(gathered),
+            # gradients reduce-scattered over data onto the moment slabs
+            "data_scatter_bytes": size * sum(
+                math.prod(z.slab_shape) for z in _leaves(shardings.moments)
+                if sizes["data"] > 1 and "data" in z.pspec),
             **model_bytes(cfg, statics, n_model, my_rows, seq - 1)}
         rows = {"reckoned_bytes": reckoned, "comm": []}
         losses, rules = [], []
@@ -4617,13 +4681,18 @@ def train_shard_checks(f) -> None:
                                   ("model_reduce_bytes",
                                    "model_reduce_bytes"),
                                   ("model_relayout_bytes",
-                                   "model_relayout_bytes")):
+                                   "model_relayout_bytes"),
+                                  ("data_scatter_bytes",
+                                   "data_scatter_bytes")):
                 check(all(c[key] == reck[want_key] for c in steps),
                       f"{key} per step {[c[key] for c in steps]} != "
                       f"reckoned {reck[want_key]}")
     check(all(c["model_reduce_bytes"] > 0 for steps in f["comm_per_step"]
               for c in steps),
           "no activation was all-reduced over model: compute not split")
+    check(all(c["data_scatter_bytes"] > 0 for steps in f["comm_per_step"]
+              for c in steps),
+          "no gradient was reduce-scattered over data")
     if f["restore"] is not None:
         check(f["restore"]["restored_step"] == SHARD_TRAIN_STEPS
               and f["restore"]["bit_equal"],
@@ -4636,7 +4705,10 @@ def train_shard_checks(f) -> None:
 def dryrun_train_predict(cfg, batch, tokens_dtype: str) -> dict:
     """(a)'s prediction: the train phase's unsharded step (AdamW, no
     weight decay, ``TRAIN_LR``) over fake tensors on the host, counted by
-    ``launch.op_stats``; the state and the batch are its inputs."""
+    ``launch.op_stats``; the state and the batch are its inputs.  Then
+    the step's loss and gradients alone (``step.loss_and_grads``, the
+    params and the batch its inputs) with remat and without: their peaks
+    (``grads_peak_bytes``, by remat)."""
     import torch
 
     from repro_torch.launch.dryrun import _static_tensors
@@ -4666,8 +4738,19 @@ def dryrun_train_predict(cfg, batch, tokens_dtype: str) -> dict:
             st.add_inputs(state, {"tokens": toks},
                           _static_tensors(statics))
             step(state, {"tokens": toks})
+        trace_s = time.perf_counter() - t0
+        grads_peak = {}
+        for remat in (True, False):
+            rs = dict(statics, cfg=dataclasses.replace(cfg, remat=remat))
+            alone = make_train_step(cfg, rs, opt, lambda s: TRAIN_LR, tcfg)
+            with OpStats() as g:
+                g.add_inputs(state["params"], {"tokens": toks},
+                             _static_tensors(rs))
+                alone.loss_and_grads(state["params"], {"tokens": toks})
+            grads_peak[remat] = g.peak_bytes
     return {"flops": st.flops, "bytes": st.bytes,
-            "peak_bytes": st.peak_bytes, "trace_s": time.perf_counter() - t0}
+            "peak_bytes": st.peak_bytes, "trace_s": trace_s,
+            "grads_peak_bytes": grads_peak}
 
 
 def dryrun_plan(spec: dict, which: str, out: str) -> None:
@@ -4863,7 +4946,9 @@ def dryrun_train_measure(seed: int, dev, pred: dict) -> dict:
     """(a) measured: one step of the train phase's danube on the card
     under ``launch.op_stats`` (the same counter as the prediction), its
     time, and its peak above what was allocated before it plus its
-    inputs (what the prediction counts)."""
+    inputs (what the prediction counts); then the step's loss and
+    gradients alone with remat and without, each one's peak so counted
+    and its time."""
     import torch
 
     from repro_torch.data import SyntheticCorpus
@@ -4907,8 +4992,37 @@ def dryrun_train_measure(seed: int, dev, pred: dict) -> dict:
     state, _ = step(state, batch)
     _sync(dev)
     seconds = time.perf_counter() - t0
+    grads = {}
+    for remat in (True, False):
+        rs = dict(statics, cfg=dataclasses.replace(cfg, remat=remat))
+        alone = make_train_step(cfg, rs, opt, lambda s: TRAIN_LR, tcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_peak(dev)
+        before = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+                  else 0)
+        with OpStats() as g:
+            g.add_inputs(state["params"], batch, _static_tensors(rs))
+            inputs_g = int(g.bytes)
+            out = alone.loss_and_grads(state["params"], batch)
+            _sync(dev)
+        peak = (_cuda_peak(dev) - before + inputs_g if dev.type == "cuda"
+                else g.peak_bytes)
+        del out
+        # its time without the counter's per-op work
+        t0 = time.perf_counter()
+        out = alone.loss_and_grads(state["params"], batch)
+        _sync(dev)
+        grads[remat] = {"peak_measured_bytes": peak, "input_bytes": inputs_g,
+                        "seconds": time.perf_counter() - t0}
+        del out
     del state
     torch.cuda.empty_cache()
+    for remat, rec in grads.items():
+        rec["peak_predicted_bytes"] = pred["grads_peak_bytes"][remat]
+        rec["peak_rel"] = (abs(rec["peak_predicted_bytes"]
+                               - rec["peak_measured_bytes"])
+                           / rec["peak_measured_bytes"])
     bound_s = max(pred["flops"] / dryrun_peak_flops(cfg),
                   pred["bytes"] / HBM_BYTES_PER_S)
     return {"model": cfg.name, "batch": list(TRAIN_BATCH),
@@ -4921,7 +5035,10 @@ def dryrun_train_measure(seed: int, dev, pred: dict) -> dict:
             "step_seconds": seconds, "bound_seconds": bound_s,
             "bound_by": ("operations" if pred["flops"] / dryrun_peak_flops(
                 cfg) >= pred["bytes"] / HBM_BYTES_PER_S else "bytes"),
-            "predict_trace_s": pred["trace_s"]}
+            "predict_trace_s": pred["trace_s"],
+            "loss_and_grads": {"remat": grads[True],
+                               "no_remat": grads[False],
+                               "fall_limit_share": REMAT_FALL_SHARE}}
 
 
 def dryrun_peak_flops(cfg) -> float:
@@ -4929,10 +5046,12 @@ def dryrun_peak_flops(cfg) -> float:
         else PEAK_BF16_FLOPS
 
 
-def dryrun_phase(seed: int, dev, shard_train: dict) -> dict:
+def dryrun_phase(seed: int, dev, shard_train: dict,
+                 train_peak: int | None = None) -> dict:
     """The ``dryrun`` phase, (a) to (d), and its JSON line; the planning
     runs in three spawned processes (fake process groups of their own)
-    while the card measures."""
+    while the card measures.  ``train_peak``: the ``train`` phase's peak
+    over its (a), which (a)'s prediction of one such step holds too."""
     import pickle
 
     import torch
@@ -4995,6 +5114,10 @@ def dryrun_phase(seed: int, dev, shard_train: dict) -> dict:
                 plan[w] = pickle.load(f)
     abc = plan["abc"]
     a = dryrun_train_measure(seed, dev, abc["a"])
+    if train_peak is not None:
+        a["train_phase_peak_bytes"] = train_peak
+        a["train_phase_peak_rel"] = (abs(abc["a"]["peak_bytes"] - train_peak)
+                                     / train_peak)
     f_kind = {k: v for k, v in comm_by_kind(shard_train["f_comm"]).items()
               if v}
     b = {"predicted_by_kind": {k: v for k, v in abc["b"]["by_kind"].items()
@@ -5045,11 +5168,29 @@ def dryrun_phase(seed: int, dev, shard_train: dict) -> dict:
           f"(a) predicted peak {a['peak_predicted_bytes']} vs measured "
           f"{a['peak_measured_bytes']}: rel {a['peak_rel']} > "
           f"{DRYRUN_PEAK_REL}")
+    check(train_peak is None
+          or a["train_phase_peak_rel"] <= DRYRUN_PEAK_REL,
+          f"(a) predicted peak {a['peak_predicted_bytes']} vs the train "
+          f"phase's {train_peak}: rel {a.get('train_phase_peak_rel')} > "
+          f"{DRYRUN_PEAK_REL}")
+    lg = a["loss_and_grads"]
+    on, off = lg["remat"], lg["no_remat"]
+    check(all(x["peak_rel"] <= DRYRUN_PEAK_REL for x in (on, off)),
+          f"(a) loss and gradients' peak predicted vs measured: remat "
+          f"{on['peak_predicted_bytes']} vs {on['peak_measured_bytes']}, "
+          f"none {off['peak_predicted_bytes']} vs "
+          f"{off['peak_measured_bytes']}: over {DRYRUN_PEAK_REL}")
+    fall = off["peak_predicted_bytes"] - on["peak_predicted_bytes"]
+    check(fall > 0 and off["peak_measured_bytes"] - on["peak_measured_bytes"]
+          >= REMAT_FALL_SHARE * fall,
+          f"(a) remat lowered the loss and gradients' peak from "
+          f"{off['peak_measured_bytes']} to {on['peak_measured_bytes']}: "
+          f"less than {REMAT_FALL_SHARE} of the predicted fall {fall}")
     check(a["step_seconds"] >= a["bound_seconds"],
           f"(a) the step took {a['step_seconds']} s, under its roofline "
           f"bound {a['bound_seconds']} s: the count is wrong")
     check(b["predicted_by_kind"] == b["step_comm_by_kind"]
-          and b["predicted_by_kind"],
+          and b["predicted_by_kind"].get("reduce-scatter"),
           f"(b) predicted collective bytes {b['predicted_by_kind']} != "
           f"(f)'s step.comm {b['step_comm_by_kind']}")
     check(c["tokens_equal_unsharded"],
@@ -5955,7 +6096,8 @@ def run(seed: int, dev) -> dict:
 
     # -- 10h. the dry run held against the card: op statistics, placed
     # serving, production cells ------------------------------------------
-    dr = dryrun_phase(seed, dev, shard_train)
+    dr = dryrun_phase(seed, dev, shard_train, tr["peak_memory_bytes"]
+                      if dev.type == "cuda" else None)
     launches["flash_attention_cuda"] += dr["launches"]
     max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
                                           dr["max_abs_err"])

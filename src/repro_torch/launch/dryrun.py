@@ -18,6 +18,12 @@ Port of ``src/repro/launch/dryrun.py``.  For each cell it
   * writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__sparse]
     .json`` (existing cells are kept unless ``--force``).
 
+A train step runs as the config says, with the reference's remat: its
+FLOPs count the backward's recomputed forward and its peak is the
+checkpointed one, as the reference's ``hlo_stats`` and memory analysis
+of its compiled step count them; its gradients are reduce-scattered
+over ``data`` (``runtime.train``).
+
 The step takes the plain routes (``"routes": "plain"``): a hand-written
 kernel cannot take a fake tensor, and its wrapper refuses one.  A cell
 that fails is recorded with ``status: "error"`` and its traceback: it is

@@ -33,6 +33,7 @@ is needed.
 
 from __future__ import annotations
 
+import traceback
 import weakref
 from collections import defaultdict
 
@@ -91,10 +92,14 @@ class OpStats(TorchDispatchMode):
     step's tensors belong to (or with none, on real tensors), then read
     ``flops``, ``bytes``, ``collective_counts``,
     ``collective_bytes_by_kind``, ``collective_bytes_by_dim`` (keys
-    ``"kind/dim"``) and ``peak_bytes``."""
+    ``"kind/dim"``) and ``peak_bytes``.  With ``keep_site``,
+    ``peak_site`` is the Python stack of the allocation that last raised
+    the peak (where a step's peak is set)."""
 
-    def __init__(self):
+    def __init__(self, keep_site: bool = False):
         super().__init__()
+        self.keep_site = keep_site
+        self.peak_site = ""
         self.flops = 0.0
         self.bytes = 0.0
         self.collective_counts: dict = defaultdict(int)
@@ -132,7 +137,10 @@ class OpStats(TorchDispatchMode):
         n = storage.nbytes()
         self._live[key] = n
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            if self.keep_site:
+                self.peak_site = "".join(traceback.format_stack(limit=16))
         weakref.finalize(storage, self._free, key)
         return True
 

@@ -19,9 +19,11 @@ them with ``lax.scan`` the port loops over the stacked tensors in
 Python.  Enc-dec (whisper) adds an encoder stack, run over stub frame
 embeddings (``frames``), whose output the decoder's cross-attention
 reads; a VLM (paligemma) puts stub patch embeddings (``prefix_embeds``)
-in front of the tokens; DeepSeek-V3 adds its MTP head.  The reference's
-remat (``jax.checkpoint``) only trades memory for recompute and is left
-out: a training step (``runtime.train``) keeps every activation.
+in front of the tokens; DeepSeek-V3 adds its MTP head.  With
+``cfg.remat`` (the default, as the reference's), a forward that autograd
+records keeps only each period's and each encoder layer's input and
+recomputes the rest in the backward (:func:`_remat`), the reference's
+``jax.checkpoint(..., nothing_saveable)``.
 
 Params are a plain dict of tensors; the statics (layer kinds, attention
 and MLA configs, sparse layouts with their device index tables) come
@@ -32,11 +34,13 @@ updated in place.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
@@ -134,7 +138,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     model_shards: int = 16
-    remat: bool = True  # the reference's training flag; unused here
+    remat: bool = True  # recompute each period / encoder layer (_remat)
     vocab_pad: int = 256
     max_seq: int = 4096  # cache capacity for serving
     decode_strategy: str = "gather"  # 'gather' | 'flash' (see AttnConfig)
@@ -585,23 +589,58 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
     return x + mlp_apply(params["mlp"], static["mlp"], h, kernels), None
 
 
+def _remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``
+    that keeps nothing of ``fn``'s but its inputs: the backward runs
+    ``fn`` again for what it needs, as ``jax.checkpoint`` with the
+    ``nothing_saveable`` policy does.
+
+    The recompute stops early, at the last op that saved a tensor for
+    the backward (torch's default, set here whatever the caller's): the
+    ops after it would only allocate outputs nobody reads while the
+    backward's buffers are live.  In a training step's period those are
+    the last layer's residual add and, where its last block computes on
+    its ``model`` slab and ends in a row product, that product's
+    all-reduce, which then runs once: ``parallel.tensor.model_bytes``
+    reckons exactly that, the same on every rank (where early stop stops
+    was checked on torch 2.11 and 2.13; ``tests/test_torch_remat.py``
+    counts it against ``parallel.tensor._trailing_reduce``).  The
+    recompute runs inside the forward's ``parallel.tensor`` context,
+    which the autograd engine's device threads would not see otherwise.
+    No random state is kept: the model draws none."""
+    tp = tensor.current()
+
+    def contexts():
+        return contextlib.nullcontext(), tensor.entered(tp)
+
+    with _checkpoint.set_checkpoint_early_stop(True):
+        return _checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                      preserve_rng_state=False,
+                                      context_fn=contexts)
+
+
 def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,
-            kernels: bool = True, placed=None):
+            kernels: bool = True, placed=None, remat: bool = False):
     """Whisper encoder over stub frame embeddings [B, enc_seq, d]: every
     layer bidirectional at positions ``arange(enc_seq)`` without a cache,
     so its attention is a prefill in the kernel route's sense (the plain
     routes with ``kernels=False``).  ``placed``: each layer's params
-    gathered from their slabs just before it runs."""
+    gathered from their slabs just before it runs.  ``remat``: each layer
+    under :func:`_remat`, the reference's ``enc_fn``."""
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     top = _take(params, placed, "enc_pos", "enc_norm")
     x = frames.to(cfg.cdtype()) + top["enc_pos"].to(cfg.cdtype())
     pos = torch.arange(frames.shape[1], device=frames.device)
-    for i in range(cfg.encoder_layers):
+
+    def enc_layer(x, i):
         p = _index(params["encoder"], i)
         if placed is not None:
             p = placed.gather(p, placed.stacked("encoder"))
-        x, _ = _apply_layer(p, statics["encoder"], cfg, x, pos, None, None,
-                            None, kernels, kernels=kernels)
+        return _apply_layer(p, statics["encoder"], cfg, x, pos, None, None,
+                            None, kernels, kernels=kernels)[0]
+
+    for i in range(cfg.encoder_layers):
+        x = _remat(enc_layer, x, i) if remat else enc_layer(x, i)
     return norm(top["enc_norm"], x)
 
 
@@ -666,6 +705,13 @@ def apply_model(
     the padded vocabulary's columns, ``[B, S(+P), vocab_padded / n]``,
     which ``runtime.train.cross_entropy`` reduces over the group.
 
+    With ``cfg.remat``, where autograd records the forward
+    (``torch.is_grad_enabled()``), there is no cache and ``placed`` is
+    None (a training step), each period of the body and each encoder
+    layer runs under :func:`_remat`; the prefix layers and the MTP layer
+    run as they are, as the reference runs them.  Serving, the pipeline
+    and every forward without grad run unchanged.
+
     ``placed`` (``runtime.serve``'s placed serving steps, which pass it):
     ``params`` and ``cache`` are this rank's slabs and ``tokens`` (and
     ``frames``, ``prefix_embeds``) its batch rows.  Storage split,
@@ -681,6 +727,8 @@ def apply_model(
         raise ValueError("placed serving steps keep a cache")
     cdt = cfg.cdtype()
     _, s = tokens.shape
+    remat = (cfg.remat and torch.is_grad_enabled() and cache is None
+             and placed is None)
     tp = tensor.current()
     vocab_tp = (tp if tp is not None and tensor.vocab_splits(cfg, tp.size)
                 else None)
@@ -705,7 +753,8 @@ def apply_model(
     memory = None
     if cfg.encoder_layers:
         if frames is not None:
-            memory = _encode(params, statics, cfg, frames, kernels, placed)
+            memory = _encode(params, statics, cfg, frames, kernels, placed,
+                             remat)
             if cache is not None:
                 cache["memory"] = (memory if placed is None else
                                    placed.cut(memory, placed.cache["memory"]))
@@ -731,10 +780,14 @@ def apply_model(
         c = cache["prefix_layers"][i] if cache is not None else None
         x = layer(x, p, st, c, ("prefix_layers", i))
 
-    for rep in range(statics["n_periods"]):
+    def period(x, rep):  # the reference's period_fn
         for j, st in enumerate(statics["body"]):
             c = _index(cache["body"][j], rep) if cache is not None else None
             x = layer(x, _index(params["body"][j], rep), st, c, ("body", j))
+        return x
+
+    for rep in range(statics["n_periods"]):
+        x = _remat(period, x, rep) if remat else period(x, rep)
 
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     hidden = norm(_take(params, placed, "final_norm")["final_norm"], x)

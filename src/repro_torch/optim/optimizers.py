@@ -8,6 +8,12 @@ never writing into the ones given, in the reference's order of
 operations, so a step given the same grads gives the same params to
 fp32 rounding.  The optimizer state holds tensors of the params' shapes
 on the params' devices.
+
+AdamW writes each leaf's new params and moments into tensors it
+allocates once, a piece of at most ``UPDATE_CHUNK`` elements at a time
+(:func:`_pieces`), so its float32 temporaries are a piece's, not a
+stacked leaf's: the same operations on the same elements, so the same
+bits as the whole-leaf expression.
 """
 
 from __future__ import annotations
@@ -27,7 +33,12 @@ __all__ = [
     "clip_by_global_norm",
     "cosine_schedule",
     "linear_warmup_cosine",
+    "UPDATE_CHUNK",
 ]
+
+# elements of a leaf that one pass of AdamW's update covers (float32
+# temporaries of 64 MiB each)
+UPDATE_CHUNK = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +64,15 @@ def _map(fn, tree, *rest):
     if isinstance(tree, list):
         return [_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def _pieces(t: torch.Tensor, chunk: int) -> tuple:
+    """``t`` as views along its first dim of at most ``chunk`` elements
+    each (a row at least); a 0-d tensor whole."""
+    if t.dim() == 0 or t.shape[0] == 0:
+        return (t,)
+    rows = max(1, chunk // max(1, t[0].numel()))
+    return t.split(rows)
 
 
 def _unzip(flat, n: int) -> list:
@@ -101,15 +121,31 @@ def adamw(
     def update(grads, state, params, lr):
         count = state["count"] + 1
         c = count.float()
+        s1, s2 = 1 - b1**c, 1 - b2**c
 
         def upd(g, m, v, p):
-            g = g.float()
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mhat = m / (1 - b1**c)
-            vhat = v / (1 - b2**c)
-            step = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
-            return (p - lr * step.to(p.dtype)).to(p.dtype), m, v
+            # m' = b1 m + (1 - b1) g, v' = b2 v + (1 - b2) g g,
+            # p' = p - lr (m' / s1 / (sqrt(v' / s2) + eps) + wd p),
+            # each operation as the whole-leaf expression runs it
+            # (bfloat16 moments come back float32, as the reference's do)
+            new_m = torch.empty_like(m, dtype=torch.promote_types(
+                m.dtype, torch.float32))
+            new_v = torch.empty_like(v, dtype=torch.promote_types(
+                v.dtype, torch.float32))
+            new_p = torch.empty_like(p)
+            for gc, mc, vc, pc, nm, nv, npc in zip(*(
+                    _pieces(t, UPDATE_CHUNK)
+                    for t in (g, m, v, p, new_m, new_v, new_p))):
+                gc = gc.float()
+                torch.add(b1 * mc, (1 - b1) * gc, out=nm)
+                torch.add(b2 * vc, (1 - b2) * gc * gc, out=nv)
+                del gc
+                den = torch.div(nv, s2).sqrt_().add_(eps)
+                step = torch.div(nm, s1).div_(den)
+                del den
+                step.add_(pc.float() * weight_decay)
+                torch.sub(pc, lr * step.to(p.dtype), out=npc)
+            return new_p, new_m, new_v
 
         flat = _map(upd, grads, state["mu"], state["nu"], params)
         new_params, new_mu, new_nu = _unzip(flat, 3)

@@ -92,7 +92,7 @@ import torch.distributed as dist
 
 from repro_torch.parallel.sharding import _map, mesh_axis_sizes
 
-__all__ = ["TensorParallel", "tensor_parallel_ctx", "current",
+__all__ = ["TensorParallel", "tensor_parallel_ctx", "entered", "current",
            "copy_to_model", "reduce_from_model", "gather_from_model",
            "relayout_columns", "column_product", "row_product",
            "attention_splits", "attention_reads_one_kv_head", "mlp_splits",
@@ -147,6 +147,16 @@ def tensor_parallel_ctx(mesh):
     n = mesh_axis_sizes(mesh).get("model", 1)
     tp = TensorParallel(mesh, n, mesh.get_local_rank("model") if n > 1
                         else 0, mesh.get_group("model") if n > 1 else None)
+    with entered(tp):
+        yield tp
+
+
+@contextlib.contextmanager
+def entered(tp: TensorParallel | None):
+    """Compute inside ``tp``'s context again (None: outside any), its
+    counters growing on: a remat's recompute in the backward
+    (``models.transformer._remat``), which autograd may run on a thread
+    of its own."""
     token = _CTX.set(tp)
     try:
         yield tp
@@ -405,36 +415,39 @@ def layer_splits(cfg, static: dict, n: int) -> frozenset:
 
 
 def _attention_moves(cfg, n: int, tokens: int, memory: int | None = None):
-    """(elements all-reduced, param elements re-laid out) of one call of
-    an ``AttnConfig``'s split block on ``tokens`` query tokens (and
-    ``memory`` key tokens, cross-attention): the query input's and the
-    memory's gradients, and the output; where each rank reads one key
-    head, that head's ``wk``/``wv`` columns and biases, both ways."""
+    """(forward elements all-reduced, backward elements all-reduced,
+    param elements re-laid out each way) of one call of an
+    ``AttnConfig``'s split block on ``tokens`` query tokens (and
+    ``memory`` key tokens, cross-attention): the output forward, the
+    query input's and the memory's gradients backward; where each rank
+    reads one key head, that head's ``wk``/``wv`` columns and biases."""
     d = cfg.d_model
-    relaid = (4 * (d + cfg.qkv_bias) * cfg.d_head
+    relaid = (2 * (d + cfg.qkv_bias) * cfg.d_head
               if attention_reads_one_kv_head(cfg, n) else 0)
-    return 2 * tokens * d + (memory or 0) * d, relaid
+    return tokens * d, tokens * d + (memory or 0) * d, relaid
 
 
 def _mlp_moves(static: dict, d: int, d_ff: int, tokens: int):
-    """An MLP's: dense, its input's gradient and its output; sparse, its
-    input's and ``h``'s gradients (its columns are gathered)."""
+    """An MLP's: dense, its output forward and its input's gradient
+    backward; sparse, its input's and ``h``'s gradients backward (its
+    columns are gathered)."""
     if static["sparse"] is None:
-        return 2 * tokens * d, 0
-    return tokens * (d + d_ff), 0
+        return tokens * d, tokens * d, 0
+    return 0, tokens * (d + d_ff), 0
 
 
 def _ssm_moves(cfg, n: int, tokens: int):
-    """An ``SSMConfig``'s: its input's gradient and its output, the gated
-    norm's sum of squares (forward and backward) and its whole scale's
-    gradient; re-laid out, the rank's columns of ``in_proj`` (its heads'
-    z, x and dt, its groups' B and C) and of the conv's weight and bias,
-    both ways."""
+    """An ``SSMConfig``'s: its output and the gated norm's sum of squares
+    forward; its input's gradient, the sum of squares' and the whole
+    scale's backward; re-laid out, the rank's columns of ``in_proj`` (its
+    heads' z, x and dt, its groups' B and C) and of the conv's weight and
+    bias."""
     g = max(1, cfg.n_groups // n)
     ch = cfg.d_inner // n + 2 * g * cfg.d_state
     cols = ch + cfg.d_inner // n + cfg.n_heads // n
-    return (2 * tokens * cfg.d_model + 2 * tokens + cfg.d_inner,
-            2 * (cfg.d_model * cols + (cfg.d_conv + 1) * ch))
+    return (tokens * cfg.d_model + tokens,
+            tokens * cfg.d_model + tokens + cfg.d_inner,
+            cfg.d_model * cols + (cfg.d_conv + 1) * ch)
 
 
 def _shared_ff(cfg) -> int:
@@ -443,26 +456,47 @@ def _shared_ff(cfg) -> int:
 
 
 # what one call of each split block moves over ``model``: (model config,
-# layer static, ranks, tokens, memory tokens) -> (elements all-reduced,
-# param elements re-laid out)
+# layer static, ranks, tokens, memory tokens) -> (elements all-reduced in
+# the forward, in the backward, param elements re-laid out each way)
 _MOVES = {
     "attn": lambda cfg, st, n, t, m: _attention_moves(st["attn_cfg"], n, t),
     "xattn": lambda cfg, st, n, t, m: _attention_moves(st["xattn_cfg"], n,
                                                        t, m),
-    # the two latents' gradients (q's, and c_kv with the RoPE key's) and
-    # the output
-    "mla": lambda cfg, st, n, t, m: (t * (
-        st["mla_cfg"].q_lora + st["mla_cfg"].kv_lora + st["mla_cfg"].d_rope
-        + cfg.d_model), 0),
+    # the output; the two latents' gradients (q's, and c_kv with the RoPE
+    # key's)
+    "mla": lambda cfg, st, n, t, m: (t * cfg.d_model, t * (
+        st["mla_cfg"].q_lora + st["mla_cfg"].kv_lora + st["mla_cfg"].d_rope),
+        0),
     "ssm": lambda cfg, st, n, t, m: _ssm_moves(st["ssm_cfg"], n, t),
     "mlp": lambda cfg, st, n, t, m: _mlp_moves(st["mlp"], cfg.d_model,
                                                cfg.d_ff, t),
-    # the input's and the top-k weights' gradients and the output
-    "moe": lambda cfg, st, n, t, m: (t * (2 * cfg.d_model + cfg.moe.top_k),
-                                     0),
+    # the output; the input's and the top-k weights' gradients
+    "moe": lambda cfg, st, n, t, m: (t * cfg.d_model,
+                                     t * (cfg.d_model + cfg.moe.top_k), 0),
     "moe_shared": lambda cfg, st, n, t, m: _mlp_moves(
         st["moe"]["shared"], cfg.d_model, _shared_ff(cfg), t),
 }
+
+
+def _trailing_reduce(cfg, static: dict, n: int, tokens: int) -> int:
+    """Elements of a layer's last all-reduce over ``model`` that a remat
+    recompute ending with that layer does not run again
+    (``models.transformer._remat`` stops at the last op that saved a
+    tensor): the output of its last block where that block computes on
+    its slab and ends in a row product (a dense MLP, MoE's shared
+    experts, else its routed experts, or the mixer when the layer has no
+    FFN); a sparse MLP's forward all-reduces nothing (its columns are
+    all-gathered, which ``model_bytes`` does not reckon)."""
+    ffn = static["ffn"]
+    if ffn == "mlp":
+        last = "mlp" if static["mlp"]["sparse"] is None else None
+    elif ffn == "moe":
+        last = "moe_shared" if "shared" in static["moe"] else "moe"
+    else:
+        last = {"mla": "mla", "ssm": "ssm", "xattn": "xattn"}.get(
+            static["mixer"], "attn")
+    return tokens * cfg.d_model if last in layer_splits(cfg, static, n) \
+        else 0
 
 
 def model_bytes(cfg, statics: dict, n: int, rows: int, seq: int,
@@ -477,22 +511,35 @@ def model_bytes(cfg, statics: dict, n: int, rows: int, seq: int,
     the text, the encoder's over ``enc_seq`` frames, the MTP layer over
     the text) and, where :func:`vocab_splits` holds, each lookup's
     output, each head's input gradient and each cross-entropy's max, sum
-    of exponentials and picked logit."""
+    of exponentials and picked logit.  With ``cfg.remat`` the body's
+    periods and the encoder's layers run their forward again in the
+    backward (``models.transformer._remat``), so their forward moves
+    count twice, but for each recompute's last all-reduce, which stops
+    early (:func:`_trailing_reduce`); the prefix layers', the MTP
+    layer's and the vocabulary's count once."""
     r = rows // microbatches
     text, dec = r * seq, r * (seq + cfg.prefix_len)
     enc = r * cfg.enc_seq if cfg.encoder_layers else None
-    stacks = [(st, 1, dec) for st in statics["prefix_layers"]]
-    stacks += [(st, statics["n_periods"], dec) for st in statics["body"]]
+    again = 2 if cfg.remat else 1
+    stacks = [(st, 1, dec, 1) for st in statics["prefix_layers"]]
+    stacks += [(st, statics["n_periods"], dec, again)
+               for st in statics["body"]]
     if "encoder" in statics:
-        stacks.append((statics["encoder"], cfg.encoder_layers, enc))
+        stacks.append((statics["encoder"], cfg.encoder_layers, enc, again))
     if "mtp_layer" in statics:
-        stacks.append((statics["mtp_layer"], 1, text))
+        stacks.append((statics["mtp_layer"], 1, text, 1))
     reduce, relayout = 0, 0
-    for st, times, tokens in stacks:
+    for st, times, tokens, forwards in stacks:
         for block in layer_splits(cfg, st, n):
-            red, rel = _MOVES[block](cfg, st, n, tokens, enc)
-            reduce += times * red
-            relayout += times * rel
+            fwd, bwd, rel = _MOVES[block](cfg, st, n, tokens, enc)
+            reduce += times * (forwards * fwd + bwd)
+            relayout += times * (forwards + 1) * rel
+    if cfg.remat:  # each recompute ends before its last layer's reduce
+        reduce -= statics["n_periods"] * _trailing_reduce(
+            cfg, statics["body"][-1], n, dec)
+        if "encoder" in statics:
+            reduce -= cfg.encoder_layers * _trailing_reduce(
+                cfg, statics["encoder"], n, enc)
     if vocab_splits(cfg, n):
         heads = 1 + ("mtp_layer" in statics)
         reduce += heads * (text * cfg.d_model + 3 * text)

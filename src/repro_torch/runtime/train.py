@@ -17,9 +17,11 @@ supports, as the reference's does:
 Gradients come from ``torch.autograd`` through ``apply_model(...,
 kernels=False)``: every layer on its plain version, as the reference
 trains through XLA routes (its Pallas kernels have no backward, and the
-port's kernel wrappers refuse inputs that require grad).  The state's
-tensors never require grad: each step differentiates detached copies of
-the params, and the optimizer returns new tensors.
+port's kernel wrappers refuse inputs that require grad), with the
+reference's remat (``cfg.remat``, the default: each period of the body
+recomputed in the backward, ``models.transformer._remat``).  The
+state's tensors never require grad: each step differentiates detached
+copies of the params, and the optimizer returns new tensors.
 
 The Trainer drives checkpoint/restart: periodic (async) checkpoints,
 failure injection for drills, straggler detection, and resume-from-latest
@@ -31,9 +33,9 @@ batch, ``data.shard_batch``).  The step computes the reference's global
 step, what GSPMD computes for its jitted step under ``param_shardings``:
 the loss and the gradient over the whole batch (each rank's mean over
 its rows, microbatched as on one device, then averaged over the
-``pod``/``data`` ranks by an all-reduce), then clipping to the global
-norm, int8 compression and the update on that averaged gradient, as on
-one device.  What each rank stores:
+``pod``/``data`` ranks), then clipping to the global norm, int8
+compression and the update on that averaged gradient, as on one device.
+What each rank stores:
 
   * ``params``: the slab ``launch.steps.param_shardings`` gives it;
   * the optimizer's moments (every tree of ``opt_state``): the slab
@@ -57,26 +59,39 @@ exponentials and the labels' logits over ``model``.  A split leaf whose
 block's heads or widths do not divide over ``model``
 (``parallel.tensor.layer_splits``) is all-gathered over the mesh each
 step and computed whole, its gradient whole on every rank, as the whole
-leaves (norms, routers, latent projections) are.  The gradients are
-all-reduced over ``pod``/``data`` as they come (gloo has no
-reduce-scatter), then cut to the rank's moment slab.  Two whole-leaf
-quantities stay whole-leaf: the global norm sums the slab leaves'
-squares over ``model``, and int8 compression takes each slab leaf's
-scale from its largest value over ``model``.  MoE capacity is counted
-over the whole batch (``models.moe.moe_apply_tp``), and with
-microbatches over the global microbatch: the batch is all-gathered over
-``pod``/``data`` and each rank's microbatch ``j`` is its row block of
-the global rows ``[j B / n, (j + 1) B / n)``, as the reference cuts
-them.  ``step.comm`` holds the last step's bytes: ``param_gather_bytes``
-(the params all-gathered, whole), ``model_reduce_bytes`` and
+leaves (norms, routers, latent projections) are.
+
+The gradients then go to the moment slabs, as GSPMD reduce-scatters
+them onto the reference's ZeRO-1 moments: each leaf is cut to its param
+slab, reduce-scattered over ``data`` onto its moment slab where
+``_zero1`` splits a dim over ``data`` (all-reduced over ``data``
+otherwise), then all-reduced over ``pod``; clipping, compression and
+the update run on those slabs.  Two whole-leaf quantities stay
+whole-leaf: the global norm sums each slab's squares over every dim that
+splits it (``model``, then ``data``), and int8 compression takes each
+leaf's scale from its largest value over the same dims; the new
+residuals are all-gathered over ``data`` back to their param slabs.
+MoE capacity is counted over the whole batch (``models.moe.
+moe_apply_tp``), and with microbatches over the global microbatch: the
+batch is all-gathered over ``pod``/``data`` and each rank's microbatch
+``j`` is its row block of the global rows ``[j B / n, (j + 1) B / n)``,
+as the reference cuts them.
+
+``step.comm`` holds the last step's bytes: ``param_gather_bytes`` (the
+params all-gathered, whole), ``model_reduce_bytes`` and
 ``model_gather_bytes`` (activations and their gradients all-reduced and
-all-gathered over ``model``), ``model_relayout_bytes`` (the SSM's
-param columns re-laid out over ``model``, forward, and their gradients
-back), ``model_stat_bytes`` (the global norm's and int8 compression's
-per-leaf statistics over ``model``), ``data_reduce_bytes`` (the loss and
-the gradients over ``pod``/``data``) and ``zero_gather_bytes`` (the
-updated params all-gathered over ``data``); :func:`comm_by_kind` sums
-them by collective kind.
+all-gathered over ``model``; with ``cfg.remat`` the body's forward runs
+again in the backward, ``parallel.tensor.model_bytes``),
+``model_relayout_bytes`` (the
+SSM's param columns re-laid out over ``model``, forward, and their
+gradients back), ``model_stat_bytes`` and ``data_stat_bytes`` (the
+global norm's and int8 compression's per-leaf statistics over ``model``
+and over ``data``), ``data_reduce_bytes`` (the loss, and the gradients
+not split over ``data``, all-reduced over ``pod``/``data``),
+``data_scatter_bytes`` (the gradients reduce-scattered over ``data``:
+the slabs' bytes) and ``zero_gather_bytes`` (the updated params, and
+the new residuals, all-gathered over ``data``); :func:`comm_by_kind`
+sums them by collective kind.
 
 A sharded state checkpoints through ``Trainer``: whole leaves gathered
 over the mesh, written once by rank 0 in the reference's layout, then a
@@ -89,7 +104,6 @@ unsharded step bit for bit.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from typing import Callable
 
@@ -177,34 +191,76 @@ def state_placements(shardings: TrainShardings, state) -> dict:
     return tree
 
 
-def _mean_over_data(mesh, loss, grads, comm: dict):
+def _mean_over_data(mesh, loss, grads, shardings: "TrainShardings", slab,
+                    comm: dict):
     """The loss and the gradient averaged over the ranks that hold other
-    rows of the batch (``pod`` and ``data``); ranks of one data shard
-    reduce identical values in the same order, so they stay equal.
-    ``comm["data_reduce_bytes"]`` grows by the bytes all-reduced."""
+    rows of the batch (``pod`` and ``data``), the gradient on this rank's
+    ZeRO-1 moment slabs (``shardings.moments``).  Each gradient leaf is
+    first cut to its param slab (a leaf computed on its slab already is
+    one); a leaf whose moments split a dim over ``data`` is then
+    reduce-scattered over ``data`` onto that dim's slab
+    (``comm["data_scatter_bytes"]``: the slab's bytes, as
+    ``launch.op_stats`` counts a reduce-scatter), the rest all-reduced
+    over ``data``; then each is all-reduced over ``pod``, as the loss is
+    over both (``comm["data_reduce_bytes"]``).  Ranks of one data shard
+    reduce identical values in the same order, so they stay equal."""
     sizes = mesh_axis_sizes(mesh)
-    axes = [a for a in ("pod", "data") if sizes.get(a, 1) > 1]
-    n = math.prod(sizes[a] for a in axes)
+    n = sizes.get("pod", 1) * sizes.get("data", 1)
+
+    def reduce(t, axes):
+        for a in axes:
+            if sizes.get(a, 1) > 1:
+                dist.all_reduce(t, group=mesh.get_group(a))
+                comm["data_reduce_bytes"] += t.numel() * t.element_size()
+        return t
+
+    def one(g, pl, z, on_slab):
+        g = g if on_slab else shard_tensor(g, pl)
+        if n == 1:
+            return g
+        at = [d for d, e in enumerate(z.pspec) if "data" in _entry_axes(e)]
+        if at and sizes["data"] > 1:
+            g = _reduce_scatter(g, at[0], mesh.get_group("data"))
+            comm["data_scatter_bytes"] += g.numel() * g.element_size()
+            return reduce(g, ("pod",)) / n
+        return reduce(g, ("data", "pod")) / n
+
+    grads = _map(one, grads, shardings.params, shardings.moments, slab)
     if n == 1:
         return loss, grads
-    loss = loss.clone()
-    for t in [loss, *_leaves(grads)]:
-        for a in axes:
-            dist.all_reduce(t, group=mesh.get_group(a))
-            comm["data_reduce_bytes"] += t.numel() * t.element_size()
-    return loss / n, _map(lambda g: g / n, grads)
+    return reduce(loss.clone(), ("data", "pod")) / n, grads
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, this rank's slab of it: dim
+    ``dim`` cut into as many equal contiguous slabs as the group has
+    ranks, in group rank order (``reduce_scatter_tensor`` cuts dim 0, so
+    ``dim`` moves to the front and back).  gloo takes CPU tensors here,
+    so CUDA ones go through host memory."""
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    staged = x.device.type == "cuda" and "gloo" in str(
+        dist.get_backend(group))
+    if staged:
+        x, out = x.cpu(), out.cpu()
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.to(t.device).movedim(0, dim).contiguous()
 
 
 def comm_by_kind(comm: dict) -> dict:
     """A sharded step's ``step.comm`` summed by collective kind, under
-    ``launch.op_stats``' names (an all-gather's bytes its whole
-    output's): what ``OpStats.collective_bytes_by_kind`` counts of the
-    same step without microbatches, MoE or int8 compression (whose
-    gathers ``step.comm`` does not count)."""
+    ``launch.op_stats``' names (an all-gather's bytes its whole output's,
+    a reduce-scatter's its slab's): what ``OpStats.
+    collective_bytes_by_kind`` counts of the same step without
+    microbatches or MoE (whose batch and count gathers ``step.comm``
+    does not count)."""
     return {"all-gather": comm["param_gather_bytes"]
             + comm["model_gather_bytes"] + comm["zero_gather_bytes"],
             "all-reduce": comm["model_reduce_bytes"]
-            + comm["model_stat_bytes"] + comm["data_reduce_bytes"],
+            + comm["model_stat_bytes"] + comm["data_stat_bytes"]
+            + comm["data_reduce_bytes"],
+            "reduce-scatter": comm["data_scatter_bytes"],
             "all-to-all": comm["model_relayout_bytes"]}
 
 
@@ -263,7 +319,9 @@ def make_train_step(
     extra inputs (whisper's ``frames``, a VLM's ``prefix_embeds``).
     With ``shardings``, the state is the sharded one of
     :func:`init_train_state` and the batch this rank's rows (module
-    docstring).
+    docstring).  Without ``shardings``, ``step.loss_and_grads(params,
+    batch)`` gives the step's loss and gradients (microbatched as the
+    step) and no update: the part of the step that remat changes.
     """
 
     def loss_fn(params, batch):
@@ -333,16 +391,18 @@ def make_train_step(
 
     sharded = shardings is not None
     mesh = shardings.mesh if sharded else None
-    n_model = mesh_axis_sizes(mesh).get("model", 1) if sharded else 1
+    sizes = mesh_axis_sizes(mesh) if sharded else {}
+    n_model = sizes.get("model", 1)
     # leaves computed on their slabs (parallel.tensor); gathered otherwise
     slab = (slab_leaves(cfg, statics, shardings.params, n_model) if sharded
             else None)
     if sharded:
         _check_slabs(shardings.params, slab)
 
-    def whole(tree, count: bool = False):
+    def whole(tree):
         """A params-shaped tree with every leaf that is not computed on
-        its slab whole: gathered over the mesh if sharded."""
+        its slab whole: gathered over the mesh if sharded
+        (``comm["param_gather_bytes"]``)."""
         if not sharded:
             return tree
 
@@ -350,30 +410,36 @@ def make_train_step(
             if on_slab or pl.whole:
                 return t
             out = gather_tensor(t, pl, mesh)
-            if count:
-                step.comm["param_gather_bytes"] += (out.numel()
-                                                    * out.element_size())
+            step.comm["param_gather_bytes"] += (out.numel()
+                                                * out.element_size())
             return out
 
         return _map(one, tree, shardings.params, slab)
 
-    def over_model(tree, op):
-        """A hook of ``global_norm`` / ``compress_gradients``: their
-        per-leaf values of ``tree``'s leaves, each slab leaf's reduced by
-        ``op`` over ``model`` in one all-reduce; None when no leaf is a
-        slab."""
-        flags = _leaves(_map(lambda _, s: s, tree, slab)) if sharded else []
-        at = [i for i, s in enumerate(flags) if s]
-        if not at:
+    def over_slabs(tree, op):
+        """A hook of ``global_norm`` / ``compress_gradients`` on ``tree``,
+        on this rank's moment slabs: their per-leaf values, each reduced
+        by ``op`` over every mesh dim its slab splits (one all-reduce a
+        dim, ``model``'s first, then ``data``'s), so each is the whole
+        leaf's; None when no leaf is split."""
+        dims = _leaves(_map(lambda _, z: tuple(
+            a for e in z.pspec for a in _entry_axes(e) if sizes[a] > 1),
+            tree, shardings.moments)) if sharded else []
+        order = [a for a in ("model", "data", "pod")
+                 if any(a in d for d in dims)]
+        if not order:
             return None
 
         def reduce(vals):
-            t = torch.stack([vals[i] for i in at])
-            dist.all_reduce(t, op=op, group=mesh.get_group("model"))
-            step.comm["model_stat_bytes"] += t.numel() * t.element_size()
             vals = list(vals)
-            for j, i in enumerate(at):
-                vals[i] = t[j]
+            for a in order:
+                at = [i for i, d in enumerate(dims) if a in d]
+                t = torch.stack([vals[i] for i in at])
+                dist.all_reduce(t, op=op, group=mesh.get_group(a))
+                key = "model_stat_bytes" if a == "model" else "data_stat_bytes"
+                step.comm[key] += t.numel() * t.element_size()
+                for j, i in enumerate(at):
+                    vals[i] = t[j]
             return vals
 
         return reduce
@@ -385,50 +451,54 @@ def make_train_step(
                     else shard_tensor(t, z), tree, shardings.params,
                     shardings.moments, slab)
 
-    def update(grads, opt_state, params, lr):
-        """The optimizer's update; sharded, on this rank's moment slabs
-        (ZeRO-1), the new params then gathered over ``data`` back to the
-        rank's param slabs."""
-        if not sharded:
-            return opt.update(grads, opt_state, params, lr)
-        z = shardings.moments
-        slabs, new_opt = opt.update(to_moments(grads), opt_state,
-                                    to_moments(params), lr)
-        n_data = mesh_axis_sizes(mesh).get("data", 1)
+    def to_params(tree):
+        """A tree of this rank's moment slabs all-gathered over ``data``
+        back to its param slabs (``comm["zero_gather_bytes"]``)."""
+        n_data = sizes.get("data", 1)
 
-        def back(t, pl):
-            out = gather_tensor(t, pl, mesh, ("data",))
-            if n_data > 1 and any("data" in _entry_axes(e)
-                                  for e in pl.pspec):
+        def back(t, z):
+            out = gather_tensor(t, z, mesh, ("data",))
+            if n_data > 1 and any("data" in _entry_axes(e) for e in z.pspec):
                 step.comm["zero_gather_bytes"] += (out.numel()
                                                    * out.element_size())
             return out
 
-        return _map(back, slabs, z), new_opt
+        return _map(back, tree, shardings.moments)
+
+    def update(grads, opt_state, params, lr):
+        """The optimizer's update; sharded, on this rank's moment slabs
+        (ZeRO-1), where the gradient already is, the new params then
+        gathered over ``data`` back to the rank's param slabs."""
+        if not sharded:
+            return opt.update(grads, opt_state, params, lr)
+        slabs, new_opt = opt.update(grads, opt_state, to_moments(params), lr)
+        return to_params(slabs), new_opt
 
     def step(state, batch):
         step.comm = dict.fromkeys(step.comm, 0)
-        params = whole(state["params"], count=True)
+        params = whole(state["params"])
         if sharded and mesh.size() > 1:
             with tensor_parallel_ctx(mesh) as tp:
                 loss, grads = loss_and_grads(params, batch)
             step.comm["model_reduce_bytes"] = tp.reduce_bytes
             step.comm["model_gather_bytes"] = tp.gather_bytes
             step.comm["model_relayout_bytes"] = tp.relayout_bytes
-            loss, grads = _mean_over_data(mesh, loss, grads, step.comm)
-        else:
+            loss, grads = _mean_over_data(mesh, loss, grads, shardings,
+                                          slab, step.comm)
+        else:  # one device, or a one-rank mesh: every slab whole
             loss, grads = loss_and_grads(params, batch)
         grads, gnorm = clip_by_global_norm(
-            grads, tcfg.grad_clip, over_model(grads, dist.ReduceOp.SUM))
+            grads, tcfg.grad_clip, over_slabs(grads, dist.ReduceOp.SUM))
         if tcfg.grad_compression:
+            residuals = state["comp_state"]
+            if sharded:  # the param slabs' residuals on the moment slabs
+                residuals = _map(cut_slab, residuals, shardings.params,
+                                 shardings.moments)
             comp, new_comp_state = compress_gradients(
-                grads, whole(state["comp_state"]),
-                over_model(grads, dist.ReduceOp.MAX))
+                grads, residuals, over_slabs(grads, dist.ReduceOp.MAX))
             grads = decompress_gradients(comp)
             if sharded:
-                new_comp_state = _map(
-                    lambda t, pl, on_slab: t if on_slab else shard_tensor(
-                        t, pl), new_comp_state, shardings.params, slab)
+                new_comp_state = to_params(new_comp_state)
         lr = lr_fn(state["step"])
         new_params, new_opt = update(grads, state["opt_state"], params, lr)
         new_state = {
@@ -441,9 +511,12 @@ def make_train_step(
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return new_state, metrics
 
+    if not sharded:
+        step.loss_and_grads = loss_and_grads
     step.comm = dict.fromkeys(("param_gather_bytes", "model_reduce_bytes",
                                "model_gather_bytes", "model_relayout_bytes",
-                               "model_stat_bytes", "data_reduce_bytes",
+                               "model_stat_bytes", "data_stat_bytes",
+                               "data_reduce_bytes", "data_scatter_bytes",
                                "zero_gather_bytes"),
                               0)
     return step

@@ -603,6 +603,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert len(full["losses"]) == cs.TRAIN_STEPS
     assert full["loss_fell"] > cs.TRAIN_FALL
     assert full["checkpoint"]["bytes"] >= full["reckoned"]["state_bytes"]
+    assert full["remat"]
+    assert full["peak_limit_bytes"] == full["reckoned"]["update_peak_bytes"]
     assert len(full["checkpoint"]["seconds"]) == 1
     assert full["reckoned"]["update_peak_bytes"] == (
         4 * full["reckoned"]["params_bytes"]
@@ -629,6 +631,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert one["mesh"] == [1, 1] and one["backend"] == "gloo"
     assert one["losses_bit_equal"] and one["state_bit_equal"]
     assert len(one["losses_sharded"]) == cs.ONE_RANK_STEPS
+    rm = drill["remat"]
+    assert rm["loss_bit_equal"] and rm["grads_bit_equal"]
+    assert rm["grad_leaves"] > 0
     ts = lines[16]
     f, g, h = ts["part_f"], ts["part_g"], ts["part_h"]
     i, j = ts["part_i"], ts["part_j"]
@@ -686,6 +691,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                 reck["model_relayout_bytes"]] * 2
             assert reck["model_reduce_bytes"] > 0
             assert (reck["model_relayout_bytes"] > 0) == (part in (h, j))
+            # the gradients reduce-scattered over data onto the moment
+            # slabs, by their bytes
+            assert [c["data_scatter_bytes"] for c in comm] == [
+                reck["data_scatter_bytes"]] * 2
+            assert reck["data_scatter_bytes"] > 0
     # danube's sparse MLPs gather their tiles' columns; jamba's are dense
     assert all(c["model_gather_bytes"] > 0
                for comm in f["comm_per_step"] for c in comm)
@@ -709,8 +719,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert a["flops_predicted"] == a["flops_measured"] > 0
     assert a["peak_rel"] <= cs.DRYRUN_PEAK_REL
     assert a["step_seconds"] >= a["bound_seconds"] > 0
+    on, off = a["loss_and_grads"]["remat"], a["loss_and_grads"]["no_remat"]
+    assert max(on["peak_rel"], off["peak_rel"]) <= cs.DRYRUN_PEAK_REL
+    assert off["peak_measured_bytes"] > on["peak_measured_bytes"]
     assert b["predicted_by_kind"] == b["step_comm_by_kind"]
-    assert set(b["predicted_by_kind"]) == {"all-gather", "all-reduce"}
+    assert set(b["predicted_by_kind"]) == {"all-gather", "all-reduce",
+                                           "reduce-scatter"}
     assert c["tokens_equal_unsharded"] and c["flash_rows_ok"]
     assert c["resident_bytes"] == c["reckoned_bytes"]
     assert c["flash_launches_per_rank"] == [4] * 4

@@ -16,8 +16,10 @@ against the JAX reference (CPU).
     smoke at ``model_shards=4``, a mini train, prefill and decode on 4 x 4
     and 2 x 2 x 4 fake meshes, in a process of its own: every record
     ``ok`` with FLOPs, and the train step's collective bytes by kind equal
-    ``step.comm``'s, whose ``model`` bytes ``parallel.tensor.model_bytes``
-    reckons; ``run_cell`` records a skip and an error as the reference's.
+    ``step.comm``'s (its gradients reduce-scattered over ``data``), whose
+    ``model`` bytes ``parallel.tensor.model_bytes`` reckons (the forward's
+    again under remat); ``run_cell`` records a skip and an error as the
+    reference's.
 
 The placed serving steps themselves are held to the reference in
 ``tests/test_torch_placed_serve.py``.
@@ -263,9 +265,19 @@ def test_mini_dry_run_single_and_multipod():
         else:  # storage split, compute gathered: the layers' slabs
             assert by_kind["all-gather"] > 0 and set(by_kind) == {
                 "all-gather"}, key
-    # the pod dim: the gradient all-reduced over it too, the rows pod-major
+    # the gradients reduce-scattered over data onto the ZeRO-1 slabs,
+    # those slabs (and the rest, and the loss) all-reduced over pod, the
+    # rows pod-major; data also reduces the norm's per-leaf statistics
+    for key in ("single:train", "multi:train"):
+        comm = res[key]["step_comm"]
+        assert res[key]["collectives"]["reduce-scatter"]["bytes"] == comm[
+            "data_scatter_bytes"] > 0
     multi = res["multi:train"]["collectives"]["by_dim"]
-    assert multi["all-reduce/pod"] == multi["all-reduce/data"]
+    comm = res["multi:train"]["step_comm"]
+    assert multi["reduce-scatter/data"] == comm["data_scatter_bytes"]
+    assert multi["all-reduce/pod"] == (
+        multi["all-reduce/data"] - comm["data_stat_bytes"]
+        + multi["reduce-scatter/data"])
 
 
 def test_run_cell_records_skips_and_errors(tmp_path, monkeypatch):

@@ -16,7 +16,8 @@ rows by ``shard_batch``, the weights the reference's ``init_params``
     lr``, except weights whose gradient is at the noise floor (or, with
     compression, at an int8 rounding tie), at most ``MAX_ILL`` of them;
   * each rank's slabs the shapes ``param_shardings`` / ``_zero1`` give
-    its coordinates;
+    its coordinates, and the gradients reduce-scattered over ``data``
+    onto the moment slabs by the bytes reckoned from them;
   * a one-rank mesh gives the unsharded step bit for bit.
 
 Elastic restore: the 2 x 2 run checkpoints through ``Trainer`` (whole
@@ -29,6 +30,7 @@ manifest.
 
 import dataclasses
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -234,6 +236,39 @@ def test_slab_shapes_follow_placements(model, world):
                 split += slab != whole
         assert split > 0
         assert len({tuple(r["coords"].values()) for r in ranks}) == len(ranks)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradients_reduce_scatter_to_moment_slabs(case, model, world):
+    """Each gradient leaf whose ZeRO-1 moments split a dim over ``data``
+    is reduce-scattered onto that slab (``data_scatter_bytes``: the
+    slabs' float32 bytes), the others all-reduced over ``data`` on their
+    param slabs beside the loss (``data_reduce_bytes``); the new params,
+    and with compression the new residuals, come back by all-gathers
+    over ``data``; the global norm (and the int8 scales) reduce one
+    float32 statistic a leaf over each dim its slab splits."""
+    _, _, cfg, nparams, _ = model
+    compressed = bool(CASES[case].get("grad_compression"))
+    for r in world[0][case]:
+        mesh = _Mesh(dict(zip(("data", "model"), MESH)), r["coords"])
+        p_shard = param_shardings(ttr.init_specs(cfg), nparams, mesh)
+        pairs = list(zip(_leaf_paths(p_shard), _leaf_paths(
+            _zero1(p_shard, nparams, mesh))))
+        split = [(pl, z) for (_, pl), (_, z) in pairs if "data" in z.pspec]
+        kept = [pl for (_, pl), (_, z) in pairs if "data" not in z.pspec]
+        assert split
+        by_model = sum("model" in z.pspec for _, (_, z) in pairs)
+        comm = r["comm"]
+        assert comm["data_scatter_bytes"] == 4 * sum(
+            math.prod(z.slab_shape) for _, z in split)
+        assert comm["data_reduce_bytes"] == 4 + 4 * sum(
+            math.prod(pl.slab_shape) for pl in kept)
+        assert comm["zero_gather_bytes"] == (1 + compressed) * 4 * sum(
+            math.prod(pl.slab_shape) for pl, _ in split)
+        assert comm["data_stat_bytes"] == (1 + compressed) * 4 * len(split)
+        assert comm["model_stat_bytes"] == (1 + compressed) * 4 * by_model
+        assert ttrain.comm_by_kind(comm)["reduce-scatter"] == comm[
+            "data_scatter_bytes"]
 
 
 @pytest.mark.parametrize("case", list(CASES))

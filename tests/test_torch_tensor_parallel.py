@@ -32,7 +32,11 @@ splits the same matmuls.  On spawned ``gloo`` ranks
   * the step all-gathers exactly the leaves that are not computed on their
     slabs, none in these models, and the bytes it reports are theirs;
     it all-reduces and re-lays out over ``model`` the bytes
-    ``tensor.model_bytes`` reckons from the shapes.
+    ``tensor.model_bytes`` reckons from the shapes, the forward's again
+    under remat (but each recompute's trailing all-reduce);
+  * granite, jamba, DeepSeek-V2 and whisper also run with ``remat=False``
+    in the same spawn: losses, gradient norms and params bit-equal to
+    the default remat run's.
 
 MoE capacity in the sharded step is the whole batch's, as the
 reference's step counts it, so the 2 x 2 mesh's MoE models drop the
@@ -94,6 +98,9 @@ CASES = [(name, name, {}) for name in MODELS] + [
     (f"{name}_microbatches", name, {"microbatches": 2})
     for name in MICROBATCHED]
 COMPRESSED = {case for case, _, tkw in CASES if tkw.get("grad_compression")}
+# models the grid also runs with ``remat=False``, beside the default, in
+# the same spawn (test_remat_is_bit_equal_on_the_grid)
+NO_REMAT = ("granite", "jamba", "deepseek_v2", "whisper")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,6 +195,9 @@ def worlds(tmp_path_factory, models):
     for mesh in MESHES:
         cases = [(case, models[name][0], models[name][1], models[name][2],
                   tkw) for case, name, tkw in CASES]
+        cases += [(f"{name}_no_remat", dataclasses.replace(
+            models[name][0], remat=False), *models[name][1:], {})
+            for name in NO_REMAT]
         tmp = tmp_path_factory.mktemp(f"tp{mesh[0]}x{mesh[1]}")
         ranks = _run_ranks(tmp, mesh[0] * mesh[1], [{
             "name": "tp", "kind": "tp_train", "mesh": mesh, "steps": STEPS,
@@ -288,14 +298,14 @@ def test_params_follow_unsharded_step(mesh, case, unsharded, worlds):
 @pytest.mark.parametrize("mesh,case", GRID, ids=IDS)
 def test_slab_leaves_are_never_gathered(mesh, case, worlds, models):
     """Each step all-gathers over the mesh exactly the split leaves not
-    computed on their slabs (the compression residuals' too), never a
-    slab leaf, and none of a block that divides over ``model`` (the
+    computed on their slabs (the compression residuals are cut from
+    their param slabs, never gathered), never a slab leaf, and none of a
+    block that divides over ``model`` (the
     embedding and the head, MLA, the SSM and paligemma's attention over
     its one key head included: in these models, none at all);
     ``step.comm`` counts their whole bytes, and the bytes all-reduced and
     re-laid out over ``model`` that ``tensor.model_bytes`` reckons from
     the shapes (re-laid out only where an SSM or one key head splits)."""
-    times = 2 if case in COMPRESSED else 1
     name, tkw = next((n, t) for c, n, t in CASES if c == case)
     cfg = models[name][0]
     want = tensor.model_bytes(cfg, ttr.init_statics(cfg, "cpu"), mesh[1],
@@ -310,11 +320,46 @@ def test_slab_leaves_are_never_gathered(mesh, case, worlds, models):
         assert res["gathered_paths"] == []
         for row in res["steps"]:
             assert not set(row["gathered"]) & set(res["slab_ids"])
-            assert sorted(row["gathered"]) == sorted(
-                res["gathered_ids"] * times)
+            assert sorted(row["gathered"]) == sorted(res["gathered_ids"])
             assert row["comm"]["param_gather_bytes"] == res["gathered_bytes"]
             for key, value in want.items():
                 assert row["comm"][key] == value, (key, row["comm"], want)
+
+
+@pytest.mark.parametrize("mesh,name", [(m, n) for m in MESHES
+                                       for n in NO_REMAT],
+                         ids=[f"{m[0]}x{m[1]}-{n}" for m in MESHES
+                              for n in NO_REMAT])
+def test_remat_is_bit_equal_on_the_grid(mesh, name, worlds, models):
+    """With ``remat`` (the default) each step's loss, gradient norm and
+    params equal those without it bit for bit on every rank, whisper's
+    recomputed encoder included; only the forward's collectives over
+    ``model`` run again, by the bytes ``tensor.model_bytes`` reckons for
+    each config."""
+    cfg = models[name][0]
+    assert cfg.remat
+    sizes = {}
+    for case, c in ((name, cfg), (f"{name}_no_remat",
+                                  dataclasses.replace(cfg, remat=False))):
+        sizes[case] = tensor.model_bytes(
+            c, ttr.init_statics(c, "cpu"), mesh[1], TOKENS[0] // mesh[0],
+            TOKENS[1] - 1)
+    on, off = sizes[name], sizes[f"{name}_no_remat"]
+    assert on["model_reduce_bytes"] > off["model_reduce_bytes"] > 0
+    for r in worlds[mesh]:
+        a, b = r[name]["steps"], r[f"{name}_no_remat"]["steps"]
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert x["metrics"] == y["metrics"], (i, x["metrics"])
+            assert (x["params"] is None) == (y["params"] is None)
+            for key, value in (x["params"] or {}).items():
+                assert value.tobytes() == y["params"][key].tobytes(), key
+            for c, want in ((x["comm"], on), (y["comm"], off)):
+                for key, value in want.items():
+                    assert c[key] == value, (key, c, want)
+            assert {k: v for k, v in x["comm"].items() if k not in on
+                    and k != "model_gather_bytes"} == {
+                k: v for k, v in y["comm"].items() if k not in off
+                and k != "model_gather_bytes"}
 
 
 @pytest.mark.parametrize("name", MICROBATCHED)
@@ -549,10 +594,10 @@ def test_functions_give_the_whole_block(which, fn_world):
         for key, slab in _paths(got["grads"]):
             _close(slab, _slab_of(grads[key], slab, r), key)
         assert got["reduce_bytes"] > 0
-        # float32 params: 4 bytes a re-laid-out element
+        # float32 params: 4 bytes a re-laid-out element, forward and back
         assert got["relayout_bytes"] == {
-            "ssm": lambda: 4 * tensor._ssm_moves(cfg, 2, 20)[1],
-            "attn": lambda: 4 * tensor._attention_moves(cfg, 2, 12)[1],
+            "ssm": lambda: 2 * 4 * tensor._ssm_moves(cfg, 2, 20)[2],
+            "attn": lambda: 2 * 4 * tensor._attention_moves(cfg, 2, 12)[2],
         }.get(kind, lambda: 0)()
 
 

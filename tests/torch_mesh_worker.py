@@ -206,8 +206,8 @@ def _train_setup(job: dict):
 def train_job(job: dict) -> dict:
     """The sharded train step through ``Trainer`` (a checkpoint after
     every step when ``job["save"]``) on this rank's rows of each batch:
-    the metrics, this rank's slab shapes and coordinates, and the state
-    gathered whole (rank 0)."""
+    the metrics, the last step's ``step.comm``, this rank's slab shapes
+    and coordinates, and the state gathered whole (rank 0)."""
     from repro_torch.checkpoint.checkpointer import _leaf_paths
     from repro_torch.data import shard_batch
     from repro_torch.runtime.train import (
@@ -234,7 +234,7 @@ def train_job(job: dict) -> dict:
         for batch in job["batches"]:
             state, m = step(state, shard_batch(batch, mesh))
             metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
-    return {"metrics": metrics, "slabs": slabs,
+    return {"metrics": metrics, "slabs": slabs, "comm": dict(step.comm),
             "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")},
             "state": _whole_state(state, shardings)}
 
