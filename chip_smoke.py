@@ -516,11 +516,20 @@ SHARD_PREPARE = None
 # (f); (i) DeepSeek-V2 at full width cut to its first layer (MLA and the
 # dense MLP), DEEPSEEK_SHARD_BATCH, and (j) mamba2-780m at full width cut
 # to MAMBA_SHARD_LAYERS layers, MAMBA_SHARD_BATCH, the gates of (f) but
-# the checkpoint ((f) and (h) cover it).  Every part computes on the
-# model slabs (parallel.tensor): each step all-gathers no param (the
-# leaves not computed on their slabs: none in these models), all-reduces
-# and re-lays out over model the bytes parallel.tensor.model_bytes
-# reckons from the shapes (each period's forward again, remat),
+# the checkpoint ((f) and (h) cover it); on a WIDE_SHARD_MESH (data,
+# model) mesh of the same four ranks, (k) phi3-medium-14B at full width
+# cut to PHI3_SHARD_LAYERS layers, PHI3_SHARD_BATCH (its 48 padded query
+# heads over 4 ranks, each reading the 3 or 4 of the 10 key heads its
+# heads need, re-laid out from 320-column slabs), and (l) whisper-small
+# whole, WHISPER_SHARD_BATCH with seeded frames (16 padded heads over 12
+# key heads, ungrouped; the encoder's 1500 frames split over 4), the
+# gates of (j).  Every part computes on the model slabs
+# (parallel.tensor), its residual stream split over model along the
+# sequence (512 positions): each step all-gathers no param (the leaves
+# not computed on their slabs: none in these models), all-reduces,
+# reduce-scatters, all-gathers along the sequence and re-lays out over
+# model the bytes parallel.tensor.model_bytes reckons from the shapes for
+# the rank's model coordinate (each period's forward again, remat),
 # reduce-scatters over data the ZeRO-1 moment slabs' bytes of its
 # gradients, and its bf16 run stays within SHARD_TRAIN_BF16_REL of the
 # unsharded bf16 run.
@@ -542,6 +551,10 @@ JAMBA_SHARD_BATCH = (4, 256)
 DEEPSEEK_SHARD_BATCH = (4, 512)
 MAMBA_SHARD_LAYERS = 8
 MAMBA_SHARD_BATCH = (4, 512)
+WIDE_SHARD_MESH = (1, 4)
+PHI3_SHARD_LAYERS = 2
+PHI3_SHARD_BATCH = (4, 512)
+WHISPER_SHARD_BATCH = (4, 512)
 PIPE_STAGES = 4
 PIPE_LAYERS = 8
 PIPE_MICRO = 6
@@ -4030,6 +4043,30 @@ def _sha256(t) -> str:
         torch.uint8).numpy().tobytes()).hexdigest()
 
 
+def model_inputs(batch) -> dict:
+    """``apply_model``'s inputs beside the tokens a part's batch holds
+    (whisper's ``frames``)."""
+    return {k: batch[k] for k in ("frames",) if k in batch}
+
+
+def part_batches(spec) -> list:
+    """A part's ``spec["steps"]`` packed batches, each with the part's
+    seeded stub ``frames`` [rows, enc_seq, d] where its model has an
+    encoder."""
+    from repro_torch.data import SyntheticCorpus
+
+    seed, cfg = spec["seed"], spec["cfg"]
+    stream = train_data(seed, SyntheticCorpus(spec["corpus_vocab"], seed),
+                        spec["batch"])
+    batches = [next(stream) for _ in range(spec["steps"])]
+    if cfg.encoder_layers:
+        frames = np.random.default_rng(seed + 41).normal(
+            size=(spec["batch"][0], cfg.enc_seq, cfg.d_model)).astype(
+            np.float32)
+        batches = [dict(b, frames=frames) for b in batches]
+    return batches
+
+
 def unsharded_runs(spec, batches, dev) -> dict:
     """A part's references on one rank: the float32 model's step-1
     gradient (an SGD step at SGD_LR), AdamW's params after each step and
@@ -4059,7 +4096,8 @@ def unsharded_runs(spec, batches, dev) -> dict:
                for b in batches]
         if name == "float32":
             sgd_step = make_train_step(cfg, statics, sgd(),
-                                       lambda s: SGD_LR, tcfg)
+                                       lambda s: SGD_LR, tcfg,
+                                       model_kwargs_fn=model_inputs)
 
             def grads_at(p):
                 p1, _ = sgd_step(init_train_state(p, sgd(), tcfg), put[0])
@@ -4069,7 +4107,8 @@ def unsharded_runs(spec, batches, dev) -> dict:
             out["grads1"] = grads_at(params)
             start = _map(lambda t: t.cpu(), params)
         opt = adamw(weight_decay=0.0)
-        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg)
+        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg,
+                               model_kwargs_fn=model_inputs)
         state = init_train_state(params, opt, tcfg)
         del params
         losses, kept = [], []
@@ -4150,7 +4189,7 @@ def sharded_train_run(spec, mesh, dev) -> dict:
     import torch.distributed as dist
 
     from repro_torch.checkpoint.checkpointer import _leaf_paths
-    from repro_torch.data import SyntheticCorpus, shard_batch
+    from repro_torch.data import shard_batch
     from repro_torch.models.transformer import (
         _leaves,
         init_params,
@@ -4169,9 +4208,7 @@ def sharded_train_run(spec, mesh, dev) -> dict:
     )
 
     seed, rank = spec["seed"], dist.get_rank()
-    corpus = SyntheticCorpus(spec["corpus_vocab"], seed)
-    stream = train_data(seed, corpus, spec["batch"])
-    batches = [next(stream) for _ in range(spec["steps"])]
+    batches = part_batches(spec)
     res = {"device": str(dev), "backend": str(dist.get_backend()),
            "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")}}
     ref = None
@@ -4212,6 +4249,7 @@ def sharded_train_run(spec, mesh, dev) -> dict:
         tcfg = TrainConfig(steps=spec["steps"], ckpt_every=spec["steps"],
                            ckpt_dir=os.path.join(spec["out"], name))
         step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg,
+                               model_kwargs_fn=model_inputs,
                                shardings=shardings)
         state = init_train_state(params, opt, tcfg, shardings)
         del params
@@ -4235,7 +4273,8 @@ def sharded_train_run(spec, mesh, dev) -> dict:
             "data_scatter_bytes": size * sum(
                 math.prod(z.slab_shape) for z in _leaves(shardings.moments)
                 if sizes["data"] > 1 and "data" in z.pspec),
-            **model_bytes(cfg, statics, n_model, my_rows, seq - 1)}
+            **model_bytes(cfg, statics, n_model, my_rows, seq - 1,
+                          rank=mesh.get_local_rank("model"))}
         rows = {"reckoned_bytes": reckoned, "comm": []}
         losses, rules = [], []
         if name == "float32":
@@ -4366,8 +4405,9 @@ def pipeline_run(spec, dev) -> dict:
 
 
 def train_shard_rank(rank: int, spec: dict) -> None:
-    """One rank of (f) to (j): joins the gloo group, runs them, writes
-    ``rank<r>.pkl`` in ``spec["out"]``."""
+    """One rank of (f) to (l): joins the gloo group, runs them, each on
+    its part's mesh of the group, writes ``rank<r>.pkl`` in
+    ``spec["out"]``."""
     import datetime
     import pickle
 
@@ -4390,17 +4430,20 @@ def train_shard_rank(rank: int, spec: dict) -> None:
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        mesh = make_mesh(spec["mesh"], ("data", "model"),
-                         device_type=spec["device_type"])
-        dev = mesh_device(mesh)
+        meshes = {shape: make_mesh(shape, ("data", "model"),
+                                   device_type=spec["device_type"])
+                  for shape in sorted({spec["mesh"], *(
+                      part["mesh"] for part in spec["parts"].values())})}
+        dev = mesh_device(meshes[spec["mesh"]])
         out = {}
-        for key in ("f", "g", "h", "i", "j"):
+        for key in ("f", "g", "h", "i", "j", "k", "l"):
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
             t0 = time.perf_counter()
+            part = spec["parts"].get(key)
             out[key] = (pipeline_run(spec, dev) if key == "g" else
-                        sharded_train_run(spec["parts"][key], mesh, dev))
+                        sharded_train_run(part, meshes[part["mesh"]], dev))
             out[key]["part_seconds"] = time.perf_counter() - t0
         with open(os.path.join(spec["out"], f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -4471,6 +4514,23 @@ def mamba2_shard_config():
     return get_config("mamba2_780m")
 
 
+def phi3_shard_config():
+    """(k)'s model: phi3-medium-14B at full width (40 query heads padded
+    to 48 over 10 key heads, ungrouped; d_ff 17,920; vocabulary
+    100,352)."""
+    from repro_torch.configs import get_config
+
+    return get_config("phi3_medium_14b")
+
+
+def whisper_shard_config():
+    """(l)'s model: whisper-small whole (12 encoder and 12 decoder layers,
+    12 heads padded to 16 over 12 key heads, 1500 frames)."""
+    from repro_torch.configs import get_config
+
+    return get_config("whisper_small")
+
+
 def with_dtype(cfg, dtype: str):
     return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
 
@@ -4495,6 +4555,9 @@ def train_shard_phase(seed: int, dev) -> dict:
         cfg_i = with_dtype(dataclasses.replace(
             ds, n_layers=1, layer_types=ds.layer_types[:1]), "float32")
         cfg_j = cut_layers(mamba, MAMBA_SHARD_LAYERS, "float32")
+        phi3, whisper = phi3_shard_config(), whisper_shard_config()
+        cfg_k = cut_layers(phi3, PHI3_SHARD_LAYERS, "float32")
+        cfg_l = with_dtype(whisper, "float32")
         parts = {
             "f": {"seed": seed, "cfg": cfg_f, "batch": SHARD_TRAIN_BATCH,
                   "cfg_bf16": cut_layers(full, SHARD_TRAIN_LAYERS,
@@ -4505,13 +4568,18 @@ def train_shard_phase(seed: int, dev) -> dict:
                   "cfg_bf16": with_dtype(cfg_h, "bfloat16"),
                   "corpus_vocab": min(TRAIN_CORPUS_VOCAB, cfg_h.vocab),
                   "checkpoint": True, "fixed_floors": True}}
-        for key, cfg, batch in (("i", cfg_i, DEEPSEEK_SHARD_BATCH),
-                                ("j", cfg_j, MAMBA_SHARD_BATCH)):
+        for key, cfg, batch, mesh in (
+                ("i", cfg_i, DEEPSEEK_SHARD_BATCH, SHARD_TRAIN_MESH),
+                ("j", cfg_j, MAMBA_SHARD_BATCH, SHARD_TRAIN_MESH),
+                ("k", cfg_k, PHI3_SHARD_BATCH, WIDE_SHARD_MESH),
+                ("l", cfg_l, WHISPER_SHARD_BATCH, WIDE_SHARD_MESH)):
             parts[key] = {"seed": seed, "cfg": cfg, "batch": batch,
                           "cfg_bf16": with_dtype(cfg, "bfloat16"),
                           "corpus_vocab": min(TRAIN_CORPUS_VOCAB, cfg.vocab),
-                          "checkpoint": False, "fixed_floors": False}
+                          "checkpoint": False, "fixed_floors": False,
+                          "mesh": mesh}
         for key, part in parts.items():
+            part.setdefault("mesh", SHARD_TRAIN_MESH)
             part.update(steps=SHARD_TRAIN_STEPS, lr=TRAIN_LR,
                         out=os.path.join(tmp, key))
         spec = {"mesh": SHARD_TRAIN_MESH, "device_type": dev.type,
@@ -4539,11 +4607,14 @@ def train_shard_phase(seed: int, dev) -> dict:
     reports = {key: shard_train_report(part, [rk[key] for rk in ranks],
                                        restored.get(key), world)
                for key, part in parts.items()}
-    f, h, i, j = (reports[k] for k in "fhij")
+    f, h, i, j, k, l = (reports[key] for key in "fhijkl")
     f["layers"] = f"{SHARD_TRAIN_LAYERS} of {full.n_layers}"
     h["width"] = "smoke"
     i["layers"] = f"1 of {ds.n_layers}"
     j["layers"] = f"{MAMBA_SHARD_LAYERS} of {mamba.n_layers}"
+    k["layers"] = f"{PHI3_SHARD_LAYERS} of {phi3.n_layers}"
+    l["layers"] = f"{whisper.n_layers} of {whisper.n_layers} and the " \
+        f"encoder's {whisper.encoder_layers}"
     g0 = ranks[0]["g"]
     pcfg = spec["pipe_cfg"]
     g = {"layer": f"{pcfg.name} decoder layer, float32, kernels=False",
@@ -4561,8 +4632,8 @@ def train_shard_phase(seed: int, dev) -> dict:
                                         for rk in ranks]}
     emit("train_shard", seconds=time.perf_counter() - t_phase,
          spawn_seconds=spawn_s, part_f=f, part_g=g, part_h=h, part_i=i,
-         part_j=j)
-    for part in (f, h, i, j):
+         part_j=j, part_k=k, part_l=l)
+    for part in (f, h, i, j, k, l):
         train_shard_checks(part)
     check(g["finite"] and g["ranks_equal"]
           and g["max_abs_diff"] <= PIPE_REL * g["fold_max_abs"],
@@ -4587,14 +4658,16 @@ def shard_train_report(part, ranks, restored, world) -> dict:
         "model": cfg.name, "d_model": cfg.d_model, "vocab": cfg.vocab,
         "layer_types": [list(t) for t in cfg.layer_types],
         "sparse": dataclasses.asdict(cfg.sparse) if cfg.sparse else None,
-        "mesh": list(SHARD_TRAIN_MESH), "backend": r0["backend"],
+        "mesh": list(part["mesh"]), "backend": r0["backend"],
         "transport": f"gloo: {world} ranks on "
         f"{len({rk['device'] for rk in ranks})} card(s), CUDA tensors "
         f"staged through host memory",
         "compute": "tensor parallel over model (parallel.tensor): "
-        "attention, MLA and SSM heads (the SSM's columns re-laid out), MLP "
-        "ff or tiles, experts, the vocabulary on their slabs; what does "
-        "not divide gathered",
+        "attention query heads (the key heads they read re-laid out where "
+        "they do not split with them), MLA and SSM heads (the SSM's "
+        "columns re-laid out), MLP ff or tiles, experts, the vocabulary on "
+        "their slabs, the residual stream split along the sequence; what "
+        "does not divide gathered",
         "batch": list(part["batch"]), "steps": part["steps"],
         "lr": part["lr"], "loss_limit": f"rel <= {SHARD_TRAIN_REL}",
         "losses_float32": f32["losses"],
@@ -4680,6 +4753,10 @@ def train_shard_checks(f) -> None:
             for key, want_key in (("param_gather_bytes", "gathered_params"),
                                   ("model_reduce_bytes",
                                    "model_reduce_bytes"),
+                                  ("model_scatter_bytes",
+                                   "model_scatter_bytes"),
+                                  ("model_seq_gather_bytes",
+                                   "model_seq_gather_bytes"),
                                   ("model_relayout_bytes",
                                    "model_relayout_bytes"),
                                   ("data_scatter_bytes",
@@ -4687,12 +4764,14 @@ def train_shard_checks(f) -> None:
                 check(all(c[key] == reck[want_key] for c in steps),
                       f"{key} per step {[c[key] for c in steps]} != "
                       f"reckoned {reck[want_key]}")
-    check(all(c["model_reduce_bytes"] > 0 for steps in f["comm_per_step"]
-              for c in steps),
-          "no activation was all-reduced over model: compute not split")
-    check(all(c["data_scatter_bytes"] > 0 for steps in f["comm_per_step"]
-              for c in steps),
-          "no gradient was reduce-scattered over data")
+    check(all(c["model_scatter_bytes"] > 0 and c["model_seq_gather_bytes"]
+              > 0 for steps in f["comm_per_step"] for c in steps),
+          "no activation was reduce-scattered and gathered over model: the "
+          "stream not split along the sequence")
+    if f["mesh"][0] > 1:
+        check(all(c["data_scatter_bytes"] > 0 for steps in f["comm_per_step"]
+                  for c in steps),
+              "no gradient was reduce-scattered over data")
     if f["restore"] is not None:
         check(f["restore"]["restored_step"] == SHARD_TRAIN_STEPS
               and f["restore"]["bit_equal"],

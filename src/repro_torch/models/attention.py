@@ -76,7 +76,11 @@ from repro_torch.parallel.sharding import (
     padded_heads,
 )
 from repro_torch.parallel.tensor import (
+    attention_kv_heads,
+    attention_splits,
     column_product,
+    copy_to_model,
+    kv_split,
     relayout_columns,
     row_product,
 )
@@ -157,13 +161,17 @@ def init_kv_cache(
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _expand_kv(cfg: AttnConfig, q, k, v):
+def _expand_kv(cfg: AttnConfig, q, k, v, index=None):
     """Align kv head count with q heads.  q: [B,S,Hq,D]; k/v: [B,T,Hkv,D].
-    Returns q,k,v as [B,H,S,D] with H = hq_pad."""
+    Returns q,k,v as [B,H,S,D] with H = hq_pad; ``index``: the key head
+    each query head reads (one rank's heads, ``attention_apply_tp``)."""
     hq = q.shape[2]
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2)
     vt = v.transpose(1, 2)
+    if index is not None:
+        at = torch.tensor(index, device=k.device)
+        return qt, kt.index_select(1, at), vt.index_select(1, at)
     if cfg.grouped:
         rep = hq // cfg.n_kv_heads
     else:  # phi3-style: repeat kv to match q heads
@@ -504,10 +512,11 @@ def attention_apply(
 
 
 def _plain_attention(cfg: AttnConfig, q, k, v, positions, kpos,
-                     causal: bool, kv_len) -> torch.Tensor:
+                     causal: bool, kv_len, index=None) -> torch.Tensor:
     """The plain routes (full, or chunked past ``full_attn_max_seq``)
-    over q [B, S, Hq, D] and k, v [B, T, Hkv, D]: [B, Hq, S, D]."""
-    qh, kh, vh = _expand_kv(cfg, q, k, v)
+    over q [B, S, Hq, D] and k, v [B, T, Hkv, D]: [B, Hq, S, D]
+    (``index``: :func:`_expand_kv`'s)."""
+    qh, kh, vh = _expand_kv(cfg, q, k, v, index)
     if max(q.shape[1], kh.shape[2]) <= cfg.full_attn_max_seq:
         return _full_attention(qh, kh, vh, positions, kpos, causal,
                                cfg.window, kv_len)
@@ -517,38 +526,58 @@ def _plain_attention(cfg: AttnConfig, q, k, v, positions, kpos,
 
 def attention_apply_tp(tp, params, cfg: AttnConfig, x: torch.Tensor,
                        positions: torch.Tensor,
-                       memory: torch.Tensor | None = None) -> torch.Tensor:
-    """:func:`attention_apply` on this rank's heads over ``tp``'s ``model``
-    group (``parallel.tensor``, whose ``attention_splits`` or
-    ``attention_reads_one_kv_head`` holds for ``cfg``), without a cache
-    or the kernel: ``params`` are the rank's slabs, columns of
-    ``wq``/``wk``/``wv`` (and their biases) and rows of ``wo`` for query
-    heads ``[r * Hq / n, (r + 1) * Hq / n)`` and the key heads they group
-    over, so the plain routes run on the rank's heads as on all of them:
-    the projections are column products and ``wo`` a row product
-    (``column_product``, ``row_product``).  Where the ranks outnumber the
-    key heads, the rank's query heads read one key head, whose
-    ``wk``/``wv`` columns (biases too) are re-laid out from the ranks'
-    slabs (``relayout_columns``: each column's gradient sums over the
-    ranks that read it).  Returns the output [B, S, D]."""
-    b, s, _ = x.shape
+                       memory: torch.Tensor | None = None,
+                       seq: bool = False,
+                       mem_seq: bool = False) -> torch.Tensor:
+    """:func:`attention_apply` on this rank's query heads over ``tp``'s
+    ``model`` group (``parallel.tensor``; ``model`` divides ``cfg.hq_pad``),
+    without a cache or the kernel: ``params`` are the rank's slabs,
+    columns of ``wq`` (and its bias) and rows of ``wo`` for query heads
+    ``[r * Hq / n, (r + 1) * Hq / n)``, so the plain routes run on the
+    rank's heads as on all of them: the projections are column products
+    and ``wo`` a row product (``column_product``, ``row_product``).
+
+    The key heads: where ``tensor.attention_splits`` holds, ``wk``/``wv``
+    are the slabs of the key heads the rank's query heads group over.
+    Elsewhere (fewer key heads than ranks, or heads that do not group
+    over the ranks, padded query heads included) the rank computes the
+    key heads its query heads read under ``_expand_kv``'s map
+    (``tensor.attention_kv_heads``), their ``wk``/``wv`` columns (biases
+    too) re-laid out from the ranks' storage slabs (``relayout_columns``:
+    each column's gradient sums over the ranks that read it) or, where
+    those leaves are whole (``tensor.kv_split``), taken from them, their
+    gradients summed over the group (``copy_to_model``).
+
+    ``seq``: ``x`` is this rank's slab of the sequence, gathered into the
+    column products, and the output is reduce-scattered back to the slab;
+    ``mem_seq``: ``memory`` likewise.  The positions are the whole
+    sequence's.  Returns the output [B, S, D] (``seq``: [B, S / n, D])."""
     dh, dt = cfg.d_head, x.dtype
     params = dict(params)
-    if cfg.n_kv_heads % tp.size:  # one key head a rank
-        group = cfg.hq_pad // cfg.n_kv_heads
-        per = cfg.hq_pad // tp.size
-        cols = [list(range(r * per // group * dh, (r * per // group + 1) * dh))
-                for r in range(tp.size)]
+    index = None
+    if not attention_splits(cfg, tp.size):
+        heads = attention_kv_heads(cfg, tp.size)
+        cols = [[k * dh + c for k in hs for c in range(dh)] for hs in heads]
         for name in ("wk", "wv"):
-            params[name] = {k: relayout_columns(t, cols, tp)
-                            for k, t in params[name].items()}
+            if kv_split(cfg, tp.size):
+                params[name] = {k: relayout_columns(t, cols, tp)
+                                for k, t in params[name].items()}
+            else:
+                params[name] = {k: copy_to_model(t, tp)[..., cols[tp.rank]]
+                                for k, t in params[name].items()}
+        mine = heads[tp.rank]
+        rep = (cfg.hq_pad // cfg.n_kv_heads if cfg.grouped
+               else -(-cfg.hq_pad // cfg.n_kv_heads))
+        per = cfg.hq_pad // tp.size
+        index = [mine.index((tp.rank * per + i) // rep) for i in range(per)]
     if memory is None:
         q, k, v = column_product(x, [params["wq"], params["wk"],
-                                     params["wv"]], tp, dt)
+                                     params["wv"]], tp, dt, seq)
     else:
-        q = column_product(x, params["wq"], tp, dt)
-        k, v = column_product(memory, [params["wk"], params["wv"]], tp, dt)
-    t = k.shape[1]
+        q = column_product(x, params["wq"], tp, dt, seq)
+        k, v = column_product(memory, [params["wk"], params["wv"]], tp, dt,
+                              mem_seq)
+    b, s, t = q.shape[0], q.shape[1], k.shape[1]
     q = q.reshape(b, s, -1, dh)
     k, v = k.reshape(b, t, -1, dh), v.reshape(b, t, -1, dh)
     if cfg.rope_theta is not None and memory is None:
@@ -560,6 +589,6 @@ def attention_apply_tp(tp, params, cfg: AttnConfig, x: torch.Tensor,
     kpos = (torch.arange(t, device=x.device) if memory is not None
             else positions)
     out = _plain_attention(local, q, k, v, positions, kpos,
-                           cfg.causal and memory is None, None)
+                           cfg.causal and memory is None, None, index)
     out = out.transpose(1, 2).reshape(b, s, -1).to(dt)
-    return row_product(out, params["wo"], tp, dt)
+    return row_product(out, params["wo"], tp, dt, seq)

@@ -30,7 +30,9 @@ from repro_torch.parallel.tensor import (
     column_product,
     copy_to_model,
     gather_from_model,
+    gather_sequence,
     row_product,
+    split_sequence,
 )
 
 __all__ = [
@@ -522,23 +524,29 @@ def mlp_apply(params, static, x: torch.Tensor,
 
 
 def mlp_apply_tp(tp, params, static, x: torch.Tensor,
-                 kernels: bool = True) -> torch.Tensor:
+                 kernels: bool = True, seq: bool = False,
+                 gathered: bool = False) -> torch.Tensor:
     """:func:`mlp_apply` on this rank's slab over ``tp``'s ``model``
     group (``parallel.tensor``): dense, ``up``/``gate`` a column product
     and ``down`` a row product (``column_product``, ``row_product``);
     sparse, each rank its tiles of each projection, whose columns are
     gathered whole (the tile order and ``inv_order`` span all of ``ff``,
-    and ``down``'s ``block_ids`` read all of it)."""
+    and ``down``'s ``block_ids`` read all of it).  ``seq``: ``x`` is this
+    rank's slab of the sequence, gathered into the products (``gathered``:
+    gathered so already), and the output is this rank's slab (dense,
+    reduce-scattered; sparse, the whole output's slice)."""
     if static.get("sparse") is None:
         if static["act"] == "swiglu":
             gate, up = column_product(x, [params["gate"], params["up"]], tp,
-                                      x.dtype)
+                                      x.dtype, seq, gathered)
             h = silu(gate) * up
         else:
-            h = _act(static["act"], column_product(x, params["up"], tp,
-                                                   x.dtype))
-        return row_product(h, params["down"], tp, x.dtype)
-    x = copy_to_model(x, tp)
+            h = _act(static["act"], column_product(
+                x, params["up"], tp, x.dtype, seq, gathered))
+        return row_product(h, params["down"], tp, x.dtype, seq)
+    if gathered:
+        raise ValueError("a sparse MLP gathers its own input")
+    x = gather_sequence(x, tp) if seq else copy_to_model(x, tp)
 
     def proj(name, inp):
         t0 = tp.rank * params[name]["w_comp"].shape[0]
@@ -550,7 +558,8 @@ def mlp_apply_tp(tp, params, static, x: torch.Tensor,
         h = silu(proj("gate", x)) * up
     else:
         h = _act(static["act"], up)
-    return proj("down", copy_to_model(h, tp))
+    out = proj("down", copy_to_model(h, tp))
+    return split_sequence(out, tp) if seq else out
 
 
 # ---------------------------------------------------------------------------

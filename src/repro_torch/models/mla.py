@@ -50,6 +50,7 @@ from repro_torch.models.layers import (
 from repro_torch.parallel.tensor import (
     column_product,
     copy_to_model,
+    gather_sequence,
     row_product,
 )
 
@@ -227,7 +228,7 @@ def _expanded(cfg: MLAConfig, h: int, w_uk, w_uv, q_nope, q_rope, c32,
 
 
 def mla_apply_tp(tp, params, cfg: MLAConfig, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, seq: bool = False) -> torch.Tensor:
     """The expanded route of :func:`mla_apply`, without a cache, on this
     rank's ``n_heads / n`` heads over ``tp``'s ``model`` group
     (``parallel.tensor.mla_splits`` holds for ``cfg``): ``wq_b`` and
@@ -237,7 +238,12 @@ def mla_apply_tp(tp, params, cfg: MLAConfig, x: torch.Tensor,
     products by ``copy_to_model`` (in float32, as the expanded route
     reads them), so their gradients sum the ranks' heads; ``wq_b`` is a
     column product and ``wo`` a row product (``parallel.tensor``).
-    Returns the output [B, S, D]."""
+    ``seq``: ``x`` is this rank's slab of the sequence, gathered whole
+    for the latents (their gradients are whole on every rank, so the
+    slice goes back), and the output is reduce-scattered back to the
+    slab.  Returns the output [B, S, D] (``seq``: [B, S / n, D])."""
+    if seq:
+        x = gather_sequence(x, tp, whole=True)
     b, s, _ = x.shape
     h = cfg.n_heads // tp.size
     q_nope, q_rope = _project_q(params, cfg, _latent_q(params, x),
@@ -251,4 +257,4 @@ def mla_apply_tp(tp, params, cfg: MLAConfig, x: torch.Tensor,
                     wkv_b[..., cfg.d_nope:].float(), q_nope, q_rope,
                     c_kv.float(), k_rope, positions, positions, None)
     out = out.reshape(b, s, h * cfg.d_v).to(x.dtype)
-    return row_product(out, params["wo"], tp, x.dtype)
+    return row_product(out, params["wo"], tp, x.dtype, seq)

@@ -71,9 +71,13 @@ from repro_torch.parallel.activations import current_mesh
 from repro_torch.parallel.sharding import mesh_axis_sizes
 from repro_torch.parallel.tensor import (
     copy_to_model,
+    count_once,
     data_shards,
     gather_over_data,
+    gather_sequence,
     reduce_from_model,
+    scatter_sequence,
+    split_sequence,
 )
 
 __all__ = ["MoEConfig", "moe_static", "moe_init", "moe_specs", "moe_apply",
@@ -366,7 +370,8 @@ def _earlier(mesh, top_e: torch.Tensor, n_experts: int):
 
 def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
                  split: bool, kernels: bool = True,
-                 shared_split: bool = False) -> torch.Tensor:
+                 shared_split: bool = False, seq: bool = False
+                 ) -> torch.Tensor:
     """:func:`moe_apply` inside the sharded train step
     (``parallel.tensor.tensor_parallel_ctx``), on this rank's rows of the
     batch: the training twin of :func:`_moe_sharded`, with gradients.
@@ -379,24 +384,49 @@ def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
     place in its expert's queue are the whole batch's (the rows' row
     block after the earlier blocks', counts all-gathered over
     ``pod``/``data``), as the reference's step computes them over its
-    global batch."""
-    b, s, d = x.shape
-    xf = x.reshape(b * s, d)
-    top_w, top_e = _route(params, cfg, xf)
+    global batch.
+
+    ``seq``: ``x`` is this rank's slab of the sequence, gathered once
+    (``parallel.tensor.gather_sequence``) for the router, the experts and
+    the shared experts, so routing and capacity see every token of the
+    rows.  The split parts read the gathered input directly (their
+    gradient parts reduce-scatter back), the whole ones through
+    ``count_once`` (their gradient, whole on every rank, counted once);
+    the split outputs are reduce-scattered, the whole ones split, and
+    the output is this rank's slab."""
+    xin = gather_sequence(x, tp) if seq else x
+    b, s, d = xin.shape
+    xf = xin.reshape(b * s, d)
+    xw = count_once(xf, tp) if seq else xf  # what runs whole
+    top_w, top_e = _route(params, cfg, xw)
     earlier = _earlier(tp.mesh, top_e, cfg.n_experts)
+    slab, whole = None, None
     if split:
         e_loc = cfg.n_experts // tp.size
-        out = reduce_from_model(_dispatch_compute_combine(
-            copy_to_model(xf, tp), copy_to_model(top_w, tp), top_e,
-            params["experts"], cfg, tp.rank * e_loc, earlier), tp)
+        part = _dispatch_compute_combine(
+            xf if seq else copy_to_model(xf, tp), copy_to_model(top_w, tp),
+            top_e, params["experts"], cfg, tp.rank * e_loc,
+            earlier).reshape(b, s, d)
+        if seq:
+            slab = scatter_sequence(part, tp)
+        else:
+            whole = reduce_from_model(part, tp)
     else:
-        out = _dispatch_compute_combine(xf, top_w, top_e, params["experts"],
-                                        cfg, 0, earlier)
-    out = out.reshape(b, s, d)
+        whole = _dispatch_compute_combine(xw, top_w, top_e, params["experts"],
+                                          cfg, 0, earlier).reshape(b, s, d)
     if "shared" in params and shared_split:
-        out = out + mlp_apply_tp(tp, params["shared"], static["shared"], x,
-                                 kernels)
+        out = mlp_apply_tp(tp, params["shared"], static["shared"], xin,
+                           kernels, seq, gathered=seq)
+        slab = out if slab is None else slab + out
+        if not seq:
+            whole, slab = whole + slab, None
     elif "shared" in params:
-        out = out + mlp_apply(params["shared"], static["shared"], x,
-                              kernels)
-    return out
+        out = mlp_apply(params["shared"], static["shared"],
+                        xw.reshape(b, s, d), kernels)
+        whole = out if whole is None else whole + out
+    if not seq:
+        return whole
+    if whole is None:
+        return slab
+    whole = split_sequence(whole, tp)
+    return whole if slab is None else slab + whole

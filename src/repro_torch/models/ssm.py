@@ -220,15 +220,15 @@ def ssm_apply(
 
 
 def _ssm(params, cfg: SSMConfig, x: torch.Tensor, cache: dict | None,
-         tp=None):
+         tp=None, seq: bool = False):
     """:func:`ssm_apply` on the heads ``params`` carry: ``A_log`` gives
     their count H, ``in_proj``'s width (``2 H P + 2 G N + H``, packed
     z | x | B | C | dt) the groups G.  With ``tp`` these are one rank's
     (:func:`ssm_apply_tp`): ``in_proj`` a column product and ``out_proj``
     a row product over the ranks (``parallel.tensor``, each rounding once
     as one product does), and the gated RMSNorm's sum of squares sums
-    over the ranks."""
-    b, s, _ = x.shape
+    over the ranks; ``seq``: ``x`` is the rank's slab of the sequence,
+    the products gathering and reduce-scattering it."""
     p, n = cfg.head_dim, cfg.d_state
     h = params["A_log"].shape[-1]
     di = h * p
@@ -237,7 +237,8 @@ def _ssm(params, cfg: SSMConfig, x: torch.Tensor, cache: dict | None,
     if tp is None:
         zxbcdt = linear(params["in_proj"], x)
     else:
-        zxbcdt = column_product(x, params["in_proj"], tp, x.dtype)
+        zxbcdt = column_product(x, params["in_proj"], tp, x.dtype, seq)
+    b, s, _ = zxbcdt.shape
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di: 2 * di + 2 * g * n]
     dt = zxbcdt[..., 2 * di + 2 * g * n:]  # [.., h]
@@ -284,7 +285,7 @@ def _ssm(params, cfg: SSMConfig, x: torch.Tensor, cache: dict | None,
     else:
         out = row_product(_gated_norm_tp(tp, params["norm"], y,
                                          cfg.d_inner),
-                          params["out_proj"], tp, y.dtype)
+                          params["out_proj"], tp, y.dtype, seq)
 
     if cache is not None:
         cache["conv"].copy_(new_conv)
@@ -329,8 +330,8 @@ def ssm_columns(cfg: SSMConfig, n: int) -> tuple[list, list]:
     return in_cols, conv_cols
 
 
-def ssm_apply_tp(tp, params, cfg: SSMConfig, x: torch.Tensor
-                 ) -> torch.Tensor:
+def ssm_apply_tp(tp, params, cfg: SSMConfig, x: torch.Tensor,
+                 seq: bool = False) -> torch.Tensor:
     """:func:`ssm_apply` without a cache on this rank's heads over
     ``tp``'s ``model`` group (``parallel.tensor.ssm_splits`` holds for
     ``cfg``): ``params`` are the rank's storage slabs.  The columns of
@@ -338,11 +339,14 @@ def ssm_apply_tp(tp, params, cfg: SSMConfig, x: torch.Tensor
     are re-laid out from the ranks' slabs (``relayout_columns``, the
     gradients sent back to the owners); ``A_log``, ``D``, ``dt_bias`` and
     ``out_proj``'s rows are the rank's heads already.  Returns the
-    output [B, S, D], summed over the group."""
+    output [B, S, D], summed over the group.  ``seq``: ``x`` is this
+    rank's slab of the sequence, gathered into ``in_proj`` (the scan
+    runs over the whole sequence), and the output is reduce-scattered
+    back to the slab."""
     in_cols, conv_cols = ssm_columns(cfg, tp.size)
     local = {**params,
              "in_proj": {"w": relayout_columns(params["in_proj"]["w"],
                                                in_cols, tp)},
              "conv_w": relayout_columns(params["conv_w"], conv_cols, tp),
              "conv_b": relayout_columns(params["conv_b"], conv_cols, tp)}
-    return _ssm(local, cfg, x, None, tp)[0]
+    return _ssm(local, cfg, x, None, tp, seq)[0]

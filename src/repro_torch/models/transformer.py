@@ -493,11 +493,12 @@ def cache_specs(statics):
 
 def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
                  cache_pos, cache_len, prefill: bool, memory=None,
-                 kernels: bool = True):
+                 kernels: bool = True, seq: bool = False,
+                 mem_seq: bool = False):
     tp = tensor.current()
     if tp is not None:
         return _apply_layer_tp(tp, params, static, cfg, x, positions, cache,
-                               memory, kernels)
+                               memory, kernels, seq, mem_seq)
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     mixer = static["mixer"]
     h = norm(params["norm1"], x)
@@ -538,38 +539,75 @@ def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
     return x, new_cache
 
 
+def _on_slab(tp, params: dict) -> dict:
+    """A whole leaf's tree (a norm's, a projection's) for compute on this
+    rank's slab of the sequence: each leaf in float32 by
+    ``tensor.copy_to_model``, so its gradient, the rank's tokens' share,
+    sums over the group before its one rounding."""
+    return {k: tensor.copy_to_model(v.float(), tp) for k, v in params.items()}
+
+
 def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
-                    cache, memory, kernels: bool):
+                    cache, memory, kernels: bool, seq: bool = False,
+                    mem_seq: bool = False):
     """One layer inside the sharded train step's
     ``parallel.tensor.tensor_parallel_ctx``: the blocks of
     ``tensor.layer_splits`` on this rank's slabs of ``tp``'s ``model``
     group, the rest (norms, and a block whose heads do not divide) whole,
     and MoE's capacity the whole batch's (``moe.moe_apply_tp``).
+
+    With ``seq`` the layer takes and returns this rank's slab of the
+    sequence (``[B, S / n, d]``): the norms and residual adds run on it
+    (the norms' leaves by :func:`_on_slab`), a split block gathers its
+    normed input and reduce-scatters its output
+    (``tensor.gather_sequence``, ``tensor.scatter_sequence``), and a
+    block that stays whole gathers it with its gradient's slice going
+    back and splits its whole output (``tensor.split_sequence``).  Each
+    block computes on the whole sequence, so the positions are the whole
+    sequence's.  ``mem_seq``: ``memory`` is this rank's slab of the
+    encoder's stream, gathered by the cross-attention the same way.
     Training keeps no cache."""
     if cache is not None:
         raise ValueError("tensor-parallel compute is the train step's: it "
                          "keeps no cache")
     split = tensor.layer_splits(cfg, static, tp.size)
-    norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
+    norm_fn = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     mixer = static["mixer"]
+
+    def norm(p, h):
+        return norm_fn(_on_slab(tp, p) if seq else p, h)
+
+    def whole(fn, h):
+        """``fn`` of the whole normed input on every rank; on a split
+        stream its input gathered and its output split."""
+        if not seq:
+            return fn(h)
+        return tensor.split_sequence(
+            fn(tensor.gather_sequence(h, tp, whole=True)), tp)
 
     def attend(name, key, h, mem=None):
         if name in split:
             return attention_apply_tp(tp, params[name], static[key], h,
-                                      positions, memory=mem)
-        return attention_apply(params[name], static[key], h, positions,
-                               memory=mem, prefill=False)[0]
+                                      positions, memory=mem, seq=seq,
+                                      mem_seq=mem_seq)
+        if mem is not None and mem_seq:
+            mem = tensor.gather_sequence(mem, tp, whole=True)
+        return whole(lambda a: attention_apply(
+            params[name], static[key], a, positions, memory=mem,
+            prefill=False)[0], h)
 
     h = norm(params["norm1"], x)
     if mixer == "mla" and "mla" in split:
         out = mla_apply_tp(tp, params["attn"], static["mla_cfg"], h,
-                           positions)
+                           positions, seq)
     elif mixer == "mla":
-        out, _ = mla_apply(params["attn"], static["mla_cfg"], h, positions)
+        out = whole(lambda a: mla_apply(params["attn"], static["mla_cfg"], a,
+                                        positions)[0], h)
     elif mixer == "ssm" and "ssm" in split:
-        out = ssm_apply_tp(tp, params["attn"], static["ssm_cfg"], h)
+        out = ssm_apply_tp(tp, params["attn"], static["ssm_cfg"], h, seq)
     elif mixer == "ssm":
-        out, _ = ssm_apply(params["attn"], static["ssm_cfg"], h, None)
+        out = whole(lambda a: ssm_apply(params["attn"], static["ssm_cfg"], a,
+                                        None)[0], h)
     else:
         out = attend("attn", "attn_cfg", h)
     if mixer == "xattn":
@@ -582,11 +620,12 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
     if static["ffn"] == "moe":
         return x + moe_apply_tp(tp, params["moe"], static["moe"], cfg.moe, h,
                                 "moe" in split, kernels,
-                                "moe_shared" in split), None
+                                "moe_shared" in split, seq), None
     if "mlp" in split:
         return x + mlp_apply_tp(tp, params["mlp"], static["mlp"], h,
-                                kernels), None
-    return x + mlp_apply(params["mlp"], static["mlp"], h, kernels), None
+                                kernels, seq), None
+    return x + whole(lambda a: mlp_apply(params["mlp"], static["mlp"], a,
+                                         kernels), h), None
 
 
 def _remat(fn, *args):
@@ -601,10 +640,12 @@ def _remat(fn, *args):
     backward's buffers are live.  In a training step's period those are
     the last layer's residual add and, where its last block computes on
     its ``model`` slab and ends in a row product, that product's
-    all-reduce, which then runs once: ``parallel.tensor.model_bytes``
+    all-reduce (on a stream split along the sequence, its
+    reduce-scatter), which then runs once: ``parallel.tensor.model_bytes``
     reckons exactly that, the same on every rank (where early stop stops
     was checked on torch 2.11 and 2.13; ``tests/test_torch_remat.py``
-    counts it against ``parallel.tensor._trailing_reduce``).  The
+    counts it against ``parallel.tensor._trailing``).  On a split stream
+    the checkpointed input is this rank's slab.  The
     recompute runs inside the forward's ``parallel.tensor`` context,
     which the autograd engine's device threads would not see otherwise.
     No random state is kept: the model draws none."""
@@ -626,22 +667,29 @@ def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,
     so its attention is a prefill in the kernel route's sense (the plain
     routes with ``kernels=False``).  ``placed``: each layer's params
     gathered from their slabs just before it runs.  ``remat``: each layer
-    under :func:`_remat`, the reference's ``enc_fn``."""
+    under :func:`_remat`, the reference's ``enc_fn``.  Returns the
+    output and whether it is this rank's slab of the frames (inside the
+    sharded train step, where ``model`` divides them,
+    ``parallel.activations.shard_activation``)."""
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     top = _take(params, placed, "enc_pos", "enc_norm")
     x = frames.to(cfg.cdtype()) + top["enc_pos"].to(cfg.cdtype())
     pos = torch.arange(frames.shape[1], device=frames.device)
+    tp = tensor.current()
+    seq = tp is not None and tensor.seq_splits(tp.size, frames.shape[1])
+    x = shard_activation(x, ("batch", "seq_shard", None))
 
     def enc_layer(x, i):
         p = _index(params["encoder"], i)
         if placed is not None:
             p = placed.gather(p, placed.stacked("encoder"))
         return _apply_layer(p, statics["encoder"], cfg, x, pos, None, None,
-                            None, kernels, kernels=kernels)[0]
+                            None, kernels, kernels=kernels, seq=seq)[0]
 
     for i in range(cfg.encoder_layers):
         x = _remat(enc_layer, x, i) if remat else enc_layer(x, i)
-    return norm(top["enc_norm"], x)
+    out_norm = _on_slab(tp, top["enc_norm"]) if seq else top["enc_norm"]
+    return norm(out_norm, x), seq
 
 
 def _take(params, placed, *keys) -> dict:
@@ -703,7 +751,13 @@ def apply_model(
     (``tensor.vocab_splits``), the lookups read this rank's rows of the
     table and the logits (the MTP head's too) are this rank's slab of
     the padded vocabulary's columns, ``[B, S(+P), vocab_padded / n]``,
-    which ``runtime.train.cross_entropy`` reduces over the group.
+    which ``runtime.train.cross_entropy`` reduces over the group.  Where
+    ``model`` divides the stream's length (``tensor.seq_splits``, the
+    reference's ``seq_shard``), the stream between layers is this rank's
+    slab of positions: the split lookup's partial rows (the prefix on
+    rank 0 alone) are reduce-scattered onto it, a whole one is split,
+    whisper's learned positions and the final norm run on it, and the
+    head gathers it (the encoder's stream likewise, by its own length).
 
     With ``cfg.remat``, where autograd records the forward
     (``torch.is_grad_enabled()``), there is no cache and ``placed`` is
@@ -732,12 +786,18 @@ def apply_model(
     tp = tensor.current()
     vocab_tp = (tp if tp is not None and tensor.vocab_splits(cfg, tp.size)
                 else None)
+    full = s + (prefix_embeds.shape[1] if prefix_embeds is not None else 0)
+    seq = tp is not None and tensor.seq_splits(tp.size, full)
 
-    x = _embed(_take(params, placed, "embed"), cfg, tokens, vocab_tp)
+    x = _embed(_take(params, placed, "embed"), cfg, tokens, vocab_tp,
+               reduce=not seq)
     if cfg.tie_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=cdt)  # gemma convention
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(cdt), x], dim=1)
+        pre = prefix_embeds.to(cdt)
+        if seq and vocab_tp is not None and tp.rank != 0:
+            pre = torch.zeros_like(pre)  # the sum below adds it once
+        x = torch.cat([pre, x], dim=1)
         s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
@@ -745,16 +805,23 @@ def apply_model(
         prefill = False
     elif prefill is None:
         prefill = is_prefill(s, positions, cache=cache, cache_pos=cache_pos)
+    x = _stream(x, tp, seq, vocab_tp is not None)
     if "dec_pos" in params:
-        dp = _take(params, placed, "dec_pos")["dec_pos"][positions].to(cdt)
-        x = x + (dp if positions.dim() == 2 else dp[None])
-    x = shard_activation(x, ("batch", "seq_shard", None))
+        table = _take(params, placed, "dec_pos")["dec_pos"]
+        if seq:
+            table = tensor.copy_to_model(table, tp)
+        dp = table[positions].to(cdt)
+        dp = dp if positions.dim() == 2 else dp[None]
+        if seq:
+            w = s // tp.size
+            dp = dp[:, tp.rank * w:(tp.rank + 1) * w]
+        x = x + dp
 
-    memory = None
+    memory, mem_seq = None, False
     if cfg.encoder_layers:
         if frames is not None:
-            memory = _encode(params, statics, cfg, frames, kernels, placed,
-                             remat)
+            memory, mem_seq = _encode(params, statics, cfg, frames, kernels,
+                                      placed, remat)
             if cache is not None:
                 cache["memory"] = (memory if placed is None else
                                    placed.cut(memory, placed.cache["memory"]))
@@ -765,7 +832,8 @@ def apply_model(
     def layer(x, p, st, c, where):
         if placed is None:
             return _apply_layer(p, st, cfg, x, positions, c, cache_pos,
-                                cache_len, prefill, memory, kernels)[0]
+                                cache_len, prefill, memory, kernels, seq,
+                                mem_seq)[0]
         p_pl, c_pl = placed.layer(where)
         p = placed.gather(p, p_pl)
         run = placed.layer_cache(st, c, c_pl)
@@ -790,30 +858,50 @@ def apply_model(
         x = _remat(period, x, rep) if remat else period(x, rep)
 
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
-    hidden = norm(_take(params, placed, "final_norm")["final_norm"], x)
+
+    def final(p, h, split):
+        return norm(_on_slab(tp, p) if split else p, h)
+
+    hidden = final(_take(params, placed, "final_norm")["final_norm"], x, seq)
     logits = _head(_take(params, placed, "embed" if cfg.tie_embeddings
-                         else "lm_head"), cfg, hidden, vocab_tp)
+                         else "lm_head"), cfg, hidden, vocab_tp, tp, seq)
 
     aux = {}
     if cfg.mtp and cache is None:
         # next-next-token head: combine hidden_t with embed(token_{t+1})
         nxt = torch.roll(tokens, -1, dims=1)
-        e_next = _embed(params, cfg, nxt, vocab_tp)
-        h_mtp = linear(params["mtp_proj"], torch.cat([hidden, e_next], -1))
+        e_next = _stream(_embed(params, cfg, nxt, vocab_tp, reduce=not seq),
+                         tp, seq, vocab_tp is not None)
+        proj = _on_slab(tp, params["mtp_proj"]) if seq else params["mtp_proj"]
+        h_mtp = linear(proj, torch.cat([hidden, e_next], -1))
         h_mtp, _ = _apply_layer(params["mtp_layer"], statics["mtp_layer"],
                                 cfg, h_mtp, positions, None, None, None,
-                                prefill, kernels=kernels)
+                                prefill, kernels=kernels, seq=seq)
         aux["mtp_logits"] = _head(params, cfg,
-                                  norm(params["mtp_norm"], h_mtp), vocab_tp)
+                                  final(params["mtp_norm"], h_mtp, seq),
+                                  vocab_tp, tp, seq)
     return logits, cache, aux
 
 
+def _stream(x: torch.Tensor, tp, seq: bool, partial: bool) -> torch.Tensor:
+    """The embedded tokens ``x`` as the stream enters the layers: where
+    ``seq``, this rank's slab of the sequence (``partial``: ``x`` holds
+    this rank's share of the vocabulary-split lookup, summed over the
+    group by a reduce-scatter, exact as one term of each sum is
+    nonzero); else ``x``."""
+    if seq and partial:
+        return tensor.scatter_sequence(x, tp)
+    return shard_activation(x, ("batch", "seq_shard", None))
+
+
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
-           tp=None) -> torch.Tensor:
+           tp=None, reduce: bool = True) -> torch.Tensor:
     """The tokens' rows of the table, in the compute dtype.  With ``tp``
     (``tensor.vocab_splits``) the table is this rank's slab of rows: the
     tokens outside it look up row 0 and are zeroed, and the ranks' rows
-    sum over the group (one of them nonzero, so the sum is exact)."""
+    sum over the group (one of them nonzero, so the sum is exact); with
+    ``reduce=False`` they are returned unsummed (the caller
+    reduce-scatters them, :func:`_stream`)."""
     w = params["embed"]["w"]
     if tp is None:
         return w[tokens].to(cfg.cdtype())
@@ -821,20 +909,25 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     local = tokens - tp.rank * rows
     inside = (local >= 0) & (local < rows)
     x = w[torch.where(inside, local, 0)].to(cfg.cdtype())
-    return tensor.reduce_from_model(
-        torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                      device=x.device)), tp)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return tensor.reduce_from_model(x, tp) if reduce else x
 
 
 def _head(params, cfg: ModelConfig, hidden: torch.Tensor,
-          tp=None) -> torch.Tensor:
-    """The logits; with ``tp`` (``tensor.vocab_splits``) this rank's slab
-    of the vocabulary's columns, a column product
-    (``tensor.column_product``)."""
-    if tp is not None:
+          vocab_tp=None, tp=None, seq: bool = False) -> torch.Tensor:
+    """The logits; with ``vocab_tp`` (``tensor.vocab_splits``) this rank's
+    slab of the vocabulary's columns, a column product
+    (``tensor.column_product``).  ``seq``: ``hidden`` is this rank's slab
+    of the sequence, gathered (by the column product's entry, or whole
+    for a whole head)."""
+    if vocab_tp is not None:
         head = ({"w": params["embed"]["w"].T} if cfg.tie_embeddings
                 else params["lm_head"])
-        return tensor.column_product(hidden, head, tp, cfg.cdtype())
+        return tensor.column_product(hidden, head, vocab_tp, cfg.cdtype(),
+                                     seq=seq)
+    if seq:
+        hidden = tensor.gather_sequence(hidden, tp, whole=True)
     if cfg.tie_embeddings:
         return hidden @ params["embed"]["w"].to(cfg.cdtype()).T
     return linear(params["lm_head"], hidden)

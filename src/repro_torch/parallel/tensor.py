@@ -20,14 +20,39 @@ explicit, as ``torch.autograd.Function``s over the ``model`` group of a
     all-to-all forward; backward, each column's gradient back to the
     rank that stores it, summed over the ranks that read it).
 
-One rounding rule holds for every block: each all-reduce over ``model``
-(a row product's partial sums, a whole input's gradient parts, a norm's
-or the cross-entropy's statistics) runs in float32 and rounds once to
-the tensor's dtype, and the column and row products of every split
-block (:func:`column_product`, :func:`row_product`) accumulate in
-float32 and round once, as one product over the whole width does.
-:func:`model_bytes` reckons from the shapes what each split block moves
-(``_MOVES``), as the sharded step's ``step.comm`` counts it.
+The residual stream between layers is split over ``model`` along the
+sequence where ``model`` divides it (:func:`seq_splits`, the reference's
+``("batch", "seq_shard", None)`` constraint): each rank holds the
+positions ``[r S / n, (r + 1) S / n)`` and the norms and residual adds
+run on that slab.  Three more Functions move it (dim 1 throughout):
+
+  * :func:`gather_sequence`: all-gather forward, where a block reads
+    the whole sequence; backward, the reduce-scatter of the ranks'
+    gradient parts (a split block, in place of ``copy_to_model``) or,
+    ``whole=True``, this rank's slice (a block every rank computes whole,
+    whose gradient is whole on every rank already);
+  * :func:`scatter_sequence`: reduce-scatter forward, in place of a row
+    product's all-reduce; all-gather backward;
+  * :func:`split_sequence`: this rank's slice forward, all-gather
+    backward: a whole output (or the stream's entry) onto the slab, so
+    what computed it gets its whole gradient on every rank.
+
+A whole leaf that computes on the slab (a norm's scale, the MTP
+projection, whisper's learned positions) enters by ``copy_to_model``: its
+gradient, this rank's tokens' share, sums over ``model`` in float32.
+:func:`count_once` passes a whole computation's gradient on one rank
+only, where it meets split blocks' parts in one reduce-scatter (MoE's
+router beside its experts).
+
+One rounding rule holds for every block: each all-reduce and
+reduce-scatter over ``model`` (a row product's partial sums, a whole
+input's gradient parts, a norm's or the cross-entropy's statistics) runs
+in float32 and rounds once to the tensor's dtype, and the column and row
+products of every split block (:func:`column_product`,
+:func:`row_product`) accumulate in float32 and round once, as one
+product over the whole width does.  :func:`model_bytes` reckons from the
+shapes what each layer moves (:func:`_layer_moves`), as the sharded
+step's ``step.comm`` counts it.
 
 Which blocks compute on their slab (:func:`layer_splits`), and so which
 param leaves stay slabs (:func:`slab_leaves`), follows from the configs
@@ -35,15 +60,17 @@ and the ``model`` size alone, as the slabs ``launch.steps.
 param_shardings`` gives do: ``embed`` maps to no mesh axis, so a rank's
 slab of a split leaf is its tensor-parallel shard.
 
-  * attention (``attn``, ``swa``, whisper's ``xattn``): column-parallel
-    ``wq``/``wk``/``wv`` (biases with them), each rank its own heads,
-    row-parallel ``wo``; only where ``model`` divides the padded query
-    heads and the key heads, the key/value projections carry the
-    ``kv_heads`` axis, and the heads group (``AttnConfig.grouped``).
-    Where the ranks outnumber the key heads (MQA's one), each rank's
-    query heads read one key head, whose ``wk``/``wv`` columns it
-    re-lays out from their storage slabs
-    (:func:`attention_reads_one_kv_head`);
+  * attention (``attn``, ``swa``, whisper's ``xattn``), wherever
+    ``model`` divides the padded query heads: column-parallel ``wq``,
+    each rank its query heads, row-parallel ``wo``.  Where ``model``
+    divides the key heads too, the key/value projections carry the
+    ``kv_heads`` axis and the heads group (:func:`attention_splits`),
+    ``wk``/``wv`` are the rank's key heads' slabs.  Elsewhere (MQA's one
+    key head, phi3's 10 under 48 padded query heads, whisper's 12 under
+    16) each rank computes the key heads its query heads read
+    (:func:`attention_kv_heads`, ``_expand_kv``'s map), their
+    ``wk``/``wv`` columns re-laid out from the storage slabs, or taken
+    from whole leaves;
   * the dense MLP: column-parallel ``up``/``gate``, row-parallel
     ``down``; the sparse MLP: each rank its tiles of every projection,
     the columns gathered (the pattern's tile order and ``inv_order`` span
@@ -71,10 +98,10 @@ rank, the re-layout hands each rank that head's ``wk``/``wv`` columns,
 or all of B's and C's, whole: for those columns it moves as much as a
 gather of them would.
 
-What stays gathered is what does not divide so (attention whose heads
-or key projections do not divide over ``model``, an MLP whose ``ff`` or
-tiles do not); norms, routers and MLA's latent projections are whole
-leaves.  Only the sharded step of
+What stays gathered is what does not divide so (attention whose padded
+query heads do not divide over ``model``, an MLP whose ``ff`` or tiles
+do not); norms, routers and MLA's latent projections are whole leaves.
+Only the sharded step of
 ``runtime.train`` enters :func:`tensor_parallel_ctx`; model code reads
 it in ``models.transformer`` alone (``_apply_layer``, the lookup and the
 head), so outside the context every layer runs as it does without a
@@ -94,20 +121,24 @@ from repro_torch.parallel.sharding import _map, mesh_axis_sizes
 
 __all__ = ["TensorParallel", "tensor_parallel_ctx", "entered", "current",
            "copy_to_model", "reduce_from_model", "gather_from_model",
-           "relayout_columns", "column_product", "row_product",
-           "attention_splits", "attention_reads_one_kv_head", "mlp_splits",
-           "experts_split", "mla_splits", "ssm_splits", "vocab_splits",
-           "layer_splits", "slab_leaves", "model_bytes", "data_shards",
-           "gather_over_data"]
+           "gather_sequence", "scatter_sequence", "split_sequence",
+           "count_once", "relayout_columns", "column_product", "row_product",
+           "seq_splits", "attention_splits", "attention_kv_heads",
+           "kv_split", "mlp_splits", "experts_split", "mla_splits",
+           "ssm_splits", "vocab_splits", "layer_splits",
+           "slab_leaves", "model_bytes", "data_shards", "gather_over_data",
+           "reduce_scatter"]
 
 
 @dataclasses.dataclass
 class TensorParallel:
     """One context's ``model`` group and what its collectives moved:
     ``reduce_bytes`` all-reduced (forward and backward), ``gather_bytes``
-    all-gathered (the whole tensors' bytes) and ``relayout_bytes``
-    re-laid out (each rank's assembled columns forward and their
-    gradients backward)."""
+    all-gathered along the last dim (the whole tensors' bytes),
+    ``relayout_bytes`` re-laid out (each rank's assembled columns forward
+    and their gradients backward), ``scatter_bytes`` reduce-scattered
+    along the sequence (the slabs' bytes) and ``seq_gather_bytes``
+    all-gathered along the sequence (the whole tensors' bytes)."""
 
     mesh: object
     size: int  # model ranks
@@ -116,6 +147,8 @@ class TensorParallel:
     reduce_bytes: int = 0
     gather_bytes: int = 0
     relayout_bytes: int = 0
+    scatter_bytes: int = 0
+    seq_gather_bytes: int = 0
 
     def all_reduce(self, t: torch.Tensor,
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -133,6 +166,39 @@ class TensorParallel:
         out = torch.cat(parts, dim=-1)
         self.gather_bytes += out.numel() * out.element_size()
         return out
+
+    def gather_seq(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along dim 1, in model order."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        out = torch.cat(parts, dim=1)
+        self.seq_gather_bytes += out.numel() * out.element_size()
+        return out
+
+    def scatter_seq(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slab along dim 1 of ``t`` summed over the group,
+        in float32, rounded once to ``t``'s dtype."""
+        out = reduce_scatter(t.float(), 1, self.group)
+        self.scatter_bytes += out.numel() * out.element_size()
+        return out.to(t.dtype)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, this rank's slab of it: dim
+    ``dim`` cut into as many equal contiguous slabs as the group has
+    ranks, in group rank order (``reduce_scatter_tensor`` cuts dim 0, so
+    ``dim`` moves to the front and back).  gloo takes CPU tensors here,
+    so CUDA ones go through host memory."""
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    staged = x.device.type == "cuda" and "gloo" in str(
+        dist.get_backend(group))
+    if staged:
+        x, out = x.cpu(), out.cpu()
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.to(t.device).movedim(0, dim).contiguous()
 
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar(
@@ -200,6 +266,57 @@ class _GatherFromModel(torch.autograd.Function):
     def backward(ctx, g):
         lo = ctx.tp.rank * ctx.width
         return g[..., lo:lo + ctx.width].contiguous(), None
+
+
+class _GatherSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dtype, whole):
+        ctx.tp, ctx.dtype, ctx.whole, ctx.width = tp, x.dtype, whole, \
+            x.shape[1]
+        return tp.gather_seq(x).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.whole:
+            lo = ctx.tp.rank * ctx.width
+            g = g[:, lo:lo + ctx.width].contiguous()
+        else:
+            g = ctx.tp.scatter_seq(g.float())
+        return g.to(ctx.dtype), None, None, None
+
+
+class _ScatterSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dtype):
+        ctx.tp, ctx.dtype = tp, x.dtype
+        return tp.scatter_seq(x).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.gather_seq(g).to(ctx.dtype), None, None
+
+
+class _SplitSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        w = x.shape[1] // tp.size
+        return x[:, tp.rank * w:(tp.rank + 1) * w].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.gather_seq(g), None
+
+
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.tp.rank == 0 else torch.zeros_like(g)), None
 
 
 class _Relayout(torch.autograd.Function):
@@ -289,14 +406,61 @@ def gather_from_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     return _GatherFromModel.apply(x, tp)
 
 
-def column_product(x: torch.Tensor, params, tp: TensorParallel, dtype):
+def gather_sequence(x: torch.Tensor, tp: TensorParallel, dtype=None,
+                    whole: bool = False) -> torch.Tensor:
+    """The ranks' slabs ``x`` ``[B, S / n, ...]`` of the sequence
+    concatenated along dim 1 in model order, gathered in ``x``'s dtype
+    and returned in ``dtype`` (default ``x``'s).  Backward: the ranks'
+    gradient parts summed in float32 and this rank's slab rounded once
+    to ``x``'s dtype (a reduce-scatter); with ``whole``, the rank's slice
+    of a gradient every rank holds whole."""
+    return _GatherSequence.apply(x, tp, dtype or x.dtype, whole)
+
+
+def scatter_sequence(x: torch.Tensor, tp: TensorParallel,
+                     dtype=None) -> torch.Tensor:
+    """This rank's slab along dim 1 of the sum of ``x`` over the group,
+    summed in float32 and rounded once to ``dtype`` (default ``x``'s);
+    the gradient all-gathered."""
+    return _ScatterSequence.apply(x, tp, dtype or x.dtype)
+
+
+def split_sequence(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """This rank's slab along dim 1 of ``x``, which every rank holds
+    whole; the gradient all-gathered, so it is whole on every rank."""
+    return _SplitSequence.apply(x, tp)
+
+
+def count_once(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``x`` unchanged; its gradient, the same on every rank, passed on
+    rank 0 alone (zeros on the others), so a sum over the group counts it
+    once."""
+    return _CountOnce.apply(x, tp)
+
+
+def seq_splits(n: int, seq: int) -> bool:
+    """Whether a stream of ``seq`` positions splits over ``n`` model ranks
+    (``logical_to_pspec`` keeps a dim that does not divide whole)."""
+    return n > 1 and seq % n == 0
+
+
+def column_product(x: torch.Tensor, params, tp: TensorParallel, dtype,
+                   seq: bool = False, gathered: bool = False):
     """``linear(p, x)`` for ``params`` (one linear's, or a list of them,
-    each this rank's column slab): ``x``, whole on every rank, enters
-    once by ``copy_to_model`` in float32, each product accumulates in
-    float32 and rounds once to ``dtype``, as one product over all the
-    columns does, and the ranks' parts of ``x``'s gradient sum in float32
-    before their one rounding.  A list gives a list."""
-    x32 = copy_to_model(x.float(), tp)
+    each this rank's column slab) over the whole input: ``x``, whole on
+    every rank, enters once by ``copy_to_model`` in float32; with
+    ``seq`` it is this rank's slab of the sequence, all-gathered
+    (:func:`gather_sequence`); ``gathered``: it was gathered so already.
+    Each product accumulates in float32 and rounds once to ``dtype``, as
+    one product over all the columns does, and the ranks' parts of
+    ``x``'s gradient sum in float32 before their one rounding.  A list
+    gives a list."""
+    if gathered:
+        x32 = x.float()
+    elif seq:
+        x32 = gather_sequence(x, tp, torch.float32)
+    else:
+        x32 = copy_to_model(x.float(), tp)
     out = []
     for p in params if isinstance(params, list) else [params]:
         y = x32 @ p["w"].float()
@@ -305,12 +469,14 @@ def column_product(x: torch.Tensor, params, tp: TensorParallel, dtype):
 
 
 def row_product(x: torch.Tensor, params: dict, tp: TensorParallel,
-                dtype) -> torch.Tensor:
+                dtype, seq: bool = False) -> torch.Tensor:
     """``linear`` of the whole input whose rows' slab ``x`` this rank
     holds, on its row slab ``params``: the ranks' float32 partial
     products summed over the group in float32, then rounded once to
-    ``dtype`` (the bias, whole, added once)."""
-    y = reduce_from_model(x.float() @ params["w"].float(), tp)
+    ``dtype`` (the bias, whole, added once).  With ``seq`` the sum is
+    reduce-scattered: this rank's slab of the sequence."""
+    y = x.float() @ params["w"].float()
+    y = scatter_sequence(y, tp) if seq else reduce_from_model(y, tp)
     if "b" in params:
         y = y + params["b"].float()
     return y.to(dtype)
@@ -323,6 +489,26 @@ def attention_splits(cfg, n: int) -> bool:
     return (n > 1 and cfg.grouped and cfg.hq_pad % n == 0
             and cfg.n_kv_heads % n == 0
             and cfg.n_kv_heads * cfg.d_head % cfg.model_shards == 0)
+
+
+def attention_kv_heads(cfg, n: int) -> list:
+    """For each of ``n`` model ranks, the key heads (ascending) that its
+    query heads ``[r Hq / n, (r + 1) Hq / n)`` read, by ``_expand_kv``'s
+    map: query head ``h`` reads ``h // (Hq / Hkv)`` where the heads group,
+    ``h // ceil(Hq / Hkv)`` where they do not (padded heads too)."""
+    hq, hkv = cfg.hq_pad, cfg.n_kv_heads
+    rep = hq // hkv if cfg.grouped else -(-hq // hkv)
+    per = hq // n
+    return [sorted({h // rep for h in range(r * per, (r + 1) * per)})
+            for r in range(n)]
+
+
+def kv_split(cfg, n: int) -> bool:
+    """Whether an ``AttnConfig``'s ``wk``/``wv`` are stored as slabs of
+    their columns over ``n`` model ranks (``attention_specs`` gives them
+    the ``kv_heads`` axis and ``n`` divides their width)."""
+    w = cfg.n_kv_heads * cfg.d_head
+    return n > 1 and w % cfg.model_shards == 0 and w % n == 0
 
 
 def mlp_splits(static: dict, d_ff: int, n: int) -> bool:
@@ -340,20 +526,6 @@ def mlp_splits(static: dict, d_ff: int, n: int) -> bool:
 def experts_split(cfg, n: int) -> bool:
     """Whether a ``MoEConfig``'s routed experts split over the ranks."""
     return n > 1 and cfg.n_experts % n == 0
-
-
-def attention_reads_one_kv_head(cfg, n: int) -> bool:
-    """Whether an ``AttnConfig``'s block computes on its query heads'
-    slabs over ``n`` model ranks whose key heads do not split (fewer key
-    heads than ranks, ``n`` a multiple of them, as MQA's one): each
-    rank's query heads then lie in one key head's group, whose ``wk``/
-    ``wv`` columns every such rank re-lays out from the storage slabs
-    (the key projections split on their columns, ``model`` dividing
-    them)."""
-    kv = cfg.n_kv_heads * cfg.d_head
-    return (n > 1 and cfg.grouped and cfg.hq_pad % n == 0
-            and cfg.n_kv_heads % n != 0 and n % cfg.n_kv_heads == 0
-            and kv % cfg.model_shards == 0 and kv % n == 0)
 
 
 def mla_splits(cfg, n: int) -> bool:
@@ -385,13 +557,14 @@ def vocab_splits(cfg, n: int) -> bool:
 def layer_splits(cfg, static: dict, n: int) -> frozenset:
     """The blocks of one layer (its static, ``cfg`` the model's config)
     that compute on their slabs over ``n`` model ranks: a subset of
-    ``{"attn", "xattn", "mla", "ssm", "mlp", "moe", "moe_shared"}``."""
+    ``{"attn", "xattn", "mla", "ssm", "mlp", "moe", "moe_shared"}``.
+    Attention splits wherever ``n`` divides its padded query heads (the
+    key heads by :func:`attention_splits`, or re-laid out)."""
     out = set()
     mixer = static["mixer"]
 
     def attends(key):
-        return (attention_splits(static[key], n)
-                or attention_reads_one_kv_head(static[key], n))
+        return n > 1 and static[key].hq_pad % n == 0
 
     if mixer in ("attn", "swa", "xattn") and attends("attn_cfg"):
         out.add("attn")
@@ -414,79 +587,182 @@ def layer_splits(cfg, static: dict, n: int) -> frozenset:
     return frozenset(out)
 
 
-def _attention_moves(cfg, n: int, tokens: int, memory: int | None = None):
-    """(forward elements all-reduced, backward elements all-reduced,
-    param elements re-laid out each way) of one call of an
-    ``AttnConfig``'s split block on ``tokens`` query tokens (and
-    ``memory`` key tokens, cross-attention): the output forward, the
-    query input's and the memory's gradients backward; where each rank
-    reads one key head, that head's ``wk``/``wv`` columns and biases."""
-    d = cfg.d_model
-    relaid = (2 * (d + cfg.qkv_bias) * cfg.d_head
-              if attention_reads_one_kv_head(cfg, n) else 0)
-    return tokens * d, tokens * d + (memory or 0) * d, relaid
+_KINDS = ("reduce", "scatter", "gather", "relayout")
 
 
-def _mlp_moves(static: dict, d: int, d_ff: int, tokens: int):
-    """An MLP's: dense, its output forward and its input's gradient
-    backward; sparse, its input's and ``h``'s gradients backward (its
-    columns are gathered)."""
-    if static["sparse"] is None:
-        return tokens * d, tokens * d, 0
-    return 0, tokens * (d + d_ff), 0
+def _zero() -> dict:
+    return dict.fromkeys(_KINDS, 0)
 
 
-def _ssm_moves(cfg, n: int, tokens: int):
-    """An ``SSMConfig``'s: its output and the gated norm's sum of squares
-    forward; its input's gradient, the sum of squares' and the whole
-    scale's backward; re-laid out, the rank's columns of ``in_proj`` (its
-    heads' z, x and dt, its groups' B and C) and of the conv's weight and
-    bias."""
+def _add(into: dict, moves: dict, times: int = 1) -> None:
+    for k in _KINDS:
+        into[k] += times * moves[k]
+
+
+def _attention_kv_moves(cfg, n: int, rank: int) -> tuple[int, int]:
+    """(param elements re-laid out each way, param elements all-reduced
+    backward) of an ``AttnConfig``'s split block on model rank ``rank``:
+    none where the key heads split with the query heads; else the
+    ``wk``/``wv`` columns (biases too) of the key heads the rank's query
+    heads read, re-laid out from their storage slabs, or, where those
+    leaves are whole, the whole leaves' gradients summed."""
+    if attention_splits(cfg, n):
+        return 0, 0
+    rows = cfg.d_model + cfg.qkv_bias
+    if kv_split(cfg, n):
+        heads = len(attention_kv_heads(cfg, n)[rank])
+        return 2 * rows * heads * cfg.d_head, 0
+    return 0, 2 * rows * cfg.n_kv_heads * cfg.d_head
+
+
+def _ssm_relayout(cfg, n: int) -> int:
+    """Param elements an ``SSMConfig``'s split block re-lays out each way:
+    the rank's columns of ``in_proj`` (its heads' z, x and dt, its groups'
+    B and C) and of the conv's weight and bias."""
     g = max(1, cfg.n_groups // n)
     ch = cfg.d_inner // n + 2 * g * cfg.d_state
     cols = ch + cfg.d_inner // n + cfg.n_heads // n
-    return (tokens * cfg.d_model + tokens,
-            tokens * cfg.d_model + tokens + cfg.d_inner,
-            cfg.d_model * cols + (cfg.d_conv + 1) * ch)
+    return cfg.d_model * cols + (cfg.d_conv + 1) * ch
 
 
-def _shared_ff(cfg) -> int:
-    moe = cfg.moe
-    return moe.d_ff_shared or moe.n_shared * moe.d_ff_expert
+def _layer_moves(cfg, static: dict, n: int, tokens: int, memory: int | None,
+                 seq: bool, mem_seq: bool, rank: int = 0):
+    """(forward, backward) bytes, by kind (``_KINDS``: all-reduced,
+    reduce-scattered, all-gathered along the sequence, re-laid out), that
+    one call of a layer moves over ``n`` model ranks on ``tokens`` tokens
+    of its stream (``memory`` the encoder's, cross-attention), the stream
+    split along the sequence where ``seq`` (the memory where
+    ``mem_seq``), as ``models.transformer._apply_layer_tp`` runs it:
+
+      * a split block's input enters its column products by
+        ``copy_to_model`` (its gradient all-reduced) or, split, by
+        :func:`gather_sequence` (gathered in the compute dtype, its
+        gradient reduce-scattered in float32); its output leaves by an
+        all-reduce or, split, a reduce-scatter (float32) whose gradient
+        is all-gathered;
+      * a block that stays whole, on a split stream, gathers its input
+        (the gradient's slice goes back) and splits its output (its
+        gradient all-gathered);
+      * each block's own collectives: MLA's latents' gradients, the
+        SSM's statistics and their gradients, the sparse
+        MLP's hidden gradient, MoE's top-k weights', attention's key
+        columns;
+      * on a split stream, each norm's leaves' gradients, all-reduced."""
+    d = cfg.d_model
+    c = torch.empty((), dtype=cfg.cdtype()).element_size()
+    p = torch.empty((), dtype=cfg.pdtype()).element_size()
+    t, m = tokens, memory or 0
+    split = layer_splits(cfg, static, n)
+    f, b = _zero(), _zero()
+
+    def enter():
+        if seq:
+            f["gather"] += t * d * c
+            b["scatter"] += t // n * d * 4
+        else:
+            b["reduce"] += t * d * 4
+
+    def leave():  # a row product's float32 partial sums
+        if seq:
+            f["scatter"] += t // n * d * 4
+            b["gather"] += t * d * 4
+        else:
+            f["reduce"] += t * d * 4
+
+    def whole():
+        if seq:
+            f["gather"] += t * d * c
+            b["gather"] += t * d * c
+
+    mixer = static["mixer"]
+    blocks = {"mla": ["mla"], "ssm": ["ssm"], "xattn": ["attn", "xattn"]
+              }.get(mixer, ["attn"])
+    for block in blocks:
+        if block not in split:
+            whole()
+            if block == "xattn" and mem_seq:
+                f["gather"] += m * d * c
+        elif block in ("attn", "xattn"):
+            enter()
+            leave()
+            rel, red = _attention_kv_moves(
+                static["attn_cfg" if block == "attn" else "xattn_cfg"], n,
+                rank)
+            f["relayout"] += rel * p
+            b["relayout"] += rel * p
+            b["reduce"] += red * 4
+            if block == "xattn" and mem_seq:
+                f["gather"] += m * d * c
+                b["scatter"] += m // n * d * 4
+            elif block == "xattn":
+                b["reduce"] += m * d * 4
+        elif block == "mla":
+            mc = static["mla_cfg"]
+            if seq:
+                f["gather"] += t * d * c
+            b["reduce"] += t * (mc.q_lora + mc.kv_lora + mc.d_rope) * 4
+            leave()
+        else:  # the SSM
+            sc = static["ssm_cfg"]
+            enter()
+            leave()
+            f["reduce"] += t * 4
+            b["reduce"] += (t + sc.d_inner) * 4
+            f["relayout"] += _ssm_relayout(sc, n) * p
+            b["relayout"] += _ssm_relayout(sc, n) * p
+    ffn = static["ffn"]
+    if ffn == "mlp" and "mlp" not in split:
+        whole()
+    elif ffn == "mlp" and static["mlp"]["sparse"] is None:
+        enter()
+        leave()
+    elif ffn == "mlp":  # the sparse MLP: whole output, columns gathered
+        enter()
+        b["reduce"] += t * cfg.d_ff * 4
+        if seq:
+            b["gather"] += t * d * c
+    elif ffn == "moe":
+        experts, shared = "moe" in split, "moe_shared" in split
+        has_shared = "shared" in static["moe"]
+        if seq:  # one gather for the router, the experts, the shared MLP
+            f["gather"] += t * d * c
+            b["scatter"] += t // n * d * 4
+            if experts:
+                b["reduce"] += t * cfg.moe.top_k * 4
+                f["scatter"] += t // n * d * 4
+                b["gather"] += t * d * c
+            if shared:
+                f["scatter"] += t // n * d * 4
+                b["gather"] += t * d * 4
+            if not experts or (has_shared and not shared):
+                b["gather"] += t * d * c
+        else:
+            if experts:
+                b["reduce"] += t * (d + cfg.moe.top_k) * 4
+                f["reduce"] += t * d * 4
+            if shared:
+                b["reduce"] += t * d * 4
+                f["reduce"] += t * d * 4
+    if seq:
+        norms = 1 + (mixer == "xattn") + (ffn != "none")
+        b["reduce"] += norms * _norm_leaves(cfg) * d * 4
+    return f, b
 
 
-# what one call of each split block moves over ``model``: (model config,
-# layer static, ranks, tokens, memory tokens) -> (elements all-reduced in
-# the forward, in the backward, param elements re-laid out each way)
-_MOVES = {
-    "attn": lambda cfg, st, n, t, m: _attention_moves(st["attn_cfg"], n, t),
-    "xattn": lambda cfg, st, n, t, m: _attention_moves(st["xattn_cfg"], n,
-                                                       t, m),
-    # the output; the two latents' gradients (q's, and c_kv with the RoPE
-    # key's)
-    "mla": lambda cfg, st, n, t, m: (t * cfg.d_model, t * (
-        st["mla_cfg"].q_lora + st["mla_cfg"].kv_lora + st["mla_cfg"].d_rope),
-        0),
-    "ssm": lambda cfg, st, n, t, m: _ssm_moves(st["ssm_cfg"], n, t),
-    "mlp": lambda cfg, st, n, t, m: _mlp_moves(st["mlp"], cfg.d_model,
-                                               cfg.d_ff, t),
-    # the output; the input's and the top-k weights' gradients
-    "moe": lambda cfg, st, n, t, m: (t * cfg.d_model,
-                                     t * (cfg.d_model + cfg.moe.top_k), 0),
-    "moe_shared": lambda cfg, st, n, t, m: _mlp_moves(
-        st["moe"]["shared"], cfg.d_model, _shared_ff(cfg), t),
-}
+def _norm_leaves(cfg) -> int:
+    return 1 if cfg.norm == "rmsnorm" else 2
 
 
-def _trailing_reduce(cfg, static: dict, n: int, tokens: int) -> int:
-    """Elements of a layer's last all-reduce over ``model`` that a remat
+def _trailing(cfg, static: dict, n: int, tokens: int, seq: bool) -> dict:
+    """Bytes of a layer's last collective over ``model`` that a remat
     recompute ending with that layer does not run again
     (``models.transformer._remat`` stops at the last op that saved a
     tensor): the output of its last block where that block computes on
     its slab and ends in a row product (a dense MLP, MoE's shared
     experts, else its routed experts, or the mixer when the layer has no
-    FFN); a sparse MLP's forward all-reduces nothing (its columns are
-    all-gathered, which ``model_bytes`` does not reckon)."""
+    FFN), all-reduced, or on a split stream reduce-scattered; a sparse
+    MLP ends in its gathered columns (a whole block, on a split stream,
+    in a slice)."""
     ffn = static["ffn"]
     if ffn == "mlp":
         last = "mlp" if static["mlp"]["sparse"] is None else None
@@ -495,58 +771,109 @@ def _trailing_reduce(cfg, static: dict, n: int, tokens: int) -> int:
     else:
         last = {"mla": "mla", "ssm": "ssm", "xattn": "xattn"}.get(
             static["mixer"], "attn")
-    return tokens * cfg.d_model if last in layer_splits(cfg, static, n) \
-        else 0
+    out = _zero()
+    if last in layer_splits(cfg, static, n):
+        if seq:
+            out["scatter"] = tokens // n * cfg.d_model * 4
+        else:
+            out["reduce"] = tokens * cfg.d_model * 4
+    return out
 
 
 def model_bytes(cfg, statics: dict, n: int, rows: int, seq: int,
-                microbatches: int = 1) -> dict:
-    """The bytes one rank's sharded step moves over ``model`` (``n``
-    ranks) on its ``rows`` rows of ``seq`` input tokens in
-    ``microbatches`` calls, as ``step.comm`` counts them:
-    ``model_reduce_bytes`` all-reduced (float32, forward and backward)
-    and ``model_relayout_bytes`` re-laid out (param columns, forward,
-    and their gradients back), from ``_MOVES`` for each block
-    :func:`layer_splits` gives (the decoder's layers over the prefix and
-    the text, the encoder's over ``enc_seq`` frames, the MTP layer over
-    the text) and, where :func:`vocab_splits` holds, each lookup's
-    output, each head's input gradient and each cross-entropy's max, sum
-    of exponentials and picked logit.  With ``cfg.remat`` the body's
+                microbatches: int = 1, rank: int = 0) -> dict:
+    """The bytes model rank ``rank`` of the sharded step moves over
+    ``model`` (``n`` ranks) on its ``rows`` rows of ``seq`` input tokens
+    in ``microbatches`` calls, as ``step.comm`` counts them:
+    ``model_reduce_bytes`` all-reduced (float32, forward and backward),
+    ``model_scatter_bytes`` reduce-scattered (float32, this rank's
+    slabs), ``model_seq_gather_bytes`` all-gathered along the sequence
+    (the whole tensors) and ``model_relayout_bytes`` re-laid out (param
+    columns, forward, and their gradients back).
+
+    Each layer's come from :func:`_layer_moves` (the decoder's layers
+    over the prefix and the text, the encoder's over ``enc_seq`` frames,
+    the MTP layer over the text), each stream split along the sequence
+    where :func:`seq_splits` holds for its length.  Around them: the
+    stream's entry (the vocabulary-split lookup reduce-scattered, or
+    all-reduced on a whole stream; a whole lookup split, its gradient
+    gathered), whisper's learned positions' and the final norms'
+    gradients on a split stream (all-reduced), the head's input (a
+    column product where :func:`vocab_splits` holds, else gathered whole
+    from a split stream) and each cross-entropy's max, sum of
+    exponentials and picked logit.  With ``cfg.remat`` the body's
     periods and the encoder's layers run their forward again in the
     backward (``models.transformer._remat``), so their forward moves
-    count twice, but for each recompute's last all-reduce, which stops
-    early (:func:`_trailing_reduce`); the prefix layers', the MTP
-    layer's and the vocabulary's count once."""
+    count twice, but for each recompute's last collective, which stops
+    early (:func:`_trailing`); the prefix layers', the MTP layer's and
+    the rest count once."""
     r = rows // microbatches
     text, dec = r * seq, r * (seq + cfg.prefix_len)
     enc = r * cfg.enc_seq if cfg.encoder_layers else None
+    seq_dec = seq_splits(n, seq + cfg.prefix_len)
+    seq_txt = seq_splits(n, seq)
+    seq_enc = bool(cfg.encoder_layers) and seq_splits(n, cfg.enc_seq)
     again = 2 if cfg.remat else 1
-    stacks = [(st, 1, dec, 1) for st in statics["prefix_layers"]]
-    stacks += [(st, statics["n_periods"], dec, again)
+    stacks = [(st, 1, dec, seq_dec, 1) for st in statics["prefix_layers"]]
+    stacks += [(st, statics["n_periods"], dec, seq_dec, again)
                for st in statics["body"]]
     if "encoder" in statics:
-        stacks.append((statics["encoder"], cfg.encoder_layers, enc, again))
+        stacks.append((statics["encoder"], cfg.encoder_layers, enc, seq_enc,
+                       again))
     if "mtp_layer" in statics:
-        stacks.append((statics["mtp_layer"], 1, text, 1))
-    reduce, relayout = 0, 0
-    for st, times, tokens, forwards in stacks:
-        for block in layer_splits(cfg, st, n):
-            fwd, bwd, rel = _MOVES[block](cfg, st, n, tokens, enc)
-            reduce += times * (forwards * fwd + bwd)
-            relayout += times * (forwards + 1) * rel
-    if cfg.remat:  # each recompute ends before its last layer's reduce
-        reduce -= statics["n_periods"] * _trailing_reduce(
-            cfg, statics["body"][-1], n, dec)
+        stacks.append((statics["mtp_layer"], 1, text, seq_txt, 1))
+    total = _zero()
+    for st, times, tokens, split, forwards in stacks:
+        f, b = _layer_moves(cfg, st, n, tokens, enc, split, seq_enc, rank)
+        _add(total, f, times * forwards)
+        _add(total, b, times)
+    if cfg.remat:  # each recompute ends before its last layer's collective
+        _add(total, _trailing(cfg, statics["body"][-1], n, dec, seq_dec),
+             -statics["n_periods"])
         if "encoder" in statics:
-            reduce -= cfg.encoder_layers * _trailing_reduce(
-                cfg, statics["encoder"], n, enc)
-    if vocab_splits(cfg, n):
-        heads = 1 + ("mtp_layer" in statics)
-        reduce += heads * (text * cfg.d_model + 3 * text)
-        reduce += dec * cfg.d_model + (heads - 1) * text * cfg.d_model
-    p = torch.empty((), dtype=cfg.pdtype()).element_size()
-    return {"model_reduce_bytes": 4 * microbatches * reduce,
-            "model_relayout_bytes": p * microbatches * relayout}
+            _add(total, _trailing(cfg, statics["encoder"], n, enc, seq_enc),
+                 -cfg.encoder_layers)
+    d = cfg.d_model
+    c = torch.empty((), dtype=cfg.cdtype()).element_size()
+    vocab = vocab_splits(cfg, n)
+    norm = _norm_leaves(cfg) * d * 4
+
+    def embed(looked_up, stream, split):
+        if vocab and split:
+            total["scatter"] += stream // n * d * 4
+            total["gather"] += stream * d * c
+        elif vocab:
+            total["reduce"] += looked_up * d * 4
+        elif split:
+            total["gather"] += stream * d * c
+
+    def head(tokens, split):
+        if vocab and split:
+            total["gather"] += tokens * d * c
+            total["scatter"] += tokens // n * d * 4
+        elif vocab:
+            total["reduce"] += tokens * d * 4
+        elif split:
+            total["gather"] += tokens * d * c
+        if vocab:
+            total["reduce"] += 3 * text * 4
+
+    embed(text, dec, seq_dec)
+    if cfg.rope_theta is None and seq_dec:  # dec_pos, on the slab
+        total["reduce"] += cfg.max_seq * d * 4
+    total["reduce"] += norm * seq_dec
+    head(dec, seq_dec)
+    if "mtp_layer" in statics:
+        embed(text, text, seq_txt)
+        total["reduce"] += (2 * d * d * 4 + norm) * seq_txt
+        head(text, seq_txt)
+    if "encoder" in statics and seq_enc:
+        total["gather"] += enc * d * c
+        total["reduce"] += norm
+    return {"model_reduce_bytes": microbatches * total["reduce"],
+            "model_scatter_bytes": microbatches * total["scatter"],
+            "model_seq_gather_bytes": microbatches * total["gather"],
+            "model_relayout_bytes": microbatches * total["relayout"]}
 
 
 # the leaves each block keeps on its slabs: (path in the layer, the
@@ -565,7 +892,8 @@ def slab_leaves(cfg, statics: dict, tree, n: int):
     placements): True for a leaf that stays on its slab under
     :func:`layer_splits` and :func:`vocab_splits` over ``n`` model
     ranks (the embedding, and the head when it is not tied, at the top
-    of the tree)."""
+    of the tree; of attention whose ``wk``/``wv`` are whole leaves,
+    :func:`kv_split`, ``wq`` and ``wo``)."""
     out = _map(lambda _: False, tree)
     layers = [*zip(out["prefix_layers"], statics["prefix_layers"]),
               *zip(out["body"], statics["body"])]
@@ -575,6 +903,10 @@ def slab_leaves(cfg, statics: dict, tree, n: int):
     for layer, static in layers:
         for block in layer_splits(cfg, static, n):
             path, names = _BLOCK_LEAVES[block]
+            if block in ("attn", "xattn") and not kv_split(
+                    static["attn_cfg" if block == "attn" else "xattn_cfg"],
+                    n):
+                names = ("wq", "wo")
             parent = layer
             for key in path[:-1]:
                 parent = parent[key]

@@ -49,8 +49,8 @@ What each rank stores:
 
 Compute is split over ``model`` where the reference's GSPMD step splits
 it (``parallel.tensor``): inside ``tensor_parallel_ctx`` the attention
-heads (one key head re-laid out to each rank where the ranks outnumber
-the key heads), MLA's heads, the SSM's heads (its packed columns re-laid
+query heads (the key heads each rank's query heads read re-laid out to
+it where the key heads do not split with them), MLA's heads, the SSM's heads (its packed columns re-laid
 out), the MLPs' ``ff`` (the sparse MLPs' tiles), the MoE experts and
 shared experts, and the embedding's and the head's vocabulary compute on
 the rank's slabs, whose gradients stay slabs; the logits are then a slab
@@ -59,7 +59,12 @@ exponentials and the labels' logits over ``model``.  A split leaf whose
 block's heads or widths do not divide over ``model``
 (``parallel.tensor.layer_splits``) is all-gathered over the mesh each
 step and computed whole, its gradient whole on every rank, as the whole
-leaves (norms, routers, latent projections) are.
+leaves (norms, routers, latent projections) are.  Where ``model``
+divides a stream's length, the residual stream between layers is the
+rank's slab of the sequence (``parallel.activations.shard_activation``):
+split blocks gather it and reduce-scatter their outputs, and a whole
+leaf that computes on the slab (a norm) sums its gradient over
+``model``.
 
 The gradients then go to the moment slabs, as GSPMD reduce-scatters
 them onto the reference's ZeRO-1 moments: each leaf is cut to its param
@@ -80,11 +85,13 @@ as the reference cuts them.
 ``step.comm`` holds the last step's bytes: ``param_gather_bytes`` (the
 params all-gathered, whole), ``model_reduce_bytes`` and
 ``model_gather_bytes`` (activations and their gradients all-reduced and
-all-gathered over ``model``; with ``cfg.remat`` the body's forward runs
-again in the backward, ``parallel.tensor.model_bytes``),
-``model_relayout_bytes`` (the
-SSM's param columns re-laid out over ``model``, forward, and their
-gradients back), ``model_stat_bytes`` and ``data_stat_bytes`` (the
+all-gathered along their last dim over ``model``; with ``cfg.remat`` the
+body's forward runs again in the backward, ``parallel.tensor.
+model_bytes``), ``model_scatter_bytes`` and ``model_seq_gather_bytes``
+(the split stream reduce-scattered, its slabs' bytes, and all-gathered
+along the sequence, over ``model``), ``model_relayout_bytes`` (the
+SSM's and the key heads' param columns re-laid out over ``model``,
+forward, and their gradients back), ``model_stat_bytes`` and ``data_stat_bytes`` (the
 global norm's and int8 compression's per-leaf statistics over ``model``
 and over ``data``), ``data_reduce_bytes`` (the loss, and the gradients
 not split over ``data``, all-reduced over ``pod``/``data``),
@@ -134,6 +141,7 @@ from repro_torch.parallel.tensor import (
     data_shards,
     gather_over_data,
     reduce_from_model,
+    reduce_scatter,
     slab_leaves,
     tensor_parallel_ctx,
     vocab_splits,
@@ -220,7 +228,7 @@ def _mean_over_data(mesh, loss, grads, shardings: "TrainShardings", slab,
             return g
         at = [d for d, e in enumerate(z.pspec) if "data" in _entry_axes(e)]
         if at and sizes["data"] > 1:
-            g = _reduce_scatter(g, at[0], mesh.get_group("data"))
+            g = reduce_scatter(g, at[0], mesh.get_group("data"))
             comm["data_scatter_bytes"] += g.numel() * g.element_size()
             return reduce(g, ("pod",)) / n
         return reduce(g, ("data", "pod")) / n
@@ -231,23 +239,6 @@ def _mean_over_data(mesh, loss, grads, shardings: "TrainShardings", slab,
     return reduce(loss.clone(), ("data", "pod")) / n, grads
 
 
-def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The sum of ``t`` over ``group``, this rank's slab of it: dim
-    ``dim`` cut into as many equal contiguous slabs as the group has
-    ranks, in group rank order (``reduce_scatter_tensor`` cuts dim 0, so
-    ``dim`` moves to the front and back).  gloo takes CPU tensors here,
-    so CUDA ones go through host memory."""
-    n = dist.get_world_size(group)
-    x = t.movedim(dim, 0).contiguous()
-    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-    staged = x.device.type == "cuda" and "gloo" in str(
-        dist.get_backend(group))
-    if staged:
-        x, out = x.cpu(), out.cpu()
-    dist.reduce_scatter_tensor(out, x, group=group)
-    return out.to(t.device).movedim(0, dim).contiguous()
-
-
 def comm_by_kind(comm: dict) -> dict:
     """A sharded step's ``step.comm`` summed by collective kind, under
     ``launch.op_stats``' names (an all-gather's bytes its whole output's,
@@ -256,11 +247,13 @@ def comm_by_kind(comm: dict) -> dict:
     microbatches or MoE (whose batch and count gathers ``step.comm``
     does not count)."""
     return {"all-gather": comm["param_gather_bytes"]
-            + comm["model_gather_bytes"] + comm["zero_gather_bytes"],
+            + comm["model_gather_bytes"] + comm["model_seq_gather_bytes"]
+            + comm["zero_gather_bytes"],
             "all-reduce": comm["model_reduce_bytes"]
             + comm["model_stat_bytes"] + comm["data_stat_bytes"]
             + comm["data_reduce_bytes"],
-            "reduce-scatter": comm["data_scatter_bytes"],
+            "reduce-scatter": comm["model_scatter_bytes"]
+            + comm["data_scatter_bytes"],
             "all-to-all": comm["model_relayout_bytes"]}
 
 
@@ -483,6 +476,8 @@ def make_train_step(
             step.comm["model_reduce_bytes"] = tp.reduce_bytes
             step.comm["model_gather_bytes"] = tp.gather_bytes
             step.comm["model_relayout_bytes"] = tp.relayout_bytes
+            step.comm["model_scatter_bytes"] = tp.scatter_bytes
+            step.comm["model_seq_gather_bytes"] = tp.seq_gather_bytes
             loss, grads = _mean_over_data(mesh, loss, grads, shardings,
                                           slab, step.comm)
         else:  # one device, or a one-rank mesh: every slab whole
@@ -515,6 +510,7 @@ def make_train_step(
         step.loss_and_grads = loss_and_grads
     step.comm = dict.fromkeys(("param_gather_bytes", "model_reduce_bytes",
                                "model_gather_bytes", "model_relayout_bytes",
+                               "model_scatter_bytes", "model_seq_gather_bytes",
                                "model_stat_bytes", "data_stat_bytes",
                                "data_reduce_bytes", "data_scatter_bytes",
                                "zero_gather_bytes"),

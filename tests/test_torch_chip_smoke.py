@@ -339,6 +339,17 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "DEEPSEEK_SHARD_BATCH", (4, 32))
     monkeypatch.setattr(cs, "MAMBA_SHARD_LAYERS", 2)
     monkeypatch.setattr(cs, "MAMBA_SHARD_BATCH", (4, 32))
+    # (k) and (l) on the 1 x 4 mesh, 4 x 32 tokens: phi3's smoke config
+    # padded to 8 query heads over its 3 key heads (ungrouped, each
+    # rank's 2 query heads reading 1 or 2 key heads, re-laid out from
+    # 15-column slabs), and whisper's with 3 key heads under 4 query heads
+    # (ungrouped) and its 24 frames split over 4
+    monkeypatch.setattr(cs, "phi3_shard_config", lambda: dataclasses.replace(
+        get_smoke_config("phi3_medium_14b"), model_shards=4))
+    monkeypatch.setattr(cs, "whisper_shard_config", lambda: dataclasses.replace(
+        get_smoke_config("whisper_small"), n_kv_heads=3))
+    monkeypatch.setattr(cs, "PHI3_SHARD_BATCH", (4, 32))
+    monkeypatch.setattr(cs, "WHISPER_SHARD_BATCH", (4, 32))
     # the entry_points phase: the launcher on the smoke danube, 4 requests
     # through 2 slots; the twins at their own sizes on the CPU
     monkeypatch.setattr(cs, "ENTRY_SERVE_ARGS", [
@@ -636,13 +647,16 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert rm["grad_leaves"] > 0
     ts = lines[16]
     f, g, h = ts["part_f"], ts["part_g"], ts["part_h"]
-    i, j = ts["part_i"], ts["part_j"]
+    i, j, k, l = ts["part_i"], ts["part_j"], ts["part_k"], ts["part_l"]
     assert f["layers"] == "4 of 2" and h["width"] == "smoke"
     assert h["model"] == "jamba_smoke"
     assert i["layers"] == "1 of 3" and i["layer_types"] == [["mla", "mlp"]]
     assert j["layers"] == "2 of 4"
-    for part in (f, h, i, j):
-        assert part["mesh"] == [2, 2]
+    assert k["layers"] == "2 of 2" and k["model"] == "phi3_medium_14b_smoke"
+    assert l["layers"] == "2 of 2 and the encoder's 2"
+    for part in (f, h, i, j, k, l):
+        wide = part in (k, l)
+        assert part["mesh"] == ([1, 4] if wide else [2, 2])
         assert part["ranks_losses_equal"]
         assert len(part["losses_float32"]) == 2
         assert max(part["loss_rel_float32"]) <= cs.SHARD_TRAIN_REL
@@ -669,8 +683,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         # ZeRO-1: each rank holds less than the whole state
         assert all(r["params"] < r["whole_params"]
                    for r in part["reckoned_bytes"])
-        assert sorted(tuple(c.values()) for c in part["coords"]) == [
-            (0, 0), (0, 1), (1, 0), (1, 1)]
+        assert sorted(tuple(c.values()) for c in part["coords"]) == (
+            [(0, m) for m in range(4)] if wide
+            else [(0, 0), (0, 1), (1, 0), (1, 1)])
         if part in (f, h):  # (i) and (j) keep no checkpoint
             assert part["restore"]["bit_equal"]
             assert part["restore"]["restored_step"] == 2
@@ -680,22 +695,26 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert max(part["bf16"]["rel_vs_unsharded_bf16"]) <= (
             cs.SHARD_TRAIN_BF16_REL)
         # tensor-parallel compute: no split leaf gathered, each step;
-        # activations all-reduced over model and, where an SSM splits,
-        # its columns re-laid out, by the bytes reckoned
+        # the stream split along the sequence (reduce-scattered and
+        # gathered over model), the norms' gradients all-reduced and,
+        # where an SSM splits or key heads do not split with their query
+        # heads, columns re-laid out, by the bytes reckoned
         for comm, reck in zip(part["comm_per_step"], part["reckoned_bytes"]):
             assert [c["param_gather_bytes"] for c in comm] == [0] * 2
             assert reck["gathered_leaves"] == 0
-            assert [c["model_reduce_bytes"] for c in comm] == [
-                reck["model_reduce_bytes"]] * 2
-            assert [c["model_relayout_bytes"] for c in comm] == [
-                reck["model_relayout_bytes"]] * 2
+            for key in ("model_reduce_bytes", "model_scatter_bytes",
+                        "model_seq_gather_bytes", "model_relayout_bytes"):
+                assert [c[key] for c in comm] == [reck[key]] * 2, key
             assert reck["model_reduce_bytes"] > 0
-            assert (reck["model_relayout_bytes"] > 0) == (part in (h, j))
+            assert reck["model_scatter_bytes"] > 0
+            assert reck["model_seq_gather_bytes"] > 0
+            assert (reck["model_relayout_bytes"] > 0) == (
+                part in (h, j, k, l))
             # the gradients reduce-scattered over data onto the moment
-            # slabs, by their bytes
+            # slabs, by their bytes (none on the 1 x 4 mesh)
             assert [c["data_scatter_bytes"] for c in comm] == [
                 reck["data_scatter_bytes"]] * 2
-            assert reck["data_scatter_bytes"] > 0
+            assert (reck["data_scatter_bytes"] > 0) == (not wide)
     # danube's sparse MLPs gather their tiles' columns; jamba's are dense
     assert all(c["model_gather_bytes"] > 0
                for comm in f["comm_per_step"] for c in comm)

@@ -16,10 +16,11 @@ against the JAX reference (CPU).
     smoke at ``model_shards=4``, a mini train, prefill and decode on 4 x 4
     and 2 x 2 x 4 fake meshes, in a process of its own: every record
     ``ok`` with FLOPs, and the train step's collective bytes by kind equal
-    ``step.comm``'s (its gradients reduce-scattered over ``data``), whose
-    ``model`` bytes ``parallel.tensor.model_bytes`` reckons (the forward's
-    again under remat); ``run_cell`` records a skip and an error as the
-    reference's.
+    ``step.comm``'s (its gradients reduce-scattered over ``data``, its
+    stream of 64 positions split over the 4 model ranks: reduce-scattered
+    and gathered over ``model``, by mesh dim), whose ``model`` bytes
+    ``parallel.tensor.model_bytes`` reckons (the forward's again under
+    remat); ``run_cell`` records a skip and an error as the reference's.
 
 The placed serving steps themselves are held to the reference in
 ``tests/test_torch_placed_serve.py``.
@@ -259,9 +260,14 @@ def test_mini_dry_run_single_and_multipod():
         if rec["kind"] == "train":
             assert by_kind == {k: v for k, v in rec["comm_by_kind"].items()
                                if v}, key
-            for name in ("model_reduce_bytes", "model_relayout_bytes"):
+            for name in ("model_reduce_bytes", "model_relayout_bytes",
+                         "model_scatter_bytes", "model_seq_gather_bytes"):
                 assert rec["step_comm"][name] == rec["reckoned"][name], key
-            assert rec["step_comm"]["model_reduce_bytes"] > 0
+            # 64 positions split over 4 model ranks: the stream's slabs
+            # reduce-scattered and gathered, the norms' gradients summed
+            for name in ("model_reduce_bytes", "model_scatter_bytes",
+                         "model_seq_gather_bytes"):
+                assert rec["step_comm"][name] > 0, (key, name)
         else:  # storage split, compute gathered: the layers' slabs
             assert by_kind["all-gather"] > 0 and set(by_kind) == {
                 "all-gather"}, key
@@ -270,8 +276,14 @@ def test_mini_dry_run_single_and_multipod():
     # rows pod-major; data also reduces the norm's per-leaf statistics
     for key in ("single:train", "multi:train"):
         comm = res[key]["step_comm"]
+        by_dim = res[key]["collectives"]["by_dim"]
         assert res[key]["collectives"]["reduce-scatter"]["bytes"] == comm[
-            "data_scatter_bytes"] > 0
+            "data_scatter_bytes"] + comm["model_scatter_bytes"]
+        assert comm["data_scatter_bytes"] > 0
+        # over model: the stream's reduce-scatters, and its gathers (the
+        # only all-gathers there: every param leaf computes on its slab)
+        assert by_dim["reduce-scatter/model"] == comm["model_scatter_bytes"]
+        assert by_dim["all-gather/model"] == comm["model_seq_gather_bytes"]
     multi = res["multi:train"]["collectives"]["by_dim"]
     comm = res["multi:train"]["step_comm"]
     assert multi["reduce-scatter/data"] == comm["data_scatter_bytes"]

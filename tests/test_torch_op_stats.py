@@ -119,7 +119,9 @@ COLLECTIVES = """
 import json, torch, torch.distributed as dist
 from repro_torch.launch.mesh import make_fake_mesh
 from repro_torch.launch.op_stats import OpStats, fake_mode
+from repro_torch.parallel.tensor import TensorParallel
 mesh = make_fake_mesh((4, 4), ("data", "model"))
+tp = TensorParallel(mesh, 4, 0, mesh.get_group("model"))
 with fake_mode():
     x = torch.empty(8, 32)
     with OpStats().name_groups(mesh) as st:
@@ -128,16 +130,22 @@ with fake_mode():
         dist.all_gather(parts, x, group=mesh.get_group("data"))
         out = torch.empty(8, 32)
         dist.all_to_all_single(out, x, group=mesh.get_group("model"))
+        # a stream [2, 8, 16] reduce-scattered along the sequence, then
+        # its slab [2, 2, 16] gathered back
+        tp.gather_seq(tp.scatter_seq(torch.empty(2, 8, 16)))
 print(json.dumps({"counts": dict(st.collective_counts),
                   "bytes": dict(st.collective_bytes_by_kind),
                   "by_dim": dict(st.collective_bytes_by_dim),
-                  "total": st.collective_bytes}))
+                  "total": st.collective_bytes,
+                  "tp": [tp.scatter_bytes, tp.seq_gather_bytes]}))
 """
 
 
 def test_collectives_on_a_fake_mesh():
     """One all-reduce over ``model`` (its 1 KB), one all-gather over
-    ``data`` (the 4 KB it assembles), one all-to-all over ``model``; in a
+    ``data`` (the 4 KB it assembles), one all-to-all over ``model``, and
+    the sequence's reduce-scatter (its 256-byte slab) and all-gather (the
+    1 KB it assembles) over ``model``; in a
     process of its own, as the fake group is the process's default."""
     import json
     import os
@@ -150,14 +158,18 @@ def test_collectives_on_a_fake_mesh():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["counts"] == {"all-reduce": 1, "all-gather": 1,
-                             "all-to-all": 1}
-    assert res["bytes"] == {"all-reduce": 1024.0, "all-gather": 4096.0,
-                            "all-to-all": 1024.0}
+    assert res["counts"] == {"all-reduce": 1, "all-gather": 2,
+                             "all-to-all": 1, "reduce-scatter": 1}
+    assert res["bytes"] == {"all-reduce": 1024.0, "all-gather": 5120.0,
+                            "all-to-all": 1024.0, "reduce-scatter": 256.0}
     assert res["by_dim"] == {"all-reduce/model": 1024.0,
                              "all-gather/data": 4096.0,
-                             "all-to-all/model": 1024.0}
-    assert res["total"] == 6144.0
+                             "all-to-all/model": 1024.0,
+                             "reduce-scatter/model": 256.0,
+                             "all-gather/model": 1024.0}
+    assert res["total"] == 7424.0
+    # what the sharded step's step.comm reads of them
+    assert res["tp"] == [256, 1024]
 
 
 @pytest.mark.parametrize("wrapper", ["flash", "spmm", "ou_mvm"])

@@ -14,11 +14,13 @@ no cache and no placed serving state (``models.transformer._remat``):
   * the recompute sees the forward's ``parallel.tensor`` context even
     when the backward runs on another thread;
   * on rank 0's slabs of a two-rank ``model`` group whose all-reduces
-    are recorded (nothing moves), the recomputes all-reduce what the forward did less each
-    period's (and encoder layer's) trailing all-reduce, which torch's
-    early stop skips: ``parallel.tensor._trailing_reduce``, which
-    ``model_bytes`` subtracts (a torch whose early stop stops elsewhere
-    fails here first);
+    and reduce-scatters are recorded (nothing moves), the recomputes
+    all-reduce and reduce-scatter what the forward did less each period's
+    (and encoder layer's) trailing collective, which torch's early stop
+    skips: ``parallel.tensor._trailing``, which ``model_bytes`` subtracts
+    (a torch whose early stop stops elsewhere fails here first); the
+    decoder's 17 positions keep its stream whole, whisper's 24 frames
+    split the encoder's over the sequence;
   * on an 8-layer granite, ``launch.op_stats`` counts a lower peak and
     more FLOPs (the recomputed forward) with remat than without.
 
@@ -175,19 +177,28 @@ def test_recompute_sees_the_forwards_tensor_parallel_context():
 @dataclasses.dataclass
 class _Recorded(tensor.TensorParallel):
     """Rank 0 of a two-rank ``model`` group that moves nothing and
-    records each all-reduce: (inside a remat period's function, elements).
-    The backward's own all-reduces run outside it."""
+    records each all-reduce and reduce-scatter: (kind, inside a remat
+    period's function, bytes).  The backward's own collectives run
+    outside it."""
 
     calls: list = dataclasses.field(default_factory=list)
     inside: list = dataclasses.field(default_factory=list)
 
     def all_reduce(self, t, op=None):
         out = t.float().contiguous().clone()
-        self.calls.append((bool(self.inside), out.numel()))
+        self.calls.append(("reduce", bool(self.inside), 4 * out.numel()))
         return out.to(t.dtype)
 
     def all_gather(self, t):
         return torch.cat([t] * self.size, dim=-1)
+
+    def gather_seq(self, t):
+        return torch.cat([t] * self.size, dim=1)
+
+    def scatter_seq(self, t):
+        out = t.float()[:, :t.shape[1] // self.size].contiguous()
+        self.calls.append(("scatter", bool(self.inside), 4 * out.numel()))
+        return out.to(t.dtype)
 
 
 class _RankZero:
@@ -229,16 +240,25 @@ def test_recompute_skips_only_the_trailing_reduce(arch, monkeypatch):
                                        kernels=False, **kw)
         seen = len(tp.calls)
         logits.float().square().sum().backward()
-    forward = sum(n for inside, n in tp.calls[:seen] if inside)
-    recomputed = sum(n for inside, n in tp.calls[seen:] if inside)
     dec = ROWS * (SEQ + cfg.prefix_len)
-    trailing = statics["n_periods"] * tensor._trailing_reduce(
-        cfg, statics["body"][-1], 2, dec)
+    trailing = {k: statics["n_periods"] * v for k, v in tensor._trailing(
+        cfg, statics["body"][-1], 2, dec,
+        tensor.seq_splits(2, SEQ + cfg.prefix_len)).items()}
     if cfg.encoder_layers:
-        trailing += cfg.encoder_layers * tensor._trailing_reduce(
-            cfg, statics["encoder"], 2, ROWS * cfg.enc_seq)
-    assert trailing > 0 and forward > trailing
-    assert recomputed == forward - trailing
+        for k, v in tensor._trailing(
+                cfg, statics["encoder"], 2, ROWS * cfg.enc_seq,
+                tensor.seq_splits(2, cfg.enc_seq)).items():
+            trailing[k] += cfg.encoder_layers * v
+    assert sum(trailing.values()) > 0
+    for kind in ("reduce", "scatter"):
+        forward = sum(n for k, inside, n in tp.calls[:seen]
+                      if inside and k == kind)
+        recomputed = sum(n for k, inside, n in tp.calls[seen:]
+                         if inside and k == kind)
+        assert forward >= trailing[kind]
+        assert recomputed == forward - trailing[kind], kind
+    assert sum(n for _, inside, n in tp.calls[:seen] if inside) > sum(
+        trailing.values())
 
 
 def test_remat_lowers_the_counted_peak():

@@ -268,7 +268,7 @@ def test_gradients_reduce_scatter_to_moment_slabs(case, model, world):
         assert comm["data_stat_bytes"] == (1 + compressed) * 4 * len(split)
         assert comm["model_stat_bytes"] == (1 + compressed) * 4 * by_model
         assert ttrain.comm_by_kind(comm)["reduce-scatter"] == comm[
-            "data_scatter_bytes"]
+            "data_scatter_bytes"] + comm["model_scatter_bytes"]
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -88,7 +88,19 @@ MODELS = {
     "mamba2": lambda: get_smoke_config("mamba2_780m"),
     "deepseek_v3": lambda: get_smoke_config("deepseek_v3_671b"),
     "paligemma": lambda: get_smoke_config("paligemma_3b"),
+    # 6 query heads over 3 key heads: grouped, but the key heads do not
+    # split over 2 ranks, so each rank's 3 query heads read 2 of them,
+    # re-laid out from the 30-column storage slabs (half a head each)
+    "phi3": lambda: get_smoke_config("phi3_medium_14b"),
+    # padded to 8 query heads over 3 key heads: ungrouped (8 % 3 != 0),
+    # the padded heads' zero weights computed and stepped
+    "phi3_ungrouped": lambda: dataclasses.replace(
+        get_smoke_config("phi3_medium_14b"), model_shards=4),
+    # 15 positions: the stream stays whole on every rank
+    "granite_odd": lambda: get_smoke_config("granite_3_2b"),
 }
+# a model's batch of other than ``TOKENS``' shape
+BATCH = {"granite_odd": (TOKENS[0], 16)}
 # the MoE models' microbatches: each a block of global rows, whose
 # capacity drops the reference's step counts over that block alone
 MICROBATCHED = ("jamba", "deepseek_v2")
@@ -126,7 +138,7 @@ def models():
         params, _ = ttr.init_params(cfg, torch.Generator().manual_seed(0),
                                     device="cpu")
         batch = {"tokens": np.random.default_rng(3 + i).integers(
-            0, cfg.vocab, TOKENS).astype(np.int64)}
+            0, cfg.vocab, BATCH.get(name, TOKENS)).astype(np.int64)}
         if cfg.encoder_layers:
             batch["frames"] = np.random.default_rng(11).normal(
                 size=(TOKENS[0], cfg.enc_seq, cfg.d_model)).astype(
@@ -141,6 +153,11 @@ def models():
 
 def _kwargs(batch):
     return {k: batch[k] for k in ("frames", "prefix_embeds") if k in batch}
+
+
+def _seq(models, name) -> int:
+    """The input positions of ``name``'s batch (its tokens less one)."""
+    return models[name][2]["tokens"].shape[1] - 1
 
 
 @pytest.fixture(scope="module")
@@ -308,13 +325,20 @@ def test_slab_leaves_are_never_gathered(mesh, case, worlds, models):
     the shapes (re-laid out only where an SSM or one key head splits)."""
     name, tkw = next((n, t) for c, n, t in CASES if c == case)
     cfg = models[name][0]
-    want = tensor.model_bytes(cfg, ttr.init_statics(cfg, "cpu"), mesh[1],
-                              TOKENS[0] // mesh[0], TOKENS[1] - 1,
-                              tkw.get("microbatches", 1))
-    # the SSM's columns, and paligemma's one key head's
-    relaid = name in ("jamba", "mamba2", "paligemma")
-    assert (want["model_relayout_bytes"] > 0) == relaid
-    for r in worlds[mesh]:
+    statics = ttr.init_statics(cfg, "cpu")
+    wants = [tensor.model_bytes(cfg, statics, mesh[1], TOKENS[0] // mesh[0],
+                                _seq(models, name),
+                                tkw.get("microbatches", 1), rank=m)
+             for m in range(mesh[1])]
+    # the SSM's columns, paligemma's one key head's, phi3's key heads'
+    relaid = name in ("jamba", "mamba2", "paligemma", "phi3",
+                      "phi3_ungrouped")
+    assert all((w["model_relayout_bytes"] > 0) == relaid for w in wants)
+    # the stream splits where 2 divides its positions
+    assert all((w["model_scatter_bytes"] > 0) == (name != "granite_odd")
+               for w in wants)
+    for i, r in enumerate(worlds[mesh]):
+        want = wants[i % mesh[1]]  # ranks are (data, model), model minor
         res = r[case]
         assert res["slab_leaves"] > 0
         assert res["gathered_paths"] == []
@@ -343,9 +367,11 @@ def test_remat_is_bit_equal_on_the_grid(mesh, name, worlds, models):
                                   dataclasses.replace(cfg, remat=False))):
         sizes[case] = tensor.model_bytes(
             c, ttr.init_statics(c, "cpu"), mesh[1], TOKENS[0] // mesh[0],
-            TOKENS[1] - 1)
+            _seq(models, name))
     on, off = sizes[name], sizes[f"{name}_no_remat"]
-    assert on["model_reduce_bytes"] > off["model_reduce_bytes"] > 0
+    # on a split stream the forward's gathers run again, on a whole one
+    # its all-reduces
+    assert sum(on.values()) > sum(off.values()) > 0
     for r in worlds[mesh]:
         a, b = r[name]["steps"], r[f"{name}_no_remat"]["steps"]
         for i, (x, y) in enumerate(zip(a, b)):
@@ -438,7 +464,9 @@ def _block_cases():
     lookup, the head and the cross-entropy of a vocabulary of 13 padded
     to 16 (rank 1's slab of columns 8..15 holds the 3 padding columns);
     an SSM of 8 heads in one group and in two; paligemma's attention (4
-    query heads over 1 key head, biases added); MLA of 4 heads."""
+    query heads over 1 key head, biases added), attention of 6 query
+    heads over 3 key heads (grouped; padded to 8, ungrouped; with whole
+    key projections); MLA of 4 heads."""
     from repro_torch.models.mla import MLAConfig, mla_init
     from repro_torch.models.ssm import SSMConfig, ssm_init
 
@@ -462,13 +490,26 @@ def _block_cases():
         out.append((f"ssm_g{groups}", "ssm", cfg, _numpy(params), {
             "x": rng.normal(size=(2, 10, 16)).astype(np.float32),
             "dy": rng.normal(size=(2, 10, 16)).astype(np.float32)}))
-    acfg = dataclasses.replace(get_smoke_config("paligemma_3b").attn_cfg(
+    from repro_torch.models.attention import AttnConfig, attention_init
+    pali = dataclasses.replace(get_smoke_config("paligemma_3b").attn_cfg(
         False), qkv_bias=True)
-    from repro_torch.models.attention import attention_init
-    out.append(("attn_one_kv", "attn", acfg, _numpy(attention_init(
-        gen, acfg, device="cpu")), {
-        "x": rng.normal(size=(2, 6, acfg.d_model)).astype(np.float32),
-        "dy": rng.normal(size=(2, 6, acfg.d_model)).astype(np.float32)}))
+    # 6 query heads over 3 key heads: each rank's 3 read 2 key heads,
+    # re-laid out from 6-column slabs (biases too); padded from 6 to 8,
+    # ungrouped, rank 0's heads reading key heads 0-1, rank 1's 1-2; key
+    # projections 15 wide (heads of 5, without RoPE), whole leaves, each
+    # rank taking its 2 key heads' columns
+    phi = AttnConfig(d_model=24, n_heads=6, n_kv_heads=3, d_head=4,
+                     qkv_bias=True, model_shards=1)
+    for name, acfg in (
+            ("attn_one_kv", pali), ("attn_grouped_relaid", phi),
+            ("attn_ungrouped", dataclasses.replace(phi, model_shards=4)),
+            ("attn_whole_kv", dataclasses.replace(
+                phi, d_head=5, model_shards=2, rope_theta=None))):
+        out.append((name, "attn", acfg, _numpy(attention_init(
+            gen, acfg, device="cpu")), {
+            "x": rng.normal(size=(2, 6, acfg.d_model)).astype(np.float32),
+            "dy": rng.normal(size=(2, 6, acfg.d_model)).astype(
+                np.float32)}))
     mcfg = MLAConfig(d_model=16, n_heads=4, kv_lora=8, q_lora=12, d_nope=4,
                      d_rope=4, d_v=4, model_shards=1)
     out.append(("mla", "mla", mcfg, _numpy(mla_init(gen, mcfg,
@@ -548,7 +589,8 @@ def _slab_of(whole, slab, r):
 
 
 @pytest.mark.parametrize("which", ["vocab", "ssm_g1", "ssm_g2",
-                                   "attn_one_kv", "mla"])
+                                   "attn_one_kv", "attn_grouped_relaid",
+                                   "attn_ungrouped", "attn_whole_kv", "mla"])
 def test_functions_give_the_whole_block(which, fn_world):
     """Each block's tensor-parallel twin on two ranks against the whole
     computation on one, within ``FN_TOL`` of the largest value: the
@@ -557,8 +599,11 @@ def test_functions_give_the_whole_block(which, fn_world):
     the head's gradients); the SSM on its heads (the output, the input's
     gradient, each slab leaf's gradient, the norm's whole scale's); the
     attention of 4 query heads over 1 key head (its columns re-laid out
-    to both ranks); MLA on its heads.  The SSM's and the key head's
-    re-laid-out bytes are those ``tensor``'s table reckons."""
+    to both ranks), of 6 over 3 (each rank's two key heads re-laid out,
+    grouped, and padded to 8 ungrouped; whole key projections, each
+    rank's columns taken and their gradients summed); MLA on its heads.
+    The SSM's and the key heads' re-laid-out bytes are those ``tensor``
+    reckons."""
     from repro_torch.models.attention import attention_apply
     from repro_torch.models.mla import mla_apply
     from repro_torch.models.ssm import ssm_apply
@@ -596,8 +641,9 @@ def test_functions_give_the_whole_block(which, fn_world):
         assert got["reduce_bytes"] > 0
         # float32 params: 4 bytes a re-laid-out element, forward and back
         assert got["relayout_bytes"] == {
-            "ssm": lambda: 2 * 4 * tensor._ssm_moves(cfg, 2, 20)[2],
-            "attn": lambda: 2 * 4 * tensor._attention_moves(cfg, 2, 12)[2],
+            "ssm": lambda: 2 * 4 * tensor._ssm_relayout(cfg, 2),
+            "attn": lambda: 2 * 4 * tensor._attention_kv_moves(cfg, 2,
+                                                               r)[0],
         }.get(kind, lambda: 0)()
 
 
@@ -620,6 +666,10 @@ def test_functions_give_the_whole_block(which, fn_world):
     ("mamba2_780m", 16, set()),
     # 4 query heads over 1 key head: each rank's heads read the one
     ("paligemma_3b", 2, {"attn", "mlp"}),
+    # 6 query heads over 3 key heads: each rank's 3 read 2 of them; over
+    # 4 the query heads do not divide
+    ("phi3_medium_14b", 2, {"attn", "mlp"}),
+    ("phi3_medium_14b", 4, {"mlp"}),
 ])
 def test_layer_splits_follow_the_configs(arch, n, blocks):
     cfg = get_smoke_config(arch)
@@ -630,7 +680,8 @@ def test_layer_splits_follow_the_configs(arch, n, blocks):
 
 
 def test_full_configs_split_where_the_heads_divide():
-    """paligemma's 8 query heads pad to 16 over 1 key head: its key heads
+    """phi3's and whisper's attention splits its query heads over 16
+    (below).  paligemma's 8 query heads pad to 16 over 1 key head: its key heads
     do not split over 2 ranks, so each rank's 8 query heads read the one
     key head, re-laid out (not over 3, which the heads do not divide);
     jamba's 64 over 8 split, its SSM and routed experts as the config
@@ -641,10 +692,11 @@ def test_full_configs_split_where_the_heads_divide():
     pali, jamba = get_config("paligemma_3b"), get_config(
         "jamba_1_5_large_398b")
     assert not tensor.attention_splits(pali.attn_cfg(False), 2)
-    assert tensor.attention_reads_one_kv_head(pali.attn_cfg(False), 2)
-    assert not tensor.attention_reads_one_kv_head(pali.attn_cfg(False), 3)
-    assert not tensor.attention_reads_one_kv_head(jamba.attn_cfg(False), 2)
+    assert tensor.attention_kv_heads(pali.attn_cfg(False), 2) == [[0], [0]]
+    assert pali.attn_cfg(False).hq_pad % 3  # no split over 3
     assert tensor.attention_splits(jamba.attn_cfg(False), 2)
+    assert tensor.attention_kv_heads(jamba.attn_cfg(False), 2) == [
+        [0, 1, 2, 3], [4, 5, 6, 7]]
     assert tensor.experts_split(jamba.moe, 2)
     assert not tensor.experts_split(jamba.moe, 3)
     ds, mamba = get_config("deepseek_v2_236b"), get_config("mamba2_780m")
@@ -655,6 +707,26 @@ def test_full_configs_split_where_the_heads_divide():
     for cfg in (ds, mamba, pali):
         assert tensor.vocab_splits(cfg, 16)
         assert not tensor.vocab_splits(cfg, 7)
+    # phi3's 40 query heads pad to 48 over 10 key heads (ungrouped), and
+    # whisper's 12 to 16 over 12: each splits its query heads over 16, its
+    # key projections 1280 and 768 wide split 80 and 48 columns a rank
+    # (cutting heads), every leaf of the layer's blocks on its slab
+    phi3, whisper = get_config("phi3_medium_14b"), get_config("whisper_small")
+    # the key heads of ranks 0 and 1 (query heads 0-2 and 3-5 read key
+    # heads h // 5; 0 and 1 read h // 2)
+    for cfg, blocks, first in ((phi3, {"attn", "mlp"}, [[0], [0, 1]]),
+                               (whisper, {"attn", "xattn", "mlp"},
+                                [[0], [0]])):
+        statics = ttr.init_statics(cfg, "cpu")
+        st = statics["body"][0]
+        assert not st["attn_cfg"].grouped
+        assert tensor.layer_splits(cfg, st, 16) == blocks
+        assert tensor.kv_split(st["attn_cfg"], 16)
+        assert tensor.attention_kv_heads(st["attn_cfg"], 16)[:2] == first
+        slab = tensor.slab_leaves(cfg, statics, ttr.init_specs(cfg), 16)
+        for block in blocks:
+            assert all(_leaves(slab["body"][0][block])), block
+        assert not any(_leaves(slab["body"][0]["norm1"]))
 
 
 @pytest.mark.parametrize("arch", ["jamba_1_5_large_398b",

@@ -295,6 +295,86 @@ def tp_mlp_job(job: dict) -> dict:
     return out
 
 
+def _seq_case(mesh, kind: str, cfg, params, inputs) -> dict:
+    """A ``tp_blocks`` case of the sequence-split stream on this rank:
+
+      * ``"seq_fns"``: ``gather_sequence`` (both backwards),
+        ``scatter_sequence`` and ``split_sequence`` on this rank's slab of
+        ``x`` (``scatter_sequence`` on ``x`` times rank + 1), each under
+        the upstream gradient ``dy`` times rank + 1 (its slab where the
+        output is one): outputs, input gradients, bytes;
+      * ``"seq_norm"``: the RMSNorm of this rank's slab of ``x`` with its
+        whole scale entering by ``transformer._on_slab``: the output and
+        the scale's gradient under the slab of ``dy``;
+      * ``"seq_stream"``: the stream's shape at each remat checkpoint of
+        ``apply_model`` on rank 0's slabs of a smoke model, its sequence
+        of ``inputs["tokens"]`` (``frames`` too), recorded by kind."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.optim.optimizers import _map
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.sharding import shard_tensor
+    from repro_torch.launch.steps import param_shardings
+
+    with tensor.tensor_parallel_ctx(mesh) as tp:
+        n, r = tp.size, tp.rank
+        if kind == "seq_stream":
+            statics = transformer.init_statics(cfg, "cpu")
+            whole = _map(torch.as_tensor, params)
+            on_slab = tensor.slab_leaves(cfg, statics, whole, n)
+            live = _map(lambda t, pl, on: (shard_tensor(t, pl) if on else t)
+                        .detach().clone().requires_grad_(True), whole,
+                        param_shardings(transformer.init_specs(cfg), whole,
+                                        mesh), on_slab)
+            shapes = []
+            real = transformer._remat
+
+            def spy(fn, *args):
+                shapes.append(tuple(args[0].shape))
+                return real(fn, *args)
+
+            transformer._remat = spy
+            try:
+                kw = {k: torch.as_tensor(v) for k, v in inputs.items()
+                      if k != "tokens"}
+                logits, _, _ = transformer.apply_model(
+                    live, statics, torch.as_tensor(inputs["tokens"]),
+                    kernels=False, **kw)
+            finally:
+                transformer._remat = real
+            return {"shapes": shapes, "logits": tuple(logits.shape)}
+        x = torch.as_tensor(inputs["x"])
+        dy = torch.as_tensor(inputs["dy"])
+        w = x.shape[1] // n
+        mine = slice(r * w, (r + 1) * w)
+        if kind == "seq_norm":
+            scale = torch.as_tensor(params["scale"]).requires_grad_(True)
+            xs = x[:, mine]
+            y = rmsnorm(transformer._on_slab(tp, {"scale": scale}), xs)
+            (y * dy[:, mine]).sum().backward()
+            return {"y": _np(y), "dscale": _np(scale.grad),
+                    "reduce_bytes": tp.reduce_bytes}
+        res = {}
+        for fn in ("gather", "gather_whole", "scatter", "split"):
+            xin = (x * (r + 1) if fn == "scatter" else
+                   x if fn == "split" else x[:, mine])
+            xin = xin.clone().requires_grad_(True)
+            before = (tp.scatter_bytes, tp.seq_gather_bytes)
+            if fn == "split":
+                y = tensor.split_sequence(xin, tp)
+            elif fn == "scatter":
+                y = tensor.scatter_sequence(xin, tp)
+            else:
+                y = tensor.gather_sequence(xin, tp,
+                                           whole=fn == "gather_whole")
+            g = dy * (r + 1)
+            (y * (g[:, mine] if y.shape[1] == w else g)).sum().backward()
+            res[fn] = {"y": _np(y), "dx": _np(xin.grad),
+                       "scatter_bytes": tp.scatter_bytes - before[0],
+                       "gather_bytes": tp.seq_gather_bytes - before[1]}
+        return res
+
+
 def tp_blocks_job(job: dict) -> dict:
     """The tensor-parallel twins of the blocks that split over ``model``
     beside the MLP, on this rank's slabs of each case's whole numpy params
@@ -303,7 +383,8 @@ def tp_blocks_job(job: dict) -> dict:
     the lookup's output), ``"ssm"`` ``ssm_apply_tp``, ``"attn"``
     ``attention_apply_tp`` and ``"mla"`` ``mla_apply_tp`` (their output
     and input's gradient); each with its
-    slabs' gradients and the bytes each collective moved."""
+    slabs' gradients and the bytes each collective moved.  Kinds
+    ``"seq_*"`` are the sequence-split stream's (:func:`_seq_case`)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer
     from repro_torch.models.attention import (
@@ -320,6 +401,9 @@ def tp_blocks_job(job: dict) -> dict:
     mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
     out = {}
     for name, kind, cfg, params, inputs in job["cases"]:
+        if kind.startswith("seq"):
+            out[name] = _seq_case(mesh, kind, cfg, params, inputs)
+            continue
         whole = _map(torch.as_tensor, params)
         specs = {"vocab": lambda: transformer.init_specs(cfg),
                  "ssm": lambda: ssm_specs(cfg),
