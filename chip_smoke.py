@@ -79,12 +79,24 @@ FLOPs, peak within ``DRYRUN_PEAK_REL`` of the prediction and take no
 less than its roofline bound; (b) the predicted collective bytes of the
 ``train_shard`` phase's (f) step, by kind, equal its ``step.comm``; (c)
 four spawned gloo ranks serve danube at full width, cut to 4 layers,
-through the placed prefill (the flash kernel on each gathered layer,
-each call held to its plain version) and 8 placed decode steps: tokens
-equal to the unsharded run's, each rank's resident bytes its slabs',
-and a placed decode step's peak and collective bytes as predicted; (d)
-two production cells of ``python -m repro_torch.launch.dryrun`` (256
-fake ranks) with status ok.
+computing on their model slabs, through the placed prefill (the flash
+kernel on each rank's query heads, each call held to its plain version;
+the sparse MLPs' tiles of each rank through the pattern-spmm kernel,
+their layouts' dictionary groups written out as brick tables so the
+kernel routes them, each call held to its plain version; the config's
+own layouts, groups kept, take dense per-pattern products and launch no
+spmm kernel) and 8 placed decode steps, teacher-forced on the greedy
+tokens of the config's own layouts served unsharded: their logits
+within ``DRYRUN_LOGITS_REL`` of the unsharded tile route's, as those are
+of the own layouts' (the same function), every argmax that differs a
+near tie the difference explains, each rank's resident bytes its
+slabs', every step's collective bytes as ``parallel.tensor.serve_bytes``
+reckons them, and a placed decode step's peak and collective bytes as
+predicted; (d) two production cells of ``python -m
+repro_torch.launch.dryrun`` (256 fake ranks) with status ok; (e) the same
+four ranks as a 1 x 4 mesh serve qwen2.5-32B at full width, cut to 2 of
+its 64 layers, on both decode routes: tokens equal to the unsharded
+run's, every step's bytes as reckoned, no param gathered.
 Before each path it builds the CUDA kernels from the sources in ``src/``
 and holds each against its plain PyTorch version on the card, at every
 shape the path gives it.
@@ -581,17 +593,33 @@ ENTRY_TIMEOUT_S = 300
 # peak held to its prediction and the measured fall to at least
 # REMAT_FALL_SHARE of the predicted (the activations remat drops); (b)
 # (f)'s collectives, its gradients' reduce-scatter over data included;
-# (c) placed serving of danube cut as (f) on the 2 x 2 gloo mesh; (d) the
-# production cells planned through run_cell
+# (c) placed serving of danube cut as (f) on the 2 x 2 gloo mesh, every
+# layer on its model slabs, the sparse MLPs' tiles through the
+# pattern-spmm kernel (each call within FP32_TOL of its plain version);
+# (d) the production cells planned through run_cell; (e) qwen2.5-32B at
+# full width cut to WIDE_SERVE_LAYERS layers, float32 with a bf16 cache,
+# placed on a WIDE_SHARD_MESH of the same four ranks, served on the
+# gather and the flash decode routes
 DRYRUN_PEAK_REL = 0.10
 REMAT_FALL_SHARE = 0.5
 DRYRUN_BATCH = 4  # (c): prompts, split over data
 DRYRUN_PROMPT = 124  # (c): prompt tokens; decode crosses the slab edge at 128
 DRYRUN_MAX_SEQ = 256  # (c): cache positions, split over model
 DRYRUN_DECODE = 8
+# (c): the teacher-forced decode logits of the tile route against the
+# config's own layouts, and of each rank's placed steps against the
+# unsharded run, relative to each row's largest logit (a bf16 cache
+# carries float32 reassociation to about 5e-4; another sparse function
+# is O(1) off)
+DRYRUN_LOGITS_REL = 1e-2
 DRYRUN_CELLS = (("h2o_danube_1_8b", "train_4k"),
                 ("qwen2_5_32b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
+WIDE_SERVE_LAYERS = 2
+WIDE_SERVE_BATCH = 4  # (e): prompts; data is 1, so every rank serves all
+WIDE_SERVE_PROMPT = 124  # (e): split over 4 model ranks along the sequence
+WIDE_SERVE_MAX_SEQ = 256  # (e): 4 position slabs of 64; decode crosses 128
+WIDE_SERVE_DECODE = 8
 
 
 def prune_model_config():
@@ -2798,6 +2826,72 @@ def recorded_flash_calls(fn):
         ops.flash_attention = real
 
 
+def recorded_spmm_calls(fn):
+    """(result of ``fn()``, [row]): every fp32 ``pattern_spmm_raw`` call
+    that a model's sparse tiles make (``models.layers.sparse_tiles``)
+    while ``fn`` runs, each held at once to the kernel's plain version on
+    the same inputs at ``FP32_TOL`` (``compare``'s rule)."""
+    import torch
+
+    from repro_torch.kernels import pattern_spmm as tk
+    from repro_torch.models import layers as tl
+
+    rows = []
+    real = tl.pattern_spmm_raw
+
+    def record(xm, w_comp, block_ids, block, nnz=None, **kw):
+        y = real(xm, w_comp, block_ids, block, nnz=nnz, **kw)
+        want = tk.pattern_spmm_plain(xm, w_comp, block_ids, nnz, block)
+        d = (y - want).abs()
+        lim = FP32_TOL["atol"] + FP32_TOL["rtol"] * want.abs()
+        rows.append({"x": list(xm.shape), "tiles": int(w_comp.shape[0]),
+                     "max_abs_diff": float(d.max()),
+                     "worst_over_limit": float((d / lim).max()),
+                     "ok": bool((d <= lim).all()
+                                and torch.isfinite(y).all())})
+        return y
+
+    tl.pattern_spmm_raw = record
+    try:
+        return fn(), rows
+    finally:
+        tl.pattern_spmm_raw = real
+
+
+def tile_route(statics):
+    """``statics`` with every sparse MLP layout's dictionary groups
+    written out as its brick table: each tile of a group reads the
+    group's pattern blocks (``block_ids``), and the groups are dropped,
+    so ``models.layers.sparse_tiles`` takes the pattern-spmm kernel and
+    computes the same function as the config's layouts, whose groups
+    take one dense product per pattern (the reference's XLA route).  The
+    init layouts draw ``block_ids`` apart from the groups, which alone
+    say what the layer computes."""
+    import numpy as np
+    import torch
+
+    def bricks(v):
+        ids = np.array(v["block_ids"])
+        for g in v["groups"]:
+            ids[g["tiles"][0]:g["tiles"][1], :len(g["blocks"])] = g["blocks"]
+        dev = v["tables"]["block_ids"].device
+        return dict(v, block_ids=ids, groups=[], tables=dict(
+            v["tables"], groups=[], block_ids=torch.as_tensor(
+                ids, dtype=torch.int32, device=dev)))
+
+    out = dict(statics)
+    for key in ("prefix_layers", "body"):
+        out[key] = []
+        for st in statics[key]:
+            st = dict(st)
+            if st.get("mlp") and st["mlp"]["sparse"] is not None:
+                st["mlp"] = {name: (bricks(v) if isinstance(v, dict)
+                                    else v)
+                             for name, v in st["mlp"].items()}
+            out[key].append(st)
+    return out
+
+
 def jamba_run(seed: int, dev) -> dict:
     """jamba-1.5-large's first ``JAMBA_LAYERS`` layers in bf16 from the
     seed: served through ``DecodeService`` (the main path: flash counts
@@ -4886,8 +4980,10 @@ def dryrun_serve_rank(rank: int, spec: dict) -> None:
     placed prefill (flash launches counted, each call recorded) and
     ``DRYRUN_DECODE`` placed decode steps, then a measured placed decode
     step on the plain routes (its peak above what was allocated before
-    it, and its collectives, by ``launch.op_stats``); rank 0 also serves
-    the whole batch unsharded first.  Writes ``serve<r>.pkl``."""
+    it, and its collectives, by ``launch.op_stats``); rank 0 first serves
+    the whole batch unsharded on the config's own layouts, then on the
+    tile route decoding those tokens, as the placed steps decode them.
+    Writes ``serve<r>.pkl``."""
     import datetime
 
     import torch.distributed as dist
@@ -4914,13 +5010,133 @@ def dryrun_serve_rank(rank: int, spec: dict) -> None:
         dist.destroy_process_group()
 
 
+def placed_serve(cfg, statics, params, cache, prompts, steps: int, rows,
+                 shardings, dev, comms: list | None = None,
+                 forced: list | None = None,
+                 logits: list | None = None) -> tuple:
+    """A placed (``shardings``) or unsharded prefill of ``prompts[rows]``
+    and ``steps`` greedy decode steps: (tokens a step as numpy, the
+    cache); ``comms`` gets each placed step's ``step.comm``.  ``forced``
+    (a reference run's tokens a step, every row): each decode step reads
+    the reference's token in place of its own (teacher forcing), so two
+    runs are compared at the same inputs; ``logits`` gets each decode
+    step's float32 logits (numpy)."""
+    import torch
+
+    from repro_torch.runtime.serve import (
+        ServeConfig,
+        decode_logits,
+        make_prefill_step,
+    )
+
+    p = prompts.shape[1]
+    step = make_prefill_step(cfg, statics, ServeConfig(
+        cache_dtype="bfloat16"), shardings=shardings)
+    tok, cache = step(params, cache, prompts[rows])
+    toks = [tok]
+    if comms is not None:
+        comms.append(dict(step.comm))
+    for i in range(steps):
+        if forced is not None:
+            tok = torch.as_tensor(forced[i][rows], device=dev)
+        comm: dict = {}
+        lg, cache = decode_logits(
+            statics, params, cache, tok, torch.tensor(p + i, device=dev),
+            shardings, comm=comm)
+        tok = lg.argmax(dim=-1)
+        toks.append(tok)
+        if comms is not None:
+            comms.append(comm)
+        if logits is not None:
+            logits.append(lg.cpu().numpy())
+    return [x.cpu().numpy() for x in toks], cache
+
+
+def forced_agreement(want: list, got: list, want_tokens: list,
+                     got_tokens: list) -> dict:
+    """Two teacher-forced runs' decode logits (``want`` the reference's,
+    same rows): the largest difference relative to each row's largest
+    logit, and the argmaxes that differ (``flips``), each with the
+    reference's top-2 gap on the same scale.  A flip is explained by the
+    difference only where that gap is at most twice it (``unexplained``
+    counts the others)."""
+    rel, flips = 0.0, []
+    for i, (w, g) in enumerate(zip(want, got)):
+        scale = np.abs(w).max(axis=-1)
+        d = np.abs(g - w).max(axis=-1) / scale
+        rel = max(rel, float(d.max()))
+        top = np.sort(w, axis=-1)[:, -2:]
+        gap = (top[:, 1] - top[:, 0]) / scale
+        for r in np.nonzero(want_tokens[i + 1] != got_tokens[i + 1])[0]:
+            flips.append({"step": i, "row": int(r), "gap": float(gap[r]),
+                          "diff": float(d[r])})
+    return {"logits_rel": rel, "flips": flips,
+            "prefill_tokens_equal": bool(np.array_equal(want_tokens[0],
+                                                        got_tokens[0])),
+            "unexplained": sum(f["gap"] > 2 * f["diff"] for f in flips)}
+
+
+def placed_reckoning(cfg, statics, shardings, mesh, rows: int, prompt: int,
+                     decodes: list, max_seq: int, prefill: bool = True
+                     ) -> list:
+    """The bytes of a prefill of ``prompt`` tokens (with ``prefill``) and
+    of a decode at each position of ``decodes``, as
+    ``parallel.tensor.serve_bytes`` reckons them for this rank of
+    ``mesh`` (a bf16 cache of ``max_seq`` positions)."""
+    import torch
+
+    from repro_torch.parallel.sharding import mesh_axis_sizes
+    from repro_torch.parallel.tensor import serve_bytes, serve_pods, serve_rows
+
+    n = mesh_axis_sizes(mesh).get("model", 1)
+    kw = dict(rank=mesh.get_local_rank("model") if n > 1 else 0,
+              blocks=serve_rows(mesh, shardings.batch)[1],
+              placements=shardings.params,
+              pods=serve_pods(mesh, shardings.batch),
+              cache_placements=shardings.cache)
+    out = [serve_bytes(cfg, statics, n, rows, prompt, "prefill", max_seq,
+                       torch.bfloat16, **kw)] if prefill else []
+    return out + [serve_bytes(cfg, statics, n, rows, prompt, "decode",
+                              max_seq, torch.bfloat16, pos=pos, **kw)
+                  for pos in decodes]
+
+
+def slab_gathers(fn, params, slab_flags) -> tuple:
+    """(result of ``fn()``, how many of the param leaves that
+    ``slab_flags`` marks (``parallel.tensor.slab_leaves``) ``fn`` gathered
+    through ``runtime.serve``'s ``gather_tensor``)."""
+    from repro_torch.models.transformer import _leaves
+    from repro_torch.parallel.sharding import _map
+    from repro_torch.runtime import serve as rs
+
+    seen = []
+    real = rs.gather_tensor
+
+    def spy(t, pl, mesh, axes=None):
+        seen.append(t.untyped_storage().data_ptr())
+        return real(t, pl, mesh, axes)
+
+    rs.gather_tensor = spy
+    try:
+        out = fn()
+    finally:
+        rs.gather_tensor = real
+    marked = {ptr for ptr in _leaves(_map(
+        lambda t, on: t.untyped_storage().data_ptr() if on else None,
+        params, slab_flags)) if ptr is not None}
+    return out, sum(ptr in marked for ptr in seen)
+
+
 def dryrun_serve_run(rank: int, spec: dict) -> None:
-    """:func:`dryrun_serve_rank`'s work, in the rank's group."""
+    """:func:`dryrun_serve_rank`'s work, in the rank's group: (c), then
+    (e) (:func:`wide_serve_run`)."""
     import pickle
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import pattern_spmm as tk
     from repro_torch.launch.dryrun import _static_tensors
     from repro_torch.launch.mesh import make_mesh, mesh_device
     from repro_torch.launch.op_stats import OpStats
@@ -4930,11 +5146,10 @@ def dryrun_serve_run(rank: int, spec: dict) -> None:
         init_params,
         init_specs,
     )
-    from repro_torch.parallel.tensor import data_shards
+    from repro_torch.parallel.sharding import mesh_axis_sizes
+    from repro_torch.parallel.tensor import serve_rows, slab_leaves
     from repro_torch.runtime.serve import (
-        ServeConfig,
         decode_logits,
-        make_prefill_step,
         place_serving_state,
         serve_shardings,
     )
@@ -4947,31 +5162,34 @@ def dryrun_serve_run(rank: int, spec: dict) -> None:
     params, statics = init_params(
         cfg, torch.Generator(device=dev).manual_seed(spec["seed"]),
         device=dev)
+    served = tile_route(statics)  # the sparse tiles on the spmm kernel
     b, p, t = spec["serve_batch"], spec["prompt"], spec["max_seq"]
     prompts = torch.as_tensor(np.random.default_rng(spec["seed"] + 41)
                               .integers(1, cfg.vocab, (b, p)), device=dev)
-    scfg = ServeConfig(max_seq=t, cache_dtype="bfloat16")
     out = {"device": str(dev)}
-
-    def serve(params, cache, rows, shardings):
-        tok, cache = make_prefill_step(cfg, statics, scfg,
-                                       shardings=shardings)(
-            params, cache, prompts[rows])
-        toks = [tok]
-        for i in range(spec["steps"]):
-            logits, cache = decode_logits(
-                statics, params, cache, tok,
-                torch.tensor(p + i, device=dev), shardings)
-            tok = logits.argmax(dim=-1)
-            toks.append(tok)
-        return [x.cpu().numpy() for x in toks], cache
+    steps = spec["steps"]
 
     with torch.no_grad():
+        # the reference run: the config's own layouts (dense per-pattern
+        # products), unsharded, greedy; the tile route unsharded and the
+        # placed steps decode its tokens (teacher forcing), so their
+        # logits compare at the same inputs
+        ref = [None]
         if rank == 0:
+            own: list = []
             cache = init_cache(statics, b, t, torch.bfloat16, device=dev)
-            out["unsharded_tokens"], _ = serve(params, cache,
-                                               slice(None), None)
+            ref[0], _ = placed_serve(cfg, statics, params, cache, prompts,
+                                     steps, slice(None), None, dev,
+                                     logits=own)
+            out["own_layout_tokens"], out["own_layout_logits"] = ref[0], own
+            out["unsharded_logits"] = []
+            cache = init_cache(statics, b, t, torch.bfloat16, device=dev)
+            out["unsharded_tokens"], _ = placed_serve(
+                cfg, served, params, cache, prompts, steps, slice(None),
+                None, dev, forced=ref[0],
+                logits=out["unsharded_logits"])
             del cache
+        dist.broadcast_object_list(ref, src=0)
         cache = init_cache(statics, b, t, torch.bfloat16, device=dev)
         sh = serve_shardings(init_specs(cfg), params, cache, mesh)
         out["reckoned_bytes"] = sum(
@@ -4981,20 +5199,36 @@ def dryrun_serve_run(rank: int, spec: dict) -> None:
         p_slab, c_slab = place_serving_state(params, cache, sh)
         del params, cache
         gc.collect()
-        r, n = data_shards(mesh)
+        r, n = serve_rows(mesh, b)
         rows = slice(r * b // n, (r + 1) * b // n)
+        n_model = mesh_axis_sizes(mesh)["model"]
+        out["reckoned_comm"] = placed_reckoning(
+            cfg, statics, sh, mesh, b // n, p, range(p, p + steps), t)
         tfa.flash_attention_cuda.launches = 0
-        (toks, c_slab), calls = recorded_flash_calls(
-            lambda: serve(p_slab, c_slab, rows, sh))
+        tk.pattern_spmm_cuda.launches = 0
+        comms: list = []
+        out["logits"] = []
+        (((toks, c_slab), spmm_rows), calls), out["slab_gathered"] = \
+            slab_gathers(lambda: recorded_flash_calls(
+                lambda: recorded_spmm_calls(lambda: placed_serve(
+                    cfg, served, p_slab, c_slab, prompts, steps, rows, sh,
+                    dev, comms, forced=ref[0],
+                    logits=out["logits"]))), p_slab,
+                slab_leaves(cfg, statics, sh.params, n_model))
         out["flash_launches"] = tfa.flash_attention_cuda.launches
+        out["spmm_launches"] = tk.pattern_spmm_cuda.launches
+        out["spmm_rows"] = spmm_rows
+        out["comm"] = comms
         out["rows"] = (rows.start, rows.stop)
         out["tokens"] = toks
         out["flash_rows"] = [flash_row(dict(
             case=f"placed prefill layer {i}", dtype=cfg.compute_dtype,
             **c), y) for i, (c, y) in enumerate(calls)]
+        del calls
         out["resident_bytes"] = _nbytes(p_slab) + _nbytes(c_slab)
         # the measured step: a placed decode at the cache's last
-        # position on the plain routes, as the dry run plans it
+        # position on the plain routes, as the dry run plans it (the
+        # config's layouts, as the plan's)
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -5003,12 +5237,13 @@ def dryrun_serve_run(rank: int, spec: dict) -> None:
         _reset_peak(dev)
         before = (torch.cuda.memory_allocated(dev)
                   if dev.type == "cuda" else 0)
+        comm: dict = {}
         with OpStats().name_groups(mesh) as st:
             st.add_inputs(p_slab, c_slab, tok, pos,
                           _static_tensors(statics))
             inputs = int(st.bytes)
             decode_logits(statics, p_slab, c_slab, tok, pos, sh,
-                          kernels=False)
+                          kernels=False, comm=comm)
         _sync(dev)
         out["measured_peak_bytes"] = (
             _cuda_peak(dev) - before + inputs
@@ -5016,9 +5251,113 @@ def dryrun_serve_run(rank: int, spec: dict) -> None:
         out["input_bytes"] = inputs
         out["op_stats_peak_bytes"] = st.peak_bytes
         out["by_kind"] = dict(st.collective_bytes_by_kind)
+        out["measured_comm"] = comm
+        out["measured_reckoned"] = placed_reckoning(
+            cfg, statics, sh, mesh, b // n, p, [t - 1], t, False)[0]
         out["flops"] = st.flops
+        del p_slab, c_slab
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["e"] = wide_serve_run(rank, spec)
     with open(os.path.join(spec["out"], f"serve{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def wide_serve_config():
+    """(e)'s model: qwen2.5-32B at full width, its first
+    ``WIDE_SERVE_LAYERS`` layers, float32."""
+    from repro_torch.configs import qwen2_5_32b
+
+    return cut_layers(qwen2_5_32b.config(), WIDE_SERVE_LAYERS, "float32")
+
+
+def wide_serve_run(rank: int, spec: dict) -> dict:
+    """(e) on one rank of a ``WIDE_SHARD_MESH`` of the phase's ranks:
+    ``WIDE_SERVE_BATCH`` seeded prompts of ``WIDE_SERVE_PROMPT`` tokens
+    and ``WIDE_SERVE_DECODE`` greedy decodes, placed, on the gather and
+    the flash decode routes (rank 0 first serves them unsharded); each
+    route's tokens, every step's ``step.comm`` beside the reckoning, the
+    slab-marked params gathered, the flash calls of the prefill (each
+    held to its plain version) and the resident bytes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+    from repro_torch.models.transformer import (
+        _leaves,
+        init_cache,
+        init_params,
+        init_specs,
+        init_statics,
+    )
+    from repro_torch.parallel.sharding import mesh_axis_sizes, shard_tree
+    from repro_torch.parallel.tensor import slab_leaves
+    from repro_torch.runtime.serve import serve_shardings
+
+    mesh = make_mesh(WIDE_SHARD_MESH, ("data", "model"),
+                     device_type=spec["device_type"])
+    dev = mesh_device(mesh)
+    w = spec["wide"]
+    cfg, b, p, t, steps = (w["cfg"], w["batch"], w["prompt"], w["max_seq"],
+                           w["steps"])
+    out = {}
+    with torch.no_grad():
+        params, statics = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(spec["seed"] + 7),
+            device=dev)
+        prompts = torch.as_tensor(np.random.default_rng(spec["seed"] + 43)
+                                  .integers(1, cfg.vocab, (b, p)),
+                                  device=dev)
+        if rank == 0:
+            cache = init_cache(statics, b, t, torch.bfloat16, device=dev)
+            out["unsharded_tokens"], _ = placed_serve(
+                cfg, statics, params, cache, prompts, steps, slice(None),
+                None, dev)
+            del cache
+        cache = init_cache(statics, b, t, torch.bfloat16, device=dev)
+        sh = serve_shardings(init_specs(cfg), params, cache, mesh)
+        out["reckoned_bytes"] = sum(
+            math.prod(pl.slab_shape) * x.element_size()
+            for x, pl in zip([*_leaves(params), *_leaves(cache)],
+                             [*_leaves(sh.params), *_leaves(sh.cache)]))
+        p_slab = shard_tree(params, sh.params)
+        del params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        flags = slab_leaves(cfg, statics, sh.params,
+                            mesh_axis_sizes(mesh)["model"])
+        out["routes"] = {}
+        for strategy in ("gather", "flash"):
+            rcfg = dataclasses.replace(cfg, decode_strategy=strategy)
+            rst = init_statics(rcfg, dev)
+            c_slab = shard_tree(cache, sh.cache)
+            tfa.flash_attention_cuda.launches = 0
+            comms: list = []
+            ((toks, c_slab), calls), gathered = slab_gathers(
+                lambda: recorded_flash_calls(lambda: placed_serve(
+                    rcfg, rst, p_slab, c_slab, prompts, steps, slice(None),
+                    sh, dev, comms)), p_slab, flags)
+            out["routes"][strategy] = {
+                "tokens": toks, "comm": comms,
+                "reckoned_comm": placed_reckoning(
+                    rcfg, rst, sh, mesh, b, p, range(p, p + steps), t),
+                "slab_gathered": gathered,
+                "flash_launches": tfa.flash_attention_cuda.launches,
+                "flash_rows": [flash_row(dict(
+                    case=f"wide placed prefill layer {i}",
+                    dtype=cfg.compute_dtype, **c), y)
+                    for i, (c, y) in enumerate(calls)],
+                "resident_bytes": _nbytes(p_slab) + _nbytes(c_slab)}
+            del calls, c_slab
+        del p_slab, cache
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def dryrun_train_measure(seed: int, dev, pred: dict) -> dict:
@@ -5146,6 +5485,11 @@ def dryrun_phase(seed: int, dev, shard_train: dict,
                 "tokens_dtype": "int32", "mesh": SHARD_TRAIN_MESH,
                 "f_cfg": shard_train["f_cfg"], "f_batch": SHARD_TRAIN_BATCH,
                 "serve_cfg": cut_layers(full, SHARD_TRAIN_LAYERS, "float32"),
+                "wide": {"cfg": wide_serve_config(),
+                         "batch": WIDE_SERVE_BATCH,
+                         "prompt": WIDE_SERVE_PROMPT,
+                         "max_seq": WIDE_SERVE_MAX_SEQ,
+                         "steps": WIDE_SERVE_DECODE},
                 "serve_batch": DRYRUN_BATCH, "prompt": DRYRUN_PROMPT,
                 "max_seq": DRYRUN_MAX_SEQ, "steps": DRYRUN_DECODE,
                 "cells": DRYRUN_CELLS, "out": os.path.join(tmp, "cells"),
@@ -5204,16 +5548,26 @@ def dryrun_phase(seed: int, dev, shard_train: dict,
          "step_comm_by_kind": f_kind, "step_comm": shard_train["f_comm"],
          "predicted_by_dim": abc["b"]["by_dim"],
          "predict_trace_s": abc["b"]["trace_s"]}
+    from repro_torch.parallel.tensor import serve_comm_by_kind
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
     r0 = ranks[0]
     c = {"model": f"{spec['serve_cfg'].name}, {SHARD_TRAIN_LAYERS} of "
          f"{full.n_layers} layers, float32, bf16 cache",
          "mesh": list(SHARD_TRAIN_MESH), "batch": DRYRUN_BATCH,
          "prompt": DRYRUN_PROMPT, "max_seq": DRYRUN_MAX_SEQ,
          "decode_steps": DRYRUN_DECODE,
-         "tokens_equal_unsharded": all(
-             all(np.array_equal(tok, r0["unsharded_tokens"][i][
-                 rk["rows"][0]:rk["rows"][1]])
-                 for i, tok in enumerate(rk["tokens"])) for rk in ranks),
+         "logits_limit": DRYRUN_LOGITS_REL,
+         "tile_route_vs_own_layouts": forced_agreement(
+             r0["own_layout_logits"], r0["unsharded_logits"],
+             r0["own_layout_tokens"], r0["unsharded_tokens"]),
+         "placed_vs_unsharded": [forced_agreement(
+             [x[slice(*rk["rows"])] for x in r0["unsharded_logits"]],
+             rk["logits"],
+             [x[slice(*rk["rows"])] for x in r0["unsharded_tokens"]],
+             rk["tokens"]) for rk in ranks],
          "resident_bytes": [rk["resident_bytes"] for rk in ranks],
          "reckoned_bytes": [rk["reckoned_bytes"] for rk in ranks],
          "flash_launches_per_rank": [rk["flash_launches"] for rk in ranks],
@@ -5222,24 +5576,70 @@ def dryrun_phase(seed: int, dev, shard_train: dict,
                               for row in rk["flash_rows"]),
          "flash_max_abs_diff": max(row["max_abs_diff"] for rk in ranks
                                    for row in rk["flash_rows"]),
+         "spmm_launches_per_rank": [rk["spmm_launches"] for rk in ranks],
+         "spmm_calls_per_rank": [len(rk["spmm_rows"]) for rk in ranks],
+         "spmm_rows_ok": all(row["ok"] for rk in ranks
+                             for row in rk["spmm_rows"]),
+         "spmm_max_abs_diff": max(row["max_abs_diff"] for rk in ranks
+                                  for row in rk["spmm_rows"]),
+         "spmm_worst_over_limit": max(row["worst_over_limit"]
+                                      for rk in ranks
+                                      for row in rk["spmm_rows"]),
+         "comm_per_step": [rk["comm"] for rk in ranks],
+         "comm_equals_reckoned": [rk["comm"] == rk["reckoned_comm"]
+                                  for rk in ranks],
+         "slab_params_gathered": [rk["slab_gathered"] for rk in ranks],
          "decode_peak_predicted_bytes": abc["c"]["peak_bytes"],
          "decode_peak_measured_bytes": [rk["measured_peak_bytes"]
                                         for rk in ranks],
          "decode_input_bytes": [rk["input_bytes"] for rk in ranks],
          "decode_by_kind_predicted": abc["c"]["by_kind"],
          "decode_by_kind_measured": [rk["by_kind"] for rk in ranks],
+         "decode_by_kind_reckoned": [
+             nonzero(serve_comm_by_kind(rk["measured_reckoned"]))
+             for rk in ranks],
+         "decode_comm_equals_reckoned": [
+             rk["measured_comm"] == rk["measured_reckoned"]
+             for rk in ranks],
          "decode_flops_predicted": abc["c"]["flops"],
          "decode_flops_measured": [rk["flops"] for rk in ranks],
          "serve_seconds": serve_s}
     c["decode_peak_rel"] = [abs(abc["c"]["peak_bytes"] - m) / m
                             for m in c["decode_peak_measured_bytes"]]
+    wide = [rk["e"] for rk in ranks]
+    w = spec["wide"]
+    e = {"model": f"{w['cfg'].name}, {w['cfg'].n_layers} of 64 layers, "
+         "float32, bf16 cache",
+         "mesh": list(WIDE_SHARD_MESH), "batch": w["batch"],
+         "prompt": w["prompt"], "max_seq": w["max_seq"],
+         "decode_steps": w["steps"],
+         "resident_bytes": [w["routes"]["gather"]["resident_bytes"]
+                            for w in wide],
+         "reckoned_bytes": [w["reckoned_bytes"] for w in wide]}
+    for strategy in ("gather", "flash"):
+        runs = [w["routes"][strategy] for w in wide]
+        e[strategy] = {
+            "tokens_equal_unsharded": all(
+                all(np.array_equal(tok, wide[0]["unsharded_tokens"][i])
+                    for i, tok in enumerate(run["tokens"]))
+                for run in runs),
+            "comm_equals_reckoned": [run["comm"] == run["reckoned_comm"]
+                                     for run in runs],
+            "comm_per_step": [run["comm"] for run in runs],
+            "slab_params_gathered": [run["slab_gathered"] for run in runs],
+            "flash_launches_per_rank": [run["flash_launches"]
+                                        for run in runs],
+            "flash_rows_ok": all(row["ok"] for run in runs
+                                 for row in run["flash_rows"]),
+            "flash_max_abs_diff": max(row["max_abs_diff"] for run in runs
+                                      for row in run["flash_rows"])}
     d = [{k: plan[str(i)]["d"].get(k) for k in (
         "arch", "shape", "mesh", "status", "error", "chips", "kind",
         "trace_s", "seconds", "hlo_flops_per_device", "memory",
         "dominant_term", "roofline", "useful_flops_ratio")}
         for i in range(len(DRYRUN_CELLS))]
     emit("dryrun", card=nvidia_smi(), seconds=time.perf_counter() - t_phase,
-         part_a=a, part_b=b, part_c=c, part_d=d)
+         part_a=a, part_b=b, part_c=c, part_d=d, part_e=e)
     check(a["flops_predicted"] == a["flops_measured"] > 0,
           f"(a) fake FLOPs {a['flops_predicted']} != the card's "
           f"{a['flops_measured']}")
@@ -5272,8 +5672,15 @@ def dryrun_phase(seed: int, dev, shard_train: dict,
           and b["predicted_by_kind"].get("reduce-scatter"),
           f"(b) predicted collective bytes {b['predicted_by_kind']} != "
           f"(f)'s step.comm {b['step_comm_by_kind']}")
-    check(c["tokens_equal_unsharded"],
-          "(c) placed tokens differ from the unsharded run's")
+    for what, agree in [("the tile route against the config's own "
+                          "layouts", c["tile_route_vs_own_layouts"]),
+                         *[(f"rank {i}'s placed steps against the "
+                            f"unsharded run", x)
+                           for i, x in enumerate(c["placed_vs_unsharded"])]]:
+        check(agree["logits_rel"] <= DRYRUN_LOGITS_REL
+              and agree["prefill_tokens_equal"]
+              and agree["unexplained"] == 0,
+              f"(c) {what}: {agree}")
     check(c["resident_bytes"] == c["reckoned_bytes"],
           f"(c) resident bytes {c['resident_bytes']} != reckoned "
           f"{c['reckoned_bytes']}")
@@ -5284,18 +5691,59 @@ def dryrun_phase(seed: int, dev, shard_train: dict,
     check(all(rel <= DRYRUN_PEAK_REL for rel in c["decode_peak_rel"]),
           f"(c) decode peak {c['decode_peak_predicted_bytes']} vs measured "
           f"{c['decode_peak_measured_bytes']}")
-    check(all(m == abc["c"]["by_kind"] for m in c["decode_by_kind_measured"])
-          and abc["c"]["by_kind"],
-          f"(c) predicted collective bytes {abc['c']['by_kind']} != "
-          f"measured {c['decode_by_kind_measured']}")
+    check(all(nonzero(m) == want for m, want in zip(
+        c["decode_by_kind_measured"], c["decode_by_kind_reckoned"]))
+          and all(c["decode_comm_equals_reckoned"])
+          and nonzero(abc["c"]["by_kind"]) == c["decode_by_kind_reckoned"][0],
+          f"(c) decode collective bytes: measured "
+          f"{c['decode_by_kind_measured']}, reckoned "
+          f"{c['decode_by_kind_reckoned']}, planned {abc['c']['by_kind']}")
+    check(all(c["comm_equals_reckoned"]),
+          f"(c) the placed steps' bytes differ from serve_bytes: "
+          f"{c['comm_per_step']}")
+    check(c["slab_params_gathered"] == [0] * len(ranks)
+          and all(x["param_gather_bytes"] == 0 for comm in
+                  c["comm_per_step"] for x in comm),
+          f"(c) params gathered: {c['slab_params_gathered']}")
+    spmm_expected = 3 * SHARD_TRAIN_LAYERS * (1 + DRYRUN_DECODE)
+    check(c["spmm_launches_per_rank"] == [spmm_expected] * len(ranks)
+          == c["spmm_calls_per_rank"],
+          f"(c) spmm launches {c['spmm_launches_per_rank']}, calls "
+          f"{c['spmm_calls_per_rank']}, expected {spmm_expected} a rank")
+    check(c["spmm_rows_ok"], f"(c) a sparse tile call is off its plain "
+                             f"version: {c['spmm_worst_over_limit']}")
+    for strategy in ("gather", "flash"):
+        run = e[strategy]
+        check(run["tokens_equal_unsharded"],
+              f"(e) {strategy}: placed tokens differ from unsharded")
+        check(all(run["comm_equals_reckoned"]),
+              f"(e) {strategy}: bytes differ from serve_bytes: "
+              f"{run['comm_per_step']}")
+        check(run["slab_params_gathered"] == [0] * len(ranks)
+              and all(x["param_gather_bytes"] == 0 for comm in
+                      run["comm_per_step"] for x in comm),
+              f"(e) {strategy}: params gathered")
+        check(run["flash_launches_per_rank"]
+              == [w["cfg"].n_layers] * len(ranks) and run["flash_rows_ok"],
+              f"(e) {strategy}: flash launches "
+              f"{run['flash_launches_per_rank']} or a call off its plain "
+              f"version")
+    check(e["resident_bytes"] == e["reckoned_bytes"],
+          f"(e) resident bytes {e['resident_bytes']} != reckoned "
+          f"{e['reckoned_bytes']}")
     check(all(m == abc["c"]["flops"] for m in c["decode_flops_measured"]),
           "(c) decode FLOPs predicted != measured")
     for cell in d:
         check(cell["status"] == "ok",
               f"(d) {cell['arch']} {cell['shape']}: {cell['status']} "
               f"{cell.get('error')}")
-    return {"launches": sum(c["flash_launches_per_rank"]),
-            "max_abs_err": c["flash_max_abs_diff"]}
+    return {"launches": sum(c["flash_launches_per_rank"]) + sum(
+        sum(e[r]["flash_launches_per_rank"]) for r in ("gather", "flash")),
+            "max_abs_err": max(c["flash_max_abs_diff"],
+                               e["gather"]["flash_max_abs_diff"],
+                               e["flash"]["flash_max_abs_diff"]),
+            "spmm_launches": sum(c["spmm_launches_per_rank"]),
+            "spmm_max_abs_err": c["spmm_max_abs_diff"]}
 
 
 def entry_points_phase(dev) -> dict:
@@ -6180,6 +6628,9 @@ def run(seed: int, dev) -> dict:
     launches["flash_attention_cuda"] += dr["launches"]
     max_err["flash_attention_cuda"] = max(max_err["flash_attention_cuda"],
                                           dr["max_abs_err"])
+    launches["pattern_spmm_cuda"] += dr["spmm_launches"]
+    max_err["pattern_spmm_cuda"] = max(max_err["pattern_spmm_cuda"],
+                                       dr["spmm_max_abs_err"])
 
     # -- 11. times at the main paths' shapes -----------------------------
     summary = []

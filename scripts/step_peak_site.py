@@ -1,4 +1,4 @@
-"""Where a training step's peak of live bytes is set, on fake tensors.
+"""Where a step's peak of live bytes is set, on fake tensors.
 
 Usage:
   PYTHONPATH=src python3 scripts/step_peak_site.py --arch h2o_danube_1_8b \\
@@ -9,9 +9,10 @@ Usage:
 
 The config (``--sparse``: the paper's sparse MLPs, where the arch's
 config takes them) is cut to its first ``--layers`` layers at full
-width.  The default runs the cell's production train step (``launch.steps.
-build_step``) for rank 0 of the single-pod fake mesh, as the dry run
-does; ``--unsharded`` runs the one-device step of ``runtime.train``
+width.  The default runs the cell's production step (``launch.steps.
+build_step``: the train step, or with ``--shape prefill_32k`` or a decode
+shape the placed serving step) for rank 0 of the single-pod fake mesh,
+as the dry run does; ``--unsharded`` runs the one-device step of ``runtime.train``
 (AdamW, no weight decay) on a ``--batch`` of rows x tokens, as
 ``chip_smoke.py``'s ``train`` phase does; with ``--loss-and-grads``
 only its loss and gradients (``step.loss_and_grads``, no update), as the

@@ -42,15 +42,24 @@ measurements (``ROOFLINE``):
                one host's 8 consecutive ranks, else 50e9 (assumed: one
                400 Gb/s NDR port a card, as on a DGX H100)
 
+A serving cell's step computes on rank 0's model slabs
+(``runtime.serve``, ``"routes"``); ``step_comm`` holds the bytes it moved
+by kind, ``serve_reckoned`` those ``parallel.tensor.serve_bytes``
+reckons from the shapes.  ``--decode-strategy flash`` plans the decode
+cells on the flash route (records tagged ``__flash``), as the reference's
+``scripts/hillclimb.py`` plans qwen's ``decode_32k``.
+
 Usage:
   python -m repro_torch.launch.dryrun [--arch A] [--shape S]
-      [--mesh single|multi|both] [--force] [--sparse] [--out DIR] [--list]
+      [--mesh single|multi|both] [--force] [--sparse]
+      [--decode-strategy gather|flash] [--out DIR] [--list]
   python -m repro_torch.launch.dryrun --table [--out DIR] [--sparse]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -190,8 +199,9 @@ def record(built, mesh, spec, stats, seconds: float) -> dict:
                                 built.cfg.compute_dtype),
         roofline_device=ROOFLINE["device"],
         roofline_source=ROOFLINE["source"])
-    if built.kind == "train":
-        rec["step_comm"] = dict(built.fn.comm)
+    rec["step_comm"] = dict(built.fn.comm)
+    if built.kind != "train":
+        rec["serve_reckoned"] = _serve_reckoned(built, mesh, spec)
     terms = rec["roofline"]
     rec["dominant_term"] = max(terms, key=terms.get)
     rec["useful_flops_ratio"] = (model_flops / (flops * chips) if flops
@@ -199,10 +209,30 @@ def record(built, mesh, spec, stats, seconds: float) -> dict:
     return rec
 
 
+def _serve_reckoned(built, mesh, spec) -> dict:
+    """``parallel.tensor.serve_bytes`` for rank 0 of a serving cell."""
+    import torch
+
+    from repro_torch.parallel.sharding import mesh_axis_sizes
+    from repro_torch.parallel.tensor import serve_bytes, serve_pods, serve_rows
+
+    cfg, statics = built.cfg, built.meta["statics"]
+    blocks = serve_rows(mesh, spec.global_batch)[1]
+    return serve_bytes(
+        cfg, statics, mesh_axis_sizes(mesh).get("model", 1),
+        spec.global_batch // blocks, spec.seq_len, spec.kind, spec.seq_len,
+        torch.bfloat16, pos=spec.seq_len - 1, blocks=blocks,
+        placements=built.meta["placements"]["params"],
+        pods=serve_pods(mesh, spec.global_batch),
+        cache_placements=built.meta["placements"]["cache"])
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
-             force: bool = False, sparse: bool = False) -> dict:
+             force: bool = False, sparse: bool = False,
+             decode_strategy: str | None = None) -> dict:
     mesh_name = "multi" if multi_pod else "single"
-    tag = f"{arch}__{shape}__{mesh_name}" + ("__sparse" if sparse else "")
+    tag = (f"{arch}__{shape}__{mesh_name}" + ("__sparse" if sparse else "")
+           + (f"__{decode_strategy}" if decode_strategy else ""))
     path = os.path.join(out_dir, f"{tag}.json")
     if os.path.exists(path) and not force:
         with open(path) as f:
@@ -210,6 +240,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
 
     rec: dict = {"arch": arch, "shape": shape, "mesh": mesh_name,
                  "sparse": sparse, "status": "skip"}
+    if decode_strategy:
+        rec["decode_strategy"] = decode_strategy
     reason = skip_reason(arch, shape)
     if reason:
         rec["skip_reason"] = reason
@@ -217,11 +249,14 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
         return rec
 
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import build_step
+    from repro_torch.launch.steps import build_step, cell_config
 
     try:
         mesh = make_production_mesh(multi_pod=multi_pod, fake=True)
-        built = build_step(arch, shape, mesh, sparse=sparse)
+        cfg = cell_config(arch, SHAPES[shape], sparse)
+        if decode_strategy:
+            cfg = dataclasses.replace(cfg, decode_strategy=decode_strategy)
+        built = build_step(arch, shape, mesh, cfg=cfg)
         stats, seconds = measure(built, mesh)
         rec.update(record(built, mesh, SHAPES[shape], stats, seconds))
     except Exception as e:  # record failures — they are bugs to fix
@@ -285,6 +320,10 @@ def main(argv=None):
     ap.add_argument("--sparse", action="store_true",
                     help="enable the paper's block-pattern sparse MLPs")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--decode-strategy", default=None,
+                    choices=["gather", "flash"],
+                    help="replace the configs' (the grid keeps theirs); "
+                         "the records are tagged with it")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--table", action="store_true",
                     help="print the grid of the records in --out")
@@ -311,7 +350,8 @@ def main(argv=None):
             for mp in meshes:
                 t0 = time.time()
                 rec = run_cell(a, s, mp, out_dir, force=args.force,
-                               sparse=args.sparse)
+                               sparse=args.sparse,
+                               decode_strategy=args.decode_strategy)
                 dt = time.time() - t0
                 status = rec["status"]
                 extra = ""

@@ -21,7 +21,11 @@ shardings: running the step inside that mode over a fake mesh
 (``launch.mesh.make_fake_mesh``) allocates nothing, and
 ``launch.op_stats`` counts what it does.  Since a hand-written kernel
 cannot take a fake tensor, the step takes the plain routes
-(``kernels=False``), and its record says so.
+(``kernels=False``), and its record says so (``meta["routes"]``: a
+serving step computes on the model slabs, its decode by the config's
+``decode_strategy``; the cells keep the reference's, ``"gather"``).
+A serving step's rows are its cache slabs', split over ``pod`` where
+it divides them (``parallel.tensor.serve_rows``).
 """
 
 from __future__ import annotations
@@ -171,13 +175,28 @@ def _slabs(placements, like):
                 placements, like)
 
 
-def _rows(t: torch.Tensor, mesh) -> torch.Tensor:
+def _rows(t: torch.Tensor, mesh, serve: bool = False) -> torch.Tensor:
     """Zeros of this rank's rows of a ``meta`` input: its batch split over
-    ``pod``/``data`` where they divide it, else whole."""
+    ``pod``/``data`` where they divide it (``serve``: data-major, as
+    ``parallel.tensor.serve_rows`` splits a serving step's), else
+    whole."""
+    from repro_torch.parallel.tensor import serve_rows
+
     shape = tuple(t.shape)
-    if shape and shape[0] % _dp_size(mesh) == 0:
+    if serve and shape:
+        shape = (shape[0] // serve_rows(mesh, shape[0])[1], *shape[1:])
+    elif shape and shape[0] % _dp_size(mesh) == 0:
         shape = placement(_batch_pspec(mesh), shape, mesh).slab_shape
     return torch.zeros(shape, dtype=t.dtype)
+
+
+def cell_config(arch: str, spec: ShapeSpec, sparse: bool = False):
+    """The (arch, shape) cell's config: the arch's at ``spec``, with the
+    paper's block-pattern sparse MLPs where ``sparse``."""
+    if sparse:
+        return importlib.import_module(f"repro_torch.configs.{arch}").config(
+            spec, sparse=True)
+    return get_config(arch, spec)
 
 
 def build_step(
@@ -195,7 +214,9 @@ def build_step(
     ``(fn, (params, cache, tokens, pos))`` of the placed serving steps,
     with ``pos`` the cache's last position (the whole cache is read).
     ``opt`` replaces the reference's AdamW (bfloat16 moments above
-    ``_BF16_OPT_THRESHOLD`` params)."""
+    ``_BF16_OPT_THRESHOLD`` params); ``cfg`` the cell's config
+    (:func:`cell_config`), as the reference's ``scripts/hillclimb.py``
+    plans qwen's decode with ``decode_strategy="flash"``."""
     from repro_torch.launch.op_stats import fake_mode
     from repro_torch.models.transformer import (
         init_cache,
@@ -206,8 +227,7 @@ def build_step(
 
     spec = SHAPES[shape] if isinstance(shape, str) else shape
     if cfg is None:
-        cfg = (importlib.import_module(f"repro_torch.configs.{arch}").config(
-            spec, sparse=True) if sparse else get_config(arch, spec))
+        cfg = cell_config(arch, spec, sparse)
     statics = init_statics(cfg, device="cpu")
     mode = fake_mode()
     with mode:
@@ -267,15 +287,18 @@ def build_step(
     c_shard = cache_shardings(cache_shapes, mesh)
     shardings = ServeShardings(mesh, p_shard, c_shard, spec.global_batch)
     meta["placements"] = {"params": p_shard, "cache": c_shard}
+    meta["routes"] = ("plain, on the model slabs" + (
+        "" if spec.kind == "prefill" else
+        f", decode_strategy={cfg.decode_strategy}"))
     with mode:
         params = _slabs(p_shard, p_shapes)
         cache = _slabs(c_shard, cache_shapes)
-        tokens = _rows(ins["tokens"], mesh)
+        tokens = _rows(ins["tokens"], mesh, serve=True)
     if spec.kind == "prefill":
         fn = make_prefill_step(cfg, statics, scfg, shardings=shardings,
                                kernels=False)
         with mode:
-            extras = {k: _rows(v, mesh) for k, v in ins.items()
+            extras = {k: _rows(v, mesh, serve=True) for k, v in ins.items()
                       if k not in ("tokens", "pos")}
         return BuiltStep(fn, (params, cache, tokens, extras), cfg, "prefill",
                          meta, mode)

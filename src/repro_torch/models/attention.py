@@ -37,10 +37,16 @@ sharded flash-decode (:func:`flash_decode_sharded`): each model rank
 scores its chunk of the cache and the partial softmaxes merge through
 all-reduces.  Anywhere else (no mesh, a cache length the model dim does
 not divide) it falls through to the routes above, as the reference's
-does.  In a placed decode step (``runtime.serve`` with ``shardings=``)
-each rank holds only its slab of the cache, and a layer without a window
-reads that slab through :func:`flash_decode_placed`, writing the new
-position into the rank that owns it.
+does.
+
+In a placed serving step (``runtime.serve`` with ``shardings=``) each
+rank holds only its position slab of the cache (:class:`PlacedCache`)
+and computes on its query heads (:func:`attention_apply_tp`): the new
+keys and values go to the slabs that hold their positions, a prefill
+attends on the flash-attention kernel over what the rank computed, and a
+decode reads its key heads from every slab or, with
+``decode_strategy="flash"`` and no window, scores its own slab for every
+head (:func:`flash_decode_placed`).
 
 Head padding: q heads are padded to a multiple of the TP degree
 (``parallel.sharding.padded_heads``); padded heads have zero in/out
@@ -69,25 +75,22 @@ from repro_torch.models.layers import (
     rope_frequencies,
 )
 from repro_torch.parallel.activations import current_mesh
-from repro_torch.parallel.sharding import (
-    _entry_axes,
-    gather_tensor,
-    mesh_axis_sizes,
-    padded_heads,
-)
+from repro_torch.parallel.sharding import mesh_axis_sizes, padded_heads
 from repro_torch.parallel.tensor import (
     attention_kv_heads,
     attention_splits,
     column_product,
     copy_to_model,
     kv_split,
+    read_positions,
     relayout_columns,
     row_product,
+    write_positions,
 )
 
 __all__ = ["AttnConfig", "attention_init", "attention_specs",
            "attention_apply", "attention_apply_tp", "init_kv_cache",
-           "is_prefill", "flash_decode_sharded", "PlacedKV",
+           "is_prefill", "flash_decode_sharded", "PlacedCache",
            "flash_decode_placed"]
 
 _NEG = -1e30
@@ -338,66 +341,62 @@ def flash_decode_sharded(cfg: AttnConfig, q, k, v, kv_len, mesh):
 flash_decode_sharded.calls = 0
 
 
-class PlacedKV(dict):
-    """A layer's ``{"k", "v"}`` cache held as this rank's slabs
-    (``placements``: their ``parallel.sharding.Placement``s) in a placed
-    decode step (``placed``: the step's ``runtime.serve`` view of its rows
-    and write position).  :func:`attention_apply` reads it through
-    :func:`flash_decode_placed`, never whole."""
+class PlacedCache(dict):
+    """One layer's cache in a placed serving step (``runtime.serve``):
+    this rank's slabs of its leaves (batch rows over ``data``, positions
+    over ``model``, an SSM's conv over ``ff`` and its state over
+    ``heads``, ``launch.steps.cache_pspec``), their ``placements``
+    (``parallel.sharding.Placement``s of one layer, the stacked lead
+    dropped) and the step's write position ``pos`` (clamped as the cache
+    write clamps it) and length ``s``.  The ``*_apply_tp`` blocks read
+    and write it on the rank's slabs."""
 
-    def __init__(self, slabs: dict, placements: dict, placed):
+    def __init__(self, slabs: dict, placements: dict, pos: int, s: int):
         super().__init__(slabs)
-        self.placements, self.placed = placements, placed
+        self.placements, self.pos, self.s = placements, pos, s
+
+    def sub(self, key: str) -> "PlacedCache":
+        return PlacedCache(self[key], self.placements[key], self.pos, self.s)
 
 
-def flash_decode_placed(cfg: AttnConfig, q, k_new, v_new, cache: PlacedKV,
-                        kv_len):
+def flash_decode_placed(tp, cfg: AttnConfig, q, cache: PlacedCache,
+                        kv_len) -> torch.Tensor:
     """Flash-decode on a placed cache: the reference's
-    ``_flash_decode_sharded`` over a sequence-sharded cache that each rank
-    holds only its slab of (batch rows over ``data``, positions over
-    ``model``, ``launch.steps.cache_pspec``).
+    ``_flash_decode_sharded`` over a cache each rank holds only its
+    position slab of, every key head, for the rank's rows.
 
-    q: [b, Hq, 1, D] and k_new, v_new: [b, 1, Hkv, D] of this rank's
-    compute rows; ``kv_len`` the shared valid length.  The new key and
-    value are gathered to the whole batch and the rank whose slab holds
-    the step's position writes them there.  The queries of the slab's
-    batch rows then score the slab's positions in float32 (keys at and
-    past ``kv_len`` masked), and the partial softmaxes merge over the
-    ranks that split the positions: an all-reduce (max) of the running
-    max, then one all-reduce (sum) of the rescaled denominators and
-    weighted values, O(B*H*D).  The slab rows' outputs are gathered over
-    the ranks that split the rows and the compute rows' returned, [b, Hq,
-    1, D] in q's dtype.  ``flash_decode_placed.calls`` counts the
-    calls."""
+    q: [b, Hq / n, 1, D], this rank's query heads over ``tp``'s ``model``
+    group; the step's key and value are in the cache already.  The
+    queries are gathered over ``model`` (every head scores every slab),
+    the slab's positions are scored in float32 (keys at and past
+    ``kv_len`` masked), and the partial softmaxes merge over the ranks:
+    an all-reduce (max) of the running max, then one all-reduce (sum) of
+    the rescaled denominators and weighted values, O(b * Hq * D).  Returns
+    the rank's heads' output, [b, Hq / n, 1, D] in q's dtype.
+    ``flash_decode_placed.calls`` counts the calls."""
     flash_decode_placed.calls += 1
-    placed, pls = cache.placed, cache.placements
-    mesh, pl = placed.mesh, pls["k"]
-    for key, new in (("k", k_new), ("v", v_new)):
-        placed.write_seq(cache[key], pls[key], placed.to_batch(new))
-    rows, seq = pl.slices[0], pl.slices[1]
-    hq, dh = q.shape[1], q.shape[-1]
-    qb = placed.to_batch(q)[rows].float()
+    b, hq_r, _, dh = q.shape
+    hq = hq_r * tp.size
+    pl = cache.placements["k"]
+    qa = tp.all_gather(q.reshape(b, 1, hq_r * dh)).reshape(b, hq, 1, dh)
     rep = (hq // cfg.n_kv_heads) if cfg.grouped else -(-hq // cfg.n_kv_heads)
     kh = cache["k"].transpose(1, 2).repeat_interleave(rep, dim=1)[:, :hq]
     vh = cache["v"].transpose(1, 2).repeat_interleave(rep, dim=1)[:, :hq]
+    seq = pl.slices[1]
     kpos = seq.start + torch.arange(seq.stop - seq.start, device=q.device)
-    s = torch.einsum("bhqd,bhtd->bhqt", qb, kh.float()) * (dh ** -0.5)
+    s = torch.einsum("bhqd,bhtd->bhqt", qa.float(), kh.float()) * (dh ** -0.5)
     s = torch.where(kpos[None, None, None, :] < kv_len, s, _NEG)
     m = s.amax(dim=-1, keepdim=True)
-    sizes = mesh_axis_sizes(mesh)
-    groups = [mesh.get_group(a) for a in _entry_axes(
-        pl.pspec[1] if len(pl.pspec) > 1 else None) if sizes[a] > 1]
-    for g in groups:
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    split = pl.blocks[1] > 1
+    if split:
+        m = tp.all_reduce(m, op=dist.ReduceOp.MAX)
     p = torch.exp(s - m)
     o = torch.einsum("bhqt,bhtd->bhqd", p, vh.float())
     lo = torch.cat([p.sum(-1, keepdim=True), o], dim=-1)
-    for g in groups:
-        dist.all_reduce(lo, group=g)
+    if split:
+        lo = tp.all_reduce(lo)
     out = (lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)).to(q.dtype)
-    out = gather_tensor(out, dataclasses.replace(pl, pspec=pl.pspec[:1]),
-                        mesh)
-    return out[placed.rows]
+    return out[:, tp.rank * hq_r:(tp.rank + 1) * hq_r]
 
 
 flash_decode_placed.calls = 0
@@ -453,12 +452,6 @@ def attention_apply(
         pos_b = positions if positions.dim() == 2 else positions[None, :]
         q = apply_rope(q, pos_b, freqs)
         k = apply_rope(k, pos_b, freqs)
-
-    if isinstance(cache, PlacedKV):  # a placed decode's flash route
-        out = flash_decode_placed(cfg, q.transpose(1, 2), k, v, cache,
-                                  cache_len)
-        out = out.transpose(1, 2).reshape(b, s, hq * dh)
-        return linear(params["wo"], out.to(x.dtype)), cache
 
     if prefill is None:
         prefill = is_prefill(s, positions, memory, cache, cache_pos)
@@ -528,14 +521,17 @@ def attention_apply_tp(tp, params, cfg: AttnConfig, x: torch.Tensor,
                        positions: torch.Tensor,
                        memory: torch.Tensor | None = None,
                        seq: bool = False,
-                       mem_seq: bool = False) -> torch.Tensor:
+                       mem_seq: bool = False,
+                       cache: PlacedCache | None = None,
+                       cache_len=None,
+                       prefill: bool = False) -> torch.Tensor:
     """:func:`attention_apply` on this rank's query heads over ``tp``'s
-    ``model`` group (``parallel.tensor``; ``model`` divides ``cfg.hq_pad``),
-    without a cache or the kernel: ``params`` are the rank's slabs,
-    columns of ``wq`` (and its bias) and rows of ``wo`` for query heads
-    ``[r * Hq / n, (r + 1) * Hq / n)``, so the plain routes run on the
-    rank's heads as on all of them: the projections are column products
-    and ``wo`` a row product (``column_product``, ``row_product``).
+    ``model`` group (``parallel.tensor``; ``model`` divides ``cfg.hq_pad``):
+    ``params`` are the rank's slabs, columns of ``wq`` (and its bias) and
+    rows of ``wo`` for query heads ``[r * Hq / n, (r + 1) * Hq / n)``, so
+    the routes run on the rank's heads as on all of them: the projections
+    are column products and ``wo`` a row product (``column_product``,
+    ``row_product``).
 
     The key heads: where ``tensor.attention_splits`` holds, ``wk``/``wv``
     are the slabs of the key heads the rank's query heads group over.
@@ -551,11 +547,30 @@ def attention_apply_tp(tp, params, cfg: AttnConfig, x: torch.Tensor,
     ``seq``: ``x`` is this rank's slab of the sequence, gathered into the
     column products, and the output is reduce-scattered back to the slab;
     ``mem_seq``: ``memory`` likewise.  The positions are the whole
-    sequence's.  Returns the output [B, S, D] (``seq``: [B, S / n, D])."""
+    sequence's.
+
+    ``cache`` (a placed serving step's, :class:`PlacedCache`: every key
+    head of the rank's position slab): the new keys and values of the
+    rank's key heads go, in the cache's dtype, to the ranks whose slabs
+    hold the written positions (``tensor.write_positions``, all-to-all).
+    A prefill (from position 0) attends over what the rank computed,
+    rounded to the cache's dtype as the cache holds it, on the
+    flash-attention kernel where ``prefill`` holds and ``cfg`` groups its
+    heads (the rank's key heads expanded to its query heads where they
+    do not group locally), else on the plain routes.  A decode reads its
+    key heads at every position (or the window's) from the ranks' slabs
+    (``tensor.read_positions``), or, with ``decode_strategy="flash"`` and
+    no window, scores the rank's own slab for every query head
+    (:func:`flash_decode_placed`).  Returns the output [B, S, D]
+    (``seq``: [B, S / n, D])."""
     dh, dt = cfg.d_head, x.dtype
     params = dict(params)
     index = None
-    if not attention_splits(cfg, tp.size):
+    if attention_splits(cfg, tp.size):
+        per_kv = cfg.n_kv_heads // tp.size
+        heads = [list(range(r * per_kv, (r + 1) * per_kv))
+                 for r in range(tp.size)]
+    else:
         heads = attention_kv_heads(cfg, tp.size)
         cols = [[k * dh + c for k in hs for c in range(dh)] for hs in heads]
         for name in ("wk", "wv"):
@@ -586,9 +601,69 @@ def attention_apply_tp(tp, params, cfg: AttnConfig, x: torch.Tensor,
         q, k = apply_rope(q, pos_b, freqs), apply_rope(k, pos_b, freqs)
     local = dataclasses.replace(cfg, n_heads=q.shape[2],
                                 n_kv_heads=k.shape[2], model_shards=1)
-    kpos = (torch.arange(t, device=x.device) if memory is not None
-            else positions)
-    out = _plain_attention(local, q, k, v, positions, kpos,
-                           cfg.causal and memory is None, None, index)
+    if cache is not None:
+        out = _attend_placed(tp, cfg, local, q, k, v, positions, cache,
+                             cache_len, prefill, heads, index)
+    elif memory is None:
+        out = _attend_local(cfg, local, q, k, v, positions, prefill, index)
+    else:
+        out = _plain_attention(local, q, k, v, positions,
+                               torch.arange(t, device=x.device), False, None,
+                               index)
     out = out.transpose(1, 2).reshape(b, s, -1).to(dt)
     return row_product(out, params["wo"], tp, dt, seq)
+
+
+def _attend_placed(tp, cfg: AttnConfig, local: AttnConfig, q, k, v,
+                   positions, cache: PlacedCache, cache_len, prefill: bool,
+                   heads: list, index) -> torch.Tensor:
+    """:func:`attention_apply_tp`'s attention with a placed cache (its
+    docstring): q [B, S, Hq / n, D] and the rank's key heads' k, v [B, S,
+    H_r, D] (``heads``: every rank's; ``index``: the key head each query
+    head reads, None where they group locally).  Returns [B, Hq / n, S,
+    D]."""
+    pl = cache.placements["k"]
+    for name, new in (("k", k), ("v", v)):
+        write_positions(cache[name], pl, new, cache.pos, heads, tp)
+    cdt = cache["k"].dtype
+    if q.shape[1] > 1:  # a prefill from position 0: the keys the rank
+        # computed, as the cache holds them
+        return _attend_local(cfg, local, q, k.to(cdt), v.to(cdt), positions,
+                             prefill, index)
+    if cfg.decode_strategy == "flash" and cfg.window is None:
+        return flash_decode_placed(tp, cfg, q.transpose(1, 2), cache,
+                                   cache_len)
+    lo, hi = 0, pl.shape[1]
+    if cfg.window is not None and hi > cfg.window:  # the decode's window
+        end = int(cache_len) if cache_len is not None else hi
+        lo = min(max(end - cfg.window, 0), hi - cfg.window)
+        hi = lo + cfg.window
+    kc = read_positions(cache["k"], pl, lo, hi, heads, tp)
+    vc = read_positions(cache["v"], pl, lo, hi, heads, tp)
+    kpos = lo + torch.arange(hi - lo, device=q.device)
+    return _plain_attention(local, q, kc, vc, positions, kpos, cfg.causal,
+                            cache_len, index)
+
+
+def _attend_local(cfg: AttnConfig, local: AttnConfig, q, k, v, positions,
+                  prefill: bool, index) -> torch.Tensor:
+    """Self-attention of one rank's query heads q [B, S, Hq / n, D] over
+    its key heads k, v [B, S, H_r, D] at the same positions: on the
+    flash-attention kernel where ``prefill`` holds (positions ``arange(S)``)
+    and ``cfg`` groups its heads, as :func:`attention_apply` takes it, the
+    key heads expanded to the query heads where they do not group on the
+    rank (``index``); else on the plain routes.  Returns [B, Hq / n, S,
+    D]."""
+    if not (prefill and cfg.grouped and q.shape[1] > 1):
+        return _plain_attention(local, q, k, v, positions, positions,
+                                cfg.causal, None, index)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    kh, vh = k.transpose(1, 2).to(dt), v.transpose(1, 2).to(dt)
+    per, n_kv = q.shape[2], kh.shape[1]
+    if index is not None and index != [i // (per // n_kv)
+                                       for i in range(per)]:
+        at = torch.tensor(index, device=q.device)
+        kh, vh = kh.index_select(1, at), vh.index_select(1, at)
+    return ops.flash_attention(q.transpose(1, 2).to(dt), kh, vh,
+                               causal=cfg.causal, window=cfg.window,
+                               kv_len=kh.shape[2])

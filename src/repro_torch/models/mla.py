@@ -20,8 +20,9 @@ place (the reference returns a new one) at a scalar offset, clamped so
 the update fits as ``dynamic_update_slice`` clamps it, or at per-row
 offsets ``[B]``; neither reads the device from the host.
 
-:func:`mla_apply_tp` is the expanded route on one rank's heads of the
-sharded train step's ``model`` group (``parallel.tensor``).
+:func:`mla_apply_tp` runs either route on one rank's heads of a
+``model`` group (``parallel.tensor``): the sharded train step's, and the
+placed serving steps' with the cache's position slabs.
 """
 
 from __future__ import annotations
@@ -50,8 +51,10 @@ from repro_torch.models.layers import (
 from repro_torch.parallel.tensor import (
     column_product,
     copy_to_model,
+    gather_cache,
     gather_sequence,
     row_product,
+    write_own,
 )
 
 __all__ = ["MLAConfig", "mla_init", "mla_specs", "mla_apply",
@@ -157,7 +160,6 @@ def mla_apply(
     """Returns (output [B, S, D], cache written in place)."""
     b, s, _ = x.shape
     h = cfg.n_heads
-    scale = (cfg.d_nope + cfg.d_rope) ** -0.5
 
     q_nope, q_rope = _project_q(params, cfg, _latent_q(params, x),
                                 positions)
@@ -183,25 +185,30 @@ def mla_apply(
     w_uv = wkv_b[..., cfg.d_nope:].float()  # [kv_lora, h, d_v]
     c32 = c_kv.float()
 
-    if absorbed:
-        # fold W_uk into q: q_abs [B, S, h, kv_lora]
-        q_abs = torch.einsum("bshd,lhd->bshl", q_nope.float(), w_uk)
-        s_lat = torch.einsum("bshl,btl->bhst", q_abs, c32)
-        s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(),
-                              k_rope.float())
-        scores = (s_lat + s_rope) * scale
-        # [S, T] shared or [B, S, T] per-row -> [1|B, 1, S, T]
-        mask = _mask(positions, kpos, True, None, cache_len)
-        scores = torch.where(_expand_mask(mask), scores, _NEG)
-        p = torch.softmax(scores, dim=-1)
-        o_lat = torch.einsum("bhst,btl->bshl", p, c32)
-        out = torch.einsum("bshl,lhv->bshv", o_lat, w_uv)
-    else:
-        out = _expanded(cfg, h, w_uk, w_uv, q_nope, q_rope, c32, k_rope,
-                        positions, kpos, cache_len)
-
+    route = _absorbed if absorbed else _expanded
+    out = route(cfg, h, w_uk, w_uv, q_nope, q_rope, c32, k_rope, positions,
+                kpos, cache_len)
     out = out.reshape(b, s, h * cfg.d_v).to(x.dtype)
     return linear(params["wo"], out), cache
+
+
+def _absorbed(cfg: MLAConfig, h: int, w_uk, w_uv, q_nope, q_rope, c32,
+              k_rope, positions, kpos, cache_len):
+    """The absorbed route: W_uk folded into the queries and W_uv into the
+    output, attention in the latent space in float32.  Returns [B, S, h,
+    d_v]."""
+    scale = (cfg.d_nope + cfg.d_rope) ** -0.5
+    # fold W_uk into q: q_abs [B, S, h, kv_lora]
+    q_abs = torch.einsum("bshd,lhd->bshl", q_nope.float(), w_uk)
+    s_lat = torch.einsum("bshl,btl->bhst", q_abs, c32)
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) * scale
+    # [S, T] shared or [B, S, T] per-row -> [1|B, 1, S, T]
+    mask = _mask(positions, kpos, True, None, cache_len)
+    scores = torch.where(_expand_mask(mask), scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btl->bshl", p, c32)
+    return torch.einsum("bshl,lhv->bshv", o_lat, w_uv)
 
 
 def _expanded(cfg: MLAConfig, h: int, w_uk, w_uv, q_nope, q_rope, c32,
@@ -228,20 +235,30 @@ def _expanded(cfg: MLAConfig, h: int, w_uk, w_uv, q_nope, q_rope, c32,
 
 
 def mla_apply_tp(tp, params, cfg: MLAConfig, x: torch.Tensor,
-                 positions: torch.Tensor, seq: bool = False) -> torch.Tensor:
-    """The expanded route of :func:`mla_apply`, without a cache, on this
-    rank's ``n_heads / n`` heads over ``tp``'s ``model`` group
-    (``parallel.tensor.mla_splits`` holds for ``cfg``): ``wq_b`` and
-    ``wkv_b`` are the rank's column slabs, ``wo`` its row slab.  The
-    latents (``wq_a`` and ``q_norm``, ``wkv_a`` and ``kv_norm``, and the
-    shared RoPE key) compute whole on every rank and enter the heads'
-    products by ``copy_to_model`` (in float32, as the expanded route
-    reads them), so their gradients sum the ranks' heads; ``wq_b`` is a
-    column product and ``wo`` a row product (``parallel.tensor``).
-    ``seq``: ``x`` is this rank's slab of the sequence, gathered whole
-    for the latents (their gradients are whole on every rank, so the
-    slice goes back), and the output is reduce-scattered back to the
-    slab.  Returns the output [B, S, D] (``seq``: [B, S / n, D])."""
+                 positions: torch.Tensor, seq: bool = False,
+                 cache: dict | None = None, cache_len=None) -> torch.Tensor:
+    """:func:`mla_apply` on this rank's ``n_heads / n`` heads over
+    ``tp``'s ``model`` group (``parallel.tensor.mla_splits`` holds for
+    ``cfg``): ``wq_b`` and ``wkv_b`` are the rank's column slabs, ``wo``
+    its row slab.  The latents (``wq_a`` and ``q_norm``, ``wkv_a`` and
+    ``kv_norm``, and the shared RoPE key) compute whole on every rank;
+    ``wq_b`` is a column product and ``wo`` a row product
+    (``parallel.tensor``).  ``seq``: ``x`` is this rank's slab of the
+    sequence, gathered whole for the latents (their gradients are whole
+    on every rank, so the slice goes back), and the output is
+    reduce-scattered back to the slab.
+
+    Without a cache (the sharded train step) it is the expanded route,
+    the latents entering the heads' products by ``copy_to_model`` (in
+    float32, as the expanded route reads them), so their gradients sum
+    the ranks' heads.  ``cache`` (a placed serving step's
+    ``models.attention.PlacedCache``, positions over ``model``): every
+    rank computed the latents, so each writes the written positions its
+    own slab holds, then the rows' latents at every position are
+    all-gathered over ``model`` (``tensor.gather_cache``) and read as
+    :func:`mla_apply` reads its cache: the expanded route for a prefill,
+    the absorbed one for a decode.  Returns the output [B, S, D]
+    (``seq``: [B, S / n, D])."""
     if seq:
         x = gather_sequence(x, tp, whole=True)
     b, s, _ = x.shape
@@ -249,12 +266,24 @@ def mla_apply_tp(tp, params, cfg: MLAConfig, x: torch.Tensor,
     q_nope, q_rope = _project_q(params, cfg, _latent_q(params, x),
                                 positions, tp)
     c_kv, k_rope = _compress_kv(params, cfg, x, positions)
-    latent = copy_to_model(torch.cat([c_kv, k_rope], -1).float(), tp)
-    c_kv, k_rope = latent[..., :cfg.kv_lora], latent[..., cfg.kv_lora:]
+    route = _expanded
+    if cache is None:
+        latent = copy_to_model(torch.cat([c_kv, k_rope], -1).float(), tp)
+        c_kv, k_rope = latent[..., :cfg.kv_lora], latent[..., cfg.kv_lora:]
+        kpos = positions
+    else:
+        for name, new in (("c_kv", c_kv), ("k_rope", k_rope)):
+            write_own(cache[name], cache.placements[name], new, cache.pos)
+        c_kv = gather_cache(cache["c_kv"], cache.placements["c_kv"], tp)
+        k_rope = gather_cache(cache["k_rope"], cache.placements["k_rope"],
+                              tp)
+        kpos = torch.arange(c_kv.shape[1], device=x.device)
+        route = _absorbed if s == 1 else _expanded
     wkv_b = params["wkv_b"]["w"].reshape(cfg.kv_lora, h,
                                          cfg.d_nope + cfg.d_v)
-    out = _expanded(cfg, h, wkv_b[..., :cfg.d_nope].float(),
-                    wkv_b[..., cfg.d_nope:].float(), q_nope, q_rope,
-                    c_kv.float(), k_rope, positions, positions, None)
+    out = route(cfg, h, wkv_b[..., :cfg.d_nope].float(),
+                wkv_b[..., cfg.d_nope:].float(), q_nope, q_rope,
+                c_kv.float(), k_rope, positions, kpos, cache_len)
     out = out.reshape(b, s, h * cfg.d_v).to(x.dtype)
     return row_product(out, params["wo"], tp, x.dtype, seq)
+

@@ -14,12 +14,12 @@ reference chooses them (:func:`moe_apply`):
     (SPMD, as ``launch/mesh.py`` sets out);
   * **single device** (:func:`_moe_local`): the same dispatch over every
     token and every expert;
-  * **batch rows** (inside :func:`rows_over_data`, which a placed serving
-    step enters): each rank routes its row block of the batch through
-    every expert, with capacity and each pair's place in its expert's
-    queue the whole batch's (the counts all-gathered over ``pod`` /
-    ``data``), as :func:`moe_apply_tp` counts them in the sharded train
-    step.
+  * **tensor parallel** (:func:`moe_apply_tp`, inside
+    ``parallel.tensor.tensor_parallel_ctx``: the sharded train step and
+    the placed serving steps): each rank routes its row block of the
+    batch through its ``model`` slab of the experts, with capacity and
+    each pair's place in its expert's queue the whole batch's (the counts
+    all-gathered over the data dims).
 
 Dispatch is sort-based (dropless up to the capacity factor): (token, k)
 pairs sort by expert id, each expert takes up to ``cap`` tokens and the
@@ -46,8 +46,6 @@ from the host.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 import math
 
@@ -81,22 +79,7 @@ from repro_torch.parallel.tensor import (
 )
 
 __all__ = ["MoEConfig", "moe_static", "moe_init", "moe_specs", "moe_apply",
-           "moe_apply_tp", "capacity", "kept_pairs", "rows_over_data"]
-
-_ROWS: contextvars.ContextVar = contextvars.ContextVar("moe_rows",
-                                                       default=None)
-
-
-@contextlib.contextmanager
-def rows_over_data(mesh):
-    """Inside the block, :func:`moe_apply` takes a rank's row block of the
-    batch over ``mesh``'s ``pod``/``data`` dims and counts capacity over
-    the whole batch (module docstring)."""
-    token = _ROWS.set(mesh)
-    try:
-        yield
-    finally:
-        _ROWS.reset(token)
+           "moe_apply_tp", "capacity", "kept_pairs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,24 +312,16 @@ def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor,
               kernels: bool = True) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]; ``kernels`` goes to the shared
     experts' MLP (``layers.mlp_apply``)."""
-    rows_mesh = _ROWS.get()
     mesh = current_mesh()
     use_sharded = False
-    if rows_mesh is not None:
-        b, s, d = x.shape
-        xf = x.reshape(b * s, d)
-        top_w, top_e = _route(params, cfg, xf)
-        out = _dispatch_compute_combine(
-            xf, top_w, top_e, params["experts"], cfg, 0,
-            _earlier(rows_mesh, top_e, cfg.n_experts)).reshape(b, s, d)
-    elif mesh is not None:
+    if mesh is not None:
         sizes = mesh_axis_sizes(mesh)
         n_dp = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
         use_sharded = (x.shape[0] % n_dp == 0
                        and cfg.n_experts % sizes.get("model", 1) == 0)
     if use_sharded:
         out = _moe_sharded(params, cfg, x, mesh)
-    elif rows_mesh is None:
+    else:
         out = _moe_local(params, cfg, x)
     if "shared" in params:
         out = out + mlp_apply(params["shared"], static["shared"], x,
@@ -354,17 +329,26 @@ def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor,
     return out
 
 
-def _earlier(mesh, top_e: torch.Tensor, n_experts: int):
-    """``_dispatch_slots``' ``earlier`` for this rank's row block over
-    ``mesh``'s ``pod``/``data`` dims: the pairs each expert took on the
-    earlier row blocks (every block's counts all-gathered), and the
-    tokens of all blocks.  The counts are a comparison's sum, which a
-    fake tensor can take (``bincount``'s length depends on the data)."""
-    r, blocks = data_shards(mesh)
+def _earlier(tp, top_e: torch.Tensor, n_experts: int):
+    """``_dispatch_slots``' ``earlier`` for this rank's row block: the
+    pairs each expert took on the earlier row blocks (every block's
+    counts all-gathered, ``tp.data_gather_bytes``), and the tokens of all
+    blocks.  The blocks are ``tp.rows`` over its dims (a placed serving
+    step's, ``parallel.tensor.serve_rows``; one block: None, the rows are
+    the batch), else the sharded train step's over ``pod``/``data``
+    (``parallel.tensor.data_shards``).
+    The counts are a comparison's sum, which a fake tensor can take
+    (``bincount``'s length depends on the data)."""
+    if tp.rows is None:
+        (r, blocks), dims = data_shards(tp.mesh), ("data", "pod")
+    else:
+        r, blocks, dims = tp.rows
+        if blocks == 1:
+            return None
     flat = top_e.reshape(-1)
     mine = (flat[:, None] == torch.arange(n_experts, device=flat.device)
             ).sum(0)
-    counts = gather_over_data(mesh, mine)
+    counts = gather_over_data(tp.mesh, mine, dims, tp)
     return counts[:r].sum(0), top_e.shape[0] * blocks
 
 
@@ -372,9 +356,9 @@ def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
                  split: bool, kernels: bool = True,
                  shared_split: bool = False, seq: bool = False
                  ) -> torch.Tensor:
-    """:func:`moe_apply` inside the sharded train step
-    (``parallel.tensor.tensor_parallel_ctx``), on this rank's rows of the
-    batch: the training twin of :func:`_moe_sharded`, with gradients.
+    """:func:`moe_apply` inside ``parallel.tensor.tensor_parallel_ctx``
+    (the sharded train step's, a placed serving step's), on this rank's
+    rows of the batch: the twin of :func:`_moe_sharded`, with gradients.
     With ``split`` (``parallel.tensor.experts_split``) ``params["experts"]``
     is the rank's slab of ``tp``'s ``model`` group: every token of the
     rows runs through the slab's experts and the partial outputs sum over
@@ -382,9 +366,9 @@ def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
     and the shared experts on their ``ff`` slabs with ``shared_split``
     (``layers.mlp_apply_tp``), else whole.  Capacity and each pair's
     place in its expert's queue are the whole batch's (the rows' row
-    block after the earlier blocks', counts all-gathered over
-    ``pod``/``data``), as the reference's step computes them over its
-    global batch.
+    block after the earlier blocks', counts all-gathered over the data
+    dims, :func:`_earlier`), as the reference's step computes them over
+    its global batch.
 
     ``seq``: ``x`` is this rank's slab of the sequence, gathered once
     (``parallel.tensor.gather_sequence``) for the router, the experts and
@@ -399,7 +383,7 @@ def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
     xf = xin.reshape(b * s, d)
     xw = count_once(xf, tp) if seq else xf  # what runs whole
     top_w, top_e = _route(params, cfg, xw)
-    earlier = _earlier(tp.mesh, top_e, cfg.n_experts)
+    earlier = _earlier(tp, top_e, cfg.n_experts)
     slab, whole = None, None
     if split:
         e_loc = cfg.n_experts // tp.size

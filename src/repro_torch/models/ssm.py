@@ -50,6 +50,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.parallel.tensor import (
     column_product,
+    columns_to_slabs,
     copy_to_model,
     reduce_from_model,
     relayout_columns,
@@ -331,22 +332,36 @@ def ssm_columns(cfg: SSMConfig, n: int) -> tuple[list, list]:
 
 
 def ssm_apply_tp(tp, params, cfg: SSMConfig, x: torch.Tensor,
-                 seq: bool = False) -> torch.Tensor:
-    """:func:`ssm_apply` without a cache on this rank's heads over
-    ``tp``'s ``model`` group (``parallel.tensor.ssm_splits`` holds for
-    ``cfg``): ``params`` are the rank's storage slabs.  The columns of
-    ``in_proj``, ``conv_w`` and ``conv_b`` this rank's heads compute with
-    are re-laid out from the ranks' slabs (``relayout_columns``, the
-    gradients sent back to the owners); ``A_log``, ``D``, ``dt_bias`` and
-    ``out_proj``'s rows are the rank's heads already.  Returns the
-    output [B, S, D], summed over the group.  ``seq``: ``x`` is this
-    rank's slab of the sequence, gathered into ``in_proj`` (the scan
-    runs over the whole sequence), and the output is reduce-scattered
-    back to the slab."""
+                 seq: bool = False, cache: dict | None = None
+                 ) -> torch.Tensor:
+    """:func:`ssm_apply` on this rank's heads over ``tp``'s ``model`` group
+    (``parallel.tensor.ssm_splits`` holds for ``cfg``): ``params`` are
+    the rank's storage slabs.  The columns of ``in_proj``, ``conv_w`` and
+    ``conv_b`` this rank's heads compute with are re-laid out from the
+    ranks' slabs (``relayout_columns``, the gradients sent back to the
+    owners); ``A_log``, ``D``, ``dt_bias`` and ``out_proj``'s rows are
+    the rank's heads already.  Returns the output [B, S, D], summed over
+    the group.  ``seq``: ``x`` is this rank's slab of the sequence,
+    gathered into ``in_proj`` (the scan runs over the whole sequence),
+    and the output is reduce-scattered back to the slab.
+
+    ``cache`` (a placed serving step's ``models.attention.PlacedCache``):
+    ``conv`` is the rank's storage slab of the packed conv columns, re-laid
+    out to its heads' columns as ``conv_w`` is and the new window laid
+    back (``tensor.columns_to_slabs``); ``state`` is the slab of the
+    rank's heads, read and written in place."""
     in_cols, conv_cols = ssm_columns(cfg, tp.size)
     local = {**params,
              "in_proj": {"w": relayout_columns(params["in_proj"]["w"],
                                                in_cols, tp)},
              "conv_w": relayout_columns(params["conv_w"], conv_cols, tp),
              "conv_b": relayout_columns(params["conv_b"], conv_cols, tp)}
-    return _ssm(local, cfg, x, None, tp, seq)[0]
+    run = None
+    if cache is not None:
+        run = {"conv": relayout_columns(cache["conv"], conv_cols, tp),
+               "state": cache["state"]}
+    out = _ssm(local, cfg, x, run, tp, seq)[0]
+    if cache is not None:
+        cache["conv"].copy_(columns_to_slabs(run["conv"], conv_cols,
+                                             cfg.conv_dim, tp))
+    return out

@@ -45,6 +45,7 @@ from torch.utils import checkpoint as _checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     AttnConfig,
+    PlacedCache,
     attention_apply,
     attention_apply_tp,
     attention_init,
@@ -498,7 +499,8 @@ def _apply_layer(params, static, cfg: ModelConfig, x, positions, cache,
     tp = tensor.current()
     if tp is not None:
         return _apply_layer_tp(tp, params, static, cfg, x, positions, cache,
-                               memory, kernels, seq, mem_seq)
+                               memory, kernels, seq, mem_seq, cache_pos,
+                               cache_len, prefill)
     norm = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     mixer = static["mixer"]
     h = norm(params["norm1"], x)
@@ -549,9 +551,10 @@ def _on_slab(tp, params: dict) -> dict:
 
 def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
                     cache, memory, kernels: bool, seq: bool = False,
-                    mem_seq: bool = False):
-    """One layer inside the sharded train step's
-    ``parallel.tensor.tensor_parallel_ctx``: the blocks of
+                    mem_seq: bool = False, cache_pos=None, cache_len=None,
+                    prefill: bool = False):
+    """One layer inside ``parallel.tensor.tensor_parallel_ctx`` (the
+    sharded train step's, or a placed serving step's): the blocks of
     ``tensor.layer_splits`` on this rank's slabs of ``tp``'s ``model``
     group, the rest (norms, and a block whose heads do not divide) whole,
     and MoE's capacity the whole batch's (``moe.moe_apply_tp``).
@@ -566,10 +569,16 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
     block computes on the whole sequence, so the positions are the whole
     sequence's.  ``mem_seq``: ``memory`` is this rank's slab of the
     encoder's stream, gathered by the cross-attention the same way.
-    Training keeps no cache."""
-    if cache is not None:
-        raise ValueError("tensor-parallel compute is the train step's: it "
-                         "keeps no cache")
+
+    ``cache`` (a placed serving step's ``models.attention.PlacedCache``;
+    training keeps none): a split block reads and writes the cache's
+    slabs itself (``attention_apply_tp``, ``mla_apply_tp``,
+    ``ssm_apply_tp``); a whole block computes on the cache gathered over
+    ``model`` for the rank's rows (``tensor.gather_cache``) and writes its
+    part back (``tensor.write_own``)."""
+    if cache is not None and not isinstance(cache, PlacedCache):
+        raise ValueError("tensor-parallel compute keeps a cache as the "
+                         "rank's slabs (models.attention.PlacedCache)")
     split = tensor.layer_splits(cfg, static, tp.size)
     norm_fn = rmsnorm if cfg.norm == "rmsnorm" else layernorm
     mixer = static["mixer"]
@@ -577,55 +586,75 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
     def norm(p, h):
         return norm_fn(_on_slab(tp, p) if seq else p, h)
 
-    def whole(fn, h):
-        """``fn`` of the whole normed input on every rank; on a split
-        stream its input gathered and its output split."""
-        if not seq:
-            return fn(h)
-        return tensor.split_sequence(
-            fn(tensor.gather_sequence(h, tp, whole=True)), tp)
+    def whole(fn, h, c=None):
+        """``fn`` of the whole normed input on every rank (and of the
+        layer's cache ``c`` whole over ``model``); on a split stream its
+        input gathered and its output split."""
+        run = None if c is None else {
+            k: tensor.gather_cache(t, c.placements[k], tp)
+            for k, t in c.items()}
+        if seq:
+            h = tensor.gather_sequence(h, tp, whole=True)
+        out = fn(h) if c is None else fn(h, run)
+        if c is not None:
+            for k, t in c.items():
+                new = (run[k][:, c.pos:c.pos + c.s] if k in tensor.SEQ_LEAVES
+                       else run[k])
+                tensor.write_own(t, c.placements[k], new,
+                                 c.pos if k in tensor.SEQ_LEAVES else None)
+        return tensor.split_sequence(out, tp) if seq else out
 
-    def attend(name, key, h, mem=None):
+    def attend(name, key, h, mem=None, c=None):
         if name in split:
             return attention_apply_tp(tp, params[name], static[key], h,
                                       positions, memory=mem, seq=seq,
-                                      mem_seq=mem_seq)
+                                      mem_seq=mem_seq, cache=c,
+                                      cache_len=cache_len, prefill=prefill)
         if mem is not None and mem_seq:
             mem = tensor.gather_sequence(mem, tp, whole=True)
-        return whole(lambda a: attention_apply(
-            params[name], static[key], a, positions, memory=mem,
-            prefill=False)[0], h)
+        if c is None:
+            return whole(lambda a: attention_apply(
+                params[name], static[key], a, positions, memory=mem,
+                prefill=False)[0], h)
+        return whole(lambda a, run: attention_apply(
+            params[name], static[key], a, positions, cache=run,
+            cache_pos=cache_pos, cache_len=cache_len,
+            prefill=prefill)[0], h, c)
 
     h = norm(params["norm1"], x)
     if mixer == "mla" and "mla" in split:
         out = mla_apply_tp(tp, params["attn"], static["mla_cfg"], h,
-                           positions, seq)
+                           positions, seq, cache, cache_len)
     elif mixer == "mla":
-        out = whole(lambda a: mla_apply(params["attn"], static["mla_cfg"], a,
-                                        positions)[0], h)
+        out = whole(lambda a, run=None: mla_apply(
+            params["attn"], static["mla_cfg"], a, positions, cache=run,
+            cache_pos=cache_pos, cache_len=cache_len)[0], h, cache)
     elif mixer == "ssm" and "ssm" in split:
-        out = ssm_apply_tp(tp, params["attn"], static["ssm_cfg"], h, seq)
+        out = ssm_apply_tp(tp, params["attn"], static["ssm_cfg"], h, seq,
+                           cache)
     elif mixer == "ssm":
-        out = whole(lambda a: ssm_apply(params["attn"], static["ssm_cfg"], a,
-                                        None)[0], h)
+        out = whole(lambda a, run=None: ssm_apply(
+            params["attn"], static["ssm_cfg"], a, run)[0], h, cache)
     else:
-        out = attend("attn", "attn_cfg", h)
+        out = attend("attn", "attn_cfg", h, c=(
+            cache.sub("self") if mixer == "xattn" and cache is not None
+            else cache))
     if mixer == "xattn":
         x = x + out
         out = attend("xattn", "xattn_cfg", norm(params["xnorm"], x), memory)
     x = x + out
     if static["ffn"] == "none":
-        return x, None
+        return x, cache
     h = norm(params["norm2"], x)
     if static["ffn"] == "moe":
         return x + moe_apply_tp(tp, params["moe"], static["moe"], cfg.moe, h,
                                 "moe" in split, kernels,
-                                "moe_shared" in split, seq), None
+                                "moe_shared" in split, seq), cache
     if "mlp" in split:
         return x + mlp_apply_tp(tp, params["mlp"], static["mlp"], h,
-                                kernels, seq), None
+                                kernels, seq), cache
     return x + whole(lambda a: mlp_apply(params["mlp"], static["mlp"], a,
-                                         kernels), h), None
+                                         kernels), h), cache
 
 
 def _remat(fn, *args):
@@ -665,8 +694,8 @@ def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,
     """Whisper encoder over stub frame embeddings [B, enc_seq, d]: every
     layer bidirectional at positions ``arange(enc_seq)`` without a cache,
     so its attention is a prefill in the kernel route's sense (the plain
-    routes with ``kernels=False``).  ``placed``: each layer's params
-    gathered from their slabs just before it runs.  ``remat``: each layer
+    routes with ``kernels=False``).  ``placed``: each layer computes on
+    the rank's param slabs (``runtime.serve``).  ``remat``: each layer
     under :func:`_remat`, the reference's ``enc_fn``.  Returns the
     output and whether it is this rank's slab of the frames (inside the
     sharded train step, where ``model`` divides them,
@@ -682,7 +711,7 @@ def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,
     def enc_layer(x, i):
         p = _index(params["encoder"], i)
         if placed is not None:
-            p = placed.gather(p, placed.stacked("encoder"))
+            p = placed.layer_params(p, ("encoder", None))
         return _apply_layer(p, statics["encoder"], cfg, x, pos, None, None,
                             None, kernels, kernels=kernels, seq=seq)[0]
 
@@ -693,12 +722,13 @@ def _encode(params, statics, cfg: ModelConfig, frames: torch.Tensor,
 
 
 def _take(params, placed, *keys) -> dict:
-    """The entries ``keys`` of ``params`` that it has, whole: with
-    ``placed``, all-gathered from this rank's slabs."""
+    """The entries ``keys`` of ``params`` that it has: with ``placed``,
+    this rank's slabs where they compute on them (the vocabulary's), the
+    rest gathered whole (``runtime.serve``)."""
     sub = {k: params[k] for k in keys if k in params}
     if placed is None:
         return sub
-    return placed.gather(sub, {k: placed.params[k] for k in sub})
+    return placed.take(sub)
 
 
 def apply_model(
@@ -766,19 +796,26 @@ def apply_model(
     run as they are, as the reference runs them.  Serving, the pipeline
     and every forward without grad run unchanged.
 
-    ``placed`` (``runtime.serve``'s placed serving steps, which pass it):
-    ``params`` and ``cache`` are this rank's slabs and ``tokens`` (and
-    ``frames``, ``prefix_embeds``) its batch rows.  Storage split,
-    compute gathered: each layer's params and cache slabs are
-    all-gathered just before it runs (the embedding, the head and the
-    encoder's layers too), it computes on the rank's rows, and its new
-    cache entries are cut back to the rank's slabs; with
-    ``decode_strategy="flash"`` a decode's attention reads its own cache
-    slab instead (``models.attention.flash_decode_placed``).  The logits
-    are the rank's rows'."""
+    ``placed`` (``runtime.serve``'s placed serving steps, which pass it
+    and run it inside ``parallel.tensor.tensor_parallel_ctx``): ``params``
+    and ``cache`` are this rank's slabs and ``tokens`` (and ``frames``,
+    ``prefix_embeds``) its batch rows.  Every layer computes on the
+    rank's ``model`` slabs as in the sharded train step, its cache on
+    the cache's slabs (:func:`_apply_layer_tp`); the only params
+    gathered are leaves no block computes on the slabs of
+    (``tensor.slab_leaves``).  Where ``pod`` splits the rows of a cache
+    slab, each layer reads and writes its rows of the slab and then
+    takes the other pods' rows of what it wrote (``placed.share``).  An
+    encoder's output is gathered along its frames once and kept in
+    ``memory`` (beside the other pods' rows).  The logits
+    are the rank's rows' at the last position alone, ``[B, 1,
+    vocab_padded]``, the vocabulary's slabs gathered over ``model``."""
     cfg: ModelConfig = statics["cfg"]
     if placed is not None and cache is None:
         raise ValueError("placed serving steps keep a cache")
+    if placed is not None and tensor.current() is None:
+        raise ValueError("a placed step runs inside "
+                         "parallel.tensor.tensor_parallel_ctx")
     cdt = cfg.cdtype()
     _, s = tokens.shape
     remat = (cfg.remat and torch.is_grad_enabled() and cache is None
@@ -822,25 +859,26 @@ def apply_model(
         if frames is not None:
             memory, mem_seq = _encode(params, statics, cfg, frames, kernels,
                                       placed, remat)
+            if placed is not None and mem_seq:  # kept whole: gather once
+                memory, mem_seq = tensor.gather_sequence(memory, tp), False
             if cache is not None:
-                cache["memory"] = (memory if placed is None else
-                                   placed.cut(memory, placed.cache["memory"]))
+                cache["memory"] = (memory if placed is None
+                                   else placed.memory(memory))
         elif cache is not None:
-            memory = (cache["memory"] if placed is None else placed.rows_of(
-                cache["memory"], placed.cache["memory"]))
+            memory = cache["memory"]
+            if placed is not None:
+                memory = placed.rows(memory)
 
     def layer(x, p, st, c, where):
         if placed is None:
             return _apply_layer(p, st, cfg, x, positions, c, cache_pos,
                                 cache_len, prefill, memory, kernels, seq,
                                 mem_seq)[0]
-        p_pl, c_pl = placed.layer(where)
-        p = placed.gather(p, p_pl)
-        run = placed.layer_cache(st, c, c_pl)
-        with placed.moe_rows():
-            x, _ = _apply_layer(p, st, cfg, x, positions, run, cache_pos,
-                                cache_len, prefill, memory, kernels)
-        placed.store(run, c, c_pl)
+        x = _apply_layer(placed.layer_params(p, where), st, cfg, x,
+                         positions, placed.layer_cache(c, where), cache_pos,
+                         cache_len, prefill, memory, kernels, seq,
+                         mem_seq)[0]
+        placed.share(c, where)
         return x
 
     for i, (p, st) in enumerate(zip(params["prefix_layers"],
@@ -863,8 +901,14 @@ def apply_model(
         return norm(_on_slab(tp, p) if split else p, h)
 
     hidden = final(_take(params, placed, "final_norm")["final_norm"], x, seq)
-    logits = _head(_take(params, placed, "embed" if cfg.tie_embeddings
-                         else "lm_head"), cfg, hidden, vocab_tp, tp, seq)
+    head = _take(params, placed, "embed" if cfg.tie_embeddings else "lm_head")
+    if placed is None:
+        logits = _head(head, cfg, hidden, vocab_tp, tp, seq)
+    else:  # the sampled position alone, its vocabulary gathered
+        last = (tp.gather_seq(hidden[:, -1:]) if seq else hidden)[:, -1:]
+        logits = _head(head, cfg, last, vocab_tp, tp)
+        if vocab_tp is not None:
+            logits = tp.all_gather(logits)
 
     aux = {}
     if cfg.mtp and cache is None:

@@ -1,5 +1,5 @@
 """Tensor-parallel compute over a mesh's ``model`` dim, for the sharded
-train step.
+train step and the placed serving steps.
 
 The reference has no such module.  Its sharded step is one function
 jitted under ``param_shardings`` (``src/repro/launch/train.py``), and
@@ -101,11 +101,23 @@ gather of them would.
 What stays gathered is what does not divide so (attention whose padded
 query heads do not divide over ``model``, an MLP whose ``ff`` or tiles
 do not); norms, routers and MLA's latent projections are whole leaves.
-Only the sharded step of
-``runtime.train`` enters :func:`tensor_parallel_ctx`; model code reads
-it in ``models.transformer`` alone (``_apply_layer``, the lookup and the
+
+The placed serving steps (``runtime.serve`` with ``shardings=``) compute
+the same way, with a cache placed as ``launch.steps.cache_pspec`` places
+it (positions over ``model``, rows over ``data``, :func:`serve_rows`):
+:func:`write_positions` moves the new keys and values of each rank's key
+heads to the ranks whose position slabs hold them (all-to-all),
+:func:`read_positions` gives a decode its key heads at every position,
+:func:`gather_cache` gathers a leaf over ``model`` (MLA's latents, a
+block that computes whole), :func:`write_own` writes what a rank's slab
+holds, and :func:`columns_to_slabs` lays an SSM's conv window back onto
+its storage slabs.  :func:`serve_bytes` reckons what a placed step moves.
+
+Only the sharded step of ``runtime.train`` and the placed serving steps
+enter :func:`tensor_parallel_ctx`; model code reads it in
+``models.transformer`` alone (``_apply_layer``, the lookup and the
 head), so outside the context every layer runs as it does without a
-mesh, serving's sharded paths included.
+mesh.
 """
 
 from __future__ import annotations
@@ -113,6 +125,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -127,7 +140,11 @@ __all__ = ["TensorParallel", "tensor_parallel_ctx", "entered", "current",
            "kv_split", "mlp_splits", "experts_split", "mla_splits",
            "ssm_splits", "vocab_splits", "layer_splits",
            "slab_leaves", "model_bytes", "data_shards", "gather_over_data",
-           "reduce_scatter"]
+           "reduce_scatter", "columns_to_slabs", "owned_heads",
+           "write_positions", "read_positions", "gather_cache", "write_own",
+           "serve_rows", "serve_bytes", "serve_comm_by_kind",
+           "SERVE_COMM", "serve_comm", "check_slabs", "SEQ_LEAVES",
+           "serve_row_dims", "serve_pods", "share_rows", "gather_pods"]
 
 
 @dataclasses.dataclass
@@ -138,7 +155,18 @@ class TensorParallel:
     ``relayout_bytes`` re-laid out (each rank's assembled columns forward
     and their gradients backward), ``scatter_bytes`` reduce-scattered
     along the sequence (the slabs' bytes) and ``seq_gather_bytes``
-    all-gathered along the sequence (the whole tensors' bytes)."""
+    all-gathered along the sequence (the whole tensors' bytes).
+
+    A placed serving step (``runtime.serve``) also counts its cache's
+    traffic over ``model``: ``cache_gather_bytes`` all-gathered (the
+    outputs') and ``cache_exchange_bytes`` moved all-to-all (what each
+    rank receives); ``data_gather_bytes``, MoE's per-expert counts
+    all-gathered over the row dims; and ``pod_gather_bytes``, the rows
+    each pod wrote of a cache slab that every pod holds, all-gathered
+    over ``pod`` (:func:`share_rows`).  ``rows`` is then the rank's row
+    block of the batch (block, blocks, the mesh dims the blocks span,
+    inner first: :func:`serve_rows`, :func:`serve_row_dims`), over which
+    MoE counts capacity."""
 
     mesh: object
     size: int  # model ranks
@@ -149,6 +177,11 @@ class TensorParallel:
     relayout_bytes: int = 0
     scatter_bytes: int = 0
     seq_gather_bytes: int = 0
+    cache_gather_bytes: int = 0
+    cache_exchange_bytes: int = 0
+    data_gather_bytes: int = 0
+    pod_gather_bytes: int = 0
+    rows: tuple | None = None
 
     def all_reduce(self, t: torch.Tensor,
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -377,6 +410,164 @@ def _exchange(pieces: list, counts: list, tp: TensorParallel) -> list:
     return [blk.reshape(c, *lead).movedim(0, -1)
             for blk, c in zip(out.split([c * rows for c in counts]),
                               counts)]
+
+
+def columns_to_slabs(local: torch.Tensor, cols: list, width: int,
+                     tp: TensorParallel) -> torch.Tensor:
+    """The inverse of :func:`relayout_columns`, forward only: this rank's
+    storage slab (the columns ``[r W / n, (r + 1) W / n)`` of a leaf of
+    ``width`` W) from the columns ``cols[p]`` each rank ``p`` holds
+    (``local``, in that order), each column taken from the first rank
+    that holds it (an all-to-all; ``relayout_bytes`` its output)."""
+    n, me = tp.size, tp.rank
+    w = width // n
+    src: dict = {}
+    for p, cs in enumerate(cols):
+        for c in cs:
+            src.setdefault(c, p)
+    at = {c: i for i, c in enumerate(cols[me])}
+    sent = [[at[c] for c in range(q * w, (q + 1) * w) if src[c] == me]
+            for q in range(n)]
+    got = [[c - me * w for c in range(me * w, (me + 1) * w) if src[c] == p]
+           for p in range(n)]
+    parts = _exchange([local[..., idx] for idx in sent],
+                      [len(idx) for idx in got], tp)
+    out = local.new_empty((*local.shape[:-1], w))
+    for idx, part in zip(got, parts):
+        out[..., idx] = part
+    tp.relayout_bytes += out.numel() * out.element_size()
+    return out
+
+
+def owned_heads(heads: list) -> list:
+    """Each rank's share of the key heads that ``heads`` (per rank, the
+    heads it computes) cover: a head every rank of a list reads is
+    written by the first of them."""
+    seen: set = set()
+    out = []
+    for hs in heads:
+        out.append([h for h in hs if h not in seen])
+        seen.update(hs)
+    return out
+
+
+def _spans(pl, tp: TensorParallel) -> list:
+    """Each model rank's positions (dim 1) of a cache leaf placed as
+    ``pl``: equal contiguous slabs where ``model`` splits them, else all
+    of them on every rank."""
+    t = pl.shape[1]
+    if pl.blocks[1] == 1:
+        return [range(0, t)] * tp.size
+    if pl.pspec[1] != "model" or pl.blocks[1] != tp.size:
+        raise ValueError(f"cache positions placed as {pl.pspec} over "
+                         f"{pl.shape}: only model splits them")
+    w = t // tp.size
+    return [range(q * w, (q + 1) * w) for q in range(tp.size)]
+
+
+def _all_to_all(pieces: list, shapes: list, tp: TensorParallel) -> list:
+    """``pieces[q]`` to rank ``q`` over ``tp``'s group; returns the
+    tensors each rank ``p`` sent here, of ``shapes[p]`` (gloo moves CUDA
+    tensors through host memory); ``cache_exchange_bytes`` grows by what
+    arrives."""
+    dev = pieces[0].device
+    flat = torch.cat([p.reshape(-1) for p in pieces])
+    sizes = [math.prod(s) for s in shapes]
+    out = flat.new_empty(sum(sizes))
+    if dev.type == "cuda" and "gloo" in str(dist.get_backend(tp.group)):
+        flat, out = flat.cpu(), out.cpu()
+    dist.all_to_all_single(out, flat, sizes, [p.numel() for p in pieces],
+                           group=tp.group)
+    tp.cache_exchange_bytes += out.numel() * out.element_size()
+    out = out.to(dev)
+    return [blk.reshape(s) for blk, s in zip(out.split(sizes), shapes)]
+
+
+def write_positions(slab: torch.Tensor, pl, new: torch.Tensor, pos: int,
+                    heads: list, tp: TensorParallel) -> None:
+    """Write ``new`` ``[B, s, H_r, ...]``, the positions ``[pos, pos + s)``
+    of the key heads ``heads[rank]`` this rank computed (in that order),
+    into the ranks whose slabs (``pl``: positions over ``model``, every
+    key head) hold them: each rank sends the heads it owns
+    (:func:`owned_heads`) of each rank's written positions, all-to-all,
+    and writes what it receives, in the slab's dtype."""
+    spans = _spans(pl, tp)
+    owned = owned_heads(heads)
+    me = tp.rank
+    mine = [heads[me].index(h) for h in owned[me]]
+
+    def cut(q):
+        lo, hi = max(pos, spans[q].start), min(pos + new.shape[1],
+                                                spans[q].stop)
+        return lo, max(lo, hi)
+
+    lead, tail = new.shape[0], tuple(new.shape[3:])
+    src = new[:, :, mine].to(slab.dtype)
+    lo, hi = cut(me)
+    parts = _all_to_all(
+        [src[:, cut(q)[0] - pos:cut(q)[1] - pos] for q in range(tp.size)],
+        [(lead, hi - lo, len(owned[p]), *tail) for p in range(tp.size)], tp)
+    if hi > lo:
+        for hs, part in zip(owned, parts):
+            if hs:
+                slab[:, lo - spans[me].start:hi - spans[me].start, hs] = part
+
+
+def read_positions(slab: torch.Tensor, pl, lo: int, hi: int, heads: list,
+                   tp: TensorParallel) -> torch.Tensor:
+    """This rank's key heads ``heads[rank]`` at the positions ``[lo, hi)``
+    from the ranks' slabs (``pl``: positions over ``model``), ``[B, hi -
+    lo, len(heads[rank]), ...]``: each rank sends each rank its heads at
+    the positions it holds, all-to-all (where ``model`` does not split
+    the positions, the rank's own slab holds them all)."""
+    spans = _spans(pl, tp)
+    me = tp.rank
+    if pl.blocks[1] == 1:
+        return slab[:, lo:hi, heads[me]]
+
+    def cut(q):
+        a, b = max(lo, spans[q].start), min(hi, spans[q].stop)
+        return a - spans[q].start, max(a, b) - spans[q].start
+
+    here = cut(me)
+    lead, tail = slab.shape[0], tuple(slab.shape[3:])
+    parts = _all_to_all(
+        [slab[:, here[0]:here[1], heads[q]] for q in range(tp.size)],
+        [(lead, cut(p)[1] - cut(p)[0], len(heads[me]), *tail)
+         for p in range(tp.size)], tp)
+    return torch.cat(parts, dim=1)
+
+
+def gather_cache(slab: torch.Tensor, pl, tp: TensorParallel) -> torch.Tensor:
+    """A cache leaf whole over ``model`` from the ranks' slabs (``pl``):
+    all-gathered along the dim ``model`` splits (positions, an SSM's conv
+    columns or its state's heads; ``cache_gather_bytes``), or the slab
+    itself where ``model`` splits none.  Its rows stay the rank's."""
+    for d, (entry, n) in enumerate(zip(pl.pspec, pl.blocks)):
+        if n > 1 and entry == "model":
+            parts = [torch.empty_like(slab) for _ in range(tp.size)]
+            dist.all_gather(parts, slab.contiguous(), group=tp.group)
+            out = torch.cat(parts, dim=d)
+            tp.cache_gather_bytes += out.numel() * out.element_size()
+            return out
+    return slab
+
+
+def write_own(slab: torch.Tensor, pl, whole: torch.Tensor, pos: int | None,
+              s: int = 0) -> None:
+    """Write into this rank's slab (``pl``) of a cache leaf its part of
+    ``whole``, the rank's rows of the leaf over ``model``: the positions
+    ``[pos, pos + s)`` of ``whole`` [B, s, ...] that the slab holds, or,
+    with ``pos`` None, the slab's part of the whole leaf (an SSM's conv or
+    state), in the slab's dtype."""
+    if pos is None:
+        slab.copy_(whole[(slice(None),) + pl.slices[1:]])
+        return
+    seq = pl.slices[1]
+    lo, hi = max(pos, seq.start), min(pos + whole.shape[1], seq.stop)
+    if lo < hi:
+        slab[:, lo - seq.start:hi - seq.start] = whole[
+            :, lo - pos:hi - pos].to(slab.dtype)
 
 
 def relayout_columns(slab: torch.Tensor, cols: list,
@@ -876,6 +1067,324 @@ def model_bytes(cfg, statics: dict, n: int, rows: int, seq: int,
             "model_relayout_bytes": microbatches * total["relayout"]}
 
 
+# what a placed serving step moves, by kind (``TensorParallel``'s
+# counters), with the collective ``launch.op_stats`` counts each under
+_SERVE_OPS = {"reduce": "all-reduce", "gather": "all-gather",
+              "relayout": "all-to-all", "scatter": "reduce-scatter",
+              "seq_gather": "all-gather", "cache_gather": "all-gather",
+              "cache_exchange": "all-to-all", "data_gather": "all-gather",
+              "pod_gather": "all-gather"}
+_SERVE_KINDS = tuple(_SERVE_OPS)
+
+
+def _serve_key(kind: str) -> str:
+    """``step.comm``'s key of a kind: ``model_*`` over ``model``."""
+    return (f"{kind}_bytes" if kind in ("data_gather", "pod_gather")
+            else f"model_{kind}_bytes")
+
+
+# the keys of a placed serving step's ``step.comm``
+SERVE_COMM = ("param_gather_bytes", *map(_serve_key, _SERVE_KINDS))
+
+
+def serve_comm(param_gather_bytes: int, tp: TensorParallel) -> dict:
+    """A placed serving step's ``step.comm`` (keys ``SERVE_COMM``): the
+    param bytes it gathered and what ``tp``'s counters grew by."""
+    return {"param_gather_bytes": param_gather_bytes,
+            **{_serve_key(k): getattr(tp, f"{k}_bytes")
+               for k in _SERVE_KINDS}}
+
+
+def _serve_layer_moves(cfg, static: dict, n: int, rank: int, rows: int,
+                       s: int, seq: bool, cache: dict | None,
+                       blocks: int, pods: int = 1) -> dict:
+    """The bytes, by kind (``_SERVE_KINDS``, ``TensorParallel``'s
+    counters), that one call of a layer moves forward over ``n`` model
+    ranks in a placed serving step (``models.transformer._apply_layer_tp``)
+    on model rank ``rank``'s ``rows`` rows of ``s`` positions, the stream
+    split along the sequence where ``seq``.  ``cache`` (None without one:
+    an encoder layer): ``T`` positions, split over ``model`` where
+    ``split``, of ``size`` bytes an entry, the write position ``pos``;
+    ``blocks``: the row blocks (MoE's counts), ``pods`` of them over
+    ``pod`` within each over ``data``."""
+    d = cfg.d_model
+    c = torch.empty((), dtype=cfg.cdtype()).element_size()
+    p = torch.empty((), dtype=cfg.pdtype()).element_size()
+    t = rows * s
+    split = layer_splits(cfg, static, n)
+    out = dict.fromkeys(_SERVE_KINDS, 0)
+
+    def enter():
+        if seq:
+            out["seq_gather"] += t * d * c
+
+    def leave():
+        if seq:
+            out["scatter"] += t // n * d * 4
+        else:
+            out["reduce"] += t * d * 4
+
+    def positions(span_lo, span_hi, lo, hi):
+        return max(0, min(hi, span_hi) - max(lo, span_lo))
+
+    def span(q):
+        w = cache["T"] // n if cache["split"] else cache["T"]
+        return (q * w, (q + 1) * w) if cache["split"] else (0, w)
+
+    def kv_cache(acfg, heads):
+        size, pos, big_t = cache["size"], cache["pos"], cache["T"]
+        owned = owned_heads(heads)
+        w = positions(*span(rank), pos, pos + s)
+        out["cache_exchange"] += (2 * rows * w * sum(map(len, owned))
+                                  * acfg.d_head * size)
+        if s > 1:
+            return
+        if acfg.decode_strategy == "flash" and acfg.window is None:
+            hq = acfg.hq_pad
+            out["gather"] += rows * hq * acfg.d_head * c
+            if cache["split"]:
+                out["reduce"] += rows * hq * (acfg.d_head + 2) * 4
+            return
+        lo, hi = 0, big_t
+        if acfg.window is not None and big_t > acfg.window:
+            lo = min(max(pos + 1 - acfg.window, 0), big_t - acfg.window)
+            hi = lo + acfg.window
+        if cache["split"]:
+            out["cache_exchange"] += (2 * rows * (hi - lo) * len(heads[rank])
+                                      * acfg.d_head * size)
+
+    def whole(leaves):
+        if seq:
+            out["seq_gather"] += t * d * c
+        if cache is not None:
+            out["cache_gather"] += sum(leaves)
+
+    mixer = static["mixer"]
+    blocks_of = {"mla": ["mla"], "ssm": ["ssm"], "xattn": ["attn", "xattn"]
+                 }.get(mixer, ["attn"])
+    for block in blocks_of:
+        if block in ("attn", "xattn"):
+            acfg = static["attn_cfg" if block == "attn" else "xattn_cfg"]
+            cached = cache is not None and block == "attn"
+            if block not in split:
+                big = (2 * rows * cache["T"] * acfg.n_kv_heads * acfg.d_head
+                       * cache["size"] if cached and cache["split"] else 0)
+                if seq:
+                    out["seq_gather"] += t * d * c
+                out["cache_gather"] += big
+                continue
+            enter()
+            leave()
+            out["relayout"] += _attention_kv_moves(acfg, n, rank)[0] * p
+            if cached:
+                if attention_splits(acfg, n):
+                    per = acfg.n_kv_heads // n
+                    heads = [list(range(r * per, (r + 1) * per))
+                             for r in range(n)]
+                else:
+                    heads = attention_kv_heads(acfg, n)
+                kv_cache(acfg, heads)
+        elif block == "mla":
+            mc = static["mla_cfg"]
+            big = (rows * cache["T"] * (mc.kv_lora + mc.d_rope)
+                   * cache["size"] if cache is not None and cache["split"]
+                   else 0)
+            if block not in split:
+                whole([big])
+                continue
+            if seq:
+                out["seq_gather"] += t * d * c
+            out["cache_gather"] += big
+            leave()
+        else:  # the SSM; its cache is float32
+            sc = static["ssm_cfg"]
+            if block not in split:
+                conv = rows * (sc.d_conv - 1) * sc.conv_dim * 4
+                state = rows * sc.n_heads * sc.head_dim * sc.d_state * 4
+                whole([conv * (sc.conv_dim % n == 0),
+                       state * (sc.n_heads % n == 0)])
+                continue
+            enter()
+            leave()
+            out["reduce"] += t * 4
+            out["relayout"] += _ssm_relayout(sc, n) * p
+            if cache is not None:
+                g = max(1, sc.n_groups // n)
+                ch = sc.d_inner // n + 2 * g * sc.d_state
+                out["relayout"] += (rows * (sc.d_conv - 1)
+                                    * (ch + sc.conv_dim // n) * 4)
+    ffn = static["ffn"]
+    if ffn == "mlp" and "mlp" not in split:
+        whole([])
+    elif ffn == "mlp" and static["mlp"]["sparse"] is None:
+        enter()
+        leave()
+    elif ffn == "mlp":  # the sparse MLP: each projection's columns gathered
+        enter()
+        for name in ("up", "gate", "down"):
+            if name in static["mlp"]:
+                st = static["mlp"][name]
+                out["gather"] += t * st["block_ids"].shape[0] * st["tile"] * c
+    elif ffn == "moe":
+        if seq:
+            out["seq_gather"] += t * d * c
+        if blocks > 1:  # gathered over pod, then data (cumulative)
+            out["data_gather"] += (pods * (pods > 1) + blocks * (
+                blocks > pods)) * cfg.moe.n_experts * 8
+        for part in ("moe", "moe_shared"):
+            if part in split:
+                leave()
+    return out
+
+
+def serve_bytes(cfg, statics: dict, n: int, rows: int, length: int,
+                kind: str, max_seq: int, cache_dtype=torch.bfloat16,
+                pos: int = 0, rank: int = 0, blocks: int = 1,
+                placements=None, pods: int = 1,
+                cache_placements=None) -> dict:
+    """The bytes model rank ``rank`` of a placed serving step moves (a
+    ``kind`` ``"prefill"`` of ``length`` positions, the prefix included,
+    or a ``"decode"`` at ``pos``), on its ``rows`` rows (one of
+    ``blocks`` row blocks, ``pods`` of them over ``pod`` within each
+    over ``data``: :func:`serve_rows`) with a cache of ``max_seq``
+    positions in ``cache_dtype``, as ``runtime.serve``'s ``step.comm``
+    counts them (its keys): each layer's from :func:`_serve_layer_moves`,
+    the decoder's and (a prefill with frames) the encoder's, and around
+    them the stream's entry (the vocabulary-split lookup all-reduced, or
+    reduce-scattered onto a split stream), the encoder's output gathered
+    along its frames, the sampled position gathered from a split stream
+    and its logits over the vocabulary.  ``placements`` (the params'):
+    the leaves no block computes on the slabs of, gathered each time a
+    layer (or the lookup, the head) reads them
+    (``param_gather_bytes``).  Over ``pods`` (``cache_placements``, the
+    cache's, needed then): what each layer wrote of its cache slab, and
+    the encoder's output, all-gathered over ``pod``
+    (:func:`share_rows`, ``pod_gather_bytes``)."""
+    d = cfg.d_model
+    c = torch.empty((), dtype=cfg.cdtype()).element_size()
+    s = length if kind == "prefill" else 1
+    pos = 0 if kind == "prefill" else min(max(pos, 0), max_seq - s)
+    seq = seq_splits(n, s)
+    cache = {"T": max_seq, "split": seq_splits(n, max_seq), "pos": pos,
+             "size": torch.empty((), dtype=cache_dtype).element_size()}
+    total = dict.fromkeys(_SERVE_KINDS, 0)
+
+    def add(moves, times=1):
+        for k in _SERVE_KINDS:
+            total[k] += times * moves[k]
+
+    for st in statics["prefix_layers"]:
+        add(_serve_layer_moves(cfg, st, n, rank, rows, s, seq, cache,
+                               blocks, pods))
+    for st in statics["body"]:
+        add(_serve_layer_moves(cfg, st, n, rank, rows, s, seq, cache,
+                               blocks, pods), statics["n_periods"])
+    encode = kind == "prefill" and "encoder" in statics
+    if encode:
+        seq_enc = seq_splits(n, cfg.enc_seq)
+        add(_serve_layer_moves(cfg, statics["encoder"], n, rank, rows,
+                               cfg.enc_seq, seq_enc, None, blocks, pods),
+            cfg.encoder_layers)
+        if seq_enc:
+            total["seq_gather"] += rows * cfg.enc_seq * d * c
+    vocab = vocab_splits(cfg, n)
+    text = s - (cfg.prefix_len if kind == "prefill" else 0)
+    if vocab and seq:
+        total["scatter"] += rows * s // n * d * 4
+    elif vocab:
+        total["reduce"] += rows * text * d * 4
+    if seq:
+        total["seq_gather"] += rows * n * d * c
+    if vocab:
+        total["gather"] += rows * cfg.padded_vocab * c
+    if pods > 1:
+        if cache_placements is None:
+            raise ValueError("rows over pod: the cache's placements reckon "
+                             "what each pod writes")
+        total["pod_gather"] += _pod_share_bytes(
+            statics, cache_placements, n, rank, pos, s, encode,
+            cache["size"], c)
+    params = 0
+    if placements is not None:
+        slab = slab_leaves(cfg, statics, placements, n)
+        size = torch.empty((), dtype=cfg.pdtype()).element_size()
+
+        def gathered(pl_tree, flags, lead: int = 0) -> int:
+            pls = _flat(pl_tree)
+            return sum(size * math.prod(pl.shape[lead:])
+                       for pl, on in zip(pls, _flat(flags))
+                       if not on and not pl.whole)
+
+        top = ["embed", "final_norm",
+               "embed" if cfg.tie_embeddings else "lm_head"]
+        top += ["dec_pos"] + (["enc_pos", "enc_norm"] if encode else [])
+        params += sum(gathered(placements[k], slab[k]) for k in top
+                      if k in placements)
+        params += sum(gathered(pl, f) for pl, f in zip(
+            placements["prefix_layers"], slab["prefix_layers"]))
+        params += statics["n_periods"] * sum(gathered(pl, f, 1) for pl, f in
+                                             zip(placements["body"],
+                                                 slab["body"]))
+        if encode:
+            params += cfg.encoder_layers * gathered(placements["encoder"],
+                                                    slab["encoder"], 1)
+    return {"param_gather_bytes": params,
+            **{_serve_key(k): total[k] for k in _SERVE_KINDS}}
+
+
+def _pod_share_bytes(statics: dict, cache_placements, n: int, rank: int,
+                     pos: int, s: int, encode: bool, size: int,
+                     c: int) -> int:
+    """What :func:`share_rows` all-gathers over ``pod`` in one placed
+    step on model rank ``rank``: each layer's cache leaves, of
+    ``cache_placements`` (a leaf indexed by position, ``SEQ_LEAVES``, in
+    ``size`` bytes an entry: the positions ``[pos, pos + s)`` its slab
+    holds; an SSM's conv and state, float32: all of it), every row of
+    the slab; and with ``encode`` the encoder's output (``c`` bytes an
+    entry)."""
+    def leaf(name: str, pl, lead: int) -> int:
+        shape = pl.slab_shape[lead:]
+        if name not in SEQ_LEAVES:
+            return math.prod(shape) * 4
+        w = shape[1]
+        lo = rank * w if pl.blocks[lead + 1] > 1 else 0
+        inside = max(0, min(pos + s, lo + w) - max(pos, lo))
+        return shape[0] * inside * math.prod(shape[2:]) * size
+
+    def layer(tree, lead: int) -> int:
+        if isinstance(tree, dict):
+            return sum(leaf(k, v, lead) if not isinstance(v, dict)
+                       else layer(v, lead) for k, v in tree.items())
+        return 0
+
+    out = sum(layer(t, 0) for t in cache_placements["prefix_layers"])
+    out += statics["n_periods"] * sum(layer(t, 1)
+                                      for t in cache_placements["body"])
+    if encode:
+        out += math.prod(cache_placements["memory"].slab_shape) * c
+    return out
+
+
+def serve_comm_by_kind(comm: dict) -> dict:
+    """A placed serving step's ``step.comm`` (or :func:`serve_bytes`)
+    summed by collective kind, under ``launch.op_stats``' names: what its
+    ``collective_bytes_by_kind`` counts of the same step."""
+    out = {"all-gather": comm["param_gather_bytes"], "all-reduce": 0,
+           "reduce-scatter": 0, "all-to-all": 0}
+    for kind, op in _SERVE_OPS.items():
+        out[op] += comm[_serve_key(kind)]
+    return out
+
+
+def _flat(tree) -> list:
+    """The leaves of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _flat(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _flat(v)]
+    return [tree]
+
+
 # the leaves each block keeps on its slabs: (path in the layer, the
 # leaves of that subtree; None: all of them)
 _BLOCK_LEAVES = {
@@ -923,6 +1432,25 @@ def slab_leaves(cfg, statics: dict, tree, n: int):
     return out
 
 
+def check_slabs(placements, slab) -> None:
+    """Every leaf computed on its slab (``slab``, :func:`slab_leaves`) is
+    split over ``model`` alone, as these rules and
+    ``launch.steps.param_shardings`` both derive it from the specs."""
+    def one(pl, on_slab):
+        if on_slab and (pl.whole or any(
+                e not in (None, "model") for e in pl.pspec)):
+            raise ValueError(f"a leaf computed on its model slab is placed "
+                             f"as {pl.pspec} over {pl.shape}")
+        return None
+
+    _map(one, placements, slab)
+
+
+# cache leaves indexed by position (dim 1 of a layer's leaf): a step
+# writes only the positions it writes
+SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
 def data_shards(mesh) -> tuple[int, int]:
     """(this rank's row block, number of row blocks) over the mesh's
     ``pod`` and ``data`` dims, pod-major as ``data.shard_batch`` cuts
@@ -935,15 +1463,86 @@ def data_shards(mesh) -> tuple[int, int]:
     return r, n
 
 
-def gather_over_data(mesh, t: torch.Tensor) -> torch.Tensor:
+def gather_over_data(mesh, t: torch.Tensor, dims=("data", "pod"),
+                     tp: TensorParallel | None = None) -> torch.Tensor:
     """``t`` of every row block stacked along a new leading dim, in row
-    block order (an all-gather over ``data``, then ``pod``)."""
+    block order (an all-gather over ``data``, then ``pod``; ``dims``
+    names the dims the blocks span).  With ``tp``, its
+    ``data_gather_bytes`` grow by each gather's output."""
     sizes = mesh_axis_sizes(mesh)
     out = t[None]
-    for a in ("data", "pod"):
+    for a in dims:
         if sizes.get(a, 1) > 1:
             parts = [torch.empty_like(out) for _ in range(sizes[a])]
             dist.all_gather(parts, out.contiguous(), group=mesh.get_group(a))
             out = torch.cat(parts)
+            if tp is not None:
+                tp.data_gather_bytes += out.numel() * out.element_size()
     return out
 
+
+def serve_row_dims(mesh, batch: int) -> tuple:
+    """The mesh dims a placed serving step splits its ``batch`` rows
+    over, inner first: ``pod`` where it divides each data block's rows,
+    then ``data`` where it divides the batch (as it does the cache's
+    rows, ``launch.steps.cache_pspec``'s ``data_only``)."""
+    sizes = mesh_axis_sizes(mesh)
+    dims, rows = [], batch
+    for a in ("data", "pod"):
+        if sizes.get(a, 1) > 1 and rows % sizes[a] == 0:
+            dims.insert(0, a)
+            rows //= sizes[a]
+    return tuple(dims)
+
+
+def serve_rows(mesh, batch: int) -> tuple[int, int]:
+    """(this rank's row block, number of row blocks) of a placed serving
+    step's ``batch`` rows, over :func:`serve_row_dims`: data-major, so a
+    rank's rows lie in its data block, its cache slabs' rows, and each
+    pod computes its share of them."""
+    sizes = mesh_axis_sizes(mesh)
+    r, n = 0, 1
+    for a in reversed(serve_row_dims(mesh, batch)):
+        r, n = r * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
+    return r, n
+
+
+def serve_pods(mesh, batch: int) -> int:
+    """The pods a placed serving step splits each data block's rows
+    over (1 where ``pod`` does not split them)."""
+    if "pod" in serve_row_dims(mesh, batch):
+        return mesh_axis_sizes(mesh)["pod"]
+    return 1
+
+
+def share_rows(slab: torch.Tensor, pl, pos: int | None, s: int,
+               tp: TensorParallel, pods: int) -> None:
+    """Every pod's copy of a cache slab (rows over ``data``, whole over
+    ``pod``; ``pl``: one layer's placement) given the rows each pod's
+    rank computed, the slab's ``pods`` equal row blocks in pod order:
+    this rank's block of what the step wrote (the positions ``[pos, pos
+    + s)`` the slab holds, or, with ``pos`` None, the whole leaf)
+    all-gathered over ``pod`` (``pod_gather_bytes``) and written in."""
+    w = slab.shape[0] // pods
+    me = tp.mesh.get_local_rank("pod")
+    region: tuple = (slice(None),)
+    if pos is not None:
+        seq = pl.slices[1]
+        lo, hi = max(pos, seq.start), min(pos + s, seq.stop)
+        if lo >= hi:
+            return
+        region = (slice(None), slice(lo - seq.start, hi - seq.start))
+    slab[region] = gather_pods(slab[me * w:(me + 1) * w][region], tp, pods)
+
+
+def gather_pods(t: torch.Tensor, tp: TensorParallel,
+                pods: int) -> torch.Tensor:
+    """``t``, this rank's rows, beside the other pods' (stacked along dim
+    0 in pod order, all-gathered over ``pod``; ``pod_gather_bytes``)."""
+    if pods == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(pods)]
+    dist.all_gather(parts, t.contiguous(), group=tp.mesh.get_group("pod"))
+    out = torch.cat(parts)
+    tp.pod_gather_bytes += out.numel() * out.element_size()
+    return out

@@ -11,19 +11,27 @@ updated in place.
 ``launch.steps.param_shardings`` and the caches' by
 ``launch.steps.cache_shardings`` (batch over ``data``, positions over
 ``model``, an SSM's conv over ``ff`` and its state over ``heads``), and
-calls the step with its batch rows (over ``pod`` and ``data``, pod-major,
-where they divide the batch; else every row), getting its rows' next
-tokens.  Storage split, compute gathered, as the sharded train step
-does (``models.transformer.apply_model``'s ``placed``): each layer's
-param and cache slabs are all-gathered just before it runs, it computes
-on the rank's rows, and its new cache entries (the positions written,
-or an SSM's whole state) are gathered over the rows and cut back to
-each rank's slab.  It is exact by construction, and a rank's peak is
-its slabs plus one layer whole.  With ``decode_strategy="flash"`` a
-decode's attention layers without a window gather no key or value:
-``models.attention.flash_decode_placed`` reads the rank's slab.
-:func:`place_serving_state` cuts the whole params and cache into a
-rank's slabs.
+calls the step with its batch rows (``parallel.tensor.serve_rows``: its
+cache slabs' rows, which the pods of a multi-pod mesh split among them),
+getting its rows' next tokens.  The
+step computes on the slabs, as the sharded train step does: it runs
+inside ``parallel.tensor.tensor_parallel_ctx(mesh)`` and every layer
+splits its heads, ``ff`` columns, experts and vocabulary over ``model``
+(``models.transformer.apply_model``'s ``placed``).  What a rank gathers
+is what that partitioning needs: the stream's positions where a block
+reads them whole, a layer's new keys and values moved to the slabs that
+hold their positions, a decode's key heads at every position for its
+rows (or, with ``decode_strategy="flash"`` and no window, the query heads
+to score its own slab, ``models.attention.flash_decode_placed``), MLA's
+latents for its rows, an SSM's conv columns re-laid out, MoE's
+per-expert counts over the row dims, the other pods' rows of what each
+layer wrote of its cache slabs (``parallel.tensor.share_rows``), and the
+sampled position's logits over the vocabulary; param leaves only where
+no block computes on their slabs
+(``parallel.tensor.slab_leaves``).  ``step.comm`` holds the last call's
+bytes by kind, which ``parallel.tensor.serve_bytes`` reckons from the
+shapes.  :func:`place_serving_state` cuts the whole params and cache
+into a rank's slabs.
 
 :class:`DecodeService` is the continuous-batching generation backend:
 per-slot decode positions (``pos [batch_slots]``) let the shared
@@ -66,8 +74,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.engine.scheduler import SlotScheduler
-from repro_torch.models.attention import PlacedKV
-from repro_torch.models.moe import rows_over_data
+from repro_torch.models.attention import PlacedCache
 from repro_torch.models.transformer import (
     ModelConfig,
     _leaves,
@@ -80,10 +87,23 @@ from repro_torch.parallel.sharding import (
     _map,
     _shape,
     gather_tensor,
-    shard_tensor,
+    mesh_axis_sizes,
     shard_tree,
 )
-from repro_torch.parallel.tensor import data_shards, gather_over_data
+from repro_torch.parallel.tensor import (
+    SEQ_LEAVES,
+    SERVE_COMM,
+    check_slabs,
+    current,
+    gather_pods,
+    serve_comm,
+    serve_pods,
+    serve_row_dims,
+    serve_rows,
+    share_rows,
+    slab_leaves,
+    tensor_parallel_ctx,
+)
 from repro_torch.serve.api import Request as ServeRequest
 
 __all__ = [
@@ -165,116 +185,95 @@ def _drop_lead(pl: Placement) -> Placement:
     return Placement(pl.shape[1:], pl.pspec[1:], pl.blocks[1:], pl.index[1:])
 
 
-# cache leaves indexed by position: a step rewrites only the positions it
-# writes
-_SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
-
-
 class _Placed:
     """One placed step's view of the rank's slabs (``apply_model``'s
-    ``placed``): the rank's compute rows, the step's write position
-    ``pos`` (already clamped as the cache write clamps it) and length
-    ``s``, and whether a decode's attention reads its cache slab
-    (``flash``)."""
+    ``placed``): the step's write position ``pos`` (already clamped as
+    the cache write clamps it) and length ``s``, the leaves each block
+    computes on the slabs of (``slab``), the param bytes gathered
+    (``param_gather_bytes``), and the ``pods`` the rows of each cache
+    slab split over (``own``: this rank's rows of a slab)."""
 
-    def __init__(self, shardings: ServeShardings, pos: int, s: int,
-                 flash: bool):
+    def __init__(self, shardings: ServeShardings, statics, pos: int, s: int):
         self.mesh = shardings.mesh
         self.params, self.cache = shardings.params, shardings.cache
-        r, n = data_shards(self.mesh)
-        self.split = n > 1 and shardings.batch % n == 0
-        r, n = (r, n) if self.split else (0, 1)
-        per = shardings.batch // n
-        self.rows = slice(r * per, (r + 1) * per)
-        self.pos, self.s, self.flash = pos, s, flash
+        self.batch = shardings.batch
+        n = mesh_axis_sizes(self.mesh).get("model", 1)
+        self.slab = slab_leaves(statics["cfg"], statics, self.params, n)
+        check_slabs(self.params, self.slab)
+        self.pos, self.s = pos, s
+        self.param_gather_bytes = 0
+        self.pods = serve_pods(self.mesh, self.batch)
+        rows = self.batch // serve_rows(self.mesh, self.batch)[1]
+        me = self.mesh.get_local_rank("pod") if self.pods > 1 else 0
+        self.own = slice(me * rows, (me + 1) * rows)
 
-    def moe_rows(self):
-        """The context a layer runs in: MoE capacity over the whole batch
-        where the ranks split its rows (``models.moe.rows_over_data``)."""
-        return rows_over_data(self.mesh) if self.split else \
-            contextlib.nullcontext()
+    def _whole(self, tree, placements, slab):
+        """``tree`` with each leaf no block computes on the slab of
+        gathered whole."""
+        def one(t, pl, on_slab):
+            if on_slab or pl.whole:
+                return t
+            out = gather_tensor(t, pl, self.mesh)
+            self.param_gather_bytes += out.numel() * out.element_size()
+            return out
 
-    def gather(self, tree, placements):
-        """Whole leaves from this rank's slabs."""
-        return _map(lambda t, pl: gather_tensor(t, pl, self.mesh), tree,
-                    placements)
+        return _map(one, tree, placements, slab)
 
-    def stacked(self, key: str, j: int | None = None, tree=None):
-        """The one-layer placements of a stacked subtree: ``key`` of
-        ``tree`` (default: the params'), its ``j``-th entry for a list."""
-        tree = self.params if tree is None else tree
-        return _map(_drop_lead, tree[key] if j is None else tree[key][j])
+    def take(self, sub: dict) -> dict:
+        """Top-level entries of the params (the embedding, the head, the
+        final norm, learned positions)."""
+        return self._whole(sub, {k: self.params[k] for k in sub},
+                           {k: self.slab[k] for k in sub})
 
-    def layer(self, where):
-        """(param placements, cache placements) of the layer at ``where``
-        (``("prefix_layers", i)`` or ``("body", j)``)."""
+    def _at(self, tree, where, stacked: bool = True):
+        """The subtree of one layer at ``where`` (``("prefix_layers",
+        i)``, ``("body", j)`` or ``("encoder", None)``) of a tree shaped
+        as the params or the cache; its placements' stacked lead dropped
+        with ``stacked``."""
         key, i = where
-        if key == "prefix_layers":
-            return self.params[key][i], self.cache[key][i]
-        return self.stacked(key, i), self.stacked(key, i, self.cache)
+        sub = tree[key] if i is None else tree[key][i]
+        return _map(_drop_lead, sub) if key != "prefix_layers" and stacked \
+            else sub
 
-    def to_batch(self, t: torch.Tensor) -> torch.Tensor:
-        """The whole batch's rows from every rank's compute rows."""
-        return gather_over_data(self.mesh, t).flatten(0, 1) if self.split \
-            else t
+    def layer_params(self, p, where):
+        return self._whole(p, self._at(self.params, where),
+                           self._at(self.slab, where, stacked=False))
 
-    def rows_of(self, slab: torch.Tensor, pl: Placement) -> torch.Tensor:
-        """This rank's compute rows of a leaf, gathered whole from its
-        slabs."""
-        return gather_tensor(slab, pl, self.mesh)[self.rows]
+    def layer_cache(self, c, where) -> PlacedCache:
+        """One layer's cache slabs ``c`` as its blocks see them: this
+        rank's rows (views, which the blocks write in place)."""
+        return PlacedCache(_map(self.rows, c), self._at(self.cache, where),
+                           self.pos, self.s)
 
-    def cut(self, t: torch.Tensor, pl: Placement) -> torch.Tensor:
-        """This rank's slab of a leaf of which every rank computed its
-        rows ``t``."""
-        return shard_tensor(self.to_batch(t), pl)
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a cache slab."""
+        return t if self.pods == 1 else t[self.own]
 
-    def layer_cache(self, static: dict, slabs, placements):
-        """The cache a layer computes with: its leaves gathered whole and
-        cut to the compute rows, or, for a flash decode's attention, the
-        slabs themselves (``PlacedKV``)."""
-        if slabs is None:
-            return None
-        cfg = static.get("attn_cfg")
-        flash = (self.flash and self.s == 1 and cfg is not None
-                 and cfg.window is None)
-
-        def walk(tree, pl):
-            if isinstance(tree, dict):
-                if flash and set(tree) == {"k", "v"}:
-                    return PlacedKV(tree, pl, self)
-                return {k: walk(v, pl[k]) for k, v in tree.items()}
-            return self.rows_of(tree, pl)
-
-        return walk(slabs, placements)
-
-    def write_seq(self, slab: torch.Tensor, pl: Placement,
-                  new: torch.Tensor) -> None:
-        """Write the whole batch's ``new`` [B, s, ...], the positions
-        ``[pos, pos + s)``, into the part of them this rank's slab
-        holds."""
-        rows, seq = pl.slices[0], pl.slices[1]
-        lo, hi = max(self.pos, seq.start), min(self.pos + self.s, seq.stop)
-        if lo < hi:
-            slab[:, lo - seq.start:hi - seq.start] = new[
-                rows, lo - self.pos:hi - self.pos].to(slab.dtype)
-
-    def store(self, run, slabs, placements, name: str = "") -> None:
-        """Cut a layer's new cache entries (``run``, what it computed
-        with) back to this rank's slabs."""
-        if run is None or isinstance(run, PlacedKV):
+    def share(self, c, where) -> None:
+        """Every pod's rows of one layer's cache slabs ``c`` after the
+        layer wrote its own (``parallel.tensor.share_rows``)."""
+        if self.pods == 1:
             return
-        if isinstance(run, dict):
-            for k in run:
-                self.store(run[k], slabs[k], placements[k], k)
-        elif name in _SEQ_LEAVES:
-            new = run[:, self.pos:self.pos + self.s]
-            self.write_seq(slabs, placements, self.to_batch(new))
-        else:
-            slabs.copy_(shard_tensor(self.to_batch(run), placements))
+        tp = current()
+
+        def walk(tree, pls):
+            for k, t in tree.items():
+                if isinstance(t, dict):
+                    walk(t, pls[k])
+                else:
+                    share_rows(t, pls[k], self.pos if k in SEQ_LEAVES
+                               else None, self.s, tp, self.pods)
+
+        walk(c, self._at(self.cache, where))
+
+    def memory(self, rows: torch.Tensor) -> torch.Tensor:
+        """An encoder's output for the cache's ``memory`` slab: this
+        rank's ``rows`` beside the other pods'."""
+        return gather_pods(rows, current(), self.pods)
 
 
-def _placed(shardings: ServeShardings | None, pos: int, s: int,
-            flash: bool) -> _Placed | None:
+def _placed(shardings: ServeShardings | None, statics, pos: int,
+            s: int) -> _Placed | None:
     """The step's :class:`_Placed`, its write position clamped to
     ``[0, T - s]`` as the cache write clamps it (``T`` the positions of
     the cache's first leaf indexed by position)."""
@@ -282,11 +281,27 @@ def _placed(shardings: ServeShardings | None, pos: int, s: int,
         return None
     for key, at in (("prefix_layers", 1), ("body", 2)):
         t = next((pl.shape[at] for name, pl in _named_leaves(
-            shardings.cache[key]) if name in _SEQ_LEAVES), None)
+            shardings.cache[key]) if name in SEQ_LEAVES), None)
         if t is not None:
             pos = min(max(pos, 0), t - s)
             break
-    return _Placed(shardings, pos, s, flash)
+    return _Placed(shardings, statics, pos, s)
+
+
+@contextlib.contextmanager
+def _on_slabs(placed: _Placed | None, comm: dict | None):
+    """Run a step's model inside ``tensor_parallel_ctx`` over ``placed``'s
+    mesh (the rows of ``serve_rows``), then set ``comm`` (its keys
+    ``SERVE_COMM``) to the bytes it moved; nothing without ``placed``."""
+    if placed is None:
+        yield
+        return
+    with tensor_parallel_ctx(placed.mesh) as tp:
+        tp.rows = (*serve_rows(placed.mesh, placed.batch),
+                   serve_row_dims(placed.mesh, placed.batch))
+        yield
+    if comm is not None:
+        comm.update(serve_comm(placed.param_gather_bytes, tp))
 
 
 def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig,
@@ -309,23 +324,24 @@ def make_prefill_step(cfg: ModelConfig, statics, scfg: ServeConfig,
         total = tokens.shape[1]
         if extras and "prefix_embeds" in extras:
             total += extras["prefix_embeds"].shape[1]
-        logits, cache, _ = apply_model(
-            params, statics, tokens,
-            positions=torch.arange(total, device=tokens.device),
-            cache=cache, cache_pos=0, cache_len=total, prefill=True,
-            kernels=kernels,
-            placed=_placed(shardings, 0, total, False),
-            **(extras or {}),
-        )
+        placed = _placed(shardings, statics, 0, total)
+        with _on_slabs(placed, prefill.comm):
+            logits, cache, _ = apply_model(
+                params, statics, tokens,
+                positions=torch.arange(total, device=tokens.device),
+                cache=cache, cache_pos=0, cache_len=total, prefill=True,
+                kernels=kernels, placed=placed, **(extras or {}),
+            )
         next_tok = logits[:, -1, : cfg.vocab].argmax(dim=-1)
         return next_tok, cache
 
+    prefill.comm = dict.fromkeys(SERVE_COMM, 0)
     return prefill
 
 
 def decode_logits(statics, params, cache, tokens, pos,
                   shardings: ServeShardings | None = None,
-                  kernels: bool = True):
+                  kernels: bool = True, comm: dict | None = None):
     """One decode step's float32 logits [B, vocab] and the cache (written
     in place at ``pos``): what :func:`make_decode_step` samples from.
 
@@ -336,21 +352,22 @@ def decode_logits(statics, params, cache, tokens, pos,
     "flash"``, attention takes the sharded flash-decode.  With
     ``shardings`` (a shared position only) the params and cache are this
     rank's slabs and ``tokens`` its rows (module docstring); the position
-    is read to the host once."""
+    is read to the host once, and ``comm`` (a dict) gets the bytes the
+    step moved (``make_decode_step``'s ``step.comm``)."""
     per_row = pos.dim() > 0
     placed = None
     if shardings is not None:
         if per_row:
             raise ValueError("a placed decode step takes one position "
                              "shared by every row")
-        placed = _placed(shardings, int(pos), 1,
-                         statics["cfg"].decode_strategy == "flash")
-    logits, cache, _ = apply_model(
-        params, statics, tokens[:, None],
-        positions=pos[:, None] if per_row else pos[None],
-        cache=cache, cache_pos=pos, cache_len=pos + 1, kernels=kernels,
-        placed=placed,
-    )
+        placed = _placed(shardings, statics, int(pos), 1)
+    with _on_slabs(placed, comm):
+        logits, cache, _ = apply_model(
+            params, statics, tokens[:, None],
+            positions=pos[:, None] if per_row else pos[None],
+            cache=cache, cache_pos=pos, cache_len=pos + 1, kernels=kernels,
+            placed=placed,
+        )
     return logits[:, -1, : statics["cfg"].vocab].float(), cache
 
 
@@ -363,7 +380,7 @@ def make_decode_step(cfg: ModelConfig, statics, scfg: ServeConfig,
         ``kernels``).  With ``temperature > 0`` and a generator,
         samples; else greedy."""
         logits, cache = decode_logits(statics, params, cache, tokens, pos,
-                                      shardings, kernels)
+                                      shardings, kernels, decode.comm)
         if scfg.temperature > 0 and rng is not None:
             probs = torch.softmax(logits / scfg.temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=rng)[:, 0]
@@ -371,6 +388,7 @@ def make_decode_step(cfg: ModelConfig, statics, scfg: ServeConfig,
             next_tok = logits.argmax(dim=-1)
         return next_tok, cache
 
+    decode.comm = dict.fromkeys(SERVE_COMM, 0)
     return decode
 
 

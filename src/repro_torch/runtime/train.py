@@ -137,6 +137,7 @@ from repro_torch.parallel.sharding import (
     shard_tree,
 )
 from repro_torch.parallel.tensor import (
+    check_slabs,
     current,
     data_shards,
     gather_over_data,
@@ -390,7 +391,7 @@ def make_train_step(
     slab = (slab_leaves(cfg, statics, shardings.params, n_model) if sharded
             else None)
     if sharded:
-        _check_slabs(shardings.params, slab)
+        check_slabs(shardings.params, slab)
 
     def whole(tree):
         """A params-shaped tree with every leaf that is not computed on
@@ -516,20 +517,6 @@ def make_train_step(
                                "zero_gather_bytes"),
                               0)
     return step
-
-
-def _check_slabs(placements, slab) -> None:
-    """Every leaf computed on its slab is split over ``model`` alone, as
-    ``parallel.tensor``'s rules and ``launch.steps.param_shardings``
-    both derive it from the specs."""
-    def one(pl, on_slab):
-        if on_slab and (pl.whole or any(
-                e not in (None, "model") for e in pl.pspec)):
-            raise ValueError(f"a leaf computed on its model slab is placed "
-                             f"as {pl.pspec} over {pl.shape}")
-        return None
-
-    _map(one, placements, slab)
 
 
 def init_train_state(params, opt: Optimizer, tcfg: TrainConfig,

@@ -362,6 +362,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "DRYRUN_MAX_SEQ", 32)
     monkeypatch.setattr(cs, "DRYRUN_DECODE", 3)
     monkeypatch.setattr(cs, "DRYRUN_CELLS", (("mamba2_780m", "long_500k"),))
+    # (e): qwen's smoke config (4 query heads, 2 key heads re-laid out over
+    # 4 model ranks), 4 prompts of 12 tokens (split along the sequence) in a
+    # cache of 32 (slabs of 8), 3 decode steps on each route
+    monkeypatch.setattr(cs, "wide_serve_config",
+                        lambda: get_smoke_config("qwen2_5_32b"))
+    monkeypatch.setattr(cs, "WIDE_SERVE_PROMPT", 12)
+    monkeypatch.setattr(cs, "WIDE_SERVE_MAX_SEQ", 32)
+    monkeypatch.setattr(cs, "WIDE_SERVE_DECODE", 3)
     # the ranks find shard_rank by name: chip_smoke, importable
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
@@ -744,11 +752,39 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert b["predicted_by_kind"] == b["step_comm_by_kind"]
     assert set(b["predicted_by_kind"]) == {"all-gather", "all-reduce",
                                            "reduce-scatter"}
-    assert c["tokens_equal_unsharded"] and c["flash_rows_ok"]
+    assert c["flash_rows_ok"]
+    for agree in [c["tile_route_vs_own_layouts"], *c["placed_vs_unsharded"]]:
+        assert agree["logits_rel"] <= cs.DRYRUN_LOGITS_REL
+        assert agree["prefill_tokens_equal"] and agree["unexplained"] == 0
     assert c["resident_bytes"] == c["reckoned_bytes"]
     assert c["flash_launches_per_rank"] == [4] * 4
-    assert all(m == c["decode_by_kind_predicted"]
-               for m in c["decode_by_kind_measured"])
+    # each rank's decode by kind as reckoned for it (the write lands on
+    # the rank holding the last position), rank 0's as the plan's
+    assert [{k: v for k, v in m.items() if v}
+            for m in c["decode_by_kind_measured"]] == c[
+        "decode_by_kind_reckoned"]
+    assert {k: v for k, v in c["decode_by_kind_predicted"].items()
+            if v} == c["decode_by_kind_reckoned"][0]
+    assert all(c["decode_comm_equals_reckoned"])
+    # 3 sparse projections of 4 layers on the prefill and 3 decodes
+    assert c["spmm_launches_per_rank"] == [3 * 4 * 4] * 4
+    assert c["spmm_calls_per_rank"] == c["spmm_launches_per_rank"]
+    assert c["spmm_rows_ok"] and all(c["comm_equals_reckoned"])
+    assert c["slab_params_gathered"] == [0] * 4
+    e = dr["part_e"]
+    assert e["mesh"] == [1, 4] and e["resident_bytes"] == e["reckoned_bytes"]
+    for route in ("gather", "flash"):
+        assert e[route]["tokens_equal_unsharded"], route
+        assert all(e[route]["comm_equals_reckoned"]), route
+        assert e[route]["slab_params_gathered"] == [0] * 4
+        assert e[route]["flash_launches_per_rank"] == [2] * 4
+        assert e[route]["flash_rows_ok"]
+    # the gather route reads its key heads' positions, the flash route
+    # its own slab
+    assert all(x["model_cache_exchange_bytes"] > 0
+               for x in e["gather"]["comm_per_step"][0][1:])
+    assert all(x["model_cache_exchange_bytes"] == 0
+               for x in e["flash"]["comm_per_step"][0][1:])
     assert all(rel <= cs.DRYRUN_PEAK_REL for rel in c["decode_peak_rel"])
     assert [(x["arch"], x["status"]) for x in dr["part_d"]] == [
         ("mamba2_780m", "ok")]
@@ -785,12 +821,15 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     # prefills of 2 layers; jamba's 6 served prefills of its attention
     # layer; paligemma's 2 prefix prefills and 4 requests of 2 layers; the
     # trained danube's 6 requests of 2 layers; the dryrun phase's placed
-    # prefill of 4 layers on each of 4 ranks
+    # prefill of 4 layers on each of 4 ranks, then (e)'s of 2 layers on
+    # each of 4 ranks on both routes
     assert res["kernels"][3]["launches"] == (2 * 7 + 2 * (2 + 2) + 2 * 2 + 6
-                                             + 2 * 6 + 2 * 6 + 4 * 4)
+                                             + 2 * 6 + 2 * 6 + 4 * 4
+                                             + 2 * 4 * 2)
     # the spmm launches of the serve, shard (a, then 2 ranks of b) and
-    # prune phases
-    assert res["kernels"][0]["launches"] == 36 + 40 + 2 * 36 + 36
+    # prune phases, and the dryrun phase's (c) on 4 ranks
+    assert res["kernels"][0]["launches"] == (36 + 40 + 2 * 36 + 36
+                                             + 4 * 3 * 4 * 4)
     assert res["kernels"][1]["launches"] == 8 + 4 + 2 * 36 + 36
 
 

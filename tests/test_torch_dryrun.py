@@ -207,7 +207,8 @@ from repro_torch.configs import ShapeSpec, get_smoke_config
 from repro_torch.launch.dryrun import measure, record
 from repro_torch.launch.mesh import make_fake_mesh
 from repro_torch.launch.steps import build_step
-from repro_torch.parallel.tensor import model_bytes
+from repro_torch.parallel.tensor import (model_bytes, serve_bytes,
+                                        serve_pods, serve_rows)
 from repro_torch.runtime.train import comm_by_kind
 out = {}
 cfg = dataclasses.replace(get_smoke_config("granite_3_2b"), model_shards=4)
@@ -227,6 +228,15 @@ for name, (dims, axes) in {
                                           spec.global_batch // 4,
                                           spec.seq_len)
             rec["comm_by_kind"] = comm_by_kind(rec["step_comm"])
+        else:  # rows over data, as the cache's, then over pod
+            blocks = serve_rows(mesh, spec.global_batch)[1]
+            rec["step_comm"] = dict(built.fn.comm)
+            rec["reckoned"] = serve_bytes(
+                cfg, built.meta["statics"], 4, spec.global_batch // blocks,
+                spec.seq_len, spec.kind, spec.seq_len, pos=spec.seq_len - 1,
+                blocks=blocks, placements=built.meta["placements"]["params"],
+                pods=serve_pods(mesh, spec.global_batch),
+                cache_placements=built.meta["placements"]["cache"])
         out[name + ":" + spec.kind] = rec
 print(json.dumps(out, default=str))
 """
@@ -245,12 +255,14 @@ def _python(code: str) -> dict:
 
 
 def test_mini_dry_run_single_and_multipod():
+    from repro_torch.parallel.tensor import serve_comm_by_kind
+
     res = _python(MINI)
     assert len(res) == 6
     for key, rec in res.items():
         assert rec["status"] == "ok", key
         assert rec["hlo_flops_per_device"] > 0, key
-        assert rec["routes"] == "plain"
+        assert rec["routes"].startswith("plain")
         mem = rec["memory"]
         assert mem["peak_bytes"] >= mem["param_bytes"] + mem["opt_bytes"] \
             + mem["cache_bytes"] > 0, key
@@ -268,9 +280,16 @@ def test_mini_dry_run_single_and_multipod():
             for name in ("model_reduce_bytes", "model_scatter_bytes",
                          "model_seq_gather_bytes"):
                 assert rec["step_comm"][name] > 0, (key, name)
-        else:  # storage split, compute gathered: the layers' slabs
-            assert by_kind["all-gather"] > 0 and set(by_kind) == {
-                "all-gather"}, key
+        else:  # computed on the model slabs: no param gathered
+            assert rec["step_comm"] == rec["reckoned"] == rec[
+                "serve_reckoned"], key
+            assert rec["step_comm"]["param_gather_bytes"] == 0, key
+            assert by_kind == {k: v for k, v in serve_comm_by_kind(
+                rec["step_comm"]).items() if v}, key
+            # the row products' partial sums: reduce-scattered onto the
+            # prefill's 64 positions split over 4, all-reduced in a decode
+            assert by_kind["reduce-scatter" if rec["kind"] == "prefill"
+                           else "all-reduce"] > 0, key
     # the gradients reduce-scattered over data onto the ZeRO-1 slabs,
     # those slabs (and the rest, and the loss) all-reduced over pod, the
     # rows pod-major; data also reduces the norm's per-leaf statistics
@@ -290,6 +309,40 @@ def test_mini_dry_run_single_and_multipod():
     assert multi["all-reduce/pod"] == (
         multi["all-reduce/data"] - comm["data_stat_bytes"]
         + multi["reduce-scatter/data"])
+    # serving: the pods split each data block's rows (2 a rank on both
+    # meshes: the same FLOPs) and share what each wrote of the cache
+    for kind in ("prefill", "decode"):
+        assert res[f"multi:{kind}"]["hlo_flops_per_device"] == res[
+            f"single:{kind}"]["hlo_flops_per_device"], kind
+    assert res["multi:prefill"]["step_comm"]["pod_gather_bytes"] > 0
+
+
+RUN_CELL = """
+import dataclasses, json, os
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import dryrun, mesh, steps
+mesh.make_production_mesh = lambda **k: mesh.make_fake_mesh(
+    (2, 4), ("data", "model"))
+steps.cell_config = lambda arch, spec, sparse=False: dataclasses.replace(
+    get_smoke_config(arch), model_shards=4)
+rec = dryrun.run_cell("granite_3_2b", "decode_32k", False, OUT,
+                      decode_strategy="flash")
+rec["files"] = sorted(os.listdir(OUT))
+print(json.dumps(rec, default=str))
+"""
+
+
+def test_run_cell_plans_the_flash_decode_route(tmp_path):
+    """``--decode-strategy flash`` (``run_cell``'s ``decode_strategy``):
+    the cell's config with the flash decode route, its record tagged
+    ``__flash``, its bytes the reckoned ones (smoke granite on a fake
+    2 x 4 mesh standing in for the production one)."""
+    rec = _python(RUN_CELL.replace("OUT", repr(str(tmp_path))))
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["files"] == ["granite_3_2b__decode_32k__single__flash.json"]
+    assert rec["decode_strategy"] == "flash"
+    assert rec["routes"].endswith("decode_strategy=flash")
+    assert rec["step_comm"] == rec["serve_reckoned"]
 
 
 def test_run_cell_records_skips_and_errors(tmp_path, monkeypatch):

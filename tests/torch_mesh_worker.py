@@ -537,17 +537,32 @@ def pipeline_job(job: dict) -> dict:
     return out
 
 
+def with_overrides(cfg, over: dict):
+    """``cfg`` with ``over``'s fields replaced; a dict value replaces the
+    fields of that sub-config (``{"ssm": {"expand": 3}}``)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **{
+        k: with_overrides(getattr(cfg, k), v) if isinstance(v, dict) else v
+        for k, v in over.items()})
+
+
 def placed_serve_job(job: dict) -> dict:
     """The placed serving steps (``runtime.serve`` with ``shardings=``):
     this rank's slabs of the whole params and a float32 cache, a prefill
-    of its rows of the prompts, then ``job["steps"]`` greedy decode steps
-    at one shared position.  Returns the rows' tokens and decode logits,
-    the bytes the rank holds after the steps and those its placements
-    reckon, and the placed flash-decode calls."""
-    import dataclasses
-
+    of its rows of the prompts (and of ``job["prefix"]``, a VLM's patch
+    embeddings, or ``job["frames"]``), then ``job["steps"]`` greedy decode
+    steps at one shared position.  Returns the rows' tokens and decode
+    logits, the bytes the rank holds after the steps and those its
+    placements reckon, the placed flash-decode calls, each step's
+    ``step.comm`` beside ``parallel.tensor.serve_bytes`` for this rank,
+    the last decode's collectives by kind (``launch.op_stats`` on the
+    real tensors), and the param placements the steps all-gathered
+    against the leaves ``parallel.tensor.slab_leaves`` keeps on their
+    slabs."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_stats import OpStats
     from repro_torch.models.attention import flash_decode_placed
     from repro_torch.models.convert import lm_params_from_numpy
     from repro_torch.models.transformer import (
@@ -556,50 +571,92 @@ def placed_serve_job(job: dict) -> dict:
         init_specs,
         init_statics,
     )
-    from repro_torch.parallel.tensor import data_shards
-    from repro_torch.runtime.serve import (
-        ServeConfig,
-        decode_logits,
-        make_prefill_step,
-        place_serving_state,
-        serve_shardings,
+    from repro_torch.parallel.sharding import _map, mesh_axis_sizes
+    from repro_torch.parallel.tensor import (
+        serve_bytes,
+        serve_pods,
+        serve_rows,
+        slab_leaves,
     )
+    from repro_torch.runtime import serve as rs
 
-    cfg = dataclasses.replace(get_smoke_config(job["arch"]),
-                              **job["overrides"])
-    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    cfg = with_overrides(get_smoke_config(job["arch"]), job["overrides"])
+    mesh = make_mesh(job["mesh"], ("pod", "data", "model")[-len(job["mesh"]):],
+                     device_type="cpu")
+    n_model = mesh_axis_sizes(mesh)["model"]
     statics = init_statics(cfg, "cpu")
     params = lm_params_from_numpy(job["params"], "cpu")
     tokens = torch.as_tensor(job["tokens"], dtype=torch.long)
     b, length = tokens.shape
     cache = init_cache(statics, b, job["max_seq"], dtype=torch.float32,
                        device="cpu")
-    sh = serve_shardings(init_specs(cfg), params, cache, mesh)
+    sh = rs.serve_shardings(init_specs(cfg), params, cache, mesh)
     reckoned = sum(math.prod(pl.slab_shape) * t.element_size()
                    for t, pl in zip([*_leaves(params), *_leaves(cache)],
                                     [*_leaves(sh.params),
                                      *_leaves(sh.cache)]))
-    p_slab, c_slab = place_serving_state(params, cache, sh)
+    p_slab, c_slab = rs.place_serving_state(params, cache, sh)
     del params, cache
-    r, n = data_shards(mesh)
-    per = b // n if b % n == 0 else b
-    rows = slice(r * per, (r + 1) * per) if b % n == 0 else slice(None)
-    extras = ({"frames": torch.as_tensor(job["frames"])[rows]}
-              if job.get("frames") is not None else None)
+    r, n = serve_rows(mesh, b)
+    rows = slice(r * b // n, (r + 1) * b // n)
+    extras = {k: torch.as_tensor(job[k])[rows] for k, name in (
+        ("frames", "frames"), ("prefix", "prefix_embeds"))
+        if job.get(k) is not None}
+    extras = {("prefix_embeds" if k == "prefix" else k): v
+              for k, v in extras.items()} or None
+    total = length + (cfg.prefix_len if job.get("prefix") is not None
+                      else 0)
+    real = rs.gather_tensor
+    gathered: list = []
+
+    def spy(t, pl, mesh, axes=None):
+        gathered.append(t.untyped_storage().data_ptr())
+        return real(t, pl, mesh, axes)
+
+    def reckon(kind, pos=0):
+        return serve_bytes(cfg, statics, n_model, b // n, total, kind,
+                           job["max_seq"], torch.float32, pos,
+                           mesh.get_local_rank("model"), n, sh.params,
+                           serve_pods(mesh, b), sh.cache)
+
     calls = flash_decode_placed.calls
-    scfg = ServeConfig(max_seq=job["max_seq"], cache_dtype="float32")
-    with torch.no_grad():
-        tok, c_slab = make_prefill_step(cfg, statics, scfg, shardings=sh)(
-            p_slab, c_slab, tokens[rows], extras)
-        out = {"tokens": [_np(tok)], "logits": []}
-        for i in range(job["steps"]):
-            logits, c_slab = decode_logits(statics, p_slab, c_slab, tok,
-                                           torch.tensor(length + i), sh)
-            tok = logits.argmax(dim=-1)
-            out["tokens"].append(_np(tok))
-            out["logits"].append(_np(logits))
-    out["rows"] = (rows.start or 0, rows.stop if rows.stop is not None
-                   else b)
+    scfg = rs.ServeConfig(max_seq=job["max_seq"], cache_dtype="float32")
+    rs.gather_tensor = spy
+    try:
+        with torch.no_grad():
+            step = rs.make_prefill_step(cfg, statics, scfg, shardings=sh)
+            tok, c_slab = step(p_slab, c_slab, tokens[rows], extras)
+            out = {"tokens": [_np(tok)], "logits": [],
+                   "comm": [dict(step.comm)],
+                   "reckoned_comm": [reckon("prefill")]}
+            for i in range(job["steps"]):
+                comm: dict = {}
+                pos = torch.tensor(total + i)
+                if i == job["steps"] - 1:
+                    with OpStats().name_groups(mesh) as st:
+                        logits, c_slab = rs.decode_logits(
+                            statics, p_slab, c_slab, tok, pos, sh,
+                            comm=comm)
+                    out["by_kind"] = {k: v for k, v in
+                                      st.collective_bytes_by_kind.items()
+                                      if v}
+                else:
+                    logits, c_slab = rs.decode_logits(
+                        statics, p_slab, c_slab, tok, pos, sh, comm=comm)
+                tok = logits.argmax(dim=-1)
+                out["tokens"].append(_np(tok))
+                out["logits"].append(_np(logits))
+                out["comm"].append(comm)
+                out["reckoned_comm"].append(reckon("decode", total + i))
+    finally:
+        rs.gather_tensor = real
+    slab = slab_leaves(cfg, statics, sh.params, n_model)
+    marked = [ptr for ptr in _leaves(_map(
+        lambda t, on: t.untyped_storage().data_ptr() if on else None,
+        p_slab, slab)) if ptr is not None]
+    out["slab_gathered"] = sum(ptr in gathered for ptr in marked)
+    out["slab_leaves"] = len(marked)
+    out["rows"] = (rows.start, rows.stop)
     out["resident_bytes"] = sum(t.numel() * t.element_size() for t in
                                 [*_leaves(p_slab), *_leaves(c_slab)])
     out["reckoned_bytes"] = reckoned
