@@ -462,13 +462,17 @@ VLM_BURSTS = (1, 3, 2, 2)
 # (d) each kernel wrapper refuses a CUDA input that requires grad, and a
 # granite-3-2b smoke float32 step on the card gives the CPU's loss and
 # grad norm within GUARD_REL.
-# (a) runs with the reference's remat (ModelConfig.remat, the default);
-# its peak stays within the update's reckoned bytes (train_reckoning:
-# the grads and their clipped copy, the old and the new params and
-# moments; AdamW's float32 temporaries are a piece's, not a leaf's) and
-# within DRYRUN_PEAK_REL of the dryrun phase's prediction of one such
-# step.  (f), in the drill's process: one batch's loss and gradients
-# with remat and without, bit for bit (step.loss_and_grads).
+# (a) runs with the reference's remat (ModelConfig.remat, the default)
+# and the state donated to each step, as the launcher's step takes it;
+# its peak lies within DRYRUN_PEAK_REL of the donated step's reckoned
+# bytes (train_reckoning: the state, the grads and the global norm's
+# float32 square of the largest leaf; the grads clipped and the moments
+# and params updated in place, AdamW's float32 temporaries a piece's)
+# and of the dryrun phase's prediction of one such step.  (b)'s
+# interrupted and resumed runs donate too, the uninterrupted one does
+# not: their losses and final state equal bit for bit.  (f), in the
+# drill's process: one batch's loss and gradients with remat and
+# without, bit for bit (step.loss_and_grads).
 TRAIN_BATCH = (4, 512)  # rows, tokens a row
 TRAIN_STEPS = 8
 TRAIN_CORPUS_VOCAB = 1024
@@ -525,7 +529,9 @@ SHARD_PREPARE = None
 # rank (bit-equality reported); (h) jamba-1.5-large at smoke width
 # (jamba_shard_config; a full-width MoE layer in float32 with its moments
 # does not fit a quarter of the card), JAMBA_SHARD_BATCH, the gates of
-# (f); (i) DeepSeek-V2 at full width cut to its first layer (MLA and the
+# (f), held to the unsharded run at 2 microbatches: MoE counts capacity
+# on each data block's rows alone, as the reference's sharded step does
+# (every MoE part on a mesh with data > 1 so: oracle_microbatches); (i) DeepSeek-V2 at full width cut to its first layer (MLA and the
 # dense MLP), DEEPSEEK_SHARD_BATCH, and (j) mamba2-780m at full width cut
 # to MAMBA_SHARD_LAYERS layers, MAMBA_SHARD_BATCH, the gates of (f) but
 # the checkpoint ((f) and (h) cover it); on a WIDE_SHARD_MESH (data,
@@ -3436,19 +3442,25 @@ def train_config():
 
 def train_reckoning(params) -> dict:
     """Bytes of a training step's state, from the params: the params and
-    their grads in the params' dtype, AdamW's two float32 moments; the
-    update holds at most the grads, their clipped copy, the old and the
-    new moments and params at once (``update_peak_bytes``), its float32
-    temporaries a piece's (``optim.optimizers.UPDATE_CHUNK``).  With
-    remat the backward's activations stay below that."""
+    their grads in the params' dtype, AdamW's two float32 moments.  The
+    donated step (``make_train_step(..., donate=True)``) peaks at the
+    state, the grads and the global norm's float32 square of the largest
+    leaf (``optim.optimizers.global_norm``; ``donated_peak_bytes``): the
+    grads are clipped in place, AdamW writes the moments and the params
+    in place, its float32 temporaries a piece's
+    (``optim.optimizers.UPDATE_CHUNK``), and with remat the backward's
+    activations stay below that (``scripts/step_peak_site.py
+    --unsharded``)."""
     from repro_torch.models.transformer import _leaves
 
     n = sum(t.numel() for t in _leaves(params))
     p = sum(t.numel() * t.element_size() for t in _leaves(params))
     moments = 2 * 4 * n  # mu and nu in float32
+    largest = max(t.numel() for t in _leaves(params))
     return {"params": n, "params_bytes": p, "grads_bytes": p,
             "moments_bytes": moments, "state_bytes": p + moments,
-            "update_peak_bytes": 4 * p + 2 * moments}
+            "largest_leaf": largest,
+            "donated_peak_bytes": 2 * p + moments + 4 * largest}
 
 
 def dir_bytes(path) -> int:
@@ -3507,7 +3519,8 @@ def train_full(seed: int, dev, corpus, ckpt_dir) -> tuple:
     opt = adamw(weight_decay=0.0)
     tcfg = TrainConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
                        ckpt_dir=ckpt_dir)
-    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg)
+    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg,
+                           donate=True)
     trainer = Trainer(step, init_train_state(params, opt, tcfg),
                       train_data(seed, corpus, TRAIN_BATCH), tcfg)
     del params
@@ -3534,8 +3547,11 @@ def train_full(seed: int, dev, corpus, ckpt_dir) -> tuple:
            "tokens_per_s_after_first": rows * seq * (len(secs) - 1)
            / sum(secs[1:]),
            "run_seconds": run_s, "reckoned": reckoned,
-           "peak_memory_bytes": peak,
-           "peak_limit_bytes": reckoned["update_peak_bytes"],
+           "donated": True, "peak_memory_bytes": peak,
+           # None off the card, where nothing reads the peak
+           "peak_rel": abs(peak - reckoned["donated_peak_bytes"]) / peak
+           if peak else None,
+           "peak_limit": DRYRUN_PEAK_REL,
            "checkpoint": {"steps": [TRAIN_STEPS], "seconds": saves,
                           "bytes": dir_bytes(ckpt_dir)}}
     return res, (cfg, trainer.state["params"], statics)
@@ -3593,20 +3609,24 @@ def train_drill(spec: dict) -> dict:
     corpus = SyntheticCorpus(spec["corpus_vocab"], seed)
     opt = adamw(weight_decay=0.0)
 
-    def trainer(name, injector=None, **kw):
+    def trainer(name, injector=None, donate=True, **kw):
         """A fresh Trainer from the seed (and its batch stream), writing
-        its checkpoints under ``name``."""
+        its checkpoints under ``name``; its step donates the state, as
+        the launcher's does, unless ``donate`` is false."""
         tcfg = TrainConfig(steps=steps, ckpt_dir=os.path.join(
             spec["ckpt_dir"], name), **kw)
         params, statics = init_params(
             cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
-        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg)
+        step = make_train_step(cfg, statics, opt, lambda s: spec["lr"], tcfg,
+                               donate=donate)
         batches = train_data(seed, corpus, spec["batch"])
         return Trainer(step, init_train_state(params, opt, tcfg), batches,
                        tcfg, injector=injector), batches
 
     drill = dict(ckpt_every=every, async_ckpt=True)
-    ref, _ = trainer("uninterrupted", ckpt_every=steps)
+    # the uninterrupted run's step is functional: the donated runs'
+    # losses and final state equal its bit for bit
+    ref, _ = trainer("uninterrupted", donate=False, ckpt_every=steps)
     ref_hist = ref.run()
     failed, _ = trainer("failed", FailureInjector({fail_at: "node-failure"}),
                         **drill)
@@ -3938,11 +3958,13 @@ def train_checks(full, drill, served, guards) -> None:
     losses = full["losses"]
     last = full[f"loss_mean_last_{TRAIN_LAST}"]
     check(all(np.isfinite(losses)), f"danube's losses {losses}")
-    check(full["remat"]
-          and full["peak_memory_bytes"] <= full["peak_limit_bytes"],
+    check(full["remat"] and full["donated"]
+          and (full["peak_rel"] is None and not full["peak_memory_bytes"]
+               or full["peak_rel"] <= full["peak_limit"]),
           f"danube's peak {full['peak_memory_bytes']} with remat "
-          f"{full['remat']}: above the update's reckoned "
-          f"{full['peak_limit_bytes']}")
+          f"{full['remat']}: {full['peak_rel']} from the donated step's "
+          f"reckoned {full['reckoned']['donated_peak_bytes']}, over "
+          f"{full['peak_limit']}")
     check(last < losses[0] - TRAIN_FALL,
           f"danube did not learn: {losses[0]} -> {last} over the last "
           f"{TRAIN_LAST} of {TRAIN_STEPS} steps")
@@ -4162,7 +4184,9 @@ def part_batches(spec) -> list:
 
 
 def unsharded_runs(spec, batches, dev) -> dict:
-    """A part's references on one rank: the float32 model's step-1
+    """A part's references on one rank, at ``spec["oracle_microbatches"]``
+    (a MoE model's on a mesh with data > 1: its data blocks, each counted
+    alone): the float32 model's step-1
     gradient (an SGD step at SGD_LR), AdamW's params after each step and
     its losses, and the bf16 model's losses.  The gradient and the params
     are kept in host memory, so the card holds only the sharded run's
@@ -4179,7 +4203,8 @@ def unsharded_runs(spec, batches, dev) -> dict:
         make_train_step,
     )
 
-    tcfg = TrainConfig(steps=len(batches))
+    tcfg = TrainConfig(steps=len(batches),
+                       microbatches=spec["oracle_microbatches"])
     out = {}
     for name, cfg in (("float32", spec["cfg"]), ("bfloat16",
                                                  spec["cfg_bf16"])):
@@ -4674,8 +4699,12 @@ def train_shard_phase(seed: int, dev) -> dict:
                           "mesh": mesh}
         for key, part in parts.items():
             part.setdefault("mesh", SHARD_TRAIN_MESH)
+            # the unsharded run whose function the sharded step computes:
+            # MoE counts capacity on each data block's rows alone
             part.update(steps=SHARD_TRAIN_STEPS, lr=TRAIN_LR,
-                        out=os.path.join(tmp, key))
+                        out=os.path.join(tmp, key),
+                        oracle_microbatches=part["mesh"][0]
+                        if part["cfg"].moe is not None else 1)
         spec = {"mesh": SHARD_TRAIN_MESH, "device_type": dev.type,
                 "store": os.path.join(tmp, "store"), "out": tmp,
                 "prepare": SHARD_PREPARE, "seed": seed, "parts": parts,
@@ -4763,6 +4792,7 @@ def shard_train_report(part, ranks, restored, world) -> dict:
         "their slabs, the residual stream split along the sequence; what "
         "does not divide gathered",
         "batch": list(part["batch"]), "steps": part["steps"],
+        "oracle_microbatches": part["oracle_microbatches"],
         "lr": part["lr"], "loss_limit": f"rel <= {SHARD_TRAIN_REL}",
         "losses_float32": f32["losses"],
         "losses_unsharded_float32": ref["float32"],
@@ -4877,8 +4907,9 @@ def train_shard_checks(f) -> None:
 
 def dryrun_train_predict(cfg, batch, tokens_dtype: str) -> dict:
     """(a)'s prediction: the train phase's unsharded step (AdamW, no
-    weight decay, ``TRAIN_LR``) over fake tensors on the host, counted by
-    ``launch.op_stats``; the state and the batch are its inputs.  Then
+    weight decay, ``TRAIN_LR``, the state donated) over fake tensors on
+    the host, counted by ``launch.op_stats``; the state and the batch are
+    its inputs.  Then
     the step's loss and gradients alone (``step.loss_and_grads``, the
     params and the batch its inputs) with remat and without: their peaks
     (``grads_peak_bytes``, by remat)."""
@@ -4897,7 +4928,8 @@ def dryrun_train_predict(cfg, batch, tokens_dtype: str) -> dict:
     statics = init_statics(cfg, "cpu")
     opt = adamw(weight_decay=0.0)
     tcfg = TrainConfig()
-    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg)
+    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg,
+                           donate=True)
     mode = fake_mode()
     with mode:
         params, _ = init_params(cfg, torch.Generator(), device="cpu")
@@ -4910,7 +4942,7 @@ def dryrun_train_predict(cfg, batch, tokens_dtype: str) -> dict:
         with OpStats() as st:
             st.add_inputs(state, {"tokens": toks},
                           _static_tensors(statics))
-            step(state, {"tokens": toks})
+            state, _ = step(state, {"tokens": toks})
         trace_s = time.perf_counter() - t0
         grads_peak = {}
         for remat in (True, False):
@@ -5086,14 +5118,19 @@ def placed_reckoning(cfg, statics, shardings, mesh, rows: int, prompt: int,
     import torch
 
     from repro_torch.parallel.sharding import mesh_axis_sizes
-    from repro_torch.parallel.tensor import serve_bytes, serve_pods, serve_rows
+    from repro_torch.parallel.tensor import (
+        data_shards,
+        serve_bytes,
+        serve_pods,
+        serve_rows,
+    )
 
     n = mesh_axis_sizes(mesh).get("model", 1)
     kw = dict(rank=mesh.get_local_rank("model") if n > 1 else 0,
               blocks=serve_rows(mesh, shardings.batch)[1],
               placements=shardings.params,
               pods=serve_pods(mesh, shardings.batch),
-              cache_placements=shardings.cache)
+              cache_placements=shardings.cache, dp=data_shards(mesh)[1])
     out = [serve_bytes(cfg, statics, n, rows, prompt, "prefill", max_seq,
                        torch.bfloat16, **kw)] if prefill else []
     return out + [serve_bytes(cfg, statics, n, rows, prompt, "decode",
@@ -5361,9 +5398,9 @@ def wide_serve_run(rank: int, spec: dict) -> dict:
 
 
 def dryrun_train_measure(seed: int, dev, pred: dict) -> dict:
-    """(a) measured: one step of the train phase's danube on the card
-    under ``launch.op_stats`` (the same counter as the prediction), its
-    time, and its peak above what was allocated before it plus its
+    """(a) measured: one donated step of the train phase's danube on the
+    card under ``launch.op_stats`` (the same counter as the prediction),
+    its time, and its peak above what was allocated before it plus its
     inputs (what the prediction counts); then the step's loss and
     gradients alone with remat and without, each one's peak so counted
     and its time."""
@@ -5388,7 +5425,8 @@ def dryrun_train_measure(seed: int, dev, pred: dict) -> dict:
         cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
     opt = adamw(weight_decay=0.0)
     tcfg = TrainConfig()
-    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg)
+    step = make_train_step(cfg, statics, opt, lambda s: TRAIN_LR, tcfg,
+                           donate=True)
     state = init_train_state(params, opt, tcfg)
     del params
     batch = _to_device(next(train_data(seed, SyntheticCorpus(

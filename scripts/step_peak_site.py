@@ -13,7 +13,8 @@ width.  The default runs the cell's production step (``launch.steps.
 build_step``: the train step, or with ``--shape prefill_32k`` or a decode
 shape the placed serving step) for rank 0 of the single-pod fake mesh,
 as the dry run does; ``--unsharded`` runs the one-device step of ``runtime.train``
-(AdamW, no weight decay) on a ``--batch`` of rows x tokens, as
+(AdamW, no weight decay, the state donated) on a ``--batch`` of rows x
+tokens, as
 ``chip_smoke.py``'s ``train`` phase does; with ``--loss-and-grads``
 only its loss and gradients (``step.loss_and_grads``, no update), as the
 ``dryrun`` phase's (a) counts them, with the config's remat or, with
@@ -93,7 +94,8 @@ def _unsharded(cfg, batch: str, loss_and_grads: bool):
     statics = init_statics(cfg, "cpu")
     opt = adamw(weight_decay=0.0)
     tcfg = TrainConfig()
-    step = make_train_step(cfg, statics, opt, lambda s: 1e-3, tcfg)
+    step = make_train_step(cfg, statics, opt, lambda s: 1e-3, tcfg,
+                           donate=True)
     with op_stats.fake_mode():
         params, _ = init_params(cfg, torch.Generator(), device="cpu")
         state = init_train_state(params, opt, tcfg)

@@ -22,7 +22,8 @@ A train step runs as the config says, with the reference's remat: its
 FLOPs count the backward's recomputed forward and its peak is the
 checkpointed one, as the reference's ``hlo_stats`` and memory analysis
 of its compiled step count them; its gradients are reduce-scattered
-over ``data`` (``runtime.train``).
+over ``data`` (``runtime.train``), and it donates its state as the
+reference's jitted step does, so its peak holds one state, not two.
 
 The step takes the plain routes (``"routes": "plain"``): a hand-written
 kernel cannot take a fake tensor, and its wrapper refuses one.  A cell
@@ -125,10 +126,24 @@ def _nbytes(tree) -> int:
                if hasattr(t, "element_size"))
 
 
+def _resident(built) -> dict:
+    """The bytes of rank 0's param, optimizer and cache slabs in
+    ``built``'s arguments."""
+    args = built.args
+    if built.kind == "train":
+        return {"param_bytes": _nbytes(args[0]["params"]),
+                "opt_bytes": _nbytes(args[0]["opt_state"]), "cache_bytes": 0}
+    return {"param_bytes": _nbytes(args[0]), "opt_bytes": 0,
+            "cache_bytes": _nbytes(args[1])}
+
+
 def measure(built, mesh) -> tuple:
     """Run ``built`` (a ``launch.steps.BuiltStep``) once in its fake mode
-    under ``OpStats``; returns (the stats, the trace seconds)."""
+    under ``OpStats``; returns (the stats, the trace seconds).  The
+    arguments' sizes are read first (``built.meta["resident"]``): a train
+    step donates its state, which it leaves empty."""
     statics = built.meta.get("statics")
+    built.meta["resident"] = _resident(built)
     with built.mode, OpStats().name_groups(mesh) as stats:
         stats.add_inputs(built.args, _static_tensors(statics))
         t0 = time.perf_counter()
@@ -162,7 +177,7 @@ def _static_tensors(statics) -> list:
 
 def record(built, mesh, spec, stats, seconds: float) -> dict:
     """The cell's record fields from one measured run (module
-    docstring)."""
+    docstring; ``built`` as :func:`measure` left it)."""
     from repro_torch.models.transformer import model_flops_per_token
 
     chips = math.prod(int(s) for s in mesh.shape)
@@ -178,14 +193,7 @@ def record(built, mesh, spec, stats, seconds: float) -> dict:
     coll["total_count"] = int(sum(stats.collective_counts.values()))
     coll["by_dim"] = dict(stats.collective_bytes_by_dim)
     coll["while_trips"] = []  # Python loops dispatch every iteration
-    args = built.args
-    if built.kind == "train":
-        mem = {"param_bytes": _nbytes(args[0]["params"]),
-               "opt_bytes": _nbytes(args[0]["opt_state"]),
-               "cache_bytes": 0}
-    else:
-        mem = {"param_bytes": _nbytes(args[0]), "opt_bytes": 0,
-               "cache_bytes": _nbytes(args[1])}
+    mem = dict(built.meta["resident"])
     mem["peak_bytes"] = int(stats.peak_bytes)
     mem["fits"] = stats.peak_bytes <= ROOFLINE["hbm_bytes"]
     flops, bytes_ = stats.flops, stats.bytes
@@ -214,7 +222,12 @@ def _serve_reckoned(built, mesh, spec) -> dict:
     import torch
 
     from repro_torch.parallel.sharding import mesh_axis_sizes
-    from repro_torch.parallel.tensor import serve_bytes, serve_pods, serve_rows
+    from repro_torch.parallel.tensor import (
+        data_shards,
+        serve_bytes,
+        serve_pods,
+        serve_rows,
+    )
 
     cfg, statics = built.cfg, built.meta["statics"]
     blocks = serve_rows(mesh, spec.global_batch)[1]
@@ -224,7 +237,8 @@ def _serve_reckoned(built, mesh, spec) -> dict:
         torch.bfloat16, pos=spec.seq_len - 1, blocks=blocks,
         placements=built.meta["placements"]["params"],
         pods=serve_pods(mesh, spec.global_batch),
-        cache_placements=built.meta["placements"]["cache"])
+        cache_placements=built.meta["placements"]["cache"],
+        dp=data_shards(mesh)[1])
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,

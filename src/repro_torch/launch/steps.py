@@ -12,7 +12,7 @@ leaf.
 :func:`build_step` gives, for an (arch, shape, mesh) cell, the step a
 rank runs and this rank's arguments: the sharded train step of
 ``runtime.train`` (ZeRO-1 moments, bfloat16 above
-``_BF16_OPT_THRESHOLD`` params) or the placed prefill / decode step of
+``_BF16_OPT_THRESHOLD`` params; the state donated) or the placed prefill / decode step of
 ``runtime.serve`` (params and caches held as the slabs above).  The
 arguments are fake tensors (``torch._subclasses.fake_tensor``) of the
 slabs' shapes, never whole leaves, in the mode :attr:`BuiltStep.mode`,
@@ -210,6 +210,7 @@ def build_step(
 ) -> BuiltStep:
     """The (arch, shape) cell's step on ``mesh`` (module docstring):
     ``train`` gives ``(fn, (state, batch))`` of the sharded train step,
+    which donates ``state`` (as the reference's ``donate_argnums=(0,)``),
     ``prefill`` ``(fn, (params, cache, tokens, extras))`` and ``decode``
     ``(fn, (params, cache, tokens, pos))`` of the placed serving steps,
     with ``pos`` the cache's last position (the whole cache is read).
@@ -256,7 +257,8 @@ def build_step(
                                    _zero1(p_shard, p_shapes, mesh))
         step = make_train_step(cfg, statics, opt,
                                linear_warmup_cosine(3e-4, 100, 10000), tcfg,
-                               _model_kwargs_fn(cfg), shardings=shardings)
+                               _model_kwargs_fn(cfg), shardings=shardings,
+                               donate=True)
         with mode:
             params = _slabs(p_shard, p_shapes)
             state = {"params": params,

@@ -12,7 +12,9 @@ production rules (``launch.steps.param_shardings`` and ZeRO-1 moments,
 ``runtime.train`` with ``shardings=``), feeds each rank its rows of the
 packed synthetic pipeline (``data.shard_batch``), and drives the
 fault-tolerant ``Trainer`` (periodic async checkpoints of whole leaves,
-resume-from-latest).  One process starts its own one-rank group; under
+resume-from-latest) with a step that donates the state, as the
+reference's ``jax.jit(..., donate_argnums=(0,))`` does
+(``make_train_step(..., donate=True)``).  One process starts its own one-rank group; under
 ``torchrun`` every rank joins the launched group (``nccl`` on ``cuda``,
 ``gloo`` on the CPU).  ``--device`` is where it runs (default ``cuda``,
 raising without a card; ``cpu`` when asked).  Every rank draws the same
@@ -102,7 +104,7 @@ def _train(args, cfg):
     )
     lr_fn = linear_warmup_cosine(args.lr, 20, args.steps)
     step = make_train_step(cfg, statics, opt, lr_fn, tcfg,
-                           shardings=shardings)
+                           shardings=shardings, donate=True)
     state = init_train_state(params, opt, tcfg, shardings=shardings)
     del params
 

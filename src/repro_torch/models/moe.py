@@ -17,9 +17,12 @@ reference chooses them (:func:`moe_apply`):
   * **tensor parallel** (:func:`moe_apply_tp`, inside
     ``parallel.tensor.tensor_parallel_ctx``: the sharded train step and
     the placed serving steps): each rank routes its row block of the
-    batch through its ``model`` slab of the experts, with capacity and
-    each pair's place in its expert's queue the whole batch's (the counts
-    all-gathered over the data dims).
+    batch through its ``model`` slab of the experts.  Capacity is counted
+    as the reference counts it under its mesh: on the block's own tokens
+    where the batch divides over the data dims and the experts over
+    ``model`` (``_moe_shard_map``), else over the whole batch, each
+    pair's place in its expert's queue after the earlier blocks' (its
+    ``_moe_local`` fallback; the counts all-gathered over the data dims).
 
 Dispatch is sort-based (dropless up to the capacity factor): (token, k)
 pairs sort by expert id, each expert takes up to ``cap`` tokens and the
@@ -35,13 +38,16 @@ overflow drops.  Routing and drops are the reference's integers exactly:
     group starts, and every dropped pair written to the sentinel row
     ``e_loc*cap``, which is thrown away.
 
-A drop depends on what else the batch holds (idle decode slots
-included), as in the reference.  The combine un-sorts the weighted
-contributions to ``[t, k]`` and sums over ``k``: the reference's
-scatter-add, in a fixed order (``index_add_`` on CUDA sums in atomic
-order).  The expert products are ``torch.einsum``, as the reference's are
-XLA einsums outside any Pallas kernel.  Nothing here reads the device
-from the host.
+A drop depends on what else the block holds (idle decode slots
+included), as in the reference.  The expert buffers are ``e_loc * cap``
+rows of the block's capacity; the dispatch writes each pair's token row
+into its slot (the dropped and foreign pairs into the sentinel row) and
+the combine adds the ``k`` weighted contributions of each token in
+``k`` order, in float32, rounded once: the reference's scatter-add
+without its ``[t * k, d]`` contributions or atomics.  The expert
+products are ``torch.einsum``, as the reference's are XLA einsums
+outside any Pallas kernel.  Nothing here reads the device from the
+host.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from repro_torch.parallel.tensor import (
     data_shards,
     gather_over_data,
     gather_sequence,
+    moe_per_block,
     reduce_from_model,
     scatter_sequence,
     split_sequence,
@@ -160,10 +167,10 @@ def capacity(t: int, cfg: MoEConfig) -> int:
 def _dispatch_slots(top_e: torch.Tensor, t: int, cfg: MoEConfig, e0: int,
                     e_loc: int, earlier=None):
     """The reference's sort-based dispatch of the (token, k) pairs of
-    ``top_e`` [T, k] to the local experts ``[e0, e0 + e_loc)``:
-    (order, tok_sorted, slot, keep), each over the pairs in expert order.
-    ``slot`` is the pair's row in the ``[e_loc * cap + 1]`` gather (the
-    last row the sentinel of every dropped or foreign pair).
+    ``top_e`` [T, k] to the local experts ``[e0, e0 + e_loc)``: (slot,
+    keep), each [T, k].  ``slot`` is the pair's row in the ``[e_loc * cap
+    + 1]`` gather (the last row the sentinel of every dropped or foreign
+    pair), ``keep`` whether it took one.
 
     ``earlier`` = (pairs [E] each expert took on the row blocks before
     this one, tokens of all row blocks) dispatches these tokens as the
@@ -173,7 +180,6 @@ def _dispatch_slots(top_e: torch.Tensor, t: int, cfg: MoEConfig, e0: int,
     dev = top_e.device
     cap = capacity(t if earlier is None else earlier[1], cfg)
     flat_e = top_e.reshape(-1) - e0  # local expert index (may be OOB)
-    flat_tok = torch.arange(t, device=dev).repeat_interleave(cfg.top_k)
     local = (flat_e >= 0) & (flat_e < e_loc)
     sort_key = torch.where(local, flat_e, e_loc)  # foreign pairs sort last
 
@@ -189,17 +195,16 @@ def _dispatch_slots(top_e: torch.Tensor, t: int, cfg: MoEConfig, e0: int,
         pos_in_group = pos_in_group + before[e_sorted.clamp(0, e_loc)]
     keep = (e_sorted < e_loc) & (pos_in_group < cap)
     slot = torch.where(keep, e_sorted * cap + pos_in_group, e_loc * cap)
-    return order, flat_tok[order], slot, keep
+    # back to (token, k) order
+    slot_tk, keep_tk = torch.empty_like(slot), torch.empty_like(keep)
+    slot_tk[order], keep_tk[order] = slot, keep
+    return slot_tk.view(t, cfg.top_k), keep_tk.view(t, cfg.top_k)
 
 
 def kept_pairs(top_e: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """bool [T, k]: which (token, k) pairs of ``top_e`` the dispatch keeps
     (within its expert's capacity)."""
-    t, k = top_e.shape
-    order, _, _, keep = _dispatch_slots(top_e, t, cfg, 0, cfg.n_experts)
-    out = torch.empty_like(keep)
-    out[order] = keep
-    return out.reshape(t, k)
+    return _dispatch_slots(top_e, top_e.shape[0], cfg, 0, cfg.n_experts)[1]
 
 
 def _dispatch_compute_combine(
@@ -213,23 +218,21 @@ def _dispatch_compute_combine(
 ) -> torch.Tensor:
     """Capacity-gather local tokens to local experts, run the FFNs, and
     combine the weighted outputs.  Returns the *partial* output [T, D]
-    (contributions of local experts only)."""
+    (contributions of local experts only).  No tensor of the pairs'
+    rows (``[T * k, D]``) is formed: the dispatch and the combine go
+    over the ``k`` choices one at a time."""
     t, d = xf.shape
     k = cfg.top_k
-    dev = xf.device
     e_loc = experts["up"].shape[0]
     cap = capacity(t if earlier is None else earlier[1], cfg)
-    order, tok_sorted, slot, keep = _dispatch_slots(top_e, t, cfg, e0, e_loc,
-                                                    earlier)
-    # a foreign or dropped pair's weight is zero wherever it lands
-    w_sorted = torch.where(keep, top_w.reshape(-1)[order], 0.0)
+    slot, keep = _dispatch_slots(top_e, t, cfg, e0, e_loc, earlier)
 
-    gathered = torch.zeros((e_loc * cap + 1, d), dtype=xf.dtype, device=dev)
-    # kept slots are distinct; every dropped pair writes zeros to the
-    # sentinel row
-    gathered[slot] = torch.where(keep[:, None], xf[tok_sorted], 0).to(
-        xf.dtype)
-    xe = gathered[:-1].reshape(e_loc, cap, d)
+    gathered = xf.new_zeros((e_loc * cap + 1, d))
+    # kept slots are distinct; every dropped or foreign pair writes its
+    # row to the sentinel row, which is thrown away
+    for i in range(k):
+        gathered[slot[:, i]] = xf
+    xe = gathered[:-1].view(e_loc, cap, d)
 
     h = torch.einsum("ecd,edf->ecf", xe, experts["up"].to(xf.dtype))
     if cfg.act == "swiglu":
@@ -238,15 +241,17 @@ def _dispatch_compute_combine(
     else:
         h = gelu(h)
     ye = torch.einsum("ecf,efd->ecd", h, experts["down"].to(xf.dtype))
-    ye = torch.cat([ye.reshape(e_loc * cap, d),
-                    torch.zeros((1, d), dtype=ye.dtype, device=dev)])
+    ye = ye.reshape(e_loc * cap, d)
 
-    contrib = ye[slot] * w_sorted[:, None].to(xf.dtype)
-    # un-sort to (token, k) order and sum over k: the reference's
-    # scatter-add over tok_sorted, in a fixed order
-    pairs = torch.empty_like(contrib)
-    pairs[order] = contrib
-    return pairs.reshape(t, k, d).sum(dim=1)
+    # the reference's scatter-add of ye[slot] * w over the tokens, in k
+    # order: a dropped or foreign pair adds zero wherever it points
+    out = None
+    for i in range(k):
+        rows = ye[slot[:, i].clamp(max=e_loc * cap - 1)]
+        term = torch.where(keep[:, i, None], rows * top_w[:, i, None],
+                           0).float()
+        out = term if out is None else out + term
+    return out.to(xf.dtype)
 
 
 def _route(params, cfg: MoEConfig, xf: torch.Tensor):
@@ -330,21 +335,26 @@ def moe_apply(params, static, cfg: MoEConfig, x: torch.Tensor,
 
 
 def _earlier(tp, top_e: torch.Tensor, n_experts: int):
-    """``_dispatch_slots``' ``earlier`` for this rank's row block: the
-    pairs each expert took on the earlier row blocks (every block's
-    counts all-gathered, ``tp.data_gather_bytes``), and the tokens of all
-    blocks.  The blocks are ``tp.rows`` over its dims (a placed serving
-    step's, ``parallel.tensor.serve_rows``; one block: None, the rows are
-    the batch), else the sharded train step's over ``pod``/``data``
-    (``parallel.tensor.data_shards``).
-    The counts are a comparison's sum, which a fake tensor can take
-    (``bincount``'s length depends on the data)."""
+    """``_dispatch_slots``' ``earlier`` for this rank's row block: None
+    where MoE counts capacity on the block alone
+    (``parallel.tensor.moe_per_block``, the reference's
+    ``_moe_shard_map``), else the pairs each expert took on the earlier
+    row blocks (every block's counts all-gathered,
+    ``tp.data_gather_bytes``) and the tokens of all blocks (its
+    ``_moe_local`` over the whole batch).  The blocks are ``tp.rows``
+    over its dims (a placed serving step's, ``parallel.tensor.
+    serve_rows``; one block: None, the rows are the batch), else the
+    sharded train step's over ``pod``/``data``
+    (``parallel.tensor.data_shards``).  The counts are a comparison's
+    sum, which a fake tensor can take (``bincount``'s length depends on
+    the data)."""
+    dp = data_shards(tp.mesh)[1]
     if tp.rows is None:
         (r, blocks), dims = data_shards(tp.mesh), ("data", "pod")
     else:
         r, blocks, dims = tp.rows
-        if blocks == 1:
-            return None
+    if blocks == 1 or moe_per_block(n_experts, tp.size, blocks, dp):
+        return None
     flat = top_e.reshape(-1)
     mine = (flat[:, None] == torch.arange(n_experts, device=flat.device)
             ).sum(0)
@@ -364,11 +374,11 @@ def moe_apply_tp(tp, params, static, cfg: MoEConfig, x: torch.Tensor,
     rows runs through the slab's experts and the partial outputs sum over
     the group; else every rank runs all experts.  The router runs whole,
     and the shared experts on their ``ff`` slabs with ``shared_split``
-    (``layers.mlp_apply_tp``), else whole.  Capacity and each pair's
-    place in its expert's queue are the whole batch's (the rows' row
-    block after the earlier blocks', counts all-gathered over the data
-    dims, :func:`_earlier`), as the reference's step computes them over
-    its global batch.
+    (``layers.mlp_apply_tp``), else whole.  Capacity is the rows' own
+    where the batch divides over the data dims and the experts over
+    ``model``, as the reference's ``moe_apply`` counts it under its mesh;
+    else the whole batch's, each pair's place in its expert's queue after
+    the earlier blocks' (:func:`_earlier`).
 
     ``seq``: ``x`` is this rank's slab of the sequence, gathered once
     (``parallel.tensor.gather_sequence``) for the router, the experts and

@@ -557,7 +557,8 @@ def _apply_layer_tp(tp, params, static, cfg: ModelConfig, x, positions,
     sharded train step's, or a placed serving step's): the blocks of
     ``tensor.layer_splits`` on this rank's slabs of ``tp``'s ``model``
     group, the rest (norms, and a block whose heads do not divide) whole,
-    and MoE's capacity the whole batch's (``moe.moe_apply_tp``).
+    and MoE's capacity each data block's, where the reference's mesh
+    counts it so (``moe.moe_apply_tp``).
 
     With ``seq`` the layer takes and returns this rank's slab of the
     sequence (``[B, S / n, d]``): the norms and residual adds run on it

@@ -14,6 +14,14 @@ allocates once, a piece of at most ``UPDATE_CHUNK`` elements at a time
 (:func:`_pieces`), so its float32 temporaries are a piece's, not a
 stacked leaf's: the same operations on the same elements, so the same
 bits as the whole-leaf expression.
+
+``update(..., donate=True)`` (a donated train step's,
+``runtime.train.make_train_step``) takes the grads, the state and the
+params as given up: each leaf leaves its container as the update reaches
+it (:func:`donated_map`), AdamW writes its float32 moments and the params
+into the given tensors, and a moment of another dtype gives way to its
+float32 successor, so the update holds one leaf's old and new tensors at
+once, not two trees.  The operations are the same, so are the bits.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ __all__ = [
     "cosine_schedule",
     "linear_warmup_cosine",
     "UPDATE_CHUNK",
+    "donated_map",
 ]
 
 # elements of a leaf that one pass of AdamW's update covers (float32
@@ -66,6 +75,30 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def donated_map(fn, owned: int, tree, *rest):
+    """``_map(fn, tree, *rest)`` where the first ``owned`` trees (``tree``
+    first) are given up: each of their leaves leaves its container (which
+    ends holding None) before ``fn`` takes it, so once ``fn`` returns,
+    nothing here holds the old leaf."""
+    if isinstance(tree, (dict, list)):
+        trees = (tree, *rest)
+        out: dict | list = {} if isinstance(tree, dict) else []
+        for k in (list(tree) if isinstance(tree, dict)
+                  else range(len(tree))):
+            leaves = [t[k] for t in trees]
+            if not isinstance(leaves[0], (dict, list)):
+                for t in trees[:owned]:
+                    t[k] = None
+            v = donated_map(fn, owned, *leaves)
+            del leaves
+            if isinstance(out, dict):
+                out[k] = v
+            else:
+                out.append(v)
+        return out
+    return fn(tree, *rest)
+
+
 def _pieces(t: torch.Tensor, chunk: int) -> tuple:
     """``t`` as views along its first dim of at most ``chunk`` elements
     each (a row at least); a 0-d tensor whole."""
@@ -84,8 +117,11 @@ def _unzip(flat, n: int) -> list:
 def global_norm(tree, reduce: Callable | None = None) -> torch.Tensor:
     """The norm of all leaves together.  ``reduce`` (the sharded train
     step's) takes the list of per-leaf sums of squares and returns it
-    with each slab leaf's summed over the ranks that hold its slabs."""
-    sq = [torch.sum(torch.square(x.float())) for x in _leaves(tree)]
+    with each slab leaf's summed over the ranks that hold its slabs.  A
+    leaf of another dtype is squared in its float32 copy, so one copy of
+    it is made, not two."""
+    sq = [torch.sum(x.float().square_() if x.dtype != torch.float32
+                    else torch.square(x)) for x in _leaves(tree)]
     if reduce is not None:
         sq = reduce(sq)
     return torch.sqrt(sum(sq))
@@ -93,9 +129,14 @@ def global_norm(tree, reduce: Callable | None = None) -> torch.Tensor:
 
 @torch.no_grad()
 def clip_by_global_norm(tree, max_norm: float,
-                        reduce: Callable | None = None):
+                        reduce: Callable | None = None,
+                        in_place: bool = False):
+    """(``tree`` scaled to ``max_norm`` where its global norm exceeds it,
+    the norm); with ``in_place`` the leaves are scaled where they lie."""
     norm = global_norm(tree, reduce)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    if in_place:
+        return _map(lambda x: x.mul_(scale.to(x.dtype)), tree), norm
     return _map(lambda x: x * scale.to(x.dtype), tree), norm
 
 
@@ -118,21 +159,27 @@ def adamw(
         }
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, donate: bool = False):
         count = state["count"] + 1
         c = count.float()
         s1, s2 = 1 - b1**c, 1 - b2**c
+
+        def into(t, dtype):
+            """Where a leaf's new value goes: ``t`` itself, donated, if it
+            is of ``dtype``; else a new tensor of ``dtype``."""
+            if donate and t.dtype == dtype:
+                return t
+            return torch.empty_like(t, dtype=dtype)
 
         def upd(g, m, v, p):
             # m' = b1 m + (1 - b1) g, v' = b2 v + (1 - b2) g g,
             # p' = p - lr (m' / s1 / (sqrt(v' / s2) + eps) + wd p),
             # each operation as the whole-leaf expression runs it
             # (bfloat16 moments come back float32, as the reference's do)
-            new_m = torch.empty_like(m, dtype=torch.promote_types(
-                m.dtype, torch.float32))
-            new_v = torch.empty_like(v, dtype=torch.promote_types(
-                v.dtype, torch.float32))
-            new_p = torch.empty_like(p)
+            f32 = torch.float32
+            new_m = into(m, torch.promote_types(m.dtype, f32))
+            new_v = into(v, torch.promote_types(v.dtype, f32))
+            new_p = into(p, p.dtype)
             for gc, mc, vc, pc, nm, nv, npc in zip(*(
                     _pieces(t, UPDATE_CHUNK)
                     for t in (g, m, v, p, new_m, new_v, new_p))):
@@ -147,7 +194,11 @@ def adamw(
                 torch.sub(pc, lr * step.to(p.dtype), out=npc)
             return new_p, new_m, new_v
 
-        flat = _map(upd, grads, state["mu"], state["nu"], params)
+        if donate:
+            flat = donated_map(upd, 4, grads, state["mu"], state["nu"],
+                               params)
+        else:
+            flat = _map(upd, grads, state["mu"], state["nu"], params)
         new_params, new_mu, new_nu = _unzip(flat, 3)
         return new_params, {"mu": new_mu, "nu": new_nu, "count": count}
 
@@ -164,7 +215,7 @@ def lion(b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.1) -> Optimi
         }
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, donate: bool = False):
         def upd(g, m, p):
             g = g.float()
             direction = torch.sign(b1 * m + (1 - b1) * g)
@@ -172,7 +223,8 @@ def lion(b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.1) -> Optimi
             return ((p - lr * step.to(p.dtype)).to(p.dtype),
                     b2 * m + (1 - b2) * g)
 
-        flat = _map(upd, grads, state["mu"], params)
+        flat = (donated_map(upd, 3, grads, state["mu"], params) if donate
+                else _map(upd, grads, state["mu"], params))
         new_params, new_mu = _unzip(flat, 2)
         return new_params, {"mu": new_mu, "count": state["count"] + 1}
 
@@ -185,12 +237,13 @@ def sgd(momentum: float = 0.9) -> Optimizer:
                            params)}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, donate: bool = False):
         def upd(g, m, p):
             m = momentum * m + g.float()
             return (p - lr * m.to(p.dtype)).to(p.dtype), m
 
-        flat = _map(upd, grads, state["mu"], params)
+        flat = (donated_map(upd, 3, grads, state["mu"], params) if donate
+                else _map(upd, grads, state["mu"], params))
         new_params, new_mu = _unzip(flat, 2)
         return new_params, {"mu": new_mu}
 

@@ -144,7 +144,8 @@ __all__ = ["TensorParallel", "tensor_parallel_ctx", "entered", "current",
            "write_positions", "read_positions", "gather_cache", "write_own",
            "serve_rows", "serve_bytes", "serve_comm_by_kind",
            "SERVE_COMM", "serve_comm", "check_slabs", "SEQ_LEAVES",
-           "serve_row_dims", "serve_pods", "share_rows", "gather_pods"]
+           "serve_row_dims", "serve_pods", "share_rows", "gather_pods",
+           "moe_per_block"]
 
 
 @dataclasses.dataclass
@@ -161,12 +162,13 @@ class TensorParallel:
     traffic over ``model``: ``cache_gather_bytes`` all-gathered (the
     outputs') and ``cache_exchange_bytes`` moved all-to-all (what each
     rank receives); ``data_gather_bytes``, MoE's per-expert counts
-    all-gathered over the row dims; and ``pod_gather_bytes``, the rows
-    each pod wrote of a cache slab that every pod holds, all-gathered
-    over ``pod`` (:func:`share_rows`).  ``rows`` is then the rank's row
-    block of the batch (block, blocks, the mesh dims the blocks span,
-    inner first: :func:`serve_rows`, :func:`serve_row_dims`), over which
-    MoE counts capacity."""
+    all-gathered over the row dims where it counts capacity over the
+    whole batch (not :func:`moe_per_block`); and ``pod_gather_bytes``,
+    the rows each pod wrote of a cache slab that every pod holds,
+    all-gathered over ``pod`` (:func:`share_rows`).  ``rows`` is then
+    the rank's row block of the batch (block, blocks, the mesh dims the
+    blocks span, inner first: :func:`serve_rows`, :func:`serve_row_dims`),
+    MoE's blocks."""
 
     mesh: object
     size: int  # model ranks
@@ -1097,7 +1099,8 @@ def serve_comm(param_gather_bytes: int, tp: TensorParallel) -> dict:
 
 def _serve_layer_moves(cfg, static: dict, n: int, rank: int, rows: int,
                        s: int, seq: bool, cache: dict | None,
-                       blocks: int, pods: int = 1) -> dict:
+                       blocks: int, pods: int = 1,
+                       dp: int | None = None) -> dict:
     """The bytes, by kind (``_SERVE_KINDS``, ``TensorParallel``'s
     counters), that one call of a layer moves forward over ``n`` model
     ranks in a placed serving step (``models.transformer._apply_layer_tp``)
@@ -1105,8 +1108,10 @@ def _serve_layer_moves(cfg, static: dict, n: int, rank: int, rows: int,
     split along the sequence where ``seq``.  ``cache`` (None without one:
     an encoder layer): ``T`` positions, split over ``model`` where
     ``split``, of ``size`` bytes an entry, the write position ``pos``;
-    ``blocks``: the row blocks (MoE's counts), ``pods`` of them over
-    ``pod`` within each over ``data``."""
+    ``blocks``: the row blocks, ``pods`` of them over ``pod`` within each
+    over ``data``, of the mesh's ``dp`` pod x data ranks (default
+    ``blocks``): MoE gathers its counts over them unless
+    :func:`moe_per_block`."""
     d = cfg.d_model
     c = torch.empty((), dtype=cfg.cdtype()).element_size()
     p = torch.empty((), dtype=cfg.pdtype()).element_size()
@@ -1228,7 +1233,9 @@ def _serve_layer_moves(cfg, static: dict, n: int, rank: int, rows: int,
     elif ffn == "moe":
         if seq:
             out["seq_gather"] += t * d * c
-        if blocks > 1:  # gathered over pod, then data (cumulative)
+        whole = not moe_per_block(cfg.moe.n_experts, n, blocks,
+                                  blocks if dp is None else dp)
+        if blocks > 1 and whole:  # gathered over pod, then data
             out["data_gather"] += (pods * (pods > 1) + blocks * (
                 blocks > pods)) * cfg.moe.n_experts * 8
         for part in ("moe", "moe_shared"):
@@ -1241,12 +1248,13 @@ def serve_bytes(cfg, statics: dict, n: int, rows: int, length: int,
                 kind: str, max_seq: int, cache_dtype=torch.bfloat16,
                 pos: int = 0, rank: int = 0, blocks: int = 1,
                 placements=None, pods: int = 1,
-                cache_placements=None) -> dict:
+                cache_placements=None, dp: int | None = None) -> dict:
     """The bytes model rank ``rank`` of a placed serving step moves (a
     ``kind`` ``"prefill"`` of ``length`` positions, the prefix included,
     or a ``"decode"`` at ``pos``), on its ``rows`` rows (one of
     ``blocks`` row blocks, ``pods`` of them over ``pod`` within each
-    over ``data``: :func:`serve_rows`) with a cache of ``max_seq``
+    over ``data``: :func:`serve_rows`, of the mesh's ``dp`` pod x data
+    ranks, default ``blocks``) with a cache of ``max_seq``
     positions in ``cache_dtype``, as ``runtime.serve``'s ``step.comm``
     counts them (its keys): each layer's from :func:`_serve_layer_moves`,
     the decoder's and (a prefill with frames) the encoder's, and around
@@ -1275,15 +1283,16 @@ def serve_bytes(cfg, statics: dict, n: int, rows: int, length: int,
 
     for st in statics["prefix_layers"]:
         add(_serve_layer_moves(cfg, st, n, rank, rows, s, seq, cache,
-                               blocks, pods))
+                               blocks, pods, dp))
     for st in statics["body"]:
         add(_serve_layer_moves(cfg, st, n, rank, rows, s, seq, cache,
-                               blocks, pods), statics["n_periods"])
+                               blocks, pods, dp), statics["n_periods"])
     encode = kind == "prefill" and "encoder" in statics
     if encode:
         seq_enc = seq_splits(n, cfg.enc_seq)
         add(_serve_layer_moves(cfg, statics["encoder"], n, rank, rows,
-                               cfg.enc_seq, seq_enc, None, blocks, pods),
+                               cfg.enc_seq, seq_enc, None, blocks, pods,
+                               dp),
             cfg.encoder_layers)
         if seq_enc:
             total["seq_gather"] += rows * cfg.enc_seq * d * c
@@ -1479,6 +1488,17 @@ def gather_over_data(mesh, t: torch.Tensor, dims=("data", "pod"),
             if tp is not None:
                 tp.data_gather_bytes += out.numel() * out.element_size()
     return out
+
+
+def moe_per_block(n_experts: int, n_model: int, blocks: int,
+                  dp: int) -> bool:
+    """Whether MoE counts capacity on each of a step's ``blocks`` row
+    blocks alone: where the rows split over all ``dp`` pod x data ranks
+    (the batch divides over them) and the ``n_model`` model ranks divide
+    the experts, as the reference's ``moe_apply`` takes
+    ``_moe_shard_map`` under its mesh; else over the whole batch (its
+    ``_moe_local``)."""
+    return blocks == dp and n_experts % n_model == 0
 
 
 def serve_row_dims(mesh, batch: int) -> tuple:

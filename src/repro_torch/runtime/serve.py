@@ -24,7 +24,9 @@ hold their positions, a decode's key heads at every position for its
 rows (or, with ``decode_strategy="flash"`` and no window, the query heads
 to score its own slab, ``models.attention.flash_decode_placed``), MLA's
 latents for its rows, an SSM's conv columns re-laid out, MoE's
-per-expert counts over the row dims, the other pods' rows of what each
+per-expert counts over the row dims where capacity is the whole batch's
+(``models.moe.moe_apply_tp``; else each rank's rows count their own,
+as the reference's mesh counts them), the other pods' rows of what each
 layer wrote of its cache slabs (``parallel.tensor.share_rows``), and the
 sampled position's logits over the vocabulary; param leaves only where
 no block computes on their slabs

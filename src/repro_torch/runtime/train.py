@@ -76,8 +76,13 @@ whole-leaf: the global norm sums each slab's squares over every dim that
 splits it (``model``, then ``data``), and int8 compression takes each
 leaf's scale from its largest value over the same dims; the new
 residuals are all-gathered over ``data`` back to their param slabs.
-MoE capacity is counted over the whole batch (``models.moe.
-moe_apply_tp``), and with microbatches over the global microbatch: the
+MoE counts capacity as the reference's step does under its mesh
+(``models.moe.moe_apply_tp``): on each rank's rows alone where ``model``
+divides the experts, so with ``n`` microbatches each rank cuts its own
+rows into ``n`` and the step is the unsharded one at ``n`` x pod x data
+microbatches (the same blocks of ``B / (n dp)`` contiguous rows, each
+counted alone, the loss a mean over them).  Where ``model`` does not
+divide some MoE layer's experts, capacity is the global microbatch's: the
 batch is all-gathered over ``pod``/``data`` and each rank's microbatch
 ``j`` is its row block of the global rows ``[j B / n, (j + 1) B / n)``,
 as the reference cuts them.
@@ -127,7 +132,7 @@ from repro_torch.optim import (
     decompress_gradients,
     init_compression_state,
 )
-from repro_torch.optim.optimizers import _leaves, _map
+from repro_torch.optim.optimizers import _leaves, _map, donated_map
 from repro_torch.parallel.sharding import (
     _entry_axes,
     cut_slab,
@@ -141,6 +146,7 @@ from repro_torch.parallel.tensor import (
     current,
     data_shards,
     gather_over_data,
+    moe_per_block,
     reduce_from_model,
     reduce_scatter,
     slab_leaves,
@@ -244,9 +250,9 @@ def comm_by_kind(comm: dict) -> dict:
     """A sharded step's ``step.comm`` summed by collective kind, under
     ``launch.op_stats``' names (an all-gather's bytes its whole output's,
     a reduce-scatter's its slab's): what ``OpStats.
-    collective_bytes_by_kind`` counts of the same step without
-    microbatches or MoE (whose batch and count gathers ``step.comm``
-    does not count)."""
+    collective_bytes_by_kind`` counts of the same step but where MoE
+    counts capacity over the whole batch (its batch and count gathers,
+    which ``step.comm`` does not count)."""
     return {"all-gather": comm["param_gather_bytes"]
             + comm["model_gather_bytes"] + comm["model_seq_gather_bytes"]
             + comm["zero_gather_bytes"],
@@ -304,6 +310,7 @@ def make_train_step(
     tcfg: TrainConfig,
     model_kwargs_fn: Callable[[dict], dict] | None = None,
     shardings: TrainShardings | None = None,
+    donate: bool = False,
 ):
     """Returns step(state, batch) -> (state, metrics).
 
@@ -316,6 +323,15 @@ def make_train_step(
     docstring).  Without ``shardings``, ``step.loss_and_grads(params,
     batch)`` gives the step's loss and gradients (microbatched as the
     step) and no update: the part of the step that remat changes.
+
+    ``donate``: the step gives up the state it is called with, as the
+    reference's jitted step donates it (``donate_argnums=(0,)``): the
+    caller's state containers are emptied as the step starts, the grads
+    are clipped in place, and the update writes AdamW's float32 moments
+    and the params into the given tensors, each old leaf released as the
+    update reaches it (on the ZeRO-1 path each param slab once its moment
+    slab is cut; ``optim.optimizers.donated_map``), so the step holds one
+    state, not two.  Its results are the functional step's bit for bit.
     """
 
     def loss_fn(params, batch):
@@ -352,13 +368,13 @@ def make_train_step(
         return loss.detach(), _map(lambda _: next(it), params)
 
     def microbatch(batch, j: int) -> dict:
-        """Microbatch ``j`` of ``tcfg.microbatches`` of the global
-        ``batch``: its rows ``[j B / n, (j + 1) B / n)`` (the reference's
-        ``reshape((n, B // n))``); sharded, this rank's row block of
-        them."""
+        """Microbatch ``j`` of ``tcfg.microbatches`` of ``batch``: its
+        rows ``[j B / n, (j + 1) B / n)`` (the reference's ``reshape((n,
+        B // n))``); with ``whole_counts``, ``batch`` is the global one
+        and this rank takes its row block of them."""
         nmb = tcfg.microbatches
         b = batch["tokens"].shape[0]
-        r, blocks = data_shards(mesh) if sharded else (0, 1)
+        r, blocks = data_shards(mesh) if whole_counts else (0, 1)
         if b % (nmb * blocks):
             raise ValueError(f"{b} rows do not cut into {nmb} microbatches "
                              f"of {blocks} row blocks")
@@ -369,7 +385,7 @@ def make_train_step(
     def loss_and_grads(params, batch):
         nmb = tcfg.microbatches
         if nmb > 1:
-            if sharded:  # the global batch: row blocks in order
+            if whole_counts:  # the global batch: row blocks in order
                 batch = {k: gather_over_data(mesh, v).flatten(0, 1)
                          for k, v in batch.items()}
             loss, grads = 0.0, None
@@ -392,6 +408,12 @@ def make_train_step(
             else None)
     if sharded:
         check_slabs(shardings.params, slab)
+    # where MoE counts capacity over the whole microbatch, every rank's
+    # rows take part in each microbatch (a train step's rows split over
+    # every pod and data rank, so the rule turns on the experts alone)
+    dp = data_shards(mesh)[1] if sharded else 1
+    whole_counts = (sharded and cfg.moe is not None and not moe_per_block(
+        cfg.moe.n_experts, n_model, dp, dp))
 
     def whole(tree):
         """A params-shaped tree with every leaf that is not computed on
@@ -440,10 +462,11 @@ def make_train_step(
 
     def to_moments(tree):
         """A params-shaped tree (slab leaves on their slabs, the rest
-        whole) cut to this rank's ZeRO-1 moment slabs."""
-        return _map(lambda t, pl, z, on_slab: cut_slab(t, pl, z) if on_slab
-                    else shard_tensor(t, z), tree, shardings.params,
-                    shardings.moments, slab)
+        whole) cut to this rank's ZeRO-1 moment slabs; donated, each
+        leaf of ``tree`` dropped once its moment slab is cut."""
+        return consume(lambda t, pl, z, on_slab: cut_slab(t, pl, z)
+                       if on_slab else shard_tensor(t, z), tree,
+                       shardings.params, shardings.moments, slab)
 
     def to_params(tree):
         """A tree of this rank's moment slabs all-gathered over ``data``
@@ -457,20 +480,31 @@ def make_train_step(
                                                    * out.element_size())
             return out
 
-        return _map(back, tree, shardings.moments)
+        return consume(back, tree, shardings.moments)
+
+    def consume(fn, tree, *rest):
+        """``_map(fn, tree, *rest)``; donated, each leaf of ``tree``
+        leaves its container as ``fn`` takes it."""
+        if donate:
+            return donated_map(fn, 1, tree, *rest)
+        return _map(fn, tree, *rest)
 
     def update(grads, opt_state, params, lr):
         """The optimizer's update; sharded, on this rank's moment slabs
         (ZeRO-1), where the gradient already is, the new params then
         gathered over ``data`` back to the rank's param slabs."""
+        kw = {"donate": True} if donate else {}
         if not sharded:
-            return opt.update(grads, opt_state, params, lr)
-        slabs, new_opt = opt.update(grads, opt_state, to_moments(params), lr)
+            return opt.update(grads, opt_state, params, lr, **kw)
+        slabs, new_opt = opt.update(grads, opt_state, to_moments(params), lr,
+                                    **kw)
         return to_params(slabs), new_opt
 
     def step(state, batch):
+        if donate:  # the caller's containers emptied: this holds them now
+            state = _take(state)
         step.comm = dict.fromkeys(step.comm, 0)
-        params = whole(state["params"])
+        params = whole(state.pop("params") if donate else state["params"])
         if sharded and mesh.size() > 1:
             with tensor_parallel_ctx(mesh) as tp:
                 loss, grads = loss_and_grads(params, batch)
@@ -484,7 +518,8 @@ def make_train_step(
         else:  # one device, or a one-rank mesh: every slab whole
             loss, grads = loss_and_grads(params, batch)
         grads, gnorm = clip_by_global_norm(
-            grads, tcfg.grad_clip, over_slabs(grads, dist.ReduceOp.SUM))
+            grads, tcfg.grad_clip, over_slabs(grads, dist.ReduceOp.SUM),
+            in_place=donate)
         if tcfg.grad_compression:
             residuals = state["comp_state"]
             if sharded:  # the param slabs' residuals on the moment slabs
@@ -496,7 +531,9 @@ def make_train_step(
             if sharded:
                 new_comp_state = to_params(new_comp_state)
         lr = lr_fn(state["step"])
-        new_params, new_opt = update(grads, state["opt_state"], params, lr)
+        new_params, new_opt = update(
+            grads, state.pop("opt_state") if donate else state["opt_state"],
+            params, lr)
         new_state = {
             "params": new_params,
             "opt_state": new_opt,
@@ -540,6 +577,19 @@ def init_train_state(params, opt: Optimizer, tcfg: TrainConfig,
     if tcfg.grad_compression:
         state["comp_state"] = init_compression_state(slabs)
     return state
+
+
+def _take(tree):
+    """``tree``'s leaves in containers of their own, ``tree``'s emptied:
+    a donated state, which its caller no longer holds."""
+    if isinstance(tree, dict):
+        out = {k: _take(v) for k, v in tree.items()}
+    elif isinstance(tree, list):
+        out = [_take(v) for v in tree]
+    else:
+        return tree
+    tree.clear()
+    return out
 
 
 def _to_device(batch: dict, device) -> dict:

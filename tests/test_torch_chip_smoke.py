@@ -622,12 +622,13 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert len(full["losses"]) == cs.TRAIN_STEPS
     assert full["loss_fell"] > cs.TRAIN_FALL
     assert full["checkpoint"]["bytes"] >= full["reckoned"]["state_bytes"]
-    assert full["remat"]
-    assert full["peak_limit_bytes"] == full["reckoned"]["update_peak_bytes"]
+    assert full["remat"] and full["donated"]
+    assert full["peak_limit"] == cs.DRYRUN_PEAK_REL
     assert len(full["checkpoint"]["seconds"]) == 1
-    assert full["reckoned"]["update_peak_bytes"] == (
-        4 * full["reckoned"]["params_bytes"]
-        + 2 * full["reckoned"]["moments_bytes"])
+    assert full["reckoned"]["donated_peak_bytes"] == (
+        2 * full["reckoned"]["params_bytes"]
+        + full["reckoned"]["moments_bytes"]
+        + 4 * full["reckoned"]["largest_leaf"])
     assert drill["failure_raised"] and drill["restored_step"] == 4
     assert drill["losses_bit_equal"] and drill["final_state_bit_equal"]
     assert len(drill["losses_interrupted"]) == cs.TRAIN_STEPS
@@ -658,6 +659,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     i, j, k, l = ts["part_i"], ts["part_j"], ts["part_k"], ts["part_l"]
     assert f["layers"] == "4 of 2" and h["width"] == "smoke"
     assert h["model"] == "jamba_smoke"
+    # MoE on data = 2: held to the unsharded run at 2 microbatches
+    assert h["oracle_microbatches"] == 2 and f["oracle_microbatches"] == 1
     assert i["layers"] == "1 of 3" and i["layer_types"] == [["mla", "mlp"]]
     assert j["layers"] == "2 of 4"
     assert k["layers"] == "2 of 2" and k["model"] == "phi3_medium_14b_smoke"

@@ -12,7 +12,7 @@ share what each wrote of the cache, ``tests/torch_mesh_worker.py``'s
 prefill of 4 prompts and 3 greedy decode steps (across the boundary of
 the two position slabs of a 32-slot cache where the prompt is 15
 tokens) for granite, h2o-danube (window 16), mamba2 (conv and state),
-DeepSeek-V2 (MLA latents; MoE capacity over the whole batch), whisper
+DeepSeek-V2 (MLA latents; MoE capacity each data block's), whisper
 (the encoder's memory), granite with ``decode_strategy="flash"``
 (``models.attention.flash_decode_placed``), phi3 (6 query heads over 3
 key heads: key heads re-laid out, written by one rank and read by two),
@@ -22,11 +22,14 @@ prompt of 16 makes 24 positions, which split along the sequence), jamba
 granite with 3 heads and mamba2 with 3 SSM heads, whose blocks do not
 divide over 2 ranks and compute whole on their gathered slabs:
 
-  * every rank's rows' tokens are the reference's unsharded greedy tokens;
+  * every rank's rows' tokens are the reference's unsharded greedy tokens
+    (the MoE models', ``MOE``, where the rows split into data blocks: of
+    each block's rows alone, as the reference's placed steps count
+    capacity under its mesh);
   * its decode logits lie within ``LOGITS_REL`` (``BARS`` for phi3 and
-    jamba) of the port's unsharded ones, relative to their largest
-    (mamba2's: of the unsharded run with the placed steps' two-half row
-    sums, ``SPLIT_HELD``);
+    jamba) of the port's unsharded ones (so cut), relative to their largest
+    (mamba2's and jamba's: of the unsharded run with the placed steps'
+    two-half row sums, ``SPLIT_HELD``);
   * it holds exactly the bytes its placements reckon;
   * each step's collective bytes (``step.comm``) are those
     ``parallel.tensor.serve_bytes`` reckons for the rank, and the last
@@ -38,7 +41,9 @@ divide over 2 ranks and compute whole on their gathered slabs:
 to ``launch.op_stats`` over a fake 2 x 4 mesh (no ranks spawned) for a
 prefill and a decode on both decode routes, and
 ``test_serve_bytes_over_pods_equal_op_stats_on_a_fake_mesh`` over a fake
-2 x 2 x 4 ``(pod, data, model)`` one.
+2 x 2 x 4 ``(pod, data, model)`` one, and
+``test_serve_bytes_where_moe_counts_the_whole_batch`` there with 2 rows,
+which do not divide over pod x data.
 """
 
 import dataclasses
@@ -72,15 +77,21 @@ SPLIT = ("jamba", "mamba2", "phi3")
 SPLIT_GAP = 3e-6
 # mamba2 is held at ``LOGITS_REL`` to the unsharded run with the placed
 # steps' two-half sums (measured: 5.5e-7); the plain unsharded run is
-# 1.68e-6 away.
-SPLIT_HELD = ("mamba2",)
-# The new models' bars against the plain unsharded run, measured on this
-# route (largest over both meshes, ranks and steps): phi3 1.24e-6 (1.31e-6
-# from the two-half run: the row sums do not account for it all), jamba
-# 2.36e-6 (1.83e-6 from the two-half run).
+# 1.68e-6 away.  jamba is held at its bar (``BARS``) to the same run.
+SPLIT_HELD = ("mamba2", "jamba")
+# The new models' bars, measured on this route (largest over the meshes,
+# ranks and steps): phi3 1.24e-6 from the plain unsharded run (1.31e-6
+# from the two-half run: the row sums do not account for it all); jamba
+# 2.71e-6 from the two-half run of each data block's rows (1.70e-6 on
+# 1 x 2, whose one block is the batch; the plain run of each block is
+# 3.56e-6 away on 2 x 2, 2.32e-6 on 1 x 2).
 BARS = {"phi3": 3e-6, "jamba": 3e-6}
 
 BATCH, PROMPT, MAX_SEQ, STEPS = 4, 15, 32, 3
+# the models whose MoE capacity couples rows, and the data blocks (each
+# counted alone) each mesh cuts the batch into
+MOE = ("deepseek_v2", "jamba")
+BLOCKS = {(1, 2): 1, (2, 2): 2, (2, 1, 2): 2}
 EXCHANGED = {"granite", "danube", "granite_flash", "phi3", "paligemma",
              "jamba", "whisper"}
 SERVED = {  # name -> (arch, overrides, reference key, prompt tokens)
@@ -104,17 +115,53 @@ SERVED = {  # name -> (arch, overrides, reference key, prompt tokens)
 }
 
 
-@pytest.fixture(scope="module")
-def served():
-    """Per model: the numpy params, prompts (and frames), the reference's
-    unsharded greedy tokens, and the port's unsharded decode logits (of
-    ``SPLIT``'s, also those with two-half row sums)."""
-    from repro_torch.configs import get_smoke_config
+def _unsharded(jcfg, jp, jst, cfg, params, toks, extras):
+    """The reference's unsharded greedy tokens (prefill, then ``STEPS``
+    decode steps) and the port's unsharded decode logits of the rows
+    ``toks`` (and ``extras``)."""
     from repro_torch.runtime.serve import (
         ServeConfig,
         decode_logits,
         make_prefill_step,
     )
+
+    b = toks.shape[0]
+    total = toks.shape[1] + jcfg.prefix_len
+    jscfg = JServeConfig(max_seq=MAX_SEQ, cache_dtype="float32")
+    jc = jtr.init_cache(jst, b, MAX_SEQ, dtype=jnp.float32)
+    jt, jc = jax.jit(j_prefill(jcfg, jst, jscfg))(
+        jp, jc, jnp.asarray(toks), None if extras is None else
+        {k: jnp.asarray(v) for k, v in extras.items()})
+    ref = [np.asarray(jt)]
+    jdec = jax.jit(j_decode(jcfg, jst, jscfg))
+    for i in range(STEPS):
+        jt, jc = jdec(jp, jc, jt, jnp.int32(total + i))
+        ref.append(np.asarray(jt))
+    # the port, unsharded: the logits the placed steps are held to
+    tst = ttr.init_statics(cfg, "cpu")
+    tp = lm_params_from_numpy(params, "cpu")
+    tc = ttr.init_cache(tst, b, MAX_SEQ, dtype=torch.float32)
+    with torch.no_grad():
+        tok, tc = make_prefill_step(cfg, tst, ServeConfig(
+            max_seq=MAX_SEQ, cache_dtype="float32"))(
+            tp, tc, torch.as_tensor(toks, dtype=torch.long),
+            None if extras is None else
+            {k: torch.from_numpy(v) for k, v in extras.items()})
+        logits = []
+        for i in range(STEPS):
+            lg, tc = decode_logits(tst, tp, tc, tok, torch.tensor(total + i))
+            tok = lg.argmax(dim=-1)
+            logits.append(lg.numpy())
+    return ref, logits
+
+
+@pytest.fixture(scope="module")
+def served():
+    """Per model: the numpy params, prompts (and frames), the reference's
+    unsharded greedy tokens, and the port's unsharded decode logits (of
+    ``SPLIT``'s, also those with two-half row sums); of ``MOE``'s, also
+    both (``"blocks"``) of each half of the rows alone, concatenated."""
+    from repro_torch.configs import get_smoke_config
 
     torch.set_num_threads(1)
     out = {}
@@ -130,39 +177,29 @@ def served():
                   .astype(np.float32) if jcfg.prefix_len else None)
         extras = ({"frames": frames} if frames is not None else
                   {"prefix_embeds": prefix} if prefix is not None else None)
-        total = prompt + jcfg.prefix_len
-        jscfg = JServeConfig(max_seq=MAX_SEQ, cache_dtype="float32")
-        jc = jtr.init_cache(jst, BATCH, MAX_SEQ, dtype=jnp.float32)
-        jt, jc = jax.jit(j_prefill(jcfg, jst, jscfg))(
-            jp, jc, jnp.asarray(toks), None if extras is None else
-            {k: jnp.asarray(v) for k, v in extras.items()})
-        ref = [np.asarray(jt)]
-        jdec = jax.jit(j_decode(jcfg, jst, jscfg))
-        for i in range(STEPS):
-            jt, jc = jdec(jp, jc, jt, jnp.int32(total + i))
-            ref.append(np.asarray(jt))
-        # the port, unsharded: the logits the placed steps are held to
         cfg = with_overrides(get_smoke_config(arch), over)
-        tst = ttr.init_statics(cfg, "cpu")
-        tp = lm_params_from_numpy(params, "cpu")
-        tc = ttr.init_cache(tst, BATCH, MAX_SEQ, dtype=torch.float32)
-        with torch.no_grad():
-            tok, tc = make_prefill_step(cfg, tst, ServeConfig(
-                max_seq=MAX_SEQ, cache_dtype="float32"))(
-                tp, tc, torch.as_tensor(toks, dtype=torch.long),
-                None if extras is None else
-                {k: torch.from_numpy(v) for k, v in extras.items()})
-            logits = []
-            for i in range(STEPS):
-                lg, tc = decode_logits(tst, tp, tc, tok,
-                                       torch.tensor(total + i))
-                tok = lg.argmax(dim=-1)
-                logits.append(lg.numpy())
+        ref, logits = _unsharded(jcfg, jp, jst, cfg, params, toks, extras)
         out[name] = {"arch": arch, "over": over, "params": params,
                      "tokens": toks, "frames": frames, "prefix": prefix,
                      "ref": ref, "logits": logits}
+        if name in MOE:
+            half = BATCH // 2
+            parts = [_unsharded(jcfg, jp, jst, cfg, params,
+                                toks[i:i + half], None if extras is None
+                                else {k: v[i:i + half]
+                                      for k, v in extras.items()})
+                     for i in (0, half)]
+            out[name]["blocks"] = {key: [np.concatenate(steps) for steps in
+                                         zip(*(p[j] for p in parts))]
+                                   for j, key in enumerate(("ref",
+                                                            "logits"))}
         if name in SPLIT:
             out[name]["split_logits"] = _split_logits(cfg, params, toks)
+        if name in SPLIT and name in MOE:
+            out[name]["blocks"]["split_logits"] = [
+                np.concatenate(steps) for steps in zip(*(
+                    _split_logits(cfg, params, toks[i:i + BATCH // 2])
+                    for i in (0, BATCH // 2)))]
     return out
 
 
@@ -179,17 +216,19 @@ def test_placed_serving_matches_reference(served, mesh, tmp_path):
     for name, m in served.items():
         rows = {}
         exchanged = 0
+        # the MoE models' rows: held to each data block's run alone
+        held = m["blocks"] if name in MOE and BLOCKS[mesh] > 1 else m
         for res in ranks:
             r = res[name]
             assert r["resident_bytes"] == r["reckoned_bytes"], name
             lo, hi = r["rows"]
             for step, tok in enumerate(r["tokens"]):
                 np.testing.assert_array_equal(
-                    tok, np.asarray(m["ref"][step])[lo:hi],
+                    tok, np.asarray(held["ref"][step])[lo:hi],
                     err_msg=f"{name} step {step}")
             for step, lg in enumerate(r["logits"]):
-                want = m["split_logits" if name in SPLIT_HELD else
-                         "logits"][step][lo:hi]
+                want = held["split_logits" if name in SPLIT_HELD else
+                            "logits"][step][lo:hi]
                 rel = np.abs(lg - want).max() / np.abs(want).max()
                 assert rel <= BARS.get(name, LOGITS_REL), (name, step, rel)
             rows[(lo, hi)] = True
@@ -221,24 +260,26 @@ from repro_torch.configs import ShapeSpec, get_smoke_config
 from repro_torch.launch.dryrun import measure
 from repro_torch.launch.mesh import make_fake_mesh
 from repro_torch.launch.steps import build_step
-from repro_torch.parallel.tensor import serve_bytes, serve_pods, serve_rows
+from repro_torch.parallel.tensor import (
+    data_shards, serve_bytes, serve_pods, serve_rows)
 mesh = make_fake_mesh(SHAPE, AXES)
 out = {}
 for arch in ARCHS:
     for strategy in STRATEGIES:
         cfg = dataclasses.replace(get_smoke_config(arch), model_shards=4,
                                   decode_strategy=strategy)
-        for spec in (ShapeSpec("p", "prefill", 64, 8),
-                     ShapeSpec("d", "decode", 64, 8)):
+        for spec in (ShapeSpec("p", "prefill", 64, ROWS),
+                     ShapeSpec("d", "decode", 64, ROWS)):
             built = build_step(arch, spec, mesh, cfg=cfg)
             stats, _ = measure(built, mesh)
-            blocks = serve_rows(mesh, 8)[1]
-            rk = serve_bytes(cfg, built.meta["statics"], 4, 8 // blocks,
+            blocks = serve_rows(mesh, ROWS)[1]
+            rk = serve_bytes(cfg, built.meta["statics"], 4, ROWS // blocks,
                              spec.seq_len, spec.kind, spec.seq_len,
                              torch.bfloat16, spec.seq_len - 1, 0, blocks,
                              built.meta["placements"]["params"],
-                             serve_pods(mesh, 8),
-                             built.meta["placements"]["cache"])
+                             serve_pods(mesh, ROWS),
+                             built.meta["placements"]["cache"],
+                             dp=data_shards(mesh)[1])
             out[f"{arch}:{strategy}:{spec.kind}"] = {
                 "op_stats": {k: v for k, v in
                              stats.collective_bytes_by_kind.items() if v},
@@ -250,10 +291,11 @@ print(json.dumps(out))
 """
 
 
-def _fake(archs, strategies, shape, axes) -> dict:
+def _fake(archs, strategies, shape, axes, rows: int = 8) -> dict:
     from test_torch_dryrun import _python
 
-    return _python(FAKE.replace("ARCHS", repr(archs)).replace(
+    return _python(FAKE.replace("ROWS", repr(rows)).replace(
+        "ARCHS", repr(archs)).replace(
         "STRATEGIES", repr(strategies)).replace("SHAPE", repr(shape))
         .replace("AXES", repr(axes)))
 
@@ -345,7 +387,8 @@ def _split_logits(cfg, params, tokens) -> list:
         mp.setattr(ssm, "rmsnorm", rmsnorm)
         statics = ttr.init_statics(cfg, "cpu")
         tp = lm_params_from_numpy(params, "cpu")
-        cache = ttr.init_cache(statics, BATCH, MAX_SEQ, dtype=torch.float32)
+        cache = ttr.init_cache(statics, tokens.shape[0], MAX_SEQ,
+                               dtype=torch.float32)
         total = tokens.shape[1] + cfg.prefix_len
         with torch.no_grad():
             tok, cache = make_prefill_step(cfg, statics, ServeConfig(
@@ -365,8 +408,9 @@ def test_serve_bytes_over_pods_equal_op_stats_on_a_fake_mesh(fake_2x4):
     whose pods split each data block's rows (``parallel.tensor.
     serve_rows``): what each layer wrote of its cache slab (and the
     encoder's output) all-gathered over ``pod`` is reckoned, and the
-    rank computes half the rows, and so about half the FLOPs (fewer, with
-    MoE), of the same step over 2 x 4."""
+    rank computes half the rows, and so about half the FLOPs of the same
+    step over 2 x 4 (MoE's experts too: their buffers are each rank's
+    block's capacity)."""
     from repro_torch.parallel.tensor import serve_comm_by_kind
 
     archs = ["granite_3_2b", "whisper_small", "deepseek_v2_236b",
@@ -385,10 +429,31 @@ def test_serve_bytes_over_pods_equal_op_stats_on_a_fake_mesh(fake_2x4):
         assert shared <= rec["by_dim"].get("all-gather/pod", 0), key
         assert shared > 0 or key.endswith("decode"), key
         assert one[key]["reckoned"]["pod_gather_bytes"] == 0, key
-        # MoE's experts run over the whole batch's capacity on every rank
-        # (their buffers are not cut to the rows), the rest halves
-        moe = key.startswith(("deepseek", "jamba"))
-        assert rec["flops"] < (1.0 if moe else 0.6) * one[key]["flops"], key
+        # the rank computes half the rows, MoE's experts half the
+        # capacity (each rank's rows counted alone)
+        assert rec["flops"] < 0.6 * one[key]["flops"], key
+
+
+def test_serve_bytes_where_moe_counts_the_whole_batch():
+    """2 rows over a fake 2 x 2 x 4 ``(pod, data, model)`` mesh: the pods
+    do not divide each data block's one row, so the rows split over
+    ``data`` only and MoE counts capacity over the whole batch, as the
+    reference falls back to ``_moe_local`` where the batch does not
+    divide over pod x data.  Each MoE layer all-gathers its per-expert
+    counts over ``data``: ``serve_bytes`` reckons them, and ``step.comm``
+    and ``launch.op_stats`` count them."""
+    from repro_torch.parallel.tensor import serve_comm_by_kind
+
+    archs = ["deepseek_v2_236b", "jamba_1_5_large_398b"]
+    res = _fake(archs, ("gather",), (2, 2, 4), ("pod", "data", "model"),
+                rows=2)
+    assert len(res) == len(archs) * 2
+    for key, rec in res.items():
+        want = {k: v for k, v in serve_comm_by_kind(rec["reckoned"]).items()
+                if v}
+        assert rec["op_stats"] == want, key
+        assert rec["comm"] == rec["reckoned"], key
+        assert rec["reckoned"]["data_gather_bytes"] > 0, key
 
 
 @pytest.mark.parametrize("name", SPLIT)

@@ -26,7 +26,8 @@ splits the same matmuls.  On spawned ``gloo`` ranks
     and the gradient norm within rel 1e-4 of the port's unsharded run
     (itself held to the reference's by ``tests/test_torch_train_step.py``,
     the microbatched MoE steps too; the norm after step 1 but for
-    ``OFF_TRAJECTORY``) and of its step from the same params,
+    ``OFF_TRAJECTORY``) and of its step from the same params (the MoE
+    models' on 2 x 2 at twice the microbatches, below),
     the params by that file's rule (within 0.05 lr where the step-1 gradient
     is well posed, at most ``MAX_ILL`` of all weights off);
   * the step all-gathers exactly the leaves that are not computed on their
@@ -38,11 +39,15 @@ splits the same matmuls.  On spawned ``gloo`` ranks
     in the same spawn: losses, gradient norms and params bit-equal to
     the default remat run's.
 
-MoE capacity in the sharded step is the whole batch's, as the
-reference's step counts it, so the 2 x 2 mesh's MoE models drop the
-pairs the unsharded step drops (the seeded routes here drop some); with
-microbatches, the global microbatch's, which the per-rank cut of the
-rows would not give (``test_microbatch_cases_drop_other_pairs_per_rank``).
+MoE capacity in the sharded step is each data block's own, as the
+reference's sharded step counts it under its mesh (``_moe_shard_map``;
+``tests/test_torch_moe_blocks.py`` holds the reference to it): with ``n``
+microbatches on ``data`` = 2 its function is the unsharded step's at
+``2 n`` microbatches (the same blocks of rows, each counted alone, the
+loss their mean), to which the 2 x 2 mesh's MoE cases are held
+(``_oracle``).  The seeded routes drop other pairs per block than over
+the step's microbatches (``test_microbatch_cases_drop_other_pairs_per_rank``),
+so the whole-batch count would fail those cases.
 """
 
 import dataclasses
@@ -101,9 +106,12 @@ MODELS = {
 }
 # a model's batch of other than ``TOKENS``' shape
 BATCH = {"granite_odd": (TOKENS[0], 16)}
-# the MoE models' microbatches: each a block of global rows, whose
-# capacity drops the reference's step counts over that block alone
+# the MoE models' microbatches: each a block of rows, whose capacity
+# drops the reference's step counts over that block alone
 MICROBATCHED = ("jamba", "deepseek_v2")
+# models whose MoE capacity couples rows: on a mesh with data > 1 each
+# data block is counted alone
+MOE = ("jamba", "deepseek_v2", "deepseek_v3")
 # (case, model, TrainConfig fields)
 CASES = [(name, name, {}) for name in MODELS] + [
     ("granite_compression", "granite", {"grad_compression": True})] + [
@@ -160,18 +168,29 @@ def _seq(models, name) -> int:
     return models[name][2]["tokens"].shape[1] - 1
 
 
+def _oracle(mesh, case) -> int:
+    """The microbatches of the unsharded step that ``case``'s sharded
+    step on ``mesh`` computes: its own, times the data blocks where MoE
+    counts capacity on each block alone."""
+    name, tkw = next((n, t) for c, n, t in CASES if c == case)
+    return tkw.get("microbatches", 1) * (mesh[0] if name in MOE else 1)
+
+
 @pytest.fixture(scope="module")
 def unsharded(models):
-    """case -> (per step (loss, grad_norm, params) of the port's
-    one-device AdamW step, and the step-1 gradient recovered from an SGD
-    step)."""
+    """(case, microbatches) -> (per step (loss, grad_norm, params) of the
+    port's one-device AdamW step, and the step-1 gradient recovered from
+    an SGD step), at each case's ``_oracle`` microbatches."""
     out = {}
-    for case, name, tkw in CASES:
+    runs = [(case, name, tkw, nmb) for case, name, tkw in CASES
+            for nmb in sorted({_oracle(mesh, case) for mesh in MESHES})]
+    for case, name, tkw, nmb in runs:
         cfg, nparams, batch = models[name]
         statics = ttr.init_statics(cfg, "cpu")
         put = {k: torch.as_tensor(v) for k, v in batch.items()}
         opt = adamw(weight_decay=0.0)
-        tc = ttrain.TrainConfig(steps=STEPS, **tkw)
+        tc = ttrain.TrainConfig(steps=STEPS, **{**tkw,
+                                                "microbatches": nmb})
         step = ttrain.make_train_step(cfg, statics, opt, lambda s: ADAM_LR,
                                       tc, model_kwargs_fn=_kwargs)
         state = ttrain.init_train_state(lm_params_from_numpy(nparams, "cpu"),
@@ -181,15 +200,14 @@ def unsharded(models):
             state, m = step(state, put)
             rows.append((float(m["loss"]), float(m["grad_norm"]),
                          dict(_paths(_numpy(state["params"])))))
-        tc1 = ttrain.TrainConfig(steps=1, microbatches=tkw.get(
-            "microbatches", 1))
+        tc1 = ttrain.TrainConfig(steps=1, microbatches=nmb)
         sstep = ttrain.make_train_step(cfg, statics, sgd(), lambda s: SGD_LR,
                                        tc1, model_kwargs_fn=_kwargs)
         p0 = lm_params_from_numpy(nparams, "cpu")
         p1, _ = sstep(ttrain.init_train_state(p0, sgd(), tc1), put)
         grads = _map(lambda a, b: ((a - b) / SGD_LR).numpy(), p0,
                      p1["params"])
-        out[case] = (rows, dict(_paths(grads)))
+        out[case, nmb] = (rows, dict(_paths(grads)))
     return out
 
 
@@ -231,17 +249,18 @@ GRID = [(mesh, case) for mesh in MESHES for case, _, _ in CASES]
 IDS = [f"{m[0]}x{m[1]}-{c}" for m, c in GRID]
 
 
-def _step_from(models, case, params):
+def _step_from(models, case, params, microbatches: int):
     """(loss, grad_norm) of the port's one-device AdamW step of ``case``
-    from ``params`` (checkpoint key -> numpy); neither reads the
-    optimizer's state."""
+    at ``microbatches`` from ``params`` (checkpoint key -> numpy);
+    neither reads the optimizer's state."""
     name, tkw = next((n, t) for c, n, t in CASES if c == case)
     cfg, nparams, batch = models[name]
     tree = lm_params_from_numpy(nparams, "cpu")
     for key, leaf in _paths(tree):
         leaf.copy_(torch.as_tensor(params[key]))
     opt = adamw(weight_decay=0.0)
-    tc = ttrain.TrainConfig(steps=1, **tkw)
+    tc = ttrain.TrainConfig(steps=1, **{**tkw,
+                                        "microbatches": microbatches})
     step = ttrain.make_train_step(cfg, ttr.init_statics(cfg, "cpu"), opt,
                                   lambda s: ADAM_LR, tc,
                                   model_kwargs_fn=_kwargs)
@@ -250,34 +269,39 @@ def _step_from(models, case, params):
     return float(m["loss"]), float(m["grad_norm"])
 
 
-# Cases whose step-2 gradient norm lies off the unsharded run's by more
-# than REL though the step computes right: the microbatched jamba's
-# step 1 moves 3 weights whose gradients lie below 7e-7 of their leaves'
-# largest (the SSM's in_proj and out_proj, an expert's gate) 0.08-0.29 lr
-# away from the run's, as test_params_follow_unsharded_step allows; its
-# step-2 norm then lies 7.1e-4 (1 x 2) and 6.2e-4 (2 x 2) off the run's,
-# and 6.6e-8 and 2.0e-7 off the unsharded step from the same params.
-OFF_TRAJECTORY = {"jamba_microbatches"}
+# (model, microbatches) of the unsharded runs whose step-2 gradient norm
+# a sharded step that computes right lies off by more than REL: jamba's
+# run at 2 microbatches (the oracle of jamba_microbatches on 1 x 2 and of
+# jamba on 2 x 2), whose step 1 moves weights whose gradients lie below
+# 7e-7 of their leaves' largest (the SSM's in_proj and out_proj, an
+# expert's gate) 0.08-0.29 lr away from the run's, as
+# test_params_follow_unsharded_step allows; the sharded step-2 norm then
+# lies 4.9e-4 off the run's on both meshes, and 7.9e-7 (1 x 2) and
+# 4.6e-7 (2 x 2) off the unsharded step from the same params.
+OFF_TRAJECTORY = {("jamba", 2)}
 
 
 @pytest.mark.parametrize("mesh,case", GRID, ids=IDS)
 def test_losses_match_unsharded_step(mesh, case, unsharded, worlds, models):
     """Each step's loss and gradient norm within ``REL`` of the unsharded
-    run's (the norm after step 1 not for ``OFF_TRAJECTORY``), and after
-    step 1 both within ``REL`` of the unsharded step from the params the
-    sharded run reached."""
+    run's at ``_oracle`` microbatches (the norm after step 1 not for
+    ``OFF_TRAJECTORY``), and after step 1 both within ``REL`` of that
+    unsharded step from the params the sharded run reached."""
     ranks = [r[case] for r in worlds[mesh]]
-    want, _ = unsharded[case]
+    name = next(n for c, n, _ in CASES if c == case)
+    nmb = _oracle(mesh, case)
+    want, _ = unsharded[case, nmb]
     for i, (loss, gnorm, _) in enumerate(want):
         got = [r["steps"][i]["metrics"] for r in ranks]
         assert all(g == got[0] for g in got), (i, got)
         assert _rel(got[0]["loss"], loss) <= REL, (i, got[0], loss)
-        if i == 0 or case not in OFF_TRAJECTORY:
+        if i == 0 or (name, nmb) not in OFF_TRAJECTORY:
             assert _rel(got[0]["grad_norm"], gnorm) <= REL, (i, got[0],
                                                              gnorm)
         if i > 0:
             same = _step_from(
-                models, case, worlds[mesh][0][case]["steps"][i - 1]["params"])
+                models, case, worlds[mesh][0][case]["steps"][i - 1]["params"],
+                nmb)
             assert _rel(got[0]["loss"], same[0]) <= REL, (i, same)
             assert _rel(got[0]["grad_norm"], same[1]) <= REL, (i, same)
 
@@ -286,8 +310,9 @@ def test_losses_match_unsharded_step(mesh, case, unsharded, worlds, models):
 def test_params_follow_unsharded_step(mesh, case, unsharded, worlds):
     """After step 1, off by >= 0.05 lr only where the gradient is ill
     posed (below ``NOISE_FLOOR`` of its leaf's largest or, compressed, at
-    an int8 rounding tie); after each step at most ``MAX_ILL`` off."""
-    want, grads = unsharded[case]
+    an int8 rounding tie); after each step at most ``MAX_ILL`` off (the
+    unsharded run at ``_oracle`` microbatches)."""
+    want, grads = unsharded[case, _oracle(mesh, case)]
     compressed = case in COMPRESSED
     for i, (_, _, params) in enumerate(want):
         got = worlds[mesh][0][case]["steps"][i]["params"]
@@ -388,14 +413,11 @@ def test_remat_is_bit_equal_on_the_grid(mesh, name, worlds, models):
                 and k != "model_gather_bytes"}
 
 
-@pytest.mark.parametrize("name", MICROBATCHED)
-def test_microbatch_cases_drop_other_pairs_per_rank(name, models,
-                                                    monkeypatch):
-    """The microbatch cases bear load: run as the reference's step runs
-    them, each global microbatch (rows ``[j B / 2, (j + 1) B / 2)``)
-    drops pairs in some MoE layer, and the same routes cut into
-    microbatches of each data rank's own rows on the 2 x 2 mesh (rows
-    ``[r B / 2 + j B / 4, ...)`` of both ranks) keep other pairs."""
+def _drops(models, name, monkeypatch, blocks: int, counted: int):
+    """(whether some MoE layer drops pairs, whether other pairs than
+    counting each ``counted`` consecutive blocks together would): the
+    routes of ``name``'s batch run as ``blocks`` row blocks, each alone,
+    as the sharded step on 2 x 2 runs them."""
     cfg, nparams, batch = models[name]
     params = lm_params_from_numpy(nparams, "cpu")
     statics = ttr.init_statics(cfg, "cpu")
@@ -410,32 +432,45 @@ def test_microbatch_cases_drop_other_pairs_per_rank(name, models,
     monkeypatch.setattr(tmoe, "_route", spy)
     tokens = torch.as_tensor(batch["tokens"])[:, :-1]
     b, s = tokens.shape
-    k, half, q = cfg.moe.top_k, b // 2, b // 4
+    k, per = cfg.moe.top_k, b // blocks
     routes = []
     with torch.no_grad():
-        for j in (0, 1):
+        for j in range(blocks):
             seen.clear()
-            ttr.apply_model(params, statics, tokens[j * half:(j + 1) * half],
+            ttr.apply_model(params, statics, tokens[j * per:(j + 1) * per],
                             kernels=False)
-            routes.append([e.reshape(half, s, k) for e in seen])
+            routes.append([e.reshape(per, s, k) for e in seen])
     dropped, differs = False, False
     for layer in zip(*routes):
-        top_e = torch.cat(layer)
+        def kept(group):
+            return torch.cat([
+                tmoe.kept_pairs(torch.cat(layer[j:j + group]).reshape(-1, k),
+                                cfg.moe).reshape(-1, s, k)
+                for j in range(0, blocks, group)])
 
-        def kept(blocks):
-            out = torch.zeros(top_e.shape, dtype=torch.bool)
-            for rows in blocks:
-                out[rows] = tmoe.kept_pairs(top_e[rows].reshape(-1, k),
-                                            cfg.moe).reshape(len(rows), s, k)
-            return out
+        alone = kept(1)
+        dropped |= bool((~alone).any())
+        differs |= bool((alone != kept(counted)).any())
+    return dropped, differs
 
-        whole = kept([list(range(j * half, (j + 1) * half)) for j in (0, 1)])
-        per_rank = kept([[*range(j * q, (j + 1) * q),
-                          *range(half + j * q, half + (j + 1) * q)]
-                         for j in (0, 1)])
-        dropped |= bool((~whole).any())
-        differs |= bool((whole != per_rank).any())
-    assert dropped and differs
+
+@pytest.mark.parametrize("name", MICROBATCHED)
+def test_microbatch_cases_drop_other_pairs_per_rank(name, models,
+                                                    monkeypatch):
+    """The microbatch cases bear load: run as the sharded step runs them
+    on the 2 x 2 mesh (each rank's rows cut into 2 microbatches: 4
+    blocks of 2 rows, each counted alone), some MoE layer drops pairs,
+    and counting each global microbatch (2 blocks) together would keep
+    other pairs."""
+    assert _drops(models, name, monkeypatch, 4, 2) == (True, True)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_cases_drop_other_pairs_per_block(name, models, monkeypatch):
+    """The MoE cases without microbatches on the 2 x 2 mesh: each data
+    block of 4 rows counted alone drops pairs, other pairs than the
+    whole batch's count would."""
+    assert _drops(models, name, monkeypatch, 2, 2) == (True, True)
 
 
 def _mlp_cases():

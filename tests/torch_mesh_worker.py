@@ -4,7 +4,8 @@
 ``tests/test_torch_pipeline.py``'s ``pipeline`` job,
 ``tests/test_torch_tensor_parallel.py``'s ``tp_mlp``, ``tp_blocks``
 and ``tp_train`` jobs, ``tests/test_torch_dryrun.py``'s ``placed_serve``
-job).
+job, ``tests/test_torch_moe_blocks.py``'s ``tp_moe`` job,
+``tests/test_torch_donate.py``'s ``donate`` job).
 
     python tests/torch_mesh_worker.py <spec.pkl> <rank>
 
@@ -145,6 +146,51 @@ def moe_job(job: dict) -> dict:
     return out
 
 
+def tp_moe_job(job: dict) -> dict:
+    """``models.moe.moe_apply_tp`` inside ``tensor_parallel_ctx`` over a
+    CPU mesh of ``job["mesh"]`` and ``job["axes"]``, each case ``(name,
+    MoEConfig, whole numpy params, x [B, S, d], serve)`` on this rank's
+    row block of ``x``: a placed serving step's (``serve``,
+    ``parallel.tensor.serve_rows``) or the sharded train step's
+    (``data_shards``), the routed experts on the rank's ``model`` slab
+    where they divide over it.  Returns per case the rows' output, the
+    rows, and the bytes of counts gathered over the data dims."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.parallel.tensor import (
+        data_shards,
+        experts_split,
+        serve_row_dims,
+        serve_rows,
+        tensor_parallel_ctx,
+    )
+
+    mesh = make_mesh(job["mesh"], job["axes"], device_type="cpu")
+    out = {}
+    for name, cfg, nparams, x, serve in job["cases"]:
+        params = lm_params_from_numpy(nparams, "cpu")
+        b = x.shape[0]
+        with torch.no_grad(), tensor_parallel_ctx(mesh) as tp:
+            if serve:
+                tp.rows = (*serve_rows(mesh, b), serve_row_dims(mesh, b))
+                r, n = tp.rows[:2]
+            else:
+                r, n = data_shards(mesh)
+            split = experts_split(cfg, tp.size)
+            if split:
+                e_loc = cfg.n_experts // tp.size
+                params["experts"] = {
+                    k: v[tp.rank * e_loc:(tp.rank + 1) * e_loc]
+                    for k, v in params["experts"].items()}
+            lo, hi = r * b // n, (r + 1) * b // n
+            y = moe.moe_apply_tp(tp, params, moe.moe_static(cfg, "cpu"),
+                                 cfg, torch.as_tensor(x[lo:hi]), split)
+        out[name] = {"y": _np(y), "rows": (lo, hi),
+                     "data_gather_bytes": tp.data_gather_bytes}
+    return out
+
+
 def data_job(job: dict) -> dict:
     """``shard_batch`` of one host batch on a (data, model) mesh, and
     ``error_feedback_allreduce`` of this rank's own gradients (row
@@ -237,6 +283,47 @@ def train_job(job: dict) -> dict:
     return {"metrics": metrics, "slabs": slabs, "comm": dict(step.comm),
             "coords": {a: mesh.get_local_rank(a) for a in ("data", "model")},
             "state": _whole_state(state, shardings)}
+
+
+def donate_job(job: dict) -> dict:
+    """The sharded train step, functional and donated
+    (``make_train_step(..., donate=True)``), ``job["steps"]`` steps from
+    the same params for each case ``(name, cfg, whole numpy params,
+    batch, TrainConfig fields, AdamW moments' dtype name)``: per run the
+    metrics, whether the caller's state was left empty after each call,
+    and the state gathered whole (rank 0)."""
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.models.transformer import init_specs, init_statics
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as rt
+
+    mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
+    out = {}
+    for name, cfg, nparams, batch, tkw, mu in job["cases"]:
+        statics = init_statics(cfg, "cpu")
+        for donate in (False, True):
+            params = lm_params_from_numpy(nparams, "cpu")
+            shardings = rt.train_shardings(init_specs(cfg), params, mesh)
+            opt = adamw(weight_decay=0.0, mu_dtype=getattr(torch, mu))
+            tcfg = rt.TrainConfig(steps=job["steps"], **tkw)
+            step = rt.make_train_step(cfg, statics, opt, lambda s: job["lr"],
+                                      tcfg, shardings=shardings,
+                                      donate=donate)
+            state = rt.init_train_state(params, opt, tcfg, shardings)
+            del params
+            metrics, emptied = [], []
+            for _ in range(job["steps"]):
+                given = state
+                state, m = step(given, shard_batch(batch, mesh))
+                emptied.append(given == {})
+                del given
+                metrics.append({k: float(m[k]) for k in ("loss",
+                                                         "grad_norm")})
+            out[name, donate] = {"metrics": metrics, "emptied": emptied,
+                                 "state": _whole_state(state, shardings)}
+    return out
 
 
 def restore_job(job: dict) -> dict:
@@ -573,6 +660,7 @@ def placed_serve_job(job: dict) -> dict:
     )
     from repro_torch.parallel.sharding import _map, mesh_axis_sizes
     from repro_torch.parallel.tensor import (
+        data_shards,
         serve_bytes,
         serve_pods,
         serve_rows,
@@ -617,7 +705,8 @@ def placed_serve_job(job: dict) -> dict:
         return serve_bytes(cfg, statics, n_model, b // n, total, kind,
                            job["max_seq"], torch.float32, pos,
                            mesh.get_local_rank("model"), n, sh.params,
-                           serve_pods(mesh, b), sh.cache)
+                           serve_pods(mesh, b), sh.cache,
+                           dp=data_shards(mesh)[1])
 
     calls = flash_decode_placed.calls
     scfg = rs.ServeConfig(max_seq=job["max_seq"], cache_dtype="float32")
@@ -665,6 +754,7 @@ def placed_serve_job(job: dict) -> dict:
 
 
 JOBS = {"cnn": cnn_job, "flash": flash_job, "moe": moe_job, "data": data_job,
+        "tp_moe": tp_moe_job, "donate": donate_job,
         "train": train_job, "restore": restore_job,
         "pipeline": pipeline_job, "tp_mlp": tp_mlp_job,
         "tp_blocks": tp_blocks_job, "tp_train": tp_train_job,
