@@ -46,7 +46,7 @@ bit for bit, and the measured statistics exactly.
 
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import NamedTuple
 
 import numpy as np
@@ -314,6 +314,46 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _LayerEvents:
+    """Per-layer stream time of the instrumented forward on a CUDA device.
+
+    A call records one ``torch.cuda.Event`` at each layer boundary;
+    ``names[i]`` names the interval from boundary ``i`` to ``i + 1``
+    (``None``: not kept).  A call's events are folded into seconds once
+    its last event has completed, which the next call checks without
+    waiting and :meth:`fold` with ``wait=True`` waits for, and are then
+    reused.
+    """
+
+    def __init__(self, names: list[str | None]):
+        self.names = names
+        self._free: list[list] = []
+        self._pending: deque = deque()
+
+    def take(self, observe) -> list:
+        self.fold(observe, wait=False)
+        if self._free:
+            return self._free.pop()
+        return [torch.cuda.Event(enable_timing=True)
+                for _ in range(len(self.names) + 1)]
+
+    def recorded(self, events: list) -> None:
+        self._pending.append(events)
+
+    def fold(self, observe, wait: bool) -> None:
+        while self._pending:
+            events = self._pending[0]
+            if wait:
+                events[-1].synchronize()
+            elif not events[-1].query():
+                return
+            self._pending.popleft()
+            for name, a, b in zip(self.names, events, events[1:]):
+                if name is not None:
+                    observe(name, a.elapsed_time(b) * 1e-3)
+            self._free.append(events)
+
+
 def make_forward(
     program: CompiledNetwork,
     collect_stats: bool = False,
@@ -335,10 +375,16 @@ def make_forward(
         NetworkPartition` (defaults to ``program.partition``, else read
         off the mesh); validated against the mesh's dim sizes.  Without
         ``mesh`` it raises ``ValueError``.
-      tracer: with an *enabled* tracer, calls run an instrumented path
-        that wraps each layer in a ``layer:<name>`` span and synchronises
-        the device after it, so span durations are per-layer wall times,
-        accumulated and exposed as ``fn.observed_times()``.
+      tracer: with an *enabled* tracer, calls run an instrumented path:
+        one ``forward`` span holding ``forward.upload`` (the host->device
+        copies of ``x`` and ``valid``) and a ``layer:<name>`` span per
+        conv, then ``layer:gap`` and ``layer:fc``.  Nothing in it
+        synchronises, so a span times the host's enqueue of its layer's
+        ops, not their run.  ``fn.observed_times()`` gives each conv's
+        and the FC's mean time a call: on a CUDA device, stream time
+        between CUDA events recorded at the layer boundaries (folded in
+        once they have completed); on the CPU, where every op finishes
+        before it returns, the span's duration.
       device: where the forward runs; ``None`` means ``cuda`` and raises
         when there is none (with a mesh: this rank's device of the mesh,
         ``launch/mesh.mesh_device``).  The program's operands are copied
@@ -376,6 +422,12 @@ def make_forward(
 
     signatures: set = set()
 
+    def upload(x, valid):
+        x = torch.as_tensor(x, device=device)
+        if valid is not None:
+            valid = torch.as_tensor(valid, dtype=torch.bool, device=device)
+        return x, valid
+
     def forward(x: torch.Tensor, valid: torch.Tensor | None):
         counts = {}
         for op in program.convs:
@@ -389,8 +441,8 @@ def make_forward(
         logits = _run_fc(program.fc, x, disp, prepared["fc"])
         return logits, counts
 
-    # per-layer wall time accumulated by the instrumented path:
-    # name -> [calls, total seconds on the tracer's clock]
+    # per-layer time accumulated by the instrumented path:
+    # name -> [calls, total seconds]
     observed: dict[str, list] = {}
 
     def _observe(name: str, seconds: float) -> None:
@@ -398,14 +450,27 @@ def make_forward(
         acc[0] += 1
         acc[1] += seconds
 
-    def instrumented(x: torch.Tensor, valid: torch.Tensor | None):
-        """Layer-by-layer forward: same math, a span and a device sync per
-        layer so each span's duration is that layer's wall time."""
+    layer_events = (
+        _LayerEvents([op.name for op in program.convs] + [None, "fc"])
+        if device.type == "cuda" else None
+    )
+
+    def instrumented(x, valid):
+        """Layer-by-layer forward: the same ops as ``forward``, the upload
+        and each layer in a span; on a CUDA device an event at each layer
+        boundary."""
+        ev = None if layer_events is None else layer_events.take(_observe)
+        stream = torch.cuda.current_stream(device) if ev else None
         with tracer.span(
-            "forward", cat="execute", batch=int(x.shape[0])
+            "forward", cat="execute", batch=len(x)
         ) as fsp:
+            with tracer.span("forward.upload", cat="execute"):
+                x, valid = upload(x, valid)
+            shape = tuple(x.shape)
+            if ev:
+                ev[0].record(stream)
             counts = {}
-            for op in program.convs:
+            for i, op in enumerate(program.convs, 1):
                 with tracer.span(
                     f"layer:{op.name}", cat="execute", op="conv"
                 ) as sp:
@@ -413,28 +478,34 @@ def make_forward(
                         op, x, disp, prepared[op.name],
                         stat_masks.get(op.name), valid,
                     )
-                    _sync(device)
-                _observe(op.name, sp.dur)
+                    if ev:
+                        ev[i].record(stream)
+                if not ev:
+                    _observe(op.name, sp.dur)
                 if cnt is not None:
                     counts[op.name] = cnt
             with tracer.span("layer:gap", cat="execute", op="pool"):
                 x = x.mean(dim=(2, 3))
-                _sync(device)
+                if ev:
+                    ev[-2].record(stream)
             with tracer.span("layer:fc", cat="execute", op="fc") as sp:
                 logits = _run_fc(program.fc, x, disp, prepared["fc"])
-                _sync(device)
-            _observe("fc", sp.dur)
+                if ev:
+                    ev[-1].record(stream)
+            if not ev:
+                _observe("fc", sp.dur)
             fsp.args["layers"] = len(program.convs) + 2
-        return logits, counts
+        if ev:
+            layer_events.recorded(ev)
+        return shape, valid, logits, counts
 
     def fn(x, valid=None):
-        x = torch.as_tensor(x, device=device)
-        if valid is not None:
-            valid = torch.as_tensor(valid, dtype=torch.bool, device=device)
         if tracer is not None and tracer.enabled:
-            logits, counts = instrumented(x, valid)
+            shape, valid, logits, counts = instrumented(x, valid)
         else:
-            signatures.add((tuple(x.shape), x.dtype, valid is None))
+            x, valid = upload(x, valid)
+            shape = tuple(x.shape)
+            signatures.add((shape, x.dtype, valid is None))
             logits, counts = forward(x, valid)
         if not collect_stats:
             return logits
@@ -442,15 +513,19 @@ def make_forward(
         stats = stats_from_counts(
             program.convs,
             {k: v.cpu().numpy() for k, v in counts.items()},
-            _layer_windows(program, x.shape, live_rows=live),
+            _layer_windows(program, shape, live_rows=live),
         )
         return logits, stats
 
+    def observed_times() -> dict[str, float]:
+        if layer_events is not None:
+            layer_events.fold(_observe, wait=True)
+        return {name: total / calls
+                for name, (calls, total) in observed.items()}
+
     fn.device = device
     fn.trace_count = lambda: len(signatures)
-    fn.observed_times = lambda: {
-        name: total / calls for name, (calls, total) in observed.items()
-    }
+    fn.observed_times = observed_times
     return fn
 
 

@@ -371,9 +371,10 @@ class CompiledNetwork:
 
         ``observed`` maps layer names to *measured* per-layer seconds —
         the ``fn.observed_times()`` of a tracer-instrumented
-        ``make_forward`` — and adds a ``drift`` section
+        ``make_forward``: stream time between CUDA events on a CUDA
+        device, span time on the CPU — and adds a ``drift`` section
         (``core/simulator.drift_table``): each layer's share of total
-        predicted cycles vs its share of measured wall time, the
+        predicted cycles vs its share of measured time, the
         per-layer drift between the two, and the implied
         seconds-per-cycle spread.  Predicted cycles use the
         measured-skip pricing when ``skip_stats`` is also given (so both

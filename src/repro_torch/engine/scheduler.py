@@ -19,10 +19,11 @@ each reimplementing (and subtly breaking) queue/slot bookkeeping:
     mean, split into queue wait (enqueue->admit) vs in-flight
     (admit->done) — and per-step slot occupancy, measured against an
     injectable monotonic ``clock`` so tests can pin time,
-  * **tracing**: given a :class:`~repro.obs.trace.Tracer`, every request
-    becomes an async span (enqueue -> admit -> done) and queue depth /
-    live slots become counter tracks, landing request lifecycles on the
-    same Perfetto timeline as compile phases and layer execution.
+  * **tracing**: given a :class:`~repro_torch.obs.trace.Tracer`, every
+    request becomes an async span (enqueue -> admit -> done) and each
+    recorded step samples queue depth / live slots into counter tracks,
+    landing request lifecycles on the same Perfetto timeline as compile
+    phases and layer execution.
 """
 
 from __future__ import annotations
@@ -208,8 +209,9 @@ class SlotScheduler:
         tests are deterministic).
       tracer: optional span tracer; each request becomes an async
         "request" span from enqueue to completion with an admission
-        instant, and queue depth / live slots are emitted as counter
-        tracks.  ``None`` resolves to the shared no-op tracer.
+        instant, and :meth:`record_step` samples queue depth / live
+        slots into counter tracks once a step.  ``None`` resolves to the
+        shared no-op tracer.
 
     Thread safety: every public method takes one internal re-entrant
     lock, so an async front end may ``try_submit`` from its event loop
@@ -266,7 +268,6 @@ class SlotScheduler:
             self._queue.append((item, self._clock(), rid))
             self.metrics.enqueued += 1
             self._tracer.async_begin("request", rid, cat="request")
-            self._emit_counters()
             return True
 
     def resubmit(self, item: Any) -> None:
@@ -284,7 +285,6 @@ class SlotScheduler:
             self._queue.appendleft((item, self._clock(), rid))
             self.metrics.enqueued += 1
             self._tracer.async_begin("request", rid, cat="request")
-            self._emit_counters()
 
     def submit(self, item: Any) -> None:
         """Enqueue ``item``; raise :class:`SchedulerFull` when full."""
@@ -315,8 +315,6 @@ class SlotScheduler:
                         "request", rid, cat="request", event="admit", slot=i
                     )
                     admitted.append((i, item))
-            if admitted:
-                self._emit_counters()
             return admitted
 
     # ------------------------------------------------------------- occupancy
@@ -403,6 +401,8 @@ class SlotScheduler:
             self.metrics.steps += 1
             live = sum(1 for s in self._slots if s is not None)
             self.metrics.occupancy_sum += live
+            self._tracer.counter("scheduler/queue_depth",
+                                 queued=len(self._queue))
             self._tracer.counter("scheduler/slots_live", live=live)
 
     def record_first_result(self, slot: int) -> None:
@@ -440,15 +440,4 @@ class SlotScheduler:
             self._tracer.async_end(
                 "request", self._slot_rid[slot], cat="request"
             )
-            self._emit_counters()
             return item
-
-    def _emit_counters(self) -> None:
-        t = self._tracer
-        if not t.enabled:
-            return
-        t.counter("scheduler/queue_depth", queued=len(self._queue))
-        t.counter(
-            "scheduler/slots_live",
-            live=sum(1 for s in self._slots if s is not None),
-        )

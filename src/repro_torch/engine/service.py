@@ -75,9 +75,12 @@ class InferenceService:
         :class:`~repro_torch.engine.scheduler.SchedulerFull` from
         :meth:`submit`.
 
-        ``tracer`` puts request lifecycles (via the scheduler) and one
-        ``service.step`` span per batch on a shared timeline; it is not
-        handed to the forward, which always runs its uninstrumented path.
+        ``tracer`` puts request lifecycles (via the scheduler) and each
+        step's phases on a shared timeline: ``service.stage`` (refill,
+        the slot buffer's copies, the validity mask), ``service.step``
+        (the forward with its own spans, ``make_forward``'s instrumented
+        path, then ``service.readback`` around the copy to the host) and
+        ``service.complete`` (the per-slot completion loop).
         """
         self.program = program
         self.batch_slots = batch_slots
@@ -85,7 +88,7 @@ class InferenceService:
         self.mesh = mesh
         self._forward = make_forward(
             program, collect_stats=collect_stats, mesh=mesh,
-            partition=partition, device=device,
+            partition=partition, tracer=tracer, device=device,
         )
         self.device = self._forward.device
         self._tracer = tracer or NULL_TRACER
@@ -96,6 +99,9 @@ class InferenceService:
         # persistent slot buffer: freed slots are zeroed, so the fixed
         # batch is always "live images + zero padding"
         self._slots_x = np.zeros((batch_slots, *shape), np.float32)
+        # input shapes the forward has run on: the forward counts its
+        # uninstrumented calls alone, and a traced service runs the other
+        self._signatures: set = set()
         self.batches_run = 0
         self.activation_stats: ActivationStats | None = None
 
@@ -105,13 +111,14 @@ class InferenceService:
 
     def trace_count(self) -> int:
         """Distinct input signatures the forward has run (1 when serving
-        only ever runs the fixed slot shape)."""
-        return self._forward.trace_count()
+        only ever runs the fixed slot shape), traced or not."""
+        return len(self._signatures)
 
     def warmup(self) -> None:
         """Run the forward once at the serving batch shape without
         sending traffic through the scheduler (metrics stay at zero)."""
         warmup_forward(self._forward, self.program, self.batch_slots)
+        self._signatures.add(self._slots_x.shape)
 
     @property
     def metrics(self) -> dict:
@@ -159,31 +166,35 @@ class InferenceService:
         Returns the requests completed by this batch (empty when there
         was nothing to serve).
         """
-        sched = self.scheduler
-        for slot, req in sched.refill():
-            self._slots_x[slot] = req.image
-        valid = sched.valid_mask()
+        sched, tracer = self.scheduler, self._tracer
+        with tracer.span("service.stage", cat="serve"):
+            for slot, req in sched.refill():
+                self._slots_x[slot] = req.image
+            valid = sched.valid_mask()
         if not valid.any():
             return []
-        with self._tracer.span(
+        with tracer.span(
             "service.step", cat="serve", live=int(valid.sum()),
             batch_slots=self.batch_slots,
         ):
+            self._signatures.add(self._slots_x.shape)
             out = self._forward(self._slots_x, valid)
             if self.collect_stats:
                 out, stats = out
                 self._record_stats(stats)
-            logits = out.cpu().numpy()
+            with tracer.span("service.readback", cat="serve"):
+                logits = out.cpu().numpy()
         self.batches_run += 1
-        sched.record_step()
-        finished = []
-        for slot, req in sched.live():
-            req.logits = logits[slot]
-            req.label = int(np.argmax(logits[slot]))
-            req.done = True
-            sched.complete(slot)
-            self._slots_x[slot] = 0.0  # dead slots stay zero-padded
-            finished.append(req)
+        with tracer.span("service.complete", cat="serve"):
+            sched.record_step()
+            finished = []
+            for slot, req in sched.live():
+                req.logits = logits[slot]
+                req.label = int(np.argmax(logits[slot]))
+                req.done = True
+                sched.complete(slot)
+                self._slots_x[slot] = 0.0  # dead slots stay zero-padded
+                finished.append(req)
         return finished
 
     def run(self) -> list[ServeRequest]:

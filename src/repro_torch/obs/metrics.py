@@ -1,22 +1,18 @@
-"""Counters, gauges, histograms + a resettable process-global registry.
+"""Histograms and rate meters for the serving front ends.
 
-Pure stdlib.  Three metric kinds:
+Pure stdlib.  Two metric kinds:
 
-  * :class:`Counter` — monotonically increasing float.
-  * :class:`Gauge` — a settable instantaneous value.
   * :class:`Histogram` — fixed cumulative buckets (the Prometheus shape)
     *plus* a bounded ring of the recorded samples, so quantiles
     (:meth:`Histogram.percentile`) are **exact** over the retained window
     rather than bucket-interpolated.  While fewer than ``max_samples``
     observations have been made, percentiles are exact over *all* of
     them; past the cap they are exact over the most recent window.
+  * :class:`Meter` — events per second over a sliding window.
 
-:class:`MetricsRegistry` groups metrics by name (get-or-create, kind
-conflicts raise) and renders either a JSON-ready :meth:`snapshot` or
-Prometheus text exposition (:meth:`to_prometheus`).  The module-level
-:func:`get_registry` registry is process-global but resettable —
-``get_registry().reset()`` in a test fixture isolates tests without
-process-wide import tricks.
+Each renders a JSON-ready ``snapshot()`` and Prometheus text lines
+(``prom_lines``); their owners (the scheduler's metrics, the HTTP
+server) expose them.
 
 Percentiles use the nearest-rank definition: ``percentile(p)`` of *n*
 sorted samples is the ``ceil(p/100 * n)``-th smallest, so e.g. the p50
@@ -31,14 +27,10 @@ import time
 from collections import deque
 
 __all__ = [
-    "Counter",
-    "Gauge",
     "Histogram",
     "Meter",
-    "MetricsRegistry",
     "DEFAULT_BUCKETS",
     "LATENCY_BUCKETS_S",
-    "get_registry",
 ]
 
 # generic magnitude ladder (Prometheus' default, extended one decade up)
@@ -54,63 +46,6 @@ LATENCY_BUCKETS_S = (
 )
 
 
-class Counter:
-    """Monotonic counter.  ``inc`` by a non-negative amount only."""
-
-    kind = "counter"
-
-    def __init__(self):
-        self._value = 0.0
-        self._lock = threading.Lock()
-
-    def inc(self, amount: float = 1.0) -> None:
-        if amount < 0:
-            raise ValueError(f"counter increment must be >= 0, got {amount}")
-        with self._lock:
-            self._value += amount
-
-    @property
-    def value(self) -> float:
-        return self._value
-
-    def snapshot(self):
-        return self._value
-
-    def prom_lines(self, name: str) -> list[str]:
-        return [f"# TYPE {name} counter", f"{name} {_fmt(self._value)}"]
-
-
-class Gauge:
-    """Instantaneous value; ``set`` wins, ``inc``/``dec`` adjust."""
-
-    kind = "gauge"
-
-    def __init__(self):
-        self._value = 0.0
-        self._lock = threading.Lock()
-
-    def set(self, value: float) -> None:
-        with self._lock:
-            self._value = float(value)
-
-    def inc(self, amount: float = 1.0) -> None:
-        with self._lock:
-            self._value += amount
-
-    def dec(self, amount: float = 1.0) -> None:
-        self.inc(-amount)
-
-    @property
-    def value(self) -> float:
-        return self._value
-
-    def snapshot(self):
-        return self._value
-
-    def prom_lines(self, name: str) -> list[str]:
-        return [f"# TYPE {name} gauge", f"{name} {_fmt(self._value)}"]
-
-
 class Histogram:
     """Fixed-bucket histogram with exact sample-backed percentiles.
 
@@ -118,8 +53,6 @@ class Histogram:
     buckets; an implicit ``+Inf`` bucket always exists.  ``max_samples``
     bounds the raw-sample ring the percentiles are computed from.
     """
-
-    kind = "histogram"
 
     def __init__(self, buckets=DEFAULT_BUCKETS, max_samples: int = 65_536):
         if not buckets or list(buckets) != sorted(buckets):
@@ -200,13 +133,11 @@ class Meter:
     """Windowed event-rate meter: events/s over a sliding time window.
 
     Serving front ends use it for *sustained* throughput (req/s over the
-    last ``window_s``), which a monotonic :class:`Counter` cannot give
+    last ``window_s``), which a monotonic counter cannot give
     without a scraper differentiating it.  ``mark(n)`` records *n* events
     now; :attr:`rate` is events/s over the retained window (0 until the
     first mark).  ``clock`` is injectable for deterministic tests.
     """
-
-    kind = "meter"
 
     def __init__(self, window_s: float = 10.0, clock=time.monotonic):
         if window_s <= 0:
@@ -264,90 +195,3 @@ class Meter:
 def _fmt(v: float) -> str:
     """Prometheus-friendly number: integral values without the '.0'."""
     return str(int(v)) if float(v).is_integer() and abs(v) < 1e15 else repr(v)
-
-
-_PROM_OK = set("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789_:")
-
-
-def _prom_name(name: str) -> str:
-    out = "".join(ch if ch in _PROM_OK else "_" for ch in name)
-    return out if out and not out[0].isdigit() else "_" + out
-
-
-class MetricsRegistry:
-    """Named metrics, get-or-create, with JSON and Prometheus renderings."""
-
-    def __init__(self):
-        self._metrics: dict[str, Counter | Gauge | Histogram] = {}
-        self._lock = threading.Lock()
-
-    def _get_or_create(self, name: str, kind: str, factory):
-        with self._lock:
-            m = self._metrics.get(name)
-            if m is None:
-                m = self._metrics[name] = factory()
-            elif m.kind != kind:
-                raise ValueError(
-                    f"metric {name!r} already registered as {m.kind}, "
-                    f"requested {kind}"
-                )
-            return m
-
-    def counter(self, name: str) -> Counter:
-        return self._get_or_create(name, "counter", Counter)
-
-    def gauge(self, name: str) -> Gauge:
-        return self._get_or_create(name, "gauge", Gauge)
-
-    def histogram(self, name: str, buckets=None, max_samples: int = 65_536):
-        return self._get_or_create(
-            name,
-            "histogram",
-            lambda: Histogram(buckets or DEFAULT_BUCKETS, max_samples),
-        )
-
-    def meter(self, name: str, window_s: float = 10.0) -> Meter:
-        return self._get_or_create(
-            name, "meter", lambda: Meter(window_s=window_s)
-        )
-
-    def register(self, name: str, metric) -> None:
-        """Attach an externally owned metric (e.g. a scheduler's latency
-        histogram) so it appears in this registry's renderings."""
-        with self._lock:
-            existing = self._metrics.get(name)
-            if existing is not None and existing is not metric:
-                raise ValueError(f"metric {name!r} already registered")
-            self._metrics[name] = metric
-
-    def names(self) -> list[str]:
-        with self._lock:
-            return sorted(self._metrics)
-
-    def reset(self) -> None:
-        """Drop every metric — the test-isolation escape hatch."""
-        with self._lock:
-            self._metrics.clear()
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            items = sorted(self._metrics.items())
-        return {
-            name: {"kind": m.kind, "value": m.snapshot()} for name, m in items
-        }
-
-    def to_prometheus(self) -> str:
-        with self._lock:
-            items = sorted(self._metrics.items())
-        lines: list[str] = []
-        for name, m in items:
-            lines.extend(m.prom_lines(_prom_name(name)))
-        return "\n".join(lines) + ("\n" if lines else "")
-
-
-_REGISTRY = MetricsRegistry()
-
-
-def get_registry() -> MetricsRegistry:
-    """The process-global registry (reset it between tests)."""
-    return _REGISTRY

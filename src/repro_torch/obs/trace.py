@@ -38,7 +38,7 @@ from collections import deque
 from typing import Any, Callable, Iterator
 from contextlib import contextmanager
 
-__all__ = ["SpanRecord", "Tracer", "NULL_TRACER", "get_tracer", "set_tracer"]
+__all__ = ["SpanRecord", "Tracer", "NULL_TRACER"]
 
 
 class SpanRecord:
@@ -202,6 +202,14 @@ class Tracer:
             self._seen = 0
 
     @property
+    def origin(self) -> float:
+        """The clock reading every ``ts`` is relative to: a span's start
+        on the tracer's clock (``time.perf_counter`` by default) is
+        ``origin + ts``, which puts it on another timeline read off the
+        same clock, such as a device trace's."""
+        return self._t0
+
+    @property
     def dropped_events(self) -> int:
         with self._lock:
             return self._seen - len(self._events)
@@ -299,17 +307,3 @@ _NULL_SPAN.dur = 0.0
 
 NULL_TRACER = Tracer(enabled=False, max_events=1)
 """Shared no-op tracer: the resolution of every ``tracer=None`` default."""
-
-_default: Tracer = NULL_TRACER
-
-
-def get_tracer() -> Tracer:
-    """The process-default tracer (:data:`NULL_TRACER` until one is set)."""
-    return _default
-
-
-def set_tracer(tracer: Tracer | None) -> Tracer:
-    """Install (or, with ``None``, clear) the process-default tracer."""
-    global _default
-    _default = tracer if tracer is not None else NULL_TRACER
-    return _default

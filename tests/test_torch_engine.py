@@ -162,6 +162,96 @@ def test_instrumented_forward_observes_layers(programs):
     assert {"forward", "layer:gap", "layer:fc"} <= spans
 
 
+class _StepClock:
+    """A clock that moves one second each time it is read."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def test_traced_forward_never_synchronises(programs, monkeypatch):
+    """The instrumented path enqueues every layer without waiting: it
+    calls neither ``torch.cuda.synchronize`` nor the executor's sync."""
+    from repro_torch.engine import executor
+
+    def refuse(*a, **k):
+        raise AssertionError("the traced forward synchronised")
+
+    _, tprog = programs[("fp32", 16, 16)]
+    x = _images(3)
+    plain = make_forward(tprog, device="cpu")(x)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(executor, "_sync", refuse)
+    fn = make_forward(tprog, tracer=Tracer(), device="cpu")
+    np.testing.assert_array_equal(fn(x).numpy(), plain.numpy())
+
+
+def test_traced_forward_spans_and_observed_times(programs):
+    """One ``forward`` span holds ``forward.upload`` and each layer's
+    span in order; on the CPU ``observed_times()`` is each conv's and the
+    FC's mean span duration, under the same keys as before."""
+    _, tprog = programs[("fp32", 16, 16)]
+    tracer = Tracer(clock=_StepClock())
+    fn = make_forward(tprog, tracer=tracer, device="cpu")
+    for _ in range(2):
+        fn(_images(2))
+    convs = [op.name for op in tprog.convs]
+    layers = [f"layer:{n}" for n in convs] + ["layer:gap", "layer:fc"]
+    spans = sorted(tracer.spans(), key=lambda s: s.ts)
+    assert [s.name for s in spans] == 2 * (["forward", "forward.upload"]
+                                           + layers)
+    fwd = [s for s in spans if s.name == "forward"]
+    for s in spans:
+        outer = [f for f in fwd if f.ts <= s.ts][-1]
+        assert s.ts + s.dur <= outer.ts + outer.dur
+    assert all(s.cat == "execute" for s in spans)
+    obs = fn.observed_times()
+    assert set(obs) == set(convs) | {"fc"}
+    for name in convs + ["fc"]:
+        durs = [s.dur for s in spans if s.name == f"layer:{name}"]
+        assert obs[name] == sum(durs) / len(durs)
+
+
+class _FakeEvent:
+    def __init__(self, t):
+        self.t, self.done = t, False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3  # ms, as CUDA events give it
+
+
+def test_layer_events_fold_only_completed_sets_and_reuse_them():
+    """Per-layer stream time: a set of boundary events is folded into
+    seconds once its last event has completed (a call never waits), and
+    ``fold(wait=True)`` waits; folded sets are handed out again."""
+    from repro_torch.engine.executor import _LayerEvents
+
+    seen = []
+    marks = _LayerEvents(["conv1", None, "fc"])
+    first = [_FakeEvent(t) for t in (0.0, 2.0, 3.0, 7.0)]
+    second = [_FakeEvent(t) for t in (10.0, 11.0, 12.0, 14.0)]
+    marks.recorded(first)
+    marks.recorded(second)
+    marks.fold(lambda n, s: seen.append((n, s)), wait=False)
+    assert seen == []  # nothing completed: nothing folded, nothing waited
+    first[-1].done = True
+    assert marks.take(lambda n, s: seen.append((n, s))) is first
+    assert seen == [("conv1", 2.0), ("fc", 4.0)]
+    marks.fold(lambda n, s: seen.append((n, s)), wait=True)
+    assert seen[2:] == [("conv1", 1.0), ("fc", 2.0)]
+    assert marks.take(lambda n, s: None) is second
+
+
 def test_execute_caches_per_device(programs):
     _, tprog = programs[("fp32", 9, 8)]
     x = _images(2)
