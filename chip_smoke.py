@@ -106,6 +106,10 @@ Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``prune``, ``ou_mvm``, ``flash`` (kernel vs plain), ``generate``,
 ``lm_configs``, ``ssm_whisper``, ``vlm``, ``train``, ``train_shard``,
 ``entry_points``, ``dryrun``, ``times``.  The
+conv-patch rows (``kernels``, one per conv of a forward in the executor's
+layouts and a ragged case) must equal the plain version bit for bit, the
+served forwards launch the kernel once a conv, and ``times`` times it
+per conv here and at the benchmark's two shapes (``PATCH_SHAPES``).  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -226,7 +230,17 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
     },
+    "conv_patches_cuda": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/conv_patches.cu",
+        "replaces": None,  # the reference leaves im2col to XLA
+    },
 }
+# conv patches, timed besides at the benchmark's two served shapes
+# (h100bench/configs): VGG16 at 16 x 224^2 and 128 x 32^2, K padded to
+# the programs' bricks of PATCH_BLOCK
+PATCH_SHAPES = (("vgg16_imagenet", 224, 16), ("vgg16_cifar10", 32, 128))
+PATCH_BLOCK = 128
 # flash attention: tests/test_kernels.py's sweep (b, hq, hkv, sq, sk, d),
 # causal only where sq == sk, with and without a window of 33, in the three
 # input types; then the generation path's own calls (h2o-danube-1.8B: 32
@@ -890,6 +904,94 @@ def device_ms(fn, dev) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def patch_cases(prog, rng, dev, batch: int = BATCH_SLOTS):
+    """One conv-patch case per conv of a forward of ``prog`` at ``batch``
+    images: (layer, x, k, k_pad) with x in the layout the executor hands
+    the kernel (the uploaded NCHW images first, then the channels-last
+    view of the previous spmm's output)."""
+    import torch
+
+    cases = []
+    for i, op in enumerate(prog.convs):
+        side = op.out_hw
+        x = torch.as_tensor(rng.normal(size=(batch, side, side, op.c_in))
+                            .astype(np.float32), device=dev)
+        x = x.permute(0, 3, 1, 2)
+        cases.append((op.name, x.contiguous() if i == 0 else x, op.kernel,
+                      op.bp.k_in))
+    return cases
+
+
+def vgg16_patch_cases(input_hw: int, batch: int, dev, seed: int):
+    """``patch_cases`` of VGG16 at ``input_hw`` and ``batch`` without a
+    program: K padded to ``PATCH_BLOCK`` as the served programs pad it,
+    activations drawn on the device."""
+    import torch
+
+    from repro_torch.models.cnn import vgg16_config
+
+    cfg = vgg16_config(num_classes=10, input_hw=input_hw)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    side, cases = input_hw, []
+    for i, (c_in, _) in enumerate(cfg.conv_channels, start=1):
+        x = torch.randn((batch, side, side, c_in), generator=gen,
+                        device=dev).permute(0, 3, 1, 2)
+        k_pad = -(-c_in * 9 // PATCH_BLOCK) * PATCH_BLOCK
+        cases.append((f"conv{i}", x.contiguous() if i == 1 else x, 3, k_pad))
+        if i in cfg.pool_after:
+            side //= 2
+    return cases
+
+
+def patch_cost(x, k_pad: int) -> float:
+    """Bytes one conv-patch call must move: the activations read once,
+    the padded rows written once."""
+    b, _, h, w = x.shape
+    return float(4 * (x.numel() + b * h * w * k_pad))
+
+
+def patch_check(name, x, k: int, k_pad: int) -> dict:
+    """The conv-patch kernel against its plain version: a copy, so bit
+    for bit, and again on a rerun."""
+    import torch
+
+    from repro_torch.kernels import patches as tp
+    from repro_torch.kernels.patches import _halo_mode, _patch_plan
+
+    y = tp.conv_patches_cuda(x, k, k_pad)
+    want = tp.conv_patches_plain(x, k, k_pad)
+    torch.cuda.synchronize()
+    b, c, h, w = x.shape
+    plan = _patch_plan(b, c, h, w, k)
+    equal = bool(torch.equal(y, want))
+    rerun = bool(torch.equal(tp.conv_patches_cuda(x, k, k_pad), y))
+    return {"case": name, "x": list(x.shape), "k": k, "k_pad": k_pad,
+            "halo_mode": _halo_mode(x), "tile": [plan.tb, plan.th, plan.tw],
+            "chunk": plan.cc, "blocks": plan.tiles * plan.chunks,
+            "max_abs_diff": float((y - want).abs().max()),
+            "bit_equal": equal, "rerun_bit_identical": rerun,
+            "ok": equal and rerun}
+
+
+def patch_times(cases, dev) -> list[dict]:
+    """Device ms of the conv-patch kernel and of its plain version (the
+    ``F.unfold``, transpose and pad the executor ran before it) per case,
+    with the bound: its bytes at HBM bandwidth."""
+    from repro_torch.kernels import patches as tp
+
+    rows = []
+    for name, x, k, k_pad in cases:
+        ms = device_ms(lambda: tp.conv_patches_cuda(x, k, k_pad), dev)
+        plain = device_ms(lambda: tp.conv_patches_plain(x, k, k_pad), dev)
+        nbytes = patch_cost(x, k_pad)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"layer": name, "x": list(x.shape), "k_pad": k_pad,
+                     "ms": ms, "plain_ms": plain, "bytes": nbytes,
+                     "bound_ms": bound, "hbm_share": bound / ms,
+                     "gb_per_s": nbytes / (ms * 1e-3) / 1e9})
+    return rows
 
 
 def host_ms(fn) -> float:
@@ -3860,7 +3962,7 @@ def train_serve(trained, seed: int, dev) -> dict:
 
 
 def train_guards(seed: int, dev) -> dict:
-    """(d): the four wrappers refuse CUDA inputs that require grad, and
+    """(d): the five wrappers refuse CUDA inputs that require grad, and
     one granite-3-2b smoke float32 step on the card against the CPU."""
     import torch
 
@@ -3868,6 +3970,7 @@ def train_guards(seed: int, dev) -> dict:
     from repro_torch.data import DataConfig, packed_batches
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ou_mvm as tou
+    from repro_torch.kernels import patches as tp
     from repro_torch.kernels import pattern_spmm as tk
     from repro_torch.models.transformer import init_params, init_statics
     from repro_torch.optim import adamw
@@ -3895,6 +3998,8 @@ def train_guards(seed: int, dev) -> dict:
         "flash_attention_cuda": (tfa.flash_attention_cuda, lambda: (
             rand(1, 2, 5, 16, dtype=bf, grad=True), rand(1, 1, 5, 16, dtype=bf),
             rand(1, 1, 5, 16, dtype=bf))),
+        "conv_patches_cuda": (tp.conv_patches_cuda, lambda: (
+            rand(2, 3, 4, 4, grad=True), 3, 32)),
     }
     refused = {}
     for name, (fn, args) in calls.items():
@@ -6395,6 +6500,7 @@ def run(seed: int, dev) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ou_mvm as tou
+    from repro_torch.kernels import patches as tp
     from repro_torch.kernels import pattern_spmm as tk
     from repro_torch.models.cnn import cnn_apply, params_from_numpy
     from repro_torch.serve.api import Request
@@ -6479,6 +6585,19 @@ def run(seed: int, dev) -> dict:
         emit("kernels", kernel=kname, cases=rows)
         bad = [r["case"] for r in rows if not r["ok"]]
         check(not bad, f"{kname} disagrees with its plain version on {bad}")
+    # the conv patches at every conv of a forward, in the layouts the
+    # executor hands them, and a ragged map with K not a multiple of 4
+    # (4-byte stores) and channels-last C % 4 != 0 (strided 4-byte loads)
+    pcases = patch_cases(prog32, rng, dev)
+    ragged = torch.as_tensor(rng.normal(size=(3, 7, 9, 5)).astype(np.float32),
+                             device=dev).permute(0, 3, 1, 2)
+    rows = [patch_check(*c) for c in pcases]
+    rows.append(patch_check("ragged", ragged, 3, 47))
+    emit("kernels", kernel="conv_patches_cuda", cases=rows)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, f"conv_patches_cuda differs from its plain version on "
+                   f"{bad}")
+    max_err["conv_patches_cuda"] = max(r["max_abs_diff"] for r in rows)
 
     # -- 5. serve ----------------------------------------------------------
     n32 = sum(BURSTS)
@@ -6495,13 +6614,15 @@ def run(seed: int, dev) -> dict:
     tk.pattern_spmm_cuda.reduce_launches = 0
     tk.pattern_spmm_quant_cuda.launches = 0
     tk.pattern_spmm_quant_cuda.reduce_launches = 0
+    tp.conv_patches_cuda.launches = 0
     reqs32 = [Request(image=img) for img in images]
     serve_s = serve_bursts(svc32, reqs32)
     reqs8 = [Request(image=img) for img in images[:N_INT8]]
     svc8.serve(reqs8)
     torch.cuda.synchronize()
     launches = {"pattern_spmm_cuda": tk.pattern_spmm_cuda.launches,
-                "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.launches}
+                "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.launches,
+                "conv_patches_cuda": tp.conv_patches_cuda.launches}
     reduce_launches = {
         "pattern_spmm_cuda": tk.pattern_spmm_cuda.reduce_launches,
         "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.reduce_launches}
@@ -6584,6 +6705,10 @@ def run(seed: int, dev) -> dict:
         check(launches[kname] == spmms * batches[prec],
               f"{kname} launches {launches[kname]} != {spmms} x "
               f"{batches[prec]} {prec} batches")
+    convs = len(loaded.convs)
+    check(launches["conv_patches_cuda"] == convs * sum(batches.values()),
+          f"conv_patches_cuda launches {launches['conv_patches_cuda']} != "
+          f"{convs} x {sum(batches.values())} batches")
     check(reduce_launches == res["reduce_launches_expected"],
           f"split reductions {reduce_launches} != "
           f"{res['reduce_launches_expected']}")
@@ -6803,6 +6928,29 @@ def run(seed: int, dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": fl_tot["library_ms"],
     })
+    # the conv patches per forward of BATCH_SLOTS images, then per layer
+    # at the benchmark's two served shapes, each held to its plain version
+    pt_rows = patch_times(pcases, dev)
+    per_layer["conv_patches_cuda"] = pt_rows
+    bench_patches = {}
+    for name, hw, batch in PATCH_SHAPES:
+        bcases = vgg16_patch_cases(hw, batch, dev, seed + 6)
+        bad = [c[0] for c in bcases if not patch_check(*c)["ok"]]
+        check(not bad, f"conv_patches_cuda differs from its plain version "
+                       f"at {name}'s {bad}")
+        bench_patches[name] = patch_times(bcases, dev)
+        del bcases
+    nbytes = sum(r["bytes"] for r in pt_rows)
+    summary.append({
+        "name": "conv_patches_cuda", **KERNELS["conv_patches_cuda"],
+        "launches": launches["conv_patches_cuda"],
+        "max_abs_err": max_err["conv_patches_cuda"],
+        "ms": sum(r["ms"] for r in pt_rows),
+        "plain_ms": sum(r["plain_ms"] for r in pt_rows),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
     # the searched program's bricks through the fp32 kernel, per forward
     searched_spmm = {"ms": 0.0, "bound_ms": 0.0}
     for name, bp, x in layer_cases(searched["program"],
@@ -6833,8 +6981,12 @@ def run(seed: int, dev) -> dict:
          f"per launch of the prefill's call at S in {list(FLASH_PATH_S)} "
          f"(h2o-danube), {list(LM_DENSE_PROMPTS)} (qwen2.5-32b) and "
          f"prefix_len + {list(VLM_PROMPTS)} (paligemma-3b), summed; its "
-         f"bound at the bf16 tensor cores' rate",
+         f"bound at the bf16 tensor cores' rate; conv patches: ms per "
+         f"forward of {BATCH_SLOTS} images, summed over the convs, and per "
+         f"conv at {[s[0] for s in PATCH_SHAPES]}'s shapes, its bound its "
+         f"bytes at HBM bandwidth",
          per_layer=per_layer, searched_fp32_spmm_per_forward=searched_spmm,
+         conv_patches_at_benchmark_shapes=bench_patches,
          flash_by_model={
              m: {key: sum(r[key] for r in fl_rows if r["model"] == m)
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms_bf16")}

@@ -1,14 +1,17 @@
 """Executor: run a ``CompiledNetwork`` through the block-pattern spmm.
 
 Port of ``repro/engine/executor.py``.  ``make_forward``
-returns a batched forward: per conv layer it extracts im2col patches
-(conv-as-spmm), dispatches through ``kernels/ops.pattern_spmm`` (the
-Hopper kernels on a CUDA device, the plain PyTorch path on the CPU),
+returns a batched forward: per conv layer it writes the im2col patch
+rows, already zero-padded to the spmm's K (``kernels/patches.
+conv_patches_cuda``, one launch a layer, reading the activations through
+their strides), dispatches them through ``kernels/ops.pattern_spmm``,
 which applies the stored inverse output permutation (the Output Indexing
 Unit), then bias + ``channel_norm``/ReLU and the 2x2 maxpool where the
-schedule says so.  The spmm is the only kernel of the path; im2col, the
-permutation gather, norm, pooling and the quantization of activations
-are plain PyTorch ops, as they were XLA ops in the reference.
+schedule says so.  On a CUDA device the patch rows and the spmm are the
+path's two hand-written kernels; on the CPU both run their plain PyTorch
+versions.  The permutation gather, bias, norm, pooling and the
+quantization of activations are plain PyTorch ops, as they were XLA ops
+in the reference.
 
 With ``collect_stats=True`` the forward also counts, per layer and per
 OU row-group (= (input channel, pattern) pair), how many input
@@ -52,7 +55,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from repro_torch.core.sparse import BlockPatternWeight
 from repro_torch.device import resolve_device
@@ -64,6 +66,7 @@ from repro_torch.engine.partition import (
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.engine.stats import skip_patterns_and_masks, stats_from_counts
 from repro_torch.kernels.ops import _pad_to, pattern_spmm, pattern_spmm_raw
+from repro_torch.kernels.patches import conv_patches_cuda, extract_patches
 from repro_torch.kernels.pattern_spmm import kmajor_bricks
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.cnn import channel_norm, max_pool_2x2
@@ -71,18 +74,6 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.parallel.sharding import shard_block_pattern
 
 __all__ = ["extract_patches", "make_forward", "warmup_forward", "execute"]
-
-
-def extract_patches(x: torch.Tensor, k: int) -> torch.Tensor:
-    """im2col for stride-1 'same' convs: [B, C, H, W] -> [B, H, W, C*k*k].
-
-    Feature index is ``c * k*k + (dy*k + dx)``, the layout of
-    ``lowering.conv_matrix``; ``F.unfold`` orders its features exactly so
-    (channel-major, then kernel row, then kernel column).
-    """
-    b, c, h, w = x.shape
-    cols = F.unfold(x, kernel_size=k, padding=k // 2)  # [B, C*k*k, H*W]
-    return cols.transpose(1, 2).reshape(b, h, w, c * k * k)
 
 
 def _pad_features(x: torch.Tensor, to: int) -> torch.Tensor:
@@ -252,16 +243,16 @@ def _run_conv(
     valid: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     b, c, h, w = x.shape
-    patches = extract_patches(x, op.kernel).reshape(b * h * w, -1)
+    kk = op.kernel * op.kernel
+    patches = conv_patches_cuda(x, op.kernel, op.bp.k_in)  # [B*H*W, K pad]
     counts = None
     if stat_masks is not None:
         # every patch row belongs to one sample; dead-slot samples are
         # excluded from the skip counters
         row_valid = None if valid is None else valid.repeat_interleave(h * w)
         counts = disp.counts(
-            patches, op.c_in, op.kernel * op.kernel, stat_masks, row_valid
+            patches[:, : op.c_in * kk], op.c_in, kk, stat_masks, row_valid
         )
-    patches = _pad_features(patches, op.bp.k_in)
     y = disp.spmm(patches, prepared)
     y = y[:, : op.c_out] + prepared.bias
     y = y.reshape(b, h, w, op.c_out).permute(0, 3, 1, 2)

@@ -119,13 +119,14 @@ def load_library() -> ctypes.CDLL:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and return types of every entry point ``lib``
     has (a library built from some of the sources has only theirs)."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    flash = ([ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 12
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    flash = ([ptr] * 4 + [i32] * 7 + [i64] * 12
              + [ctypes.c_float] + [i32] * 4 + [ptr])
     sigs = {
         "pattern_spmm_f32": [ptr] * 6 + [i32] * 10 + [ptr],
         "pattern_spmm_i8": [ptr] * 7 + [i32] * 10 + [ptr],
         "ou_mvm_f32": [ptr] * 3 + [i32] * 5 + [ptr],
+        "conv_patches_f32": [ptr] + [i64] * 4 + [ptr] + [i32] * 13 + [ptr],
         "flash_attention_fwd": flash,
         "flash_attention_fwd_mma": flash,
     }

@@ -20,9 +20,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config, granite_3_2b, h2o_danube_1_8b
+from repro_torch.engine import executor
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ou_mvm as tou
+from repro_torch.kernels import patches as tp
 from repro_torch.kernels import pattern_spmm as tk
 from repro_torch.kernels._grad_guard import refuse_grad
 from repro_torch.models.cnn import mini_cnn_config
@@ -102,9 +104,16 @@ def _fakes():
         (tfa, "flash_attention_cuda", tfa.flash_attention_plain,
          dict(launches_tensor_core=lambda q, *r, **k: q.dtype != torch.float32,
               launches_simt=lambda q, *r, **k: q.dtype == torch.float32)),
+        (tp, "conv_patches_cuda", tp.conv_patches_plain, {}),
     ):
         out.append((mod, name, _counting(plain, name, **counters)))
     return out
+
+
+def _callers(mod, name):
+    """The wrapper's module and each module that imports ``name`` from
+    it: the places a fake must replace it."""
+    return [mod] + [m for m in (ops, executor) if hasattr(m, name)]
 
 
 def _rank_fakes():
@@ -114,8 +123,8 @@ def _rank_fakes():
     one thread as the rest of the suite runs."""
     torch.set_num_threads(1)
     for mod, name, fake in _fakes():
-        setattr(mod, name, fake)
-        setattr(ops, name, fake)
+        for m in _callers(mod, name):
+            setattr(m, name, fake)
     torch.cuda.synchronize = lambda *a, **k: None
 
 
@@ -213,8 +222,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     spec.loader.exec_module(cs)
 
     for mod, name, fake in _fakes():
-        monkeypatch.setattr(mod, name, fake)
-        monkeypatch.setattr(ops, name, fake)
+        for m in _callers(mod, name):
+            monkeypatch.setattr(m, name, fake)
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
@@ -227,6 +236,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "nvidia_smi", lambda: "cpu rehearsal, 0 W")
     monkeypatch.setattr(cs, "build_model", _mini_model)
     monkeypatch.setattr(cs, "REPS", 2)
+    # the conv patches timed at VGG16's 32^2 shapes, 1 and 2 images
+    monkeypatch.setattr(cs, "PATCH_SHAPES", (("vgg16_imagenet", 32, 1),
+                                             ("vgg16_cifar10", 32, 2)))
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
                         lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
@@ -383,19 +395,22 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
 
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["phase"] for ln in lines] == [
-        "device", "build", "compile", "kernels", "kernels", "serve", "shard",
+        "device", "build", "compile", "kernels", "kernels", "kernels",
+        "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
         "ssm_whisper", "vlm", "train", "train_shard", "entry_points",
         "dryrun", "times"]
-    serve = lines[5]
+    serve = lines[6]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
     assert serve["alone_vs_cobatched_bit_identical"]
     assert serve["int8_alone_vs_cobatched_bit_identical"]
     assert serve["e2e_rel_vs_cpu"] <= cs.E2E_TOL
     # 3 convs + FC per batch: 9 fp32 batches for 64 requests, 2 int8
+    # and 3 conv patch rows a batch, fp32 and int8
     assert serve["launches"] == {"pattern_spmm_cuda": 36,
-                                 "pattern_spmm_quant_cuda": 8}
+                                 "pattern_spmm_quant_cuda": 8,
+                                 "conv_patches_cuda": 33}
     assert serve["reduce_launches"] == serve["reduce_launches_expected"]
     assert set(serve["reduce_launches"]) == {"pattern_spmm_cuda",
                                              "pattern_spmm_quant_cuda"}
@@ -406,7 +421,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                    and c["blocks"] >= 1 for c in kern["cases"])
     assert all(c["single_brick_exact"] and c["rel"] <= cs.QUANT_REL
                for c in lines[4]["cases"])
-    shard = lines[6]
+    patches = lines[5]
+    assert patches["kernel"] == "conv_patches_cuda"
+    assert [c["case"] for c in patches["cases"]] == [
+        "conv1", "conv2", "conv3", "ragged"]
+    assert [c["halo_mode"] for c in patches["cases"]] == [0, 1, 1, 0]
+    assert all(c["ok"] and c["bit_equal"] and c["blocks"] >= 1
+               and c["max_abs_diff"] == 0.0 for c in patches["cases"])
+    shard = lines[7]
     a, b = shard["part_a"], shard["part_b"]
     assert a["bit_equal"] == {"fp32": True, "int8": True}
     assert a["service_labels_equal"] and a["service_logits_bit_equal"]
@@ -440,7 +462,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert b["moe"]["sharded_calls"] == 1 and b["moe"]["shape"][:2] == list(
         cs.SHARD_MOE_SHAPE)
     assert b["moe"]["rel_vs_per_shard"] <= cs.MOE_REL
-    search = lines[7]
+    search = lines[8]
     assert search["bit_equal_vs_cpu_compile"] and search["never_worse"]
     assert set(search["chosen"]) == {"conv1", "conv2", "conv3"}
     assert search["launches"] == 4 * search["batches"]
@@ -450,7 +472,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         "conv1", "conv2", "conv3"}
     assert search["searched"]["area_cells"] <= search["fixed"]["area_cells"]
     assert search["searched"]["energy_pj"] <= search["fixed"]["energy_pj"]
-    prune = lines[8]
+    prune = lines[9]
     assert set(prune["seconds"]) == {
         "dense_training", "magnitude_prune", "dictionaries", "admm",
         "project", "retrain", "prune_total"}
@@ -478,14 +500,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
             ] == ["conv1", "conv2", "conv3", "fc"]
     assert prune["e2e_rel_vs_cpu"] <= cs.E2E_TOL
     assert 0.0 <= prune["int8_top1_agreement_vs_fp32"] <= 1.0
-    ou = lines[9]
+    ou = lines[10]
     # 3 convs x 2 patches, the 3 sweep shapes, all-zero x, NaN case
     assert ou["calls"] == ou["launches"] == 11
     assert all(c["ok"] and c["finite"] and c["rerun_bit_identical"]
                and c["slab_cols"] >= 1 and c["blocks"] >= 1
                for c in ou["cases"])
     assert ou["cases"][-2]["skipped_band_share"] == 1.0
-    flash = lines[10]
+    flash = lines[11]
     # 18 sweep cases (4 of them at D 256) x 3 types, each path length bare
     # and from a cache, kv_len < S, qwen's two prefill lengths from its
     # cache, paligemma's two in bf16 and fp32 from its cache, and
@@ -504,7 +526,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                               else "tensor_core") for c in flash["cases"])
     half = [c for c in flash["cases"] if "float32" not in c["case"]]
     assert half and all(c["worst_over_rounding_limit"] <= 1.0 for c in half)
-    gen = lines[11]
+    gen = lines[12]
     assert gen["all_done"] and gen["trace_count"] == 1
     assert gen["requests"] == gen["prefills"] == 7
     assert gen["launches"] == gen["launches_expected"] == 2 * 7
@@ -516,7 +538,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(r["ok"] for r in gen["prefill_logits"])
     assert 0.0 <= gen["first_token_agreement_vs_plain"] <= 1.0
     assert gen["output_tokens"] == 7 * 4
-    lm = lines[12]
+    lm = lines[13]
     ds2, ds3 = lm["deepseek_v2"], lm["deepseek_v3"]
     assert lm["seconds"] > 0 and set(lm["depth"]) == set(cs.LM_LAYERS)
     assert ds2["mla_absorbed_vs_expanded"]["ok"]
@@ -549,7 +571,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     for r in (qwen, phi3):
         assert [x["prompt_len"] for x in r["prefill_logits"]] == [17, 40]
         assert all(x["ok"] for x in r["prefill_logits"])
-    sw = lines[13]
+    sw = lines[14]
     assert sw["seconds"] > 0 and set(sw["depth"]) == {
         "mamba2_780m", "jamba_1_5_large_398b", "whisper_small"}
     assert [(r["model"], r["S"], r["pad"]) for r in sw["ssd"]] == [
@@ -593,7 +615,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert whisper["prefill_step_token_is_handoff_first"]
     assert whisper["bf16_batch"]["finite"]
     assert whisper["bf16_batch"]["shape"] == [2, 12, 512]
-    vlm = lines[14]
+    vlm = lines[15]
     assert vlm["seconds"] > 0 and vlm["layers"] == 2 and vlm["prefix_len"] == 8
     assert vlm["q_heads_padded"] == 16 and vlm["grouped"]
     assert vlm["prefill_lengths"] == [13, 20]
@@ -617,7 +639,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert vlm["flash_vs_plain"][dt]["calls"] == 2 * 2
         assert vlm["flash_vs_plain"][dt]["failed"] == []
     assert vlm["flash_vs_plain"]["bfloat16"]["worst_over_rounding_limit"] <= 1
-    train = lines[15]
+    train = lines[16]
     full, drill = train["full"], train["drill"]
     assert len(full["losses"]) == cs.TRAIN_STEPS
     assert full["loss_fell"] > cs.TRAIN_FALL
@@ -654,7 +676,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     rm = drill["remat"]
     assert rm["loss_bit_equal"] and rm["grads_bit_equal"]
     assert rm["grad_leaves"] > 0
-    ts = lines[16]
+    ts = lines[17]
     f, g, h = ts["part_f"], ts["part_g"], ts["part_h"]
     i, j, k, l = ts["part_i"], ts["part_j"], ts["part_k"], ts["part_l"]
     assert f["layers"] == "4 of 2" and h["width"] == "smoke"
@@ -732,7 +754,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert g["layers"] == 8 and g["stages"] == 4 and g["microbatches"] == 6
     assert g["finite"] and g["ranks_equal"]
     assert g["max_abs_diff"] <= cs.PIPE_REL * g["fold_max_abs"]
-    ep = lines[17]
+    ep = lines[18]
     assert set(ep["runs"]) == {"launch_serve", "serve_decode", "quickstart",
                                "serve_http_classify", "serve_http_generate",
                                "check_baseline_trace"}
@@ -744,7 +766,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert served["device"] == "cpu" and served["tokens_per_s"] > 0
     assert any("check ok" in ln
                for ln in ep["runs"]["serve_http_generate"]["stdout_tail"])
-    dr = lines[18]
+    dr = lines[19]
     a, b, c = dr["part_a"], dr["part_b"], dr["part_c"]
     assert a["flops_predicted"] == a["flops_measured"] > 0
     assert a["peak_rel"] <= cs.DRYRUN_PEAK_REL
@@ -791,7 +813,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(rel <= cs.DRYRUN_PEAK_REL for rel in c["decode_peak_rel"])
     assert [(x["arch"], x["status"]) for x in dr["part_d"]] == [
         ("mamba2_780m", "ok")]
-    times = lines[19]
+    times = lines[20]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40, 17, 40, 13, 20]
@@ -805,6 +827,13 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                for r in times["per_layer"]["pattern_spmm_quant_cuda"])
     assert all(r["gb_per_s"] > 0 and r["blocks"] >= 1
                for r in times["per_layer"]["ou_mvm_cuda"])
+    assert [r["layer"] for r in times["per_layer"]["conv_patches_cuda"]] == [
+        "conv1", "conv2", "conv3"]
+    bench = times["conv_patches_at_benchmark_shapes"]
+    assert set(bench) == {"vgg16_imagenet", "vgg16_cifar10"}
+    assert all(len(rows) == 13 and all(r["bound_ms"] > 0 and r["ms"] > 0
+                                       for r in rows)
+               for rows in bench.values())
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in res["kernels"]] == list(cs.KERNELS)
@@ -812,6 +841,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert set(k) == keys
         assert k["launches"] > 0 and k["bound_ms"] > 0
         assert os.path.exists(os.path.join(ROOT, k["source"]))
+        if k["name"] == "conv_patches_cuda":  # the reference's is XLA's
+            assert k["replaces"] is None and k["library_ms"] is None
+            # the main path's serve run, as for the spmm rows
+            assert k["launches"] == serve["launches"][k["name"]]
+            assert k["max_abs_err"] == 0.0
+            continue
         path, line = k["replaces"].rsplit(":", 1)
         with open(os.path.join(ROOT, path)) as f:
             text = f.readlines()[int(line) - 1]

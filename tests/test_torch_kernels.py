@@ -25,6 +25,7 @@ from repro_torch.core import sparse as ts
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ou_mvm as tou
+from repro_torch.kernels import patches as tp
 from repro_torch.kernels import pattern_spmm as tk
 from repro_torch.kernels._build import find_nvcc
 from repro_torch.kernels.ref import ou_mvm_ref, pattern_spmm_ref
@@ -938,7 +939,7 @@ def test_ou_mvm_column_slabs_on_card():
 
 
 def _grad_calls(dev):
-    """(wrapper, its call) for each of the four CUDA wrappers on small
+    """(wrapper, its call) for each of the five CUDA wrappers on small
     valid inputs on ``dev``, one float input requiring grad."""
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -961,10 +962,12 @@ def _grad_calls(dev):
         (tfa.flash_attention_cuda, lambda: tfa.flash_attention_cuda(
             rand(1, 2, 5, 16, dtype=half, grad=True),
             rand(1, 1, 5, 16, dtype=half), rand(1, 1, 5, 16, dtype=half))),
+        (tp.conv_patches_cuda, lambda: tp.conv_patches_cuda(
+            rand(2, 3, 4, 4, grad=True), 3, 32)),
     ]
 
 
-@pytest.mark.parametrize("i", range(4))
+@pytest.mark.parametrize("i", range(5))
 def test_wrappers_refuse_inputs_that_require_grad(i):
     """The kernels have no backward, so a wrapper given an input that
     requires grad raises, before its CPU branch too: it never returns an
