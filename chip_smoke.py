@@ -99,7 +99,11 @@ its 64 layers, on both decode routes: tokens equal to the unsharded
 run's, every step's bytes as reckoned, no param gathered.
 Before each path it builds the CUDA kernels from the sources in ``src/``
 and holds each against its plain PyTorch version on the card, at every
-shape the path gives it.
+shape the path gives it.  The int8 path runs here at CIFAR-10's shapes;
+at ImageNet's (224 x 224, 16 slots, through ``InferenceService``) it is
+the benchmark cell ``vgg16_imagenet_int8.bulk`` (``BENCHMARK.json``),
+and its spmm at conv1_2's 802,816 patch rows is
+``tests/test_torch_int8_reference.py``'s card test.
 
 Phases, one JSON line each: ``device``, ``build``, ``compile``,
 ``kernels`` (kernel vs plain), ``serve``, ``shard``, ``search``,

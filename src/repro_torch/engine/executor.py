@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.quantize import quantize_rows
 from repro_torch.core.sparse import BlockPatternWeight
 from repro_torch.device import resolve_device
 from repro_torch.engine.partition import (
@@ -65,7 +66,12 @@ from repro_torch.engine.partition import (
 )
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.engine.stats import skip_patterns_and_masks, stats_from_counts
-from repro_torch.kernels.ops import _pad_to, pattern_spmm, pattern_spmm_raw
+from repro_torch.kernels.ops import (
+    _pad_to,
+    pattern_spmm,
+    pattern_spmm_quant_rows,
+    pattern_spmm_raw,
+)
 from repro_torch.kernels.patches import conv_patches_cuda, extract_patches
 from repro_torch.kernels.pattern_spmm import kmajor_bricks
 from repro_torch.launch.mesh import mesh_device
@@ -234,6 +240,45 @@ class _ShardedDispatch(_Dispatch):
         return local
 
 
+class _TracedInt8Dispatch(_Dispatch):
+    """One int8 layer's spmm on the instrumented single-device path: the
+    same ops as :meth:`_Dispatch.spmm`, with the activations'
+    quantization and the int8 walk each in a span inside the layer's
+    ``layer:<name>`` span: ``layer:<name>.quantize`` around
+    ``quantize_rows``, ``layer:<name>.spmm_i8`` around the kernel and the
+    row-scale multiply (the Output Indexing Unit's gather follows in the
+    layer's span).  Both carry the call's ``rows`` and ``k`` and the
+    quantization's traffic, counted on the host from the shapes:
+    ``bytes_in`` (the float rows read) and ``bytes_out`` (the int8 rows
+    and float32 row scales written); each call adds them to ``totals``,
+    which the instrumented forward puts on its ``forward`` span."""
+
+    def __init__(self, device: torch.device, tracer: Tracer, name: str,
+                 totals: dict):
+        super().__init__(device)
+        self.tracer = tracer
+        self.quantize = f"layer:{name}.quantize"
+        self.walk = f"layer:{name}.spmm_i8"
+        self.totals = totals
+
+    def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
+        bp = prepared.bp
+        rows, k = x2d.shape
+        args = {"rows": rows, "k": k,
+                "bytes_in": rows * k * x2d.element_size(),
+                "bytes_out": rows * k + 4 * rows}
+        for key in ("rows", "bytes_in", "bytes_out"):
+            self.totals[key] += args[key]
+        with self.tracer.span(self.quantize, cat="execute", **args):
+            xq, x_scale = quantize_rows(x2d)
+        with self.tracer.span(self.walk, cat="execute", **args):
+            y = pattern_spmm_quant_rows(
+                xq, x_scale, bp.w_comp, bp.block_ids, bp.w_scales,
+                prepared.nnz, bp.block, w_kmajor=prepared.w_kmajor)
+        y = y.index_select(1, prepared.inv_order)  # Output Indexing Unit
+        return y.to(x2d.dtype)
+
+
 def _run_conv(
     op: CompiledConv,
     x: torch.Tensor,
@@ -369,7 +414,12 @@ def make_forward(
       tracer: with an *enabled* tracer, calls run an instrumented path:
         one ``forward`` span holding ``forward.upload`` (the host->device
         copies of ``x`` and ``valid``) and a ``layer:<name>`` span per
-        conv, then ``layer:gap`` and ``layer:fc``.  Nothing in it
+        conv, then ``layer:gap`` and ``layer:fc``.  An int8 program
+        without a mesh splits each conv's and the FC's spmm into
+        ``layer:<name>.quantize`` and ``layer:<name>.spmm_i8`` spans
+        (:class:`_TracedInt8Dispatch`), and ``forward`` carries the
+        step's quantization totals (``rows``, ``bytes_in``,
+        ``bytes_out``).  Nothing in it
         synchronises, so a span times the host's enqueue of its layer's
         ops, not their run.  ``fn.observed_times()`` gives each conv's
         and the FC's mean time a call: on a CUDA device, stream time
@@ -445,12 +495,21 @@ def make_forward(
         _LayerEvents([op.name for op in program.convs] + [None, "fc"])
         if device.type == "cuda" else None
     )
+    # the instrumented path's dispatch per layer: int8 layers on one
+    # device split their spmm into the quantization's and the walk's spans
+    quant_totals = {"rows": 0, "bytes_in": 0, "bytes_out": 0}
+    traced_disp = {
+        name: (_TracedInt8Dispatch(device, tracer, name, quant_totals)
+               if tracer is not None and mesh is None
+               and p.bp.w_scales is not None else disp)
+        for name, p in prepared.items()}
 
     def instrumented(x, valid):
         """Layer-by-layer forward: the same ops as ``forward``, the upload
         and each layer in a span; on a CUDA device an event at each layer
         boundary."""
         ev = None if layer_events is None else layer_events.take(_observe)
+        quant_totals.update(rows=0, bytes_in=0, bytes_out=0)
         stream = torch.cuda.current_stream(device) if ev else None
         with tracer.span(
             "forward", cat="execute", batch=len(x)
@@ -466,7 +525,7 @@ def make_forward(
                     f"layer:{op.name}", cat="execute", op="conv"
                 ) as sp:
                     x, cnt = _run_conv(
-                        op, x, disp, prepared[op.name],
+                        op, x, traced_disp[op.name], prepared[op.name],
                         stat_masks.get(op.name), valid,
                     )
                     if ev:
@@ -480,12 +539,15 @@ def make_forward(
                 if ev:
                     ev[-2].record(stream)
             with tracer.span("layer:fc", cat="execute", op="fc") as sp:
-                logits = _run_fc(program.fc, x, disp, prepared["fc"])
+                logits = _run_fc(program.fc, x, traced_disp["fc"],
+                                 prepared["fc"])
                 if ev:
                     ev[-1].record(stream)
             if not ev:
                 _observe("fc", sp.dur)
             fsp.args["layers"] = len(program.convs) + 2
+            if quant_totals["rows"]:
+                fsp.args.update(quant_totals)
         if ev:
             layer_events.recorded(ev)
         return shape, valid, logits, counts

@@ -25,7 +25,7 @@ from repro_torch.kernels.pattern_spmm import (
 )
 
 __all__ = ["default_backend", "flash_attention", "ou_mvm", "pattern_spmm",
-           "pattern_spmm_raw"]
+           "pattern_spmm_quant_rows", "pattern_spmm_raw"]
 
 
 def default_backend(x: torch.Tensor) -> str:
@@ -70,6 +70,24 @@ def pattern_spmm_raw(
     if w_scales is None:
         return pattern_spmm_cuda(xm, w_comp, block_ids, nnz, block)
     xq, x_scale = quantize_rows(xm)
+    return pattern_spmm_quant_rows(xq, x_scale, w_comp, block_ids, w_scales,
+                                   nnz, block, w_kmajor=w_kmajor)
+
+
+def pattern_spmm_quant_rows(
+    xq: torch.Tensor,
+    x_scale: torch.Tensor,
+    w_comp: torch.Tensor,
+    block_ids: torch.Tensor,
+    w_scales: torch.Tensor,
+    nnz: torch.Tensor | None,
+    block: int,
+    w_kmajor: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The int8 half of :func:`pattern_spmm_raw`: the int8 kernel over
+    rows that :func:`~repro_torch.core.quantize.quantize_rows` made
+    (``xq`` int8 [M, K], ``x_scale`` float32 [M]), times the row scale.
+    Returns float32 [M, T*tile] in reordered column order."""
     y = pattern_spmm_quant_cuda(xq, w_comp, block_ids, w_scales, nnz, block,
                                 w_kmajor=w_kmajor)
     return y * x_scale[:, None]

@@ -155,8 +155,10 @@ def _quant_plan(m: int, t: int, tile: int, k_max: int,
     the rows, so a row's bits are the same in a batch of any size.  A
     tile of fewer than ``_QUANT_SPLIT_FROM`` slots is walked whole: its
     at most 14 steps are short, and the layers that have such tiles
-    (conv1-3, the FC) hold up to 8192 rows, whose fp32 partials would
-    cost more traffic than the split saves.  Larger tiles are split as
+    (VGG16's conv1-3 and the FC) hold the most rows: 8192 at CIFAR-10's
+    8 slots, 802,816 (conv1-2) at ImageNet's 16 (the benchmark's
+    ``vgg16_imagenet_int8.bulk``), whose fp32 partials would cost more
+    traffic than the split saves.  Larger tiles are split as
     the fp32 plan splits them (:func:`_splits`), in runs of at least
     ``_QUANT_MIN_RUN`` bricks: each brick is 4x fewer bytes than fp32's,
     so a one-brick run's partial outweighs its walk.  The rows choose

@@ -216,6 +216,88 @@ def test_traced_forward_spans_and_observed_times(programs):
         assert obs[name] == sum(durs) / len(durs)
 
 
+def test_int8_traced_forward_spans_quantize_and_walk(programs):
+    """An int8 program's traced forward runs each conv's and the FC's
+    spmm as ``layer:<name>.quantize`` then ``layer:<name>.spmm_i8``
+    inside ``layer:<name>``, each with the call's rows, K and the
+    quantization's bytes; ``forward`` carries the step's totals."""
+    _, tprog = programs[("int8", 16, 16)]
+    tracer = Tracer(clock=_StepClock())
+    fn = make_forward(tprog, tracer=tracer, device="cpu")
+    x = _images(3)
+    fn(x)
+    spans = sorted(tracer.spans(), key=lambda s: s.ts)
+    byname = {s.name: s for s in spans}
+    rows, hw = {}, 12
+    for op in tprog.convs:
+        rows[op.name] = 3 * hw * hw
+        if op.pool_after:
+            hw //= 2
+    rows["fc"] = 3
+    ks = {op.name: op.bp.k_in for op in tprog.convs}
+    ks["fc"] = tprog.fc.bp.k_in
+    for name in rows:
+        layer = byname[f"layer:{name}"]
+        quant = byname[f"layer:{name}.quantize"]
+        walk = byname[f"layer:{name}.spmm_i8"]
+        assert layer.ts < quant.ts < walk.ts
+        assert walk.ts + walk.dur <= layer.ts + layer.dur
+        m, k = rows[name], ks[name]
+        want = {"rows": m, "k": k, "bytes_in": 4 * m * k,
+                "bytes_out": m * k + 4 * m}
+        assert quant.args == want and walk.args == want
+    fwd = byname["forward"].args
+    assert fwd["rows"] == sum(rows.values())
+    assert fwd["bytes_in"] == sum(4 * rows[n] * ks[n] for n in rows)
+    assert fwd["bytes_out"] == sum(rows[n] * (ks[n] + 4) for n in rows)
+    fn(x)  # totals are a step's, not the process's
+    fwds = [s for s in tracer.spans() if s.name == "forward"]
+    assert fwds[1].args["rows"] == fwds[0].args["rows"]
+
+
+@pytest.mark.parametrize("block,tile", [(16, 16), (128, 128)])
+def test_fp32_traced_forward_has_no_int8_spans(programs, block, tile):
+    _, tprog = programs[("fp32", block, tile)]
+    tracer = Tracer()
+    make_forward(tprog, tracer=tracer, device="cpu")(_images(2))
+    names = {s.name for s in tracer.spans()}
+    assert not [n for n in names if n.endswith((".quantize", ".spmm_i8"))]
+    fwd = [s for s in tracer.spans() if s.name == "forward"][0]
+    assert set(fwd.args) == {"batch", "layers"}
+
+
+@pytest.mark.parametrize("block,tile", [(16, 16), (128, 128)])
+def test_int8_spans_change_no_launch_and_no_logit(programs, monkeypatch,
+                                                  block, tile):
+    """The traced int8 forward quantizes and walks as often as the
+    untraced one, and its logits are the untraced forward's bits."""
+    from repro_torch.engine import executor
+    from repro_torch.kernels import ops
+
+    calls = {"quantize": 0, "walk": 0}
+
+    def counted(key, f):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return f(*a, **k)
+        return wrapped
+
+    quant = counted("quantize", ops.quantize_rows)
+    monkeypatch.setattr(ops, "quantize_rows", quant)
+    monkeypatch.setattr(executor, "quantize_rows", quant)
+    monkeypatch.setattr(ops, "pattern_spmm_quant_cuda",
+                        counted("walk", ops.pattern_spmm_quant_cuda))
+    _, tprog = programs[("int8", block, tile)]
+    x = _images(4, seed=11)
+    plain = make_forward(tprog, device="cpu")(x)
+    untraced = dict(calls)
+    traced = make_forward(tprog, tracer=Tracer(), device="cpu")(x)
+    layers = len(tprog.convs) + 1
+    assert untraced == {"quantize": layers, "walk": layers}
+    assert {k: calls[k] - untraced[k] for k in calls} == untraced
+    assert torch.equal(traced, plain)
+
+
 class _FakeEvent:
     def __init__(self, t):
         self.t, self.done = t, False
