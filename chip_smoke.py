@@ -113,7 +113,10 @@ Phases, one JSON line each: ``device``, ``build``, ``compile``,
 conv-patch rows (``kernels``, one per conv of a forward in the executor's
 layouts and a ragged case) must equal the plain version bit for bit, the
 served forwards launch the kernel once a conv, and ``times`` times it
-per conv here and at the benchmark's two shapes (``PATCH_SHAPES``).  The
+per conv here and at the benchmark's two shapes (``PATCH_SHAPES``); so
+for the int8 patch rows (``conv_patches_q8_cuda``: int8 rows and row
+scales bit for bit, once a conv of every int8 forward, timed beside the
+float rows' route they replaced).  The
 spmm rows carry each layer's split plan (``splits``, ``blocks``) and, in
 ``times``, its TFLOP/s (fp32) or TOP/s and bound (int8); the ``ou_mvm``
 rows carry the column-slab plan (``slab_cols``, ``blocks``) and, in
@@ -238,6 +241,11 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/conv_patches.cu",
         "replaces": None,  # the reference leaves im2col to XLA
+    },
+    "conv_patches_q8_cuda": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/conv_patches_q8.cu",
+        "replaces": None,  # XLA's im2col and quantization in the reference
     },
 }
 # conv patches, timed besides at the benchmark's two served shapes
@@ -979,6 +987,65 @@ def patch_check(name, x, k: int, k_pad: int) -> dict:
             "ok": equal and rerun}
 
 
+def patch_q8_check(name, x, k: int, k_pad: int) -> dict:
+    """The int8 patch kernel against its plain version
+    (``quantize_rows`` over the float rows, on the card): int8 rows and
+    row scales bit for bit, and again on a rerun; ``max_abs_diff`` is the
+    larger of the rows' and the scales' largest difference."""
+    import torch
+
+    from repro_torch.kernels import patches as tp
+    from repro_torch.kernels.patches import _halo_mode, _q8_plan
+
+    xq, scale = tp.conv_patches_q8_cuda(x, k, k_pad)
+    want_q, want_s = tp.conv_patches_q8_plain(x, k, k_pad)
+    torch.cuda.synchronize()
+    b, c, h, w = x.shape
+    plan = _q8_plan(b, c, h, w, k)
+    equal = bool(torch.equal(xq, want_q) and torch.equal(scale, want_s))
+    again = tp.conv_patches_q8_cuda(x, k, k_pad)
+    rerun = bool(torch.equal(again[0], xq) and torch.equal(again[1], scale))
+    return {"case": name, "x": list(x.shape), "k": k, "k_pad": k_pad,
+            "halo_mode": _halo_mode(x), "tile": [plan.tb, plan.th, plan.tw],
+            "chunk": plan.cc, "blocks": plan.tiles,
+            "max_abs_diff": max(
+                float((xq.int() - want_q.int()).abs().max()),
+                float((scale - want_s).abs().max())),
+            "bit_equal": equal, "rerun_bit_identical": rerun,
+            "ok": equal and rerun}
+
+
+def patch_q8_cost(x, k_pad: int) -> float:
+    """Bytes one int8 patch call must move: the activations read once,
+    the int8 rows and a float32 scale a row written once."""
+    b, _, h, w = x.shape
+    return float(4 * x.numel() + b * h * w * (k_pad + 4))
+
+
+def patch_q8_times(cases, dev) -> list[dict]:
+    """Device ms of the int8 patch kernel, of its plain version and of
+    the route it replaced (the float32 patch kernel, then
+    ``quantize_rows``) per case, with the bound: its bytes at HBM
+    bandwidth."""
+    from repro_torch.core.quantize import quantize_rows
+    from repro_torch.kernels import patches as tp
+
+    rows = []
+    for name, x, k, k_pad in cases:
+        ms = device_ms(lambda: tp.conv_patches_q8_cuda(x, k, k_pad), dev)
+        plain = device_ms(lambda: tp.conv_patches_q8_plain(x, k, k_pad), dev)
+        floats = device_ms(lambda: quantize_rows(
+            tp.conv_patches_cuda(x, k, k_pad)), dev)
+        nbytes = patch_q8_cost(x, k_pad)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"layer": name, "x": list(x.shape), "k_pad": k_pad,
+                     "ms": ms, "plain_ms": plain, "float_rows_ms": floats,
+                     "bytes": nbytes, "bound_ms": bound,
+                     "hbm_share": bound / ms,
+                     "gb_per_s": nbytes / (ms * 1e-3) / 1e9})
+    return rows
+
+
 def patch_times(cases, dev) -> list[dict]:
     """Device ms of the conv-patch kernel and of its plain version (the
     ``F.unfold``, transpose and pad the executor ran before it) per case,
@@ -1282,6 +1349,10 @@ def pre_activations(prog, images, dev) -> list:
     class Recording(_Dispatch):
         def spmm(self, x2d, prepared):
             self.last = super().spmm(x2d, prepared)
+            return self.last
+
+        def conv_q8(self, x, k, prepared):  # int8 convs' fused route
+            self.last = super().conv_q8(x, k, prepared)
             return self.last
 
     disp = Recording(dev)
@@ -3966,7 +4037,7 @@ def train_serve(trained, seed: int, dev) -> dict:
 
 
 def train_guards(seed: int, dev) -> dict:
-    """(d): the five wrappers refuse CUDA inputs that require grad, and
+    """(d): the six wrappers refuse CUDA inputs that require grad, and
     one granite-3-2b smoke float32 step on the card against the CPU."""
     import torch
 
@@ -4003,6 +4074,8 @@ def train_guards(seed: int, dev) -> dict:
             rand(1, 2, 5, 16, dtype=bf, grad=True), rand(1, 1, 5, 16, dtype=bf),
             rand(1, 1, 5, 16, dtype=bf))),
         "conv_patches_cuda": (tp.conv_patches_cuda, lambda: (
+            rand(2, 3, 4, 4, grad=True), 3, 32)),
+        "conv_patches_q8_cuda": (tp.conv_patches_q8_cuda, lambda: (
             rand(2, 3, 4, 4, grad=True), 3, 32)),
     }
     refused = {}
@@ -6602,6 +6675,18 @@ def run(seed: int, dev) -> dict:
     check(not bad, f"conv_patches_cuda differs from its plain version on "
                    f"{bad}")
     max_err["conv_patches_cuda"] = max(r["max_abs_diff"] for r in rows)
+    # the int8 patch rows at the same convs and the ragged map (byte
+    # stores, strided loads), and one whose chunks end ragged
+    chunky = torch.as_tensor(rng.normal(size=(3, 40, 5, 6)).astype(
+        np.float32), device=dev).permute(0, 2, 3, 1).contiguous()
+    rows = [patch_q8_check(*c) for c in pcases]
+    rows += [patch_q8_check("ragged", ragged, 3, 47),
+             patch_q8_check("chunks", chunky.permute(0, 3, 1, 2), 3, 368)]
+    emit("kernels", kernel="conv_patches_q8_cuda", cases=rows)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, f"conv_patches_q8_cuda differs from its plain version "
+                   f"on {bad}")
+    max_err["conv_patches_q8_cuda"] = max(r["max_abs_diff"] for r in rows)
 
     # -- 5. serve ----------------------------------------------------------
     n32 = sum(BURSTS)
@@ -6619,6 +6704,7 @@ def run(seed: int, dev) -> dict:
     tk.pattern_spmm_quant_cuda.launches = 0
     tk.pattern_spmm_quant_cuda.reduce_launches = 0
     tp.conv_patches_cuda.launches = 0
+    tp.conv_patches_q8_cuda.launches = 0
     reqs32 = [Request(image=img) for img in images]
     serve_s = serve_bursts(svc32, reqs32)
     reqs8 = [Request(image=img) for img in images[:N_INT8]]
@@ -6626,7 +6712,8 @@ def run(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     launches = {"pattern_spmm_cuda": tk.pattern_spmm_cuda.launches,
                 "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.launches,
-                "conv_patches_cuda": tp.conv_patches_cuda.launches}
+                "conv_patches_cuda": tp.conv_patches_cuda.launches,
+                "conv_patches_q8_cuda": tp.conv_patches_q8_cuda.launches}
     reduce_launches = {
         "pattern_spmm_cuda": tk.pattern_spmm_cuda.reduce_launches,
         "pattern_spmm_quant_cuda": tk.pattern_spmm_quant_cuda.reduce_launches}
@@ -6709,10 +6796,13 @@ def run(seed: int, dev) -> dict:
         check(launches[kname] == spmms * batches[prec],
               f"{kname} launches {launches[kname]} != {spmms} x "
               f"{batches[prec]} {prec} batches")
+    # fp32 convs write float rows; int8 convs quantize in the patch kernel
     convs = len(loaded.convs)
-    check(launches["conv_patches_cuda"] == convs * sum(batches.values()),
-          f"conv_patches_cuda launches {launches['conv_patches_cuda']} != "
-          f"{convs} x {sum(batches.values())} batches")
+    for kname, prec in (("conv_patches_cuda", "fp32"),
+                        ("conv_patches_q8_cuda", "int8")):
+        check(launches[kname] == convs * batches[prec],
+              f"{kname} launches {launches[kname]} != {convs} x "
+              f"{batches[prec]} {prec} batches")
     check(reduce_launches == res["reduce_launches_expected"],
           f"split reductions {reduce_launches} != "
           f"{res['reduce_launches_expected']}")
@@ -6955,6 +7045,28 @@ def run(seed: int, dev) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
     })
+    # the int8 patch rows the same way, beside the route they replaced
+    q8_rows = patch_q8_times(pcases, dev)
+    per_layer["conv_patches_q8_cuda"] = q8_rows
+    bench_q8 = {}
+    for name, hw, batch in PATCH_SHAPES:
+        bcases = vgg16_patch_cases(hw, batch, dev, seed + 7)
+        bad = [c[0] for c in bcases if not patch_q8_check(*c)["ok"]]
+        check(not bad, f"conv_patches_q8_cuda differs from its plain "
+                       f"version at {name}'s {bad}")
+        bench_q8[name] = patch_q8_times(bcases, dev)
+        del bcases
+    nbytes = sum(r["bytes"] for r in q8_rows)
+    summary.append({
+        "name": "conv_patches_q8_cuda", **KERNELS["conv_patches_q8_cuda"],
+        "launches": launches["conv_patches_q8_cuda"],
+        "max_abs_err": max_err["conv_patches_q8_cuda"],
+        "ms": sum(r["ms"] for r in q8_rows),
+        "plain_ms": sum(r["plain_ms"] for r in q8_rows),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
     # the searched program's bricks through the fp32 kernel, per forward
     searched_spmm = {"ms": 0.0, "bound_ms": 0.0}
     for name, bp, x in layer_cases(searched["program"],
@@ -6988,9 +7100,11 @@ def run(seed: int, dev) -> dict:
          f"bound at the bf16 tensor cores' rate; conv patches: ms per "
          f"forward of {BATCH_SLOTS} images, summed over the convs, and per "
          f"conv at {[s[0] for s in PATCH_SHAPES]}'s shapes, its bound its "
-         f"bytes at HBM bandwidth",
+         f"bytes at HBM bandwidth; int8 conv patches the same, beside the "
+         f"float rows' route they replaced (float_rows_ms)",
          per_layer=per_layer, searched_fp32_spmm_per_forward=searched_spmm,
          conv_patches_at_benchmark_shapes=bench_patches,
+         conv_patches_q8_at_benchmark_shapes=bench_q8,
          flash_by_model={
              m: {key: sum(r[key] for r in fl_rows if r["model"] == m)
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms_bf16")}

@@ -9,7 +9,7 @@ which applies the stored inverse output permutation (the Output Indexing
 Unit), then bias + ``channel_norm``/ReLU and the 2x2 maxpool where the
 schedule says so.  On a CUDA device the patch rows and the spmm are the
 path's two hand-written kernels; on the CPU both run their plain PyTorch
-versions.  The permutation gather, bias, norm, pooling and the
+versions.  The permutation gather, bias, norm, pooling and the FC's
 quantization of activations are plain PyTorch ops, as they were XLA ops
 in the reference.
 
@@ -25,9 +25,15 @@ serving scheduler relies on that by always running one fixed
 ``batch_slots`` shape with a row-validity mask that keeps dead slots out
 of the skip counters and window totals.
 
-Quantized programs run through the same dispatch: ``pattern_spmm`` sees
-the int8 bricks + scales and switches to the int8 kernel, quantizing
-activations per im2col row on the fly.  An ulp of fp32 noise in one
+Quantized programs run through the same dispatch, quantizing
+activations per im2col row on the fly (one scale a row).  On one device
+without skip counting an int8 conv's rows are quantized inside the patch
+kernel: ``kernels/patches.conv_patches_q8_cuda`` writes the int8 rows and
+their row scales in one launch, and the int8 spmm reads them
+(``kernels/ops.pattern_spmm_quant_rows``); the FC, the mesh path and
+``collect_stats`` (whose counters read the float rows) quantize float
+rows with ``core/quantize.quantize_rows`` inside ``pattern_spmm``.  Both
+routes give the same int8 rows bit for bit.  An ulp of fp32 noise in one
 layer can flip one int8 rounding in the next layer's activation
 quantization, so int8 logits agree with another execution of the same
 program to one quantization step, not to fp32 noise.
@@ -72,7 +78,11 @@ from repro_torch.kernels.ops import (
     pattern_spmm_quant_rows,
     pattern_spmm_raw,
 )
-from repro_torch.kernels.patches import conv_patches_cuda, extract_patches
+from repro_torch.kernels.patches import (
+    conv_patches_cuda,
+    conv_patches_q8_cuda,
+    extract_patches,
+)
 from repro_torch.kernels.pattern_spmm import kmajor_bricks
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.cnn import channel_norm, max_pool_2x2
@@ -124,8 +134,21 @@ class _Prepared(NamedTuple):
     w_kmajor: torch.Tensor | None  # int8 [T, k_max, tile, block]; int8 only
 
 
+def _walk_q8(xq: torch.Tensor, x_scale: torch.Tensor,
+             prepared: _Prepared) -> torch.Tensor:
+    """The int8 spmm over quantized rows, times their row scales, in
+    reordered column order (the Output Indexing Unit's gather follows)."""
+    bp = prepared.bp
+    return pattern_spmm_quant_rows(
+        xq, x_scale, bp.w_comp, bp.block_ids, bp.w_scales, prepared.nnz,
+        bp.block, w_kmajor=prepared.w_kmajor)
+
+
 class _Dispatch:
     """Single-device spmm + stat-counter dispatch."""
+
+    # int8 convs quantize their rows inside the patch kernel (:meth:`conv_q8`)
+    fuses_q8 = True
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -153,6 +176,15 @@ class _Dispatch:
             w_kmajor=prepared.w_kmajor,
         )
 
+    def conv_q8(self, x: torch.Tensor, k: int,
+                prepared: _Prepared) -> torch.Tensor:
+        """An int8 conv's spmm from its input map: the patch rows quantized
+        in one launch, the int8 walk times the row scale, then the Output
+        Indexing Unit."""
+        xq, x_scale = conv_patches_q8_cuda(x, k, prepared.bp.k_in)
+        y = _walk_q8(xq, x_scale, prepared)
+        return y.index_select(1, prepared.inv_order).to(x.dtype)
+
     def counts(self, patches, c_in, kk, masks, row_valid=None):
         return zero_selection_counts(patches, c_in, kk, masks, row_valid)
 
@@ -162,6 +194,8 @@ class _ShardedDispatch(_Dispatch):
     model group), batch rows and skip counters split over the data group.
     Every rank runs this with the same global input and returns the
     whole result."""
+
+    fuses_q8 = False  # each rank walks its slab of the float rows' product
 
     def __init__(self, device: torch.device, mesh, part: NetworkPartition):
         super().__init__(device)
@@ -242,16 +276,19 @@ class _ShardedDispatch(_Dispatch):
 
 class _TracedInt8Dispatch(_Dispatch):
     """One int8 layer's spmm on the instrumented single-device path: the
-    same ops as :meth:`_Dispatch.spmm`, with the activations'
-    quantization and the int8 walk each in a span inside the layer's
-    ``layer:<name>`` span: ``layer:<name>.quantize`` around
-    ``quantize_rows``, ``layer:<name>.spmm_i8`` around the kernel and the
-    row-scale multiply (the Output Indexing Unit's gather follows in the
-    layer's span).  Both carry the call's ``rows`` and ``k`` and the
-    quantization's traffic, counted on the host from the shapes:
-    ``bytes_in`` (the float rows read) and ``bytes_out`` (the int8 rows
-    and float32 row scales written); each call adds them to ``totals``,
-    which the instrumented forward puts on its ``forward`` span."""
+    same ops as :meth:`_Dispatch.conv_q8` (a conv) or
+    :meth:`_Dispatch.spmm` (the FC), with the activations' quantization
+    and the int8 walk each in a span inside the layer's ``layer:<name>``
+    span: ``layer:<name>.quantize`` around the quantization (a conv's
+    ``conv_patches_q8_cuda`` launch, the FC's ``quantize_rows``),
+    ``layer:<name>.spmm_i8`` around the kernel and the row-scale multiply
+    (the Output Indexing Unit's gather follows in the layer's span).  Both
+    carry the call's ``rows`` and ``k`` and the quantization's traffic,
+    counted on the host from the shapes: ``bytes_in`` (what it reads: a
+    conv's input map, the FC's float rows) and ``bytes_out`` (the int8
+    rows and float32 row scales written); each call adds them to
+    ``totals``, which the instrumented forward puts on its ``forward``
+    span."""
 
     def __init__(self, device: torch.device, tracer: Tracer, name: str,
                  totals: dict):
@@ -261,22 +298,33 @@ class _TracedInt8Dispatch(_Dispatch):
         self.walk = f"layer:{name}.spmm_i8"
         self.totals = totals
 
-    def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
-        bp = prepared.bp
-        rows, k = x2d.shape
-        args = {"rows": rows, "k": k,
-                "bytes_in": rows * k * x2d.element_size(),
+    def _args(self, rows: int, k: int, bytes_in: int) -> dict:
+        args = {"rows": rows, "k": k, "bytes_in": bytes_in,
                 "bytes_out": rows * k + 4 * rows}
         for key in ("rows", "bytes_in", "bytes_out"):
             self.totals[key] += args[key]
+        return args
+
+    def _traced_walk(self, xq, x_scale, prepared, args) -> torch.Tensor:
+        with self.tracer.span(self.walk, cat="execute", **args):
+            y = _walk_q8(xq, x_scale, prepared)
+        return y.index_select(1, prepared.inv_order)  # Output Indexing Unit
+
+    def conv_q8(self, x: torch.Tensor, k: int,
+                prepared: _Prepared) -> torch.Tensor:
+        b, _, h, w = x.shape
+        args = self._args(b * h * w, prepared.bp.k_in,
+                          x.numel() * x.element_size())
+        with self.tracer.span(self.quantize, cat="execute", **args):
+            xq, x_scale = conv_patches_q8_cuda(x, k, prepared.bp.k_in)
+        return self._traced_walk(xq, x_scale, prepared, args).to(x.dtype)
+
+    def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
+        rows, k = x2d.shape
+        args = self._args(rows, k, rows * k * x2d.element_size())
         with self.tracer.span(self.quantize, cat="execute", **args):
             xq, x_scale = quantize_rows(x2d)
-        with self.tracer.span(self.walk, cat="execute", **args):
-            y = pattern_spmm_quant_rows(
-                xq, x_scale, bp.w_comp, bp.block_ids, bp.w_scales,
-                prepared.nnz, bp.block, w_kmajor=prepared.w_kmajor)
-        y = y.index_select(1, prepared.inv_order)  # Output Indexing Unit
-        return y.to(x2d.dtype)
+        return self._traced_walk(xq, x_scale, prepared, args).to(x2d.dtype)
 
 
 def _run_conv(
@@ -289,16 +337,21 @@ def _run_conv(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     b, c, h, w = x.shape
     kk = op.kernel * op.kernel
-    patches = conv_patches_cuda(x, op.kernel, op.bp.k_in)  # [B*H*W, K pad]
     counts = None
-    if stat_masks is not None:
-        # every patch row belongs to one sample; dead-slot samples are
-        # excluded from the skip counters
-        row_valid = None if valid is None else valid.repeat_interleave(h * w)
-        counts = disp.counts(
-            patches[:, : op.c_in * kk], op.c_in, kk, stat_masks, row_valid
-        )
-    y = disp.spmm(patches, prepared)
+    if (stat_masks is None and disp.fuses_q8
+            and prepared.bp.w_scales is not None):
+        y = disp.conv_q8(x, op.kernel, prepared)  # int8 rows, one launch
+    else:
+        patches = conv_patches_cuda(x, op.kernel, op.bp.k_in)  # [B*H*W, K]
+        if stat_masks is not None:
+            # every patch row belongs to one sample; dead-slot samples are
+            # excluded from the skip counters
+            row_valid = (None if valid is None
+                         else valid.repeat_interleave(h * w))
+            counts = disp.counts(
+                patches[:, : op.c_in * kk], op.c_in, kk, stat_masks,
+                row_valid)
+        y = disp.spmm(patches, prepared)
     y = y[:, : op.c_out] + prepared.bias
     y = y.reshape(b, h, w, op.c_out).permute(0, 3, 1, 2)
     y = torch.relu(channel_norm(y))
@@ -416,8 +469,9 @@ def make_forward(
         copies of ``x`` and ``valid``) and a ``layer:<name>`` span per
         conv, then ``layer:gap`` and ``layer:fc``.  An int8 program
         without a mesh splits each conv's and the FC's spmm into
-        ``layer:<name>.quantize`` and ``layer:<name>.spmm_i8`` spans
-        (:class:`_TracedInt8Dispatch`), and ``forward`` carries the
+        ``layer:<name>.quantize`` (a conv's fused patch-and-quantize
+        launch, the FC's ``quantize_rows``) and ``layer:<name>.spmm_i8``
+        spans (:class:`_TracedInt8Dispatch`), and ``forward`` carries the
         step's quantization totals (``rows``, ``bytes_in``,
         ``bytes_out``).  Nothing in it
         synchronises, so a span times the host's enqueue of its layer's

@@ -127,6 +127,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "pattern_spmm_i8": [ptr] * 7 + [i32] * 10 + [ptr],
         "ou_mvm_f32": [ptr] * 3 + [i32] * 5 + [ptr],
         "conv_patches_f32": [ptr] + [i64] * 4 + [ptr] + [i32] * 13 + [ptr],
+        "conv_patches_q8": [ptr] + [i64] * 4 + [ptr] * 2 + [i32] * 13 + [ptr],
         "flash_attention_fwd": flash,
         "flash_attention_fwd_mma": flash,
     }

@@ -105,6 +105,7 @@ def _fakes():
          dict(launches_tensor_core=lambda q, *r, **k: q.dtype != torch.float32,
               launches_simt=lambda q, *r, **k: q.dtype == torch.float32)),
         (tp, "conv_patches_cuda", tp.conv_patches_plain, {}),
+        (tp, "conv_patches_q8_cuda", tp.conv_patches_q8_plain, {}),
     ):
         out.append((mod, name, _counting(plain, name, **counters)))
     return out
@@ -396,21 +397,22 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["phase"] for ln in lines] == [
         "device", "build", "compile", "kernels", "kernels", "kernels",
-        "serve", "shard",
+        "kernels", "serve", "shard",
         "search", "prune", "ou_mvm", "flash", "generate", "lm_configs",
         "ssm_whisper", "vlm", "train", "train_shard", "entry_points",
         "dryrun", "times"]
-    serve = lines[6]
+    serve = lines[7]
     assert serve["trace_count"] == [1, 1] and serve["all_done"]
     assert serve["stats_exact"] and serve["labels_match_dense"]
     assert serve["alone_vs_cobatched_bit_identical"]
     assert serve["int8_alone_vs_cobatched_bit_identical"]
     assert serve["e2e_rel_vs_cpu"] <= cs.E2E_TOL
-    # 3 convs + FC per batch: 9 fp32 batches for 64 requests, 2 int8
-    # and 3 conv patch rows a batch, fp32 and int8
+    # 3 convs + FC per batch: 9 fp32 batches for 64 requests, 2 int8;
+    # 3 conv patch rows a batch, float rows for fp32, int8 rows for int8
     assert serve["launches"] == {"pattern_spmm_cuda": 36,
                                  "pattern_spmm_quant_cuda": 8,
-                                 "conv_patches_cuda": 33}
+                                 "conv_patches_cuda": 27,
+                                 "conv_patches_q8_cuda": 6}
     assert serve["reduce_launches"] == serve["reduce_launches_expected"]
     assert set(serve["reduce_launches"]) == {"pattern_spmm_cuda",
                                              "pattern_spmm_quant_cuda"}
@@ -428,7 +430,15 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert [c["halo_mode"] for c in patches["cases"]] == [0, 1, 1, 0]
     assert all(c["ok"] and c["bit_equal"] and c["blocks"] >= 1
                and c["max_abs_diff"] == 0.0 for c in patches["cases"])
-    shard = lines[7]
+    q8 = lines[6]
+    assert q8["kernel"] == "conv_patches_q8_cuda"
+    assert [c["case"] for c in q8["cases"]] == [
+        "conv1", "conv2", "conv3", "ragged", "chunks"]
+    assert [c["halo_mode"] for c in q8["cases"]] == [0, 1, 1, 0, 1]
+    assert all(c["ok"] and c["bit_equal"] and c["rerun_bit_identical"]
+               and c["blocks"] >= 1 and c["max_abs_diff"] == 0.0
+               for c in q8["cases"])
+    shard = lines[8]
     a, b = shard["part_a"], shard["part_b"]
     assert a["bit_equal"] == {"fp32": True, "int8": True}
     assert a["service_labels_equal"] and a["service_logits_bit_equal"]
@@ -462,7 +472,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert b["moe"]["sharded_calls"] == 1 and b["moe"]["shape"][:2] == list(
         cs.SHARD_MOE_SHAPE)
     assert b["moe"]["rel_vs_per_shard"] <= cs.MOE_REL
-    search = lines[8]
+    search = lines[9]
     assert search["bit_equal_vs_cpu_compile"] and search["never_worse"]
     assert set(search["chosen"]) == {"conv1", "conv2", "conv3"}
     assert search["launches"] == 4 * search["batches"]
@@ -472,7 +482,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         "conv1", "conv2", "conv3"}
     assert search["searched"]["area_cells"] <= search["fixed"]["area_cells"]
     assert search["searched"]["energy_pj"] <= search["fixed"]["energy_pj"]
-    prune = lines[9]
+    prune = lines[10]
     assert set(prune["seconds"]) == {
         "dense_training", "magnitude_prune", "dictionaries", "admm",
         "project", "retrain", "prune_total"}
@@ -500,14 +510,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
             ] == ["conv1", "conv2", "conv3", "fc"]
     assert prune["e2e_rel_vs_cpu"] <= cs.E2E_TOL
     assert 0.0 <= prune["int8_top1_agreement_vs_fp32"] <= 1.0
-    ou = lines[10]
+    ou = lines[11]
     # 3 convs x 2 patches, the 3 sweep shapes, all-zero x, NaN case
     assert ou["calls"] == ou["launches"] == 11
     assert all(c["ok"] and c["finite"] and c["rerun_bit_identical"]
                and c["slab_cols"] >= 1 and c["blocks"] >= 1
                for c in ou["cases"])
     assert ou["cases"][-2]["skipped_band_share"] == 1.0
-    flash = lines[11]
+    flash = lines[12]
     # 18 sweep cases (4 of them at D 256) x 3 types, each path length bare
     # and from a cache, kv_len < S, qwen's two prefill lengths from its
     # cache, paligemma's two in bf16 and fp32 from its cache, and
@@ -526,7 +536,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                               else "tensor_core") for c in flash["cases"])
     half = [c for c in flash["cases"] if "float32" not in c["case"]]
     assert half and all(c["worst_over_rounding_limit"] <= 1.0 for c in half)
-    gen = lines[12]
+    gen = lines[13]
     assert gen["all_done"] and gen["trace_count"] == 1
     assert gen["requests"] == gen["prefills"] == 7
     assert gen["launches"] == gen["launches_expected"] == 2 * 7
@@ -538,7 +548,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(r["ok"] for r in gen["prefill_logits"])
     assert 0.0 <= gen["first_token_agreement_vs_plain"] <= 1.0
     assert gen["output_tokens"] == 7 * 4
-    lm = lines[13]
+    lm = lines[14]
     ds2, ds3 = lm["deepseek_v2"], lm["deepseek_v3"]
     assert lm["seconds"] > 0 and set(lm["depth"]) == set(cs.LM_LAYERS)
     assert ds2["mla_absorbed_vs_expanded"]["ok"]
@@ -571,7 +581,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     for r in (qwen, phi3):
         assert [x["prompt_len"] for x in r["prefill_logits"]] == [17, 40]
         assert all(x["ok"] for x in r["prefill_logits"])
-    sw = lines[14]
+    sw = lines[15]
     assert sw["seconds"] > 0 and set(sw["depth"]) == {
         "mamba2_780m", "jamba_1_5_large_398b", "whisper_small"}
     assert [(r["model"], r["S"], r["pad"]) for r in sw["ssd"]] == [
@@ -615,7 +625,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert whisper["prefill_step_token_is_handoff_first"]
     assert whisper["bf16_batch"]["finite"]
     assert whisper["bf16_batch"]["shape"] == [2, 12, 512]
-    vlm = lines[15]
+    vlm = lines[16]
     assert vlm["seconds"] > 0 and vlm["layers"] == 2 and vlm["prefix_len"] == 8
     assert vlm["q_heads_padded"] == 16 and vlm["grouped"]
     assert vlm["prefill_lengths"] == [13, 20]
@@ -639,7 +649,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert vlm["flash_vs_plain"][dt]["calls"] == 2 * 2
         assert vlm["flash_vs_plain"][dt]["failed"] == []
     assert vlm["flash_vs_plain"]["bfloat16"]["worst_over_rounding_limit"] <= 1
-    train = lines[16]
+    train = lines[17]
     full, drill = train["full"], train["drill"]
     assert len(full["losses"]) == cs.TRAIN_STEPS
     assert full["loss_fell"] > cs.TRAIN_FALL
@@ -676,7 +686,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     rm = drill["remat"]
     assert rm["loss_bit_equal"] and rm["grads_bit_equal"]
     assert rm["grad_leaves"] > 0
-    ts = lines[17]
+    ts = lines[18]
     f, g, h = ts["part_f"], ts["part_g"], ts["part_h"]
     i, j, k, l = ts["part_i"], ts["part_j"], ts["part_k"], ts["part_l"]
     assert f["layers"] == "4 of 2" and h["width"] == "smoke"
@@ -754,7 +764,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert g["layers"] == 8 and g["stages"] == 4 and g["microbatches"] == 6
     assert g["finite"] and g["ranks_equal"]
     assert g["max_abs_diff"] <= cs.PIPE_REL * g["fold_max_abs"]
-    ep = lines[18]
+    ep = lines[19]
     assert set(ep["runs"]) == {"launch_serve", "serve_decode", "quickstart",
                                "serve_http_classify", "serve_http_generate",
                                "check_baseline_trace"}
@@ -766,7 +776,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert served["device"] == "cpu" and served["tokens_per_s"] > 0
     assert any("check ok" in ln
                for ln in ep["runs"]["serve_http_generate"]["stdout_tail"])
-    dr = lines[19]
+    dr = lines[20]
     a, b, c = dr["part_a"], dr["part_b"], dr["part_c"]
     assert a["flops_predicted"] == a["flops_measured"] > 0
     assert a["peak_rel"] <= cs.DRYRUN_PEAK_REL
@@ -813,7 +823,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
     assert all(rel <= cs.DRYRUN_PEAK_REL for rel in c["decode_peak_rel"])
     assert [(x["arch"], x["status"]) for x in dr["part_d"]] == [
         ("mamba2_780m", "ok")]
-    times = lines[20]
+    times = lines[21]
     assert len(times["per_layer"]["ou_mvm_cuda"]) == 6
     assert [r["kv_len"] for r in times["per_layer"]["flash_attention_cuda"]
             ] == [17, 40, 17, 40, 13, 20]
@@ -829,11 +839,17 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
                for r in times["per_layer"]["ou_mvm_cuda"])
     assert [r["layer"] for r in times["per_layer"]["conv_patches_cuda"]] == [
         "conv1", "conv2", "conv3"]
-    bench = times["conv_patches_at_benchmark_shapes"]
-    assert set(bench) == {"vgg16_imagenet", "vgg16_cifar10"}
-    assert all(len(rows) == 13 and all(r["bound_ms"] > 0 and r["ms"] > 0
-                                       for r in rows)
-               for rows in bench.values())
+    assert [r["layer"] for r in times["per_layer"]["conv_patches_q8_cuda"]
+            ] == ["conv1", "conv2", "conv3"]
+    for key in ("conv_patches_at_benchmark_shapes",
+                "conv_patches_q8_at_benchmark_shapes"):
+        bench = times[key]
+        assert set(bench) == {"vgg16_imagenet", "vgg16_cifar10"}
+        assert all(len(rows) == 13 and all(r["bound_ms"] > 0 and r["ms"] > 0
+                                           for r in rows)
+                   for rows in bench.values())
+    assert all(r["float_rows_ms"] > 0 for rows in times[
+        "conv_patches_q8_at_benchmark_shapes"].values() for r in rows)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     assert [k["name"] for k in res["kernels"]] == list(cs.KERNELS)
@@ -841,7 +857,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch, tmp_path, capsys):
         assert set(k) == keys
         assert k["launches"] > 0 and k["bound_ms"] > 0
         assert os.path.exists(os.path.join(ROOT, k["source"]))
-        if k["name"] == "conv_patches_cuda":  # the reference's is XLA's
+        if k["name"].startswith("conv_patches"):  # the reference's is XLA's
             assert k["replaces"] is None and k["library_ms"] is None
             # the main path's serve run, as for the spmm rows
             assert k["launches"] == serve["launches"][k["name"]]

@@ -220,7 +220,9 @@ def test_int8_traced_forward_spans_quantize_and_walk(programs):
     """An int8 program's traced forward runs each conv's and the FC's
     spmm as ``layer:<name>.quantize`` then ``layer:<name>.spmm_i8``
     inside ``layer:<name>``, each with the call's rows, K and the
-    quantization's bytes; ``forward`` carries the step's totals."""
+    quantization's bytes: what it reads (a conv's input map, quantized
+    inside the patch kernel; the FC's float rows) and the int8 rows and
+    scales it writes; ``forward`` carries the step's totals."""
     _, tprog = programs[("int8", 16, 16)]
     tracer = Tracer(clock=_StepClock())
     fn = make_forward(tprog, tracer=tracer, device="cpu")
@@ -228,14 +230,16 @@ def test_int8_traced_forward_spans_quantize_and_walk(programs):
     fn(x)
     spans = sorted(tracer.spans(), key=lambda s: s.ts)
     byname = {s.name: s for s in spans}
-    rows, hw = {}, 12
+    rows, reads, hw = {}, {}, 12
     for op in tprog.convs:
         rows[op.name] = 3 * hw * hw
+        reads[op.name] = 4 * 3 * op.c_in * hw * hw  # the input map
         if op.pool_after:
             hw //= 2
     rows["fc"] = 3
     ks = {op.name: op.bp.k_in for op in tprog.convs}
     ks["fc"] = tprog.fc.bp.k_in
+    reads["fc"] = 4 * rows["fc"] * ks["fc"]  # the float rows
     for name in rows:
         layer = byname[f"layer:{name}"]
         quant = byname[f"layer:{name}.quantize"]
@@ -243,12 +247,12 @@ def test_int8_traced_forward_spans_quantize_and_walk(programs):
         assert layer.ts < quant.ts < walk.ts
         assert walk.ts + walk.dur <= layer.ts + layer.dur
         m, k = rows[name], ks[name]
-        want = {"rows": m, "k": k, "bytes_in": 4 * m * k,
+        want = {"rows": m, "k": k, "bytes_in": reads[name],
                 "bytes_out": m * k + 4 * m}
         assert quant.args == want and walk.args == want
     fwd = byname["forward"].args
     assert fwd["rows"] == sum(rows.values())
-    assert fwd["bytes_in"] == sum(4 * rows[n] * ks[n] for n in rows)
+    assert fwd["bytes_in"] == sum(reads.values())
     assert fwd["bytes_out"] == sum(rows[n] * (ks[n] + 4) for n in rows)
     fn(x)  # totals are a step's, not the process's
     fwds = [s for s in tracer.spans() if s.name == "forward"]
@@ -270,11 +274,12 @@ def test_fp32_traced_forward_has_no_int8_spans(programs, block, tile):
 def test_int8_spans_change_no_launch_and_no_logit(programs, monkeypatch,
                                                   block, tile):
     """The traced int8 forward quantizes and walks as often as the
-    untraced one, and its logits are the untraced forward's bits."""
+    untraced one: each conv's rows in the fused patch kernel, the FC's
+    with ``quantize_rows``; its logits are the untraced forward's bits."""
     from repro_torch.engine import executor
     from repro_torch.kernels import ops
 
-    calls = {"quantize": 0, "walk": 0}
+    calls = {"quantize": 0, "fused": 0, "walk": 0}
 
     def counted(key, f):
         def wrapped(*a, **k):
@@ -285,6 +290,8 @@ def test_int8_spans_change_no_launch_and_no_logit(programs, monkeypatch,
     quant = counted("quantize", ops.quantize_rows)
     monkeypatch.setattr(ops, "quantize_rows", quant)
     monkeypatch.setattr(executor, "quantize_rows", quant)
+    monkeypatch.setattr(executor, "conv_patches_q8_cuda",
+                        counted("fused", executor.conv_patches_q8_cuda))
     monkeypatch.setattr(ops, "pattern_spmm_quant_cuda",
                         counted("walk", ops.pattern_spmm_quant_cuda))
     _, tprog = programs[("int8", block, tile)]
@@ -293,7 +300,8 @@ def test_int8_spans_change_no_launch_and_no_logit(programs, monkeypatch,
     untraced = dict(calls)
     traced = make_forward(tprog, tracer=Tracer(), device="cpu")(x)
     layers = len(tprog.convs) + 1
-    assert untraced == {"quantize": layers, "walk": layers}
+    assert untraced == {"quantize": 1, "fused": len(tprog.convs),
+                        "walk": layers}
     assert {k: calls[k] - untraced[k] for k in calls} == untraced
     assert torch.equal(traced, plain)
 

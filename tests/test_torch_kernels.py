@@ -939,7 +939,7 @@ def test_ou_mvm_column_slabs_on_card():
 
 
 def _grad_calls(dev):
-    """(wrapper, its call) for each of the five CUDA wrappers on small
+    """(wrapper, its call) for each of the six CUDA wrappers on small
     valid inputs on ``dev``, one float input requiring grad."""
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -964,10 +964,12 @@ def _grad_calls(dev):
             rand(1, 1, 5, 16, dtype=half), rand(1, 1, 5, 16, dtype=half))),
         (tp.conv_patches_cuda, lambda: tp.conv_patches_cuda(
             rand(2, 3, 4, 4, grad=True), 3, 32)),
+        (tp.conv_patches_q8_cuda, lambda: tp.conv_patches_q8_cuda(
+            rand(2, 3, 4, 4, grad=True), 3, 32)),
     ]
 
 
-@pytest.mark.parametrize("i", range(5))
+@pytest.mark.parametrize("i", range(6))
 def test_wrappers_refuse_inputs_that_require_grad(i):
     """The kernels have no backward, so a wrapper given an input that
     requires grad raises, before its CPU branch too: it never returns an
