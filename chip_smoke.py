@@ -1347,12 +1347,8 @@ def pre_activations(prog, images, dev) -> list:
     from repro_torch.engine.executor import _Dispatch, _run_conv, _run_fc
 
     class Recording(_Dispatch):
-        def spmm(self, x2d, prepared):
-            self.last = super().spmm(x2d, prepared)
-            return self.last
-
-        def conv_q8(self, x, k, prepared):  # int8 convs' fused route
-            self.last = super().conv_q8(x, k, prepared)
+        def walk(self, operand, prepared):  # reordered columns
+            self.last = super().walk(operand, prepared)
             return self.last
 
     disp = Recording(dev)
@@ -1361,7 +1357,8 @@ def pre_activations(prog, images, dev) -> list:
     for op in prog.convs:
         prep = disp.prepare(op.bp, op.bias)
         x, _ = _run_conv(op, x, disp, prep)
-        out.append((op.name, disp.last[:, :op.c_out] + prep.bias))
+        y = disp.last.index_select(1, prep.inv_order)  # Output Indexing Unit
+        out.append((op.name, y[:, :op.c_out] + prep.bias))
     prep = disp.prepare(prog.fc.bp, prog.fc.bias)
     out.append(("fc", _run_fc(prog.fc, x.mean(dim=(2, 3)), disp, prep)))
     return out

@@ -10,12 +10,11 @@ with ``|w - s*q| <= s/2`` elementwise.  An int8 weight occupies
 Activations are quantized dynamically per row (one scale per im2col
 window) right before the spmm (:func:`quantize_rows`); the row scale
 multiplies once in the spmm's output epilogue.  The executor's int8 convs
-on one device get the same rows and scales, bit for bit, from the patch
-kernel itself (``kernels.patches.conv_patches_q8_cuda``), which never
-writes the float rows; :func:`quantize_rows` quantizes the FC's rows and
-those of the mesh path and of skip counting.  The weight-side helpers
-are host numpy, copied from the reference so the stored arrays are
-bit-equal.
+get the same rows and scales, bit for bit, from the patch kernel itself
+(``kernels.patches.conv_patches_q8_cuda``), which never writes the float
+rows; :func:`quantize_rows` quantizes the FC's rows.  The weight-side
+helpers are host numpy, copied from the reference so the stored arrays
+are bit-equal.
 """
 
 from __future__ import annotations

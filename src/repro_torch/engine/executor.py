@@ -4,14 +4,15 @@ Port of ``repro/engine/executor.py``.  ``make_forward``
 returns a batched forward: per conv layer it writes the im2col patch
 rows, already zero-padded to the spmm's K (``kernels/patches.
 conv_patches_cuda``, one launch a layer, reading the activations through
-their strides), dispatches them through ``kernels/ops.pattern_spmm``,
-which applies the stored inverse output permutation (the Output Indexing
-Unit), then bias + ``channel_norm``/ReLU and the 2x2 maxpool where the
-schedule says so.  On a CUDA device the patch rows and the spmm are the
-path's two hand-written kernels; on the CPU both run their plain PyTorch
-versions.  The permutation gather, bias, norm, pooling and the FC's
-quantization of activations are plain PyTorch ops, as they were XLA ops
-in the reference.
+their strides), walks them through the block-pattern spmm
+(``kernels/pattern_spmm``), applies the stored inverse output
+permutation (the Output Indexing Unit), then bias +
+``channel_norm``/ReLU and the 2x2 maxpool where the schedule says so.
+On a CUDA device the patch rows and the spmm are the path's hand-written
+kernels; on the CPU both run their plain PyTorch versions.  The
+permutation gather, bias, norm, pooling and the FC's quantization of
+activations are plain PyTorch ops, as they were XLA ops in the
+reference.
 
 With ``collect_stats=True`` the forward also counts, per layer and per
 OU row-group (= (input channel, pattern) pair), how many input
@@ -25,18 +26,17 @@ serving scheduler relies on that by always running one fixed
 ``batch_slots`` shape with a row-validity mask that keeps dead slots out
 of the skip counters and window totals.
 
-Quantized programs run through the same dispatch, quantizing
-activations per im2col row on the fly (one scale a row).  On one device
-without skip counting an int8 conv's rows are quantized inside the patch
-kernel: ``kernels/patches.conv_patches_q8_cuda`` writes the int8 rows and
-their row scales in one launch, and the int8 spmm reads them
-(``kernels/ops.pattern_spmm_quant_rows``); the FC, the mesh path and
-``collect_stats`` (whose counters read the float rows) quantize float
-rows with ``core/quantize.quantize_rows`` inside ``pattern_spmm``.  Both
-routes give the same int8 rows bit for bit.  An ulp of fp32 noise in one
-layer can flip one int8 rounding in the next layer's activation
-quantization, so int8 logits agree with another execution of the same
-program to one quantization step, not to fp32 noise.
+Quantized programs run through the same loop, quantizing activations
+per im2col row on the fly (one scale a row).  An int8 conv's rows are
+quantized inside the patch kernel, on one device and on a mesh alike:
+``kernels/patches.conv_patches_q8_cuda`` writes the int8 rows and their
+row scales in one launch, and the int8 spmm reads them
+(``kernels/ops.pattern_spmm_quant_rows``).  The FC quantizes its float
+rows with ``core/quantize.quantize_rows``.  ``collect_stats`` adds one
+float patch launch per int8 conv, read by the counters alone.  An ulp of
+fp32 noise in one layer can flip one int8 rounding in the next layer's
+activation quantization, so int8 logits agree with another execution of
+the same program to one quantization step, not to fp32 noise.
 
 With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh`` with dims
 ``("data", "model")``, ``launch/mesh.py``) the same program executes
@@ -72,21 +72,16 @@ from repro_torch.engine.partition import (
 )
 from repro_torch.engine.program import CompiledConv, CompiledFC, CompiledNetwork
 from repro_torch.engine.stats import skip_patterns_and_masks, stats_from_counts
-from repro_torch.kernels.ops import (
-    _pad_to,
-    pattern_spmm,
-    pattern_spmm_quant_rows,
-    pattern_spmm_raw,
-)
+from repro_torch.kernels.ops import _pad_to, pattern_spmm_quant_rows
 from repro_torch.kernels.patches import (
     conv_patches_cuda,
     conv_patches_q8_cuda,
     extract_patches,
 )
-from repro_torch.kernels.pattern_spmm import kmajor_bricks
+from repro_torch.kernels.pattern_spmm import kmajor_bricks, pattern_spmm_cuda
 from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.cnn import channel_norm, max_pool_2x2
-from repro_torch.obs.trace import Tracer
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.parallel.sharding import shard_block_pattern
 
 __all__ = ["extract_patches", "make_forward", "warmup_forward", "execute"]
@@ -134,21 +129,8 @@ class _Prepared(NamedTuple):
     w_kmajor: torch.Tensor | None  # int8 [T, k_max, tile, block]; int8 only
 
 
-def _walk_q8(xq: torch.Tensor, x_scale: torch.Tensor,
-             prepared: _Prepared) -> torch.Tensor:
-    """The int8 spmm over quantized rows, times their row scales, in
-    reordered column order (the Output Indexing Unit's gather follows)."""
-    bp = prepared.bp
-    return pattern_spmm_quant_rows(
-        xq, x_scale, bp.w_comp, bp.block_ids, bp.w_scales, prepared.nnz,
-        bp.block, w_kmajor=prepared.w_kmajor)
-
-
 class _Dispatch:
-    """Single-device spmm + stat-counter dispatch."""
-
-    # int8 convs quantize their rows inside the patch kernel (:meth:`conv_q8`)
-    fuses_q8 = True
+    """Single-device walk + stat-counter dispatch."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -170,32 +152,31 @@ class _Dispatch:
                       else kmajor_bricks(bp.w_comp)),
         )
 
-    def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
-        return pattern_spmm(
-            x2d, prepared.bp, nnz=prepared.nnz, inv_order=prepared.inv_order,
-            w_kmajor=prepared.w_kmajor,
-        )
-
-    def conv_q8(self, x: torch.Tensor, k: int,
-                prepared: _Prepared) -> torch.Tensor:
-        """An int8 conv's spmm from its input map: the patch rows quantized
-        in one launch, the int8 walk times the row scale, then the Output
-        Indexing Unit."""
-        xq, x_scale = conv_patches_q8_cuda(x, k, prepared.bp.k_in)
-        y = _walk_q8(xq, x_scale, prepared)
-        return y.index_select(1, prepared.inv_order).to(x.dtype)
+    def walk(self, operand: tuple, prepared: _Prepared) -> torch.Tensor:
+        """The layer's spmm over ``operand`` -> float32 [M, T*tile] in
+        reordered column order (the executor's Output Indexing Unit
+        follows).  ``operand`` is ``(rows,)`` for fp32 bricks, and for
+        int8 bricks ``(xq, x_scale)``: int8 rows and their float32 row
+        scales, which multiply the int8 product."""
+        bp = prepared.bp
+        if bp.w_scales is None:
+            (rows,) = operand
+            return pattern_spmm_cuda(rows, bp.w_comp, bp.block_ids,
+                                     prepared.nnz, bp.block)
+        xq, x_scale = operand
+        return pattern_spmm_quant_rows(
+            xq, x_scale, bp.w_comp, bp.block_ids, bp.w_scales, prepared.nnz,
+            bp.block, w_kmajor=prepared.w_kmajor)
 
     def counts(self, patches, c_in, kk, masks, row_valid=None):
         return zero_selection_counts(patches, c_in, kk, masks, row_valid)
 
 
 class _ShardedDispatch(_Dispatch):
-    """Mesh execution: tile-parallel spmm (scatter + all-reduce over the
+    """Mesh execution: tile-parallel walk (scatter + all-reduce over the
     model group), batch rows and skip counters split over the data group.
     Every rank runs this with the same global input and returns the
     whole result."""
-
-    fuses_q8 = False  # each rank walks its slab of the float rows' product
 
     def __init__(self, device: torch.device, mesh, part: NetworkPartition):
         super().__init__(device)
@@ -235,14 +216,15 @@ class _ShardedDispatch(_Dispatch):
         dist.all_gather(parts, y.contiguous(), group=self.data_group)
         return torch.cat(parts)
 
-    def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
-        bp = prepared.bp
-        rows = self._rows(x2d.shape[0])
-        xl = x2d if rows is None else x2d[rows]
-        y = pattern_spmm_raw(
-            xl, bp.w_comp, bp.block_ids, bp.block, w_scales=bp.w_scales,
-            nnz=prepared.nnz, w_kmajor=prepared.w_kmajor,
-        )
+    def walk(self, operand: tuple, prepared: _Prepared) -> torch.Tensor:
+        """This rank's rows of ``operand`` (an int8 operand's rows and row
+        scales alike) through its slab of tiles, combined into the whole
+        layer's columns and rows; padded tiles' columns sit past every
+        ``inv_order`` entry."""
+        rows = self._rows(operand[0].shape[0])
+        if rows is not None:
+            operand = tuple(t[rows] for t in operand)
+        y = super().walk(operand, prepared)
         if self.part.model > 1:
             # The slabs are disjoint, so an all-gather would also
             # reassemble them with less traffic; the scatter + all-reduce
@@ -257,10 +239,7 @@ class _ShardedDispatch(_Dispatch):
             y = full
         if rows is not None:
             y = self._gather_rows(y)
-        # Output Indexing Unit: the global inverse permutation after the
-        # combine (padded columns sit past every inv_order entry)
-        y = y.index_select(1, prepared.inv_order)
-        return y.to(x2d.dtype)
+        return y
 
     def counts(self, patches, c_in, kk, masks, row_valid=None):
         rows = self._rows(patches.shape[0])
@@ -274,57 +253,34 @@ class _ShardedDispatch(_Dispatch):
         return local
 
 
-class _TracedInt8Dispatch(_Dispatch):
-    """One int8 layer's spmm on the instrumented single-device path: the
-    same ops as :meth:`_Dispatch.conv_q8` (a conv) or
-    :meth:`_Dispatch.spmm` (the FC), with the activations' quantization
-    and the int8 walk each in a span inside the layer's ``layer:<name>``
-    span: ``layer:<name>.quantize`` around the quantization (a conv's
-    ``conv_patches_q8_cuda`` launch, the FC's ``quantize_rows``),
-    ``layer:<name>.spmm_i8`` around the kernel and the row-scale multiply
-    (the Output Indexing Unit's gather follows in the layer's span).  Both
-    carry the call's ``rows`` and ``k`` and the quantization's traffic,
-    counted on the host from the shapes: ``bytes_in`` (what it reads: a
-    conv's input map, the FC's float rows) and ``bytes_out`` (the int8
-    rows and float32 row scales written); each call adds them to
-    ``totals``, which the instrumented forward puts on its ``forward``
-    span."""
+def _quant_args(totals: dict | None, rows: int, k: int,
+                bytes_in: int) -> dict:
+    """The args of an int8 layer's ``layer:<name>.quantize`` and
+    ``layer:<name>.spmm_i8`` spans on a traced call: its ``rows`` and
+    ``k`` and the quantization's traffic, counted on the host from the
+    shapes: ``bytes_in`` (what it reads: a conv's input map, the FC's
+    float rows) and ``bytes_out`` (the int8 rows and float32 row scales
+    written), each added to the step's ``totals``.  Untraced (``totals``
+    is None) there are none."""
+    if totals is None:
+        return {}
+    args = {"rows": rows, "k": k, "bytes_in": bytes_in,
+            "bytes_out": rows * k + 4 * rows}
+    for key in ("rows", "bytes_in", "bytes_out"):
+        totals[key] += args[key]
+    return args
 
-    def __init__(self, device: torch.device, tracer: Tracer, name: str,
-                 totals: dict):
-        super().__init__(device)
-        self.tracer = tracer
-        self.quantize = f"layer:{name}.quantize"
-        self.walk = f"layer:{name}.spmm_i8"
-        self.totals = totals
 
-    def _args(self, rows: int, k: int, bytes_in: int) -> dict:
-        args = {"rows": rows, "k": k, "bytes_in": bytes_in,
-                "bytes_out": rows * k + 4 * rows}
-        for key in ("rows", "bytes_in", "bytes_out"):
-            self.totals[key] += args[key]
-        return args
-
-    def _traced_walk(self, xq, x_scale, prepared, args) -> torch.Tensor:
-        with self.tracer.span(self.walk, cat="execute", **args):
-            y = _walk_q8(xq, x_scale, prepared)
-        return y.index_select(1, prepared.inv_order)  # Output Indexing Unit
-
-    def conv_q8(self, x: torch.Tensor, k: int,
-                prepared: _Prepared) -> torch.Tensor:
-        b, _, h, w = x.shape
-        args = self._args(b * h * w, prepared.bp.k_in,
-                          x.numel() * x.element_size())
-        with self.tracer.span(self.quantize, cat="execute", **args):
-            xq, x_scale = conv_patches_q8_cuda(x, k, prepared.bp.k_in)
-        return self._traced_walk(xq, x_scale, prepared, args).to(x.dtype)
-
-    def spmm(self, x2d: torch.Tensor, prepared: _Prepared) -> torch.Tensor:
-        rows, k = x2d.shape
-        args = self._args(rows, k, rows * k * x2d.element_size())
-        with self.tracer.span(self.quantize, cat="execute", **args):
-            xq, x_scale = quantize_rows(x2d)
-        return self._traced_walk(xq, x_scale, prepared, args).to(x2d.dtype)
+def _spmm(name: str, operand: tuple, disp: _Dispatch, prepared: _Prepared,
+          dtype: torch.dtype, tracer: Tracer, args: dict) -> torch.Tensor:
+    """A layer's walk (an int8 one in its ``layer:<name>.spmm_i8`` span),
+    then the Output Indexing Unit: the stored inverse permutation."""
+    if prepared.bp.w_scales is None:
+        y = disp.walk(operand, prepared)
+    else:
+        with tracer.span(f"layer:{name}.spmm_i8", cat="execute", **args):
+            y = disp.walk(operand, prepared)
+    return y.index_select(1, prepared.inv_order).to(dtype)
 
 
 def _run_conv(
@@ -334,24 +290,35 @@ def _run_conv(
     prepared: _Prepared,
     stat_masks: torch.Tensor | None = None,
     valid: torch.Tensor | None = None,
+    tracer: Tracer = NULL_TRACER,
+    totals: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     b, c, h, w = x.shape
     kk = op.kernel * op.kernel
-    counts = None
-    if (stat_masks is None and disp.fuses_q8
-            and prepared.bp.w_scales is not None):
-        y = disp.conv_q8(x, op.kernel, prepared)  # int8 rows, one launch
+    k_in = op.bp.k_in
+    args = {}
+    if op.bp.w_scales is None:
+        operand = (conv_patches_cuda(x, op.kernel, k_in),)  # [B*H*W, K]
     else:
-        patches = conv_patches_cuda(x, op.kernel, op.bp.k_in)  # [B*H*W, K]
-        if stat_masks is not None:
-            # every patch row belongs to one sample; dead-slot samples are
-            # excluded from the skip counters
-            row_valid = (None if valid is None
-                         else valid.repeat_interleave(h * w))
-            counts = disp.counts(
-                patches[:, : op.c_in * kk], op.c_in, kk, stat_masks,
-                row_valid)
-        y = disp.spmm(patches, prepared)
+        args = _quant_args(totals, b * h * w, k_in,
+                           x.numel() * x.element_size())
+        with tracer.span(f"layer:{op.name}.quantize", cat="execute",
+                         **args):
+            # int8 rows and their row scales, one launch
+            operand = conv_patches_q8_cuda(x, op.kernel, k_in)
+    counts = None
+    if stat_masks is not None:
+        # the counters read float rows: the fp32 operand, or an int8
+        # layer's made for the counting alone
+        patches = (operand[0] if op.bp.w_scales is None
+                   else conv_patches_cuda(x, op.kernel, k_in))
+        # every patch row belongs to one sample; dead-slot samples are
+        # excluded from the skip counters
+        row_valid = (None if valid is None
+                     else valid.repeat_interleave(h * w))
+        counts = disp.counts(
+            patches[:, : op.c_in * kk], op.c_in, kk, stat_masks, row_valid)
+    y = _spmm(op.name, operand, disp, prepared, x.dtype, tracer, args)
     y = y[:, : op.c_out] + prepared.bias
     y = y.reshape(b, h, w, op.c_out).permute(0, 3, 1, 2)
     y = torch.relu(channel_norm(y))
@@ -361,10 +328,23 @@ def _run_conv(
 
 
 def _run_fc(
-    op: CompiledFC, x: torch.Tensor, disp: _Dispatch, prepared: _Prepared
+    op: CompiledFC,
+    x: torch.Tensor,
+    disp: _Dispatch,
+    prepared: _Prepared,
+    tracer: Tracer = NULL_TRACER,
+    totals: dict | None = None,
 ) -> torch.Tensor:
     xf = _pad_features(x, op.bp.k_in)
-    y = disp.spmm(xf, prepared)
+    args = {}
+    if op.bp.w_scales is None:
+        operand = (xf,)
+    else:
+        rows, k = xf.shape
+        args = _quant_args(totals, rows, k, rows * k * xf.element_size())
+        with tracer.span("layer:fc.quantize", cat="execute", **args):
+            operand = quantize_rows(xf)
+    y = _spmm("fc", operand, disp, prepared, xf.dtype, tracer, args)
     return y[:, : op.d_out] + prepared.bias
 
 
@@ -404,7 +384,7 @@ def _sync(device: torch.device) -> None:
 
 
 class _LayerEvents:
-    """Per-layer stream time of the instrumented forward on a CUDA device.
+    """Per-layer stream time of the traced forward on a CUDA device.
 
     A call records one ``torch.cuda.Event`` at each layer boundary;
     ``names[i]`` names the interval from boundary ``i`` to ``i + 1``
@@ -464,22 +444,21 @@ def make_forward(
         NetworkPartition` (defaults to ``program.partition``, else read
         off the mesh); validated against the mesh's dim sizes.  Without
         ``mesh`` it raises ``ValueError``.
-      tracer: with an *enabled* tracer, calls run an instrumented path:
-        one ``forward`` span holding ``forward.upload`` (the host->device
-        copies of ``x`` and ``valid``) and a ``layer:<name>`` span per
-        conv, then ``layer:gap`` and ``layer:fc``.  An int8 program
-        without a mesh splits each conv's and the FC's spmm into
-        ``layer:<name>.quantize`` (a conv's fused patch-and-quantize
-        launch, the FC's ``quantize_rows``) and ``layer:<name>.spmm_i8``
-        spans (:class:`_TracedInt8Dispatch`), and ``forward`` carries the
+      tracer: with an *enabled* tracer, a call records one ``forward``
+        span holding ``forward.upload`` (the host->device copies of ``x``
+        and ``valid``) and a ``layer:<name>`` span per conv, then
+        ``layer:gap`` and ``layer:fc``.  An int8 program splits each
+        conv's and the FC's spmm into ``layer:<name>.quantize`` (a conv's
+        fused patch-and-quantize launch, the FC's ``quantize_rows``) and
+        ``layer:<name>.spmm_i8`` (the walk), and ``forward`` carries the
         step's quantization totals (``rows``, ``bytes_in``,
-        ``bytes_out``).  Nothing in it
-        synchronises, so a span times the host's enqueue of its layer's
-        ops, not their run.  ``fn.observed_times()`` gives each conv's
-        and the FC's mean time a call: on a CUDA device, stream time
-        between CUDA events recorded at the layer boundaries (folded in
-        once they have completed); on the CPU, where every op finishes
-        before it returns, the span's duration.
+        ``bytes_out``).  Traced or not, a call runs the same ops; nothing
+        in it synchronises, so a span times the host's enqueue of its
+        layer's ops, not their run.  ``fn.observed_times()`` gives each
+        conv's and the FC's mean time a traced call: on a CUDA device,
+        stream time between CUDA events recorded at the layer boundaries
+        (folded in once they have completed); on the CPU, where every op
+        finishes before it returns, the span's duration.
       device: where the forward runs; ``None`` means ``cuda`` and raises
         when there is none (with a mesh: this rank's device of the mesh,
         ``launch/mesh.mesh_device``).  The program's operands are copied
@@ -492,8 +471,9 @@ def make_forward(
     may be tensors or numpy arrays.  ``channel_norm`` is per-sample, so
     dead rows never influence live logits; their own outputs are
     meaningless.  ``fn.trace_count()`` is the number of distinct input
-    shape/dtype signatures the uninstrumented path has run (the
-    reference counts jit traces, which are the same thing there).
+    signatures (shape, dtype, whether ``valid`` was given) the forward
+    has run, traced or not (the reference counts jit traces, which are
+    the same thing there).
     """
     if mesh is None:
         if partition is not None:
@@ -515,29 +495,9 @@ def make_forward(
             )
             stat_masks[op.name] = torch.as_tensor(masks, device=device)
 
-    signatures: set = set()
-
-    def upload(x, valid):
-        x = torch.as_tensor(x, device=device)
-        if valid is not None:
-            valid = torch.as_tensor(valid, dtype=torch.bool, device=device)
-        return x, valid
-
-    def forward(x: torch.Tensor, valid: torch.Tensor | None):
-        counts = {}
-        for op in program.convs:
-            x, cnt = _run_conv(
-                op, x, disp, prepared[op.name], stat_masks.get(op.name),
-                valid,
-            )
-            if cnt is not None:
-                counts[op.name] = cnt
-        x = x.mean(dim=(2, 3))  # global average pool
-        logits = _run_fc(program.fc, x, disp, prepared["fc"])
-        return logits, counts
-
-    # per-layer time accumulated by the instrumented path:
+    # input signatures run, and per-layer time of the traced calls:
     # name -> [calls, total seconds]
+    signatures: set = set()
     observed: dict[str, list] = {}
 
     def _observe(name: str, seconds: float) -> None:
@@ -549,71 +509,56 @@ def make_forward(
         _LayerEvents([op.name for op in program.convs] + [None, "fc"])
         if device.type == "cuda" else None
     )
-    # the instrumented path's dispatch per layer: int8 layers on one
-    # device split their spmm into the quantization's and the walk's spans
-    quant_totals = {"rows": 0, "bytes_in": 0, "bytes_out": 0}
-    traced_disp = {
-        name: (_TracedInt8Dispatch(device, tracer, name, quant_totals)
-               if tracer is not None and mesh is None
-               and p.bp.w_scales is not None else disp)
-        for name, p in prepared.items()}
 
-    def instrumented(x, valid):
-        """Layer-by-layer forward: the same ops as ``forward``, the upload
-        and each layer in a span; on a CUDA device an event at each layer
-        boundary."""
-        ev = None if layer_events is None else layer_events.take(_observe)
-        quant_totals.update(rows=0, bytes_in=0, bytes_out=0)
+    def fn(x, valid=None):
+        traced = tracer is not None and tracer.enabled
+        trc = tracer if traced else NULL_TRACER
+        ev = layer_events.take(_observe) if traced and layer_events else None
         stream = torch.cuda.current_stream(device) if ev else None
-        with tracer.span(
-            "forward", cat="execute", batch=len(x)
-        ) as fsp:
-            with tracer.span("forward.upload", cat="execute"):
-                x, valid = upload(x, valid)
+        totals = (dict.fromkeys(("rows", "bytes_in", "bytes_out"), 0)
+                  if traced else None)
+        with trc.span("forward", cat="execute", batch=len(x)) as fsp:
+            with trc.span("forward.upload", cat="execute"):
+                x = torch.as_tensor(x, device=device)
+                if valid is not None:
+                    valid = torch.as_tensor(valid, dtype=torch.bool,
+                                            device=device)
             shape = tuple(x.shape)
+            signatures.add((shape, x.dtype, valid is None))
             if ev:
                 ev[0].record(stream)
             counts = {}
             for i, op in enumerate(program.convs, 1):
-                with tracer.span(
+                with trc.span(
                     f"layer:{op.name}", cat="execute", op="conv"
                 ) as sp:
                     x, cnt = _run_conv(
-                        op, x, traced_disp[op.name], prepared[op.name],
-                        stat_masks.get(op.name), valid,
+                        op, x, disp, prepared[op.name],
+                        stat_masks.get(op.name), valid, trc, totals,
                     )
                     if ev:
                         ev[i].record(stream)
-                if not ev:
+                if traced and not ev:
                     _observe(op.name, sp.dur)
                 if cnt is not None:
                     counts[op.name] = cnt
-            with tracer.span("layer:gap", cat="execute", op="pool"):
-                x = x.mean(dim=(2, 3))
+            with trc.span("layer:gap", cat="execute", op="pool"):
+                x = x.mean(dim=(2, 3))  # global average pool
                 if ev:
                     ev[-2].record(stream)
-            with tracer.span("layer:fc", cat="execute", op="fc") as sp:
-                logits = _run_fc(program.fc, x, traced_disp["fc"],
-                                 prepared["fc"])
+            with trc.span("layer:fc", cat="execute", op="fc") as sp:
+                logits = _run_fc(program.fc, x, disp, prepared["fc"], trc,
+                                 totals)
                 if ev:
                     ev[-1].record(stream)
-            if not ev:
-                _observe("fc", sp.dur)
-            fsp.args["layers"] = len(program.convs) + 2
-            if quant_totals["rows"]:
-                fsp.args.update(quant_totals)
+            if traced:
+                if not ev:
+                    _observe("fc", sp.dur)
+                fsp.args["layers"] = len(program.convs) + 2
+                if totals["rows"]:
+                    fsp.args.update(totals)
         if ev:
             layer_events.recorded(ev)
-        return shape, valid, logits, counts
-
-    def fn(x, valid=None):
-        if tracer is not None and tracer.enabled:
-            shape, valid, logits, counts = instrumented(x, valid)
-        else:
-            x, valid = upload(x, valid)
-            shape = tuple(x.shape)
-            signatures.add((shape, x.dtype, valid is None))
-            logits, counts = forward(x, valid)
         if not collect_stats:
             return logits
         live = None if valid is None else int(valid.sum())

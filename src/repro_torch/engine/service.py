@@ -78,9 +78,10 @@ class InferenceService:
         ``tracer`` puts request lifecycles (via the scheduler) and each
         step's phases on a shared timeline: ``service.stage`` (refill,
         the slot buffer's copies, the validity mask), ``service.step``
-        (the forward with its own spans, ``make_forward``'s instrumented
-        path, then ``service.readback`` around the copy to the host) and
-        ``service.complete`` (the per-slot completion loop).
+        (the forward, which records its own ``forward`` and layer spans
+        on the same tracer, then ``service.readback`` around the copy to
+        the host) and ``service.complete`` (the per-slot completion
+        loop).
         """
         self.program = program
         self.batch_slots = batch_slots
@@ -99,9 +100,6 @@ class InferenceService:
         # persistent slot buffer: freed slots are zeroed, so the fixed
         # batch is always "live images + zero padding"
         self._slots_x = np.zeros((batch_slots, *shape), np.float32)
-        # input shapes the forward has run on: the forward counts its
-        # uninstrumented calls alone, and a traced service runs the other
-        self._signatures: set = set()
         self.batches_run = 0
         self.activation_stats: ActivationStats | None = None
 
@@ -112,13 +110,12 @@ class InferenceService:
     def trace_count(self) -> int:
         """Distinct input signatures the forward has run (1 when serving
         only ever runs the fixed slot shape), traced or not."""
-        return len(self._signatures)
+        return self._forward.trace_count()
 
     def warmup(self) -> None:
         """Run the forward once at the serving batch shape without
         sending traffic through the scheduler (metrics stay at zero)."""
         warmup_forward(self._forward, self.program, self.batch_slots)
-        self._signatures.add(self._slots_x.shape)
 
     @property
     def metrics(self) -> dict:
@@ -177,7 +174,6 @@ class InferenceService:
             "service.step", cat="serve", live=int(valid.sum()),
             batch_slots=self.batch_slots,
         ):
-            self._signatures.add(self._slots_x.shape)
             out = self._forward(self._slots_x, valid)
             if self.collect_stats:
                 out, stats = out

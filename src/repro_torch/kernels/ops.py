@@ -59,11 +59,7 @@ def pattern_spmm_raw(
     xm: [M, K]; returns float32 [M, T*tile].  With ``w_scales`` (int8
     ``w_comp`` + per-brick scales) the activations are quantized per row
     (:func:`~repro_torch.core.quantize.quantize_rows`), the int8 variant
-    runs, and the row scale multiplies in the epilogue here: the route of
-    the FC, of the mesh path and of ``collect_stats``.  The executor's
-    int8 convs on one device quantize their rows inside the patch kernel
-    (``kernels.patches.conv_patches_q8_cuda``) and call
-    :func:`pattern_spmm_quant_rows` themselves.  The CUDA
+    runs, and the row scale multiplies in the epilogue here.  The CUDA
     kernels need ``nnz`` as an int32 tensor on the device; the plain
     versions walk every slot and do not read it.  ``w_kmajor`` is the
     int8 bricks' K-major copy (``kernels.pattern_spmm.kmajor_bricks``),

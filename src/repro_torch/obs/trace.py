@@ -2,10 +2,11 @@
 
 Design constraints, in order:
 
-  * **zero overhead when off** — every instrumented call site takes a
-    ``tracer=None`` default that resolves to :data:`NULL_TRACER`, whose
-    methods are no-ops; nothing is recorded, no clock is read, and the
-    jitted forward keeps its exact pre-observability code path.
+  * **near-zero overhead when off** — every instrumented call site takes
+    a ``tracer=None`` default that resolves to :data:`NULL_TRACER`, whose
+    methods are no-ops; nothing is recorded, no clock is read, a span is
+    one shared context manager, and a traced forward runs the same ops
+    as an untraced one.
   * **deterministic under test** — the clock is injectable
     (``clock=lambda: fake.t``), so span timestamps and durations are
     exact values, not wall-clock noise.
@@ -36,7 +37,7 @@ import threading
 import time
 from collections import deque
 from typing import Any, Callable, Iterator
-from contextlib import contextmanager
+from contextlib import AbstractContextManager, contextmanager
 
 __all__ = ["SpanRecord", "Tracer", "NULL_TRACER"]
 
@@ -113,20 +114,25 @@ class Tracer:
             self._events.append(ev)
             self._seen += 1
 
-    @contextmanager
-    def span(self, name: str, cat: str = "", **args) -> Iterator[SpanRecord]:
+    def span(self, name: str, cat: str = "",
+             **args) -> AbstractContextManager[SpanRecord]:
         """Record a complete ('X') span around the ``with`` body.
 
         Yields the :class:`SpanRecord`; after exit its ``dur`` holds the
         measured duration in seconds (on the injectable clock), which
         instrumentation can read back — e.g. the executor accumulates
         per-layer wall time from it.  Exceptions propagate; the span is
-        still closed (and flagged ``error=True`` in its args).
+        still closed (and flagged ``error=True`` in its args).  A disabled
+        tracer returns one shared no-op context manager, which reads no
+        clock and yields a shared empty record.
         """
         if not self.enabled:
-            yield _NULL_SPAN
-            return
-        rec = SpanRecord(name, cat, self._now(), self._tid(), dict(args))
+            return _NULL_SPAN_CONTEXT
+        return self._span(name, cat, args)
+
+    @contextmanager
+    def _span(self, name: str, cat: str, args: dict) -> Iterator[SpanRecord]:
+        rec = SpanRecord(name, cat, self._now(), self._tid(), args)
         try:
             yield rec
         except BaseException:
@@ -304,6 +310,23 @@ class Tracer:
 # as sp` call sites never branch; its dur stays 0.0 and args go nowhere
 _NULL_SPAN = SpanRecord("", "", 0.0, 0, {})
 _NULL_SPAN.dur = 0.0
+
+
+class _NullSpanContext:
+    """What a disabled tracer's ``span()`` returns: one shared context
+    manager that yields :data:`_NULL_SPAN` and lets exceptions through,
+    cheaper to enter than a generator-based one."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> SpanRecord:
+        return _NULL_SPAN
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NULL_SPAN_CONTEXT = _NullSpanContext()
 
 NULL_TRACER = Tracer(enabled=False, max_events=1)
 """Shared no-op tracer: the resolution of every ``tracer=None`` default."""

@@ -155,11 +155,40 @@ def test_instrumented_forward_observes_layers(programs):
     tracer = Tracer()
     fn = make_forward(tprog, tracer=tracer, device="cpu")
     np.testing.assert_array_equal(fn(x).numpy(), plain.numpy())
-    assert fn.trace_count() == 0
+    assert fn.trace_count() == 1
     names = {op.name for op in tprog.convs} | {"fc"}
     assert set(fn.observed_times()) == names
     spans = {e["name"] for e in tracer.events() if e.get("ph") == "X"}
     assert {"forward", "layer:gap", "layer:fc"} <= spans
+
+
+def test_disabled_spans_are_one_shared_no_op(programs):
+    """A disabled tracer's ``span()`` hands out one shared context manager
+    that records nothing and lets an exception through; a forward run
+    without a tracer, or with a disabled one, leaves an enabled tracer it
+    was never given empty and writes no args on the shared record."""
+    from repro_torch.obs import trace
+
+    off = Tracer(enabled=False)
+    first = off.span("forward", cat="execute", batch=2)
+    assert off.span("layer:conv1") is first
+    assert trace.NULL_TRACER.span("layer:fc", op="fc") is first
+    with pytest.raises(KeyError):
+        with first as sp:
+            assert sp is trace._NULL_SPAN
+            raise KeyError("through")
+    assert off.events() == [] and off.spans() == []
+    _, tprog = programs[("int8", 16, 16)]
+    unused = Tracer()
+    x = _images(2)
+    plain = make_forward(tprog, device="cpu")(x)
+    off_fn = make_forward(tprog, tracer=off, device="cpu")
+    assert torch.equal(off_fn(x), plain)
+    assert unused.events() == [] and off.events() == []
+    # the forward's own args never land on the shared record
+    assert not {"batch", "layers", "rows"} & set(trace._NULL_SPAN.args)
+    assert trace._NULL_SPAN.dur == 0.0
+    assert off_fn.observed_times() == {}
 
 
 class _StepClock:

@@ -273,8 +273,9 @@ def test_run_conv_keeps_spmm_input_output_and_skip_counts():
     x[2] = 0.0  # a dead slot
     valid = torch.tensor([True, True, False])
     seen = []
-    spmm = disp.spmm
-    disp.spmm = lambda x2d, prepared: seen.append(x2d) or spmm(x2d, prepared)
+    walk = disp.walk
+    disp.walk = lambda operand, prepared: (seen.append(operand)
+                                           or walk(operand, prepared))
     for op in prog.convs:
         kk = op.kernel * op.kernel
         _, masks = skip_patterns_and_masks(op.pattern_bits, kk)
@@ -287,8 +288,10 @@ def test_run_conv_keeps_spmm_input_output_and_skip_counts():
             rows, op.c_in, kk, masks, valid.repeat_interleave(h * w))
         assert torch.equal(counts, want_counts)
         padded = executor._pad_features(rows, op.bp.k_in)
-        assert torch.equal(seen[-1], padded)
-        want = disp.spmm(padded, prepared)[:, :op.c_out] + prepared.bias
+        (operand,) = seen[-1]
+        assert torch.equal(operand, padded)
+        want = walk((padded,), prepared).index_select(1, prepared.inv_order)
+        want = want[:, :op.c_out] + prepared.bias
         want = want.reshape(b, h, w, op.c_out).permute(0, 3, 1, 2)
         want = torch.relu(executor.channel_norm(want))
         if op.pool_after:

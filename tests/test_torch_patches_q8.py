@@ -400,8 +400,8 @@ def _mini_program(precision: str):
 def test_int8_conv_fused_route_equals_float_rows_route(monkeypatch):
     """Each int8 conv of a mini program through ``_run_conv`` takes the
     fused route (one ``conv_patches_q8_cuda`` call, no float rows) and
-    gives the float rows' route's output (patch rows, then
-    ``pattern_spmm``, which quantizes them) bit for bit."""
+    gives the float rows' route's output (patch rows, ``quantize_rows``,
+    the walk and the Output Indexing Unit) bit for bit."""
     prog = _mini_program("int8")
     disp = executor._Dispatch(torch.device("cpu"))
     x = torch.as_tensor(np.random.default_rng(4).normal(
@@ -417,7 +417,9 @@ def test_int8_conv_fused_route_equals_float_rows_route(monkeypatch):
         assert len(calls) == n + 1 and counts is None
         b, _, h, w = x.shape
         rows = tp.conv_patches_cuda(x, op.kernel, op.bp.k_in)
-        want = disp.spmm(rows, prepared)[:, :op.c_out] + prepared.bias
+        want = disp.walk(quantize_rows(rows), prepared)
+        want = want.index_select(1, prepared.inv_order)
+        want = want[:, :op.c_out] + prepared.bias
         want = want.reshape(b, h, w, op.c_out).permute(0, 3, 1, 2)
         want = torch.relu(executor.channel_norm(want))
         if op.pool_after:
@@ -426,11 +428,12 @@ def test_int8_conv_fused_route_equals_float_rows_route(monkeypatch):
         x = y
 
 
-def test_fused_route_engages_on_int8_without_stats_only(monkeypatch):
-    """The fused launch replaces the conv's patches only where the
-    executor sees an int8 weight, one device and no skip counting: an
-    fp32 program and an int8 one with ``collect_stats`` keep the float
-    rows; the stats route's logits equal the fused route's."""
+def test_int8_convs_take_the_fused_route_with_and_without_stats(
+        monkeypatch):
+    """An int8 program's convs take their spmm rows from the fused launch
+    once per conv, with or without ``collect_stats``; the stats add one
+    float patch launch per conv, for the counters alone, and leave the
+    logits as they are.  An fp32 program launches no fused kernel."""
     from repro_torch.engine import make_forward
 
     calls = {"fused": 0, "patches": 0}
@@ -453,10 +456,8 @@ def test_fused_route_engages_on_int8_without_stats_only(monkeypatch):
     fused = make_forward(prog, device="cpu")(x)
     assert calls == {"fused": 3, "patches": 3}
     stats, _ = make_forward(prog, collect_stats=True, device="cpu")(x)
-    assert calls == {"fused": 3, "patches": 6}
+    assert calls == {"fused": 6, "patches": 6}
     assert torch.equal(fused, stats)
-    assert executor._Dispatch.fuses_q8
-    assert not executor._ShardedDispatch.fuses_q8
 
 
 def _card():
@@ -535,7 +536,6 @@ def test_served_int8_forward_quantizes_in_the_patch_kernel_on_card(
     from repro_torch.core.synthetic import synthesize_network
     from repro_torch.engine import CompileOptions, compile_network
     from repro_torch.engine import make_forward
-    from repro_torch.kernels import ops
     from repro_torch.models.cnn import params_from_numpy, vgg16_config
 
     stats, layers = synthesize_network("cifar10", seed=0)
@@ -556,8 +556,8 @@ def test_served_int8_forward_quantizes_in_the_patch_kernel_on_card(
                                 device=dev)
              for p in ("fp32", "int8")}
     quantized = []
-    quant = ops.quantize_rows
-    monkeypatch.setattr(ops, "quantize_rows",
+    quant = executor.quantize_rows
+    monkeypatch.setattr(executor, "quantize_rows",
                         lambda x: quantized.append(x.shape) or quant(x))
     images = rng.normal(size=(8, 3, 32, 32)).astype(np.float32)
     fwd = make_forward(progs["int8"], device=dev)

@@ -205,7 +205,7 @@ UNTRACED_STEP_OPS = {
     "aten.permute.default": 28, "aten.relu.default": 3,
     "aten.select.int": 10, "aten.slice.Tensor": 4,
     "aten.std.correction": 3, "aten.transpose.int": 3,
-    "aten.unsqueeze.default": 10, "aten.view.default": 42,
+    "aten.unsqueeze.default": 10, "aten.view.default": 34,
     "aten.zeros.default": 4,
 }
 

@@ -80,6 +80,7 @@ from repro_torch.engine import (
     save_program,
     tile_assignment,
 )
+from repro_torch.engine import executor
 from repro_torch.engine.partition import padded_tiles
 from repro_torch.launch.mesh import make_local_mesh, make_mesh
 from repro_torch.models import attention as tatt
@@ -549,7 +550,7 @@ def test_make_mesh_validates_its_world(mesh1, monkeypatch):
 
 
 @pytest.mark.parametrize("prec", ["fp32", "int8"])
-def test_single_device_mesh_runs_everywhere(net, mesh1, prec):
+def test_single_device_mesh_runs_everywhere(net, mesh1, prec, monkeypatch):
     """The mesh path itself needs no second process: a 1x1 mesh is bit
     for bit the unsharded forward, and within 1e-4 (int8: 5e-3) of the
     reference's own 1x1 mesh.  16 images: at 4, XLA's CPU compiler fails
@@ -557,7 +558,13 @@ def test_single_device_mesh_runs_everywhere(net, mesh1, prec):
     jprog, tprog = net[prec]
     x = _images(16, 3)
     ref = make_forward(tprog, device="cpu")(x)
+    fused = []
+    real = executor.conv_patches_q8_cuda
+    monkeypatch.setattr(executor, "conv_patches_q8_cuda",
+                        lambda *a: fused.append(a) or real(*a))
     out = make_forward(tprog, mesh=mesh1)(x)
+    # an int8 conv's rows come from the fused patch kernel on a mesh too
+    assert len(fused) == (len(tprog.convs) if prec == "int8" else 0)
     assert out.device.type == "cpu"
     assert torch.equal(out, ref)
     want = np.asarray(j_make_forward(jprog, backend="xla", mesh=_jmesh())(

@@ -43,7 +43,6 @@ def cnn_job(job: dict) -> dict:
         make_forward,
         partition_network,
     )
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh(job["mesh"], ("data", "model"), device_type="cpu")
@@ -62,21 +61,22 @@ def cnn_job(job: dict) -> dict:
     part = partition_network(prog, data=data, model=model)
     out["partitioned"] = _np(execute(part, x, mesh=mesh))
     calls = []
-    real = ops.pattern_spmm_raw
+    import repro_torch.engine.executor as ex
+    real = ex.pattern_spmm_cuda
 
     def counting(xm, *args, **kwargs):
         calls.append(tuple(xm.shape))
         return real(xm, *args, **kwargs)
 
-    # the executor's own reference, so every spmm of a served batch shows
-    import repro_torch.engine.executor as ex
-    ex.pattern_spmm_raw = counting
+    # the executor's own reference, so every fp32 walk of a served batch
+    # shows
+    ex.pattern_spmm_cuda = counting
     try:
         svc = InferenceService(prog, batch_slots=job["batch_slots"],
                                mesh=mesh, collect_stats=True)
         out["service_labels"] = svc.classify(job["images"])
     finally:
-        ex.pattern_spmm_raw = real
+        ex.pattern_spmm_cuda = real
     out["service_stats"] = {k: (st.counts, st.windows)
                             for k, st in svc.activation_stats.layers.items()}
     out["service_trace_count"] = svc.trace_count()
